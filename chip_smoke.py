@@ -7,22 +7,40 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
 2. build: nvcc over `tamtr_torch/csrc/*.cu` (one process per source, all
    started together); prints the seconds and the ptxas register lines.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
-   640 px main-path shapes (B=1): the SS2D scan at its three levels (1e-4),
-   the bilinear pair gather at value (1, 33600, 8, 64), Q=100 (1e-5). Times
-   from CUDA events, warm; the bound from this run's bytes and operations.
+   640 px main-path shapes: the SS2D scan forward at its three levels, B=1
+   and B=4 (1e-4); the bilinear pair gather at value (1, 33600, 8, 64),
+   Q=100, and (4, 33600, 8, 64), Q=700 (1e-5); the scan backward (B3a carriers + B3b walk) at the three levels,
+   B=4, all eight gradients (2e-3); the gather backward at value
+   (4, 33600, 8, 64), Q=700, dvalue, dw and the gradient to sampling
+   locations and attention weights (1e-5); the auction at cost
+   (16, 100, 300) from the matcher's cost over a VisDrone-like batch with an
+   over-full and a contested image (identical assignments). Times from CUDA
+   events, warm; the bound from this run's bytes and operations.
 4. parity: the full-width `tamtr.yaml` model (nc=10) at 128 px, batch 2,
    on the card and on the CPU with the same state dict, compared as a
    tie-robust set at 1e-3. The whole run keeps TF32 off (full fp32).
-5. serve: `TAMTR("tamtr.yaml", nc=10)` on the card answers a warm-up
+5. train parity: the same model at 128 px, batch 2, max_gt 8, CDN noise
+   and DropPath off: loss components, assignments, gradients and the
+   parameters after one `Trainer.step`, card against CPU; the gradients with
+   the CPU's assignment and top-k order held fixed, bounded against the fp32
+   noise floor a CPU fp64 pass measures (`check_train_parity`).
+6. serve: `TAMTR("tamtr.yaml", nc=10)` on the card answers a warm-up
    request at batch 1 and at batch 4, then 5 batch-1 requests and one
-   batch-4 request of 1360x765 uint8 images (resized to 640 px on the card). The kernels' launch counters are zeroed
-   just before and read just after: each must equal 3 per forward.
-6. One JSON line of per-kernel numbers, then the result line
+   batch-4 request of 1360x765 uint8 images (resized to 640 px on the card).
+   The forward kernels' launch counters are zeroed just before and read
+   just after: each must equal 3 per forward.
+7. train: `TAMTR(...).trainer()` on `tamtr.yaml` at 640 px, batch 4,
+   max_gt 300, accumulate 1, seeded synthetic batches (uint8 frames, 10
+   classes, 30-250 valid gts per image, one over-full image); 2 warm-up
+   steps, then every launch counter is zeroed, 5 timed steps run, and the
+   counters must equal `TRAIN_LAUNCHES_PER_STEP` times 5.
+8. One JSON line of per-kernel numbers, then the result line
    `{"ok": true, "device": {...}}` last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -37,6 +55,44 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # the model's per-level shapes at 640 px: (H, W) and channels of the SS2D mixers
 LEVELS_640 = [(160, 160, 128), (80, 80, 256), (40, 40, 512)]
+# the training path: 4 images of 640 px, 300 gt slots; image 0 holds more
+# valid gts than the 100 queries (over-full), image 1 >= 70 (contested)
+TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT = 4, 640, 300
+TRAIN_VALID = (250, 80, 30, 60)
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+# launches per training step: the forward scan and gather and their
+# backward kernels once per VSS level / decoder layer (3 each); the
+# auction once for the 4 matched layers x 4 images in one call, plus the
+# transposed solve because the batch holds an over-full image
+TRAIN_LAUNCHES_PER_STEP = {
+    "ss2d_scan_fwd": 3, "bilinear_gather_fwd": 3, "ss2d_scan_carriers": 3, "ss2d_scan_bwd_walk": 3,
+    "bilinear_gather_bwd": 3, "auction_match": 2,
+}
+
+
+def launch_counters():
+    """Every kernel wrapper of the port, by kernel name."""
+    from tamtr_torch.kernels.auction import auction_match
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_bwd
+    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers
+
+    return {"ss2d_scan_fwd": ss2d_scan, "bilinear_gather_fwd": bilinear_gather,
+            "ss2d_scan_carriers": ss2d_scan_carriers, "ss2d_scan_bwd_walk": ss2d_scan_bwd_walk,
+            "bilinear_gather_bwd": bilinear_gather_bwd, "auction_match": auction_match}
+
+
+def synthetic_batch(seed: int, B: int, imgsz: int, M: int, n_valid, nc: int = 10, hd: int = 512):
+    """A seeded VisDrone-like training batch: uint8 frames, small boxes
+    (cxcywh, normalized), nc classes, n_valid[i] valid gts of M slots,
+    unit-norm class text embeddings."""
+    rng = np.random.default_rng(seed)
+    mask = np.arange(M)[None] < np.asarray(n_valid)[:, None]
+    boxes = np.concatenate([rng.uniform(0.03, 0.97, (B, M, 2)), rng.uniform(0.005, 0.08, (B, M, 2))], -1)
+    txt = rng.standard_normal((1, nc, hd)).astype(np.float32)
+    return {"img": rng.integers(0, 256, (B, imgsz, imgsz, 3), dtype=np.uint8),
+            "txt_feats": txt / np.linalg.norm(txt, axis=-1, keepdims=True),
+            "cls": rng.integers(0, nc, (B, M)).astype(np.int32),
+            "bboxes": (boxes * mask[..., None]).astype(np.float32), "mask": mask}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -58,23 +114,49 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def scan_inputs(g, B, H, W, C, dev):
+    """Scan inputs at one level as SS2D passes them (dts_raw/Bs/Cs split
+    from one x_proj result), with the model's init for dt_b, A and Ds, and a
+    random dy for the backward."""
+    from tamtr_torch.weights import dt_bias_init
+
+    L, D, R, N = H * W, 2 * C, math.ceil(C / 16), 16
+    layouts = torch.randn(B, 2, L, D, generator=g)
+    x_dbl = torch.randn(B, 2, 2, L, R + 2 * N, generator=g) * 0.6
+    dt_w = (torch.rand(4, D, R, generator=g) * 2 - 1) * R**-0.5
+    dt_b = dt_bias_init((4, D), g)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(4, D, N).contiguous()
+    Ds = torch.ones(4, D)
+    dy = torch.randn(B, 4, L, D, generator=g)
+    dts_raw, Bs, Cs = x_dbl.to(dev).split([R, N, N], -1)
+    return [layouts.to(dev), dts_raw, dt_w.to(dev), dt_b.to(dev), A.to(dev), Bs, Cs, Ds.to(dev)], dy.to(dev)
+
+
+def deform_inputs(g, B, Q, shapes, dev, nh=8, c=64, nl=3, P=4):
+    """value, sampling locations and attention weights at the decoder's
+    shapes, with a point in the global last pixel cell, one at x0 < 0 and
+    one on a level boundary."""
+    Lv = sum(h * w for h, w in shapes)
+    value = torch.randn(B, Lv, nh, c, generator=g)
+    loc = torch.rand(B, Q, nh, nl, P, 2, generator=g) * 1.1 - 0.05
+    H2, W2 = shapes[2]
+    loc[0, 0, 0, 2, 0] = torch.tensor([1 - 0.2 / W2, 1 - 0.2 / H2])  # last pixel cell of level 2
+    loc[0, 1, 1, 0, 2] = torch.tensor([0.2 / shapes[0][1], 0.5])  # x0 < 0
+    loc[0, 2, 0, 0, 3] = torch.tensor([1 - 0.3 / shapes[0][1], 1 - 0.3 / shapes[0][0]])  # level boundary
+    w_att = torch.rand(B, Q, nh, nl, P, generator=g)
+    w_att = w_att / w_att.sum((-1, -2), keepdim=True)
+    return value.to(dev), loc.to(dev), w_att.to(dev)
+
+
 def check_ss2d_scan(dev):
     """The scan kernel vs its plain version at the three 640 px levels."""
     from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_ref
-    from tamtr_torch.weights import dt_bias_init
 
     g = torch.Generator().manual_seed(1)
     rows, err = [], 0.0
     for H, W, C in LEVELS_640:
         L, D, R, N = H * W, 2 * C, math.ceil(C / 16), 16
-        layouts = torch.randn(1, 2, L, D, generator=g)
-        x_dbl = torch.randn(1, 2, 2, L, R + 2 * N, generator=g) * 0.6
-        dts_raw, Bs, Cs = x_dbl.to(dev).split([R, N, N], -1)  # views, as SS2D passes them
-        dt_w = (torch.rand(4, D, R, generator=g) * 2 - 1) * R**-0.5
-        dt_b = dt_bias_init((4, D), g)
-        A = -torch.arange(1, N + 1, dtype=torch.float32).expand(4, D, N).contiguous()
-        Ds = torch.ones(4, D)
-        args = [layouts.to(dev), dts_raw, dt_w.to(dev), dt_b.to(dev), A.to(dev), Bs, Cs, Ds.to(dev)]
+        args, _ = scan_inputs(g, 1, H, W, C, dev)
         y = ss2d_scan(*args)
         want = ss2d_scan_ref(*args)
         torch.cuda.synchronize()
@@ -120,16 +202,7 @@ def check_bilinear_gather(dev):
     shapes = [(h, w) for h, w, _ in LEVELS_640]
     B, Q, nh, c, nl, P = 1, 100, 8, 64, 3, 4
     Lv = sum(h * w for h, w in shapes)
-    g = torch.Generator().manual_seed(2)
-    value = torch.randn(B, Lv, nh, c, generator=g)
-    loc = torch.rand(B, Q, nh, nl, P, 2, generator=g) * 1.1 - 0.05
-    H2, W2 = shapes[2]
-    loc[0, 0, 0, 2, 0] = torch.tensor([1 - 0.2 / W2, 1 - 0.2 / H2])  # last pixel cell of level 2
-    loc[0, 1, 1, 0, 2] = torch.tensor([0.2 / shapes[0][1], 0.5])  # x0 < 0
-    loc[0, 2, 0, 0, 3] = torch.tensor([1 - 0.3 / shapes[0][1], 1 - 0.3 / shapes[0][0]])  # level boundary
-    w_att = torch.rand(B, Q, nh, nl, P, generator=g)
-    w_att = w_att / w_att.sum((-1, -2), keepdim=True)
-    value, loc, w_att = value.to(dev), loc.to(dev), w_att.to(dev)
+    value, loc, w_att = deform_inputs(torch.Generator().manual_seed(2), B, Q, shapes, dev)
     idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
     if int(idx2.max()) != Lv - 1:
         raise AssertionError("the last-cell sample point did not reach the global last row")
@@ -154,6 +227,183 @@ def check_bilinear_gather(dev):
     if not (torch.allclose(out, want, atol=1e-5, rtol=1e-5) and e_lib < 1e-4):
         raise AssertionError(f"bilinear_gather kernel disagrees: {e} (grid_sample {e_lib})")
     return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e)
+
+
+def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
+    """Kernels B3a + B3b vs the plain backward at the three 640 px levels,
+    batch 4: all eight gradients within 2e-3 (the JAX package's bound for
+    its Pallas backward, `tests/test_pallas_scan.py:163-165`). The forward
+    kernel B1 is held against its plain version on the same batch-4 inputs
+    too (1e-4), which covers its per-image offsets."""
+    from tamtr_torch.kernels.selective_scan import (
+        ss2d_scan, ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_ref,
+    )
+
+    g = torch.Generator().manual_seed(11)
+    rows, err, fwd_err = [], 0.0, 0.0
+    for H, W, C in levels:
+        args, dy = scan_inputs(g, B, H, W, C, dev)
+        L, D, R, N = H * W, 2 * C, args[2].shape[-1], 16
+        y, y_ref = ss2d_scan(*args), ss2d_scan_ref(*args)
+        torch.cuda.synchronize()
+        e_fwd = (y - y_ref).abs().max().item()
+        print(f"ss2d_scan_fwd B={B} L={L} D={D}: max_abs_err={e_fwd:.3g}", flush=True)
+        if not (torch.allclose(y, y_ref, atol=1e-4, rtol=1e-4) and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"ss2d_scan kernel disagrees with its plain version at B={B}, L={L}: {e_fwd}")
+        fwd_err = max(fwd_err, e_fwd)
+        del y, y_ref
+        got = ss2d_scan_bwd(*args, dy)
+        want = ss2d_scan_bwd_ref(*args, dy, chunk=512)  # 512-step chunks: fewer launches, same sums
+        torch.cuda.synchronize()
+        e = max((a - b).abs().max().item() for a, b in zip(got, want))
+        ok = all(torch.allclose(a, b, atol=2e-3, rtol=2e-3) and bool(torch.isfinite(a).all())
+                 for a, b in zip(got, want))
+        plain = cuda_ms(lambda: ss2d_scan_bwd_ref(*args, dy, chunk=512), iters=1, warmup=0)
+        layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, _ = args
+        hcar = ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs)
+        ms_a = cuda_ms(lambda: ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs), iters=3)
+        ms_b = cuda_ms(lambda: ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, hcar), iters=3)
+        whole = cuda_ms(lambda: ss2d_scan_bwd(*args, dy), iters=3)
+        # bytes: layouts, x_dbl, dy and the weights read once; du, dz, dB, dC,
+        # dA written once. Operations per (b, k, l, d): the dt projection and
+        # softplus in both passes, and per state lane two exps and ~26
+        # multiply-adds (state update twice, g, ddA, dA, the four sums).
+        nbytes = 4 * (2 * B * L * D + 4 * B * L * (R + 2 * N) + 4 * B * L * D + 4 * D * (R + N + 2)
+                      + 2 * 4 * B * L * D + 2 * 4 * B * L * N + 4 * D * N)
+        flops = 4 * B * L * D * (4 * R + 28 * N + 10)
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(L=L, D=D, ms=ms_a + ms_b, ms_carriers=ms_a, ms_walk=ms_b, ms_with_assembly=whole,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
+        print(f"ss2d_scan_bwd B={B} L={L} D={D} R={R}: max_abs_err={e:.3g} ms={ms_a + ms_b:.4f} "
+              f"(B3a {ms_a:.4f}, B3b {ms_b:.4f}; with the torch assembly {whole:.4f}) plain_ms={plain:.3f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if not ok:
+            raise AssertionError(f"ss2d_scan backward kernels disagree with the plain version at L={L}: {e}")
+        err = max(err, e)
+        del args, dy, got, want, hcar
+    return rows, err, fwd_err
+
+
+def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
+    """Kernel B4 vs the plain backward at the 640 px training shape (dn
+    queries included): dvalue and dw within 1e-5; the gradient to value,
+    sampling locations and attention weights through `ms_deform_attn_core`
+    against autodiff of the plain 4-corner gather within 1e-5 of each
+    tensor's largest entry. The forward kernel B2 is held against its plain
+    version at this shape first (1e-5), which covers its per-image offsets."""
+    from tamtr_torch.kernels.deform_scatter import (
+        bilinear_gather, bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_ref,
+    )
+    from tamtr_torch.nn.decoder import deform_sampling_pairs, ms_deform_attn_core
+
+    shapes = [(h, w) for h, w, _ in LEVELS_640]
+    nh, c, nl, P = 8, 64, 3, 4
+    Lv = sum(h * w for h, w in shapes)
+    g = torch.Generator().manual_seed(12)
+    value, loc, w_att = deform_inputs(g, B, Q, shapes, dev)
+    dout = torch.randn(B, Q, nh, c, generator=g).to(dev)
+    idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
+    if int(idx2.max()) != Lv - 1:
+        raise AssertionError("the last-cell sample point did not reach the global last row")
+    out, out_ref = bilinear_gather(value, idx4, w_pairs, idx2, nl * P), bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P)
+    torch.cuda.synchronize()
+    e_fwd = (out - out_ref).abs().max().item()
+    print(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={e_fwd:.3g}", flush=True)
+    if not torch.allclose(out, out_ref, atol=1e-5, rtol=1e-5):
+        raise AssertionError(f"bilinear_gather kernel disagrees with its plain version at B={B}, Q={Q}: {e_fwd}")
+    del out, out_ref
+    dv, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout)
+    dv_ref, dw_ref = bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
+
+    def grads(kernel: bool):
+        ts = [t.detach().clone().requires_grad_() for t in (value, loc, w_att)]
+        if kernel:
+            out = ms_deform_attn_core(ts[0], shapes, ts[1], ts[2]).view(B, Q, nh, c)
+        else:
+            i4, wp, i2 = deform_sampling_pairs(shapes, ts[1], ts[2])
+            out = bilinear_gather_ref(ts[0], i4, wp, i2, nl * P)
+        return torch.autograd.grad(out, ts, dout)
+
+    g_kernel, g_plain = grads(True), grads(False)
+    torch.cuda.synchronize()
+    e = max((a - b).abs().max().item() for a, b in ((dv, dv_ref), (dw, dw_ref)))
+    ok = torch.allclose(dv, dv_ref, atol=1e-5, rtol=1e-5) and torch.allclose(dw, dw_ref, atol=1e-5, rtol=1e-5)
+    # the location gradient sums the four corners' terms with opposite signs
+    # (each up to W x |dw|): its error is bounded relative to the tensor's
+    # largest entry, not entry by entry
+    chain = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in zip(g_kernel, g_plain)]
+    ok = ok and max(chain) < 1e-5
+    ms = cuda_ms(lambda: bilinear_gather_bwd(value, idx2, w_pairs, dout), iters=20)
+    plain = cuda_ms(lambda: bilinear_gather_bwd_ref(value, idx2, w_pairs, dout), iters=5)
+    lib_in = [t.detach().clone().requires_grad_() for t in (value, loc, w_att)]
+    lib_out = grid_sample_deform(lib_in[0], shapes, lib_in[1], lib_in[2])
+    lib_g = torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True)
+    e_lib = (lib_g[0] - g_plain[0]).abs().max().item()
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True), iters=5)
+    ppq = 2 * nl * P
+    rows = torch.cat([idx2.clamp(max=Lv - 2), idx2.clamp(max=Lv - 2) + 1], 1).long()
+    touched = torch.unique((torch.arange(B, device=dev)[:, None, None] * Lv + rows) * nh
+                           + torch.arange(nh, device=dev)).numel()
+    nbytes = (touched * c * 4 + dout.numel() * 4 + idx2.numel() * 4 + w_pairs.numel() * 4
+              + value.numel() * 4 + dw.numel() * 4)
+    flops = B * Q * nh * ppq * c * 8
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"bilinear_gather_bwd B={B} Lv={Lv} Q={Q}: max_abs_err={e:.3g} (dvalue, dw); through the core, "
+          f"max error / max entry of d(value, loc, w_att) {[float(f'{c:.3g}') for c in chain]}; "
+          f"dvalue vs grid_sample {e_lib:.3g}; "
+          f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib_ms:.4f} (F.grid_sample backward) "
+          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    if not ok:
+        raise AssertionError(f"bilinear_gather backward kernel disagrees: {e}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e), e_fwd
+
+
+def check_auction(dev):
+    """Kernel B5 vs the plain auction on the matcher's cost over a
+    VisDrone-like batch (4 matched layers x 4 images: cost (16, 100, 300),
+    one over-full and one contested image): identical assignments from the
+    forward solve, the transposed solve and the whole assignment."""
+    from tamtr_torch.kernels.auction import _rounds_ref, auction_match, auction_setup
+    from tamtr_torch.losses.matcher import auction_assignment, match_cost
+
+    batch = synthetic_batch(13, TRAIN_BATCH, 64, TRAIN_MAX_GT, TRAIN_VALID)
+    g = torch.Generator().manual_seed(13)
+    n, nq = 4 * TRAIN_BATCH, 100
+    pred_b = torch.cat([torch.rand(n, nq, 2, generator=g), torch.rand(n, nq, 2, generator=g) * 0.1 + 0.005], -1)
+    pred_s = torch.randn(n, nq, 10, generator=g) * 2 - 3
+    gt = {k: torch.from_numpy(batch[k]).repeat(4, *([1] * (batch[k].ndim - 1))) for k in ("bboxes", "cls", "mask")}
+    C = match_cost(pred_b.to(dev), pred_s.to(dev), gt["bboxes"].to(dev), gt["cls"].to(dev))
+    mask = gt["mask"].to(dev)
+    qmask = torch.ones((n, nq), dtype=torch.bool, device=dev)
+    Ct = C.transpose(1, 2).contiguous()
+    solves = [(C, mask, None), (Ct, qmask, mask)]
+
+    def plain_solve(c, m, r):
+        value, eps, target = auction_setup(c, m, r)
+        return _rounds_ref(value, eps, m, target, 300)
+
+    got = [auction_match(c, m, row_mask=r) for c, m, r in solves]
+    want, rounds = zip(*[plain_solve(*sv) for sv in solves])
+    whole = auction_assignment(C, mask)
+    whole_ref = auction_assignment(C.cpu(), mask.cpu())
+    same = all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(whole.cpu(), whole_ref)
+    e = float(sum(int((a != b).sum()) for a, b in zip(got, want)))
+    ms = sum(cuda_ms(lambda sv=sv: auction_match(sv[0], sv[1], row_mask=sv[2]), iters=5) for sv in solves)
+    plain = sum(cuda_ms(lambda sv=sv: plain_solve(*sv), iters=1) for sv in solves)
+    # bytes: each solve's value read once, its assignment written once;
+    # operations: per round every person scans the nq objects (subtract, two
+    # compares), for the rounds this run's data needed
+    nbytes = sum(c.numel() * 4 + m.numel() + m.numel() * 4 for c, m, _ in solves)
+    flops = sum(r * c.numel() * 3 for r, (c, _, _) in zip(rounds, solves))
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"auction_match cost (16, 100, 300) + transposed: valid {TRAIN_VALID} x 4 layers, rounds {rounds}, "
+          f"assignments identical {same} (differing entries {e:.0f}), assigned per image "
+          f"{(whole[:4] >= 0).sum(1).tolist()}, ms={ms:.4f} plain_ms={plain:.3f} bound_ms={b_ms:.5f} ({b_by})",
+          flush=True)
+    if not same:
+        raise AssertionError("auction kernel assignments differ from the plain auction's")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=e,
+                rounds=list(rounds))
 
 
 @torch.no_grad()
@@ -212,6 +462,169 @@ def check_parity(dev):
     print(f"parity tamtr.yaml 128px b2: worst matched row diff {worst:.3g}, unmatched {unmatched}, "
           f"cpu forward {cpu_s:.2f} s", flush=True)
     return worst
+
+
+@contextlib.contextmanager
+def pinned_topk(record: list, replay=None):
+    """Records the indices of every `Tensor.topk` call (the decoder's
+    encoder-query selection), or, given `replay`, returns those instead: two
+    runs then select the same queries in the same order, which near-tied
+    scores need not do across devices and precisions."""
+    orig, calls = torch.Tensor.topk, iter(replay or [])
+
+    def topk(self, *a, **kw):
+        if replay is None:
+            res = orig(self, *a, **kw)
+            record.append(res.indices.cpu())
+            return res
+        idx = next(calls).to(self.device)
+        return torch.return_types.topk((self.gather(1, idx), idx))
+
+    torch.Tensor.topk = topk
+    try:
+        yield
+    finally:
+        torch.Tensor.topk = orig
+
+
+def check_train_parity(dev):
+    """One training step of the full-width model, card against CPU, from one
+    state dict: 128 px, batch 2, max_gt 8, CDN noise and DropPath off.
+
+    Two discrete choices sit in the step: the auction (a discontinuous
+    function of the cost) and the order of the top-k encoder queries (near
+    ties order differently under other rounding); either moves whole terms
+    of the gradient. So the forward and backward are compared twice:
+      - as each device runs them: assignments identical in >= 90% of the
+        valid (layer, gt) pairs, loss components within 1e-2 relative (a
+        moved assignment moves its pair's loss);
+      - with the CPU's assignment and top-k order given to the card and to a
+        CPU fp64 pass, against the fp32 noise floor that pass measures (two
+        independent fp32 roundings lie ~1.4x one rounding apart): the
+        largest relative loss-component difference card vs CPU <= 2x the
+        largest CPU vs fp64, and |g_card - g_cpu| <= 2 |g_cpu - g_fp64| over
+        the whole gradient and over the VSSBlocks and `cross_attn.value_proj`
+        tensors together, each of which must have a non-zero gradient on the
+        card. Train-mode BatchNorm over 2 images down to 4x4 maps amplifies
+        rounding: that floor is ~1e-3 on the losses and a few percent on the
+        gradient, where the eval-mode forward of `check_parity` agrees at
+        ~1e-6;
+      - after `Trainer.step` (as each device runs it), every parameter within
+        1e-6 + 2% of its CPU step, except elements whose gradient sign the
+        noise flips: <= 3% of the moved elements."""
+    import copy
+
+    from tamtr_torch.losses.detr_loss import DETRLossConfig, rtdetr_detection_loss
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.train.trainer import Trainer, TrainConfig
+    from tamtr_torch.weights import init_parameters
+
+    M = 8
+    base = TAMTRModel.from_cfg("tamtr.yaml", nc=10, max_gt=M, vss_drop_path=0.0,
+                               label_noise_ratio=0.0, box_noise_scale=0.0)
+    init_parameters(base, seed=0)
+    spread_scores(base, seed=0)
+    batch = synthetic_batch(14, 2, 128, M, (5, 8))
+    probe = lambda k: "VSSBlocks" in k or "cross_attn.value_proj" in k  # noqa: E731
+
+    def grads_on(d, dtype=torch.float32, match=None, topk=None):
+        model = copy.deepcopy(base).to(d, dtype).train()
+        t = {"cls": torch.from_numpy(batch["cls"]).to(d), "mask": torch.from_numpy(batch["mask"]).to(d),
+             "bboxes": torch.from_numpy(batch["bboxes"]).to(d, dtype)}
+        img = torch.from_numpy(batch["img"]).to(d, dtype) / 255.0
+        record = []
+        with pinned_topk(record, topk):
+            out = model(img, torch.from_numpy(batch["txt_feats"]).to(d, dtype), t)
+        loss, items = rtdetr_detection_loss(out, t, DETRLossConfig(nc=10), match=match)
+        loss.backward()
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().double()
+                 for k, p in model.named_parameters()}
+        return {k: float(v.detach()) for k, v in items.items() if v.ndim == 0}, items["match"].cpu(), grads, record
+
+    rel = lambda a, b: max(abs(a[k] - v) / max(abs(v), 1e-6) for k, v in b.items())  # noqa: E731
+    t0 = time.perf_counter()
+    cpu_items, cpu_match, cpu_g, cpu_topk = grads_on(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    if len(cpu_topk) != 1:
+        raise AssertionError(f"expected one top-k query selection per forward, saw {len(cpu_topk)}")
+    gpu_items, gpu_match, _, _ = grads_on(dev)
+    fix_items, _, gpu_g, _ = grads_on(dev, match=cpu_match, topk=cpu_topk)
+    exact_items, _, exact, _ = grads_on(torch.device("cpu"), torch.float64, match=cpu_match, topk=cpu_topk)
+    worst_item, worst_fixed, item_noise = rel(gpu_items, cpu_items), rel(fix_items, cpu_items), rel(cpu_items, exact_items)
+    valid = torch.from_numpy(batch["mask"])[None].expand_as(cpu_match)
+    agree = float((gpu_match == cpu_match)[valid].float().mean())
+    flat = lambda g, sel=lambda k: True: torch.cat([v.flatten() for k, v in g.items() if sel(k)])  # noqa: E731
+    d_card = (flat(gpu_g) - flat(cpu_g)).norm().item()
+    d_noise = (flat(cpu_g) - flat(exact)).norm().item()
+    p_card = (flat(gpu_g, probe) - flat(cpu_g, probe)).norm().item()
+    p_noise = (flat(cpu_g, probe) - flat(exact, probe)).norm().item()
+    zero = [k for k, g in gpu_g.items() if probe(k) and g.abs().max().item() == 0 and exact[k].abs().max() > 0]
+
+    steps = []
+    for d in (dev, torch.device("cpu")):
+        tr = Trainer(copy.deepcopy(base), TrainConfig(batch_size=2, accumulate=1), device=d)
+        loss = tr.step(batch)["loss"]
+        steps.append(({k: p.detach().cpu() for k, p in tr.model.named_parameters()}, loss))
+    top = max(g.norm().item() for g in cpu_g.values())
+    flips = moved = 0
+    before = dict(base.named_parameters())
+    for k, g in cpu_g.items():
+        live = g.abs() > 1e-3 * g.abs().max() if g.norm().item() > 1e-6 * top else torch.zeros_like(g, dtype=torch.bool)
+        step = (steps[1][0][k] - before[k].detach()).abs()
+        flips += int((live & ((steps[0][0][k] - steps[1][0][k]).abs() > 1e-6 + 0.02 * step)).sum())
+        moved += int((live & (step > 0)).sum())
+    print(f"train parity tamtr.yaml 128px b2: loss card {steps[0][1]:.6f} cpu {steps[1][1]:.6f}; as run: "
+          f"worst loss-component rel diff {worst_item:.3g}, assignments agree {agree:.4f}; with the cpu's "
+          f"assignment and top-k: worst loss-component rel diff {worst_fixed:.3g} vs fp32 noise {item_noise:.3g}, gradient |card - cpu| / "
+          f"|cpu| {d_card / flat(cpu_g).norm().item():.3g} vs fp32 noise |cpu - fp64| / |cpu| "
+          f"{d_noise / flat(cpu_g).norm().item():.3g}; VSSBlocks + value_proj {p_card / flat(cpu_g, probe).norm().item():.3g}"
+          f" vs {p_noise / flat(cpu_g, probe).norm().item():.3g}; step flips {flips}/{moved}; cpu forward+backward "
+          f"{cpu_s:.2f} s", flush=True)
+    if not (worst_item < 1e-2 and agree >= 0.9 and worst_fixed <= 2 * item_noise and d_card <= 2 * d_noise
+            and p_card <= 2 * p_noise and not zero and moved > 0 and flips <= 0.03 * moved):
+        raise AssertionError(f"train parity failed (zero-gradient tensors on the card: {zero[:5]})")
+    return d_card / flat(cpu_g).norm().item()
+
+
+def train(dev):
+    """The slice's path: `TAMTR(...).trainer().step` on `tamtr.yaml` at
+    640 px, batch 4, max_gt 300, accumulate 1."""
+    from tamtr_torch import TAMTR
+    from tamtr_torch.train.trainer import TrainConfig
+
+    det = TAMTR("tamtr.yaml", nc=10, device=dev, seed=0, max_gt=TRAIN_MAX_GT)
+    tr = det.trainer(TrainConfig(batch_size=TRAIN_BATCH, accumulate=1), seed=0)
+    p0 = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    batches = [synthetic_batch(100 + i, TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT, TRAIN_VALID)
+               for i in range(WARMUP_STEPS + TIMED_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches[:WARMUP_STEPS]:  # first steps pick cuDNN algorithms
+        tr.step(b)
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    times, logs = [], []
+    for b in batches[WARMUP_STEPS:]:
+        t0 = time.perf_counter()
+        m = tr.step(b)  # ends in host reads of the metrics: the device has finished
+        times.append((time.perf_counter() - t0) * 1e3)
+        logs.append(m)
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * TIMED_STEPS for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    finite = all(math.isfinite(v) for m in logs for v in m.values())
+    moved = any(not torch.equal(p0[k], v) for k, v in tr.model.state_dict().items() if v.is_floating_point())
+    ema_moved = any(not torch.equal(p0[k], v) for k, v in tr.ema.state_dict().items() if v.is_floating_point())
+    print(f"train tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}: step ms "
+          f"{[round(t, 3) for t in times]}, loss {[round(m['loss'], 4) for m in logs]}, giou/class/bbox "
+          f"{[(round(m['giou'], 3), round(m['class'], 3), round(m['bbox'], 3)) for m in logs]}, grad_norm "
+          f"{[round(m['grad_norm'], 2) for m in logs]}, max_memory_allocated {peak / 2**20:.1f} MiB, "
+          f"launches {launches} over {TIMED_STEPS} steps", flush=True)
+    if not (finite and moved and ema_moved and all(m["stepped"] == 1.0 for m in logs)):
+        raise AssertionError(f"training step: finite {finite}, params moved {moved}, EMA moved {ema_moved}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} over {TIMED_STEPS} steps; want {want}")
+    return launches, times, peak
 
 
 def serve(dev):
@@ -277,27 +690,47 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    log = _build.build_all()  # a fresh checkout has no build/: this compiles both sources
+    log = _build.build_all()  # a fresh checkout has no build/: this compiles every source
     print(f"build: {log['seconds']:.1f} s", flush=True)
     for line in log["ptxas"]:
         print(f"  {line}")
 
     scan_rows, scan_err = check_ss2d_scan(dev)
     gather = check_bilinear_gather(dev)
+    bwd_rows, bwd_err, scan_err_b4 = check_ss2d_scan_bwd(dev)
+    gather_bwd, gather_err_b4 = check_bilinear_gather_bwd(dev)
+    auction = check_auction(dev)
     check_parity(dev)
+    check_train_parity(dev)
     launches = serve(dev)
+    train_launches, _, _ = train(dev)
 
     kernels = [
         dict(name="ss2d_scan_fwd", route="cuda", source="tamtr_torch/csrc/ss2d_scan_fwd.cu",
              replaces="tamtr_tpu/kernels/selective_scan.py:448", launches=launches["ss2d_scan_fwd"],
-             max_abs_err=scan_err, ms=sum(r["ms"] for r in scan_rows),
+             max_abs_err=max(scan_err, scan_err_b4), max_abs_err_b4=scan_err_b4, ms=sum(r["ms"] for r in scan_rows),
              plain_ms=sum(r["plain_ms"] for r in scan_rows),
              bound_ms=sum(r["bound_ms"] for r in scan_rows),
              bound_by=max(scan_rows, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
-             per_level=scan_rows),
+             per_level=scan_rows, launches_train=train_launches["ss2d_scan_fwd"]),
         dict(name="bilinear_gather_fwd", route="cuda", source="tamtr_torch/csrc/bilinear_gather_fwd.cu",
              replaces="tamtr_tpu/kernels/deform_scatter.py:195", launches=launches["bilinear_gather_fwd"],
-             **gather),
+             launches_train=train_launches["bilinear_gather_fwd"],
+             **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_err_b4)}, max_abs_err_b4_q700=gather_err_b4),
+        dict(name="ss2d_scan_bwd (B3a carriers + B3b walk)", route="cuda",
+             source="tamtr_torch/csrc/ss2d_scan_bwd.cu",
+             replaces="tamtr_tpu/kernels/selective_scan.py:684 (_bwd_kernel; B3a: :663 _carriers_kernel)",
+             launches=train_launches["ss2d_scan_bwd_walk"],
+             launches_carriers=train_launches["ss2d_scan_carriers"], max_abs_err=bwd_err,
+             ms=sum(r["ms"] for r in bwd_rows), plain_ms=sum(r["plain_ms"] for r in bwd_rows),
+             bound_ms=sum(r["bound_ms"] for r in bwd_rows),
+             bound_by=max(bwd_rows, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
+             per_level=bwd_rows),
+        dict(name="bilinear_gather_bwd", route="cuda", source="tamtr_torch/csrc/bilinear_gather_bwd.cu",
+             replaces="tamtr_tpu/kernels/deform_scatter.py:283", launches=train_launches["bilinear_gather_bwd"],
+             **gather_bwd),
+        dict(name="auction_match", route="cuda", source="tamtr_torch/csrc/auction.cu",
+             replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_match"], **auction),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
-"""User entry point: `TAMTR(...).predict(images, text)`.
+"""User entry point: `TAMTR(...).predict(images, text)` and
+`TAMTR(...).trainer()`.
 
-Mirrors the per-image results of the JAX package's predict
+`predict` mirrors the per-image results of the JAX package's predict
 (`tamtr_tpu/engine/model.py:predict`): each image is resized to `imgsz`,
 run through the eval forward, postprocessed (conf filter, class-offset NMS),
 and its boxes scaled back to the image's own pixels. Decoding image files
-and test-time augmentation are not ported yet.
+and test-time augmentation are not ported yet. `trainer` returns a
+`tamtr_torch.train.trainer.Trainer` over the same model, whose
+`step(batch)` is one training step.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 
 from tamtr_torch.nn.graph import TAMTRModel
 from tamtr_torch.ops.nms import postprocess_predictions
+from tamtr_torch.train.trainer import Trainer, TrainConfig
 from tamtr_torch.weights import from_jax_variables, init_parameters
 
 ImageLike = Union[np.ndarray, torch.Tensor]
@@ -32,15 +36,18 @@ class TAMTR:
       device: "cuda" by default; "cpu" only when asked for.
       seed: seed of the generator that initialises the weights.
       imgsz: square input size of the network.
+      max_gt: ground-truth slots per training image (the CDN layout); 300 as
+        the JAX package's training config.
     """
 
     def __init__(self, model: Union[str, Path] = "tamtr.yaml", nc: int = 10,
-                 device: Optional[Union[str, torch.device]] = None, seed: int = 0, imgsz: int = 640):
+                 device: Optional[Union[str, torch.device]] = None, seed: int = 0, imgsz: int = 640,
+                 max_gt: int = 300):
         if device is None and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         self.device = torch.device("cuda" if device is None else device)
         self.imgsz = imgsz
-        net = TAMTRModel.from_cfg(model, nc=nc)
+        net = TAMTRModel.from_cfg(model, nc=nc, max_gt=max_gt)
         init_parameters(net, seed)
         self.model = net.to(self.device).eval()
 
@@ -52,6 +59,12 @@ class TAMTR:
             raise ValueError(f"incomplete weight bridge: {problems}")
         self.model.load_state_dict(sd, strict=True)
         return self
+
+    def trainer(self, cfg: TrainConfig = TrainConfig(), seed: int = 0) -> Trainer:
+        """A `Trainer` over this detector's model and device; `step(batch)`
+        is one training step (see `Trainer.step`). Predict puts the model
+        back in eval mode itself."""
+        return Trainer(self.model, cfg, device=self.device, seed=seed)
 
     def _to_batch(self, images: Union[ImageLike, Sequence[ImageLike]]):
         """(B, imgsz, imgsz, 3) float in [0, 1] on the device, and each image's (h, w)."""
@@ -95,6 +108,7 @@ class TAMTR:
         txt = txt.to(self.device, torch.float32)
         if txt.ndim == 2:
             txt = txt[None]
+        self.model.eval()
         pred = self.model(img, txt)["pred"]
         boxes, scores, labels, valid = postprocess_predictions(pred, conf, iou, max_det)
         results = []

@@ -1,10 +1,17 @@
-"""Fused 4-direction SS2D selective scan, forward: CUDA kernel and plain version.
+"""Fused 4-direction SS2D selective scan: CUDA kernels and plain versions.
 
-`ss2d_scan` replaces the TPU kernel
+Forward: `ss2d_scan` replaces the TPU kernel
 `tamtr_tpu/kernels/selective_scan.py:_ss2d_kernel` (via `_run_ss2d_scan` and
 `ss2d_scan`). On a CUDA tensor it launches `csrc/ss2d_scan_fwd.cu`; on a CPU
 tensor it runs `ss2d_scan_ref`, the plain PyTorch version of
 `ss2d_scan_xla` and `tamtr_tpu/nn/ssm.py:selective_scan_xla`.
+
+Backward: `ss2d_scan` is a `torch.autograd.Function`. On CUDA tensors its
+backward launches `csrc/ss2d_scan_bwd.cu`: `ss2d_scan_carriers` (B3a, replaces
+`_carriers_kernel`) and `ss2d_scan_bwd_walk` (B3b, replaces `_bwd_kernel`, both via
+`_run_ss2d_bwd_fwddir` and `_ss2d_bwd_pallas`). On CPU tensors it runs
+`ss2d_scan_bwd_ref`, the explicit backward of `selective_scan.py:641-660`
+written with torch ops.
 
 Contract (as `ss2d_scan_xla`): layouts (B, 2, L, D) [row-major, col-major];
 dts_raw, Bs, Cs (B, 2, 2, L, R|N) indexed [fwd/rev, layout]; dt_w (4, D, R);
@@ -22,108 +29,308 @@ import torch
 from tamtr_torch.kernels import _build
 
 SCAN_CHUNK = 128
+BWD_CHANNELS = 32  # channels per block of the backward kernels (csrc kDB)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """Overflow-free softplus, the same formula the kernel uses."""
+    """Overflow-free softplus, the same formula the kernels use."""
     return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Every state of x_s = a_s x_{s-1} + b_s along dim 1, from x_{-1} = seed.
+
+    a, b (G, S, ...); seed (G, ...). A Hillis-Steele doubling scan composes
+    the (a, b) pairs with torch ops.
+    """
+    step = 1
+    while step < a.shape[1]:
+        b = torch.cat([b[:, :step], a[:, step:] * b[:, :-step] + b[:, step:]], 1)
+        a = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]], 1)
+        step *= 2
+    return a * seed[:, None] + b
+
+
+def _chunk_ab(u, delta, A, Bs, s0, s1):
+    """The recurrence's a = exp(dt A) and b = dt u B over steps [s0, s1)."""
+    dt = delta[:, s0:s1]
+    a = torch.exp(dt[..., None] * A[:, None])  # (G, S, D, N)
+    b = (dt * u[:, s0:s1])[..., None] * Bs[:, s0:s1, None, :]
+    return a, b
 
 
 def selective_scan_ref(u, delta, A, Bs, Cs, chunk: int = SCAN_CHUNK):
     """Plain S6 scan: u, delta (G, L, D); A (G, D, N); Bs, Cs (G, L, N) -> y (G, L, D).
 
-    Chunks of `chunk` steps carry h across chunks; inside a chunk a
-    Hillis-Steele doubling scan composes (a, b) pairs with torch ops, so the
-    working set is (G, chunk, D, N) and the version runs on the card at full L.
+    Chunks of `chunk` steps carry h across chunks, so the working set is
+    (G, chunk, D, N) and the version runs on the card at full L.
     """
     G, L, D = u.shape
     h = u.new_zeros((G, D, A.shape[-1]))
     ys = []
     for s0 in range(0, L, chunk):
-        dt = delta[:, s0 : s0 + chunk]
-        a = torch.exp(dt[..., None] * A[:, None])  # (G, S, D, N)
-        b = (dt * u[:, s0 : s0 + chunk])[..., None] * Bs[:, s0 : s0 + chunk, None, :]
-        step = 1
-        while step < a.shape[1]:
-            a_prev, b_prev = a[:, :-step], b[:, :-step]
-            b = torch.cat([b[:, :step], a[:, step:] * b_prev + b[:, step:]], 1)
-            a = torch.cat([a[:, :step], a[:, step:] * a_prev], 1)
-            step *= 2
-        h_t = a * h[:, None] + b
+        a, b = _chunk_ab(u, delta, A, Bs, s0, s0 + chunk)
+        h_t = linear_scan(a, b, h)
         ys.append(torch.einsum("gsdn,gsn->gsd", h_t, Cs[:, s0 : s0 + chunk]))
         h = h_t[:, -1]
     return torch.cat(ys, 1)
+
+
+def _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k):
+    """Direction k's u, dt, B, C in walk order (flipped for k >= 2)."""
+    f, j = k // 2, k % 2
+    u = layouts[:, j]
+    dt = softplus(torch.einsum("blr,dr->bld", dts_raw[:, f, j], dt_w[k]) + dt_b[k])
+    Bk, Ck = Bs[:, f, j], Cs[:, f, j]
+    if f:
+        u, dt, Bk, Ck = u.flip(1), dt.flip(1), Bk.flip(1), Ck.flip(1)
+    return u, dt, Bk, Ck
 
 
 def ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, chunk: int = SCAN_CHUNK):
     """Plain PyTorch version of the fused scan (see the module docstring)."""
     ys = []
     for k in range(4):
-        f, j = k // 2, k % 2
-        lay = layouts[:, j]
-        dt = softplus(torch.einsum("blr,dr->bld", dts_raw[:, f, j], dt_w[k]) + dt_b[k])
-        u, Bk, Ck = lay, Bs[:, f, j], Cs[:, f, j]
-        if f:
-            u, dt, Bk, Ck = u.flip(1), dt.flip(1), Bk.flip(1), Ck.flip(1)
-        Ak = A[k].expand(u.shape[0], *A[k].shape)
-        y = selective_scan_ref(u, dt, Ak, Bk, Ck, chunk)
-        if f:
+        u, dt, Bk, Ck = _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k)
+        y = selective_scan_ref(u, dt, A[k].expand(u.shape[0], *A[k].shape), Bk, Ck, chunk)
+        if k >= 2:
             y = y.flip(1)
-        ys.append(y + lay * Ds[k])
+        ys.append(y + layouts[:, k % 2] * Ds[k])
     return torch.stack(ys, 1)
+
+
+def _scan_bwd_one(u, dt, A, Bs, Cs, dy, chunk: int):
+    """Backward of one direction's S6 scan in walk order.
+
+    u, dt, dy (G, L, D); A (D, N); Bs, Cs (G, L, N). Returns du_core = gB dt,
+    ddt (G, L, D), dB, dC (G, L, N) and dA (D, N), as the formulas of
+    `tamtr_tpu/kernels/selective_scan.py:641-660`: two passes, the first
+    storing the state entering each chunk, the second walking the chunks in
+    reverse with g = dL/dh.
+    """
+    G, L, D = u.shape
+    Ab = A[None].expand(G, *A.shape)
+    starts = list(range(0, L, chunk))
+    h_in, h = [], u.new_zeros((G, D, A.shape[-1]))
+    for s0 in starts:
+        h_in.append(h)
+        h = linear_scan(*_chunk_ab(u, dt, Ab, Bs, s0, s0 + chunk), h)[:, -1]
+    g_next = torch.zeros_like(h)  # g and a of the step after the chunk
+    a_next = torch.zeros_like(h)
+    dA = torch.zeros_like(A)
+    du, ddt, dB, dC = [], [], [], []
+    for ci in reversed(range(len(starts))):
+        s0, s1 = starts[ci], starts[ci] + chunk
+        a, b = _chunk_ab(u, dt, Ab, Bs, s0, s1)
+        hs = linear_scan(a, b, h_in[ci])
+        h_prev = torch.cat([h_in[ci][:, None], hs[:, :-1]], 1)
+        dyc, dtc, uc, Bc = dy[:, s0:s1], dt[:, s0:s1], u[:, s0:s1], Bs[:, s0:s1]
+        q = dyc[..., None] * Cs[:, s0:s1, None, :]
+        a_shift = torch.cat([a[:, 1:], a_next[:, None]], 1)  # a_{s+1}
+        g = linear_scan(a_shift.flip(1), q.flip(1), g_next).flip(1)
+        dC.append(torch.einsum("gsd,gsdn->gsn", dyc, hs))
+        dB.append(torch.einsum("gsdn,gsd->gsn", g, dtc * uc))
+        gB = torch.einsum("gsdn,gsn->gsd", g, Bc)
+        ddA = g * h_prev * a
+        ddt.append(gB * uc + (ddA * A).sum(-1))
+        du.append(gB * dtc)
+        dA = dA + (ddA * dtc[..., None]).sum((0, 1))
+        g_next, a_next = g[:, 0], a[:, 0]
+    cat = lambda xs: torch.cat(xs[::-1], 1)  # noqa: E731
+    return cat(du), cat(ddt), cat(dB), cat(dC), dA
+
+
+def _assemble_grads(layouts, dts_raw, dt_w, Ds, dy, du_core, dz, dBs, dCs, dA):
+    """The eight input gradients from the per-direction kernel outputs:
+    du_core, dz (B, 4, L, D) natural order; dBs, dCs (B, 2, 2, L, N); dA
+    (4, D, N). The D-skip and the dt projection's gradients are torch ops,
+    as the JAX package keeps them outside Pallas (`selective_scan.py:879-896`)."""
+    B, _, L, D = layouts.shape
+    R = dt_w.shape[-1]
+    du = du_core + dy * Ds[None, :, None, :]
+    d_layouts = du[:, :2] + du[:, 2:]
+    d_Ds = (dy.reshape(B, 2, 2, L, D) * layouts[:, None]).sum((0, 3)).view(4, D)
+    d_dts = torch.einsum("bkld,kdr->bklr", dz, dt_w).reshape(B, 2, 2, L, R)
+    d_dtw = torch.einsum("bkld,bklr->kdr", dz, dts_raw.reshape(B, 4, L, R))
+    d_dtb = dz.sum((0, 2))
+    return d_layouts, d_dts, d_dtw, d_dtb, dA, dBs, dCs, d_Ds
+
+
+def ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy, chunk: int = SCAN_CHUNK):
+    """Plain backward of the fused scan: the gradients of its eight inputs
+    given dy (B, 4, L, D), written with torch ops."""
+    B, _, L, D = layouts.shape
+    N = A.shape[-1]
+    du_core, dz = torch.empty_like(dy), torch.empty_like(dy)
+    dBs, dCs = Bs.new_empty((B, 4, L, N)), Cs.new_empty((B, 4, L, N))
+    dA = torch.empty_like(A)
+    for k in range(4):
+        u, dt, Bk, Ck = _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k)
+        dyk = dy[:, k].flip(1) if k >= 2 else dy[:, k]
+        outs = _scan_bwd_one(u, dt, A[k], Bk, Ck, dyk, chunk)
+        du, ddt, dBk, dCk = (t.flip(1) if k >= 2 else t for t in outs[:4])
+        dt_nat = dt.flip(1) if k >= 2 else dt
+        du_core[:, k], dz[:, k] = du, ddt * (1.0 - torch.exp(-dt_nat))
+        dBs[:, k], dCs[:, k], dA[k] = dBk, dCk, outs[4]
+    return _assemble_grads(layouts, dts_raw, dt_w, Ds, dy, du_core, dz,
+                           dBs.view(B, 2, 2, L, N), dCs.view(B, 2, 2, L, N), dA)
 
 
 def _rows_in_place(t: torch.Tensor, B: int, L: int) -> torch.Tensor:
     """t (B, 2, 2, L, w) with unit inner stride and any row stride >= w, as the
-    kernel reads it; anything else is copied contiguous first."""
+    kernels read it; anything else is copied contiguous first."""
     rs = t.stride(3)
     if t.stride(4) == 1 and rs >= t.shape[4] and t.stride()[:3] == (4 * L * rs, 2 * L * rs, L * rs):
         return t
     return t.contiguous()
 
 
-def ss2d_scan(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
-    """The fused scan: CUDA kernel for CUDA tensors, plain version for CPU ones."""
-    if layouts.device.type == "cpu":
-        return ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
+def _check_cuda(name, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, d_mult: int):
+    """Validate the kernels' inputs; return them in the layouts they read."""
     if layouts.device.type != "cuda":
-        raise RuntimeError(f"ss2d_scan: no kernel for device {layouts.device}")
+        raise RuntimeError(f"{name}: no kernel for device {layouts.device}")
     B, _, L, D = layouts.shape
     R, N = dt_w.shape[-1], A.shape[-1]
     args = (layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
     if any(t.dtype != torch.float32 or t.device != layouts.device for t in args):
-        raise TypeError("ss2d_scan: all inputs must be float32 on one CUDA device")
+        raise TypeError(f"{name}: all inputs must be float32 on one CUDA device")
     if tuple(layouts.shape) != (B, 2, L, D) or tuple(dts_raw.shape) != (B, 2, 2, L, R) \
             or tuple(Bs.shape) != (B, 2, 2, L, N) or tuple(Cs.shape) != (B, 2, 2, L, N) \
             or tuple(dt_w.shape) != (4, D, R) or tuple(A.shape) != (4, D, N) \
             or tuple(dt_b.shape) != (4, D) or tuple(Ds.shape) != (4, D):
-        raise ValueError("ss2d_scan: inconsistent shapes")
-    if N != 16 or D % 8:
-        raise ValueError(f"ss2d_scan: the kernel needs N == 16 and D % 8 == 0, got N={N} D={D}")
-    layouts = layouts.contiguous()
+        raise ValueError(f"{name}: inconsistent shapes")
+    if N != 16 or D % d_mult:
+        raise ValueError(f"{name}: the kernel needs N == 16 and D % {d_mult} == 0, got N={N} D={D}")
     dts_raw, Bs, Cs = (_rows_in_place(t, B, L) for t in (dts_raw, Bs, Cs))
-    dt_w, dt_b, A, Ds = (t.contiguous() for t in (dt_w, dt_b, A, Ds))
+    return (layouts.contiguous(), dts_raw, dt_w.contiguous(), dt_b.contiguous(), A.contiguous(),
+            Bs, Cs, Ds.contiguous())
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
+    """Launch kernel B1."""
+    layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = _check_cuda(
+        "ss2d_scan", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, 8)
+    B, _, L, D = layouts.shape
+    R, N = dt_w.shape[-1], A.shape[-1]
     y = torch.empty((B, 4, L, D), dtype=torch.float32, device=layouts.device)
-    lib = _lib()
-    rc = lib.ss2d_scan_fwd(
+    rc = _lib("ss2d_scan_fwd").ss2d_scan_fwd(
         layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
         dt_w.data_ptr(), dt_b.data_ptr(), A.data_ptr(), Ds.data_ptr(), y.data_ptr(),
-        B, L, D, R, N, dts_raw.stride(3), Bs.stride(3), Cs.stride(3),
-        torch.cuda.current_stream(layouts.device).cuda_stream,
+        B, L, D, R, N, dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
     )
     _build.check(rc, "ss2d_scan_fwd")
     ss2d_scan.launches += 1
     return y
 
 
-ss2d_scan.launches = 0  # kernel launches since the last reset
+def ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs) -> torch.Tensor:
+    """Kernel B3a: the state entering every 16-step chunk of each direction's
+    walk, (B, 4, ceil(L/16), D, 16). CUDA tensors only (the plain backward
+    keeps its own per-chunk states)."""
+    layouts, dts_raw, dt_w, dt_b, A, Bs, _, _ = _check_cuda(
+        "ss2d_scan_carriers", layouts, dts_raw, dt_w, dt_b, A, Bs, Bs, dt_b, BWD_CHANNELS)
+    B, _, L, D = layouts.shape
+    R, N = dt_w.shape[-1], A.shape[-1]
+    hcar = torch.empty((B, 4, -(-L // 16), D, N), dtype=torch.float32, device=layouts.device)
+    rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_carriers(
+        layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), dt_w.data_ptr(), dt_b.data_ptr(),
+        A.data_ptr(), hcar.data_ptr(), B, L, D, R, N, dts_raw.stride(3), Bs.stride(3),
+        _stream(layouts),
+    )
+    _build.check(rc, "ss2d_scan_bwd_carriers")
+    ss2d_scan_carriers.launches += 1
+    return hcar
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ss2d_scan_fwd")
-    fn = lib.ss2d_scan_fwd
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 9 + [i] * 5 + [ll] * 3 + [p]
-        fn.restype = ctypes.c_int
+def ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, hcar):
+    """Kernel B3b: the reverse-time walk from the carriers `hcar` of B3a.
+    Returns du_core, dz (B, 4, L, D) natural order; dB, dC partial sums
+    (B, 4, D/32, L, 16) over each block's 32 channels; dA (B, 4, D, 16).
+    CUDA tensors only, in the layouts `ss2d_scan_bwd` passes."""
+    if layouts.device.type != "cuda":
+        raise RuntimeError(f"ss2d_scan_bwd_walk: no kernel for device {layouts.device}")
+    B, _, L, D = layouts.shape
+    R, N = dt_w.shape[-1], A.shape[-1]
+    if tuple(dy.shape) != (B, 4, L, D) or not dy.is_contiguous() or dy.dtype != torch.float32 \
+            or tuple(hcar.shape) != (B, 4, -(-L // 16), D, N) or D % BWD_CHANNELS:
+        raise ValueError("ss2d_scan_bwd_walk: dy must be contiguous float32 (B, 4, L, D), hcar as B3a gives it")
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=layouts.device)  # noqa: E731
+    nDb = D // BWD_CHANNELS
+    du, dz = new(B, 4, L, D), new(B, 4, L, D)
+    dBp, dCp, dA = new(B, 4, nDb, L, N), new(B, 4, nDb, L, N), new(B, 4, D, N)
+    rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd(
+        layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), dt_w.data_ptr(),
+        dt_b.data_ptr(), A.data_ptr(), dy.data_ptr(), hcar.data_ptr(), du.data_ptr(),
+        dz.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dA.data_ptr(), B, L, D, R, N,
+        dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
+    )
+    _build.check(rc, "ss2d_scan_bwd")
+    ss2d_scan_bwd_walk.launches += 1
+    return du, dz, dBp, dCp, dA
+
+
+def ss2d_scan_bwd(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy):
+    """Gradients of the fused scan's eight inputs given dy (B, 4, L, D):
+    kernels B3a + B3b for CUDA tensors, `ss2d_scan_bwd_ref` for CPU ones."""
+    if layouts.device.type == "cpu":
+        return ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy)
+    layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = _check_cuda(
+        "ss2d_scan_bwd", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, BWD_CHANNELS)
+    B, _, L, D = layouts.shape
+    N = A.shape[-1]
+    dy = dy.float().contiguous()
+    hcar = ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs)
+    du, dz, dBp, dCp, dA = ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, hcar)
+    return _assemble_grads(layouts, dts_raw, dt_w, Ds, dy, du, dz,
+                           dBp.sum(2).view(B, 2, 2, L, N), dCp.sum(2).view(B, 2, 2, L, N),
+                           dA.sum(0))
+
+
+class _SS2DScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
+        ctx.save_for_backward(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
+        if layouts.device.type == "cpu":
+            return ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
+        return _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ss2d_scan_bwd(*ctx.saved_tensors, dy)
+
+
+def ss2d_scan(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
+    """The fused scan: kernel B1 for CUDA tensors, the plain version for CPU
+    ones; differentiable through `ss2d_scan_bwd`."""
+    if layouts.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"ss2d_scan: no kernel for device {layouts.device}")
+    return _SS2DScan.apply(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
+
+
+# kernel launches since the last reset, one counter per kernel
+ss2d_scan.launches = 0
+ss2d_scan_carriers.launches = 0
+ss2d_scan_bwd_walk.launches = 0
+
+_SIGNATURES = {
+    "ss2d_scan_fwd": (9, 5, 3),
+    "ss2d_scan_bwd_carriers": (7, 5, 2),
+    "ss2d_scan_bwd": (14, 5, 3),
+}
+
+
+def _lib(source: str) -> ctypes.CDLL:
+    """The library built from `csrc/<source>.cu`, its entry points typed:
+    pointers, then ints, then row strides (long long), then the stream."""
+    lib = _build.load(source)
+    for fn_name, (n_ptr, n_int, n_ll) in _SIGNATURES.items():
+        fn = getattr(lib, fn_name, None)
+        if fn is not None and fn.argtypes is None:
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            fn.argtypes = [p] * n_ptr + [i] * n_int + [ll] * n_ll + [p]
+            fn.restype = ctypes.c_int
     return lib

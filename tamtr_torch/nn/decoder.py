@@ -1,17 +1,17 @@
-"""MEH head in eval mode: VMamba mixers, a deformable decoder and
-text-contrastive scoring (torch port of `tamtr_tpu/nn/decoder.py`).
+"""MEH head: VMamba mixers, a deformable decoder, text-contrastive scoring
+and, in train mode, the static-shape CDN denoising branch (torch port of
+`tamtr_tpu/nn/decoder.py`).
 
 Attribute names follow the reference checkpoint (`VSSBlocks.{i}`,
 `input_proj.{i}.{0,1}`, `decoder.layers.{i}` with `in_proj_weight`,
-`enc_output.{0,1}`, `dec_score_head.{i}`, `dec_bbox_head.{i}.layers.{j}`).
-The CDN denoising branch belongs to the training slice; its class table
-`denoising_class_embed` is held so that checkpoints load.
+`enc_output.{0,1}`, `dec_score_head.{i}`, `dec_bbox_head.{i}.layers.{j}`,
+`denoising_class_embed`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,8 +19,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tamtr_torch.kernels.deform_scatter import bilinear_gather
-from tamtr_torch.nn.layers import BN_EPS, MLP
+from tamtr_torch.nn.layers import MLP, BatchNorm2d
 from tamtr_torch.nn.ssm import VSSBlock
+from tamtr_torch.ops.boxes import xywh2xyxy, xyxy2xywh
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -120,7 +121,8 @@ class MSDeformAttn(nn.Module):
 
 class MultiHeadSelfAttention(nn.Module):
     """MHA with nn.MultiheadAttention's parameter names (`in_proj_weight`,
-    `in_proj_bias`, `out_proj`); q, k and v take separate inputs."""
+    `in_proj_bias`, `out_proj`); q, k and v take separate inputs, and an
+    optional bool mask (Q, K) blocks the pairs where it is True."""
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -129,7 +131,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, mask: Optional[torch.Tensor] = None):
         B, Q, C = q.shape
         h, d = self.h, C // self.h
         wq, wk, wv = self.in_proj_weight.chunk(3)
@@ -137,7 +139,10 @@ class MultiHeadSelfAttention(nn.Module):
         qp = F.linear(q, wq, bq).view(B, Q, h, d).transpose(1, 2)
         kp = F.linear(k, wk, bk).view(B, -1, h, d).transpose(1, 2)
         vp = F.linear(v, wv, bv).view(B, -1, h, d).transpose(1, 2)
-        att = (qp @ kp.transpose(-1, -2) / math.sqrt(d)).softmax(-1)
+        logits = qp @ kp.transpose(-1, -2) / math.sqrt(d)
+        if mask is not None:
+            logits = logits.masked_fill(mask, float("-inf"))
+        att = logits.softmax(-1)
         return self.out_proj((att @ vp).transpose(1, 2).reshape(B, Q, C))
 
 
@@ -170,11 +175,72 @@ class DeformableDecoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, embed, refer_bbox, feats, shapes, query_pos):
+    def forward(self, embed, refer_bbox, feats, shapes, query_pos, attn_mask=None):
         q = embed + query_pos
-        embed = self.norm1(embed + self.self_attn(q, q, embed))
+        embed = self.norm1(embed + self.self_attn(q, q, embed, attn_mask))
         embed = self.norm2(embed + self.cross_attn(embed + query_pos, refer_bbox, feats, shapes))
         return self.norm3(embed + self.linear2(F.relu(self.linear1(embed))))
+
+
+def cdn_attn_mask(num_dn: int, num_queries: int, group_block: int) -> np.ndarray:
+    """Static CDN attention mask (True = blocked): dn queries see only their
+    own block of `group_block`; matching queries see no dn query."""
+    tgt = num_dn + num_queries
+    mask = np.zeros((tgt, tgt), dtype=bool)
+    mask[num_dn:, :num_dn] = True
+    if num_dn:
+        idx = np.arange(num_dn) // group_block
+        mask[:num_dn, :num_dn] = idx[:, None] != idx[None, :]
+    return mask
+
+
+def cdn_noise(shape: Tuple[int, int, int], num_classes: int, generator: torch.Generator,
+              device) -> Dict[str, torch.Tensor]:
+    """The draws of `get_cdn_group` for (B, 2G, M) queries: class-flip
+    uniforms, replacement classes, box-noise signs (+-1) and magnitudes."""
+    B, G2, M = shape
+    kw = dict(generator=generator, device=device)
+    return {
+        "flip": torch.rand((B, G2, M), **kw),
+        "new_cls": torch.randint(0, num_classes, (B, G2, M), **kw),
+        "sign": torch.randint(0, 2, (B, G2, M, 4), **kw).float() * 2.0 - 1.0,
+        "part": torch.rand((B, G2, M, 4), **kw),
+    }
+
+
+def get_cdn_group(gt_cls, gt_bbox, gt_mask, num_classes: int, class_embed: torch.Tensor,
+                  num_groups: int, generator: Optional[torch.Generator] = None,
+                  cls_noise_ratio: float = 0.5, box_noise_scale: float = 1.0,
+                  noise: Optional[Dict[str, torch.Tensor]] = None):
+    """Denoising queries, static-shape layout of `tamtr_tpu/nn/decoder.py:350-399`.
+
+    gt_cls (B, M) int; gt_bbox (B, M, 4) cxcywh; gt_mask (B, M) bool;
+    class_embed (nc + 1, hd). The dn layout is 2G blocks of M, the first G
+    positive. The noise is drawn from `generator` (see `cdn_noise`), or taken
+    from `noise` so that a test can inject the same draws as another
+    framework. Returns dn_embed (B, 2G*M, hd) and dn_bbox_logit (B, 2G*M, 4).
+    """
+    B, M = gt_cls.shape
+    G2 = 2 * num_groups
+    cls_t = gt_cls[:, None].expand(B, G2, M)
+    box_t = gt_bbox[:, None].expand(B, G2, M, 4)
+    mask_t = gt_mask[:, None].expand(B, G2, M)
+    if noise is None and (cls_noise_ratio > 0 or box_noise_scale > 0):
+        if generator is None:
+            raise ValueError("get_cdn_group needs an explicit torch.Generator for its noise")
+        noise = cdn_noise((B, G2, M), num_classes, generator, gt_bbox.device)
+    if cls_noise_ratio > 0:
+        cls_t = torch.where(noise["flip"] < cls_noise_ratio * 0.5, noise["new_cls"].to(cls_t.dtype), cls_t)
+    if box_noise_scale > 0:
+        known = xywh2xyxy(box_t)
+        diff = (box_t[..., 2:] * 0.5).repeat(1, 1, 1, 2) * box_noise_scale
+        is_neg = (torch.arange(G2, device=gt_bbox.device) >= num_groups)[None, :, None, None]
+        part = noise["part"] + is_neg.to(noise["part"].dtype)
+        box_t = xyxy2xywh((known + noise["sign"] * part * diff).clamp(0.0, 1.0))
+    box_logit = torch.log(box_t.clamp(min=1e-6) / (1 - box_t).clamp(min=1e-6))
+    embed = torch.where(mask_t[..., None], class_embed[cls_t.long()], 0.0)
+    box_logit = torch.where(mask_t[..., None], box_logit, 0.0)
+    return embed.reshape(B, G2 * M, -1), box_logit.reshape(B, G2 * M, 4)
 
 
 def generate_anchors(shapes: Sequence[Tuple[int, int]], grid_size: float = 0.05, eps: float = 1e-2):
@@ -196,22 +262,31 @@ def generate_anchors(shapes: Sequence[Tuple[int, int]], grid_size: float = 0.05,
 
 
 class ManbaWorldDecoder(nn.Module):
-    """The MEH head, eval mode: per-level VSS mixers, input projection,
-    top-k query selection over encoder scores, `ndl` deformable decoder
-    layers, and the last layer's boxes with its text-contrastive scores.
+    """The MEH head: per-level VSS mixers, input projection, top-k query
+    selection over encoder scores, `ndl` deformable decoder layers with
+    text-contrastive scores.
 
-    feats: per-level NCHW maps; text (B, K, hd) -> dict with "pred"
-    (B, nq, 4 + nc) normalized cxcywh + sigmoid scores.
+    feats: per-level NCHW maps; text (B, K, hd). Eval (`.eval()` or no
+    targets): a dict with "pred" (B, nq, 4 + nc) normalized cxcywh + sigmoid
+    scores. Train (`.train()` and targets {"cls", "bboxes", "mask"}): the
+    JAX package's train dict, with the CDN queries in front (num_dn of them):
+    dec_bboxes/dec_scores (ndl, B, num_dn + nq, .), enc_bboxes/enc_scores,
+    num_dn and dn_groups. Random draws (DropPath, CDN noise) come from
+    `generator`.
     """
 
     def __init__(self, nc: int = 80, ch: Sequence[int] = (128, 256, 512), hd: int = 512,
-                 nq: int = 100, ndp: int = 4, nh: int = 8, ndl: int = 3, d_ffn: int = 1024):
+                 nq: int = 100, ndp: int = 4, nh: int = 8, ndl: int = 3, d_ffn: int = 1024,
+                 num_denoising: int = 100, max_gt: int = 128, label_noise_ratio: float = 0.5,
+                 box_noise_scale: float = 1.0, vss_drop_path: float = 0.1):
         super().__init__()
         self.nc, self.hd, self.nq, self.ndl = nc, hd, nq, ndl
+        self.num_denoising, self.max_gt = num_denoising, max_gt
+        self.label_noise_ratio, self.box_noise_scale = label_noise_ratio, box_noise_scale
         nl = len(ch)
-        self.VSSBlocks = nn.ModuleList(VSSBlock(c) for c in ch)
+        self.VSSBlocks = nn.ModuleList(VSSBlock(c, drop_path=vss_drop_path) for c in ch)
         self.input_proj = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(c, hd, 1, bias=False), nn.BatchNorm2d(hd, eps=BN_EPS)) for c in ch
+            nn.Sequential(nn.Conv2d(c, hd, 1, bias=False), BatchNorm2d(hd)) for c in ch
         )
         self.decoder = nn.ModuleDict({"layers": nn.ModuleList(
             DeformableDecoderLayer(hd, nh, d_ffn, nl, ndp) for _ in range(ndl)
@@ -224,15 +299,35 @@ class ManbaWorldDecoder(nn.Module):
         self.dec_score_head = nn.ModuleList(ContrastiveHead() for _ in range(ndl))
         self.dec_bbox_head = nn.ModuleList(MLP(hd, hd, 4, 3) for _ in range(ndl))
 
-    def forward(self, feats: List[torch.Tensor], text: torch.Tensor):
-        B = feats[0].shape[0]
+    @property
+    def dn_groups(self) -> int:
+        return max(1, self.num_denoising // self.max_gt)
+
+    @property
+    def num_dn(self) -> int:
+        return 2 * self.dn_groups * self.max_gt
+
+    def forward(self, feats: List[torch.Tensor], text: torch.Tensor,
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        train = self.training and targets is not None
         # the VSS mixers run channels-last
-        feats = [vss(f.permute(0, 2, 3, 1)) for vss, f in zip(self.VSSBlocks, feats)]
+        feats = [vss(f.permute(0, 2, 3, 1), generator) for vss, f in zip(self.VSSBlocks, feats)]
         shapes = [(f.shape[1], f.shape[2]) for f in feats]
         flat = torch.cat([
             proj(f.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
             for proj, f in zip(self.input_proj, feats)
         ], 1)  # (B, L, hd), row-major per level
+
+        num_dn, attn_mask = 0, None
+        if train and self.num_denoising > 0:
+            dn_embed, dn_bbox = get_cdn_group(
+                targets["cls"], targets["bboxes"], targets["mask"], self.nc,
+                self.denoising_class_embed.weight, self.dn_groups, generator,
+                self.label_noise_ratio, self.box_noise_scale,
+            )
+            num_dn = self.num_dn
+            attn_mask = torch.from_numpy(cdn_attn_mask(num_dn, self.nq, 2 * self.max_gt)).to(flat.device)
 
         anchors_np, valid_np = generate_anchors(shapes)
         anchors = torch.from_numpy(anchors_np).to(flat.device)
@@ -246,11 +341,34 @@ class ManbaWorldDecoder(nn.Module):
         top_feats = torch.gather(features, 1, topk_ind[..., None].expand(-1, -1, self.hd))
         refer_logit = self.enc_bbox_head(top_feats) + anchors[topk_ind]
         enc_scores = torch.gather(enc_scores_all, 1, topk_ind[..., None].expand(-1, -1, self.nc))
+        enc_bboxes = torch.sigmoid(refer_logit)
 
-        output, refer = top_feats, torch.sigmoid(refer_logit)
+        embeddings = top_feats
+        if train:  # the decoder starts from the selection without its gradient
+            refer_logit, embeddings = refer_logit.detach(), embeddings.detach()
+        if num_dn:
+            refer_logit = torch.cat([dn_bbox, refer_logit], 1)
+            embeddings = torch.cat([dn_embed, embeddings], 1)
+
+        output, refer = embeddings, torch.sigmoid(refer_logit)
+        dec_bboxes, dec_scores, last_refined = [], [], None
         for i, layer in enumerate(self.decoder["layers"]):
-            output = layer(output, refer, flat, shapes, self.query_pos_head(refer))
-            refer = torch.sigmoid(self.dec_bbox_head[i](output) + inverse_sigmoid(refer))
-        scores = self.dec_score_head[self.ndl - 1](output, text)  # eval scores the last layer
-        pred = torch.cat([refer, torch.sigmoid(scores)], -1)
-        return {"pred": pred, "enc_scores": enc_scores, "enc_bboxes": torch.sigmoid(refer_logit)}
+            output = layer(output, refer, flat, shapes, self.query_pos_head(refer), attn_mask)
+            bbox_delta = self.dec_bbox_head[i](output)
+            refined = torch.sigmoid(bbox_delta + inverse_sigmoid(refer))
+            if train:
+                dec_scores.append(self.dec_score_head[i](output, text))
+                # layer i > 0 boxes take their gradient through the previous
+                # layer's refined boxes, not the detached reference
+                dec_bboxes.append(refined if i == 0 else torch.sigmoid(bbox_delta + inverse_sigmoid(last_refined)))
+            last_refined = refined
+            refer = refined.detach() if train else refined
+        if not train:
+            scores = self.dec_score_head[self.ndl - 1](output, text)  # eval scores the last layer
+            pred = torch.cat([refer, torch.sigmoid(scores)], -1)
+            return {"pred": pred, "enc_scores": enc_scores, "enc_bboxes": enc_bboxes}
+        return {
+            "dec_bboxes": torch.stack(dec_bboxes), "dec_scores": torch.stack(dec_scores),
+            "enc_bboxes": enc_bboxes, "enc_scores": enc_scores,
+            "num_dn": num_dn, "dn_groups": self.dn_groups if num_dn else 0,
+        }

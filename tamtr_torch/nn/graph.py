@@ -94,14 +94,24 @@ def _build_layer(m: str, args, c_in: List[int], gc: int):
 
 
 class TAMTRModel(nn.Module):
-    """TAM-TR detector, eval mode: CSP-ELAN backbone, BTA-PAN neck guided by
-    text, ManbaWorldDecoder head.
+    """TAM-TR detector: CSP-ELAN backbone, BTA-PAN neck guided by text,
+    ManbaWorldDecoder head.
 
-    forward(img (B, H, W, 3) float in [0, 1], text (B or 1, K, hd)) -> dict
+    forward(img (B, H, W, 3) float in [0, 1], text (B or 1, K, hd),
+    targets=None, generator=None): in `.eval()`, or without targets, a dict
     with "pred" (B, nq, 4 + nc): normalized cxcywh boxes and sigmoid scores.
+    In `.train()` with targets {"cls" (B, M), "bboxes" (B, M, 4) cxcywh,
+    "mask" (B, M)} padded to `max_gt`, the head's train dict (see
+    `ManbaWorldDecoder`); DropPath and CDN noise draw from `generator`.
+
+    `max_gt`, `num_denoising` and `vss_drop_path` are the JAX `TAMTRModel`'s
+    settings (`tamtr_tpu/nn/graph.py:160-167`), with its defaults; the CDN
+    noise settings are the head's (`label_noise_ratio`, `box_noise_scale`).
     """
 
-    def __init__(self, cfg: Dict[str, Any], nc: Optional[int] = None):
+    def __init__(self, cfg: Dict[str, Any], nc: Optional[int] = None, max_gt: int = 128,
+                 num_denoising: int = 100, vss_drop_path: float = 0.1,
+                 label_noise_ratio: float = 0.5, box_noise_scale: float = 1.0):
         super().__init__()
         self.specs, (self.head_from, head_args), self.save, self.nc = parse_graph(cfg, nc)
         _, hd, nq, ndp, nh, ndl = head_args[:6]
@@ -115,14 +125,18 @@ class TAMTRModel(nn.Module):
             ch.append(c2)
         layers.append(ManbaWorldDecoder(
             nc=self.nc, ch=tuple(ch[j] for j in self.head_from), hd=hd, nq=nq, ndp=ndp, nh=nh, ndl=ndl,
+            num_denoising=num_denoising, max_gt=max_gt, label_noise_ratio=label_noise_ratio,
+            box_noise_scale=box_noise_scale, vss_drop_path=vss_drop_path,
         ))
         self.model = nn.ModuleList(layers)
 
     @classmethod
-    def from_cfg(cls, path: str | Path, nc: Optional[int] = None) -> "TAMTRModel":
-        return cls(load_model_cfg(path), nc)
+    def from_cfg(cls, path: str | Path, nc: Optional[int] = None, **kw) -> "TAMTRModel":
+        return cls(load_model_cfg(path), nc, **kw)
 
-    def forward(self, img: torch.Tensor, text: torch.Tensor):
+    def forward(self, img: torch.Tensor, text: torch.Tensor,
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
         if text.shape[0] != img.shape[0]:
             text = text.expand(img.shape[0], *text.shape[1:])
         x = img.permute(0, 3, 1, 2)  # convolutions run NCHW
@@ -134,4 +148,4 @@ class TAMTRModel(nn.Module):
                 inp = x if f == -1 else y[f]
             x = mod(inp, text) if m == "TIAGELAN" else mod(inp)
             y.append(x if idx in self.save else None)
-        return self.model[-1]([y[j] for j in self.head_from], text)
+        return self.model[-1]([y[j] for j in self.head_from], text, targets, generator)

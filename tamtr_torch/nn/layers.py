@@ -3,7 +3,9 @@
 Convolutions run NCHW. Attribute names follow the reference checkpoint
 (`conv`/`bn`, `cv1..cv5`, `m.{j}`, `cv2.0`/`cv2.1`), so state-dict keys are
 the reference's. BatchNorm eps is 1e-3, the reference's value after
-`initialize_weights`.
+`initialize_weights`. In train mode BatchNorm follows the JAX package (flax
+momentum 0.97, running variance from the biased batch variance), and
+DropPath draws its masks from a generator the caller passes in.
 """
 
 from __future__ import annotations
@@ -15,6 +17,46 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.03  # torch convention: running = (1 - 0.03) running + 0.03 batch (flax 0.97)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train mode updates the running statistics as
+    flax's BatchNorm does: running_var moves towards the biased batch
+    variance, where `nn.BatchNorm2d` uses the unbiased one. Normalisation
+    uses the biased batch variance in both. Eval mode is `nn.BatchNorm2d`'s."""
+
+    def __init__(self, num_features: int, eps: float = BN_EPS):
+        super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, (0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth over the batch dim (`tamtr_tpu/nn/layers.py:476`):
+    in train mode each sample's branch is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate). The masks come from the caller's generator."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        if generator is None:
+            raise ValueError("DropPath in train mode needs an explicit torch.Generator")
+        keep = 1.0 - self.rate
+        u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator, device=x.device)
+        return x * (u < keep) / keep
 
 
 def autopad(k: int, p: Optional[int] = None) -> int:
@@ -29,7 +71,7 @@ class ConvBN(nn.Module):
                  g: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS)
+        self.bn = BatchNorm2d(c2)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

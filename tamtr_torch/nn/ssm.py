@@ -13,12 +13,14 @@ Parameter names and shapes follow the reference checkpoint: `A_logs` is
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tamtr_torch.kernels.selective_scan import ss2d_scan
+from tamtr_torch.nn.layers import DropPath
 
 K_DIRS = 4
 
@@ -81,17 +83,20 @@ class Mlp(nn.Module):
 
 
 class VSSBlock(nn.Module):
-    """Pre-norm residual SS2D + MLP block, channels-last. Eval only: DropPath
-    is the identity."""
+    """Pre-norm residual SS2D + MLP block, channels-last, with DropPath at
+    `drop_path` on both residual branches in train mode (masks from the
+    caller's generator; the identity in eval mode)."""
 
     def __init__(self, hidden_dim: int, d_state: int = 16, ssm_ratio: float = 2.0,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0):
         super().__init__()
         self.norm = nn.LayerNorm(hidden_dim, eps=1e-5)
         self.op = SS2D(hidden_dim, d_state=d_state, ssm_ratio=ssm_ratio)
         self.norm2 = nn.LayerNorm(hidden_dim, eps=1e-5)
         self.mlp = Mlp(hidden_dim, int(hidden_dim * mlp_ratio))
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.op(self.norm(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.drop_path1(self.op(self.norm(x)), generator)
+        return x + self.drop_path2(self.mlp(self.norm2(x)), generator)

@@ -42,6 +42,8 @@ def test_import_without_jax_yaml_or_cv2():
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tamtr_tpu', 'yaml', 'cv2'):\n"
         "    sys.modules[m] = None\n"
         "import tamtr_torch, tamtr_torch.weights, tamtr_torch.kernels._build, chip_smoke\n"
+        "import tamtr_torch.train.trainer, tamtr_torch.losses.detr_loss, tamtr_torch.losses.matcher\n"
+        "import tamtr_torch.kernels.auction, tamtr_torch.ops.boxes\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2')\n"
         "          and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

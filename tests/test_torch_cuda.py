@@ -73,3 +73,107 @@ def test_model_runs_through_both_kernels(card):
     res = det.predict(torch.rand(2, 64, 64, 3), torch.randn(4, 128), conf=0.0)
     assert len(res) == 2
     assert (ss2d_scan.launches - before[0], bilinear_gather.launches - before[1]) == (3, 3)
+
+
+@pytest.mark.parametrize("H,W,C", [(5, 7, 32), (20, 20, 128)])
+def test_ss2d_scan_bwd_kernels_match_plain(card, H, W, C):
+    """B3a + B3b against the plain backward, gradients of all eight inputs
+    at 2e-3; odd L leaves a ragged last 16-step chunk."""
+    from tamtr_torch.kernels.selective_scan import (
+        ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk, ss2d_scan_carriers,
+    )
+
+    g = torch.Generator().manual_seed(3)
+    L, D, R, N = H * W, 2 * C, math.ceil(C / 16), 16
+    layouts = torch.randn(2, 2, L, D, generator=g).to(card)
+    dts_raw, Bs, Cs = (torch.randn(2, 2, 2, L, R + 2 * N, generator=g) * 0.6).to(card).split([R, N, N], -1)
+    dt_w = ((torch.rand(4, D, R, generator=g) * 2 - 1) * R**-0.5).to(card)
+    dt_b = (torch.rand(4, D, generator=g) * -5 - 2).to(card)
+    A = -torch.exp(torch.rand(4, D, N, generator=g) * math.log(N)).to(card)
+    Ds = torch.randn(4, D, generator=g).to(card)
+    dy = torch.randn(2, 4, L, D, generator=g).to(card)
+    args = (layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
+    before = (ss2d_scan_carriers.launches, ss2d_scan_bwd_walk.launches)
+    got = ss2d_scan_bwd(*args, dy)
+    torch.cuda.synchronize()
+    assert (ss2d_scan_carriers.launches, ss2d_scan_bwd_walk.launches) == (before[0] + 1, before[1] + 1)
+    for gk, wk in zip(got, ss2d_scan_bwd_ref(*args, dy)):
+        torch.testing.assert_close(gk, wk, atol=2e-3, rtol=2e-3)
+
+
+def test_bilinear_gather_bwd_kernel_matches_plain(card):
+    """B4 against the plain backward at 1e-5, with a pair in the global
+    last pixel cell, one at x0 < 0 and one on a level boundary; and the
+    gradient to locations and attention weights through the core."""
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather_bwd, bilinear_gather_bwd_ref
+    from tamtr_torch.nn.decoder import deform_sampling_pairs, ms_deform_attn_core
+
+    shapes = [(6, 7), (3, 4), (2, 3)]
+    g = torch.Generator().manual_seed(4)
+    B, Q, nh, c, nl, P = 2, 9, 8, 64, 3, 4
+    Lv = sum(h * w for h, w in shapes)
+    value = torch.randn(B, Lv, nh, c, generator=g)
+    loc = torch.rand(B, Q, nh, nl, P, 2, generator=g) * 1.4 - 0.2
+    loc[0, 0, 0, 2, 0] = torch.tensor([1 - 0.2 / 3, 1 - 0.2 / 2])  # last pixel cell
+    loc[0, 1, 1, 0, 2] = torch.tensor([0.2 / 7, 0.5])  # x0 < 0
+    loc[1, 2, 0, 0, 3] = torch.tensor([1 - 0.3 / 7, 1 - 0.3 / 6])  # level boundary
+    w_att = torch.rand(B, Q, nh, nl, P, generator=g)
+    dout = torch.randn(B, Q, nh, c, generator=g)
+    value, loc, w_att, dout = (t.to(card) for t in (value, loc, w_att, dout))
+    _, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
+    assert int(idx2.max()) == Lv - 1
+    before = bilinear_gather_bwd.launches
+    dv, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout)
+    torch.cuda.synchronize()
+    assert bilinear_gather_bwd.launches == before + 1
+    dv_ref, dw_ref = bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
+    torch.testing.assert_close(dv, dv_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dw, dw_ref, atol=1e-5, rtol=1e-5)
+
+    grads = []
+    for dev in (card, "cpu"):
+        ts = [t.detach().to(dev).requires_grad_() for t in (value, loc, w_att)]
+        (ms_deform_attn_core(ts[0], shapes, ts[1], ts[2]) * dout.to(dev).reshape(B, Q, -1)).sum().backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_auction_kernel_matches_plain_with_over_full_images(card):
+    """B5 against the plain auction: identical assignments, an over-full
+    image (more gts than queries) and a contested one included."""
+    from tamtr_torch.kernels.auction import auction_match, auction_match_ref
+    from tamtr_torch.losses.matcher import auction_assignment
+
+    g = torch.Generator().manual_seed(5)
+    B, nq, M = 4, 100, 300
+    cost = torch.randn(B, nq, M, generator=g)
+    mask = torch.arange(M)[None] < torch.tensor([[30], [250], [80], [0]])
+    before = auction_match.launches
+    got = auction_match(cost.to(card), mask.to(card))
+    assert auction_match.launches == before + 1
+    assert torch.equal(got.cpu(), auction_match_ref(cost, mask))
+    got = auction_assignment(cost.to(card), mask.to(card))
+    assert auction_match.launches == before + 3  # the forward and the transposed solve
+    assert torch.equal(got.cpu(), auction_assignment(cost, mask))
+
+
+def test_train_step_runs_through_every_kernel(card):
+    from tamtr_torch import TAMTR
+    from tamtr_torch.kernels.auction import auction_match
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_bwd
+    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers
+    from tamtr_torch.train.trainer import TrainConfig
+
+    det = TAMTR("tamtr-nano.yaml", nc=4, device=card, imgsz=64, max_gt=8)
+    tr = det.trainer(TrainConfig(batch_size=2, accumulate=1))
+    counters = (ss2d_scan, ss2d_scan_carriers, ss2d_scan_bwd_walk, bilinear_gather, bilinear_gather_bwd, auction_match)
+    before = [f.launches for f in counters]
+    g = torch.Generator().manual_seed(6)
+    mask = torch.arange(8)[None] < torch.tensor([[3], [8]])
+    batch = {"img": torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8, generator=g),
+             "txt_feats": torch.randn(1, 4, 128, generator=g), "cls": torch.randint(0, 4, (2, 8), generator=g),
+             "bboxes": torch.rand(2, 8, 4, generator=g) * 0.4 + 0.1, "mask": mask}
+    m = tr.step(batch)
+    assert all(math.isfinite(v) for v in m.values()) and m["stepped"] == 1.0
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3, 1]
