@@ -16,25 +16,40 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    (16, 100, 300) from the matcher's cost over a VisDrone-like batch with an
    over-full and a contested image (identical assignments). Times from CUDA
    events, warm; the bound from this run's bytes and operations.
-4. parity: the full-width `tamtr.yaml` model (nc=10) at 128 px, batch 2,
+   Then the kernels of the one-direction scan and the scatters, and the
+   auction at any size: B6 `selective_scan` at G = 4 (one image x 4
+   directions) and (L, Din) = (25600, 256), (6400, 512), (1600, 1024),
+   N = 16 (1e-4); B7 `scatter_acc` (the value gradient of `weighted_gather`)
+   at value (4, 33600, 8, 64), Q = 700, p4 = 48 (1e-5); B8
+   `scatter_acc_pairs` at G = 32, L2 = 33600, c = 64, Q = 700, 24 pairs per
+   query (1e-5); B5 at 160 problems of (100, 300) and 16 of (100, 600),
+   beyond a block's shared memory, over-full problems in both (identical
+   assignments). B7 and B8 beside `scatter_add_` of the same updates.
+4. ops: the public ops that reach B6-B8, with every launch counter zeroed
+   just before and read just after: `nn.ssm.selective_scan` forward and
+   backward at the three level shapes, `weighted_gather` forward and
+   backward and `scatter_acc_pairs` at the decoder shapes. Each of B6-B8
+   must have launched; no model path reaches them, so serve and train
+   count 0 for them.
+5. parity: the full-width `tamtr.yaml` model (nc=10) at 128 px, batch 2,
    on the card and on the CPU with the same state dict, compared as a
    tie-robust set at 1e-3. The whole run keeps TF32 off (full fp32).
-5. train parity: the same model at 128 px, batch 2, max_gt 8, CDN noise
+6. train parity: the same model at 128 px, batch 2, max_gt 8, CDN noise
    and DropPath off: loss components, assignments, gradients and the
    parameters after one `Trainer.step`, card against CPU; the gradients with
    the CPU's assignment and top-k order held fixed, bounded against the fp32
    noise floor a CPU fp64 pass measures (`check_train_parity`).
-6. serve: `TAMTR("tamtr.yaml", nc=10)` on the card answers a warm-up
+7. serve: `TAMTR("tamtr.yaml", nc=10)` on the card answers a warm-up
    request at batch 1 and at batch 4, then 5 batch-1 requests and one
    batch-4 request of 1360x765 uint8 images (resized to 640 px on the card).
-   The forward kernels' launch counters are zeroed just before and read
-   just after: each must equal 3 per forward.
-7. train: `TAMTR(...).trainer()` on `tamtr.yaml` at 640 px, batch 4,
+   Every launch counter is zeroed just before and read just after: each
+   forward kernel's must equal 3 per forward, every other 0.
+8. train: `TAMTR(...).trainer()` on `tamtr.yaml` at 640 px, batch 4,
    max_gt 300, accumulate 1, seeded synthetic batches (uint8 frames, 10
    classes, 30-250 valid gts per image, one over-full image); 2 warm-up
    steps, then every launch counter is zeroed, 5 timed steps run, and the
    counters must equal `TRAIN_LAUNCHES_PER_STEP` times 5.
-8. One JSON line of per-kernel numbers, then the result line
+9. One JSON line of per-kernel numbers, then the result line
    `{"ok": true, "device": {...}}` last.
 """
 
@@ -66,19 +81,38 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 # transposed solve because the batch holds an over-full image
 TRAIN_LAUNCHES_PER_STEP = {
     "ss2d_scan_fwd": 3, "bilinear_gather_fwd": 3, "ss2d_scan_carriers": 3, "ss2d_scan_bwd_walk": 3,
-    "bilinear_gather_bwd": 3, "auction_match": 2,
+    "bilinear_gather_bwd": 3, "auction_match": 2, "selective_scan_fwd": 0, "scatter_acc": 0,
+    "scatter_acc_pairs": 0,
 }
+# launches of the ops phase: the scan at the three levels, one weighted
+# gather's backward, one pair scatter
+OPS_LAUNCHES = {"selective_scan_fwd": 3, "scatter_acc": 1, "scatter_acc_pairs": 1}
+# the decoder's sampling at 640 px: batch 4, Q = 700 (dn queries included)
+DEFORM_B, DEFORM_Q = 4, 700
 
 
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from tamtr_torch.kernels.auction import auction_match
-    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_bwd
-    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers
+    from tamtr_torch.kernels.deform_scatter import (
+        bilinear_gather, bilinear_gather_bwd, scatter_acc, scatter_acc_pairs,
+    )
+    from tamtr_torch.kernels.selective_scan import (
+        selective_scan, ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers,
+    )
 
     return {"ss2d_scan_fwd": ss2d_scan, "bilinear_gather_fwd": bilinear_gather,
             "ss2d_scan_carriers": ss2d_scan_carriers, "ss2d_scan_bwd_walk": ss2d_scan_bwd_walk,
-            "bilinear_gather_bwd": bilinear_gather_bwd, "auction_match": auction_match}
+            "bilinear_gather_bwd": bilinear_gather_bwd, "auction_match": auction_match,
+            "selective_scan_fwd": selective_scan, "scatter_acc": scatter_acc,
+            "scatter_acc_pairs": scatter_acc_pairs}
+
+
+def zero_counters():
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    return counters
 
 
 def synthetic_batch(seed: int, B: int, imgsz: int, M: int, n_valid, nc: int = 10, hd: int = 512):
@@ -358,22 +392,32 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e), e_fwd
 
 
+def matcher_costs(seed: int, n_images: int, M: int, n_valid, dev, nq: int = 100):
+    """The matcher's cost (4 n_images, nq, M) for 4 matched decoder layers
+    over a VisDrone-like batch of n_images (random predictions, M gt slots,
+    n_valid[i] valid), and its gt mask."""
+    from tamtr_torch.losses.matcher import match_cost
+
+    batch = synthetic_batch(seed, n_images, 64, M, n_valid)
+    g = torch.Generator().manual_seed(seed)
+    n = 4 * n_images
+    pred_b = torch.cat([torch.rand(n, nq, 2, generator=g), torch.rand(n, nq, 2, generator=g) * 0.1 + 0.005], -1)
+    pred_s = torch.randn(n, nq, 10, generator=g) * 2 - 3
+    gt = {k: torch.from_numpy(batch[k]).repeat(4, *([1] * (batch[k].ndim - 1))) for k in ("bboxes", "cls", "mask")}
+    C = match_cost(pred_b.to(dev), pred_s.to(dev), gt["bboxes"].to(dev), gt["cls"].to(dev))
+    return C, gt["mask"].to(dev)
+
+
 def check_auction(dev):
     """Kernel B5 vs the plain auction on the matcher's cost over a
     VisDrone-like batch (4 matched layers x 4 images: cost (16, 100, 300),
     one over-full and one contested image): identical assignments from the
     forward solve, the transposed solve and the whole assignment."""
     from tamtr_torch.kernels.auction import _rounds_ref, auction_match, auction_setup
-    from tamtr_torch.losses.matcher import auction_assignment, match_cost
+    from tamtr_torch.losses.matcher import auction_assignment
 
-    batch = synthetic_batch(13, TRAIN_BATCH, 64, TRAIN_MAX_GT, TRAIN_VALID)
-    g = torch.Generator().manual_seed(13)
     n, nq = 4 * TRAIN_BATCH, 100
-    pred_b = torch.cat([torch.rand(n, nq, 2, generator=g), torch.rand(n, nq, 2, generator=g) * 0.1 + 0.005], -1)
-    pred_s = torch.randn(n, nq, 10, generator=g) * 2 - 3
-    gt = {k: torch.from_numpy(batch[k]).repeat(4, *([1] * (batch[k].ndim - 1))) for k in ("bboxes", "cls", "mask")}
-    C = match_cost(pred_b.to(dev), pred_s.to(dev), gt["bboxes"].to(dev), gt["cls"].to(dev))
-    mask = gt["mask"].to(dev)
+    C, mask = matcher_costs(13, TRAIN_BATCH, TRAIN_MAX_GT, TRAIN_VALID, dev)
     qmask = torch.ones((n, nq), dtype=torch.bool, device=dev)
     Ct = C.transpose(1, 2).contiguous()
     solves = [(C, mask, None), (Ct, qmask, mask)]
@@ -404,6 +448,204 @@ def check_auction(dev):
         raise AssertionError("auction kernel assignments differ from the plain auction's")
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=e,
                 rounds=list(rounds))
+
+
+def check_auction_any_size(dev):
+    """Kernel B5 where a cooperative launch of one resident block per
+    problem refused: 160 problems of (100, 300) (4 matched layers x 40
+    images, more blocks than the card's 132 SMs) and 16 of (100, 600), whose
+    value block exceeds a block's shared memory; over-full images in both
+    (their rounds run on to the batch's stop). Identical assignments to the
+    plain auction on the same inputs."""
+    from tamtr_torch.kernels.auction import auction_match, auction_match_ref
+
+    rows = {}
+    for name, n_images, M, valid in (("problems160_m300", 40, 300, TRAIN_VALID * 10),
+                                     ("problems16_m600", 4, 600, (560, 80, 30, 60))):
+        C, mask = matcher_costs(15, n_images, M, valid, dev)
+        got, want = auction_match(C, mask), auction_match_ref(C, mask)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        ms = cuda_ms(lambda: auction_match(C, mask), iters=3)
+        plain = cuda_ms(lambda: auction_match_ref(C, mask), iters=1, warmup=0)
+        print(f"auction_match cost {tuple(C.shape)}: assignments identical {differ == 0} (differing entries "
+              f"{differ}), assigned per problem min {int((got >= 0).sum(1).min())} max "
+              f"{int((got >= 0).sum(1).max())}, ms={ms:.4f} plain_ms={plain:.3f}", flush=True)
+        if differ:
+            raise AssertionError(f"auction kernel assignments differ from the plain auction's at {tuple(C.shape)}")
+        rows[name] = dict(shape=list(C.shape), ms=ms, plain_ms=plain, differing=differ)
+    return rows
+
+
+def scan1d_inputs(g, L: int, Din: int, dev, G: int = 4, N: int = 16):
+    """One-direction scan inputs at one level: G = one image x 4 directions,
+    delta from the model's dt init (softplus of dt_b plus a small
+    projection), A and D as the model initialises them; and a dy."""
+    from tamtr_torch.kernels.selective_scan import softplus
+    from tamtr_torch.weights import dt_bias_init
+
+    u = torch.randn(G, L, Din, generator=g)
+    delta = softplus(torch.randn(G, L, Din, generator=g) * 0.1 + dt_bias_init((G, 1, Din), g))
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(G, Din, N).contiguous()
+    Bs, Cs = torch.randn(G, L, N, generator=g), torch.randn(G, L, N, generator=g)
+    dy = torch.randn(G, L, Din, generator=g)
+    return [t.to(dev) for t in (u, delta, A, Bs, Cs, torch.ones(G, Din))], dy.to(dev)
+
+
+def check_selective_scan(dev):
+    """Kernel B6 vs the plain one-direction scan at the three 640 px levels."""
+    from tamtr_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+
+    g = torch.Generator().manual_seed(16)
+    rows, err = [], 0.0
+    for H, W, C in LEVELS_640:
+        args, _ = scan1d_inputs(g, H * W, 2 * C, dev)
+        G, L, Din = args[0].shape
+        N = args[2].shape[-1]
+        y, want = selective_scan(*args), selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        e = (y - want).abs().max().item()
+        ok = torch.allclose(y, want, atol=1e-4, rtol=1e-4) and bool(torch.isfinite(y).all())
+        ms = cuda_ms(lambda: selective_scan(*args), iters=5)
+        plain = cuda_ms(lambda: selective_scan_ref(*args), iters=2)
+        # bytes: u, delta, B, C, A and D read once, y written once; operations
+        # per (g, t, d, n): dt A, exp, a h, (dt u) B, the add, C h and the sum
+        # over n; per (g, t, d): dt u and the D skip
+        nbytes = 4 * (3 * G * L * Din + 2 * G * L * N + G * Din * N + G * Din)
+        flops = G * L * Din * (7 * N + 3)
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(L=L, Din=Din, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
+        print(f"selective_scan_fwd G={G} L={L} Din={Din} N={N}: max_abs_err={e:.3g} ms={ms:.4f} "
+              f"plain_ms={plain:.3f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if not ok:
+            raise AssertionError(f"selective_scan kernel disagrees with its plain version at L={L}: {e}")
+        err = max(err, e)
+        del args, y, want
+    return rows, err
+
+
+def decoder_scatter_inputs(seed: int, dev):
+    """value (4, 33600, 8, 64) and the decoder's sampling at 640 px, Q = 700,
+    with a dout: the generic gather's corner indices and weights (idx4, w4,
+    p4 = 48) and the pair scatter's (idx2, wa, wb) (32, 16800) with dout
+    (32, 700, 64), its pairs moved off the global last row as the callers of
+    `_scatter_acc_pairs` do."""
+    from tamtr_torch.kernels.deform_scatter import _shift_last_row
+    from tamtr_torch.nn.decoder import deform_sampling_pairs
+
+    shapes = [(h, w) for h, w, _ in LEVELS_640]
+    Lv = sum(h * w for h, w in shapes)
+    g = torch.Generator().manual_seed(seed)
+    value, loc, w_att = deform_inputs(g, DEFORM_B, DEFORM_Q, shapes, dev)
+    _, _, nh, c = value.shape
+    dout = torch.randn(DEFORM_B, DEFORM_Q, nh, c, generator=g).to(dev)
+    idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
+    nU, nU2 = idx4.shape[1], idx2.shape[1]
+    w4 = w_pairs.transpose(2, 3).reshape(DEFORM_B, nU, nh).contiguous()
+    i2, wp, _ = _shift_last_row(idx2, w_pairs, Lv)
+    G = DEFORM_B * nh
+    per_g = lambda t: t.transpose(1, 2).reshape(G, nU2).contiguous()  # noqa: E731
+    pairs = (per_g(i2).to(torch.int32), per_g(wp[..., 0]), per_g(wp[..., 1]),
+             dout.transpose(1, 2).reshape(G, DEFORM_Q, c).contiguous())
+    if int(pairs[0].max()) != Lv - 2:
+        raise AssertionError("no pair starts at L2 - 2: the last-cell sample point is missing")
+    return value, (idx4, w4, dout), pairs, Lv
+
+
+def check_scatter_acc(dev, value, gather_args, Lv: int):
+    """Kernel B7 (the value gradient of `weighted_gather`) vs its plain
+    version at the decoder shape, and `scatter_add_` of the same updates."""
+    from tamtr_torch.kernels.deform_scatter import scatter_acc, scatter_acc_ref
+
+    idx4, w4, dout = gather_args
+    B, nU, nh = idx4.shape
+    c = dout.shape[-1]
+    got, want = scatter_acc(idx4, w4, dout, Lv), scatter_acc_ref(idx4, w4, dout, Lv)
+    upd = w4[..., None] * dout.repeat_interleave(nU // DEFORM_Q, 1)
+    index = idx4.long()[..., None].expand(B, nU, nh, c)
+    lib = torch.zeros_like(value).scatter_add_(1, index, upd)
+    torch.cuda.synchronize()
+    e, e_lib = (got - want).abs().max().item(), (lib - want).abs().max().item()
+    ms = cuda_ms(lambda: scatter_acc(idx4, w4, dout, Lv), iters=20)
+    plain = cuda_ms(lambda: scatter_acc_ref(idx4, w4, dout, Lv), iters=5)
+    lib_ms = cuda_ms(lambda: torch.zeros_like(value).scatter_add_(1, index, upd), iters=5)
+    # bytes: dvalue written once (all of it), dout, idx and w read once;
+    # operations: a multiply and an add per update and channel
+    nbytes = 4 * (value.numel() + dout.numel() + idx4.numel() + w4.numel())
+    flops = 2 * B * nU * nh * c
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"scatter_acc value {tuple(value.shape)} Q={DEFORM_Q} p4={nU // DEFORM_Q}: max_abs_err={e:.3g} "
+          f"(scatter_add_ vs plain {e_lib:.3g}) ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib_ms:.4f} "
+          f"(scatter_add_) bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    if not (torch.allclose(got, want, atol=1e-5, rtol=1e-5) and e_lib < 1e-4):
+        raise AssertionError(f"scatter_acc kernel disagrees with its plain version: {e}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e)
+
+
+def check_scatter_acc_pairs(dev, pairs, L2: int):
+    """Kernel B8 vs its plain version at G = 32, L2 = 33600, c = 64, Q = 700,
+    and the two `scatter_add_`s of the same updates."""
+    from tamtr_torch.kernels.deform_scatter import scatter_acc_pairs, scatter_acc_pairs_ref
+
+    idx2, wa, wb, dout = pairs
+    G, nU2 = idx2.shape
+    c = dout.shape[-1]
+    got, want = scatter_acc_pairs(*pairs, L2), scatter_acc_pairs_ref(*pairs, L2)
+    d = dout.repeat_interleave(nU2 // DEFORM_Q, 1)
+    ua, ub = wa[..., None] * d, wb[..., None] * d
+    ia = idx2.long()[..., None].expand(G, nU2, c)
+    ib = ia + 1
+    lib_fn = lambda: torch.zeros(G, L2, c, device=dev).scatter_add_(1, ia, ua).scatter_add_(1, ib, ub)  # noqa: E731
+    lib = lib_fn()
+    torch.cuda.synchronize()
+    e, e_lib = (got - want).abs().max().item(), (lib - want).abs().max().item()
+    ms = cuda_ms(lambda: scatter_acc_pairs(*pairs, L2), iters=20)
+    plain = cuda_ms(lambda: scatter_acc_pairs_ref(*pairs, L2), iters=5)
+    lib_ms = cuda_ms(lib_fn, iters=5)
+    # bytes: the output written once (all of it), dout, idx2, wa and wb read
+    # once; operations: two multiplies and two adds per pair and channel
+    nbytes = 4 * (G * L2 * c + dout.numel() + 3 * G * nU2)
+    flops = 4 * G * nU2 * c
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"scatter_acc_pairs G={G} L2={L2} c={c} Q={DEFORM_Q} pairs/query={nU2 // DEFORM_Q}: "
+          f"max_abs_err={e:.3g} (scatter_add_ vs plain {e_lib:.3g}) ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms={lib_ms:.4f} (2 x scatter_add_) bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    if not (torch.allclose(got, want, atol=1e-5, rtol=1e-5) and e_lib < 1e-4):
+        raise AssertionError(f"scatter_acc_pairs kernel disagrees with its plain version: {e}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e)
+
+
+def drive_ops(dev):
+    """This slice's path: the public ops that reach B6-B8, through the entry
+    points a user calls, at the 640 px shapes. Inputs are made first; every
+    launch counter is zeroed just before the ops run and read just after."""
+    from tamtr_torch.kernels.deform_scatter import scatter_acc_pairs, weighted_gather
+    from tamtr_torch.nn.ssm import selective_scan
+
+    g = torch.Generator().manual_seed(21)
+    scans = [scan1d_inputs(g, H * W, 2 * C, dev) for H, W, C in LEVELS_640]
+    value, (idx4, w4, dout), pairs, Lv = decoder_scatter_inputs(22, dev)
+    leaves = [[t.requires_grad_() for t in args] for args, _ in scans]
+    v, w = value.requires_grad_(), w4.requires_grad_()
+    counters = zero_counters()
+    outs = []
+    for ts, (_, dy) in zip(leaves, scans):
+        y = selective_scan(*ts)
+        outs += [y, *torch.autograd.grad(y, ts, dy)]
+    out = weighted_gather(v, idx4, w, idx4.shape[1] // DEFORM_Q)
+    outs += [out, *torch.autograd.grad(out, (v, w), dout)]
+    outs.append(scatter_acc_pairs(*pairs, Lv))
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want = {k: OPS_LAUNCHES.get(k, 0) for k in counters}
+    finite = all(bool(torch.isfinite(t).all()) for t in outs)
+    shapes = ([tuple(t.shape) for t in outs[-4:-1]] == [(DEFORM_B, DEFORM_Q, 8, 64), tuple(value.shape), tuple(w4.shape)]
+              and tuple(outs[-1].shape) == (pairs[0].shape[0], Lv, 64))
+    print(f"ops: selective_scan fwd+bwd at 3 levels, weighted_gather fwd+bwd, scatter_acc_pairs: outputs finite "
+          f"{finite}, shapes {shapes}, launches {launches}", flush=True)
+    if not (finite and shapes and launches == want):
+        raise AssertionError(f"ops path: finite {finite}, shapes {shapes}, launches {launches}; want {want}")
+    return launches
 
 
 @torch.no_grad()
@@ -600,9 +842,7 @@ def train(dev):
     torch.cuda.reset_peak_memory_stats()
     for b in batches[:WARMUP_STEPS]:  # first steps pick cuDNN algorithms
         tr.step(b)
-    counters = launch_counters()
-    for f in counters.values():
-        f.launches = 0
+    counters = zero_counters()
     times, logs = [], []
     for b in batches[WARMUP_STEPS:]:
         t0 = time.perf_counter()
@@ -630,8 +870,6 @@ def train(dev):
 def serve(dev):
     """The main path: predict requests through the public entry point."""
     from tamtr_torch import TAMTR
-    from tamtr_torch.kernels.deform_scatter import bilinear_gather
-    from tamtr_torch.kernels.selective_scan import ss2d_scan
 
     det = TAMTR("tamtr.yaml", nc=10, seed=0)
     spread_scores(det.model, seed=1)
@@ -640,8 +878,7 @@ def serve(dev):
     text /= np.linalg.norm(text, axis=-1, keepdims=True)
     frames = [rng.integers(0, 256, (765, 1360, 3), dtype=np.uint8) for _ in range(4)]
     torch.cuda.reset_peak_memory_stats()
-    ss2d_scan.launches = 0
-    bilinear_gather.launches = 0
+    counters = zero_counters()
     forwards, times = 0, {"b1": [], "b4": []}
 
     def request(images, key=None):
@@ -663,10 +900,11 @@ def serve(dev):
     for i in range(5):
         res = request(frames[i % 4], "b1")
     res4 = request(frames, "b4")
-    launches = {"ss2d_scan_fwd": ss2d_scan.launches, "bilinear_gather_fwd": bilinear_gather.launches}
+    launches = {k: f.launches for k, f in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    if len(res4) != 4 or any(v != 3 * forwards for v in launches.values()):
-        raise AssertionError(f"launches {launches} after {forwards} forwards; want 3 per forward")
+    want = {k: 3 * forwards if k in ("ss2d_scan_fwd", "bilinear_gather_fwd") else 0 for k in counters}
+    if len(res4) != 4 or launches != want:
+        raise AssertionError(f"launches {launches} after {forwards} forwards; want {want}")
     print(f"serve tamtr.yaml 640px: batch-1 ms {[round(t, 3) for t in times['b1']]}, "
           f"batch-4 ms {[round(t, 3) for t in times['b4']]}, detections/image {len(res[0]['scores'])}, "
           f"max_memory_allocated {peak / 2**20:.1f} MiB, forwards {forwards}, launches {launches}",
@@ -700,10 +938,21 @@ def main() -> int:
     bwd_rows, bwd_err, scan_err_b4 = check_ss2d_scan_bwd(dev)
     gather_bwd, gather_err_b4 = check_bilinear_gather_bwd(dev)
     auction = check_auction(dev)
+    auction_any = check_auction_any_size(dev)
+    scan1d_rows, scan1d_err = check_selective_scan(dev)
+    value, gather_args, pairs, Lv = decoder_scatter_inputs(17, dev)
+    scatter = check_scatter_acc(dev, value, gather_args, Lv)
+    scatter_pairs = check_scatter_acc_pairs(dev, pairs, Lv)
+    del value, gather_args, pairs
+    ops_launches = drive_ops(dev)
     check_parity(dev)
     check_train_parity(dev)
     launches = serve(dev)
     train_launches, _, _ = train(dev)
+
+    def slice3(name, reached_through):
+        return dict(launches=ops_launches[name], launches_serve=launches[name],
+                    launches_train=train_launches[name], reached_through=reached_through)
 
     kernels = [
         dict(name="ss2d_scan_fwd", route="cuda", source="tamtr_torch/csrc/ss2d_scan_fwd.cu",
@@ -730,7 +979,21 @@ def main() -> int:
              replaces="tamtr_tpu/kernels/deform_scatter.py:283", launches=train_launches["bilinear_gather_bwd"],
              **gather_bwd),
         dict(name="auction_match", route="cuda", source="tamtr_torch/csrc/auction.cu",
-             replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_match"], **auction),
+             replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_match"], **auction,
+             any_size=auction_any),
+        dict(name="selective_scan_fwd", route="cuda", source="tamtr_torch/csrc/selective_scan_fwd.cu",
+             replaces="tamtr_tpu/kernels/selective_scan.py:72",
+             **slice3("selective_scan_fwd", "tamtr_torch.nn.ssm.selective_scan"), max_abs_err=scan1d_err,
+             ms=sum(r["ms"] for r in scan1d_rows), plain_ms=sum(r["plain_ms"] for r in scan1d_rows),
+             bound_ms=sum(r["bound_ms"] for r in scan1d_rows),
+             bound_by=max(scan1d_rows, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
+             per_level=scan1d_rows),
+        dict(name="scatter_acc", route="cuda", source="tamtr_torch/csrc/deform_scatter.cu",
+             replaces="tamtr_tpu/kernels/deform_scatter.py:86",
+             **slice3("scatter_acc", "tamtr_torch.kernels.deform_scatter.weighted_gather (backward)"), **scatter),
+        dict(name="scatter_acc_pairs", route="cuda", source="tamtr_torch/csrc/deform_scatter.cu",
+             replaces="tamtr_tpu/kernels/deform_scatter.py:359",
+             **slice3("scatter_acc_pairs", "tamtr_torch.kernels.deform_scatter.scatter_acc_pairs"), **scatter_pairs),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

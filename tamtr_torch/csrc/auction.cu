@@ -17,20 +17,26 @@
 // The JAX while_loop stops when every problem of the batch has
 // min(#valid, #objects) persons assigned, or after max_rounds. A problem
 // that is done with persons still unassigned (more bidders than objects)
-// keeps bidding until the whole batch stops; this kernel does the same: each
-// block runs its own problem until it is done, reports its round count,
-// and, if it still has unassigned persons, waits for every block's count
-// and runs on to the batch's maximum (a round without bids ends it early:
-// nothing can change after it). The blocks must therefore all be resident
-// at once: the launch is cooperative and fails if they cannot be.
+// keeps bidding until the whole batch stops. The count of assigned persons
+// never falls (an owned object stays owned), so the batch stops after
+// R = max over problems of each one's own stopping round. Two launches give
+// the same rounds for any batch size, with no block waiting on another:
+//   1. every problem runs to its own stop, stores its assignment, and adds
+//      its round count to R with an atomicMax; a problem left with
+//      unassigned persons also stores its prices, owners and round count;
+//   2. those problems alone reload their state and run on to R (a round
+//      without bids ends one early: nothing can change after it). The other
+//      blocks return at once. R stays on the device: no host read.
 //
-// Design: one block per problem; value (nq x M), prices, owners and the
-// assignment live in shared memory (100 x 300 fp32 is 120 KB, above the
-// default 48 KB, so the launch opts in to more). A person's scan over the
-// objects reads value[q][m] with consecutive threads on consecutive m. The
-// per-object best bid is one 64-bit atomicMax on (ordered bid bits, ~m), so
-// the highest bid wins and equal bids go to the lowest m, as jnp.argmax
-// picks. The result is bitwise deterministic.
+// Design: one block per problem; prices, owners and the assignment live in
+// shared memory. value (nq x M) does too where it fits the block's opt-in
+// limit (100 x 300 fp32 is 120 KB); above it (with nq = 100, M beyond about
+// 560) a second instantiation reads value from device memory, where one
+// problem's 0.24 MB at M = 600 stays in L2 across its rounds. A person's
+// scan over the objects reads value[q][m] with consecutive threads on
+// consecutive m. The per-object best bid is one 64-bit atomicMax on
+// (ordered bid bits, ~m), so the highest bid wins and equal bids go to the
+// lowest m, as jnp.argmax picks. The result is bitwise deterministic.
 //
 // Bound on the card: value read once, the assignment written once (0.12 MB
 // per problem), and rounds x nq x M compare-and-subtract operations; at
@@ -64,7 +70,7 @@ __device__ __forceinline__ int key_person(unsigned long long key) {
 
 struct Problem {
   unsigned long long* key;  // [nq] best bid per object this round
-  float* val;               // [nq][M]
+  const float* val;         // [nq][M], in shared or device memory
   float* price;             // [nq]
   int* owner;               // [nq]
   int* asg;                 // [M] object of each person, -1 if none
@@ -114,102 +120,137 @@ __device__ bool auction_round(const Problem& p, int* s_flag) {
   return *s_flag != 0;
 }
 
+// Launch 1 (resume == 0) or launch 2 (resume == 1) of the header's scheme.
+// assigned (B, M) holds each problem's assignment between the launches;
+// price_g, owner_g (B, nq) and rounds_g (B,) the state of the problems that
+// run on (rounds_g < 0 for the others); ctrl[0] the batch's round count R.
+template <bool kValueInSmem>
 __global__ void __launch_bounds__(kThreads) auction_kernel(
     const float* __restrict__ value, const float* __restrict__ eps,
     const unsigned char* __restrict__ gt_mask, const int* __restrict__ target,
-    int* __restrict__ assigned, int* ctrl, int nq, int M, int max_rounds) {
+    int* __restrict__ assigned, float* __restrict__ price_g, int* __restrict__ owner_g,
+    int* __restrict__ rounds_g, int* ctrl, int nq, int M, int max_rounds, int resume) {
   extern __shared__ unsigned long long smem_u64[];
-  __shared__ int s_count, s_flag, s_rounds;
+  __shared__ int s_count, s_flag;
   const int tid = threadIdx.x, b = blockIdx.x;
+  int r = 0;
+  if (resume) {
+    r = rounds_g[b];
+    if (r < 0) return;  // block-uniform: this problem stopped for good in launch 1
+  }
+  const float* val_b = value + (long long)b * nq * M;
   Problem p;
   p.key = smem_u64;
-  p.val = reinterpret_cast<float*>(p.key + nq);
-  p.price = p.val + (long long)nq * M;
+  float* s_val = reinterpret_cast<float*>(p.key + nq);
+  p.price = s_val + (kValueInSmem ? (long long)nq * M : 0);
   p.owner = reinterpret_cast<int*>(p.price + nq);
   p.asg = p.owner + nq;
   p.valid = p.asg + M;
+  p.val = kValueInSmem ? s_val : val_b;
   p.nq = nq;
   p.M = M;
   p.eps = eps[b];
+  int* asg_b = assigned + (long long)b * M;
 
-  const float* val_b = value + (long long)b * nq * M;
-  for (int i = tid; i < nq * M; i += kThreads) p.val[i] = val_b[i];
+  if (kValueInSmem)
+    for (int i = tid; i < nq * M; i += kThreads) s_val[i] = val_b[i];
   for (int q = tid; q < nq; q += kThreads) {
-    p.price[q] = 0.f;
-    p.owner[q] = -1;
+    p.price[q] = resume ? price_g[(long long)b * nq + q] : 0.f;
+    p.owner[q] = resume ? owner_g[(long long)b * nq + q] : -1;
   }
   for (int m = tid; m < M; m += kThreads) {
-    p.asg[m] = -1;
+    p.asg[m] = resume ? asg_b[m] : -1;
     p.valid[m] = gt_mask[(long long)b * M + m] != 0;
   }
-  const int tgt = target[b];
   __syncthreads();
 
-  // this problem's own rounds: until min(#valid, #objects) are assigned
-  int r = 0;
-  for (;;) {
-    if (tid == 0) s_count = 0;
-    __syncthreads();
-    int c = 0;
-    for (int m = tid; m < M; m += kThreads) c += p.asg[m] >= 0;
-    if (c) atomicAdd(&s_count, c);
-    __syncthreads();
-    if (s_count >= tgt || r >= max_rounds) break;
-    auction_round(p, &s_flag);
-    ++r;
-  }
-  if (tid == 0) {
-    atomicMax(&ctrl[1], r);
-    __threadfence();
-    atomicAdd(&ctrl[0], 1);
-  }
-  // done with persons still unassigned: run on to the batch's round count
-  if (r < max_rounds) {
-    if (tid == 0) s_flag = 0;
-    __syncthreads();
-    for (int m = tid; m < M; m += kThreads)
-      if (p.valid[m] && p.asg[m] < 0) s_flag = 1;
-    __syncthreads();
-    if (s_flag) {
-      if (tid == 0) {
-        while (atomicAdd(&ctrl[0], 0) < (int)gridDim.x) __nanosleep(256);
-        s_rounds = atomicAdd(&ctrl[1], 0);
-      }
-      __syncthreads();
-      const int R = s_rounds;
-      while (r < R) {
-        ++r;
-        if (!auction_round(p, &s_flag)) break;
-      }
+  if (resume) {
+    const int R = ctrl[0];  // final: launch 1 has finished
+    while (r < R) {
+      ++r;
+      if (!auction_round(p, &s_flag)) break;
     }
+  } else {
+    // this problem's own rounds: until min(#valid, #objects) are assigned
+    const int tgt = target[b];
+    for (;;) {
+      if (tid == 0) s_count = 0;
+      __syncthreads();
+      int c = 0;
+      for (int m = tid; m < M; m += kThreads) c += p.asg[m] >= 0;
+      if (c) atomicAdd(&s_count, c);
+      __syncthreads();
+      if (s_count >= tgt || r >= max_rounds) break;
+      auction_round(p, &s_flag);
+      ++r;
+    }
+    if (tid == 0) {
+      atomicMax(ctrl, r);
+      s_flag = 0;
+    }
+    __syncthreads();
+    // done with valid persons still unassigned: launch 2 runs it on
+    if (r < max_rounds)
+      for (int m = tid; m < M; m += kThreads)
+        if (p.valid[m] && p.asg[m] < 0) s_flag = 1;
+    __syncthreads();
+    if (tid == 0) rounds_g[b] = s_flag ? r : -1;
+    if (s_flag)
+      for (int q = tid; q < nq; q += kThreads) {
+        price_g[(long long)b * nq + q] = p.price[q];
+        owner_g[(long long)b * nq + q] = p.owner[q];
+      }
   }
-  for (int m = tid; m < M; m += kThreads)
-    assigned[(long long)b * M + m] = p.valid[m] ? p.asg[m] : -1;
+  // invalid persons never bid, so their entries stay -1
+  for (int m = tid; m < M; m += kThreads) asg_b[m] = p.asg[m];
 }
 
-size_t smem_bytes(int nq, int M) {
-  return sizeof(unsigned long long) * nq + sizeof(float) * ((size_t)nq * M + nq) +
+size_t smem_bytes(int nq, int M, bool value_in_smem) {
+  return sizeof(unsigned long long) * nq +
+         sizeof(float) * ((value_in_smem ? (size_t)nq * M : 0) + nq) +
          sizeof(int) * (nq + 2 * (size_t)M);
+}
+
+template <bool kValueInSmem>
+cudaError_t launch_both(const float* value, const float* eps, const unsigned char* gt_mask,
+                        const int* target, int* assigned, float* price, int* owner, int* rounds,
+                        int* ctrl, int B, int nq, int M, int max_rounds, size_t smem,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(auction_kernel<kValueInSmem>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  for (int resume = 0; resume < 2; ++resume) {
+    auction_kernel<kValueInSmem><<<B, kThreads, smem, stream>>>(
+        value, eps, gt_mask, target, assigned, price, owner, rounds, ctrl, nq, M, max_rounds,
+        resume);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // value (B, nq, M) maximised, NEG at invalid pairs; eps (B,); gt_mask (B, M)
-// bool; target (B,) int32; assigned (B, M) int32 out; ctrl (2,) int32 zeroed
-// (finished blocks, their largest round count).
+// bool; target (B,) int32; assigned (B, M) int32 out; price (B, nq) fp32,
+// owner (B, nq) and rounds (B,) int32 scratch; ctrl (1,) int32 zeroed (the
+// batch's round count).
 extern "C" int auction_match(const float* value, const float* eps, const unsigned char* gt_mask,
-                             const int* target, int* assigned, int* ctrl, int B, int nq, int M,
-                             int max_rounds, void* stream) {
+                             const int* target, int* assigned, float* price, int* owner,
+                             int* rounds, int* ctrl, int B, int nq, int M, int max_rounds,
+                             void* stream) {
   if (B < 1 || nq < 1 || M < 1 || max_rounds < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(nq, M);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(auction_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {(void*)&value, (void*)&eps, (void*)&gt_mask, (void*)&target,
-                  (void*)&assigned, (void*)&ctrl, (void*)&nq, (void*)&M, (void*)&max_rounds};
-  err = cudaLaunchCooperativeKernel((const void*)auction_kernel, dim3(B), dim3(kThreads), args,
-                                    smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (smem_bytes(nq, M, true) <= (size_t)optin)
+    return (int)launch_both<true>(value, eps, gt_mask, target, assigned, price, owner, rounds,
+                                  ctrl, B, nq, M, max_rounds, smem_bytes(nq, M, true), s);
+  if (smem_bytes(nq, M, false) <= (size_t)optin)
+    return (int)launch_both<false>(value, eps, gt_mask, target, assigned, price, owner, rounds,
+                                   ctrl, B, nq, M, max_rounds, smem_bytes(nq, M, false), s);
+  return (int)cudaErrorInvalidValue;
 }

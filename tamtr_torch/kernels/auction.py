@@ -11,9 +11,12 @@ go to the first index, as `jnp.argmax` picks.
 
 On a CUDA tensor it launches `csrc/auction.cu`, which runs every round on the
 device and stops by itself: an eager torch loop would have to ask the host
-after every round whether to go on. On a CPU tensor it runs
-`auction_match_ref`, the same rounds written with torch ops. Both share
-`auction_setup`, the prologue that turns costs into values, eps and targets.
+after every round whether to go on. It takes any batch and problem size:
+two launches keep the batch-wide stop without a cooperative launch, and
+value moves from shared to device memory where it outgrows the block. On a
+CPU tensor it runs `auction_match_ref`, the same rounds written with torch
+ops. Both share `auction_setup`, the prologue that turns costs into values,
+eps and targets.
 """
 
 from __future__ import annotations
@@ -99,19 +102,20 @@ def auction_match(cost, gt_mask, max_rounds: int = MAX_ROUNDS, row_mask=None) ->
         raise ValueError("auction_match: gt_mask must be a bool (B, M) tensor on the cost's device")
     value, eps, target = auction_setup(cost, gt_mask, row_mask)
     gt_mask, eps, target = gt_mask.contiguous(), eps.contiguous(), target.contiguous()
-    assigned = torch.empty((B, M), dtype=torch.int32, device=cost.device)
-    ctrl = torch.zeros(2, dtype=torch.int32, device=cost.device)
+    new = lambda *shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device=cost.device)  # noqa: E731
+    assigned, price, owner, rounds = new(B, M), new(B, nq, dtype=torch.float32), new(B, nq), new(B)
+    ctrl = torch.zeros(1, dtype=torch.int32, device=cost.device)
     rc = _lib().auction_match(
         value.data_ptr(), eps.data_ptr(), gt_mask.data_ptr(), target.data_ptr(),
-        assigned.data_ptr(), ctrl.data_ptr(), B, nq, M, max_rounds,
-        torch.cuda.current_stream(cost.device).cuda_stream,
+        assigned.data_ptr(), price.data_ptr(), owner.data_ptr(), rounds.data_ptr(), ctrl.data_ptr(),
+        B, nq, M, max_rounds, torch.cuda.current_stream(cost.device).cuda_stream,
     )
     _build.check(rc, "auction_match")
     auction_match.launches += 1
     return assigned
 
 
-auction_match.launches = 0  # kernel launches since the last reset
+auction_match.launches = 0  # kernel calls (each two launches of csrc/auction.cu) since the last reset
 
 
 def _lib() -> ctypes.CDLL:
@@ -119,6 +123,6 @@ def _lib() -> ctypes.CDLL:
     fn = lib.auction_match
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 4 + [p]
+        fn.argtypes = [p] * 9 + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib

@@ -1,4 +1,4 @@
-"""Deformable-attention bilinear pair gather: CUDA kernels and plain versions.
+"""Deformable-attention gathers and scatters: CUDA kernels and plain versions.
 
 Forward: `bilinear_gather` replaces the TPU kernel
 `tamtr_tpu/kernels/deform_scatter.py:_gather_pairs_kernel` (via
@@ -14,7 +14,16 @@ on CUDA tensors, `bilinear_gather_bwd_ref` on CPU ones. Both apply the
 last-row shift of the forward and swap dw back for shifted pairs, so
 gradients reach the value and the weights of the pair the caller gave.
 
-Arguments, as in the JAX package:
+Generic gather: `weighted_gather` (the JAX package's op of that name) is a
+`torch.autograd.Function` whose forward is the plain 4-corner gather and
+einsum (XLA in the JAX package too) and whose backward scatters dvalue with
+`scatter_acc`, replacing `_scatter_kernel` (via `_scatter_acc`): kernel B7 in
+`csrc/deform_scatter.cu` on CUDA tensors, `scatter_acc_ref` on CPU ones.
+`scatter_acc_pairs` replaces `_scatter_pairs_kernel` (via
+`_scatter_acc_pairs`), kernel B8 in the same source; nothing in either
+package calls it on a model path.
+
+Arguments of `bilinear_gather`, as in the JAX package:
   value (B, Lv, nh, c) multi-level features; idx4 (B, Q*P*4, nh) clipped flat
   corner rows; w_pairs (B, Q*P*2, nh, 2) corner weights times attention
   weight, one pair per bilinear row, pre-swapped by the caller when x0 < 0;
@@ -30,6 +39,10 @@ import ctypes
 import torch
 
 from tamtr_torch.kernels import _build
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _shift_last_row(idx2: torch.Tensor, w_pairs: torch.Tensor, Lv: int):
@@ -95,9 +108,9 @@ def _gather_fwd_cuda(value, idx2, w_pairs, P: int) -> torch.Tensor:
     B, Lv, nh, c = value.shape
     Q = idx2.shape[1] // ppq
     out = torch.empty((B, Q, nh, c), dtype=torch.float32, device=value.device)
-    rc = _lib("bilinear_gather_fwd").bilinear_gather_fwd(
+    rc = _entry("bilinear_gather_fwd", "bilinear_gather_fwd")(
         value.data_ptr(), idx2.data_ptr(), w_pairs.data_ptr(), out.data_ptr(),
-        B, Lv, nh, c, Q, ppq, torch.cuda.current_stream(value.device).cuda_stream,
+        B, Lv, nh, c, Q, ppq, _stream(value),
     )
     _build.check(rc, "bilinear_gather_fwd")
     bilinear_gather.launches += 1
@@ -120,10 +133,10 @@ def bilinear_gather_bwd(value, idx2, w_pairs, dout):
     dout = dout.contiguous()
     dvalue = torch.zeros_like(value)
     dw = torch.empty_like(w_pairs)
-    rc = _lib("bilinear_gather_bwd").bilinear_gather_bwd(
+    rc = _entry("bilinear_gather_bwd", "bilinear_gather_bwd")(
         value.data_ptr(), idx2.data_ptr(), w_pairs.data_ptr(), dout.data_ptr(), dvalue.data_ptr(),
         dw.data_ptr(), B, Lv, nh, c, Q, idx2.shape[1] // Q,
-        torch.cuda.current_stream(value.device).cuda_stream,
+        _stream(value),
     )
     _build.check(rc, "bilinear_gather_bwd")
     bilinear_gather_bwd.launches += 1
@@ -153,20 +166,144 @@ def bilinear_gather(value, idx4, w_pairs, idx2, P: int) -> torch.Tensor:
     return _BilinearGather.apply(value, idx4, w_pairs, idx2, P)
 
 
+def weighted_gather_ref(value, idx, w, p4: int) -> torch.Tensor:
+    """Plain generic gather (`_gather_fwd_impl`): value (B, L, nh, c); idx
+    (B, nU, nh) in [0, L); w (B, nU, nh); nU = Q p4 -> (B, Q, nh, c) in
+    value's dtype."""
+    B, _, nh, c = value.shape
+    nU = idx.shape[1]
+    g = torch.gather(value, 1, idx.long()[..., None].expand(B, nU, nh, c))
+    return torch.einsum("bqpnc,bqpn->bqnc", g.view(B, nU // p4, p4, nh, c),
+                        w.to(value.dtype).view(B, nU // p4, p4, nh))
+
+
+def scatter_acc_ref(idx, w, dout, L: int) -> torch.Tensor:
+    """Plain row scatter: dvalue (B, L, nh, c) fp32 with
+    dvalue[b, idx[b, u, h], h] += w[b, u, h] dout[b, u // p4, h]; idx, w
+    (B, nU, nh), dout (B, Q, nh, c), p4 = nU / Q."""
+    B, nU, nh = idx.shape
+    c = dout.shape[-1]
+    upd = w.float()[..., None] * dout.float().repeat_interleave(nU // dout.shape[1], 1)
+    rows = (torch.arange(B, device=idx.device)[:, None, None], idx.long(),
+            torch.arange(nh, device=idx.device)[None, None, :])
+    return dout.new_zeros((B, L, nh, c), dtype=torch.float32).index_put_(rows, upd, accumulate=True)
+
+
+def scatter_acc(idx, w, dout, L: int) -> torch.Tensor:
+    """The value gradient of `weighted_gather` (see `scatter_acc_ref`):
+    kernel B7 for CUDA tensors, the plain version for CPU ones. Both sum
+    colliding rows; the kernel with fp32 atomics, so its sums over shared
+    rows are not bitwise the same from run to run."""
+    if idx.device.type == "cpu":
+        return scatter_acc_ref(idx, w, dout, L)
+    if idx.device.type != "cuda":
+        raise RuntimeError(f"scatter_acc: no kernel for device {idx.device}")
+    B, nU, nh = idx.shape
+    Q, c = dout.shape[1], dout.shape[-1]
+    if idx.dtype != torch.int32 or w.dtype != torch.float32 or dout.dtype != torch.float32:
+        raise TypeError("scatter_acc: idx must be int32, w and dout float32")
+    if tuple(w.shape) != (B, nU, nh) or tuple(dout.shape) != (B, Q, nh, c) or nU % Q:
+        raise ValueError("scatter_acc: inconsistent shapes")
+    if w.device != idx.device or dout.device != idx.device:
+        raise ValueError("scatter_acc: inputs on different devices")
+    idx, w, dout = idx.contiguous(), w.contiguous(), dout.contiguous()
+    dvalue = torch.zeros((B, L, nh, c), dtype=torch.float32, device=idx.device)
+    rc = _entry("deform_scatter", "scatter_acc")(
+        idx.data_ptr(), w.data_ptr(), dout.data_ptr(), dvalue.data_ptr(), B, L, nh, c, Q, nU // Q,
+        _stream(idx),
+    )
+    _build.check(rc, "scatter_acc")
+    scatter_acc.launches += 1
+    return dvalue
+
+
+class _WeightedGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, idx, w, p4):
+        ctx.save_for_backward(value, idx, w)
+        ctx.p4 = p4
+        return weighted_gather_ref(value, idx, w, p4)
+
+    @staticmethod
+    def backward(ctx, dout):
+        value, idx, w = ctx.saved_tensors
+        B, L, nh, c = value.shape
+        dout32 = dout.float()
+        dvalue = scatter_acc(idx.to(torch.int32), w.float(), dout32, L)
+        g = torch.gather(value, 1, idx.long()[..., None].expand(B, idx.shape[1], nh, c)).float()
+        dw = torch.einsum("bqpnc,bqnc->bqpn", g.view(B, dout.shape[1], ctx.p4, nh, c), dout32)
+        return dvalue.to(value.dtype), None, dw.reshape(w.shape).to(w.dtype), None
+
+
+def weighted_gather(value, idx, w, p4: int) -> torch.Tensor:
+    """The generic weighted gather of `tamtr_tpu/kernels/deform_scatter.py`
+    (see `weighted_gather_ref`), differentiable in value and w: dvalue by
+    `scatter_acc` (kernel B7 on the card; not bitwise deterministic there,
+    see `scatter_acc`) in value's dtype, dw by the plain gather and einsum
+    in w's dtype. idx gets no gradient."""
+    if value.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"weighted_gather: no kernel for device {value.device}")
+    return _WeightedGather.apply(value, idx, w, p4)
+
+
+def scatter_acc_pairs_ref(idx2, wa, wb, dout, L2: int) -> torch.Tensor:
+    """Plain pair scatter: idx2 (G, nU2) pair starts in [0, L2 - 1); rows
+    idx2 and idx2 + 1 get wa dout and wb dout of query u // (nU2 / Q); wa, wb
+    (G, nU2); dout (G, Q, c) -> (G, L2, c) fp32."""
+    G, nU2 = idx2.shape
+    d = dout.float().repeat_interleave(nU2 // dout.shape[1], 1)
+    rows = torch.cat([idx2, idx2 + 1], 1).long()
+    upd = torch.cat([wa.float()[..., None] * d, wb.float()[..., None] * d], 1)
+    g = torch.arange(G, device=idx2.device)[:, None]
+    return dout.new_zeros((G, L2, dout.shape[-1]), dtype=torch.float32).index_put_((g, rows), upd,
+                                                                                  accumulate=True)
+
+
+def scatter_acc_pairs(idx2, wa, wb, dout, L2: int) -> torch.Tensor:
+    """The pair scatter of `_scatter_acc_pairs` (see `scatter_acc_pairs_ref`):
+    kernel B8 for CUDA tensors, the plain version for CPU ones. The caller
+    keeps the starts in range, as in the JAX package; the kernel skips a row
+    outside (G, L2) rather than write it. Its fp32 atomics make the sums over
+    shared rows not bitwise the same from run to run."""
+    if idx2.device.type == "cpu":
+        return scatter_acc_pairs_ref(idx2, wa, wb, dout, L2)
+    if idx2.device.type != "cuda":
+        raise RuntimeError(f"scatter_acc_pairs: no kernel for device {idx2.device}")
+    G, nU2 = idx2.shape
+    _, Q, c = dout.shape
+    if idx2.dtype != torch.int32 or any(t.dtype != torch.float32 for t in (wa, wb, dout)):
+        raise TypeError("scatter_acc_pairs: idx2 must be int32, wa, wb and dout float32")
+    if tuple(wa.shape) != (G, nU2) or tuple(wb.shape) != (G, nU2) or dout.shape[0] != G or nU2 % Q:
+        raise ValueError("scatter_acc_pairs: inconsistent shapes")
+    if any(t.device != idx2.device for t in (wa, wb, dout)):
+        raise ValueError("scatter_acc_pairs: inputs on different devices")
+    idx2, wa, wb, dout = (t.contiguous() for t in (idx2, wa, wb, dout))
+    out = torch.zeros((G, L2, c), dtype=torch.float32, device=idx2.device)
+    rc = _entry("deform_scatter", "scatter_acc_pairs")(
+        idx2.data_ptr(), wa.data_ptr(), wb.data_ptr(), dout.data_ptr(), out.data_ptr(), G, L2, c, Q,
+        nU2 // Q, _stream(idx2),
+    )
+    _build.check(rc, "scatter_acc_pairs")
+    scatter_acc_pairs.launches += 1
+    return out
+
+
 # kernel launches since the last reset, one counter per kernel
 bilinear_gather.launches = 0
 bilinear_gather_bwd.launches = 0
+scatter_acc.launches = 0
+scatter_acc_pairs.launches = 0
 
-_ARGS = {"bilinear_gather_fwd": 4, "bilinear_gather_bwd": 6}  # pointer arguments
+# entry point: (pointer arguments, int arguments), then the stream
+_SIGNATURES = {"bilinear_gather_fwd": (4, 6), "bilinear_gather_bwd": (6, 6), "scatter_acc": (4, 6),
+               "scatter_acc_pairs": (5, 5)}
 
 
-def _lib(source: str) -> ctypes.CDLL:
-    """The library built from `csrc/<source>.cu`, its entry point typed:
-    pointers, six ints, the stream."""
-    lib = _build.load(source)
-    fn = getattr(lib, source)
+def _entry(source: str, fn_name: str):
+    """Entry point `fn_name` of the library built from `csrc/<source>.cu`, typed."""
+    fn = getattr(_build.load(source), fn_name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * _ARGS[source] + [i] * 6 + [p]
+        n_ptr, n_int = _SIGNATURES[fn_name]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    return fn

@@ -13,7 +13,14 @@ backward launches `csrc/ss2d_scan_bwd.cu`: `ss2d_scan_carriers` (B3a, replaces
 `ss2d_scan_bwd_ref`, the explicit backward of `selective_scan.py:641-660`
 written with torch ops.
 
-Contract (as `ss2d_scan_xla`): layouts (B, 2, L, D) [row-major, col-major];
+One-direction scan: `selective_scan` replaces the TPU kernel
+`_scan_kernel` (via `_run_scan` and `selective_scan_pallas`). On CUDA tensors
+its forward launches `csrc/selective_scan_fwd.cu` (B6); on CPU tensors it
+runs `selective_scan_ref`, the plain version of `selective_scan_xla`. Its
+backward is `selective_scan_bwd_ref` on both devices: the JAX package has no
+backward kernel for it either (its `_bwd` is the autodiff of the XLA oracle).
+
+Contract of the fused scan (as `ss2d_scan_xla`): layouts (B, 2, L, D) [row-major, col-major];
 dts_raw, Bs, Cs (B, 2, 2, L, R|N) indexed [fwd/rev, layout]; dt_w (4, D, R);
 dt_b (4, D); A (4, D, N); Ds (4, D). Direction k = (row-fwd, col-fwd,
 row-rev, col-rev) reads layout k % 2 and slice (k // 2, k % 2). Returns
@@ -59,21 +66,29 @@ def _chunk_ab(u, delta, A, Bs, s0, s1):
     return a, b
 
 
-def selective_scan_ref(u, delta, A, Bs, Cs, chunk: int = SCAN_CHUNK):
-    """Plain S6 scan: u, delta (G, L, D); A (G, D, N); Bs, Cs (G, L, N) -> y (G, L, D).
+def selective_scan_ref(u, delta, A, Bs, Cs, D=None, chunk: int = SCAN_CHUNK, h0=None,
+                       return_final: bool = False):
+    """Plain S6 scan, the contract of `tamtr_tpu/nn/ssm.py:selective_scan_xla`:
+    u, delta (G, L, Din); A (G, Din, N); Bs, Cs (G, L, N); D (G, Din) or None;
+    h0 (G, Din, N) initial state or None (zeros) -> y (G, L, Din) = C.h + D.u,
+    or (y, h_L) when `return_final`.
 
     Chunks of `chunk` steps carry h across chunks, so the working set is
-    (G, chunk, D, N) and the version runs on the card at full L.
+    (G, chunk, Din, N) and the version runs on the card at full L; the result
+    does not depend on the chunk size.
     """
-    G, L, D = u.shape
-    h = u.new_zeros((G, D, A.shape[-1]))
+    G, L, Din = u.shape
+    h = h0 if h0 is not None else u.new_zeros((G, Din, A.shape[-1]))
     ys = []
     for s0 in range(0, L, chunk):
         a, b = _chunk_ab(u, delta, A, Bs, s0, s0 + chunk)
         h_t = linear_scan(a, b, h)
         ys.append(torch.einsum("gsdn,gsn->gsd", h_t, Cs[:, s0 : s0 + chunk]))
         h = h_t[:, -1]
-    return torch.cat(ys, 1)
+    y = torch.cat(ys, 1)
+    if D is not None:
+        y = y + u * D[:, None, :]
+    return (y, h) if return_final else y
 
 
 def _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k):
@@ -92,7 +107,7 @@ def ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, chunk: int = SCAN
     ys = []
     for k in range(4):
         u, dt, Bk, Ck = _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k)
-        y = selective_scan_ref(u, dt, A[k].expand(u.shape[0], *A[k].shape), Bk, Ck, chunk)
+        y = selective_scan_ref(u, dt, A[k].expand(u.shape[0], *A[k].shape), Bk, Ck, chunk=chunk)
         if k >= 2:
             y = y.flip(1)
         ys.append(y + layouts[:, k % 2] * Ds[k])
@@ -102,26 +117,25 @@ def ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, chunk: int = SCAN
 def _scan_bwd_one(u, dt, A, Bs, Cs, dy, chunk: int):
     """Backward of one direction's S6 scan in walk order.
 
-    u, dt, dy (G, L, D); A (D, N); Bs, Cs (G, L, N). Returns du_core = gB dt,
-    ddt (G, L, D), dB, dC (G, L, N) and dA (D, N), as the formulas of
+    u, dt, dy (G, L, D); A (G, D, N); Bs, Cs (G, L, N). Returns du_core = gB dt,
+    ddt (G, L, D), dB, dC (G, L, N) and dA (G, D, N), as the formulas of
     `tamtr_tpu/kernels/selective_scan.py:641-660`: two passes, the first
     storing the state entering each chunk, the second walking the chunks in
     reverse with g = dL/dh.
     """
     G, L, D = u.shape
-    Ab = A[None].expand(G, *A.shape)
     starts = list(range(0, L, chunk))
     h_in, h = [], u.new_zeros((G, D, A.shape[-1]))
     for s0 in starts:
         h_in.append(h)
-        h = linear_scan(*_chunk_ab(u, dt, Ab, Bs, s0, s0 + chunk), h)[:, -1]
+        h = linear_scan(*_chunk_ab(u, dt, A, Bs, s0, s0 + chunk), h)[:, -1]
     g_next = torch.zeros_like(h)  # g and a of the step after the chunk
     a_next = torch.zeros_like(h)
     dA = torch.zeros_like(A)
     du, ddt, dB, dC = [], [], [], []
     for ci in reversed(range(len(starts))):
         s0, s1 = starts[ci], starts[ci] + chunk
-        a, b = _chunk_ab(u, dt, Ab, Bs, s0, s1)
+        a, b = _chunk_ab(u, dt, A, Bs, s0, s1)
         hs = linear_scan(a, b, h_in[ci])
         h_prev = torch.cat([h_in[ci][:, None], hs[:, :-1]], 1)
         dyc, dtc, uc, Bc = dy[:, s0:s1], dt[:, s0:s1], u[:, s0:s1], Bs[:, s0:s1]
@@ -132,9 +146,9 @@ def _scan_bwd_one(u, dt, A, Bs, Cs, dy, chunk: int):
         dB.append(torch.einsum("gsdn,gsd->gsn", g, dtc * uc))
         gB = torch.einsum("gsdn,gsn->gsd", g, Bc)
         ddA = g * h_prev * a
-        ddt.append(gB * uc + (ddA * A).sum(-1))
+        ddt.append(gB * uc + (ddA * A[:, None]).sum(-1))
         du.append(gB * dtc)
-        dA = dA + (ddA * dtc[..., None]).sum((0, 1))
+        dA = dA + (ddA * dtc[..., None]).sum(1)
         g_next, a_next = g[:, 0], a[:, 0]
     cat = lambda xs: torch.cat(xs[::-1], 1)  # noqa: E731
     return cat(du), cat(ddt), cat(dB), cat(dC), dA
@@ -167,11 +181,11 @@ def ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy, chunk: in
     for k in range(4):
         u, dt, Bk, Ck = _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k)
         dyk = dy[:, k].flip(1) if k >= 2 else dy[:, k]
-        outs = _scan_bwd_one(u, dt, A[k], Bk, Ck, dyk, chunk)
+        outs = _scan_bwd_one(u, dt, A[k].expand(B, D, N), Bk, Ck, dyk, chunk)
         du, ddt, dBk, dCk = (t.flip(1) if k >= 2 else t for t in outs[:4])
         dt_nat = dt.flip(1) if k >= 2 else dt
         du_core[:, k], dz[:, k] = du, ddt * (1.0 - torch.exp(-dt_nat))
-        dBs[:, k], dCs[:, k], dA[k] = dBk, dCk, outs[4]
+        dBs[:, k], dCs[:, k], dA[k] = dBk, dCk, outs[4].sum(0)
     return _assemble_grads(layouts, dts_raw, dt_w, Ds, dy, du_core, dz,
                            dBs.view(B, 2, 2, L, N), dCs.view(B, 2, 2, L, N), dA)
 
@@ -311,12 +325,83 @@ def ss2d_scan(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
     return _SS2DScan.apply(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
 
 
+def selective_scan_bwd_ref(u, delta, A, Bs, Cs, D, dy, chunk: int = SCAN_CHUNK):
+    """Gradients (du, ddelta, dA, dBs, dCs, dD) of `selective_scan_ref`
+    (from zero state) given dy, with torch ops; dD is None when D is."""
+    du, ddelta, dB, dC, dA = _scan_bwd_one(u, delta, A, Bs, Cs, dy, chunk)
+    if D is None:
+        return du, ddelta, dA, dB, dC, None
+    return du + dy * D[:, None, :], ddelta, dA, dB, dC, (dy * u).sum(1)
+
+
+def _selective_scan_cuda(u, delta, A, Bs, Cs, D):
+    """Launch kernel B6 on fp32 inputs."""
+    if u.device.type != "cuda":
+        raise RuntimeError(f"selective_scan: no kernel for device {u.device}")
+    G, L, Din = u.shape
+    N = A.shape[-1]
+    args = [u, delta, A, Bs, Cs] + ([D] if D is not None else [])
+    if any(t.device != u.device for t in args):
+        raise ValueError("selective_scan: inputs on different devices")
+    if tuple(delta.shape) != (G, L, Din) or tuple(A.shape) != (G, Din, N) \
+            or tuple(Bs.shape) != (G, L, N) or tuple(Cs.shape) != (G, L, N) \
+            or (D is not None and tuple(D.shape) != (G, Din)):
+        raise ValueError("selective_scan: inconsistent shapes")
+    if N not in (4, 8, 16, 32):
+        raise ValueError(f"selective_scan: the kernel needs N in (4, 8, 16, 32), got {N}")
+    u, delta, A, Bs, Cs = (t.contiguous() for t in (u, delta, A, Bs, Cs))
+    D = D.contiguous() if D is not None else None
+    y = torch.empty_like(u)
+    rc = _lib("selective_scan_fwd").selective_scan_fwd(
+        u.data_ptr(), delta.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
+        D.data_ptr() if D is not None else None, y.data_ptr(), G, L, Din, N, _stream(u),
+    )
+    _build.check(rc, "selective_scan_fwd")
+    selective_scan.launches += 1
+    return y
+
+
+class _SelectiveScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, delta, A, Bs, Cs, D, chunk):
+        ctx.save_for_backward(u, delta, A, Bs, Cs, D)
+        ctx.chunk = chunk
+        f32 = [t.float() if t is not None else None for t in (u, delta, A, Bs, Cs, D)]
+        if u.device.type == "cpu":
+            y = selective_scan_ref(*f32, chunk=chunk)
+        else:
+            y = _selective_scan_cuda(*f32)
+        return y.to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        f32 = [t.float() if t is not None else None for t in saved]
+        grads = selective_scan_bwd_ref(*f32, dy.float(), chunk=ctx.chunk)
+        return (*(g.to(t.dtype) if g is not None else None for g, t in zip(grads, saved)), None)
+
+
+def selective_scan(u, delta, A, Bs, Cs, D=None, chunk: int = SCAN_CHUNK):
+    """The one-direction S6 scan, the contract of `selective_scan_pallas`:
+    u, delta (G, L, Din); A (G, Din, N); Bs, Cs (G, L, N); D (G, Din) or
+    None -> y (G, L, Din) = C.h + D.u in u's dtype, from zero state. The
+    maths and the state are fp32 (other inputs are upcast). Kernel B6 for
+    CUDA tensors, `selective_scan_ref` for CPU ones; differentiable in every
+    input through `selective_scan_bwd_ref`, cotangents in each input's
+    dtype. `chunk` sets the plain versions' working set, not the result."""
+    if u.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"selective_scan: no kernel for device {u.device}")
+    return _SelectiveScan.apply(u, delta, A, Bs, Cs, D, chunk)
+
+
 # kernel launches since the last reset, one counter per kernel
 ss2d_scan.launches = 0
 ss2d_scan_carriers.launches = 0
 ss2d_scan_bwd_walk.launches = 0
+selective_scan.launches = 0
 
 _SIGNATURES = {
+    "selective_scan_fwd": (7, 4, 0),
     "ss2d_scan_fwd": (9, 5, 3),
     "ss2d_scan_bwd_carriers": (7, 5, 2),
     "ss2d_scan_bwd": (14, 5, 3),

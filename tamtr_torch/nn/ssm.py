@@ -8,6 +8,12 @@ everywhere (torch's default, which the reference uses).
 
 Parameter names and shapes follow the reference checkpoint: `A_logs` is
 (K*D, N) and `Ds` is (K*D,), with K = 4 directions.
+
+The one-direction scan of the JAX module is here too: `selective_scan`
+(the counterpart of `tamtr_tpu/nn/ssm.py:selective_scan`: kernel B6 on
+CUDA tensors, the plain version on CPU ones; the tensor's device decides,
+so `set_scan_impl` has no counterpart) and `selective_scan_ref` (the
+counterpart of `selective_scan_xla`, with `h0` and `return_final`).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tamtr_torch.kernels.selective_scan import ss2d_scan
+from tamtr_torch.kernels.selective_scan import selective_scan, selective_scan_ref, ss2d_scan  # noqa: F401
 from tamtr_torch.nn.layers import DropPath
 
 K_DIRS = 4

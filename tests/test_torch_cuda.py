@@ -177,3 +177,103 @@ def test_train_step_runs_through_every_kernel(card):
     m = tr.step(batch)
     assert all(math.isfinite(v) for v in m.values()) and m["stepped"] == 1.0
     assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3, 1]
+
+
+@pytest.mark.parametrize("G,L,Din,N,with_d", [(4, 1000, 256, 16, True), (2, 77, 40, 4, False)])
+def test_selective_scan_kernel_matches_plain(card, G, L, Din, N, with_d):
+    """B6 against the plain scan at 1e-4 (a ragged last chunk, channels not
+    a multiple of a block's, D None); the backward (torch ops on both
+    devices) against autodiff of the plain version at 2e-3."""
+    from tamtr_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+
+    g = torch.Generator().manual_seed(7)
+    u, dy = torch.randn(G, L, Din, generator=g), torch.randn(G, L, Din, generator=g)
+    delta = torch.rand(G, L, Din, generator=g) * 0.1
+    A = -torch.exp(torch.rand(G, Din, N, generator=g) * math.log(N))
+    Bs, Cs = torch.randn(G, L, N, generator=g), torch.randn(G, L, N, generator=g)
+    D = torch.randn(G, Din, generator=g) if with_d else None
+    args = [t.to(card).requires_grad_() if t is not None else None for t in (u, delta, A, Bs, Cs, D)]
+    before = selective_scan.launches
+    y = selective_scan(*args)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    want = selective_scan_ref(*args)
+    torch.testing.assert_close(y, want, atol=1e-4, rtol=1e-4)
+    live = [t for t in args if t is not None]
+    for a, b in zip(torch.autograd.grad(y, live, dy.to(card)), torch.autograd.grad(want, live, dy.to(card))):
+        torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-3)
+
+
+def test_weighted_gather_bwd_kernel_matches_plain(card):
+    """B7 (dvalue of `weighted_gather`) against the plain scatter at 1e-5,
+    with a row that all 48 updates of one query and head hit. (Sums of
+    thousands of updates on one row differ by more in fp32: the atomics add
+    in another order.)"""
+    from tamtr_torch.kernels.deform_scatter import scatter_acc, scatter_acc_ref, weighted_gather, weighted_gather_ref
+
+    g = torch.Generator().manual_seed(8)
+    B, L, nh, c, Q, p4 = 2, 500, 8, 64, 30, 48
+    value = torch.randn(B, L, nh, c, generator=g).to(card).requires_grad_()
+    idx = torch.randint(0, L, (B, Q * p4, nh), generator=g, dtype=torch.int32)
+    idx[1, :p4, 3] = L - 1
+    idx = idx.to(card)
+    w = torch.randn(B, Q * p4, nh, generator=g).to(card).requires_grad_()
+    dout = torch.randn(B, Q, nh, c, generator=g).to(card)
+    before = scatter_acc.launches
+    dv, dw = torch.autograd.grad(weighted_gather(value, idx, w, p4), (value, w), dout)
+    torch.cuda.synchronize()
+    assert scatter_acc.launches == before + 1
+    torch.testing.assert_close(dv, scatter_acc_ref(idx, w.detach(), dout, L), atol=1e-5, rtol=1e-5)
+    dv_ref, dw_ref = torch.autograd.grad(weighted_gather_ref(value, idx, w, p4), (value, w), dout)
+    torch.testing.assert_close(dv, dv_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dw, dw_ref, atol=1e-5, rtol=1e-5)
+
+
+def test_scatter_acc_pairs_kernel_matches_plain(card):
+    """B8 against the plain pair scatter at 1e-5, pairs at start L2 - 2 and
+    repeated; a start of L2 - 1, outside the contract, writes nothing past
+    the last row."""
+    from tamtr_torch.kernels.deform_scatter import scatter_acc_pairs, scatter_acc_pairs_ref
+
+    g = torch.Generator().manual_seed(9)
+    G, L2, c, Q, per_q = 16, 700, 64, 40, 24
+    idx2 = torch.randint(0, L2 - 1, (G, Q * per_q), generator=g, dtype=torch.int32)
+    idx2[0, :5] = L2 - 2
+    idx2[1, 10:60] = idx2[1, 9]
+    wa, wb = torch.randn(G, Q * per_q, generator=g), torch.randn(G, Q * per_q, generator=g)
+    dout = torch.randn(G, Q, c, generator=g)
+    args = [t.to(card) for t in (idx2, wa, wb, dout)]
+    before = scatter_acc_pairs.launches
+    out = scatter_acc_pairs(*args, L2)
+    torch.cuda.synchronize()
+    assert scatter_acc_pairs.launches == before + 1
+    torch.testing.assert_close(out, scatter_acc_pairs_ref(*args, L2), atol=1e-5, rtol=1e-5)
+    edge = args[0].clone()
+    edge[2, 0] = L2 - 1
+    out = scatter_acc_pairs(edge, *args[1:], L2)
+    torch.cuda.synchronize()
+    wa0, wb0 = args[1].clone(), args[2].clone()
+    wa0[2, 0] = wb0[2, 0] = 0.0
+    want = scatter_acc_pairs_ref(args[0], wa0, wb0, args[3], L2)
+    want[2, L2 - 1] += args[1][2, 0] * args[3][2, 0]
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,M", [(160, 300), (6, 600)])
+def test_auction_kernel_any_batch_and_size(card, B, M):
+    """B5 at more problems than the card has SMs, and at M = 600, whose
+    value block exceeds a block's shared memory: identical assignments,
+    over-full problems (batch-wide stop) included."""
+    from tamtr_torch.kernels.auction import auction_match, auction_match_ref
+
+    g = torch.Generator().manual_seed(10)
+    nq = 100
+    cost = torch.rand(B, nq, M, generator=g)
+    n_valid = torch.randint(0, M + 1, (B,), generator=g)
+    n_valid[0], n_valid[-1] = M, 70
+    mask = torch.arange(M)[None] < n_valid[:, None]
+    before = auction_match.launches
+    got = auction_match(cost.to(card), mask.to(card))
+    torch.cuda.synchronize()
+    assert auction_match.launches == before + 1
+    assert torch.equal(got.cpu(), auction_match_ref(cost, mask))

@@ -191,6 +191,7 @@ def test_plain_versions_do_not_count_launches():
 def test_build_knows_both_sources():
     assert {s.stem for s in _build.sources()} == {
         "ss2d_scan_fwd", "bilinear_gather_fwd", "ss2d_scan_bwd", "bilinear_gather_bwd", "auction",
+        "selective_scan_fwd", "deform_scatter",
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="no CUDA source"):
