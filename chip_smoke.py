@@ -9,8 +9,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    640 px main-path shapes: the SS2D scan forward at its three levels, B=1
    and B=4 (1e-4); the bilinear pair gather at value (1, 33600, 8, 64),
-   Q=100, and (4, 33600, 8, 64), Q=700 (1e-5); the scan backward (B3a carriers + B3b walk) at the three levels,
-   B=4, all eight gradients (2e-3); the gather backward at value
+   Q=100, and (4, 33600, 8, 64), Q=700 (1e-5); the scan backward (B3a
+   segment summaries, the combine across segments, B3b segment walk) at the
+   three levels, B=4, all eight gradients (2e-3), two calls bitwise equal,
+   each launch timed and bounded on its own with its resident blocks per SM;
+   the gather backward at value
    (4, 33600, 8, 64), Q=700, dvalue, dw and the gradient to sampling
    locations and attention weights (1e-5); the auction at cost
    (16, 100, 300) from the matcher's cost over a VisDrone-like batch with an
@@ -76,13 +79,14 @@ TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT = 4, 640, 300
 TRAIN_VALID = (250, 80, 30, 60)
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # launches per training step: the forward scan and gather and their
-# backward kernels once per VSS level / decoder layer (3 each); the
-# auction once for the 4 matched layers x 4 images in one call, plus the
-# transposed solve because the batch holds an over-full image
+# backward kernels (the scan's: summaries, combine, walk) once per VSS
+# level / decoder layer (3 each); the auction once for the 4 matched layers
+# x 4 images in one call, plus the transposed solve because the batch holds
+# an over-full image
 TRAIN_LAUNCHES_PER_STEP = {
-    "ss2d_scan_fwd": 3, "bilinear_gather_fwd": 3, "ss2d_scan_carriers": 3, "ss2d_scan_bwd_walk": 3,
-    "bilinear_gather_bwd": 3, "auction_match": 2, "selective_scan_fwd": 0, "scatter_acc": 0,
-    "scatter_acc_pairs": 0,
+    "ss2d_scan_fwd": 3, "bilinear_gather_fwd": 3, "ss2d_scan_carriers": 3, "ss2d_scan_combine": 3,
+    "ss2d_scan_bwd_walk": 3, "bilinear_gather_bwd": 3, "auction_match": 2, "selective_scan_fwd": 0,
+    "scatter_acc": 0, "scatter_acc_pairs": 0,
 }
 # launches of the ops phase: the scan at the three levels, one weighted
 # gather's backward, one pair scatter
@@ -98,11 +102,12 @@ def launch_counters():
         bilinear_gather, bilinear_gather_bwd, scatter_acc, scatter_acc_pairs,
     )
     from tamtr_torch.kernels.selective_scan import (
-        selective_scan, ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers,
+        selective_scan, ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine,
     )
 
     return {"ss2d_scan_fwd": ss2d_scan, "bilinear_gather_fwd": bilinear_gather,
-            "ss2d_scan_carriers": ss2d_scan_carriers, "ss2d_scan_bwd_walk": ss2d_scan_bwd_walk,
+            "ss2d_scan_carriers": ss2d_scan_carriers, "ss2d_scan_combine": ss2d_scan_combine,
+            "ss2d_scan_bwd_walk": ss2d_scan_bwd_walk,
             "bilinear_gather_bwd": bilinear_gather_bwd, "auction_match": auction_match,
             "selective_scan_fwd": selective_scan, "scatter_acc": scatter_acc,
             "scatter_acc_pairs": scatter_acc_pairs}
@@ -264,13 +269,16 @@ def check_bilinear_gather(dev):
 
 
 def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
-    """Kernels B3a + B3b vs the plain backward at the three 640 px levels,
-    batch 4: all eight gradients within 2e-3 (the JAX package's bound for
-    its Pallas backward, `tests/test_pallas_scan.py:163-165`). The forward
-    kernel B1 is held against its plain version on the same batch-4 inputs
-    too (1e-4), which covers its per-image offsets."""
+    """Kernels B3a (segment summaries), the combine and B3b (segment walk)
+    vs the plain backward at the three 640 px levels, batch 4: all eight
+    gradients within 2e-3 (the JAX package's bound for its Pallas backward,
+    `tests/test_pallas_scan.py:163-165`), and a second call bitwise equal to
+    the first. Each launch is timed alone, with its resident blocks per SM.
+    The forward kernel B1 is held against its plain version on the same
+    batch-4 inputs too (1e-4), which covers its per-image offsets."""
     from tamtr_torch.kernels.selective_scan import (
-        ss2d_scan, ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_ref,
+        SEG_STEPS, bwd_occupancy, ss2d_scan, ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk,
+        ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_ref,
     )
 
     g = torch.Generator().manual_seed(11)
@@ -278,6 +286,7 @@ def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
     for H, W, C in levels:
         args, dy = scan_inputs(g, B, H, W, C, dev)
         L, D, R, N = H * W, 2 * C, args[2].shape[-1], 16
+        S = -(-L // SEG_STEPS)
         y, y_ref = ss2d_scan(*args), ss2d_scan_ref(*args)
         torch.cuda.synchronize()
         e_fwd = (y - y_ref).abs().max().item()
@@ -287,34 +296,57 @@ def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
         fwd_err = max(fwd_err, e_fwd)
         del y, y_ref
         got = ss2d_scan_bwd(*args, dy)
+        again = ss2d_scan_bwd(*args, dy)
         want = ss2d_scan_bwd_ref(*args, dy, chunk=512)  # 512-step chunks: fewer launches, same sums
         torch.cuda.synchronize()
         e = max((a - b).abs().max().item() for a, b in zip(got, want))
         ok = all(torch.allclose(a, b, atol=2e-3, rtol=2e-3) and bool(torch.isfinite(a).all())
                  for a, b in zip(got, want))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
         plain = cuda_ms(lambda: ss2d_scan_bwd_ref(*args, dy, chunk=512), iters=1, warmup=0)
         layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, _ = args
-        hcar = ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs)
-        ms_a = cuda_ms(lambda: ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs), iters=3)
-        ms_b = cuda_ms(lambda: ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, hcar), iters=3)
+        summ = ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy)
+        ms_sum = cuda_ms(lambda: ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy), iters=3)
+        copies = iter([[t.clone() for t in summ[:2]] for _ in range(4)])  # the combine works in place
+        ms_comb = cuda_ms(lambda: ss2d_scan_combine(A, *next(copies), summ[2], L), iters=3)
+        h_in, carry = ss2d_scan_combine(A, *summ, L)
+        ms_walk = cuda_ms(lambda: ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, h_in, carry),
+                          iters=3)
         whole = cuda_ms(lambda: ss2d_scan_bwd(*args, dy), iters=3)
-        # bytes: layouts, x_dbl, dy and the weights read once; du, dz, dB, dC,
-        # dA written once. Operations per (b, k, l, d): the dt projection and
-        # softplus in both passes, and per state lane two exps and ~26
-        # multiply-adds (state update twice, g, ddA, dA, the four sums).
-        nbytes = 4 * (2 * B * L * D + 4 * B * L * (R + 2 * N) + 4 * B * L * D + 4 * D * (R + N + 2)
-                      + 2 * 4 * B * L * D + 2 * 4 * B * L * N + 4 * D * N)
-        flops = 4 * B * L * D * (4 * R + 28 * N + 10)
-        b_ms, b_by = bound(nbytes, flops)
-        rows.append(dict(L=L, D=D, ms=ms_a + ms_b, ms_carriers=ms_a, ms_walk=ms_b, ms_with_assembly=whole,
-                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
-        print(f"ss2d_scan_bwd B={B} L={L} D={D} R={R}: max_abs_err={e:.3g} ms={ms_a + ms_b:.4f} "
-              f"(B3a {ms_a:.4f}, B3b {ms_b:.4f}; with the torch assembly {whole:.4f}) plain_ms={plain:.3f} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
-        if not ok:
-            raise AssertionError(f"ss2d_scan backward kernels disagree with the plain version at L={L}: {e}")
+        occ = bwd_occupancy(R)
+        # The function's bound, for the kernels' pair: layouts,
+        # x_dbl, dy and the weights read once; du, dz, dB, dC, dA written once.
+        # Operations per (b, k, l, d): the dt projection and softplus in both
+        # passes, and per state lane two exps and ~26 multiply-adds (state
+        # update twice, g, ddA, dA, the four sums).
+        x_in = 2 * B * L * D + 4 * B * L * (R + 2 * N) + 4 * B * L * D + 4 * D * (R + N + 2)
+        grads = 2 * 4 * B * L * D + 2 * 4 * B * L * N + 4 * D * N
+        b_fn = bound(4 * (x_in + grads), 4 * B * L * D * (4 * R + 28 * N + 10))
+        # Each launch alone, with the segment design's own traffic: the
+        # (B, 4, S, D, 16) summaries h_loc and r. B3a + combine read the
+        # inputs and write the summaries (the combine's in-place pass counted
+        # once); B3b reads the inputs and the summaries and writes the
+        # gradients. Operations per (b, k, l, d): the dt projection and
+        # softplus (2R + 5) in each; per state lane, B3a one exp and ~8
+        # (state update, prod a, r), B3b one exp and ~18 (the state update,
+        # g, ddA, dA, the four sums); the combine ~4 per (b, k, segment, d, n).
+        summaries = 2 * 4 * B * S * D * N
+        b_a = bound(4 * (x_in + summaries), 4 * B * L * D * (2 * R + 5 + 9 * N) + 4 * summaries)
+        b_b = bound(4 * (x_in + summaries + grads), 4 * B * L * D * (2 * R + 10 + 19 * N))
+        rows.append(dict(L=L, D=D, S=S, ms=ms_sum + ms_comb + ms_walk, ms_summaries=ms_sum, ms_combine=ms_comb,
+                         ms_walk=ms_walk, ms_with_assembly=whole, plain_ms=plain, blocks_per_sm=occ,
+                         bound_ms=b_fn[0], bound_by=b_fn[1], bound_b3a_ms=b_a[0], bound_b3a_by=b_a[1],
+                         bound_b3b_ms=b_b[0], bound_b3b_by=b_b[1], max_abs_err=e, bitwise_repeat=bitwise))
+        print(f"ss2d_scan_bwd B={B} L={L} D={D} R={R} segments={S}: max_abs_err={e:.3g} bitwise repeat {bitwise} "
+              f"ms={ms_sum + ms_comb + ms_walk:.4f} (B3a summaries {ms_sum:.4f} + combine {ms_comb:.4f}, "
+              f"B3b walk {ms_walk:.4f}; with the torch assembly {whole:.4f}) plain_ms={plain:.3f} "
+              f"bound_ms {b_fn[0]:.4f} ({b_fn[1]}); each launch with the summaries' traffic: "
+              f"B3a {b_a[0]:.4f} ({b_a[1]}) B3b {b_b[0]:.4f} ({b_b[1]}); blocks/SM {occ}", flush=True)
+        if not (ok and bitwise):
+            raise AssertionError(f"ss2d_scan backward kernels at L={L}: max error {e}, bitwise repeat {bitwise}")
         err = max(err, e)
-        del args, dy, got, want, hcar
+        del args, dy, got, want, summ, h_in, carry
     return rows, err, fwd_err
 
 
@@ -966,15 +998,26 @@ def main() -> int:
              replaces="tamtr_tpu/kernels/deform_scatter.py:195", launches=launches["bilinear_gather_fwd"],
              launches_train=train_launches["bilinear_gather_fwd"],
              **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_err_b4)}, max_abs_err_b4_q700=gather_err_b4),
-        dict(name="ss2d_scan_bwd (B3a carriers + B3b walk)", route="cuda",
-             source="tamtr_torch/csrc/ss2d_scan_bwd.cu",
-             replaces="tamtr_tpu/kernels/selective_scan.py:684 (_bwd_kernel; B3a: :663 _carriers_kernel)",
-             launches=train_launches["ss2d_scan_bwd_walk"],
-             launches_carriers=train_launches["ss2d_scan_carriers"], max_abs_err=bwd_err,
-             ms=sum(r["ms"] for r in bwd_rows), plain_ms=sum(r["plain_ms"] for r in bwd_rows),
-             bound_ms=sum(r["bound_ms"] for r in bwd_rows),
-             bound_by=max(bwd_rows, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
+        dict(name="ss2d_scan_carriers (B3a segment summaries + ss2d_scan_combine)", route="cuda",
+             source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:663",
+             launches=train_launches["ss2d_scan_carriers"], launches_combine=train_launches["ss2d_scan_combine"],
+             max_abs_err=bwd_err, ms=sum(r["ms_summaries"] + r["ms_combine"] for r in bwd_rows),
+             ms_summaries=sum(r["ms_summaries"] for r in bwd_rows), ms_combine=sum(r["ms_combine"] for r in bwd_rows),
+             plain_ms=sum(r["plain_ms"] for r in bwd_rows), plain_of="the whole plain backward",
+             bound_ms=sum(r["bound_b3a_ms"] for r in bwd_rows),
+             bound_by=max(bwd_rows, key=lambda r: r["bound_b3a_ms"])["bound_b3a_by"],
+             bound_of="these launches alone, the segment summaries they write included", library_ms=None,
              per_level=bwd_rows),
+        dict(name="ss2d_scan_bwd_walk (B3b segment walk)", route="cuda",
+             source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:684",
+             launches=train_launches["ss2d_scan_bwd_walk"], max_abs_err=bwd_err,
+             ms=sum(r["ms_walk"] for r in bwd_rows), plain_ms=sum(r["plain_ms"] for r in bwd_rows),
+             plain_of="the whole plain backward", bound_ms=sum(r["bound_b3b_ms"] for r in bwd_rows),
+             bound_by=max(bwd_rows, key=lambda r: r["bound_b3b_ms"])["bound_b3b_by"],
+             bound_of="this launch alone, the segment summaries it reads included", library_ms=None,
+             bound_b3a_plus_b3b_ms=sum(r["bound_ms"] for r in bwd_rows),
+             bound_b3a_plus_b3b_by=max(bwd_rows, key=lambda r: r["bound_ms"])["bound_by"],
+             ms_b3a_plus_b3b=sum(r["ms"] for r in bwd_rows)),
         dict(name="bilinear_gather_bwd", route="cuda", source="tamtr_torch/csrc/bilinear_gather_bwd.cu",
              replaces="tamtr_tpu/kernels/deform_scatter.py:283", launches=train_launches["bilinear_gather_bwd"],
              **gather_bwd),

@@ -7,8 +7,10 @@ tensor it runs `ss2d_scan_ref`, the plain PyTorch version of
 `ss2d_scan_xla` and `tamtr_tpu/nn/ssm.py:selective_scan_xla`.
 
 Backward: `ss2d_scan` is a `torch.autograd.Function`. On CUDA tensors its
-backward launches `csrc/ss2d_scan_bwd.cu`: `ss2d_scan_carriers` (B3a, replaces
-`_carriers_kernel`) and `ss2d_scan_bwd_walk` (B3b, replaces `_bwd_kernel`, both via
+backward launches `csrc/ss2d_scan_bwd.cu`, a segment-parallel scan:
+`ss2d_scan_carriers` (B3a, per-segment summaries) and `ss2d_scan_combine` (the
+pass across segments) replace `_carriers_kernel`; `ss2d_scan_bwd_walk` (B3b,
+each segment walked backwards) replaces `_bwd_kernel` (both via
 `_run_ss2d_bwd_fwddir` and `_ss2d_bwd_pallas`). On CPU tensors it runs
 `ss2d_scan_bwd_ref`, the explicit backward of `selective_scan.py:641-660`
 written with torch ops.
@@ -37,6 +39,7 @@ from tamtr_torch.kernels import _build
 
 SCAN_CHUNK = 128
 BWD_CHANNELS = 32  # channels per block of the backward kernels (csrc kDB)
+SEG_STEPS = 48  # steps per segment of the backward's segment-parallel scan (csrc kSeg)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -241,55 +244,108 @@ def _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
     return y
 
 
-def ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs) -> torch.Tensor:
-    """Kernel B3a: the state entering every 16-step chunk of each direction's
-    walk, (B, 4, ceil(L/16), D, 16). CUDA tensors only (the plain backward
-    keeps its own per-chunk states)."""
-    layouts, dts_raw, dt_w, dt_b, A, Bs, _, _ = _check_cuda(
-        "ss2d_scan_carriers", layouts, dts_raw, dt_w, dt_b, A, Bs, Bs, dt_b, BWD_CHANNELS)
+def _check_dy(dy, B, L, D):
+    if tuple(dy.shape) != (B, 4, L, D) or not dy.is_contiguous() or dy.dtype != torch.float32 \
+            or dy.device.type != "cuda":
+        raise ValueError("ss2d_scan backward: dy must be contiguous float32 (B, 4, L, D) on the card")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if its data is 16-byte aligned (the backward kernels read A
+    four lanes at a time), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy):
+    """Kernel B3a, the segment summaries: each direction's walk cut into
+    S = ceil(L / SEG_STEPS) segments, and per segment and (d, n) the local end
+    state from h = 0, h_loc (B, 4, S, D, 16); r = sum_s (prod_{i<=s} a_i)
+    C_s dy_s over the segment, r (B, 4, S, D, 16); and the sum of dt,
+    (B, 4, S, D). CUDA tensors only, in the layouts `ss2d_scan_bwd` passes
+    (the plain backward keeps its own per-chunk states)."""
+    layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, _ = _check_cuda(
+        "ss2d_scan_carriers", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dt_b, BWD_CHANNELS)
     B, _, L, D = layouts.shape
     R, N = dt_w.shape[-1], A.shape[-1]
-    hcar = torch.empty((B, 4, -(-L // 16), D, N), dtype=torch.float32, device=layouts.device)
-    rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_carriers(
-        layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), dt_w.data_ptr(), dt_b.data_ptr(),
-        A.data_ptr(), hcar.data_ptr(), B, L, D, R, N, dts_raw.stride(3), Bs.stride(3),
-        _stream(layouts),
+    _check_dy(dy, B, L, D)
+    A = _aligned(A)
+    S = -(-L // SEG_STEPS)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=layouts.device)  # noqa: E731
+    h_loc, r, sdt = new(B, 4, S, D, N), new(B, 4, S, D, N), new(B, 4, S, D)
+    rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_summaries(
+        layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), dt_w.data_ptr(),
+        dt_b.data_ptr(), A.data_ptr(), dy.data_ptr(), h_loc.data_ptr(), r.data_ptr(), sdt.data_ptr(),
+        B, L, D, R, N, dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
     )
-    _build.check(rc, "ss2d_scan_bwd_carriers")
+    _build.check(rc, "ss2d_scan_bwd_summaries")
     ss2d_scan_carriers.launches += 1
-    return hcar
+    return h_loc, r, sdt
 
 
-def ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, hcar):
-    """Kernel B3b: the reverse-time walk from the carriers `hcar` of B3a.
-    Returns du_core, dz (B, 4, L, D) natural order; dB, dC partial sums
-    (B, 4, D/32, L, 16) over each block's 32 channels; dA (B, 4, D, 16).
+def ss2d_scan_combine(A, h_loc, r, sdt, L: int):
+    """The pass across segments, in place on B3a's summaries: h_loc becomes
+    the state entering each segment (h_in[j+1] = E_j h_in[j] + h_loc[j],
+    E_j = exp(A sum dt_j)), r the carry entering each segment's last step
+    (c[j-1] = E_j c[j] + r[j], c[S-1] = 0). Returns (h_in, c)."""
+    if A.device.type != "cuda":
+        raise RuntimeError(f"ss2d_scan_combine: no kernel for device {A.device}")
+    B, _, S, D, N = h_loc.shape
+    ok = (S == -(-L // SEG_STEPS) and tuple(A.shape) == (4, D, N) and tuple(r.shape) == tuple(h_loc.shape)
+          and tuple(sdt.shape) == (B, 4, S, D) and all(t.is_contiguous() and t.dtype == torch.float32
+                                                       for t in (A, h_loc, r, sdt)))
+    if not ok:
+        raise ValueError("ss2d_scan_combine: the summaries as B3a gives them")
+    rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_combine(
+        A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), r.data_ptr(), B, L, D, N, _stream(A))
+    _build.check(rc, "ss2d_scan_bwd_combine")
+    ss2d_scan_combine.launches += 1
+    return h_loc, r
+
+
+def ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, h_in, carry):
+    """Kernel B3b: every segment walked backwards from its entering state
+    `h_in` and carry `carry` (`ss2d_scan_combine`). Returns du_core, dz
+    (B, 4, L, D) natural order; dB, dC partial sums (B, 4, D/32, L, 16) over
+    each block's 32 channels; dA partial sums (B, 4, S, D, 16) per segment.
     CUDA tensors only, in the layouts `ss2d_scan_bwd` passes."""
     if layouts.device.type != "cuda":
         raise RuntimeError(f"ss2d_scan_bwd_walk: no kernel for device {layouts.device}")
     B, _, L, D = layouts.shape
     R, N = dt_w.shape[-1], A.shape[-1]
-    if tuple(dy.shape) != (B, 4, L, D) or not dy.is_contiguous() or dy.dtype != torch.float32 \
-            or tuple(hcar.shape) != (B, 4, -(-L // 16), D, N) or D % BWD_CHANNELS:
-        raise ValueError("ss2d_scan_bwd_walk: dy must be contiguous float32 (B, 4, L, D), hcar as B3a gives it")
+    _check_dy(dy, B, L, D)
+    S = -(-L // SEG_STEPS)
+    if tuple(h_in.shape) != (B, 4, S, D, N) or tuple(carry.shape) != (B, 4, S, D, N) or D % BWD_CHANNELS:
+        raise ValueError("ss2d_scan_bwd_walk: h_in and carry as ss2d_scan_combine gives them")
+    A = _aligned(A.contiguous())
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=layouts.device)  # noqa: E731
     nDb = D // BWD_CHANNELS
     du, dz = new(B, 4, L, D), new(B, 4, L, D)
-    dBp, dCp, dA = new(B, 4, nDb, L, N), new(B, 4, nDb, L, N), new(B, 4, D, N)
-    rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd(
+    dBp, dCp, dAp = new(B, 4, nDb, L, N), new(B, 4, nDb, L, N), new(B, 4, S, D, N)
+    rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_walk(
         layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), dt_w.data_ptr(),
-        dt_b.data_ptr(), A.data_ptr(), dy.data_ptr(), hcar.data_ptr(), du.data_ptr(),
-        dz.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dA.data_ptr(), B, L, D, R, N,
+        dt_b.data_ptr(), A.data_ptr(), dy.data_ptr(), h_in.data_ptr(), carry.data_ptr(), du.data_ptr(),
+        dz.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), B, L, D, R, N,
         dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
     )
-    _build.check(rc, "ss2d_scan_bwd")
+    _build.check(rc, "ss2d_scan_bwd_walk")
     ss2d_scan_bwd_walk.launches += 1
-    return du, dz, dBp, dCp, dA
+    return du, dz, dBp, dCp, dAp
+
+
+def bwd_occupancy(R: int) -> dict:
+    """Resident blocks per SM of the backward's three kernels at R."""
+    lib = _lib("ss2d_scan_bwd")
+    out = (ctypes.c_int * 3)()
+    fn = lib.ss2d_scan_bwd_occupancy
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    _build.check(fn(R, ctypes.addressof(out)), "ss2d_scan_bwd_occupancy")
+    return dict(zip(("summaries", "combine", "walk"), out))
 
 
 def ss2d_scan_bwd(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy):
     """Gradients of the fused scan's eight inputs given dy (B, 4, L, D):
-    kernels B3a + B3b for CUDA tensors, `ss2d_scan_bwd_ref` for CPU ones."""
+    kernels B3a, the combine and B3b with segments of `SEG_STEPS` steps for
+    CUDA tensors, `ss2d_scan_bwd_ref` for CPU ones."""
     if layouts.device.type == "cpu":
         return ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy)
     layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = _check_cuda(
@@ -297,11 +353,12 @@ def ss2d_scan_bwd(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy):
     B, _, L, D = layouts.shape
     N = A.shape[-1]
     dy = dy.float().contiguous()
-    hcar = ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs)
-    du, dz, dBp, dCp, dA = ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, hcar)
+    h_loc, r, sdt = ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy)
+    h_in, carry = ss2d_scan_combine(A, h_loc, r, sdt, L)
+    du, dz, dBp, dCp, dAp = ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, h_in, carry)
     return _assemble_grads(layouts, dts_raw, dt_w, Ds, dy, du, dz,
                            dBp.sum(2).view(B, 2, 2, L, N), dCp.sum(2).view(B, 2, 2, L, N),
-                           dA.sum(0))
+                           dAp.sum((0, 2)))
 
 
 class _SS2DScan(torch.autograd.Function):
@@ -397,14 +454,16 @@ def selective_scan(u, delta, A, Bs, Cs, D=None, chunk: int = SCAN_CHUNK):
 # kernel launches since the last reset, one counter per kernel
 ss2d_scan.launches = 0
 ss2d_scan_carriers.launches = 0
+ss2d_scan_combine.launches = 0
 ss2d_scan_bwd_walk.launches = 0
 selective_scan.launches = 0
 
 _SIGNATURES = {
     "selective_scan_fwd": (7, 4, 0),
     "ss2d_scan_fwd": (9, 5, 3),
-    "ss2d_scan_bwd_carriers": (7, 5, 2),
-    "ss2d_scan_bwd": (14, 5, 3),
+    "ss2d_scan_bwd_summaries": (11, 5, 3),
+    "ss2d_scan_bwd_combine": (4, 4, 0),
+    "ss2d_scan_bwd_walk": (15, 5, 3),
 }
 
 

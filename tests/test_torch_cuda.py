@@ -75,30 +75,56 @@ def test_model_runs_through_both_kernels(card):
     assert (ss2d_scan.launches - before[0], bilinear_gather.launches - before[1]) == (3, 3)
 
 
-@pytest.mark.parametrize("H,W,C", [(5, 7, 32), (20, 20, 128)])
-def test_ss2d_scan_bwd_kernels_match_plain(card, H, W, C):
-    """B3a + B3b against the plain backward, gradients of all eight inputs
-    at 2e-3; odd L leaves a ragged last 16-step chunk."""
-    from tamtr_torch.kernels.selective_scan import (
-        ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk, ss2d_scan_carriers,
-    )
-
-    g = torch.Generator().manual_seed(3)
+def _scan_bwd_args(card, B, H, W, C, seed=3):
+    g = torch.Generator().manual_seed(seed)
     L, D, R, N = H * W, 2 * C, math.ceil(C / 16), 16
-    layouts = torch.randn(2, 2, L, D, generator=g).to(card)
-    dts_raw, Bs, Cs = (torch.randn(2, 2, 2, L, R + 2 * N, generator=g) * 0.6).to(card).split([R, N, N], -1)
+    layouts = torch.randn(B, 2, L, D, generator=g).to(card)
+    dts_raw, Bs, Cs = (torch.randn(B, 2, 2, L, R + 2 * N, generator=g) * 0.6).to(card).split([R, N, N], -1)
     dt_w = ((torch.rand(4, D, R, generator=g) * 2 - 1) * R**-0.5).to(card)
     dt_b = (torch.rand(4, D, generator=g) * -5 - 2).to(card)
     A = -torch.exp(torch.rand(4, D, N, generator=g) * math.log(N)).to(card)
     Ds = torch.randn(4, D, generator=g).to(card)
-    dy = torch.randn(2, 4, L, D, generator=g).to(card)
-    args = (layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
-    before = (ss2d_scan_carriers.launches, ss2d_scan_bwd_walk.launches)
+    dy = torch.randn(B, 4, L, D, generator=g).to(card)
+    return (layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds), dy
+
+
+@pytest.mark.parametrize("H,W,C,B", [
+    (1, 1, 32, 1),  # L = 1
+    (5, 7, 32, 2),  # L = 35, below one segment of SEG_STEPS = 48
+    (6, 8, 32, 1),  # L = 48, one whole segment
+    (7, 7, 32, 2),  # L = 49, one step past a segment
+    (1, 97, 32, 2),  # L = 97, one step past two segments
+    (20, 20, 128, 2),  # L = 400, a ragged last segment of 16
+    (40, 40, 512, 1),  # level 2's shape, a ragged last segment of 16
+    (40, 40, 512, 2),
+])
+def test_ss2d_scan_bwd_kernels_match_plain(card, H, W, C, B):
+    """B3a, the combine and B3b against the plain backward, gradients of
+    all eight inputs at 2e-3."""
+    from tamtr_torch.kernels.selective_scan import (
+        ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine,
+    )
+
+    args, dy = _scan_bwd_args(card, B, H, W, C)
+    counters = (ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_bwd_walk)
+    before = [f.launches for f in counters]
     got = ss2d_scan_bwd(*args, dy)
     torch.cuda.synchronize()
-    assert (ss2d_scan_carriers.launches, ss2d_scan_bwd_walk.launches) == (before[0] + 1, before[1] + 1)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
     for gk, wk in zip(got, ss2d_scan_bwd_ref(*args, dy)):
         torch.testing.assert_close(gk, wk, atol=2e-3, rtol=2e-3)
+
+
+def test_ss2d_scan_bwd_kernels_are_bitwise_deterministic(card):
+    """Two calls on the same inputs give bitwise-equal gradients: dB, dC
+    and dA are partial sums added in a fixed order, no atomics."""
+    from tamtr_torch.kernels.selective_scan import ss2d_scan_bwd
+
+    args, dy = _scan_bwd_args(card, 2, 20, 20, 128, seed=4)
+    first = ss2d_scan_bwd(*args, dy)
+    second = ss2d_scan_bwd(*args, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_bilinear_gather_bwd_kernel_matches_plain(card):
@@ -162,12 +188,15 @@ def test_train_step_runs_through_every_kernel(card):
     from tamtr_torch import TAMTR
     from tamtr_torch.kernels.auction import auction_match
     from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_bwd
-    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers
+    from tamtr_torch.kernels.selective_scan import (
+        ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine,
+    )
     from tamtr_torch.train.trainer import TrainConfig
 
     det = TAMTR("tamtr-nano.yaml", nc=4, device=card, imgsz=64, max_gt=8)
     tr = det.trainer(TrainConfig(batch_size=2, accumulate=1))
-    counters = (ss2d_scan, ss2d_scan_carriers, ss2d_scan_bwd_walk, bilinear_gather, bilinear_gather_bwd, auction_match)
+    counters = (ss2d_scan, ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_bwd_walk, bilinear_gather,
+                bilinear_gather_bwd, auction_match)
     before = [f.launches for f in counters]
     g = torch.Generator().manual_seed(6)
     mask = torch.arange(8)[None] < torch.tensor([[3], [8]])
@@ -176,7 +205,7 @@ def test_train_step_runs_through_every_kernel(card):
              "bboxes": torch.rand(2, 8, 4, generator=g) * 0.4 + 0.1, "mask": mask}
     m = tr.step(batch)
     assert all(math.isfinite(v) for v in m.values()) and m["stepped"] == 1.0
-    assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3, 1]
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3, 3, 1]
 
 
 @pytest.mark.parametrize("G,L,Din,N,with_d", [(4, 1000, 256, 16, True), (2, 77, 40, 4, False)])

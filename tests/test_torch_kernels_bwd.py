@@ -27,7 +27,8 @@ from tamtr_torch.kernels.deform_scatter import (
     bilinear_gather, bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_ref,
 )
 from tamtr_torch.kernels.selective_scan import (
-    ss2d_scan, ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_ref,
+    ss2d_scan, ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine,
+    ss2d_scan_ref,
 )
 from tamtr_torch.losses.matcher import _solve_host, auction_assignment, hungarian_match
 from tamtr_torch.nn.decoder import deform_sampling_pairs, ms_deform_attn_core
@@ -293,7 +294,11 @@ def test_backward_wrappers_and_auction_raise_without_a_kernel():
     with pytest.raises(RuntimeError, match="no kernel"):
         ss2d_scan_bwd(meta, *([meta] * 8))
     with pytest.raises(RuntimeError, match="no kernel"):
-        ss2d_scan_carriers(meta, *([meta] * 5))
+        ss2d_scan_carriers(meta, *([meta] * 7))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ss2d_scan_combine(meta, meta, meta, meta, 4)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ss2d_scan_bwd_walk(meta, *([meta] * 9))
     with pytest.raises(RuntimeError, match="no kernel"):
         bilinear_gather_bwd(torch.empty((1, 4, 1, 8), device="meta"), None, None,
                             torch.empty((1, 1, 1, 8), device="meta"))
@@ -302,7 +307,7 @@ def test_backward_wrappers_and_auction_raise_without_a_kernel():
 
 
 def test_cpu_backward_counts_no_launches():
-    counters = (ss2d_scan_carriers, ss2d_scan_bwd_walk, bilinear_gather_bwd, auction_match)
+    counters = (ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_bwd_walk, bilinear_gather_bwd, auction_match)
     before = [f.launches for f in counters]
     args, dy = _ss2d_inputs(4, 1, 2, 3, D=8)
     _torch_scan_grads(args, dy)
