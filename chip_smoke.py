@@ -7,8 +7,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
 2. build: nvcc over `tamtr_torch/csrc/*.cu` (one process per source, all
    started together); prints the seconds and the ptxas register lines.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
-   640 px main-path shapes: the SS2D scan forward at its three levels, B=1
-   and B=4 (1e-4); the bilinear pair gather at value (1, 33600, 8, 64),
+   640 px main-path shapes: the SS2D scan forward (B1: segment summaries,
+   the combine across segments, the output pass) at its three levels, B=1
+   and B=4 (1e-4), two calls bitwise equal, the call and each launch timed
+   and bounded with its resident blocks per SM; the bilinear pair gather at value (1, 33600, 8, 64),
    Q=100, and (4, 33600, 8, 64), Q=700 (1e-5); the scan backward (B3a
    segment summaries, the combine across segments, B3b segment walk) at the
    three levels, B=4, all eight gradients (2e-3), two calls bitwise equal,
@@ -46,7 +48,7 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    request at batch 1 and at batch 4, then 5 batch-1 requests and one
    batch-4 request of 1360x765 uint8 images (resized to 640 px on the card).
    Every launch counter is zeroed just before and read just after: each
-   forward kernel's must equal 3 per forward, every other 0.
+   must equal `FORWARD_LAUNCHES` times the forwards.
 8. train: `TAMTR(...).trainer()` on `tamtr.yaml` at 640 px, batch 4,
    max_gt 300, accumulate 1, seeded synthetic batches (uint8 frames, 10
    classes, 30-250 valid gts per image, one over-full image); 2 warm-up
@@ -78,15 +80,20 @@ LEVELS_640 = [(160, 160, 128), (80, 80, 256), (40, 40, 512)]
 TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT = 4, 640, 300
 TRAIN_VALID = (250, 80, 30, 60)
 WARMUP_STEPS, TIMED_STEPS = 2, 5
-# launches per training step: the forward scan and gather and their
-# backward kernels (the scan's: summaries, combine, walk) once per VSS
-# level / decoder layer (3 each); the auction once for the 4 matched layers
-# x 4 images in one call, plus the transposed solve because the batch holds
-# an over-full image
+# launches per forward of the model: the scan (`ss2d_scan`, one a call, and
+# its three launches: summaries, combine, output) once per VSS level, the
+# gather once per decoder layer
+FORWARD_LAUNCHES = {
+    "ss2d_scan_fwd": 3, "ss2d_scan_fwd_summaries": 3, "ss2d_scan_fwd_combine": 3, "ss2d_scan_fwd_output": 3,
+    "bilinear_gather_fwd": 3,
+}
+# launches per training step: the forward's, and the backward kernels of the
+# scan (summaries, combine, walk) and the gather once per VSS level / decoder
+# layer; the auction once for the 4 matched layers x 4 images in one call,
+# plus the transposed solve because the batch holds an over-full image
 TRAIN_LAUNCHES_PER_STEP = {
-    "ss2d_scan_fwd": 3, "bilinear_gather_fwd": 3, "ss2d_scan_carriers": 3, "ss2d_scan_combine": 3,
-    "ss2d_scan_bwd_walk": 3, "bilinear_gather_bwd": 3, "auction_match": 2, "selective_scan_fwd": 0,
-    "scatter_acc": 0, "scatter_acc_pairs": 0,
+    **FORWARD_LAUNCHES, "ss2d_scan_carriers": 3, "ss2d_scan_combine": 3, "ss2d_scan_bwd_walk": 3,
+    "bilinear_gather_bwd": 3, "auction_match": 2, "selective_scan_fwd": 0, "scatter_acc": 0, "scatter_acc_pairs": 0,
 }
 # launches of the ops phase: the scan at the three levels, one weighted
 # gather's backward, one pair scatter
@@ -103,9 +110,12 @@ def launch_counters():
     )
     from tamtr_torch.kernels.selective_scan import (
         selective_scan, ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine,
+        ss2d_scan_fwd_combine, ss2d_scan_fwd_output, ss2d_scan_fwd_summaries,
     )
 
-    return {"ss2d_scan_fwd": ss2d_scan, "bilinear_gather_fwd": bilinear_gather,
+    return {"ss2d_scan_fwd": ss2d_scan, "ss2d_scan_fwd_summaries": ss2d_scan_fwd_summaries,
+            "ss2d_scan_fwd_combine": ss2d_scan_fwd_combine, "ss2d_scan_fwd_output": ss2d_scan_fwd_output,
+            "bilinear_gather_fwd": bilinear_gather,
             "ss2d_scan_carriers": ss2d_scan_carriers, "ss2d_scan_combine": ss2d_scan_combine,
             "ss2d_scan_bwd_walk": ss2d_scan_bwd_walk,
             "bilinear_gather_bwd": bilinear_gather_bwd, "auction_match": auction_match,
@@ -187,31 +197,74 @@ def deform_inputs(g, B, Q, shapes, dev, nh=8, c=64, nl=3, P=4):
     return value.to(dev), loc.to(dev), w_att.to(dev)
 
 
-def check_ss2d_scan(dev):
-    """The scan kernel vs its plain version at the three 640 px levels."""
-    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_ref
+def check_ss2d_scan(dev, batches=(1, TRAIN_BATCH)):
+    """Kernel B1 vs its plain version at the three 640 px levels, batch 1 and
+    4: within 1e-4, and a second call bitwise equal to the first. The call
+    and each of its launches (segment summaries, the combine across
+    segments, the output pass) timed alone, with their bounds and resident
+    blocks per SM."""
+    from tamtr_torch.kernels.selective_scan import (
+        SEG_STEPS, fwd_occupancy, ss2d_scan, ss2d_scan_fwd_combine, ss2d_scan_fwd_output, ss2d_scan_fwd_summaries,
+        ss2d_scan_ref,
+    )
 
     g = torch.Generator().manual_seed(1)
     rows, err = [], 0.0
-    for H, W, C in LEVELS_640:
-        L, D, R, N = H * W, 2 * C, math.ceil(C / 16), 16
-        args, _ = scan_inputs(g, 1, H, W, C, dev)
-        y = ss2d_scan(*args)
-        want = ss2d_scan_ref(*args)
-        torch.cuda.synchronize()
-        e = (y - want).abs().max().item()
-        ok = torch.allclose(y, want, atol=1e-4, rtol=1e-4) and bool(torch.isfinite(y).all())
-        ms = cuda_ms(lambda: ss2d_scan(*args), iters=5)
-        plain = cuda_ms(lambda: ss2d_scan_ref(*args), iters=2)
-        nbytes = 4 * (2 * L * D + 4 * L * R + 8 * L * N + 4 * D * (R + N + 2) + 4 * L * D)
-        flops = 4 * L * D * (2 * R + 8 * N + 3)
-        b_ms, b_by = bound(nbytes, flops)
-        rows.append(dict(L=L, D=D, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
-        print(f"ss2d_scan_fwd L={L} D={D} R={R}: max_abs_err={e:.3g} ms={ms:.4f} "
-              f"plain_ms={plain:.3f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
-        if not ok:
-            raise AssertionError(f"ss2d_scan kernel disagrees with its plain version at L={L}: {e}")
-        err = max(err, e)
+    for B in batches:
+        for H, W, C in LEVELS_640:
+            args, _ = scan_inputs(g, B, H, W, C, dev)
+            L, D, R, N = H * W, 2 * C, args[2].shape[-1], 16
+            S = -(-L // SEG_STEPS)
+            y, again, want = ss2d_scan(*args), ss2d_scan(*args), ss2d_scan_ref(*args)
+            torch.cuda.synchronize()
+            e = (y - want).abs().max().item()
+            ok = torch.allclose(y, want, atol=1e-4, rtol=1e-4) and bool(torch.isfinite(y).all())
+            bitwise = torch.equal(y, again)
+            del y, again, want
+            ms = cuda_ms(lambda: ss2d_scan(*args), iters=5)
+            plain = cuda_ms(lambda: ss2d_scan_ref(*args), iters=2) if B == 1 else \
+                cuda_ms(lambda: ss2d_scan_ref(*args), iters=1, warmup=0)
+            h_loc, sdt = ss2d_scan_fwd_summaries(*args[:7])
+            ms_sum = cuda_ms(lambda: ss2d_scan_fwd_summaries(*args[:7]), iters=5)
+            copies = iter([h_loc.clone() for _ in range(6)])  # the combine works in place
+            ms_comb = cuda_ms(lambda: ss2d_scan_fwd_combine(args[4], next(copies), sdt, L), iters=5)
+            h_in = ss2d_scan_fwd_combine(args[4], h_loc, sdt, L)
+            ms_out = cuda_ms(lambda: ss2d_scan_fwd_output(*args, h_in), iters=5)
+            occ = fwd_occupancy(R)
+            del copies, h_loc, h_in, sdt
+            # The function: layouts, x_dbl's dts_raw, B and C and the weights
+            # read once, y written once; per (b, k, l, d) the dt projection
+            # and softplus, per state lane the exp, the state update and C h,
+            # and the D skip.
+            x_in = 2 * B * L * D + 4 * B * L * (R + 2 * N) + 4 * D * (R + N + 2)
+            b_fn = bound(4 * (x_in + 4 * B * L * D), 4 * B * L * D * (2 * R + 8 * N + 3))
+            # Each launch alone, with the segment design's own traffic, the
+            # (B, 4, S, D, 16) states and (B, 4, S, D) sums of dt. The
+            # summaries read u, dts_raw, B and the weights and write both;
+            # the combine reads both and rewrites the states; the output reads
+            # the inputs and the states and writes y. Operations per (b, k, l,
+            # d): the dt projection and softplus (2R + 5) in both passes; per
+            # state lane the exp and ~4 in the summaries, ~6 in the output (C h
+            # too); ~4 per (b, k, segment, d, n) in the combine.
+            states, sums = 4 * B * S * D * N, 4 * B * S * D
+            b_sum = bound(4 * (2 * B * L * D + 4 * B * L * (R + N) + 4 * D * (R + N + 1) + states + sums),
+                          4 * B * L * D * (2 * R + 7 + 5 * N))
+            b_comb = bound(4 * (2 * states + sums), 4 * states)
+            b_out = bound(4 * (x_in + states + 4 * B * L * D), 4 * B * L * D * (2 * R + 10 + 7 * N))
+            rows.append(dict(B=B, L=L, D=D, S=S, ms=ms, ms_summaries=ms_sum, ms_combine=ms_comb, ms_output=ms_out,
+                             plain_ms=plain, bound_ms=b_fn[0], bound_by=b_fn[1], bound_summaries_ms=b_sum[0],
+                             bound_summaries_by=b_sum[1], bound_combine_ms=b_comb[0], bound_combine_by=b_comb[1],
+                             bound_output_ms=b_out[0], bound_output_by=b_out[1], blocks_per_sm=occ,
+                             max_abs_err=e, bitwise_repeat=bitwise))
+            print(f"ss2d_scan_fwd B={B} L={L} D={D} R={R} segments={S}: max_abs_err={e:.3g} bitwise repeat {bitwise} "
+                  f"ms={ms:.4f} (summaries {ms_sum:.4f} + combine {ms_comb:.4f} + output {ms_out:.4f}) "
+                  f"plain_ms={plain:.3f} bound_ms={b_fn[0]:.4f} ({b_fn[1]}); each launch with the segment states' "
+                  f"traffic: summaries {b_sum[0]:.4f} ({b_sum[1]}) combine {b_comb[0]:.4f} ({b_comb[1]}) output "
+                  f"{b_out[0]:.4f} ({b_out[1]}); blocks/SM {occ}", flush=True)
+            if not (ok and bitwise):
+                raise AssertionError(f"ss2d_scan kernel at B={B}, L={L}: max error {e}, bitwise repeat {bitwise}")
+            err = max(err, e)
+            del args
     return rows, err
 
 
@@ -273,28 +326,18 @@ def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
     vs the plain backward at the three 640 px levels, batch 4: all eight
     gradients within 2e-3 (the JAX package's bound for its Pallas backward,
     `tests/test_pallas_scan.py:163-165`), and a second call bitwise equal to
-    the first. Each launch is timed alone, with its resident blocks per SM.
-    The forward kernel B1 is held against its plain version on the same
-    batch-4 inputs too (1e-4), which covers its per-image offsets."""
+    the first. Each launch is timed alone, with its resident blocks per SM."""
     from tamtr_torch.kernels.selective_scan import (
-        SEG_STEPS, bwd_occupancy, ss2d_scan, ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk,
-        ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_ref,
+        SEG_STEPS, bwd_occupancy, ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk, ss2d_scan_carriers,
+        ss2d_scan_combine,
     )
 
     g = torch.Generator().manual_seed(11)
-    rows, err, fwd_err = [], 0.0, 0.0
+    rows, err = [], 0.0
     for H, W, C in levels:
         args, dy = scan_inputs(g, B, H, W, C, dev)
         L, D, R, N = H * W, 2 * C, args[2].shape[-1], 16
         S = -(-L // SEG_STEPS)
-        y, y_ref = ss2d_scan(*args), ss2d_scan_ref(*args)
-        torch.cuda.synchronize()
-        e_fwd = (y - y_ref).abs().max().item()
-        print(f"ss2d_scan_fwd B={B} L={L} D={D}: max_abs_err={e_fwd:.3g}", flush=True)
-        if not (torch.allclose(y, y_ref, atol=1e-4, rtol=1e-4) and bool(torch.isfinite(y).all())):
-            raise AssertionError(f"ss2d_scan kernel disagrees with its plain version at B={B}, L={L}: {e_fwd}")
-        fwd_err = max(fwd_err, e_fwd)
-        del y, y_ref
         got = ss2d_scan_bwd(*args, dy)
         again = ss2d_scan_bwd(*args, dy)
         want = ss2d_scan_bwd_ref(*args, dy, chunk=512)  # 512-step chunks: fewer launches, same sums
@@ -347,7 +390,7 @@ def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
             raise AssertionError(f"ss2d_scan backward kernels at L={L}: max error {e}, bitwise repeat {bitwise}")
         err = max(err, e)
         del args, dy, got, want, summ, h_in, carry
-    return rows, err, fwd_err
+    return rows, err
 
 
 def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
@@ -934,7 +977,7 @@ def serve(dev):
     res4 = request(frames, "b4")
     launches = {k: f.launches for k, f in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    want = {k: 3 * forwards if k in ("ss2d_scan_fwd", "bilinear_gather_fwd") else 0 for k in counters}
+    want = {k: FORWARD_LAUNCHES.get(k, 0) * forwards for k in counters}
     if len(res4) != 4 or launches != want:
         raise AssertionError(f"launches {launches} after {forwards} forwards; want {want}")
     print(f"serve tamtr.yaml 640px: batch-1 ms {[round(t, 3) for t in times['b1']]}, "
@@ -967,7 +1010,7 @@ def main() -> int:
 
     scan_rows, scan_err = check_ss2d_scan(dev)
     gather = check_bilinear_gather(dev)
-    bwd_rows, bwd_err, scan_err_b4 = check_ss2d_scan_bwd(dev)
+    bwd_rows, bwd_err = check_ss2d_scan_bwd(dev)
     gather_bwd, gather_err_b4 = check_bilinear_gather_bwd(dev)
     auction = check_auction(dev)
     auction_any = check_auction_any_size(dev)
@@ -986,14 +1029,20 @@ def main() -> int:
         return dict(launches=ops_launches[name], launches_serve=launches[name],
                     launches_train=train_launches[name], reached_through=reached_through)
 
+    fwd1, fwd4 = ([r for r in scan_rows if r["B"] == b] for b in (1, TRAIN_BATCH))
     kernels = [
         dict(name="ss2d_scan_fwd", route="cuda", source="tamtr_torch/csrc/ss2d_scan_fwd.cu",
              replaces="tamtr_tpu/kernels/selective_scan.py:448", launches=launches["ss2d_scan_fwd"],
-             max_abs_err=max(scan_err, scan_err_b4), max_abs_err_b4=scan_err_b4, ms=sum(r["ms"] for r in scan_rows),
-             plain_ms=sum(r["plain_ms"] for r in scan_rows),
-             bound_ms=sum(r["bound_ms"] for r in scan_rows),
-             bound_by=max(scan_rows, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
-             per_level=scan_rows, launches_train=train_launches["ss2d_scan_fwd"]),
+             **{f"launches_{p}": launches[f"ss2d_scan_fwd_{p}"] for p in ("summaries", "combine", "output")},
+             launches_train=train_launches["ss2d_scan_fwd"], max_abs_err=scan_err,
+             **{k: sum(r[k] for r in fwd1) for k in ("ms", "ms_summaries", "ms_combine", "ms_output", "plain_ms",
+                                                        "bound_ms", "bound_summaries_ms", "bound_combine_ms",
+                                                        "bound_output_ms")},
+             bound_by=max(fwd1, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
+             batch=1, ms_b4=sum(r["ms"] for r in fwd4), plain_ms_b4=sum(r["plain_ms"] for r in fwd4),
+             bound_ms_b4=sum(r["bound_ms"] for r in fwd4),
+             bound_of_launches="each launch alone, the segment states it writes or reads included",
+             per_level=scan_rows),
         dict(name="bilinear_gather_fwd", route="cuda", source="tamtr_torch/csrc/bilinear_gather_fwd.cu",
              replaces="tamtr_tpu/kernels/deform_scatter.py:195", launches=launches["bilinear_gather_fwd"],
              launches_train=train_launches["bilinear_gather_fwd"],

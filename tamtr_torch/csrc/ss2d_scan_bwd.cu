@@ -29,7 +29,9 @@
 // Segments. The TPU walks the chunks in order along a sequential grid axis.
 // Here each direction's walk is cut into S = ceil(L / kSeg) segments of
 // kSeg = 48 steps (the last one ragged), and every (channel block, b, k, segment) is
-// a block of its own: grid (D/32, 4B, S). Three launches:
+// a block of its own: grid (D/32, 4B, S). The staging, the summaries and
+// the combine are `ss2d_scan_seg.cuh`'s, shared with the forward (which
+// runs them without r and the carry). Three launches:
 //   1. summaries (B3a): from h = 0, the segment's local end state h_loc; and
 //      r = sum_s (prod_{i=first..s} a_i) q_s, i.e. a_first times the local g
 //      at the segment's first step with g = 0 past its end; and sum dt. The
@@ -79,323 +81,15 @@
 // first design ran one serial L-step chain per thread on 128-512 blocks;
 // with segments of 48 steps level 0 runs 68352 blocks.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "ss2d_scan_seg.cuh"
 
 namespace {
-
-constexpr int kN = 16;                 // state size
-constexpr int kNP = 4;                 // state lanes per thread
-constexpr int kTPC = kN / kNP;         // threads per channel: 4
-constexpr int kDB = 32;                // channels per block
-constexpr int kThreads = kDB * kTPC;   // 128
-constexpr int kWarps = kThreads / 32;  // 4
-constexpr int kCPW = 32 / kTPC;        // channels per warp: 8
-constexpr int kT = 8;                  // steps per sub-chunk of the walk
-constexpr int kSeg = 48;               // steps per segment (SEG_STEPS in kernels/selective_scan.py)
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-// 2^x; subnormal results flush to 0 (a decay below 1e-38 is 0 here)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float at(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// Per-block view of one (b, k) sequence and one segment of it.
-struct Seq {
-  const float* u;    // layouts[b, k % 2] + d0, row stride D
-  const float* dtr;  // dts_raw[b, k / 2, k % 2], row stride dt_rs
-  const float* Bm;   // Bs[b, k / 2, k % 2], row stride b_rs
-  const float* Cm;   // Cs[b, k / 2, k % 2], row stride c_rs
-  const float* dy;   // dy[b, k] + d0, row stride D
-  long long dt_rs, b_rs, c_rs;
-  int L, D, R;
-  int s0, T;  // the segment: steps [s0, s0 + T)
-  bool rev;
-  __device__ long long t_of(int s) const { return rev ? L - 1 - s : s; }
-};
-
-__device__ Seq make_seq(const float* layouts, const float* dts_raw, const float* Bs,
-                        const float* Cs, const float* dy, int b, int k, int d0, int L, int D,
-                        int R, long long dt_rs, long long b_rs, long long c_rs) {
-  const int f = k / 2, j = k % 2;
-  const long long seq = (((long long)b * 2 + f) * 2 + j) * L;
-  Seq q;
-  q.u = layouts + ((long long)b * 2 + j) * L * D + d0;
-  q.dtr = dts_raw + seq * dt_rs;
-  q.Bm = Bs + seq * b_rs;
-  q.Cm = Cs + seq * c_rs;
-  q.dy = dy + ((long long)b * 4 + k) * L * D + d0;
-  q.dt_rs = dt_rs;
-  q.b_rs = b_rs;
-  q.c_rs = c_rs;
-  q.L = L;
-  q.D = D;
-  q.R = R;
-  q.s0 = blockIdx.z * kSeg;
-  q.T = min(kSeg, L - q.s0);
-  q.rev = f == 1;
-  return q;
-}
-
-// Shared memory of both segment kernels, in floats. Per-channel and per-n
-// rows run along the steps with a pitch of kP = kSeg + 4 (16-byte aligned rows,
-// four channels of a warp on distinct banks). `scratch` holds dt_raw while
-// dt is computed; the walk then reuses it for its sub-chunk states.
-constexpr int kP = kSeg + 4;  // row pitch
-
-struct SegSmem {
-  float *dtwT, *dtb, *dt, *u, *dy, *B, *C, *scratch;
-};
-
-__host__ __device__ size_t head_floats(int R) {  // a multiple of 4
-  return (size_t)R * kDB + kDB + (size_t)(3 * kDB + 2 * kN) * kP;
-}
-
-__device__ SegSmem carve_seg(float* p, int R) {
-  SegSmem m;
-  m.dtwT = p;  p += R * kDB;  // [R][kDB]: conflict-free reads across channels
-  m.dtb = p;   p += kDB;
-  m.dt = p;    p += kDB * kP;  // [kDB][kP]
-  m.u = p;     p += kDB * kP;
-  m.dy = p;    p += kDB * kP;
-  m.B = p;     p += kN * kP;   // [kN][kP]
-  m.C = p;     p += kN * kP;
-  m.scratch = p;  // dt_raw [kSeg][R]
-  return m;
-}
-
-__host__ __device__ size_t summaries_floats(int R) { return head_floats(R) + (size_t)kSeg * R; }
 
 constexpr size_t kCarFloats = (size_t)(kSeg / kT) * kThreads * kNP;
 
 __host__ __device__ size_t walk_floats(int R) {
   const size_t scratch = kCarFloats > (size_t)kSeg * R ? kCarFloats : (size_t)kSeg * R;
-  return head_floats(R) + scratch + 2 * kT * kWarps * 32 + 2 * kT * kDB * 2;
-}
-
-// dt of rows s = warp, warp + kWarps, ... < Tpad for channel `lane`, the
-// projection's weights held in registers (kR of them; 0: any R, from
-// shared memory). Rows past T get dt = 0.
-template <int kR>
-__device__ void dt_rows(const float* dtr, const SegSmem& m, int R, int T, int Tpad, int lane,
-                        int warp) {
-  float w[kR > 0 ? kR : 1];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) w[r] = m.dtwT[r * kDB + lane];
-  const float bias = m.dtb[lane];
-  for (int s = warp; s < Tpad; s += kWarps) {
-    float dt = 0.f;
-    if (s < T) {
-      float z = bias;
-      if (kR > 0) {
-#pragma unroll
-        for (int r = 0; r < kR; r += 4) {
-          const float4 x = ld4(dtr + s * kR + r);
-          z = fmaf(x.x, w[r], z);
-          z = fmaf(x.y, w[r + 1], z);
-          z = fmaf(x.z, w[r + 2], z);
-          z = fmaf(x.w, w[r + 3], z);
-        }
-      } else {
-        for (int r = 0; r < R; ++r) z = fmaf(dtr[s * R + r], m.dtwT[r * kDB + lane], z);
-      }
-      dt = softplus(z);
-    }
-    m.dt[lane * kP + s] = dt;
-  }
-}
-
-// Stage the segment with cp.async: group 1 dt_raw, B, u (and the dt
-// weights); group 2 C, dy. Steps [T, Tpad) of a ragged segment are zeros:
-// dt = 0 makes them no-ops of every recurrence (a = 1, no input, no q), so
-// the loops run whole 8-step sub-chunks without a guard per step. Waits for
-// group 1, computes dt into shared memory and ends synchronised; group 2
-// may still be in flight.
-__device__ void stage_segment(const Seq& q, int k, int d0, const float* dt_w, const float* dt_b,
-                              const SegSmem& m) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int R = q.R, T = q.T, P = kP;
-  const int Tpad = (T + kT - 1) / kT * kT;
-  const long long dir = q.rev ? -1 : 1;  // global rows run backwards for k >= 2
-  float* dtr = m.scratch;
-  for (int i = tid; i < kDB * R; i += kThreads) {
-    const int dd = i / R, r = i % R;
-    cp_async4(&m.dtwT[r * kDB + dd], &dt_w[((long long)k * q.D + d0) * R + i]);
-  }
-  if (tid < kDB) cp_async4(&m.dtb[tid], &dt_b[(long long)k * q.D + d0 + tid]);
-  // rows of u, dy and dt_raw: one step per warp; rows of B and C: two per warp
-  const long long t_w = q.t_of(q.s0 + warp), t_h = q.t_of(q.s0 + 2 * warp + lane / kN);
-  const int nl = lane % kN;
-  {
-    const float* gu = q.u + t_w * q.D + lane;
-    const float* gr = q.dtr + t_w * q.dt_rs + lane;
-    const float* gb = q.Bm + t_h * q.b_rs + nl;
-    for (int s = warp; s < T; s += kWarps, gu += dir * kWarps * q.D, gr += dir * kWarps * q.dt_rs) {
-      if (lane < R) cp_async4(&dtr[s * R + lane], gr);
-      if (lane + 32 < R) cp_async4(&dtr[s * R + lane + 32], gr + 32);
-      cp_async4(&m.u[lane * P + s], gu);
-    }
-    for (int s = 2 * warp + lane / kN; s < T; s += 2 * kWarps, gb += dir * 2 * kWarps * q.b_rs)
-      cp_async4(&m.B[nl * P + s], gb);
-  }
-  cp_async_commit();
-  {
-    const float* gy = q.dy + t_w * q.D + lane;
-    const float* gc = q.Cm + t_h * q.c_rs + nl;
-    for (int s = warp; s < T; s += kWarps, gy += dir * kWarps * q.D) cp_async4(&m.dy[lane * P + s], gy);
-    for (int s = 2 * warp + lane / kN; s < T; s += 2 * kWarps, gc += dir * 2 * kWarps * q.c_rs)
-      cp_async4(&m.C[nl * P + s], gc);
-  }
-  cp_async_commit();
-  for (int s = T + warp; s < Tpad; s += kWarps) {
-    m.u[lane * P + s] = 0.f;
-    m.dy[lane * P + s] = 0.f;
-    if (lane < kN) {
-      m.B[lane * P + s] = 0.f;
-      m.C[lane * P + s] = 0.f;
-    }
-  }
-  cp_async_wait<1>();
-  __syncthreads();
-  switch (R) {  // the model's widths: 8, 16, 32
-    case 8: dt_rows<8>(dtr, m, R, T, Tpad, lane, warp); break;
-    case 16: dt_rows<16>(dtr, m, R, T, Tpad, lane, warp); break;
-    case 32: dt_rows<32>(dtr, m, R, T, Tpad, lane, warp); break;
-    default: dt_rows<0>(dtr, m, R, T, Tpad, lane, warp);
-  }
-  __syncthreads();
-}
-
-// Each thread: channel dl = 8 warp + lane / 4, lanes n = 4j .. 4j + 3 (j = lane % 4).
-struct Lanes {
-  int lane, warp, dl, j, n0;
-};
-
-__device__ Lanes lanes_of_thread() {
-  Lanes t;
-  t.lane = threadIdx.x % 32;
-  t.warp = threadIdx.x / 32;
-  t.dl = t.warp * kCPW + t.lane / kTPC;
-  t.j = t.lane % kTPC;
-  t.n0 = kNP * t.j;
-  return t;
-}
-
-__global__ void __launch_bounds__(kThreads, 6) ss2d_summaries_kernel(
-    const float* __restrict__ layouts, const float* __restrict__ dts_raw,
-    const float* __restrict__ Bs, const float* __restrict__ Cs, const float* __restrict__ dt_w,
-    const float* __restrict__ dt_b, const float* __restrict__ A, const float* __restrict__ dy,
-    float* __restrict__ hloc, float* __restrict__ rsum, float* __restrict__ sdt, int L, int D,
-    int R, long long dt_rs, long long b_rs, long long c_rs) {
-  extern __shared__ __align__(16) float smem[];
-  const SegSmem m = carve_seg(smem, R);
-  const int d0 = blockIdx.x * kDB, bk = blockIdx.y, b = bk / 4, k = bk % 4;
-  const Lanes th = lanes_of_thread();
-  const int S = gridDim.z;
-  const Seq q = make_seq(layouts, dts_raw, Bs, Cs, dy, b, k, d0, L, D, R, dt_rs, b_rs, c_rs);
-  const float4 A4 = ld4(&A[((long long)k * D + d0 + th.dl) * kN + th.n0]);
-  float a2[kNP];
-#pragma unroll
-  for (int mm = 0; mm < kNP; ++mm) a2[mm] = at(A4, mm) * kLog2e;
-  stage_segment(q, k, d0, dt_w, dt_b, m);
-  cp_async_wait<0>();
-  __syncthreads();
-  const float *dtp = m.dt + th.dl * kP, *up = m.u + th.dl * kP, *dyp = m.dy + th.dl * kP;
-  const float *B0 = m.B + th.n0 * kP, *C0 = m.C + th.n0 * kP;
-  float h[kNP], P[kNP], r[kNP], sum_dt = 0.f;
-#pragma unroll
-  for (int mm = 0; mm < kNP; ++mm) h[mm] = 0.f, P[mm] = 1.f, r[mm] = 0.f;
-#pragma unroll 2
-  for (int s4 = 0; s4 < q.T; s4 += 4) {  // steps past T are zeros: no-ops
-    const float4 dt4 = ld4(dtp + s4), u4 = ld4(up + s4), dy4 = ld4(dyp + s4);
-    float4 Bq[kNP], Cq[kNP];
-#pragma unroll
-    for (int mm = 0; mm < kNP; ++mm) Bq[mm] = ld4(B0 + mm * kP + s4), Cq[mm] = ld4(C0 + mm * kP + s4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float dt = at(dt4, i), dtu = dt * at(u4, i), dyv = at(dy4, i);
-#pragma unroll
-      for (int mm = 0; mm < kNP; ++mm) {
-        const float a = ex2(dt * a2[mm]);
-        h[mm] = fmaf(a, h[mm], dtu * at(Bq[mm], i));
-        P[mm] *= a;
-        r[mm] = fmaf(P[mm], at(Cq[mm], i) * dyv, r[mm]);
-      }
-      sum_dt += dt;
-    }
-  }
-  const long long row = ((long long)bk * S + blockIdx.z) * D + d0 + th.dl;
-  *reinterpret_cast<float4*>(&hloc[row * kN + th.n0]) = make_float4(h[0], h[1], h[2], h[3]);
-  *reinterpret_cast<float4*>(&rsum[row * kN + th.n0]) = make_float4(r[0], r[1], r[2], r[3]);
-  if (th.j == 0) sdt[row] = sum_dt;
-}
-
-// Two threads per (b, k, d, n), each serial over the S segments, in place:
-// the first turns hloc into h_in, the second rsum into c. Loads go 8
-// segments ahead of the chain.
-constexpr int kAhead = 8;
-
-__global__ void __launch_bounds__(256, 4) ss2d_combine_kernel(
-    const float* __restrict__ A, const float* __restrict__ sdt, float* __restrict__ hloc,
-    float* __restrict__ rsum, int B, int D, int S) {
-  const long long lanes = (long long)B * 4 * D * kN;
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 2 * lanes) return;
-  const bool carry = idx >= lanes;  // warp-uniform: lanes is a multiple of 512
-  if (carry) idx -= lanes;
-  const long long DN = (long long)D * kN, bk = idx / DN, rem = idx % DN;
-  const int k = (int)(bk % 4), d = (int)(rem / kN);
-  const float a2 = A[(long long)k * DN + rem] * kLog2e;
-  float* p = (carry ? rsum : hloc) + bk * S * DN + rem;
-  const float* sp = sdt + bk * S * D + d;
-  // h: j = 0, 1, ..., S-1 (v_{j+1} = E_j v_j + loc_j); c: j = S-1, ..., 0
-  // (v_{j-1} = E_j v_j + loc_j); each slot receives the v entering it
-  const int j0 = carry ? S - 1 : 0, dj = carry ? -1 : 1;
-  float v = 0.f;
-  int c = 0;
-  for (; c + kAhead <= S; c += kAhead) {
-    float loc[kAhead], E[kAhead];
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      const int j = j0 + dj * (c + i);
-      loc[i] = p[j * DN];
-      E[i] = ex2(a2 * sp[(long long)j * D]);
-    }
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      p[(j0 + dj * (c + i)) * DN] = v;
-      v = fmaf(E[i], v, loc[i]);
-    }
-  }
-  for (; c < S; ++c) {
-    const int j = j0 + dj * c;
-    const float loc = p[j * DN], E = ex2(a2 * sp[(long long)j * D]);
-    p[j * DN] = v;
-    v = fmaf(E, v, loc);
-  }
+  return head_floats<true>(R) + scratch + 2 * kT * kWarps * 32 + 2 * kT * kDB * 2;
 }
 
 __global__ void __launch_bounds__(kThreads, 4) ss2d_walk_kernel(
@@ -407,7 +101,7 @@ __global__ void __launch_bounds__(kThreads, 4) ss2d_walk_kernel(
     float* __restrict__ dAp, int L, int D, int R, long long dt_rs, long long b_rs,
     long long c_rs) {
   extern __shared__ __align__(16) float smem[];
-  const SegSmem m = carve_seg(smem, R);
+  const SegSmem m = carve_seg<true>(smem, R);
   float* s_car = m.scratch;  // [kSeg/kT][kThreads][kNP], after dt_raw is consumed
   float* s_red = smem + walk_floats(R) - 2 * kT * kWarps * 32 - 2 * kT * kDB * 2;  // [2][kT][kWarps][32]
   float* s_gd = s_red + 2 * kT * kWarps * 32;  // [2][kT][kDB][2]: sum_n gB, sum_n ddA A
@@ -422,7 +116,7 @@ __global__ void __launch_bounds__(kThreads, 4) ss2d_walk_kernel(
   for (int mm = 0; mm < kNP; ++mm) a_dn[mm] = at(A4, mm), a2[mm] = at(A4, mm) * kLog2e;
   const long long o = (((long long)bk * S + blockIdx.z) * D + d0 + th.dl) * kN + th.n0;
   const float4 hin4 = ld4(&h_in[o]), c4 = ld4(&carry[o]);
-  stage_segment(q, k, d0, dt_w, dt_b, m);
+  stage_segment<true, true>(q, k, d0, dt_w, dt_b, m);
   const float *dtp = m.dt + th.dl * kP, *up = m.u + th.dl * kP, *dyp = m.dy + th.dl * kP;
   const float *B0 = m.B + th.n0 * kP, *C0 = m.C + th.n0 * kP;
 
@@ -551,15 +245,7 @@ __global__ void __launch_bounds__(kThreads, 4) ss2d_walk_kernel(
   *reinterpret_cast<float4*>(&dAp[o]) = make_float4(dA[0], dA[1], dA[2], dA[3]);
 }
 
-int segments(int L) { return (L + kSeg - 1) / kSeg; }
-
-bool shapes_ok(int B, int L, int D, int R, int N) {
-  return N == kN && D % kDB == 0 && R >= 1 && R <= 64 && L >= 1 && B >= 1 && segments(L) <= 65535 &&
-         4 * B <= 65535;
-}
-
-static_assert(kNP == 4 && kDB == 32 && kT * kDB % kThreads == 0, "the reductions are written for 4 lanes a thread");
-static_assert(kSeg % kT == 0, "segments are whole sub-chunks");
+static_assert(kT * kDB % kThreads == 0, "the walk writes a sub-chunk in whole rounds of the block");
 
 }  // namespace
 
@@ -571,14 +257,8 @@ extern "C" int ss2d_scan_bwd_summaries(
     float* rsum, float* sdt, int B, int L, int D, int R, int N, long long dt_rs,
     long long b_rs, long long c_rs, void* stream) {
   if (!shapes_ok(B, L, D, R, N)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * summaries_floats(R);
-  cudaError_t err = cudaFuncSetAttribute(ss2d_summaries_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(D / kDB, 4 * B, segments(L));
-  ss2d_summaries_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      layouts, dts_raw, Bs, Cs, dt_w, dt_b, A, dy, hloc, rsum, sdt, L, D, R, dt_rs, b_rs, c_rs);
-  return (int)cudaGetLastError();
+  return (int)launch_summaries<true>(layouts, dts_raw, Bs, Cs, dt_w, dt_b, A, dy, hloc, rsum, sdt, B, L,
+                                     D, R, dt_rs, b_rs, c_rs, (cudaStream_t)stream);
 }
 
 // In place: hloc -> the state entering each segment, rsum -> the carry c
@@ -586,10 +266,7 @@ extern "C" int ss2d_scan_bwd_summaries(
 extern "C" int ss2d_scan_bwd_combine(const float* A, const float* sdt, float* hloc, float* rsum,
                                      int B, int L, int D, int N, void* stream) {
   if (!shapes_ok(B, L, D, 1, N)) return (int)cudaErrorInvalidValue;
-  const long long threads = 2LL * B * 4 * D * kN;
-  ss2d_combine_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-      A, sdt, hloc, rsum, B, D, segments(L));
-  return (int)cudaGetLastError();
+  return (int)launch_combine<true>(A, sdt, hloc, rsum, B, L, D, (cudaStream_t)stream);
 }
 
 // du, dz (B, 4, L, D) natural order; dBp, dCp (B, 4, D/32, L, 16) partial
@@ -614,18 +291,11 @@ extern "C" int ss2d_scan_bwd_walk(
 // Resident blocks per SM of (summaries, combine, walk) at R, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor.
 extern "C" int ss2d_scan_bwd_occupancy(int R, int* out) {
-  const size_t s_sum = sizeof(float) * summaries_floats(R);
   const size_t s_walk = sizeof(float) * walk_floats(R);
-  cudaError_t err = cudaFuncSetAttribute(ss2d_summaries_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_sum);
+  cudaError_t err = shared_occupancy<true>(R, out);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ss2d_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)s_walk);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], ss2d_summaries_kernel, kThreads,
-                                                        s_sum);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], ss2d_combine_kernel, 256, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], ss2d_walk_kernel, kThreads,
                                                         s_walk);

@@ -1,4 +1,5 @@
-// Fused 4-direction SS2D selective scan, forward, fp32 (VMamba S6).
+// Fused 4-direction SS2D selective scan, forward, fp32 (VMamba S6), as a
+// segment-parallel scan.
 //
 // Replaces the TPU kernel `tamtr_tpu/kernels/selective_scan.py:_ss2d_kernel`
 // (launched by `_run_ss2d_scan`, reached through `ss2d_scan`). Same contract
@@ -13,133 +14,147 @@
 // (B, 2, L, D) contiguous; dts_raw, Bs and Cs are (B, 2, 2, L, *) with a row
 // stride that may exceed their width (views split out of one x_proj result).
 //
-// Design: one thread per (b, k, d, n). A block holds kDB = 8 channels d of one
-// (b, k), 16 lanes each, and keeps its state h in a register for the whole
-// sequence. Chunks of kT steps of dt_raw, B, C and u are staged in shared
-// memory; the block computes dt for the chunk (the dt projection, bias and
-// softplus are fused here), then each thread steps through the chunk and the
-// 16 n-lanes of a channel reduce C.h with __shfl_xor_sync. y goes back out
-// through shared memory once per chunk.
+// Segments, as the backward (`ss2d_scan_bwd.cu`) cuts them: each
+// direction's walk is cut into S = ceil(L / kSeg) segments of kSeg = 48
+// steps (the last one ragged), and every (32 channels, b, k, segment) is a
+// 128-thread block of its own, grid (D/32, 4B, S), four state lanes per
+// thread. Three launches:
+//   1. summaries: from h = 0, the segment's local end state h_loc
+//      (B, 4, S, D, 16) and sum dt (B, 4, S, D); the backward's summaries
+//      kernel without r (`ss2d_scan_seg.cuh`);
+//   2. combine: per (b, k, d, n), serial over the S segments, in place:
+//      h_in[j+1] = exp(A sum dt_j) h_in[j] + h_loc[j] from h_in[0] = 0; the
+//      backward's combine without the carry;
+//   3. output: each block rebuilds its segment's states from h_in[j], step
+//      by step, and per step y_s = sum_n C_s[n] h_s[n] + D u_s. A thread
+//      sums its four lanes for four steps at a time; a reduce-scatter
+//      across the channel's 4 threads (three shuffles per four steps) leaves
+//      each thread with one step's sum. y is staged in shared memory and
+//      written as coalesced 32-channel rows at t = s or t = L-1-s.
+// Staging by cp.async in rows along the steps, ragged segments padded with
+// zeros (dt = 0: a no-op step), the dt projection and a precise softplus
+// fused, exp as ex2.approx.ftz. No atomics: bitwise the same from run to run.
 //
-// Bound on the card: by bytes. At 640 px level 0 (B=1, L=25600, D=256) it
-// reads ~70 MB and writes ~105 MB, with 4.L.D.N exp's. This simple design
-// runs only B.4.D.N threads, each a serial loop of L steps, so it is latency
-// bound far above that; a chunked parallel scan is the later design.
-// Precise expf/log1pf (no fast-math) keep it within 1e-4 of the plain version.
+// Bound on the card (`chip_smoke.py:check_ss2d_scan`): the function, inputs
+// read once and y written once, at 640 px level 0 (B=1, L=25600, D=256)
+// moves ~175 MB and does 4.L.D.(2R + 8N + 3) = 3.9 G fp32 operations:
+// 0.058 ms, by operations. The segment design adds the (B, 4, S, D, 16)
+// states (written, read and rewritten by the combine, read by the output:
+// 35 MB at B=1) and runs the state recurrence twice. What bounds it instead
+// is the exp unit and the instruction issue: each pass evaluates one ex2 per
+// (b, k, l, d, n), 0.42 G at level 0, at 16 a clock per SM. The first design
+// ran one serial L-step chain per thread, 128 blocks at level 0; segments of
+// 48 steps make 17088 blocks there at B=1.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "ss2d_scan_seg.cuh"
 
 namespace {
 
-constexpr int kN = 16;             // state size, one lane per n
-constexpr int kDB = 8;             // channels per block
-constexpr int kT = 64;             // steps staged per chunk
-constexpr int kThreads = kDB * kN;
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-__global__ void __launch_bounds__(kThreads) ss2d_scan_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, 6) ss2d_output_kernel(
     const float* __restrict__ layouts, const float* __restrict__ dts_raw,
-    const float* __restrict__ Bs, const float* __restrict__ Cs,
-    const float* __restrict__ dt_w, const float* __restrict__ dt_b,
-    const float* __restrict__ A, const float* __restrict__ Ds,
-    float* __restrict__ y, int L, int D, int R,
-    long long dt_rs, long long b_rs, long long c_rs) {
-  extern __shared__ float smem[];
-  float* s_dtw = smem;               // [kDB][R]
-  float* s_dtr = s_dtw + kDB * R;    // [kT][R]
-  float* s_B = s_dtr + kT * R;       // [kT][kN]
-  float* s_C = s_B + kT * kN;        // [kT][kN]
-  float* s_u = s_C + kT * kN;        // [kT][kDB]
-  float* s_dt = s_u + kT * kDB;      // [kT][kDB]
-  float* s_y = s_dt + kT * kDB;      // [kT][kDB]
-
-  const int d0 = blockIdx.x * kDB;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int n = tid % kN;
-  const int dl = tid / kN;
-  const int f = k / 2, j = k % 2;
-  const bool rev = f == 1;
-
-  const float* u_base = layouts + ((long long)b * 2 + j) * L * D + d0;
-  const long long seq = (((long long)b * 2 + f) * 2 + j) * L;
-  const float* dtr_base = dts_raw + seq * dt_rs;
-  const float* B_base = Bs + seq * b_rs;
-  const float* C_base = Cs + seq * c_rs;
-  float* y_base = y + ((long long)b * 4 + k) * L * D + d0;
-
-  for (int i = tid; i < kDB * R; i += kThreads)
-    s_dtw[i] = dt_w[((long long)k * D + d0) * R + i];
-  const float a_dn = A[((long long)k * D + d0 + dl) * kN + n];
-  const float d_skip = Ds[k * D + d0 + dl];
-  float h = 0.f;
-
-  for (int s0 = 0; s0 < L; s0 += kT) {
-    const int T = min(kT, L - s0);
-    __syncthreads();  // the previous chunk is consumed and written out
-    for (int i = tid; i < T * R; i += kThreads) {
-      const int s = s0 + i / R;
-      const long long t = rev ? L - 1 - s : s;
-      s_dtr[i] = dtr_base[t * dt_rs + i % R];
+    const float* __restrict__ Bs, const float* __restrict__ Cs, const float* __restrict__ dt_w,
+    const float* __restrict__ dt_b, const float* __restrict__ A, const float* __restrict__ Ds,
+    const float* __restrict__ h_in, float* __restrict__ y, int L, int D, int R, long long dt_rs,
+    long long b_rs, long long c_rs) {
+  extern __shared__ __align__(16) float smem[];
+  const SegSmem m = carve_seg<true>(smem, R);  // y is staged in the `dy` rows
+  const int d0 = blockIdx.x * kDB, bk = blockIdx.y, b = bk / 4, k = bk % 4;
+  const Lanes th = lanes_of_thread();
+  const int S = gridDim.z;
+  const Seq q = make_seq(layouts, dts_raw, Bs, Cs, nullptr, b, k, d0, L, D, R, dt_rs, b_rs, c_rs);
+  const float4 A4 = ld4(&A[((long long)k * D + d0 + th.dl) * kN + th.n0]);
+  float a2[kNP];
+#pragma unroll
+  for (int mm = 0; mm < kNP; ++mm) a2[mm] = at(A4, mm) * kLog2e;
+  const float d_skip = Ds[(long long)k * D + d0 + th.dl];
+  const float4 hin4 = ld4(&h_in[(((long long)bk * S + blockIdx.z) * D + d0 + th.dl) * kN + th.n0]);
+  stage_segment<true, false>(q, k, d0, dt_w, dt_b, m);
+  cp_async_wait<0>();
+  __syncthreads();
+  const float *dtp = m.dt + th.dl * kP, *up = m.u + th.dl * kP;
+  const float *B0 = m.B + th.n0 * kP, *C0 = m.C + th.n0 * kP;
+  float* yrow = m.dy + th.dl * kP + th.j;  // thread j writes step s4 + j
+  const bool hi2 = th.lane & 2, hi1 = th.lane & 1;
+  float h[kNP];
+#pragma unroll
+  for (int mm = 0; mm < kNP; ++mm) h[mm] = at(hin4, mm);
+#pragma unroll 2
+  for (int s4 = 0; s4 < q.T; s4 += 4) {  // steps past T are zeros: no-ops
+    const float4 dt4 = ld4(dtp + s4), u4 = ld4(up + s4);
+    float4 Bq[kNP], Cq[kNP];
+#pragma unroll
+    for (int mm = 0; mm < kNP; ++mm) Bq[mm] = ld4(B0 + mm * kP + s4), Cq[mm] = ld4(C0 + mm * kP + s4);
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float dt = at(dt4, i), dtu = dt * at(u4, i);
+      float acc = 0.f;
+#pragma unroll
+      for (int mm = 0; mm < kNP; ++mm) {
+        h[mm] = fmaf(ex2(dt * a2[mm]), h[mm], dtu * at(Bq[mm], i));
+        acc = fmaf(at(Cq[mm], i), h[mm], acc);
+      }
+      p[i] = acc;
     }
-    for (int i = tid; i < T * kN; i += kThreads) {
-      const int s = s0 + i / kN;
-      const long long t = rev ? L - 1 - s : s;
-      s_B[i] = B_base[t * b_rs + i % kN];
-      s_C[i] = C_base[t * c_rs + i % kN];
-    }
-    for (int i = tid; i < T * kDB; i += kThreads) {
-      const int s = s0 + i / kDB;
-      const long long t = rev ? L - 1 - s : s;
-      s_u[i] = u_base[t * D + i % kDB];
-    }
-    __syncthreads();
-    for (int i = tid; i < T * kDB; i += kThreads) {
-      const int s = i / kDB, dd = i % kDB;
-      float z = 0.f;
-      for (int r = 0; r < R; ++r) z += s_dtr[s * R + r] * s_dtw[dd * R + r];
-      s_dt[i] = softplus(z + dt_b[k * D + d0 + dd]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int s = 0; s < T; ++s) {
-      const float dt = s_dt[s * kDB + dl];
-      const float u = s_u[s * kDB + dl];
-      h = expf(dt * a_dn) * h + dt * u * s_B[s * kN + n];
-      float p = s_C[s * kN + n] * h;
-      p += __shfl_xor_sync(0xffffffffu, p, 8);
-      p += __shfl_xor_sync(0xffffffffu, p, 4);
-      p += __shfl_xor_sync(0xffffffffu, p, 2);
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      if (n == 0) s_y[s * kDB + dl] = p + u * d_skip;
-    }
-    __syncthreads();
-    for (int i = tid; i < T * kDB; i += kThreads) {
-      const int s = s0 + i / kDB;
-      const long long t = rev ? L - 1 - s : s;
-      y_base[t * D + i % kDB] = s_y[i];
-    }
+    // over the channel's 4 threads: j = 2 hi2 + hi1 ends with step s4 + j
+    const float x0 = (hi2 ? p[2] : p[0]) + __shfl_xor_sync(0xffffffffu, hi2 ? p[0] : p[2], 2);
+    const float x1 = (hi2 ? p[3] : p[1]) + __shfl_xor_sync(0xffffffffu, hi2 ? p[1] : p[3], 2);
+    const float v = (hi1 ? x1 : x0) + __shfl_xor_sync(0xffffffffu, hi1 ? x0 : x1, 1);
+    yrow[s4] = fmaf(d_skip, up[s4 + th.j], v);
   }
+  __syncthreads();
+  // rows of 32 channels, one step per warp
+  const long long dir = q.rev ? -1 : 1;
+  float* yg = y + (long long)bk * L * D + d0 + th.lane + q.t_of(q.s0) * D;
+  for (int s = th.warp; s < q.T; s += kWarps) yg[dir * s * D] = m.dy[th.lane * kP + s];
 }
 
 }  // namespace
 
-extern "C" int ss2d_scan_fwd(
-    const float* layouts, const float* dts_raw, const float* Bs, const float* Cs,
-    const float* dt_w, const float* dt_b, const float* A, const float* Ds, float* y,
-    int B, int L, int D, int R, int N, long long dt_rs, long long b_rs,
-    long long c_rs, void* stream) {
-  if (N != kN || D % kDB != 0 || R < 1 || L < 1 || B < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (kDB * R + kT * R + 2 * kT * kN + 3 * kT * kDB);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  dim3 grid(D / kDB, 4, B);
-  ss2d_scan_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      layouts, dts_raw, Bs, Cs, dt_w, dt_b, A, Ds, y, L, D, R, dt_rs, b_rs, c_rs);
+// hloc (B, 4, S, D, 16) and sdt (B, 4, S, D), S = ceil(L / kSeg): per
+// segment, the local end state from h = 0 and the sum of dt.
+extern "C" int ss2d_scan_fwd_summaries(const float* layouts, const float* dts_raw, const float* Bs,
+                                       const float* dt_w, const float* dt_b, const float* A,
+                                       float* hloc, float* sdt, int B, int L, int D, int R, int N,
+                                       long long dt_rs, long long b_rs, void* stream) {
+  if (!shapes_ok(B, L, D, R, N)) return (int)cudaErrorInvalidValue;
+  return (int)launch_summaries<false>(layouts, dts_raw, Bs, nullptr, dt_w, dt_b, A, nullptr, hloc,
+                                      nullptr, sdt, B, L, D, R, dt_rs, b_rs, 0, (cudaStream_t)stream);
+}
+
+// In place: hloc -> the state entering each segment.
+extern "C" int ss2d_scan_fwd_combine(const float* A, const float* sdt, float* hloc, int B, int L,
+                                     int D, int N, void* stream) {
+  if (!shapes_ok(B, L, D, 1, N)) return (int)cudaErrorInvalidValue;
+  return (int)launch_combine<false>(A, sdt, hloc, nullptr, B, L, D, (cudaStream_t)stream);
+}
+
+// y (B, 4, L, D) natural order, from the state entering each segment.
+extern "C" int ss2d_scan_fwd_output(const float* layouts, const float* dts_raw, const float* Bs,
+                                    const float* Cs, const float* dt_w, const float* dt_b,
+                                    const float* A, const float* Ds, const float* h_in, float* y,
+                                    int B, int L, int D, int R, int N, long long dt_rs,
+                                    long long b_rs, long long c_rs, void* stream) {
+  if (!shapes_ok(B, L, D, R, N)) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * summaries_floats<true>(R);
+  cudaError_t err = cudaFuncSetAttribute(ss2d_output_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(D / kDB, 4 * B, segments(L));
+  ss2d_output_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      layouts, dts_raw, Bs, Cs, dt_w, dt_b, A, Ds, h_in, y, L, D, R, dt_rs, b_rs, c_rs);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of (summaries, combine, output) at R, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+extern "C" int ss2d_scan_fwd_occupancy(int R, int* out) {
+  const size_t s_out = sizeof(float) * summaries_floats<true>(R);
+  cudaError_t err = shared_occupancy<false>(R, out);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ss2d_output_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)s_out);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], ss2d_output_kernel, kThreads, s_out);
+  return (int)err;
 }

@@ -3,7 +3,7 @@
 Each `tamtr_torch/csrc/<name>.cu` exposes a plain C entry point and becomes
 `build/lib<name>.so` at the checkout root, compiled for Hopper (`sm_90a`) on
 first use. One nvcc process runs per source, all started together. A library
-newer than its source is reused. Nothing here runs at import time: the CPU
+newer than its source and than every header in `csrc/` (`*.cuh`) is reused. Nothing here runs at import time: the CPU
 tests import every module of the port on machines without nvcc.
 """
 
@@ -68,8 +68,13 @@ def _compile_all(stale: List[Path]) -> Dict[str, object]:
 
 
 def _is_fresh(src: Path) -> bool:
+    """The library of `src` exists and is no older than `src` or any header
+    beside it (a source may include any of them)."""
     lib = BUILD_DIR / f"lib{src.stem}.so"
-    return lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime
+    if not lib.exists():
+        return False
+    inputs = [src, *src.parent.glob("*.cuh")]
+    return lib.stat().st_mtime >= max(f.stat().st_mtime for f in inputs)
 
 
 def build_all() -> Dict[str, object]:

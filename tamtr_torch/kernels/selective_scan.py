@@ -2,9 +2,12 @@
 
 Forward: `ss2d_scan` replaces the TPU kernel
 `tamtr_tpu/kernels/selective_scan.py:_ss2d_kernel` (via `_run_ss2d_scan` and
-`ss2d_scan`). On a CUDA tensor it launches `csrc/ss2d_scan_fwd.cu`; on a CPU
-tensor it runs `ss2d_scan_ref`, the plain PyTorch version of
-`ss2d_scan_xla` and `tamtr_tpu/nn/ssm.py:selective_scan_xla`.
+`ss2d_scan`). On CUDA tensors it launches `csrc/ss2d_scan_fwd.cu`, a
+segment-parallel scan: `ss2d_scan_fwd_summaries` (per-segment local end
+states), `ss2d_scan_fwd_combine` (the pass across segments) and
+`ss2d_scan_fwd_output` (each segment rebuilt from its entering state, y
+written). On a CPU tensor it runs `ss2d_scan_ref`, the plain PyTorch version
+of `ss2d_scan_xla` and `tamtr_tpu/nn/ssm.py:selective_scan_xla`.
 
 Backward: `ss2d_scan` is a `torch.autograd.Function`. On CUDA tensors its
 backward launches `csrc/ss2d_scan_bwd.cu`, a segment-parallel scan:
@@ -38,8 +41,8 @@ import torch
 from tamtr_torch.kernels import _build
 
 SCAN_CHUNK = 128
-BWD_CHANNELS = 32  # channels per block of the backward kernels (csrc kDB)
-SEG_STEPS = 48  # steps per segment of the backward's segment-parallel scan (csrc kSeg)
+SEG_CHANNELS = 32  # channels per block of the segment kernels, forward and backward (csrc kDB)
+SEG_STEPS = 48  # steps per segment of the segment-parallel scans (csrc kSeg)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -227,33 +230,104 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
-    """Launch kernel B1."""
-    layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = _check_cuda(
-        "ss2d_scan", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, 8)
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if its data is 16-byte aligned (the segment kernels read A
+    four lanes at a time), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _new(device, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def ss2d_scan_fwd_summaries(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs):
+    """Kernel B1's first launch, the segment summaries: each direction's walk
+    cut into S = ceil(L / SEG_STEPS) segments, and per segment and (d, n) the
+    local end state from h = 0, h_loc (B, 4, S, D, 16), and the sum of dt,
+    (B, 4, S, D). CUDA tensors only."""
+    layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, _ = _check_cuda(
+        "ss2d_scan_fwd_summaries", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dt_b, SEG_CHANNELS)
     B, _, L, D = layouts.shape
     R, N = dt_w.shape[-1], A.shape[-1]
-    y = torch.empty((B, 4, L, D), dtype=torch.float32, device=layouts.device)
-    rc = _lib("ss2d_scan_fwd").ss2d_scan_fwd(
-        layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
-        dt_w.data_ptr(), dt_b.data_ptr(), A.data_ptr(), Ds.data_ptr(), y.data_ptr(),
-        B, L, D, R, N, dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
+    A = _aligned(A)
+    S = -(-L // SEG_STEPS)
+    h_loc, sdt = _new(layouts.device, B, 4, S, D, N), _new(layouts.device, B, 4, S, D)
+    rc = _lib("ss2d_scan_fwd").ss2d_scan_fwd_summaries(
+        layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), dt_w.data_ptr(), dt_b.data_ptr(),
+        A.data_ptr(), h_loc.data_ptr(), sdt.data_ptr(), B, L, D, R, N, dts_raw.stride(3), Bs.stride(3),
+        _stream(layouts),
     )
-    _build.check(rc, "ss2d_scan_fwd")
+    _build.check(rc, "ss2d_scan_fwd_summaries")
+    ss2d_scan_fwd_summaries.launches += 1
+    return h_loc, sdt
+
+
+def _check_summaries(name, A, h_loc, sdt, L):
+    if A.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {A.device}")
+    B, _, S, D, N = h_loc.shape
+    ok = (S == -(-L // SEG_STEPS) and tuple(A.shape) == (4, D, N)
+          and tuple(sdt.shape) == (B, 4, S, D)
+          and all(t.is_contiguous() and t.dtype == torch.float32 and t.device == A.device for t in (A, h_loc, sdt)))
+    if not ok:
+        raise ValueError(f"{name}: A and the summaries as the summaries kernel gives them")
+
+
+def ss2d_scan_fwd_combine(A, h_loc, sdt, L: int):
+    """Kernel B1's second launch, the pass across segments, in place on the
+    summaries: h_loc becomes the state entering each segment,
+    h_in[j+1] = E_j h_in[j] + h_loc[j] with E_j = exp(A sum dt_j). Returns h_in."""
+    _check_summaries("ss2d_scan_fwd_combine", A, h_loc, sdt, L)
+    B, _, S, D, N = h_loc.shape
+    rc = _lib("ss2d_scan_fwd").ss2d_scan_fwd_combine(
+        A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), B, L, D, N, _stream(A))
+    _build.check(rc, "ss2d_scan_fwd_combine")
+    ss2d_scan_fwd_combine.launches += 1
+    return h_loc
+
+
+def ss2d_scan_fwd_output(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, h_in):
+    """Kernel B1's third launch: every segment rebuilt from its entering
+    state `h_in` (`ss2d_scan_fwd_combine`), y (B, 4, L, D) in natural order.
+    CUDA tensors only."""
+    layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = _check_cuda(
+        "ss2d_scan_fwd_output", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, SEG_CHANNELS)
+    B, _, L, D = layouts.shape
+    R, N = dt_w.shape[-1], A.shape[-1]
+    A = _aligned(A)
+    S = -(-L // SEG_STEPS)
+    if tuple(h_in.shape) != (B, 4, S, D, N) or not h_in.is_contiguous() or h_in.device != layouts.device:
+        raise ValueError("ss2d_scan_fwd_output: h_in as ss2d_scan_fwd_combine gives it")
+    y = _new(layouts.device, B, 4, L, D)
+    rc = _lib("ss2d_scan_fwd").ss2d_scan_fwd_output(
+        layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), dt_w.data_ptr(),
+        dt_b.data_ptr(), A.data_ptr(), Ds.data_ptr(), h_in.data_ptr(), y.data_ptr(), B, L, D, R, N,
+        dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
+    )
+    _build.check(rc, "ss2d_scan_fwd_output")
+    ss2d_scan_fwd_output.launches += 1
+    return y
+
+
+def _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
+    """Kernel B1: its three launches."""
+    L = layouts.shape[2]
+    h_loc, sdt = ss2d_scan_fwd_summaries(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs)
+    h_in = ss2d_scan_fwd_combine(A.contiguous(), h_loc, sdt, L)
+    y = ss2d_scan_fwd_output(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, h_in)
     ss2d_scan.launches += 1
     return y
+
+
+def fwd_occupancy(R: int) -> dict:
+    """Resident blocks per SM of the forward's three kernels at R."""
+    return _occupancy("ss2d_scan_fwd", R, ("summaries", "combine", "output"))
 
 
 def _check_dy(dy, B, L, D):
     if tuple(dy.shape) != (B, 4, L, D) or not dy.is_contiguous() or dy.dtype != torch.float32 \
             or dy.device.type != "cuda":
         raise ValueError("ss2d_scan backward: dy must be contiguous float32 (B, 4, L, D) on the card")
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t itself if its data is 16-byte aligned (the backward kernels read A
-    four lanes at a time), else an aligned copy."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy):
@@ -264,14 +338,14 @@ def ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy):
     (B, 4, S, D). CUDA tensors only, in the layouts `ss2d_scan_bwd` passes
     (the plain backward keeps its own per-chunk states)."""
     layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, _ = _check_cuda(
-        "ss2d_scan_carriers", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dt_b, BWD_CHANNELS)
+        "ss2d_scan_carriers", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dt_b, SEG_CHANNELS)
     B, _, L, D = layouts.shape
     R, N = dt_w.shape[-1], A.shape[-1]
     _check_dy(dy, B, L, D)
     A = _aligned(A)
     S = -(-L // SEG_STEPS)
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=layouts.device)  # noqa: E731
-    h_loc, r, sdt = new(B, 4, S, D, N), new(B, 4, S, D, N), new(B, 4, S, D)
+    h_loc, r = _new(layouts.device, B, 4, S, D, N), _new(layouts.device, B, 4, S, D, N)
+    sdt = _new(layouts.device, B, 4, S, D)
     rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_summaries(
         layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), dt_w.data_ptr(),
         dt_b.data_ptr(), A.data_ptr(), dy.data_ptr(), h_loc.data_ptr(), r.data_ptr(), sdt.data_ptr(),
@@ -287,14 +361,10 @@ def ss2d_scan_combine(A, h_loc, r, sdt, L: int):
     the state entering each segment (h_in[j+1] = E_j h_in[j] + h_loc[j],
     E_j = exp(A sum dt_j)), r the carry entering each segment's last step
     (c[j-1] = E_j c[j] + r[j], c[S-1] = 0). Returns (h_in, c)."""
-    if A.device.type != "cuda":
-        raise RuntimeError(f"ss2d_scan_combine: no kernel for device {A.device}")
+    _check_summaries("ss2d_scan_combine", A, h_loc, sdt, L)
+    if tuple(r.shape) != tuple(h_loc.shape) or not r.is_contiguous() or r.dtype != torch.float32:
+        raise ValueError("ss2d_scan_combine: r as the summaries kernel gives it")
     B, _, S, D, N = h_loc.shape
-    ok = (S == -(-L // SEG_STEPS) and tuple(A.shape) == (4, D, N) and tuple(r.shape) == tuple(h_loc.shape)
-          and tuple(sdt.shape) == (B, 4, S, D) and all(t.is_contiguous() and t.dtype == torch.float32
-                                                       for t in (A, h_loc, r, sdt)))
-    if not ok:
-        raise ValueError("ss2d_scan_combine: the summaries as B3a gives them")
     rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_combine(
         A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), r.data_ptr(), B, L, D, N, _stream(A))
     _build.check(rc, "ss2d_scan_bwd_combine")
@@ -314,13 +384,13 @@ def ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, h_in, carry)
     R, N = dt_w.shape[-1], A.shape[-1]
     _check_dy(dy, B, L, D)
     S = -(-L // SEG_STEPS)
-    if tuple(h_in.shape) != (B, 4, S, D, N) or tuple(carry.shape) != (B, 4, S, D, N) or D % BWD_CHANNELS:
+    if tuple(h_in.shape) != (B, 4, S, D, N) or tuple(carry.shape) != (B, 4, S, D, N) or D % SEG_CHANNELS:
         raise ValueError("ss2d_scan_bwd_walk: h_in and carry as ss2d_scan_combine gives them")
     A = _aligned(A.contiguous())
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=layouts.device)  # noqa: E731
-    nDb = D // BWD_CHANNELS
-    du, dz = new(B, 4, L, D), new(B, 4, L, D)
-    dBp, dCp, dAp = new(B, 4, nDb, L, N), new(B, 4, nDb, L, N), new(B, 4, S, D, N)
+    nDb = D // SEG_CHANNELS
+    du, dz = _new(layouts.device, B, 4, L, D), _new(layouts.device, B, 4, L, D)
+    dBp, dCp = _new(layouts.device, B, 4, nDb, L, N), _new(layouts.device, B, 4, nDb, L, N)
+    dAp = _new(layouts.device, B, 4, S, D, N)
     rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_walk(
         layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), dt_w.data_ptr(),
         dt_b.data_ptr(), A.data_ptr(), dy.data_ptr(), h_in.data_ptr(), carry.data_ptr(), du.data_ptr(),
@@ -332,14 +402,18 @@ def ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, h_in, carry)
     return du, dz, dBp, dCp, dAp
 
 
+def _occupancy(source: str, R: int, names) -> dict:
+    """Resident blocks per SM of the three kernels of `csrc/<source>.cu` at R."""
+    out = (ctypes.c_int * 3)()
+    fn = getattr(_lib(source), f"{source}_occupancy")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    _build.check(fn(R, ctypes.addressof(out)), f"{source}_occupancy")
+    return dict(zip(names, out))
+
+
 def bwd_occupancy(R: int) -> dict:
     """Resident blocks per SM of the backward's three kernels at R."""
-    lib = _lib("ss2d_scan_bwd")
-    out = (ctypes.c_int * 3)()
-    fn = lib.ss2d_scan_bwd_occupancy
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    _build.check(fn(R, ctypes.addressof(out)), "ss2d_scan_bwd_occupancy")
-    return dict(zip(("summaries", "combine", "walk"), out))
+    return _occupancy("ss2d_scan_bwd", R, ("summaries", "combine", "walk"))
 
 
 def ss2d_scan_bwd(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy):
@@ -349,7 +423,7 @@ def ss2d_scan_bwd(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy):
     if layouts.device.type == "cpu":
         return ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy)
     layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = _check_cuda(
-        "ss2d_scan_bwd", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, BWD_CHANNELS)
+        "ss2d_scan_bwd", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, SEG_CHANNELS)
     B, _, L, D = layouts.shape
     N = A.shape[-1]
     dy = dy.float().contiguous()
@@ -452,7 +526,10 @@ def selective_scan(u, delta, A, Bs, Cs, D=None, chunk: int = SCAN_CHUNK):
 
 
 # kernel launches since the last reset, one counter per kernel
-ss2d_scan.launches = 0
+ss2d_scan.launches = 0  # one per call: the forward's three launches count below
+ss2d_scan_fwd_summaries.launches = 0
+ss2d_scan_fwd_combine.launches = 0
+ss2d_scan_fwd_output.launches = 0
 ss2d_scan_carriers.launches = 0
 ss2d_scan_combine.launches = 0
 ss2d_scan_bwd_walk.launches = 0
@@ -460,7 +537,9 @@ selective_scan.launches = 0
 
 _SIGNATURES = {
     "selective_scan_fwd": (7, 4, 0),
-    "ss2d_scan_fwd": (9, 5, 3),
+    "ss2d_scan_fwd_summaries": (8, 5, 2),
+    "ss2d_scan_fwd_combine": (3, 4, 0),
+    "ss2d_scan_fwd_output": (10, 5, 3),
     "ss2d_scan_bwd_summaries": (11, 5, 3),
     "ss2d_scan_bwd_combine": (4, 4, 0),
     "ss2d_scan_bwd_walk": (15, 5, 3),

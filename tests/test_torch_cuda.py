@@ -22,26 +22,6 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("H,W,C", [(5, 7, 32), (40, 40, 512)])
-def test_ss2d_scan_kernel_matches_plain(card, H, W, C):
-    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_ref
-
-    g = torch.Generator().manual_seed(0)
-    L, D, R, N = H * W, 2 * C, math.ceil(C / 16), 16
-    layouts = torch.randn(2, 2, L, D, generator=g).to(card)
-    dts_raw, Bs, Cs = (torch.randn(2, 2, 2, L, R + 2 * N, generator=g) * 0.6).to(card).split([R, N, N], -1)
-    dt_w = ((torch.rand(4, D, R, generator=g) * 2 - 1) * R**-0.5).to(card)
-    dt_b = (torch.rand(4, D, generator=g) * -5 - 2).to(card)
-    A = -torch.arange(1, N + 1, dtype=torch.float32, device=card).expand(4, D, N).contiguous()
-    Ds = torch.randn(4, D, generator=g).to(card)
-    args = (layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
-    before = ss2d_scan.launches
-    y = ss2d_scan(*args)
-    torch.cuda.synchronize()
-    assert ss2d_scan.launches == before + 1
-    torch.testing.assert_close(y, ss2d_scan_ref(*args), atol=1e-4, rtol=1e-4)
-
-
 def test_bilinear_gather_kernel_matches_plain(card):
     from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_ref
     from tamtr_torch.nn.decoder import deform_sampling_pairs
@@ -66,13 +46,16 @@ def test_bilinear_gather_kernel_matches_plain(card):
 def test_model_runs_through_both_kernels(card):
     from tamtr_torch import TAMTR
     from tamtr_torch.kernels.deform_scatter import bilinear_gather
-    from tamtr_torch.kernels.selective_scan import ss2d_scan
+    from tamtr_torch.kernels.selective_scan import (
+        ss2d_scan, ss2d_scan_fwd_combine, ss2d_scan_fwd_output, ss2d_scan_fwd_summaries,
+    )
 
     det = TAMTR("tamtr-nano.yaml", nc=4, device=card, imgsz=64)
-    before = (ss2d_scan.launches, bilinear_gather.launches)
+    counters = (ss2d_scan, ss2d_scan_fwd_summaries, ss2d_scan_fwd_combine, ss2d_scan_fwd_output, bilinear_gather)
+    before = [f.launches for f in counters]
     res = det.predict(torch.rand(2, 64, 64, 3), torch.randn(4, 128), conf=0.0)
     assert len(res) == 2
-    assert (ss2d_scan.launches - before[0], bilinear_gather.launches - before[1]) == (3, 3)
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3]
 
 
 def _scan_bwd_args(card, B, H, W, C, seed=3):
@@ -88,7 +71,7 @@ def _scan_bwd_args(card, B, H, W, C, seed=3):
     return (layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds), dy
 
 
-@pytest.mark.parametrize("H,W,C,B", [
+SEGMENT_CASES = [
     (1, 1, 32, 1),  # L = 1
     (5, 7, 32, 2),  # L = 35, below one segment of SEG_STEPS = 48
     (6, 8, 32, 1),  # L = 48, one whole segment
@@ -97,7 +80,37 @@ def _scan_bwd_args(card, B, H, W, C, seed=3):
     (20, 20, 128, 2),  # L = 400, a ragged last segment of 16
     (40, 40, 512, 1),  # level 2's shape, a ragged last segment of 16
     (40, 40, 512, 2),
-])
+]
+
+
+@pytest.mark.parametrize("H,W,C,B", SEGMENT_CASES)
+def test_ss2d_scan_kernel_matches_plain(card, H, W, C, B):
+    """B1's three launches (summaries, combine, output) against the plain
+    scan at 1e-4, each launch counted once and `ss2d_scan` once per call."""
+    from tamtr_torch.kernels.selective_scan import (
+        ss2d_scan, ss2d_scan_fwd_combine, ss2d_scan_fwd_output, ss2d_scan_fwd_summaries, ss2d_scan_ref,
+    )
+
+    args, _ = _scan_bwd_args(card, B, H, W, C, seed=2)
+    counters = (ss2d_scan, ss2d_scan_fwd_summaries, ss2d_scan_fwd_combine, ss2d_scan_fwd_output)
+    before = [f.launches for f in counters]
+    y = ss2d_scan(*args)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+    torch.testing.assert_close(y, ss2d_scan_ref(*args), atol=1e-4, rtol=1e-4)
+
+
+def test_ss2d_scan_kernel_is_bitwise_deterministic(card):
+    """Two calls of B1 on the same inputs give bitwise-equal outputs."""
+    from tamtr_torch.kernels.selective_scan import ss2d_scan
+
+    args, _ = _scan_bwd_args(card, 2, 20, 20, 128, seed=5)
+    first, second = ss2d_scan(*args), ss2d_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("H,W,C,B", SEGMENT_CASES)
 def test_ss2d_scan_bwd_kernels_match_plain(card, H, W, C, B):
     """B3a, the combine and B3b against the plain backward, gradients of
     all eight inputs at 2e-3."""
@@ -189,14 +202,16 @@ def test_train_step_runs_through_every_kernel(card):
     from tamtr_torch.kernels.auction import auction_match
     from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_bwd
     from tamtr_torch.kernels.selective_scan import (
-        ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine,
+        ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_fwd_combine,
+        ss2d_scan_fwd_output, ss2d_scan_fwd_summaries,
     )
     from tamtr_torch.train.trainer import TrainConfig
 
     det = TAMTR("tamtr-nano.yaml", nc=4, device=card, imgsz=64, max_gt=8)
     tr = det.trainer(TrainConfig(batch_size=2, accumulate=1))
-    counters = (ss2d_scan, ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_bwd_walk, bilinear_gather,
-                bilinear_gather_bwd, auction_match)
+    counters = (ss2d_scan, ss2d_scan_fwd_summaries, ss2d_scan_fwd_combine, ss2d_scan_fwd_output,
+                ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_bwd_walk, bilinear_gather, bilinear_gather_bwd,
+                auction_match)
     before = [f.launches for f in counters]
     g = torch.Generator().manual_seed(6)
     mask = torch.arange(8)[None] < torch.tensor([[3], [8]])
@@ -205,7 +220,7 @@ def test_train_step_runs_through_every_kernel(card):
              "bboxes": torch.rand(2, 8, 4, generator=g) * 0.4 + 0.1, "mask": mask}
     m = tr.step(batch)
     assert all(math.isfinite(v) for v in m.values()) and m["stepped"] == 1.0
-    assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3, 3, 1]
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3, 3, 3, 3, 3, 1]
 
 
 @pytest.mark.parametrize("G,L,Din,N,with_d", [(4, 1000, 256, 16, True), (2, 77, 40, 4, False)])

@@ -16,7 +16,10 @@ import torch
 import tamtr_tpu.kernels.deform_scatter as jds
 from tamtr_torch.kernels import _build
 from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_ref
-from tamtr_torch.kernels.selective_scan import selective_scan_ref, ss2d_scan, ss2d_scan_ref
+from tamtr_torch.kernels.selective_scan import (
+    selective_scan_ref, ss2d_scan, ss2d_scan_fwd_combine, ss2d_scan_fwd_output, ss2d_scan_fwd_summaries,
+    ss2d_scan_ref,
+)
 from tamtr_torch.nn.decoder import deform_sampling_pairs, ms_deform_attn_core
 
 
@@ -177,15 +180,26 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         bilinear_gather(torch.empty((1, 4, 1, 8), device="meta"), None, None, None, 1)
 
 
+def test_forward_segment_wrappers_raise_without_a_kernel():
+    meta = torch.empty((1, 2, 4, 32), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ss2d_scan_fwd_summaries(meta, *([meta] * 6))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ss2d_scan_fwd_combine(meta, meta, meta, 4)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ss2d_scan_fwd_output(meta, *([meta] * 8))
+
+
 def test_plain_versions_do_not_count_launches():
-    before = (ss2d_scan.launches, bilinear_gather.launches)
+    counters = (ss2d_scan, ss2d_scan_fwd_summaries, ss2d_scan_fwd_combine, ss2d_scan_fwd_output, bilinear_gather)
+    before = [f.launches for f in counters]
     args = [torch.from_numpy(np.ascontiguousarray(a)) for a in _ss2d_inputs(4, 1, 2, 3, D=8)]
     ss2d_scan(*args)
     value, loc, w_att, P, _ = _deform_inputs()
     idx4, w_pairs, idx2 = deform_sampling_pairs(SHAPES, torch.from_numpy(loc), torch.from_numpy(w_att))
     bilinear_gather_ref(torch.from_numpy(value), idx4, w_pairs, idx2, P)
     bilinear_gather(torch.from_numpy(value), idx4, w_pairs, idx2, P)
-    assert (ss2d_scan.launches, bilinear_gather.launches) == before
+    assert [f.launches for f in counters] == before
 
 
 def test_build_knows_both_sources():
@@ -196,3 +210,27 @@ def test_build_knows_both_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="no CUDA source"):
         _build.load("no_such_kernel")
+
+
+def test_build_counts_a_library_older_than_a_header_as_stale(tmp_path, monkeypatch):
+    """A source's library is rebuilt when any `csrc/*.cuh` is newer than it:
+    the segment kernels of both scan sources include one header."""
+    import os
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    src, header, lib = csrc / "scan.cu", csrc / "shared.cuh", build / "libscan.so"
+    for f, t in ((src, 100), (header, 100), (lib, 200)):
+        f.write_text("")
+        os.utime(f, (t, t))
+    assert _build._is_fresh(src)
+    os.utime(header, (300, 300))
+    assert not _build._is_fresh(src)
+    os.utime(lib, (300, 300))
+    assert _build._is_fresh(src)
+    os.utime(src, (400, 400))
+    assert not _build._is_fresh(src)
+    lib.unlink()
+    assert not _build._is_fresh(src)
