@@ -15,27 +15,35 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    segment summaries, the combine across segments, B3b segment walk) at the
    three levels, B=4, all eight gradients (2e-3), two calls bitwise equal,
    each launch timed and bounded on its own with its resident blocks per SM;
-   the gather backward at value
+   the gather backward (B4: pair buckets, then the row-owned pass) at value
    (4, 33600, 8, 64), Q=700, dvalue, dw and the gradient to sampling
-   locations and attention weights (1e-5); the auction at cost
-   (16, 100, 300) from the matcher's cost over a VisDrone-like batch with an
-   over-full and a contested image (identical assignments). Times from CUDA
-   events, warm; the bound from this run's bytes and operations.
+   locations and attention weights (1e-5), the buckets equal to their plain
+   version, dvalue bitwise over two calls and equal to the plain row-owned
+   version, also on a row of 1440 terms, each launch timed (and again in
+   the train phase on the training step's own pairs: hundreds of terms on
+   a row); the matcher's
+   assignment (B5, `auction_assignment`, one launch) at cost (16, 100, 300)
+   from the matcher's cost over a VisDrone-like batch with an over-full and a
+   contested image, identical to the CPU's, with no host sync, and
+   `auction_match` (two launches) identical to its plain version. Times
+   from CUDA events, warm; the bound from this run's bytes and operations.
    Then the kernels of the one-direction scan and the scatters, and the
    auction at any size: B6 `selective_scan` at G = 4 (one image x 4
    directions) and (L, Din) = (25600, 256), (6400, 512), (1600, 1024),
    N = 16 (1e-4); B7 `scatter_acc` (the value gradient of `weighted_gather`)
    at value (4, 33600, 8, 64), Q = 700, p4 = 48 (1e-5); B8
    `scatter_acc_pairs` at G = 32, L2 = 33600, c = 64, Q = 700, 24 pairs per
-   query (1e-5); B5 at 160 problems of (100, 300) and 16 of (100, 600),
-   beyond a block's shared memory, over-full problems in both (identical
-   assignments). B7 and B8 beside `scatter_add_` of the same updates.
-4. ops: the public ops that reach B6-B8, with every launch counter zeroed
-   just before and read just after: `nn.ssm.selective_scan` forward and
-   backward at the three level shapes, `weighted_gather` forward and
-   backward and `scatter_acc_pairs` at the decoder shapes. Each of B6-B8
-   must have launched; no model path reaches them, so serve and train
-   count 0 for them.
+   query (1e-5); B5 (`auction_assignment` and `auction_match`) at 160
+   problems of (100, 300) and 16 of (100, 600), beyond a block's shared
+   memory, over-full problems in both (identical assignments). B7 and B8
+   beside `scatter_add_` of the same updates.
+4. ops: the public ops off the model paths, with every launch counter
+   zeroed just before and read just after: `nn.ssm.selective_scan` forward
+   and backward at the three level shapes, `weighted_gather` forward and
+   backward and `scatter_acc_pairs` at the decoder shapes, `auction_match`
+   (batch-wide stop, row mask) on the transposed train cost. Each of B6-B8
+   and `auction_match` must have launched; serve and train count 0 for
+   them.
 5. parity: the full-width `tamtr.yaml` model (nc=10) at 128 px, batch 2,
    on the card and on the CPU with the same state dict, compared as a
    tie-robust set at 1e-3. The whole run keeps TF32 off (full fp32).
@@ -88,25 +96,26 @@ FORWARD_LAUNCHES = {
     "bilinear_gather_fwd": 3,
 }
 # launches per training step: the forward's, and the backward kernels of the
-# scan (summaries, combine, walk) and the gather once per VSS level / decoder
-# layer; the auction once for the 4 matched layers x 4 images in one call,
-# plus the transposed solve because the batch holds an over-full image
+# scan (summaries, combine, walk) and the gather (buckets, rows) once per VSS
+# level / decoder layer; the assignment once for the 4 matched layers x 4
+# images in one launch (the over-full image solved transposed in it)
 TRAIN_LAUNCHES_PER_STEP = {
     **FORWARD_LAUNCHES, "ss2d_scan_carriers": 3, "ss2d_scan_combine": 3, "ss2d_scan_bwd_walk": 3,
-    "bilinear_gather_bwd": 3, "auction_match": 2, "selective_scan_fwd": 0, "scatter_acc": 0, "scatter_acc_pairs": 0,
+    "pair_buckets": 3, "bilinear_gather_bwd": 3, "auction_assignment": 1, "auction_match": 0,
+    "selective_scan_fwd": 0, "scatter_acc": 0, "scatter_acc_pairs": 0,
 }
-# launches of the ops phase: the scan at the three levels, one weighted
-# gather's backward, one pair scatter
-OPS_LAUNCHES = {"selective_scan_fwd": 3, "scatter_acc": 1, "scatter_acc_pairs": 1}
+# calls of the ops phase: the scan at the three levels, one weighted
+# gather's backward, one pair scatter, one `auction_match` (two launches)
+OPS_LAUNCHES = {"selective_scan_fwd": 3, "scatter_acc": 1, "scatter_acc_pairs": 1, "auction_match": 1}
 # the decoder's sampling at 640 px: batch 4, Q = 700 (dn queries included)
 DEFORM_B, DEFORM_Q = 4, 700
 
 
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
-    from tamtr_torch.kernels.auction import auction_match
+    from tamtr_torch.kernels.auction import auction_assignment, auction_match
     from tamtr_torch.kernels.deform_scatter import (
-        bilinear_gather, bilinear_gather_bwd, scatter_acc, scatter_acc_pairs,
+        bilinear_gather, bilinear_gather_bwd, pair_buckets, scatter_acc, scatter_acc_pairs,
     )
     from tamtr_torch.kernels.selective_scan import (
         selective_scan, ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine,
@@ -118,7 +127,8 @@ def launch_counters():
             "bilinear_gather_fwd": bilinear_gather,
             "ss2d_scan_carriers": ss2d_scan_carriers, "ss2d_scan_combine": ss2d_scan_combine,
             "ss2d_scan_bwd_walk": ss2d_scan_bwd_walk,
-            "bilinear_gather_bwd": bilinear_gather_bwd, "auction_match": auction_match,
+            "pair_buckets": pair_buckets, "bilinear_gather_bwd": bilinear_gather_bwd,
+            "auction_assignment": auction_assignment, "auction_match": auction_match,
             "selective_scan_fwd": selective_scan, "scatter_acc": scatter_acc,
             "scatter_acc_pairs": scatter_acc_pairs}
 
@@ -394,14 +404,20 @@ def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
 
 
 def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
-    """Kernel B4 vs the plain backward at the 640 px training shape (dn
-    queries included): dvalue and dw within 1e-5; the gradient to value,
-    sampling locations and attention weights through `ms_deform_attn_core`
-    against autodiff of the plain 4-corner gather within 1e-5 of each
-    tensor's largest entry. The forward kernel B2 is held against its plain
-    version at this shape first (1e-5), which covers its per-image offsets."""
+    """Kernel B4's two launches (`pair_buckets`, then the rows pass) vs the
+    plain backward at the 640 px training shape (dn queries included):
+    dvalue and dw within 1e-5 of the scatter-add form; the buckets equal
+    `pair_buckets_ref`; dvalue bitwise equal over two calls and to the plain
+    row-owned version (the same multiply and add per term in pair order),
+    here and on a hot row (all pairs of one image and head on one start
+    row, 1440 terms); the gradient to value, sampling locations and attention weights
+    through `ms_deform_attn_core` against autodiff of the plain 4-corner
+    gather within 1e-5 of each tensor's largest entry. The forward kernel B2
+    is held against its plain version at this shape first (1e-5), which
+    covers its per-image offsets. Each launch timed and bounded alone."""
     from tamtr_torch.kernels.deform_scatter import (
-        bilinear_gather, bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_ref,
+        bilinear_gather, bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_bwd_rows_ref,
+        bilinear_gather_ref, pair_buckets, pair_buckets_ref,
     )
     from tamtr_torch.nn.decoder import deform_sampling_pairs, ms_deform_attn_core
 
@@ -422,7 +438,20 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
         raise AssertionError(f"bilinear_gather kernel disagrees with its plain version at B={B}, Q={Q}: {e_fwd}")
     del out, out_ref
     dv, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout)
+    dv2, dw2 = bilinear_gather_bwd(value, idx2, w_pairs, dout)
     dv_ref, dw_ref = bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
+    buckets, buckets_ref = pair_buckets(idx2, w_pairs, Lv), pair_buckets_ref(idx2, w_pairs, Lv)
+    dv_rows = bilinear_gather_bwd_rows_ref(value, idx2, w_pairs, dout, buckets_ref[1])[0]
+    repeat = torch.equal(dv, dv2) and torch.equal(dw, dw2)
+    same_buckets = all(torch.equal(a, b) for a, b in zip(buckets, buckets_ref))
+    rows_bitwise = torch.equal(dv, dv_rows)
+    del dv2, dw2, dv_rows
+    hot = idx2.clone()
+    hot[1, :1440, 5] = 12345  # the pairs of 60 queries on one start row: 1440 terms
+    dv_hot = bilinear_gather_bwd(value, hot, w_pairs, dout)[0]
+    hot_repeat = torch.equal(dv_hot, bilinear_gather_bwd(value, hot, w_pairs, dout)[0])
+    hot_rows = torch.equal(dv_hot, bilinear_gather_bwd_rows_ref(value, hot, w_pairs, dout)[0])
+    del dv_hot, hot
 
     def grads(kernel: bool):
         ts = [t.detach().clone().requires_grad_() for t in (value, loc, w_att)]
@@ -441,30 +470,120 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     # (each up to W x |dw|): its error is bounded relative to the tensor's
     # largest entry, not entry by entry
     chain = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in zip(g_kernel, g_plain)]
-    ok = ok and max(chain) < 1e-5
+    ok = ok and max(chain) < 1e-5 and repeat and same_buckets and rows_bitwise and hot_repeat and hot_rows
     ms = cuda_ms(lambda: bilinear_gather_bwd(value, idx2, w_pairs, dout), iters=20)
+    ms_buckets = cuda_ms(lambda: pair_buckets(idx2, w_pairs, Lv), iters=20)
     plain = cuda_ms(lambda: bilinear_gather_bwd_ref(value, idx2, w_pairs, dout), iters=5)
     lib_in = [t.detach().clone().requires_grad_() for t in (value, loc, w_att)]
     lib_out = grid_sample_deform(lib_in[0], shapes, lib_in[1], lib_in[2])
     lib_g = torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True)
     e_lib = (lib_g[0] - g_plain[0]).abs().max().item()
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True), iters=5)
-    ppq = 2 * nl * P
-    rows = torch.cat([idx2.clamp(max=Lv - 2), idx2.clamp(max=Lv - 2) + 1], 1).long()
-    touched = torch.unique((torch.arange(B, device=dev)[:, None, None] * Lv + rows) * nh
-                           + torch.arange(nh, device=dev)).numel()
-    nbytes = (touched * c * 4 + dout.numel() * 4 + idx2.numel() * 4 + w_pairs.numel() * 4
-              + value.numel() * 4 + dw.numel() * 4)
-    flops = B * Q * nh * ppq * c * 8
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"bilinear_gather_bwd B={B} Lv={Lv} Q={Q}: max_abs_err={e:.3g} (dvalue, dw); through the core, "
-          f"max error / max entry of d(value, loc, w_att) {[float(f'{c:.3g}') for c in chain]}; "
-          f"dvalue vs grid_sample {e_lib:.3g}; "
-          f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib_ms:.4f} (F.grid_sample backward) "
-          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    b_ms, b_by, b_buckets, b_rows = gather_bwd_bounds(value, idx2, w_pairs, dout, buckets)
+    print(f"bilinear_gather_bwd B={B} Lv={Lv} Q={Q}: max_abs_err={e:.3g} (dvalue, dw); buckets equal the plain "
+          f"version {same_buckets}; dvalue bitwise over two calls {repeat}, bitwise the plain row-owned version "
+          f"{rows_bitwise}; hot row: bitwise over two calls {hot_repeat}, the plain row-owned version {hot_rows}; "
+          f"through the core, max error / max entry of d(value, loc, w_att) {[float(f'{c:.3g}') for c in chain]}; "
+          f"dvalue vs grid_sample {e_lib:.3g}; ms={ms:.4f} (buckets {ms_buckets:.4f} bound {b_buckets:.5f}, "
+          f"rows {ms - ms_buckets:.4f} bound {b_rows:.5f}) plain_ms={plain:.4f} library_ms={lib_ms:.4f} "
+          f"(F.grid_sample backward) bound_ms={b_ms:.5f} ({b_by})", flush=True)
     if not ok:
-        raise AssertionError(f"bilinear_gather backward kernel disagrees: {e}")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e), e_fwd
+        raise AssertionError(f"bilinear_gather backward kernel disagrees: {e}, repeat {repeat}, buckets "
+                             f"{same_buckets}, rows {rows_bitwise}, hot {hot_repeat} {hot_rows}")
+    return dict(ms=ms, ms_buckets=ms_buckets, ms_rows=ms - ms_buckets, plain_ms=plain, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, bound_buckets_ms=b_buckets, bound_rows_ms=b_rows,
+                max_abs_err=e, bitwise_repeat=repeat and hot_repeat), e_fwd
+
+
+def gather_bwd_bounds(value, idx2, w_pairs, dout, buckets):
+    """B4's bound on these inputs, and each launch's alone: the function
+    reads the touched value rows, dout, idx2 and w_pairs and writes dvalue
+    and dw; the buckets read idx2 and w_pairs and write the offsets, the
+    sorted ids and their weights; the rows pass reads those besides the
+    function's own bytes."""
+    B, Lv, nh, c = value.shape
+    Q = dout.shape[1]
+    rows = torch.cat([idx2.clamp(max=Lv - 2), idx2.clamp(max=Lv - 2) + 1], 1).long()
+    touched = torch.unique((torch.arange(B, device=value.device)[:, None, None] * Lv + rows) * nh
+                           + torch.arange(nh, device=value.device)).numel()
+    nbytes = (touched * c * 4 + dout.numel() * 4 + idx2.numel() * 4 + w_pairs.numel() * 4
+              + value.numel() * 4 + w_pairs.numel() * 4)
+    flops = B * Q * nh * (idx2.shape[1] // Q) * c * 8
+    b_ms, b_by = bound(nbytes, flops)
+    bucket_bytes = sum(t.numel() * 4 for t in buckets)
+    return (b_ms, b_by, bound(idx2.numel() * 4 + w_pairs.numel() * 4 + bucket_bytes, 0)[0],
+            bound(nbytes + bucket_bytes, flops)[0])
+
+
+def most_terms_on_a_row(idx2, Lv: int) -> int:
+    """The most terms a dvalue row of one (b, h) sums: the pairs starting on
+    it and on the row above (after the last-row shift)."""
+    s = torch.where(idx2 >= Lv - 1, Lv - 2, idx2).long()
+    n = torch.zeros((idx2.shape[0], Lv + 1, idx2.shape[2]), device=idx2.device).scatter_add_(
+        1, s, torch.ones_like(s, dtype=torch.float32))
+    return int((n[:, 1:] + n[:, :-1]).max())
+
+
+@contextlib.contextmanager
+def recording_gather_bwd(calls: list):
+    """Inside, every call of the gather backward (B4) appends its arguments
+    to `calls` and goes on to the kernel; its launch counter counts as
+    before."""
+    from tamtr_torch.kernels import deform_scatter as ds
+
+    bwd = ds.bilinear_gather_bwd
+
+    def record(*args):
+        calls.append(args)
+        return bwd(*args)
+
+    record.launches = bwd.launches  # the wrapper counts through its module's name
+    ds.bilinear_gather_bwd = record
+    try:
+        yield
+    finally:
+        ds.bilinear_gather_bwd = bwd
+        bwd.launches = record.launches
+
+
+def check_gather_bwd_step(calls):
+    """B4 on the training step's own pairs (`train` records the three
+    decoder layers' calls of one step): dvalue bitwise over two calls and
+    equal to the plain row-owned version, dvalue and dw within 1e-5 of the
+    scatter-add form; per call, the kernel's ms (and its buckets'), the
+    plain form's and the bound, on these inputs."""
+    from tamtr_torch.kernels.deform_scatter import (
+        bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_bwd_rows_ref, pair_buckets,
+    )
+
+    err, ok, most = 0.0, True, 0
+    bounds = [0.0, 0.0, 0.0]
+    for value, idx2, w_pairs, dout in calls:
+        Lv = value.shape[1]
+        dv, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout)
+        ok &= torch.equal(dv, bilinear_gather_bwd(value, idx2, w_pairs, dout)[0])
+        ok &= torch.equal(dv, bilinear_gather_bwd_rows_ref(value, idx2, w_pairs, dout)[0])
+        dv_ref, dw_ref = bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
+        ok &= torch.allclose(dv, dv_ref, atol=1e-5, rtol=1e-5) and torch.allclose(dw, dw_ref, atol=1e-5, rtol=1e-5)
+        err = max(err, (dv - dv_ref).abs().max().item(), (dw - dw_ref).abs().max().item())
+        most = max(most, most_terms_on_a_row(idx2, Lv))
+        b = gather_bwd_bounds(value, idx2, w_pairs, dout, pair_buckets(idx2, w_pairs, Lv))
+        bounds = [x + y / len(calls) for x, y in zip(bounds, (b[0], b[2], b[3]))]
+        del dv, dw, dv_ref, dw_ref
+    every = lambda fn: lambda: [fn(*args) for args in calls]  # noqa: E731
+    n = len(calls)
+    ms = cuda_ms(every(bilinear_gather_bwd), iters=20) / n
+    ms_buckets = cuda_ms(every(lambda v, i, w, d: pair_buckets(i, w, v.shape[1])), iters=20) / n
+    plain = cuda_ms(every(bilinear_gather_bwd_ref), iters=5) / n
+    print(f"bilinear_gather_bwd on the training step's pairs ({n} calls, up to {most} terms on a row): "
+          f"max_abs_err={err:.3g}; dvalue bitwise over two calls and equal to the plain row-owned version {ok}; "
+          f"ms per call {ms:.4f} (buckets {ms_buckets:.4f} bound {bounds[1]:.5f}, rows {ms - ms_buckets:.4f} "
+          f"bound {bounds[2]:.5f}) plain_ms={plain:.4f} bound_ms={bounds[0]:.5f}", flush=True)
+    if not ok:
+        raise AssertionError(f"bilinear_gather backward kernel disagrees on the step's pairs: {err}")
+    return dict(ms_step=ms, ms_buckets_step=ms_buckets, ms_rows_step=ms - ms_buckets, plain_ms_step=plain,
+                bound_ms_step=bounds[0], bound_buckets_ms_step=bounds[1], bound_rows_ms_step=bounds[2],
+                max_abs_err_step=err, most_terms_on_a_row_step=most)
 
 
 def matcher_costs(seed: int, n_images: int, M: int, n_valid, dev, nq: int = 100):
@@ -484,71 +603,86 @@ def matcher_costs(seed: int, n_images: int, M: int, n_valid, dev, nq: int = 100)
 
 
 def check_auction(dev):
-    """Kernel B5 vs the plain auction on the matcher's cost over a
-    VisDrone-like batch (4 matched layers x 4 images: cost (16, 100, 300),
-    one over-full and one contested image): identical assignments from the
-    forward solve, the transposed solve and the whole assignment."""
-    from tamtr_torch.kernels.auction import _rounds_ref, auction_match, auction_setup
-    from tamtr_torch.losses.matcher import auction_assignment
+    """Kernel B5 on the matcher's cost over a VisDrone-like batch (4 matched
+    layers x 4 images: cost (16, 100, 300), one over-full and one contested
+    image): `auction_assignment` in one launch identical to the CPU's
+    (`auction_assignment_ref`, JAX's assignment) and to the plain version on
+    the card, with no host sync (`torch.cuda.set_sync_debug_mode("error")`);
+    `auction_match` (two launches, batch-wide stop) identical to
+    `auction_match_ref` on the forward and the transposed solve."""
+    from tamtr_torch.kernels.auction import (
+        _oriented_setup, _rounds_ref, auction_assignment, auction_assignment_ref, auction_match, auction_match_ref,
+    )
 
     n, nq = 4 * TRAIN_BATCH, 100
     C, mask = matcher_costs(13, TRAIN_BATCH, TRAIN_MAX_GT, TRAIN_VALID, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = auction_assignment(C, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want_cpu = auction_assignment_ref(C.cpu(), mask.cpu())
+    want = auction_assignment_ref(C, mask)
     qmask = torch.ones((n, nq), dtype=torch.bool, device=dev)
     Ct = C.transpose(1, 2).contiguous()
     solves = [(C, mask, None), (Ct, qmask, mask)]
-
-    def plain_solve(c, m, r):
-        value, eps, target = auction_setup(c, m, r)
-        return _rounds_ref(value, eps, m, target, 300)
-
-    got = [auction_match(c, m, row_mask=r) for c, m, r in solves]
-    want, rounds = zip(*[plain_solve(*sv) for sv in solves])
-    whole = auction_assignment(C, mask)
-    whole_ref = auction_assignment(C.cpu(), mask.cpu())
-    same = all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(whole.cpu(), whole_ref)
-    e = float(sum(int((a != b).sum()) for a, b in zip(got, want)))
-    ms = sum(cuda_ms(lambda sv=sv: auction_match(sv[0], sv[1], row_mask=sv[2]), iters=5) for sv in solves)
-    plain = sum(cuda_ms(lambda sv=sv: plain_solve(*sv), iters=1) for sv in solves)
-    # bytes: each solve's value read once, its assignment written once;
-    # operations: per round every person scans the nq objects (subtract, two
-    # compares), for the rounds this run's data needed
-    nbytes = sum(c.numel() * 4 + m.numel() + m.numel() * 4 for c, m, _ in solves)
-    flops = sum(r * c.numel() * 3 for r, (c, _, _) in zip(rounds, solves))
+    match_same = all(torch.equal(auction_match(c, m, row_mask=r), auction_match_ref(c, m, row_mask=r))
+                     for c, m, r in solves)
+    same = torch.equal(got.cpu(), want_cpu) and torch.equal(got, want) and match_same
+    e = float(int((got.cpu() != want_cpu).sum()))
+    ms = cuda_ms(lambda: auction_assignment(C, mask), iters=20)
+    ms_match = sum(cuda_ms(lambda sv=sv: auction_match(sv[0], sv[1], row_mask=sv[2]), iters=5) for sv in solves)
+    plain = cuda_ms(lambda: auction_assignment_ref(C, mask), iters=1)
+    # bytes: the cost and mask read once, the assignment written once;
+    # operations: per round every bidder scans its objects (subtract, two
+    # compares), for the rounds each image's own solve needed in this run
+    overfull = mask.sum(1) > nq
+    rounds = []
+    for b in range(n):
+        value, pv, eps, target = _oriented_setup(C[b:b + 1], mask[b:b + 1], bool(overfull[b]))
+        rounds.append(_rounds_ref(value.transpose(1, 2), eps, pv, target, 300, own_stop=True)[1])
+    nbytes = C.numel() * 4 + mask.numel() + got.numel() * 4
+    flops = sum(r * nq * TRAIN_MAX_GT * 3 for r in rounds)
     b_ms, b_by = bound(nbytes, flops)
-    print(f"auction_match cost (16, 100, 300) + transposed: valid {TRAIN_VALID} x 4 layers, rounds {rounds}, "
-          f"assignments identical {same} (differing entries {e:.0f}), assigned per image "
-          f"{(whole[:4] >= 0).sum(1).tolist()}, ms={ms:.4f} plain_ms={plain:.3f} bound_ms={b_ms:.5f} ({b_by})",
-          flush=True)
+    print(f"auction_assignment cost (16, 100, 300): valid {TRAIN_VALID} x 4 layers, rounds per image {rounds}, "
+          f"assignments identical to the CPU's and the plain version's {same} (differing entries {e:.0f}), "
+          f"no host sync (sync debug mode error), assigned per image {(got[:4] >= 0).sum(1).tolist()}, "
+          f"ms={ms:.4f} (one launch) plain_ms={plain:.3f} bound_ms={b_ms:.5f} ({b_by}); "
+          f"auction_match forward + transposed ms={ms_match:.4f}, identical {match_same}", flush=True)
     if not same:
         raise AssertionError("auction kernel assignments differ from the plain auction's")
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=e,
-                rounds=list(rounds))
+                rounds=rounds, ms_auction_match_fwd_and_transposed=ms_match)
 
 
 def check_auction_any_size(dev):
-    """Kernel B5 where a cooperative launch of one resident block per
-    problem refused: 160 problems of (100, 300) (4 matched layers x 40
-    images, more blocks than the card's 132 SMs) and 16 of (100, 600), whose
-    value block exceeds a block's shared memory; over-full images in both
-    (their rounds run on to the batch's stop). Identical assignments to the
-    plain auction on the same inputs."""
-    from tamtr_torch.kernels.auction import auction_match, auction_match_ref
+    """Kernel B5 at more problems than the card has SMs, 160 images of
+    (100, 300) (4 matched layers x 40 images), and at 16 of (100, 600),
+    whose value block exceeds a block's shared memory; over-full images in
+    both. `auction_assignment` identical to the CPU's; `auction_match`
+    (over-full problems run on to the batch's stop) identical to the plain
+    auction on the same inputs."""
+    from tamtr_torch.kernels.auction import auction_assignment, auction_assignment_ref, auction_match, auction_match_ref
 
     rows = {}
     for name, n_images, M, valid in (("problems160_m300", 40, 300, TRAIN_VALID * 10),
                                      ("problems16_m600", 4, 600, (560, 80, 30, 60))):
         C, mask = matcher_costs(15, n_images, M, valid, dev)
-        got, want = auction_match(C, mask), auction_match_ref(C, mask)
+        got, want = auction_assignment(C, mask), auction_assignment_ref(C.cpu(), mask.cpu())
+        got_m, want_m = auction_match(C, mask), auction_match_ref(C, mask)
         torch.cuda.synchronize()
-        differ = int((got != want).sum())
-        ms = cuda_ms(lambda: auction_match(C, mask), iters=3)
-        plain = cuda_ms(lambda: auction_match_ref(C, mask), iters=1, warmup=0)
-        print(f"auction_match cost {tuple(C.shape)}: assignments identical {differ == 0} (differing entries "
-              f"{differ}), assigned per problem min {int((got >= 0).sum(1).min())} max "
-              f"{int((got >= 0).sum(1).max())}, ms={ms:.4f} plain_ms={plain:.3f}", flush=True)
+        differ = int((got.cpu() != want).sum()) + int((got_m != want_m).sum())
+        ms = cuda_ms(lambda: auction_assignment(C, mask), iters=3)
+        ms_match = cuda_ms(lambda: auction_match(C, mask), iters=3)
+        plain = cuda_ms(lambda: auction_assignment_ref(C, mask), iters=1, warmup=0)
+        print(f"auction cost {tuple(C.shape)}: auction_assignment and auction_match identical to the plain "
+              f"versions {differ == 0} (differing entries {differ}), assigned per problem min "
+              f"{int((got >= 0).sum(1).min())} max {int((got >= 0).sum(1).max())}, auction_assignment ms={ms:.4f} "
+              f"plain_ms={plain:.3f}, auction_match ms={ms_match:.4f}", flush=True)
         if differ:
             raise AssertionError(f"auction kernel assignments differ from the plain auction's at {tuple(C.shape)}")
-        rows[name] = dict(shape=list(C.shape), ms=ms, plain_ms=plain, differing=differ)
+        rows[name] = dict(shape=list(C.shape), ms=ms, plain_ms=plain, ms_auction_match=ms_match, differing=differ)
     return rows
 
 
@@ -691,15 +825,20 @@ def check_scatter_acc_pairs(dev, pairs, L2: int):
 
 
 def drive_ops(dev):
-    """This slice's path: the public ops that reach B6-B8, through the entry
-    points a user calls, at the 640 px shapes. Inputs are made first; every
-    launch counter is zeroed just before the ops run and read just after."""
+    """The public ops off the model paths, through the entry points a user
+    calls, at the 640 px shapes: the ops that reach B6-B8, and
+    `auction_match` (B5 with the batch-wide stop and a row mask) on the
+    transposed train cost. Inputs are made first; every launch counter is
+    zeroed just before the ops run and read just after."""
+    from tamtr_torch.kernels.auction import auction_match
     from tamtr_torch.kernels.deform_scatter import scatter_acc_pairs, weighted_gather
     from tamtr_torch.nn.ssm import selective_scan
 
     g = torch.Generator().manual_seed(21)
     scans = [scan1d_inputs(g, H * W, 2 * C, dev) for H, W, C in LEVELS_640]
     value, (idx4, w4, dout), pairs, Lv = decoder_scatter_inputs(22, dev)
+    C, mask = matcher_costs(23, TRAIN_BATCH, TRAIN_MAX_GT, TRAIN_VALID, dev)
+    Ct, qmask = C.transpose(1, 2).contiguous(), torch.ones(C.shape[:2], dtype=torch.bool, device=dev)
     leaves = [[t.requires_grad_() for t in args] for args, _ in scans]
     v, w = value.requires_grad_(), w4.requires_grad_()
     counters = zero_counters()
@@ -710,14 +849,21 @@ def drive_ops(dev):
     out = weighted_gather(v, idx4, w, idx4.shape[1] // DEFORM_Q)
     outs += [out, *torch.autograd.grad(out, (v, w), dout)]
     outs.append(scatter_acc_pairs(*pairs, Lv))
+    per_query = auction_match(Ct, qmask, row_mask=mask)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     want = {k: OPS_LAUNCHES.get(k, 0) for k in counters}
     finite = all(bool(torch.isfinite(t).all()) for t in outs)
     shapes = ([tuple(t.shape) for t in outs[-4:-1]] == [(DEFORM_B, DEFORM_Q, 8, 64), tuple(value.shape), tuple(w4.shape)]
               and tuple(outs[-1].shape) == (pairs[0].shape[0], Lv, 64))
-    print(f"ops: selective_scan fwd+bwd at 3 levels, weighted_gather fwd+bwd, scatter_acc_pairs: outputs finite "
-          f"{finite}, shapes {shapes}, launches {launches}", flush=True)
+    # every query of an image with at least nq valid gts holds a distinct valid gt
+    full = mask.sum(1) >= C.shape[1]
+    matched = per_query[full]
+    assigned = bool((matched >= 0).all()) and all(len(set(r.tolist())) == len(r) for r in matched.cpu())
+    print(f"ops: selective_scan fwd+bwd at 3 levels, weighted_gather fwd+bwd, scatter_acc_pairs, auction_match "
+          f"(transposed, row mask): outputs finite {finite}, shapes {shapes}, full images fully assigned "
+          f"{assigned}, launches {launches}", flush=True)
+    shapes = shapes and assigned
     if not (finite and shapes and launches == want):
         raise AssertionError(f"ops path: finite {finite}, shapes {shapes}, launches {launches}; want {want}")
     return launches
@@ -939,7 +1085,12 @@ def train(dev):
         raise AssertionError(f"training step: finite {finite}, params moved {moved}, EMA moved {ema_moved}")
     if launches != want:
         raise AssertionError(f"launches {launches} over {TIMED_STEPS} steps; want {want}")
-    return launches, times, peak
+    # one more step, its B4 inputs kept for `check_gather_bwd_step` (after the
+    # counts and the peak are read: keeping them raises the peak)
+    b4_calls = []
+    with recording_gather_bwd(b4_calls):
+        tr.step(batches[-1])
+    return launches, times, peak, [tuple(t.detach() for t in args) for args in b4_calls]
 
 
 def serve(dev):
@@ -1023,7 +1174,9 @@ def main() -> int:
     check_parity(dev)
     check_train_parity(dev)
     launches = serve(dev)
-    train_launches, _, _ = train(dev)
+    train_launches, _, _, b4_calls = train(dev)
+    gather_bwd.update(check_gather_bwd_step(b4_calls))
+    del b4_calls
 
     def slice3(name, reached_through):
         return dict(launches=ops_launches[name], launches_serve=launches[name],
@@ -1067,11 +1220,13 @@ def main() -> int:
              bound_b3a_plus_b3b_ms=sum(r["bound_ms"] for r in bwd_rows),
              bound_b3a_plus_b3b_by=max(bwd_rows, key=lambda r: r["bound_ms"])["bound_by"],
              ms_b3a_plus_b3b=sum(r["ms"] for r in bwd_rows)),
-        dict(name="bilinear_gather_bwd", route="cuda", source="tamtr_torch/csrc/bilinear_gather_bwd.cu",
-             replaces="tamtr_tpu/kernels/deform_scatter.py:283", launches=train_launches["bilinear_gather_bwd"],
+        dict(name="bilinear_gather_bwd (pair_buckets + rows pass)", route="cuda",
+             source="tamtr_torch/csrc/bilinear_gather_bwd.cu", replaces="tamtr_tpu/kernels/deform_scatter.py:283",
+             launches=train_launches["bilinear_gather_bwd"], launches_buckets=train_launches["pair_buckets"],
              **gather_bwd),
-        dict(name="auction_match", route="cuda", source="tamtr_torch/csrc/auction.cu",
-             replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_match"], **auction,
+        dict(name="auction_assignment", route="cuda", source="tamtr_torch/csrc/auction.cu",
+             replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_assignment"], **auction,
+             launches_auction_match=slice3("auction_match", "tamtr_torch.kernels.auction.auction_match"),
              any_size=auction_any),
         dict(name="selective_scan_fwd", route="cuda", source="tamtr_torch/csrc/selective_scan_fwd.cu",
              replaces="tamtr_tpu/kernels/selective_scan.py:72",

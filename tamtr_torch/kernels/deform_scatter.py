@@ -9,10 +9,20 @@ tensor it runs `bilinear_gather_ref`, the plain 4-corner gather of
 
 Backward: `bilinear_gather` is a `torch.autograd.Function` whose backward is
 `bilinear_gather_bwd`, replacing `_scatter_dw_pairs_kernel` (via
-`_scatter_dw_acc_pairs` and `_bilinear_bwd`): `csrc/bilinear_gather_bwd.cu`
-on CUDA tensors, `bilinear_gather_bwd_ref` on CPU ones. Both apply the
-last-row shift of the forward and swap dw back for shifted pairs, so
-gradients reach the value and the weights of the pair the caller gave.
+`_scatter_dw_acc_pairs` and `_bilinear_bwd`) with the two launches of
+`csrc/bilinear_gather_bwd.cu` on CUDA tensors: `pair_buckets` sorts each
+(b, h)'s pairs stably by shifted start row, then each dvalue row sums its
+terms in a fixed order (the pairs starting on it, then those starting on
+the row above, each in pair order; a row of more than `SEG_TERMS` terms in
+segments of that many, their sums added in turn) and is written once, with
+its pairs' dw. `pair_buckets_ref` and `bilinear_gather_bwd_rows_ref`
+transcribe the two launches (the rows bitwise); on CPU tensors the backward
+is `bilinear_gather_bwd_ref`, the plain scatter-add form, which adds in the
+same order and so equals the kernel bitwise on every row of at most
+`SEG_TERMS` terms.
+All apply the last-row shift of the forward and swap dw back for shifted
+pairs, so gradients reach the value and the weights of the pair the caller
+gave.
 
 Generic gather: `weighted_gather` (the JAX package's op of that name) is a
 `torch.autograd.Function` whose forward is the plain 4-corner gather and
@@ -39,6 +49,11 @@ import ctypes
 import torch
 
 from tamtr_torch.kernels import _build
+from tamtr_torch.kernels.selective_scan import _aligned
+
+# terms of a dvalue row summed as one sequence in B4 (`kSegTerms` in
+# csrc/bilinear_gather_bwd.cu); a longer row sums such segments in turn
+SEG_TERMS = 32
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -84,6 +99,84 @@ def bilinear_gather_bwd_ref(value, idx2, w_pairs, dout):
     return dvalue, dw
 
 
+def _pair_dw(value, idx2, dout):
+    """dw (B, nU2, nh, 2) in the caller's slot order: each pair's two
+    shifted rows dotted with its query's dout row, swapped back for shifted
+    pairs."""
+    B, Lv, nh, c = value.shape
+    nU2 = idx2.shape[1]
+    at_end = idx2 >= Lv - 1
+    idx = torch.where(at_end, Lv - 2, idx2).long()[..., None].expand(B, nU2, nh, c)
+    d = dout.repeat_interleave(nU2 // dout.shape[1], 1)
+    dw = torch.stack([(value.gather(1, idx) * d).sum(-1), (value.gather(1, idx + 1) * d).sum(-1)], -1)
+    return torch.where(at_end[..., None], dw.flip(-1), dw)
+
+
+def pair_buckets_ref(idx2, w_pairs, Lv: int):
+    """Plain version of B4's first launch: each (b, h)'s pairs bucketed by
+    shifted start row. idx2 (B, nU2, nh), w_pairs (B, nU2, nh, 2) ->
+    offsets (B, nh, Lv + 1) int32, the exclusive scan of the pairs per start
+    row; order (B, nh, nU2) int32, the pair ids sorted stably by start row
+    (by the unique key start * nU2 + id); pair_w (B, nh, nU2, 2), the pairs'
+    weights (as given, unshifted) in that order."""
+    B, nU2, nh = idx2.shape
+    s = torch.where(idx2 >= Lv - 1, Lv - 2, idx2).transpose(1, 2).long()  # (B, nh, nU2)
+    counts = torch.zeros((B, nh, Lv), dtype=torch.long, device=idx2.device).scatter_add_(2, s, torch.ones_like(s))
+    offsets = torch.cat([counts.new_zeros((B, nh, 1)), counts.cumsum(2)], 2)
+    order = torch.argsort(s * nU2 + torch.arange(nU2, device=idx2.device), dim=2)
+    pair_w = w_pairs.transpose(1, 2).gather(2, order[..., None].expand(B, nh, nU2, 2))
+    return offsets.to(torch.int32), order.to(torch.int32), pair_w
+
+
+def bilinear_gather_bwd_rows_ref(value, idx2, w_pairs, dout, order=None):
+    """Plain version of B4's second launch, on the buckets of
+    `pair_buckets_ref` (made here when `order` is None). Row r of each
+    (b, h) has its terms in a fixed order: wa' dout from the pairs of bucket
+    r in pair order, then wb' dout from those of bucket r - 1 in pair order
+    (wa', wb' the shifted weights). They are cut into segments of
+    `SEG_TERMS`, each summed from zero with one multiply and one add a term;
+    the row is its first segment's sum plus each further one's in turn. So
+    a row of at most `SEG_TERMS` terms is the scatter-add form's sum
+    (`bilinear_gather_bwd_ref`), bitwise. dw as `_pair_dw`. Same arguments
+    and results as `bilinear_gather_bwd_ref`."""
+    B, Lv, nh, c = value.shape
+    nU2 = idx2.shape[1]
+    dev = value.device
+    if order is None:
+        order = pair_buckets_ref(idx2, w_pairs, Lv)[1]
+    start, w, _ = _shift_last_row(idx2, w_pairs, Lv)
+    w = w.permute(0, 2, 1, 3).reshape(B * nh, nU2, 2)
+    d = dout.permute(0, 2, 1, 3).reshape(B * nh, -1, c)
+    ppq = nU2 // dout.shape[1]
+    # the terms of every row sorted by (row, slot, pair): the bucketed pair
+    # at order[j] gives (row s, slot 0) and (row s + 1, slot 1)
+    pair = order.long().reshape(B * nh, nU2)
+    start = start.transpose(1, 2).reshape(B * nh, nU2).long().gather(1, pair)
+    rows, pair = torch.cat([start, start + 1], 1), torch.cat([pair, pair], 1)
+    slot = torch.cat([torch.zeros_like(start), torch.ones_like(start)], 1)
+    key = torch.argsort((rows * 2 + slot) * nU2 + pair, dim=1)
+    rows, pair, slot = (t.gather(1, key) for t in (rows, pair, slot))
+    grp = torch.arange(B * nh, device=dev)[:, None].expand_as(rows)
+    flat = (grp * Lv + rows).reshape(-1)  # the row of each term, over all groups
+    n_row = torch.zeros(B * nh * Lv, dtype=torch.long, device=dev).scatter_add_(0, flat, torch.ones_like(flat))
+    rank = torch.arange(flat.numel(), device=dev) - (n_row.cumsum(0) - n_row)[flat]
+    n_seg = (n_row + SEG_TERMS - 1) // SEG_TERMS
+    seg = (n_seg.cumsum(0) - n_seg)[flat] + rank // SEG_TERMS  # the segment of each term
+    wt = w[grp.reshape(-1), pair.reshape(-1), slot.reshape(-1)]
+    dt_rows = d[grp.reshape(-1), pair.reshape(-1) // ppq]
+    part = value.new_zeros((int(n_seg.sum()), c))
+    pos = rank % SEG_TERMS
+    for t in range(min(SEG_TERMS, int(n_row.max()) if flat.numel() else 0)):
+        j = torch.nonzero(pos == t).squeeze(1)  # the t-th term of every segment
+        part[seg[j]] = part[seg[j]] + wt[j, None] * dt_rows[j]
+    acc = value.new_zeros((B * nh * Lv, c))
+    first = n_seg.cumsum(0) - n_seg
+    for k in range(int(n_seg.max()) if flat.numel() else 0):
+        r = torch.nonzero(n_seg > k).squeeze(1)
+        acc[r] = part[first[r]] if k == 0 else acc[r] + part[first[r] + k]
+    return acc.view(B, nh, Lv, c).permute(0, 2, 1, 3).contiguous(), _pair_dw(value, idx2, dout)
+
+
 def _check_cuda(name, value, idx2, w_pairs, per: int):
     """Validate the kernels' inputs (nU2 a multiple of `per`); return them contiguous."""
     if value.device.type != "cuda":
@@ -117,26 +210,64 @@ def _gather_fwd_cuda(value, idx2, w_pairs, P: int) -> torch.Tensor:
     return out
 
 
-def bilinear_gather_bwd(value, idx2, w_pairs, dout):
-    """(dvalue, dw) of the pair gather given dout (B, Q, nh, c): kernel B4
-    for CUDA tensors, `bilinear_gather_bwd_ref` for CPU ones.
+def _pair_buckets_cuda(idx2, w_pairs, Lv: int):
+    """Launch 1 of B4: (offsets, order, pair_w) as `pair_buckets_ref`, and
+    the long rows' segments (items, done, n_items) for launch 2."""
+    if idx2.device.type != "cuda":
+        raise RuntimeError(f"pair_buckets: no kernel for device {idx2.device}")
+    if idx2.dtype != torch.int32 or idx2.dim() != 3 or Lv < 2:
+        raise ValueError("pair_buckets: idx2 must be an int32 (B, nU2, nh) tensor, Lv >= 2")
+    B, nU2, nh = idx2.shape
+    if tuple(w_pairs.shape) != (B, nU2, nh, 2) or w_pairs.dtype != torch.float32 or w_pairs.device != idx2.device:
+        raise ValueError("pair_buckets: w_pairs must be float32 (B, nU2, nh, 2) on idx2's device")
+    idx2, w_pairs = idx2.contiguous(), w_pairs.contiguous()
+    new = lambda *shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device=idx2.device)  # noqa: E731
+    offsets, order, pair_w = new(B, nh, Lv + 1), new(B, nh, nU2), new(B, nh, nU2, 2, dtype=torch.float32)
+    # a group lists at most nU2 / 8 segments (see the kernel)
+    cap = B * nh * -(-nU2 // 8)
+    items, done, n_items = new(cap, 4), new(cap), new(1)
+    # the sort's starts and order, then the row counts, where shared memory is short
+    scratch = new(B * nh * (-(-max(Lv + 1, 3 * nU2) // 4) * 4))
+    rc = _entry("bilinear_gather_bwd", "pair_buckets")(
+        idx2.data_ptr(), w_pairs.data_ptr(), offsets.data_ptr(), order.data_ptr(), pair_w.data_ptr(),
+        items.data_ptr(), done.data_ptr(), n_items.data_ptr(), scratch.data_ptr(),
+        B, nU2, nh, Lv, _stream(idx2),
+    )
+    _build.check(rc, "pair_buckets")
+    pair_buckets.launches += 1
+    return offsets, order, pair_w, (items, done, n_items)
 
-    The kernel scatters dvalue with fp32 atomics: its sums over shared rows
-    are not bitwise the same from run to run (dw is)."""
+
+def pair_buckets(idx2, w_pairs, Lv: int):
+    """B4's first launch (see `pair_buckets_ref`): the kernel for CUDA
+    tensors, the plain version for CPU ones. Returns (offsets, order, pair_w)."""
+    if idx2.device.type == "cpu":
+        return pair_buckets_ref(idx2, w_pairs, Lv)
+    return _pair_buckets_cuda(idx2, w_pairs, Lv)[:3]
+
+
+def bilinear_gather_bwd(value, idx2, w_pairs, dout):
+    """(dvalue, dw) of the pair gather given dout (B, Q, nh, c): kernel B4's
+    two launches (`pair_buckets`, then the rows pass) for CUDA tensors,
+    `bilinear_gather_bwd_ref` for CPU ones. The kernel's dvalue is bitwise
+    repeatable: each row is summed in a fixed order (see
+    `bilinear_gather_bwd_rows_ref`)."""
     if value.device.type == "cpu":
         return bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
     B, Q = dout.shape[:2]
     value, idx2, w_pairs = _check_cuda("bilinear_gather_bwd", value, idx2, w_pairs, Q)
     _, Lv, nh, c = value.shape
-    if tuple(dout.shape) != (B, Q, nh, c) or dout.dtype != torch.float32:
-        raise ValueError("bilinear_gather_bwd: dout must be float32 (B, Q, nh, c)")
-    dout = dout.contiguous()
-    dvalue = torch.zeros_like(value)
+    if tuple(dout.shape) != (B, Q, nh, c) or dout.dtype != torch.float32 or dout.device != value.device:
+        raise ValueError("bilinear_gather_bwd: dout must be float32 (B, Q, nh, c) on value's device")
+    value, dout = _aligned(value), _aligned(dout.contiguous())
+    offsets, order, pair_w, (items, done, n_items) = _pair_buckets_cuda(idx2, w_pairs, Lv)
+    partials = torch.empty((items.shape[0], c), dtype=torch.float32, device=value.device)
+    dvalue = torch.empty_like(value)
     dw = torch.empty_like(w_pairs)
     rc = _entry("bilinear_gather_bwd", "bilinear_gather_bwd")(
-        value.data_ptr(), idx2.data_ptr(), w_pairs.data_ptr(), dout.data_ptr(), dvalue.data_ptr(),
-        dw.data_ptr(), B, Lv, nh, c, Q, idx2.shape[1] // Q,
-        _stream(value),
+        value.data_ptr(), idx2.data_ptr(), dout.data_ptr(), offsets.data_ptr(), order.data_ptr(),
+        pair_w.data_ptr(), items.data_ptr(), done.data_ptr(), n_items.data_ptr(), partials.data_ptr(),
+        dvalue.data_ptr(), dw.data_ptr(), B, Lv, nh, c, Q, idx2.shape[1] // Q, _stream(value),
     )
     _build.check(rc, "bilinear_gather_bwd")
     bilinear_gather_bwd.launches += 1
@@ -290,13 +421,14 @@ def scatter_acc_pairs(idx2, wa, wb, dout, L2: int) -> torch.Tensor:
 
 # kernel launches since the last reset, one counter per kernel
 bilinear_gather.launches = 0
+pair_buckets.launches = 0
 bilinear_gather_bwd.launches = 0
 scatter_acc.launches = 0
 scatter_acc_pairs.launches = 0
 
 # entry point: (pointer arguments, int arguments), then the stream
-_SIGNATURES = {"bilinear_gather_fwd": (4, 6), "bilinear_gather_bwd": (6, 6), "scatter_acc": (4, 6),
-               "scatter_acc_pairs": (5, 5)}
+_SIGNATURES = {"bilinear_gather_fwd": (4, 6), "pair_buckets": (9, 4), "bilinear_gather_bwd": (12, 6),
+               "scatter_acc": (4, 6), "scatter_acc_pairs": (5, 5)}
 
 
 def _entry(source: str, fn_name: str):

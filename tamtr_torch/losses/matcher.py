@@ -4,9 +4,9 @@
 The cost matrix (focal class cost + L1 + RIOU) is computed with ground truth
 padded to `max_gt` and a validity mask. Solvers:
 
-- `method="auto"`/"auction": the auction of `kernels.auction.auction_match`:
-  kernel B5 on the card, its plain version on the CPU; images with more
-  valid gts than queries are solved transposed (`auction_assignment`).
+- `method="auto"`/"auction": `kernels.auction.auction_assignment`: kernel
+  B5 in one launch on the card, its plain version on the CPU; images with
+  more valid gts than queries are solved transposed.
 - `method="scipy"`: the host oracle, `linear_sum_assignment` per image.
 """
 
@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tamtr_torch.kernels.auction import auction_match
+from tamtr_torch.kernels.auction import auction_assignment
 from tamtr_torch.ops.boxes import bbox_iou
 
 COST_CLASS = 2.0
@@ -40,27 +40,6 @@ def _solve_host(cost: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
         rows, cols = linear_sum_assignment(c)
         out[b, cols] = rows.astype(np.int32)
     return out
-
-
-def auction_assignment(C: torch.Tensor, gt_mask: torch.Tensor) -> torch.Tensor:
-    """Assignment on a cost matrix C (B, nq, M) -> (B, M) int32.
-
-    The forward auction (gts bid for queries); for over-full images (more
-    valid gts than nq) the transposed auction instead, where queries bid for
-    gts, which has a feasible full assignment. Asking whether any image is
-    over-full reads one flag back from the device.
-    """
-    B, nq, M = C.shape
-    fwd = auction_match(C, gt_mask)
-    overfull = gt_mask.sum(1) > nq
-    if not bool(overfull.any()):
-        return fwd
-    qmask = torch.ones((B, nq), dtype=torch.bool, device=C.device)
-    per_query_gt = auction_match(C.transpose(1, 2).contiguous(), qmask, row_mask=gt_mask)  # (B, nq)
-    out = torch.full((B, M + 1), -1, dtype=torch.int32, device=C.device)  # column M: dropped
-    queries = torch.arange(nq, dtype=torch.int32, device=C.device).expand(B, nq)
-    out.scatter_(1, torch.where(per_query_gt >= 0, per_query_gt, M).long(), queries)
-    return torch.where(overfull[:, None], out[:, :M], fwd)
 
 
 def match_cost(pred_bboxes, pred_scores, gt_bboxes, gt_cls) -> torch.Tensor:
