@@ -10,8 +10,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    640 px main-path shapes: the SS2D scan forward (B1: segment summaries,
    the combine across segments, the output pass) at its three levels, B=1
    and B=4 (1e-4), two calls bitwise equal, the call and each launch timed
-   and bounded with its resident blocks per SM; the bilinear pair gather at value (1, 33600, 8, 64),
-   Q=100, and (4, 33600, 8, 64), Q=700 (1e-5); the scan backward (B3a
+   and bounded with its resident blocks per SM; the bilinear pair gather (B2)
+   at value (1, 33600, 8, 64), Q=100, and (4, 33600, 8, 64), Q=700 (1e-5),
+   two calls bitwise equal, timed (CUDA events, and device time by
+   torch.profiler) and bounded at both (and again in the train phase on the
+   training step's own pairs); the scan backward (B3a
    segment summaries, the combine across segments, B3b segment walk) at the
    three levels, B=4, all eight gradients (2e-3), two calls bitwise equal,
    each launch timed and bounded on its own with its resident blocks per SM;
@@ -28,9 +31,12 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    `auction_match` (two launches) identical to its plain version. Times
    from CUDA events, warm; the bound from this run's bytes and operations.
    Then the kernels of the one-direction scan and the scatters, and the
-   auction at any size: B6 `selective_scan` at G = 4 (one image x 4
-   directions) and (L, Din) = (25600, 256), (6400, 512), (1600, 1024),
-   N = 16 (1e-4); B7 `scatter_acc` (the value gradient of `weighted_gather`)
+   auction at any size: B6 `selective_scan` (segment summaries, the combine
+   across segments, the output pass) at G = 4 (one image x 4 directions)
+   and (L, Din) = (25600, 256), (6400, 512), (1600, 1024), N = 16, and at a
+   ragged L = 1619, Din = 1000 without D (1e-4), two calls bitwise equal,
+   three launches a call, the call and each launch timed and bounded with
+   its resident blocks per SM; B7 `scatter_acc` (the value gradient of `weighted_gather`)
    at value (4, 33600, 8, 64), Q = 700, p4 = 48 (1e-5); B8
    `scatter_acc_pairs` at G = 32, L2 = 33600, c = 64, Q = 700, 24 pairs per
    query (1e-5); B5 (`auction_assignment` and `auction_match`) at 160
@@ -39,7 +45,7 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    beside `scatter_add_` of the same updates.
 4. ops: the public ops off the model paths, with every launch counter
    zeroed just before and read just after: `nn.ssm.selective_scan` forward
-   and backward at the three level shapes, `weighted_gather` forward and
+   (one call, three launches) and backward at the three level shapes, `weighted_gather` forward and
    backward and `scatter_acc_pairs` at the decoder shapes, `auction_match`
    (batch-wide stop, row mask) on the transposed train cost. Each of B6-B8
    and `auction_match` must have launched; serve and train count 0 for
@@ -102,11 +108,14 @@ FORWARD_LAUNCHES = {
 TRAIN_LAUNCHES_PER_STEP = {
     **FORWARD_LAUNCHES, "ss2d_scan_carriers": 3, "ss2d_scan_combine": 3, "ss2d_scan_bwd_walk": 3,
     "pair_buckets": 3, "bilinear_gather_bwd": 3, "auction_assignment": 1, "auction_match": 0,
-    "selective_scan_fwd": 0, "scatter_acc": 0, "scatter_acc_pairs": 0,
+    "selective_scan_fwd": 0, "selective_scan_fwd_summaries": 0, "selective_scan_fwd_combine": 0,
+    "selective_scan_fwd_output": 0, "scatter_acc": 0, "scatter_acc_pairs": 0,
 }
-# calls of the ops phase: the scan at the three levels, one weighted
-# gather's backward, one pair scatter, one `auction_match` (two launches)
-OPS_LAUNCHES = {"selective_scan_fwd": 3, "scatter_acc": 1, "scatter_acc_pairs": 1, "auction_match": 1}
+# calls of the ops phase: the scan at the three levels (one a call, and its
+# three launches: summaries, combine, output), one weighted gather's
+# backward, one pair scatter, one `auction_match` (two launches)
+OPS_LAUNCHES = {"selective_scan_fwd": 3, "selective_scan_fwd_summaries": 3, "selective_scan_fwd_combine": 3,
+                "selective_scan_fwd_output": 3, "scatter_acc": 1, "scatter_acc_pairs": 1, "auction_match": 1}
 # the decoder's sampling at 640 px: batch 4, Q = 700 (dn queries included)
 DEFORM_B, DEFORM_Q = 4, 700
 
@@ -118,8 +127,9 @@ def launch_counters():
         bilinear_gather, bilinear_gather_bwd, pair_buckets, scatter_acc, scatter_acc_pairs,
     )
     from tamtr_torch.kernels.selective_scan import (
-        selective_scan, ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine,
-        ss2d_scan_fwd_combine, ss2d_scan_fwd_output, ss2d_scan_fwd_summaries,
+        selective_scan, selective_scan_fwd_combine, selective_scan_fwd_output, selective_scan_fwd_summaries,
+        ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_fwd_combine,
+        ss2d_scan_fwd_output, ss2d_scan_fwd_summaries,
     )
 
     return {"ss2d_scan_fwd": ss2d_scan, "ss2d_scan_fwd_summaries": ss2d_scan_fwd_summaries,
@@ -129,7 +139,9 @@ def launch_counters():
             "ss2d_scan_bwd_walk": ss2d_scan_bwd_walk,
             "pair_buckets": pair_buckets, "bilinear_gather_bwd": bilinear_gather_bwd,
             "auction_assignment": auction_assignment, "auction_match": auction_match,
-            "selective_scan_fwd": selective_scan, "scatter_acc": scatter_acc,
+            "selective_scan_fwd": selective_scan, "selective_scan_fwd_summaries": selective_scan_fwd_summaries,
+            "selective_scan_fwd_combine": selective_scan_fwd_combine,
+            "selective_scan_fwd_output": selective_scan_fwd_output, "scatter_acc": scatter_acc,
             "scatter_acc_pairs": scatter_acc_pairs}
 
 
@@ -166,6 +178,26 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device ms per call of the CUDA kernels `fn` launches, summed, by
+    torch.profiler: the launches' own time, without the host's enqueue
+    (which CUDA events over back-to-back calls include once a kernel is
+    shorter than its wrapper's host time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    raise AssertionError("torch.profiler recorded no device time in three sessions")
 
 
 def bound(nbytes: float, flops: float):
@@ -296,39 +328,70 @@ def grid_sample_deform(value, shapes, loc, w_att):
     return (s * wt).sum(-1).view(B, nh, c, Q).permute(0, 3, 1, 2)
 
 
+def gather_fwd_bound(value, idx2, w_pairs, Q: int):
+    """B2's bound on these inputs: the value rows the pairs touch (after the
+    last-row shift), idx2 and w_pairs read once, the output written once;
+    two multiply-adds per pair and channel."""
+    B, Lv, nh, c = value.shape
+    rows = torch.cat([idx2.clamp(max=Lv - 2), idx2.clamp(max=Lv - 2) + 1], 1).long()
+    touched = torch.unique((torch.arange(B, device=value.device)[:, None, None] * Lv + rows) * nh
+                           + torch.arange(nh, device=value.device)).numel()
+    nbytes = touched * c * 4 + idx2.numel() * 4 + w_pairs.numel() * 4 + B * Q * nh * c * 4
+    return bound(nbytes, idx2.numel() * c * 4)
+
+
+def time_gather_fwd(value, idx2, w_pairs, Q: int, plain, iters: int = 50):
+    """B2 on (value, idx2, w_pairs): two calls bitwise equal, within 1e-5 of
+    `plain()`; `ms`, the mean of back-to-back `bilinear_gather` calls by
+    CUDA events (the host's enqueue included), as for every kernel;
+    `ms_device`, the kernel's own time by the profiler; the plain version's
+    ms and the bound."""
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather
+
+    P = idx2.shape[1] // Q // 2
+    call = lambda: bilinear_gather(value, None, w_pairs, idx2, P)  # noqa: E731 (idx4 is the CPU's)
+    out, again, want = call(), call(), plain()
+    torch.cuda.synchronize()
+    e = (out - want).abs().max().item()
+    ok = torch.allclose(out, want, atol=1e-5, rtol=1e-5) and bool(torch.isfinite(out).all())
+    bitwise = torch.equal(out, again)
+    del out, again, want
+    ms = cuda_ms(call, iters=iters)
+    ms_device = device_ms(call, iters=iters)
+    plain_ms = cuda_ms(plain, iters=max(iters // 10, 2))
+    b_ms, b_by = gather_fwd_bound(value, idx2, w_pairs, Q)
+    return dict(ms=ms, ms_device=ms_device, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e,
+                bitwise_repeat=bitwise), ok and bitwise
+
+
 def check_bilinear_gather(dev):
-    """The pair-gather kernel vs its plain version at the 640 px decoder shape."""
-    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_ref
+    """Kernel B2 vs its plain version at the 640 px serve shape, value
+    (1, 33600, 8, 64), Q = 100 (1e-5), two calls bitwise equal, and the
+    per-level `F.grid_sample` formulation beside it. At this size `ms`
+    (CUDA events over back-to-back calls) is the wrapper's host time; the
+    kernel's own is `ms_device` (profiler)."""
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather_ref
     from tamtr_torch.nn.decoder import deform_sampling_pairs
 
     shapes = [(h, w) for h, w, _ in LEVELS_640]
-    B, Q, nh, c, nl, P = 1, 100, 8, 64, 3, 4
+    B, Q, nl, P = 1, 100, 3, 4
     Lv = sum(h * w for h, w in shapes)
     value, loc, w_att = deform_inputs(torch.Generator().manual_seed(2), B, Q, shapes, dev)
     idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
     if int(idx2.max()) != Lv - 1:
         raise AssertionError("the last-cell sample point did not reach the global last row")
-    out = bilinear_gather(value, idx4, w_pairs, idx2, nl * P)
-    want = bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P)
+    row, ok = time_gather_fwd(value, idx2, w_pairs, Q, lambda: bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P))
     lib = grid_sample_deform(value, shapes, loc, w_att)
-    torch.cuda.synchronize()
-    e = (out - want).abs().max().item()
-    e_lib = (out - lib).abs().max().item()
-    ms = cuda_ms(lambda: bilinear_gather(value, idx4, w_pairs, idx2, nl * P), iters=50)
-    plain = cuda_ms(lambda: bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P), iters=20)
+    e_lib = (bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P) - lib).abs().max().item()
     lib_ms = cuda_ms(lambda: grid_sample_deform(value, shapes, loc, w_att), iters=20)
-    ppq = 2 * nl * P
-    rows = torch.cat([idx2.clamp(max=Lv - 2), idx2.clamp(max=Lv - 2) + 1], 1).long()  # after the shift
-    touched = torch.unique(rows * nh + torch.arange(nh, device=dev)).numel()
-    nbytes = touched * c * 4 + idx2.numel() * 4 + w_pairs.numel() * 4 + out.numel() * 4
-    flops = B * Q * nh * ppq * c * 4
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"bilinear_gather_fwd Lv={Lv} Q={Q}: max_abs_err={e:.3g} (vs grid_sample {e_lib:.3g}) "
-          f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
+    print(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={row['max_abs_err']:.3g} (plain vs grid_sample "
+          f"{e_lib:.3g}), bitwise over two calls {row['bitwise_repeat']}; ms={row['ms']:.4f} (events over "
+          f"back-to-back calls) ms_device={row['ms_device']:.5f} (profiler) plain_ms={row['plain_ms']:.4f} "
+          f"library_ms={lib_ms:.4f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; one launch costs more)",
           flush=True)
-    if not (torch.allclose(out, want, atol=1e-5, rtol=1e-5) and e_lib < 1e-4):
-        raise AssertionError(f"bilinear_gather kernel disagrees: {e} (grid_sample {e_lib})")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e)
+    if not (ok and e_lib < 1e-4):
+        raise AssertionError(f"bilinear_gather kernel disagrees: {row} (grid_sample {e_lib})")
+    return dict(**row, library_ms=lib_ms)
 
 
 def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
@@ -413,11 +476,12 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     row, 1440 terms); the gradient to value, sampling locations and attention weights
     through `ms_deform_attn_core` against autodiff of the plain 4-corner
     gather within 1e-5 of each tensor's largest entry. The forward kernel B2
-    is held against its plain version at this shape first (1e-5), which
-    covers its per-image offsets. Each launch timed and bounded alone."""
+    is held against its plain version at this shape first (1e-5, two calls
+    bitwise equal), which covers its per-image offsets, and timed and
+    bounded there. Each launch timed and bounded alone."""
     from tamtr_torch.kernels.deform_scatter import (
-        bilinear_gather, bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_bwd_rows_ref,
-        bilinear_gather_ref, pair_buckets, pair_buckets_ref,
+        bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_bwd_rows_ref, bilinear_gather_ref,
+        pair_buckets, pair_buckets_ref,
     )
     from tamtr_torch.nn.decoder import deform_sampling_pairs, ms_deform_attn_core
 
@@ -430,13 +494,15 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
     if int(idx2.max()) != Lv - 1:
         raise AssertionError("the last-cell sample point did not reach the global last row")
-    out, out_ref = bilinear_gather(value, idx4, w_pairs, idx2, nl * P), bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P)
-    torch.cuda.synchronize()
-    e_fwd = (out - out_ref).abs().max().item()
-    print(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={e_fwd:.3g}", flush=True)
-    if not torch.allclose(out, out_ref, atol=1e-5, rtol=1e-5):
-        raise AssertionError(f"bilinear_gather kernel disagrees with its plain version at B={B}, Q={Q}: {e_fwd}")
-    del out, out_ref
+    b2, b2_ok = time_gather_fwd(value, idx2, w_pairs, Q, lambda: bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P),
+                                iters=20)
+    b2["library_ms"] = cuda_ms(lambda: grid_sample_deform(value, shapes, loc, w_att), iters=5)
+    print(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={b2['max_abs_err']:.3g}, bitwise over two calls "
+          f"{b2['bitwise_repeat']}; ms={b2['ms']:.4f} (events) ms_device={b2['ms_device']:.5f} (profiler) "
+          f"plain_ms={b2['plain_ms']:.4f} library_ms={b2['library_ms']:.4f} (F.grid_sample) "
+          f"bound_ms={b2['bound_ms']:.5f} ({b2['bound_by']})", flush=True)
+    if not b2_ok:
+        raise AssertionError(f"bilinear_gather kernel disagrees with its plain version at B={B}, Q={Q}: {b2}")
     dv, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout)
     dv2, dw2 = bilinear_gather_bwd(value, idx2, w_pairs, dout)
     dv_ref, dw_ref = bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
@@ -492,7 +558,7 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
                              f"{same_buckets}, rows {rows_bitwise}, hot {hot_repeat} {hot_rows}")
     return dict(ms=ms, ms_buckets=ms_buckets, ms_rows=ms - ms_buckets, plain_ms=plain, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by, bound_buckets_ms=b_buckets, bound_rows_ms=b_rows,
-                max_abs_err=e, bitwise_repeat=repeat and hot_repeat), e_fwd
+                max_abs_err=e, bitwise_repeat=repeat and hot_repeat), b2
 
 
 def gather_bwd_bounds(value, idx2, w_pairs, dout, buckets):
@@ -544,6 +610,30 @@ def recording_gather_bwd(calls: list):
     finally:
         ds.bilinear_gather_bwd = bwd
         bwd.launches = record.launches
+
+
+def check_gather_fwd_step(calls):
+    """B2 on the training step's own pairs (the forward inputs of the three
+    decoder layers' gathers, as `train` records them for B4): within 1e-5 of
+    the plain pair form, two calls bitwise equal; per call, the CUDA-event
+    ms, the device ms, the plain version's and the bound, on these inputs."""
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather_pairs_ref
+
+    rows, ok = [], True
+    for value, idx2, w_pairs, dout in calls:
+        Q = dout.shape[1]
+        row, good = time_gather_fwd(value, idx2, w_pairs, Q,
+                                    lambda: bilinear_gather_pairs_ref(value, idx2, w_pairs, idx2.shape[1] // Q), iters=20)
+        rows.append(row)
+        ok &= good
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in ("ms", "ms_device", "plain_ms", "bound_ms")}
+    err = max(r["max_abs_err"] for r in rows)
+    print(f"bilinear_gather_fwd on the training step's pairs ({len(rows)} calls): max_abs_err={err:.3g}, bitwise "
+          f"over two calls {all(r['bitwise_repeat'] for r in rows)}; per call ms={mean['ms']:.4f} (events) ms_device="
+          f"{mean['ms_device']:.5f} (profiler) plain_ms={mean['plain_ms']:.4f} bound_ms={mean['bound_ms']:.5f}", flush=True)
+    if not ok:
+        raise AssertionError(f"bilinear_gather kernel disagrees on the step's pairs: {rows}")
+    return {f"{k}_step": v for k, v in mean.items()} | dict(max_abs_err_step=err)
 
 
 def check_gather_bwd_step(calls):
@@ -702,34 +792,79 @@ def scan1d_inputs(g, L: int, Din: int, dev, G: int = 4, N: int = 16):
 
 
 def check_selective_scan(dev):
-    """Kernel B6 vs the plain one-direction scan at the three 640 px levels."""
-    from tamtr_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+    """Kernel B6 (segment summaries, the combine across segments, the output
+    pass) vs the plain one-direction scan at the three 640 px levels, G = 4,
+    N = 16, and at a ragged L and Din (L = 1619, Din = 1000, D None): within
+    1e-4, a second call bitwise equal to the first, three launches a call.
+    The call and each launch timed alone, with their bounds and resident
+    blocks per SM."""
+    from tamtr_torch.kernels.selective_scan import (
+        SEG_STEPS, scan1d_occupancy, selective_scan, selective_scan_fwd_combine, selective_scan_fwd_output,
+        selective_scan_fwd_summaries, selective_scan_ref,
+    )
 
+    phases = (selective_scan_fwd_summaries, selective_scan_fwd_combine, selective_scan_fwd_output)
     g = torch.Generator().manual_seed(16)
     rows, err = [], 0.0
-    for H, W, C in LEVELS_640:
-        args, _ = scan1d_inputs(g, H * W, 2 * C, dev)
-        G, L, Din = args[0].shape
-        N = args[2].shape[-1]
-        y, want = selective_scan(*args), selective_scan_ref(*args)
+    for L, Din, with_d in [(H * W, 2 * C, True) for H, W, C in LEVELS_640] + [(1619, 1000, False)]:
+        args, _ = scan1d_inputs(g, L, Din, dev)
+        if not with_d:
+            args[5] = None
+        u, delta, A, Bs, Cs, D = args
+        G, N = u.shape[0], A.shape[-1]
+        S = -(-L // SEG_STEPS)
+        before = [f.launches for f in (selective_scan, *phases)]
+        y, again = selective_scan(*args), selective_scan(*args)
+        launches = [f.launches - b for f, b in zip((selective_scan, *phases), before)]
+        want = selective_scan_ref(*args)
         torch.cuda.synchronize()
         e = (y - want).abs().max().item()
         ok = torch.allclose(y, want, atol=1e-4, rtol=1e-4) and bool(torch.isfinite(y).all())
+        bitwise = torch.equal(y, again)
+        del y, again, want
         ms = cuda_ms(lambda: selective_scan(*args), iters=5)
         plain = cuda_ms(lambda: selective_scan_ref(*args), iters=2)
-        # bytes: u, delta, B, C, A and D read once, y written once; operations
-        # per (g, t, d, n): dt A, exp, a h, (dt u) B, the add, C h and the sum
-        # over n; per (g, t, d): dt u and the D skip
-        nbytes = 4 * (3 * G * L * Din + 2 * G * L * N + G * Din * N + G * Din)
-        flops = G * L * Din * (7 * N + 3)
-        b_ms, b_by = bound(nbytes, flops)
-        rows.append(dict(L=L, Din=Din, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
-        print(f"selective_scan_fwd G={G} L={L} Din={Din} N={N}: max_abs_err={e:.3g} ms={ms:.4f} "
-              f"plain_ms={plain:.3f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
-        if not ok:
-            raise AssertionError(f"selective_scan kernel disagrees with its plain version at L={L}: {e}")
+        h_loc, sdt = selective_scan_fwd_summaries(u, delta, A, Bs)
+        ms_sum = cuda_ms(lambda: selective_scan_fwd_summaries(u, delta, A, Bs), iters=5)
+        copies = iter([h_loc.clone() for _ in range(6)])  # the combine works in place
+        ms_comb = cuda_ms(lambda: selective_scan_fwd_combine(A, next(copies), sdt, L), iters=5)
+        h_in = selective_scan_fwd_combine(A, h_loc, sdt, L)
+        ms_out = cuda_ms(lambda: selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in), iters=5)
+        occ = scan1d_occupancy(N)
+        del copies, h_loc, h_in, sdt
+        # The function: u, delta, B, C, A and D read once, y written once;
+        # per (g, t, d, n) dt A, the exp, a h, (dt u) B, the add, C h and the
+        # sum over n; per (g, t, d) dt u and the D skip.
+        x, bc, states, sums = G * L * Din, G * L * N, G * S * Din * N, G * S * Din
+        w = G * Din * N + (G * Din if D is not None else 0)
+        b_fn = bound(4 * (3 * x + 2 * bc + w), x * (7 * N + 3))
+        # Each launch alone, with the segment design's own traffic, the
+        # (G, S, Din, N) states and (G, S, Din) sums of delta: the summaries
+        # read u, delta, B and A and write both (per (g, t, d, n) the exp and
+        # ~3); the combine reads both and A and rewrites the states (~4 per
+        # (g, segment, d, n)); the output reads the inputs and the states and
+        # writes y (per (g, t, d, n) the exp and ~5, C h too).
+        b_sum = bound(4 * (2 * x + bc + G * Din * N + states + sums), x * (4 * N + 2))
+        b_comb = bound(4 * (2 * states + sums + G * Din * N), 4 * states)
+        b_out = bound(4 * (3 * x + 2 * bc + w + states), x * (6 * N + 3))
+        rows.append(dict(G=G, L=L, Din=Din, N=N, D=D is not None, S=S, ms=ms, ms_summaries=ms_sum,
+                         ms_combine=ms_comb, ms_output=ms_out, plain_ms=plain, bound_ms=b_fn[0], bound_by=b_fn[1],
+                         bound_summaries_ms=b_sum[0], bound_summaries_by=b_sum[1], bound_combine_ms=b_comb[0],
+                         bound_combine_by=b_comb[1], bound_output_ms=b_out[0], bound_output_by=b_out[1],
+                         blocks_per_sm=occ, launches_per_call=launches[0] / 2,
+                         phase_launches_per_call=[n / 2 for n in launches[1:]], max_abs_err=e,
+                         bitwise_repeat=bitwise))
+        print(f"selective_scan_fwd G={G} L={L} Din={Din} N={N} D {D is not None} segments={S}: max_abs_err={e:.3g} "
+              f"bitwise repeat {bitwise}, launches per call {launches[0] / 2} (phases "
+              f"{[n / 2 for n in launches[1:]]}); ms={ms:.4f} (summaries {ms_sum:.4f} + combine {ms_comb:.4f} + "
+              f"output {ms_out:.4f}) plain_ms={plain:.3f} bound_ms={b_fn[0]:.4f} ({b_fn[1]}); each launch with the "
+              f"segment states' traffic: summaries {b_sum[0]:.4f} ({b_sum[1]}) combine {b_comb[0]:.4f} "
+              f"({b_comb[1]}) output {b_out[0]:.4f} ({b_out[1]}); blocks/SM {occ}", flush=True)
+        if not (ok and bitwise and launches == [2, 2, 2, 2]):
+            raise AssertionError(f"selective_scan kernel at L={L}, Din={Din}: max error {e}, bitwise repeat "
+                                 f"{bitwise}, launches over two calls {launches}")
         err = max(err, e)
-        del args, y, want
+        del args, u, delta, A, Bs, Cs, D
     return rows, err
 
 
@@ -1162,7 +1297,7 @@ def main() -> int:
     scan_rows, scan_err = check_ss2d_scan(dev)
     gather = check_bilinear_gather(dev)
     bwd_rows, bwd_err = check_ss2d_scan_bwd(dev)
-    gather_bwd, gather_err_b4 = check_bilinear_gather_bwd(dev)
+    gather_bwd, gather_train = check_bilinear_gather_bwd(dev)
     auction = check_auction(dev)
     auction_any = check_auction_any_size(dev)
     scan1d_rows, scan1d_err = check_selective_scan(dev)
@@ -1176,6 +1311,7 @@ def main() -> int:
     launches = serve(dev)
     train_launches, _, _, b4_calls = train(dev)
     gather_bwd.update(check_gather_bwd_step(b4_calls))
+    gather_step = check_gather_fwd_step(b4_calls)
     del b4_calls
 
     def slice3(name, reached_through):
@@ -1183,6 +1319,7 @@ def main() -> int:
                     launches_train=train_launches[name], reached_through=reached_through)
 
     fwd1, fwd4 = ([r for r in scan_rows if r["B"] == b] for b in (1, TRAIN_BATCH))
+    levels1d = scan1d_rows[:len(LEVELS_640)]
     kernels = [
         dict(name="ss2d_scan_fwd", route="cuda", source="tamtr_torch/csrc/ss2d_scan_fwd.cu",
              replaces="tamtr_tpu/kernels/selective_scan.py:448", launches=launches["ss2d_scan_fwd"],
@@ -1199,7 +1336,13 @@ def main() -> int:
         dict(name="bilinear_gather_fwd", route="cuda", source="tamtr_torch/csrc/bilinear_gather_fwd.cu",
              replaces="tamtr_tpu/kernels/deform_scatter.py:195", launches=launches["bilinear_gather_fwd"],
              launches_train=train_launches["bilinear_gather_fwd"],
-             **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_err_b4)}, max_abs_err_b4_q700=gather_err_b4),
+             **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_train["max_abs_err"],
+                                             gather_step["max_abs_err_step"])},
+             ms_of="CUDA events over back-to-back calls, as for every kernel; ms_device: the kernel's own "
+                   "time per call (torch.profiler)",
+             shape="value (1, 33600, 8, 64), Q = 100", train_b4_q700={**gather_train, "shape": "value (4, 33600, "
+                                                                    "8, 64), Q = 700, uniform pairs"},
+             **gather_step),
         dict(name="ss2d_scan_carriers (B3a segment summaries + ss2d_scan_combine)", route="cuda",
              source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:663",
              launches=train_launches["ss2d_scan_carriers"], launches_combine=train_launches["ss2d_scan_combine"],
@@ -1230,11 +1373,14 @@ def main() -> int:
              any_size=auction_any),
         dict(name="selective_scan_fwd", route="cuda", source="tamtr_torch/csrc/selective_scan_fwd.cu",
              replaces="tamtr_tpu/kernels/selective_scan.py:72",
-             **slice3("selective_scan_fwd", "tamtr_torch.nn.ssm.selective_scan"), max_abs_err=scan1d_err,
-             ms=sum(r["ms"] for r in scan1d_rows), plain_ms=sum(r["plain_ms"] for r in scan1d_rows),
-             bound_ms=sum(r["bound_ms"] for r in scan1d_rows),
-             bound_by=max(scan1d_rows, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
-             per_level=scan1d_rows),
+             **slice3("selective_scan_fwd", "tamtr_torch.nn.ssm.selective_scan"),
+             **{f"launches_{p}": ops_launches[f"selective_scan_fwd_{p}"] for p in ("summaries", "combine", "output")},
+             max_abs_err=scan1d_err,
+             **{k: sum(r[k] for r in levels1d) for k in ("ms", "ms_summaries", "ms_combine", "ms_output", "plain_ms",
+                                                          "bound_ms", "bound_summaries_ms", "bound_combine_ms",
+                                                          "bound_output_ms")},
+             bound_by=max(levels1d, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
+             sums_of="the three 640 px levels, G = 4", per_level=scan1d_rows),
         dict(name="scatter_acc", route="cuda", source="tamtr_torch/csrc/deform_scatter.cu",
              replaces="tamtr_tpu/kernels/deform_scatter.py:86",
              **slice3("scatter_acc", "tamtr_torch.kernels.deform_scatter.weighted_gather (backward)"), **scatter),

@@ -5,7 +5,9 @@ Forward: `bilinear_gather` replaces the TPU kernel
 `_gather_acc_pairs` and `bilinear_gather`). On a CUDA tensor it launches
 `csrc/bilinear_gather_fwd.cu`, which reads the pair starts `idx2`; on a CPU
 tensor it runs `bilinear_gather_ref`, the plain 4-corner gather of
-`_gather_fwd_impl`, which reads the corner indices `idx4`.
+`_gather_fwd_impl`, which reads the corner indices `idx4`;
+`bilinear_gather_pairs_ref` is the same sum in the pair form the kernel
+reads, from `idx2` alone.
 
 Backward: `bilinear_gather` is a `torch.autograd.Function` whose backward is
 `bilinear_gather_bwd`, replacing `_scatter_dw_pairs_kernel` (via
@@ -78,6 +80,21 @@ def bilinear_gather_ref(value, idx4, w_pairs, idx2, P: int) -> torch.Tensor:
     g = torch.gather(value, 1, idx4.long()[..., None].expand(B, nU, nh, c))
     g = g.view(B, nU // (P * 4), P * 4, nh, c)
     return torch.einsum("bqpnc,bqpn->bqnc", g, w4.view(B, nU // (P * 4), P * 4, nh))
+
+
+def bilinear_gather_pairs_ref(value, idx2, w_pairs, ppq: int) -> torch.Tensor:
+    """Plain version of the pair form B2 reads, from the pair starts alone:
+    out[b, q, h] = sum_j wa value[i] + wb value[i + 1] over the query's ppq
+    pairs, after the last-row shift. value (B, Lv, nh, c); idx2 (B, Q*ppq,
+    nh); w_pairs (B, Q*ppq, nh, 2) -> (B, Q, nh, c). The same function as
+    `bilinear_gather_ref`, for callers that hold no idx4 (a training step's
+    recorded pairs)."""
+    B, Lv, nh, c = value.shape
+    nU2 = idx2.shape[1]
+    i0, w, _ = _shift_last_row(idx2, w_pairs, Lv)
+    idx = i0.long()[..., None].expand(B, nU2, nh, c)
+    rows = w[..., :1] * value.gather(1, idx) + w[..., 1:] * value.gather(1, idx + 1)
+    return rows.view(B, nU2 // ppq, ppq, nh, c).sum(2)
 
 
 def bilinear_gather_bwd_ref(value, idx2, w_pairs, dout):
@@ -198,6 +215,7 @@ def _gather_fwd_cuda(value, idx2, w_pairs, P: int) -> torch.Tensor:
     """Launch kernel B2."""
     ppq = 2 * P
     value, idx2, w_pairs = _check_cuda("bilinear_gather", value, idx2, w_pairs, ppq)
+    value, w_pairs = _aligned(value), _aligned(w_pairs)  # float4 rows, float2 weight pairs
     B, Lv, nh, c = value.shape
     Q = idx2.shape[1] // ppq
     out = torch.empty((B, Q, nh, c), dtype=torch.float32, device=value.device)

@@ -20,8 +20,10 @@ written with torch ops.
 
 One-direction scan: `selective_scan` replaces the TPU kernel
 `_scan_kernel` (via `_run_scan` and `selective_scan_pallas`). On CUDA tensors
-its forward launches `csrc/selective_scan_fwd.cu` (B6); on CPU tensors it
-runs `selective_scan_ref`, the plain version of `selective_scan_xla`. Its
+its forward launches `csrc/selective_scan_fwd.cu` (B6), the segment-parallel
+scan of B1 with delta given: `selective_scan_fwd_summaries`,
+`selective_scan_fwd_combine` and `selective_scan_fwd_output`. On CPU tensors
+it runs `selective_scan_ref`, the plain version of `selective_scan_xla`. Its
 backward is `selective_scan_bwd_ref` on both devices: the JAX package has no
 backward kernel for it either (its `_bwd` is the autodiff of the XLA oracle).
 
@@ -402,12 +404,13 @@ def ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, h_in, carry)
     return du, dz, dBp, dCp, dAp
 
 
-def _occupancy(source: str, R: int, names) -> dict:
-    """Resident blocks per SM of the three kernels of `csrc/<source>.cu` at R."""
+def _occupancy(source: str, size: int, names) -> dict:
+    """Resident blocks per SM of the three kernels of `csrc/<source>.cu` at
+    `size` (the dt rank R of the SS2D scans, the state size N of B6)."""
     out = (ctypes.c_int * 3)()
     fn = getattr(_lib(source), f"{source}_occupancy")
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    _build.check(fn(R, ctypes.addressof(out)), f"{source}_occupancy")
+    _build.check(fn(size, ctypes.addressof(out)), f"{source}_occupancy")
     return dict(zip(names, out))
 
 
@@ -465,31 +468,94 @@ def selective_scan_bwd_ref(u, delta, A, Bs, Cs, D, dy, chunk: int = SCAN_CHUNK):
     return du + dy * D[:, None, :], ddelta, dA, dB, dC, (dy * u).sum(1)
 
 
-def _selective_scan_cuda(u, delta, A, Bs, Cs, D):
-    """Launch kernel B6 on fp32 inputs."""
+def _check_scan1d(name, u, delta, A, Bs, Cs=None, D=None):
+    """Validate B6's inputs (fp32, one CUDA device); return them contiguous
+    (Cs and D may be None)."""
     if u.device.type != "cuda":
-        raise RuntimeError(f"selective_scan: no kernel for device {u.device}")
+        raise RuntimeError(f"{name}: no kernel for device {u.device}")
     G, L, Din = u.shape
     N = A.shape[-1]
-    args = [u, delta, A, Bs, Cs] + ([D] if D is not None else [])
+    args = [t for t in (u, delta, A, Bs, Cs, D) if t is not None]
     if any(t.device != u.device for t in args):
-        raise ValueError("selective_scan: inputs on different devices")
+        raise ValueError(f"{name}: inputs on different devices")
+    if any(t.dtype != torch.float32 for t in args):
+        raise TypeError(f"{name}: the kernels take float32 inputs")
     if tuple(delta.shape) != (G, L, Din) or tuple(A.shape) != (G, Din, N) \
-            or tuple(Bs.shape) != (G, L, N) or tuple(Cs.shape) != (G, L, N) \
+            or tuple(Bs.shape) != (G, L, N) or (Cs is not None and tuple(Cs.shape) != (G, L, N)) \
             or (D is not None and tuple(D.shape) != (G, Din)):
-        raise ValueError("selective_scan: inconsistent shapes")
+        raise ValueError(f"{name}: inconsistent shapes")
     if N not in (4, 8, 16, 32):
-        raise ValueError(f"selective_scan: the kernel needs N in (4, 8, 16, 32), got {N}")
-    u, delta, A, Bs, Cs = (t.contiguous() for t in (u, delta, A, Bs, Cs))
-    D = D.contiguous() if D is not None else None
+        raise ValueError(f"{name}: the kernel needs N in (4, 8, 16, 32), got {N}")
+    return [t.contiguous() if t is not None else None for t in (u, delta, A, Bs, Cs, D)]
+
+
+def selective_scan_fwd_summaries(u, delta, A, Bs):
+    """Kernel B6's first launch, the segment summaries: the walk cut into
+    S = ceil(L / SEG_STEPS) segments, and per segment and (g, d, n) the local
+    end state from h = 0, h_loc (G, S, Din, N), and the sum of delta,
+    (G, S, Din). CUDA tensors only."""
+    u, delta, A, Bs, _, _ = _check_scan1d("selective_scan_fwd_summaries", u, delta, A, Bs)
+    G, L, Din = u.shape
+    N = A.shape[-1]
+    S = -(-L // SEG_STEPS)
+    h_loc, sdt = _new(u.device, G, S, Din, N), _new(u.device, G, S, Din)
+    rc = _lib("selective_scan_fwd").selective_scan_fwd_summaries(
+        u.data_ptr(), delta.data_ptr(), A.data_ptr(), Bs.data_ptr(), h_loc.data_ptr(), sdt.data_ptr(),
+        G, L, Din, N, _stream(u))
+    _build.check(rc, "selective_scan_fwd_summaries")
+    selective_scan_fwd_summaries.launches += 1
+    return h_loc, sdt
+
+
+def selective_scan_fwd_combine(A, h_loc, sdt, L: int):
+    """Kernel B6's second launch, the pass across segments, in place on the
+    summaries: h_loc becomes the state entering each segment,
+    h_in[j+1] = E_j h_in[j] + h_loc[j] with E_j = exp(A sum delta_j). Returns h_in."""
+    if A.device.type != "cuda":
+        raise RuntimeError(f"selective_scan_fwd_combine: no kernel for device {A.device}")
+    G, S, Din, N = h_loc.shape
+    ok = (S == -(-L // SEG_STEPS) and tuple(A.shape) == (G, Din, N) and tuple(sdt.shape) == (G, S, Din)
+          and all(t.is_contiguous() and t.dtype == torch.float32 and t.device == A.device for t in (A, h_loc, sdt)))
+    if not ok:
+        raise ValueError("selective_scan_fwd_combine: A and the summaries as the summaries kernel gives them")
+    rc = _lib("selective_scan_fwd").selective_scan_fwd_combine(
+        A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), G, L, Din, N, _stream(A))
+    _build.check(rc, "selective_scan_fwd_combine")
+    selective_scan_fwd_combine.launches += 1
+    return h_loc
+
+
+def selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in):
+    """Kernel B6's third launch: every segment rebuilt from its entering
+    state `h_in` (`selective_scan_fwd_combine`), y (G, L, Din). CUDA tensors
+    only; D may be None."""
+    u, delta, A, Bs, Cs, D = _check_scan1d("selective_scan_fwd_output", u, delta, A, Bs, Cs, D)
+    G, L, Din = u.shape
+    N = A.shape[-1]
+    if tuple(h_in.shape) != (G, -(-L // SEG_STEPS), Din, N) or not h_in.is_contiguous() \
+            or h_in.device != u.device:
+        raise ValueError("selective_scan_fwd_output: h_in as selective_scan_fwd_combine gives it")
     y = torch.empty_like(u)
-    rc = _lib("selective_scan_fwd").selective_scan_fwd(
+    rc = _lib("selective_scan_fwd").selective_scan_fwd_output(
         u.data_ptr(), delta.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
-        D.data_ptr() if D is not None else None, y.data_ptr(), G, L, Din, N, _stream(u),
-    )
-    _build.check(rc, "selective_scan_fwd")
+        D.data_ptr() if D is not None else None, h_in.data_ptr(), y.data_ptr(), G, L, Din, N, _stream(u))
+    _build.check(rc, "selective_scan_fwd_output")
+    selective_scan_fwd_output.launches += 1
+    return y
+
+
+def _selective_scan_cuda(u, delta, A, Bs, Cs, D):
+    """Kernel B6 on fp32 inputs: its three launches."""
+    h_loc, sdt = selective_scan_fwd_summaries(u, delta, A, Bs)
+    h_in = selective_scan_fwd_combine(A.contiguous(), h_loc, sdt, u.shape[1])
+    y = selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in)
     selective_scan.launches += 1
     return y
+
+
+def scan1d_occupancy(N: int) -> dict:
+    """Resident blocks per SM of B6's three kernels at state size N."""
+    return _occupancy("selective_scan_fwd", N, ("summaries", "combine", "output"))
 
 
 class _SelectiveScan(torch.autograd.Function):
@@ -533,10 +599,15 @@ ss2d_scan_fwd_output.launches = 0
 ss2d_scan_carriers.launches = 0
 ss2d_scan_combine.launches = 0
 ss2d_scan_bwd_walk.launches = 0
-selective_scan.launches = 0
+selective_scan.launches = 0  # one per call: its three launches count below
+selective_scan_fwd_summaries.launches = 0
+selective_scan_fwd_combine.launches = 0
+selective_scan_fwd_output.launches = 0
 
 _SIGNATURES = {
-    "selective_scan_fwd": (7, 4, 0),
+    "selective_scan_fwd_summaries": (6, 4, 0),
+    "selective_scan_fwd_combine": (3, 4, 0),
+    "selective_scan_fwd_output": (8, 4, 0),
     "ss2d_scan_fwd_summaries": (8, 5, 2),
     "ss2d_scan_fwd_combine": (3, 4, 0),
     "ss2d_scan_fwd_output": (10, 5, 3),

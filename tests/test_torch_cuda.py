@@ -22,25 +22,44 @@ def card():
     return torch.device("cuda")
 
 
-def test_bilinear_gather_kernel_matches_plain(card):
-    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_ref
+@pytest.mark.parametrize("B,Q,P,c,shapes", [
+    (2, 9, 4, 64, [(6, 7), (3, 4), (2, 3)]),  # ppq = 24, the compile-time case; float4 rows
+    (2, 9, 1, 64, [(6, 7), (3, 4), (2, 3)]),  # ppq = 6 over 3 levels: the general path
+    (2, 9, 2, 64, [(6, 7), (3, 4), (2, 3)]),  # ppq = 12
+    (2, 9, 4, 34, [(6, 7), (3, 4), (2, 3)]),  # c % 4 == 2: float2 rows, one group
+    (1, 5, 1, 64, [(5, 6)]),  # one level, P = 1: ppq = 2
+    (1, 5, 2, 64, [(5, 6)]),  # one level, P = 2: ppq = 4
+    (2, 9, 8, 64, [(6, 7), (3, 4), (2, 3)]),  # ppq = 48: a full chunk of 32 pairs, then 16; float4 rows
+    (2, 9, 8, 34, [(6, 7), (3, 4), (2, 3)]),  # ppq = 48 with float2 rows
+    (4, 700, 4, 64, [(160, 160), (80, 80), (40, 40)]),  # the 640 px training shape
+])
+def test_bilinear_gather_kernel_matches_plain(card, B, Q, P, c, shapes):
+    """B2 against the plain 4-corner gather at 1e-5 and against itself
+    bitwise over two calls, with a sample point in the global last pixel
+    cell (its pair is shifted up one row), at the model's 24 pairs per query
+    and at other counts (the kernel's general path)."""
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_pairs_ref, bilinear_gather_ref
     from tamtr_torch.nn.decoder import deform_sampling_pairs
 
-    shapes = [(6, 7), (3, 4), (2, 3)]
     g = torch.Generator().manual_seed(1)
-    B, Q, nh, c, nl, P = 2, 9, 8, 64, 3, 4
+    nh, nl = 8, len(shapes)
     Lv = sum(h * w for h, w in shapes)
     value = torch.randn(B, Lv, nh, c, generator=g).to(card)
     loc = torch.rand(B, Q, nh, nl, P, 2, generator=g) * 1.4 - 0.2
-    loc[0, 0, 0, 2, 0] = torch.tensor([1 - 0.2 / 3, 1 - 0.2 / 2])  # last pixel cell
+    H, W = shapes[-1]
+    loc[0, 0, 0, nl - 1, 0] = torch.tensor([1 - 0.2 / W, 1 - 0.2 / H])  # last pixel cell
     loc = loc.to(card)
     w_att = torch.rand(B, Q, nh, nl, P, generator=g).to(card)
     idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
     assert int(idx2.max()) == Lv - 1
-    out = bilinear_gather(value, idx4, w_pairs, idx2, nl * P)
+    before = bilinear_gather.launches
+    out, again = bilinear_gather(value, idx4, w_pairs, idx2, nl * P), bilinear_gather(value, idx4, w_pairs, idx2, nl * P)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P),
-                               atol=1e-5, rtol=1e-5)
+    assert bilinear_gather.launches == before + 2
+    assert torch.equal(out, again)
+    want = bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(bilinear_gather_pairs_ref(value, idx2, w_pairs, 2 * nl * P), want, atol=1e-5, rtol=1e-5)
 
 
 def test_model_runs_through_both_kernels(card):
@@ -265,12 +284,29 @@ def test_train_step_runs_through_every_kernel(card):
     assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 1, 0]
 
 
-@pytest.mark.parametrize("G,L,Din,N,with_d", [(4, 1000, 256, 16, True), (2, 77, 40, 4, False)])
+@pytest.mark.parametrize("G,L,Din,N,with_d", [
+    (4, 1000, 256, 16, True),
+    (2, 77, 40, 4, False),
+    (1, 1, 40, 16, True),  # L = 1
+    (3, 35, 40, 8, False),  # L = 35, below one segment of SEG_STEPS = 48
+    (2, 48, 1024, 32, True),  # one whole segment
+    (2, 49, 40, 32, False),  # one step past a segment
+    (1, 97, 1024, 4, True),  # one step past two segments
+    (4, 400, 40, 16, False),  # a ragged last segment of 16
+    (1, 400, 1024, 32, False),
+    (2, 1600, 1024, 16, True),
+    (2, 1600, 40, 8, True),
+])
 def test_selective_scan_kernel_matches_plain(card, G, L, Din, N, with_d):
-    """B6 against the plain scan at 1e-4 (a ragged last chunk, channels not
-    a multiple of a block's, D None); the backward (torch ops on both
-    devices) against autodiff of the plain version at 2e-3."""
-    from tamtr_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+    """B6's three launches (summaries, combine, output) against the plain
+    scan at 1e-4 (ragged last segments, a ragged last block of channels when
+    Din = 40, D None), each launch counted once and `selective_scan` once a
+    call, two calls bitwise equal; the backward (torch ops on both devices)
+    against autodiff of the plain version at 2e-3."""
+    from tamtr_torch.kernels.selective_scan import (
+        selective_scan, selective_scan_fwd_combine, selective_scan_fwd_output, selective_scan_fwd_summaries,
+        selective_scan_ref,
+    )
 
     g = torch.Generator().manual_seed(7)
     u, dy = torch.randn(G, L, Din, generator=g), torch.randn(G, L, Din, generator=g)
@@ -279,10 +315,12 @@ def test_selective_scan_kernel_matches_plain(card, G, L, Din, N, with_d):
     Bs, Cs = torch.randn(G, L, N, generator=g), torch.randn(G, L, N, generator=g)
     D = torch.randn(G, Din, generator=g) if with_d else None
     args = [t.to(card).requires_grad_() if t is not None else None for t in (u, delta, A, Bs, Cs, D)]
-    before = selective_scan.launches
+    counters = (selective_scan, selective_scan_fwd_summaries, selective_scan_fwd_combine, selective_scan_fwd_output)
+    before = [f.launches for f in counters]
     y = selective_scan(*args)
     torch.cuda.synchronize()
-    assert selective_scan.launches == before + 1
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+    assert torch.equal(y, selective_scan(*args))
     want = selective_scan_ref(*args)
     torch.testing.assert_close(y, want, atol=1e-4, rtol=1e-4)
     live = [t for t in args if t is not None]

@@ -5,7 +5,9 @@ package's function on the same numpy inputs.
   in interpret mode) and `ss2d_scan_xla`, within 1e-4.
 - B2 `tamtr_torch.kernels.deform_scatter` vs `bilinear_gather` on the XLA
   path and on the Pallas path (`FORCE_PALLAS`), within 1e-5, with sample
-  points in the last pixel cell, at x0 < 0 and on a level boundary.
+  points in the last pixel cell, at x0 < 0 and on a level boundary; the
+  pair form (`bilinear_gather_pairs_ref`, idx2 alone) against the Pallas
+  path at 1, 2 and 4 points per level.
 """
 
 import jax.numpy as jnp
@@ -15,7 +17,7 @@ import torch
 
 import tamtr_tpu.kernels.deform_scatter as jds
 from tamtr_torch.kernels import _build
-from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_ref
+from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_pairs_ref, bilinear_gather_ref
 from tamtr_torch.kernels.selective_scan import (
     selective_scan_ref, ss2d_scan, ss2d_scan_fwd_combine, ss2d_scan_fwd_output, ss2d_scan_fwd_summaries,
     ss2d_scan_ref,
@@ -135,6 +137,25 @@ def test_bilinear_gather_plain_matches_jax(force_pallas, monkeypatch):
         jnp.asarray(idx2.numpy()), P,
     ))
     got = bilinear_gather(torch.from_numpy(value), idx4, w_pairs, idx2, P)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_bilinear_gather_pair_form_matches_jax(P, monkeypatch):
+    """The plain pair form the kernel reads (pair starts and weight pairs,
+    no idx4) against JAX's Pallas pair gather in interpret mode, with a pair
+    on the global last row; ppq = 6 and 12 take the kernel's general path,
+    24 its compile-time one."""
+    monkeypatch.setattr(jds, "FORCE_PALLAS", True)
+    value, loc, w_att, _, Lv = _deform_inputs(seed=13)
+    loc, w_att, nlP = loc[..., :P, :], w_att[..., :P], len(SHAPES) * P  # point 0 holds the last-cell sample
+    idx4, w_pairs, idx2 = deform_sampling_pairs(SHAPES, torch.from_numpy(loc), torch.from_numpy(w_att))
+    assert int(idx2.max()) == Lv - 1
+    want = np.asarray(jds.bilinear_gather(
+        jnp.asarray(value), jnp.asarray(idx4.numpy()), jnp.asarray(w_pairs.numpy()),
+        jnp.asarray(idx2.numpy()), nlP,
+    ))
+    got = bilinear_gather_pairs_ref(torch.from_numpy(value), idx2, w_pairs, 2 * nlP)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
