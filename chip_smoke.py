@@ -36,13 +36,18 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    and (L, Din) = (25600, 256), (6400, 512), (1600, 1024), N = 16, and at a
    ragged L = 1619, Din = 1000 without D (1e-4), two calls bitwise equal,
    three launches a call, the call and each launch timed and bounded with
-   its resident blocks per SM; B7 `scatter_acc` (the value gradient of `weighted_gather`)
-   at value (4, 33600, 8, 64), Q = 700, p4 = 48 (1e-5); B8
-   `scatter_acc_pairs` at G = 32, L2 = 33600, c = 64, Q = 700, 24 pairs per
-   query (1e-5); B5 (`auction_assignment` and `auction_match`) at 160
-   problems of (100, 300) and 16 of (100, 600), beyond a block's shared
-   memory, over-full problems in both (identical assignments). B7 and B8
-   beside `scatter_add_` of the same updates.
+   its resident blocks per SM; B7 `scatter_acc` (the value gradient of
+   `weighted_gather`: buckets, then the rows pass) at value
+   (4, 33600, 8, 64), Q = 700, p4 = 48, and B8 `scatter_acc_pairs` (the
+   same two launches) at G = 32, L2 = 33600, c = 64, Q = 700, 24 pairs per
+   query, each on uniform and on clustered sampling points: 1e-5 from the
+   plain version (uniform), bitwise over two calls and bitwise the plain
+   row-owned version, the buckets equal to theirs, within each row's fp32
+   summation bound of the fp64 sum; the call and the buckets launch timed,
+   beside `scatter_add_` of the same updates; B5 (`auction_assignment` and
+   `auction_match`) at 160 problems of (100, 300) and 16 of (100, 600),
+   beyond a block's shared memory, over-full problems in both (identical
+   assignments).
 4. ops: the public ops off the model paths, with every launch counter
    zeroed just before and read just after: `nn.ssm.selective_scan` forward
    (one call, three launches) and backward at the three level shapes, `weighted_gather` forward and
@@ -109,13 +114,16 @@ TRAIN_LAUNCHES_PER_STEP = {
     **FORWARD_LAUNCHES, "ss2d_scan_carriers": 3, "ss2d_scan_combine": 3, "ss2d_scan_bwd_walk": 3,
     "pair_buckets": 3, "bilinear_gather_bwd": 3, "auction_assignment": 1, "auction_match": 0,
     "selective_scan_fwd": 0, "selective_scan_fwd_summaries": 0, "selective_scan_fwd_combine": 0,
-    "selective_scan_fwd_output": 0, "scatter_acc": 0, "scatter_acc_pairs": 0,
+    "selective_scan_fwd_output": 0, "scatter_acc_buckets": 0, "scatter_acc": 0, "scatter_acc_pairs_buckets": 0,
+    "scatter_acc_pairs": 0,
 }
 # calls of the ops phase: the scan at the three levels (one a call, and its
 # three launches: summaries, combine, output), one weighted gather's
-# backward, one pair scatter, one `auction_match` (two launches)
+# backward and one pair scatter (each two launches: buckets, rows), one
+# `auction_match` (two launches)
 OPS_LAUNCHES = {"selective_scan_fwd": 3, "selective_scan_fwd_summaries": 3, "selective_scan_fwd_combine": 3,
-                "selective_scan_fwd_output": 3, "scatter_acc": 1, "scatter_acc_pairs": 1, "auction_match": 1}
+                "selective_scan_fwd_output": 3, "scatter_acc_buckets": 1, "scatter_acc": 1,
+                "scatter_acc_pairs_buckets": 1, "scatter_acc_pairs": 1, "auction_match": 1}
 # the decoder's sampling at 640 px: batch 4, Q = 700 (dn queries included)
 DEFORM_B, DEFORM_Q = 4, 700
 
@@ -124,7 +132,8 @@ def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from tamtr_torch.kernels.auction import auction_assignment, auction_match
     from tamtr_torch.kernels.deform_scatter import (
-        bilinear_gather, bilinear_gather_bwd, pair_buckets, scatter_acc, scatter_acc_pairs,
+        bilinear_gather, bilinear_gather_bwd, pair_buckets, scatter_acc, scatter_acc_buckets, scatter_acc_pairs,
+        scatter_acc_pairs_buckets,
     )
     from tamtr_torch.kernels.selective_scan import (
         selective_scan, selective_scan_fwd_combine, selective_scan_fwd_output, selective_scan_fwd_summaries,
@@ -141,7 +150,8 @@ def launch_counters():
             "auction_assignment": auction_assignment, "auction_match": auction_match,
             "selective_scan_fwd": selective_scan, "selective_scan_fwd_summaries": selective_scan_fwd_summaries,
             "selective_scan_fwd_combine": selective_scan_fwd_combine,
-            "selective_scan_fwd_output": selective_scan_fwd_output, "scatter_acc": scatter_acc,
+            "selective_scan_fwd_output": selective_scan_fwd_output, "scatter_acc_buckets": scatter_acc_buckets,
+            "scatter_acc": scatter_acc, "scatter_acc_pairs_buckets": scatter_acc_pairs_buckets,
             "scatter_acc_pairs": scatter_acc_pairs}
 
 
@@ -507,7 +517,7 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     dv2, dw2 = bilinear_gather_bwd(value, idx2, w_pairs, dout)
     dv_ref, dw_ref = bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
     buckets, buckets_ref = pair_buckets(idx2, w_pairs, Lv), pair_buckets_ref(idx2, w_pairs, Lv)
-    dv_rows = bilinear_gather_bwd_rows_ref(value, idx2, w_pairs, dout, buckets_ref[1])[0]
+    dv_rows = bilinear_gather_bwd_rows_ref(value, idx2, w_pairs, dout)[0]
     repeat = torch.equal(dv, dv2) and torch.equal(dw, dw2)
     same_buckets = all(torch.equal(a, b) for a, b in zip(buckets, buckets_ref))
     rows_bitwise = torch.equal(dv, dv_rows)
@@ -539,6 +549,9 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     ok = ok and max(chain) < 1e-5 and repeat and same_buckets and rows_bitwise and hot_repeat and hot_rows
     ms = cuda_ms(lambda: bilinear_gather_bwd(value, idx2, w_pairs, dout), iters=20)
     ms_buckets = cuda_ms(lambda: pair_buckets(idx2, w_pairs, Lv), iters=20)
+    # the buckets wrapper's host time exceeds its kernel's: device time too
+    ms_device = device_ms(lambda: bilinear_gather_bwd(value, idx2, w_pairs, dout), iters=20)
+    ms_buckets_device = device_ms(lambda: pair_buckets(idx2, w_pairs, Lv), iters=20)
     plain = cuda_ms(lambda: bilinear_gather_bwd_ref(value, idx2, w_pairs, dout), iters=5)
     lib_in = [t.detach().clone().requires_grad_() for t in (value, loc, w_att)]
     lib_out = grid_sample_deform(lib_in[0], shapes, lib_in[1], lib_in[2])
@@ -550,13 +563,15 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
           f"version {same_buckets}; dvalue bitwise over two calls {repeat}, bitwise the plain row-owned version "
           f"{rows_bitwise}; hot row: bitwise over two calls {hot_repeat}, the plain row-owned version {hot_rows}; "
           f"through the core, max error / max entry of d(value, loc, w_att) {[float(f'{c:.3g}') for c in chain]}; "
-          f"dvalue vs grid_sample {e_lib:.3g}; ms={ms:.4f} (buckets {ms_buckets:.4f} bound {b_buckets:.5f}, "
-          f"rows {ms - ms_buckets:.4f} bound {b_rows:.5f}) plain_ms={plain:.4f} library_ms={lib_ms:.4f} "
+          f"dvalue vs grid_sample {e_lib:.3g}; ms={ms:.4f} (events; buckets alone {ms_buckets:.4f}) ms_device="
+          f"{ms_device:.4f} (profiler; buckets {ms_buckets_device:.4f} bound {b_buckets:.5f}, rows "
+          f"{ms_device - ms_buckets_device:.4f} bound {b_rows:.5f}) plain_ms={plain:.4f} library_ms={lib_ms:.4f} "
           f"(F.grid_sample backward) bound_ms={b_ms:.5f} ({b_by})", flush=True)
     if not ok:
         raise AssertionError(f"bilinear_gather backward kernel disagrees: {e}, repeat {repeat}, buckets "
                              f"{same_buckets}, rows {rows_bitwise}, hot {hot_repeat} {hot_rows}")
-    return dict(ms=ms, ms_buckets=ms_buckets, ms_rows=ms - ms_buckets, plain_ms=plain, library_ms=lib_ms,
+    return dict(ms=ms, ms_buckets=ms_buckets, ms_device=ms_device, ms_buckets_device=ms_buckets_device,
+                ms_rows_device=ms_device - ms_buckets_device, plain_ms=plain, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by, bound_buckets_ms=b_buckets, bound_rows_ms=b_rows,
                 max_abs_err=e, bitwise_repeat=repeat and hot_repeat), b2
 
@@ -664,15 +679,19 @@ def check_gather_bwd_step(calls):
     n = len(calls)
     ms = cuda_ms(every(bilinear_gather_bwd), iters=20) / n
     ms_buckets = cuda_ms(every(lambda v, i, w, d: pair_buckets(i, w, v.shape[1])), iters=20) / n
+    ms_device = device_ms(every(bilinear_gather_bwd), iters=20) / n
+    ms_buckets_device = device_ms(every(lambda v, i, w, d: pair_buckets(i, w, v.shape[1])), iters=20) / n
     plain = cuda_ms(every(bilinear_gather_bwd_ref), iters=5) / n
     print(f"bilinear_gather_bwd on the training step's pairs ({n} calls, up to {most} terms on a row): "
           f"max_abs_err={err:.3g}; dvalue bitwise over two calls and equal to the plain row-owned version {ok}; "
-          f"ms per call {ms:.4f} (buckets {ms_buckets:.4f} bound {bounds[1]:.5f}, rows {ms - ms_buckets:.4f} "
-          f"bound {bounds[2]:.5f}) plain_ms={plain:.4f} bound_ms={bounds[0]:.5f}", flush=True)
+          f"ms per call {ms:.4f} (events; buckets alone {ms_buckets:.4f}) ms_device {ms_device:.4f} (profiler; "
+          f"buckets {ms_buckets_device:.4f} bound {bounds[1]:.5f}, rows {ms_device - ms_buckets_device:.4f} bound "
+          f"{bounds[2]:.5f}) plain_ms={plain:.4f} bound_ms={bounds[0]:.5f}", flush=True)
     if not ok:
         raise AssertionError(f"bilinear_gather backward kernel disagrees on the step's pairs: {err}")
-    return dict(ms_step=ms, ms_buckets_step=ms_buckets, ms_rows_step=ms - ms_buckets, plain_ms_step=plain,
-                bound_ms_step=bounds[0], bound_buckets_ms_step=bounds[1], bound_rows_ms_step=bounds[2],
+    return dict(ms_step=ms, ms_buckets_step=ms_buckets, ms_device_step=ms_device,
+                ms_buckets_device_step=ms_buckets_device, ms_rows_device_step=ms_device - ms_buckets_device,
+                plain_ms_step=plain, bound_ms_step=bounds[0], bound_buckets_ms_step=bounds[1], bound_rows_ms_step=bounds[2],
                 max_abs_err_step=err, most_terms_on_a_row_step=most)
 
 
@@ -868,12 +887,14 @@ def check_selective_scan(dev):
     return rows, err
 
 
-def decoder_scatter_inputs(seed: int, dev):
+def decoder_scatter_inputs(seed: int, dev, clustered: bool = False):
     """value (4, 33600, 8, 64) and the decoder's sampling at 640 px, Q = 700,
     with a dout: the generic gather's corner indices and weights (idx4, w4,
     p4 = 48) and the pair scatter's (idx2, wa, wb) (32, 16800) with dout
     (32, 700, 64), its pairs moved off the global last row as the callers of
-    `_scatter_acc_pairs` do."""
+    `_scatter_acc_pairs` do. `clustered` snaps the last level's points to
+    3 x 3 cell centres (hundreds of updates on a row, as a training step's
+    decoder at initialisation gives), the last-cell point kept."""
     from tamtr_torch.kernels.deform_scatter import _shift_last_row
     from tamtr_torch.nn.decoder import deform_sampling_pairs
 
@@ -881,6 +902,10 @@ def decoder_scatter_inputs(seed: int, dev):
     Lv = sum(h * w for h, w in shapes)
     g = torch.Generator().manual_seed(seed)
     value, loc, w_att = deform_inputs(g, DEFORM_B, DEFORM_Q, shapes, dev)
+    if clustered:
+        last = loc[0, 0, 0, 2, 0].clone()
+        loc[:, :, :, 2] = (torch.floor(loc[:, :, :, 2].clamp(0, 0.999) * 3) + 0.5) / 3
+        loc[0, 0, 0, 2, 0] = last
     _, _, nh, c = value.shape
     dout = torch.randn(DEFORM_B, DEFORM_Q, nh, c, generator=g).to(dev)
     idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
@@ -896,67 +921,163 @@ def decoder_scatter_inputs(seed: int, dev):
     return value, (idx4, w4, dout), pairs, Lv
 
 
-def check_scatter_acc(dev, value, gather_args, Lv: int):
-    """Kernel B7 (the value gradient of `weighted_gather`) vs its plain
-    version at the decoder shape, and `scatter_add_` of the same updates."""
-    from tamtr_torch.kernels.deform_scatter import scatter_acc, scatter_acc_ref
+def within_sum_bound(got, rows, upd):
+    """got (fp32, (..., c)) against the fp64 sum of the updates `upd` (n, c)
+    added to rows `rows` (n,) of its (rows, c) view: whether every entry is
+    within its row's fp32 summation bound n_row 2^-24 sum |update| (any
+    order of adds meets it), and the most updates on a row."""
+    c = got.shape[-1]
+    n_rows = got.numel() // c
+    ref = torch.zeros(n_rows, c, dtype=torch.float64, device=got.device).index_add_(0, rows, upd.double())
+    mag = torch.zeros_like(ref).index_add_(0, rows, upd.double().abs())
+    count = torch.zeros(n_rows, dtype=torch.float64, device=got.device).index_add_(
+        0, rows, torch.ones_like(rows, dtype=torch.float64))
+    err = (got.reshape(n_rows, c).double() - ref).abs()
+    return bool((err <= count[:, None] * 2.0**-24 * mag).all()), int(count.max())
 
-    idx4, w4, dout = gather_args
-    B, nU, nh = idx4.shape
-    c = dout.shape[-1]
-    got, want = scatter_acc(idx4, w4, dout, Lv), scatter_acc_ref(idx4, w4, dout, Lv)
-    upd = w4[..., None] * dout.repeat_interleave(nU // DEFORM_Q, 1)
-    index = idx4.long()[..., None].expand(B, nU, nh, c)
-    lib = torch.zeros_like(value).scatter_add_(1, index, upd)
+
+def scatter_case(kernel, buckets, buckets_ref, plain, rows_ref, rows, upd, library):
+    """One input of B7 or B8: the kernel (two launches) against its plain
+    version (max error, 1e-5), against itself over two calls and against the
+    plain row-owned transcription (bitwise), and against the fp64 sum within
+    each row's fp32 summation bound; its buckets against theirs (bitwise);
+    then the call, the buckets launch alone, the plain version and the
+    library call timed (CUDA events), and the call's and the buckets
+    launch's device time (torch.profiler: the buckets wrapper's host time
+    exceeds its kernel's, so CUDA events over back-to-back launches time
+    the host there)."""
+    got, again = kernel(), kernel()
+    want = plain()
+    res = dict(bitwise_repeat=torch.equal(got, again), rows_bitwise=torch.equal(got, rows_ref()),
+               buckets_equal=all(torch.equal(a, b) for a, b in zip(buckets(), buckets_ref())),
+               max_abs_err=(got - want).abs().max().item(),
+               within_1e5=torch.allclose(got, want, atol=1e-5, rtol=1e-5))
+    res["within_sum_bound"], res["most_terms_on_a_row"] = within_sum_bound(got, rows, upd)
+    lib = library()
+    res["library_err"] = (lib - want).abs().max().item()
+    del got, again, want, lib
     torch.cuda.synchronize()
-    e, e_lib = (got - want).abs().max().item(), (lib - want).abs().max().item()
-    ms = cuda_ms(lambda: scatter_acc(idx4, w4, dout, Lv), iters=20)
-    plain = cuda_ms(lambda: scatter_acc_ref(idx4, w4, dout, Lv), iters=5)
-    lib_ms = cuda_ms(lambda: torch.zeros_like(value).scatter_add_(1, index, upd), iters=5)
-    # bytes: dvalue written once (all of it), dout, idx and w read once;
-    # operations: a multiply and an add per update and channel
-    nbytes = 4 * (value.numel() + dout.numel() + idx4.numel() + w4.numel())
-    flops = 2 * B * nU * nh * c
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"scatter_acc value {tuple(value.shape)} Q={DEFORM_Q} p4={nU // DEFORM_Q}: max_abs_err={e:.3g} "
-          f"(scatter_add_ vs plain {e_lib:.3g}) ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib_ms:.4f} "
-          f"(scatter_add_) bound_ms={b_ms:.5f} ({b_by})", flush=True)
-    if not (torch.allclose(got, want, atol=1e-5, rtol=1e-5) and e_lib < 1e-4):
-        raise AssertionError(f"scatter_acc kernel disagrees with its plain version: {e}")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e)
+    res.update(ms=cuda_ms(kernel, iters=20), ms_buckets=cuda_ms(buckets, iters=20), plain_ms=cuda_ms(plain, iters=5),
+               library_ms=cuda_ms(library, iters=5), ms_device=device_ms(kernel, iters=20),
+               ms_buckets_device=device_ms(buckets, iters=20))
+    res["ms_rows_device"] = res["ms_device"] - res["ms_buckets_device"]
+    return res
 
 
-def check_scatter_acc_pairs(dev, pairs, L2: int):
-    """Kernel B8 vs its plain version at G = 32, L2 = 33600, c = 64, Q = 700,
-    and the two `scatter_add_`s of the same updates."""
-    from tamtr_torch.kernels.deform_scatter import scatter_acc_pairs, scatter_acc_pairs_ref
+def scatter_bounds(nbytes: float, flops: float, in_bytes: float, out_bytes: float, buckets):
+    """B7's or B8's bound (the function's bytes and operations), and each
+    launch's alone: the buckets read the indices and weights (`in_bytes`)
+    and write the offsets, the sorted ids and their weights; the rows pass
+    reads those and dout and writes the output (`out_bytes`: dout read and
+    output written)."""
+    bucket_bytes = sum(t.numel() * 4 for t in buckets)
+    return (*bound(nbytes, flops), bound(in_bytes + bucket_bytes, 0)[0],
+            bound(out_bytes + bucket_bytes, flops)[0])
 
-    idx2, wa, wb, dout = pairs
-    G, nU2 = idx2.shape
-    c = dout.shape[-1]
-    got, want = scatter_acc_pairs(*pairs, L2), scatter_acc_pairs_ref(*pairs, L2)
-    d = dout.repeat_interleave(nU2 // DEFORM_Q, 1)
-    ua, ub = wa[..., None] * d, wb[..., None] * d
-    ia = idx2.long()[..., None].expand(G, nU2, c)
-    ib = ia + 1
-    lib_fn = lambda: torch.zeros(G, L2, c, device=dev).scatter_add_(1, ia, ua).scatter_add_(1, ib, ub)  # noqa: E731
-    lib = lib_fn()
-    torch.cuda.synchronize()
-    e, e_lib = (got - want).abs().max().item(), (lib - want).abs().max().item()
-    ms = cuda_ms(lambda: scatter_acc_pairs(*pairs, L2), iters=20)
-    plain = cuda_ms(lambda: scatter_acc_pairs_ref(*pairs, L2), iters=5)
-    lib_ms = cuda_ms(lib_fn, iters=5)
-    # bytes: the output written once (all of it), dout, idx2, wa and wb read
-    # once; operations: two multiplies and two adds per pair and channel
-    nbytes = 4 * (G * L2 * c + dout.numel() + 3 * G * nU2)
-    flops = 4 * G * nU2 * c
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"scatter_acc_pairs G={G} L2={L2} c={c} Q={DEFORM_Q} pairs/query={nU2 // DEFORM_Q}: "
-          f"max_abs_err={e:.3g} (scatter_add_ vs plain {e_lib:.3g}) ms={ms:.4f} plain_ms={plain:.4f} "
-          f"library_ms={lib_ms:.4f} (2 x scatter_add_) bound_ms={b_ms:.5f} ({b_by})", flush=True)
-    if not (torch.allclose(got, want, atol=1e-5, rtol=1e-5) and e_lib < 1e-4):
-        raise AssertionError(f"scatter_acc_pairs kernel disagrees with its plain version: {e}")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=e)
+
+def report_scatter(name: str, shape: str, rows: dict, b_fn, b_buckets, b_rows, lib_name: str) -> dict:
+    """Print B7's or B8's line; fail unless every input passed: bitwise over
+    two calls, bitwise the transcription, buckets equal, the fp32 sum bound,
+    and on uniform points 1e-5 from the plain version (the library call
+    within 1e-4 of it)."""
+    for case, r in rows.items():
+        print(f"{name} {shape} {case}: max_abs_err={r['max_abs_err']:.3g} (within 1e-5 {r['within_1e5']}, "
+              f"{lib_name} vs plain {r['library_err']:.3g}); bitwise over two calls {r['bitwise_repeat']}, bitwise "
+              f"the plain row-owned version {r['rows_bitwise']}; buckets equal the plain version "
+              f"{r['buckets_equal']}; up to {r['most_terms_on_a_row']} terms on a row, within the fp32 sum bound "
+              f"{r['within_sum_bound']}; ms={r['ms']:.4f} (events; buckets alone {r['ms_buckets']:.4f}) "
+              f"ms_device={r['ms_device']:.4f} (profiler; buckets {r['ms_buckets_device']:.4f} bound "
+              f"{b_buckets[case]:.5f}, rows {r['ms_rows_device']:.4f} bound {b_rows[case]:.5f}) "
+              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} ({lib_name}) "
+              f"bound_ms={b_fn[case][0]:.5f} ({b_fn[case][1]})", flush=True)
+    u = rows["uniform"]
+    ok = u["within_1e5"] and u["library_err"] < 1e-4 and all(
+        r["bitwise_repeat"] and r["rows_bitwise"] and r["buckets_equal"] and r["within_sum_bound"]
+        for r in rows.values())
+    if not ok:
+        raise AssertionError(f"{name} kernel disagrees: {rows}")
+    return dict(ms=u["ms"], ms_buckets=u["ms_buckets"], ms_device=u["ms_device"],
+                ms_buckets_device=u["ms_buckets_device"], ms_rows_device=u["ms_rows_device"],
+                plain_ms=u["plain_ms"], library_ms=u["library_ms"], bound_ms=b_fn["uniform"][0], bound_by=b_fn["uniform"][1],
+                bound_buckets_ms=b_buckets["uniform"], bound_rows_ms=b_rows["uniform"],
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()), bitwise_repeat=True,
+                clustered={**rows["clustered"], "bound_ms": b_fn["clustered"][0],
+                           "bound_buckets_ms": b_buckets["clustered"], "bound_rows_ms": b_rows["clustered"]},
+                most_terms_on_a_row_uniform=u["most_terms_on_a_row"])
+
+
+def check_scatter_acc(dev, value, cases: dict, Lv: int):
+    """Kernel B7's two launches (`scatter_acc_buckets`, then the rows pass;
+    the value gradient of `weighted_gather`) at the decoder shape, on
+    uniform and on clustered sampling points (`scatter_case`), beside
+    `scatter_add_` of the same updates."""
+    from tamtr_torch.kernels.deform_scatter import (
+        scatter_acc, scatter_acc_buckets, scatter_acc_buckets_ref, scatter_acc_ref, scatter_acc_rows_ref,
+    )
+
+    rows, b_fn, b_buckets, b_rows = {}, {}, {}, {}
+    for case, (idx4, w4, dout) in cases.items():
+        B, nU, nh = idx4.shape
+        c = dout.shape[-1]
+        upd = w4[..., None] * dout.repeat_interleave(nU // DEFORM_Q, 1)
+        index = idx4.long()[..., None].expand(B, nU, nh, c)
+        flat = ((torch.arange(B, device=dev)[:, None, None] * Lv + idx4.long()) * nh
+                + torch.arange(nh, device=dev)).reshape(-1)
+        rows[case] = scatter_case(
+            lambda: scatter_acc(idx4, w4, dout, Lv), lambda: scatter_acc_buckets(idx4, w4, Lv),
+            lambda: scatter_acc_buckets_ref(idx4, w4, Lv), lambda: scatter_acc_ref(idx4, w4, dout, Lv),
+            lambda: scatter_acc_rows_ref(idx4, w4, dout, Lv), flat, upd.reshape(-1, c),
+            lambda: torch.zeros_like(value).scatter_add_(1, index, upd))
+        # bytes: dvalue written once (all of it), dout, idx and w read once;
+        # operations: a multiply and an add per update and channel
+        in_bytes = 4 * (idx4.numel() + w4.numel())
+        out_bytes = 4 * (value.numel() + dout.numel())
+        b = scatter_bounds(in_bytes + out_bytes, 2 * B * nU * nh * c, in_bytes, out_bytes,
+                           scatter_acc_buckets(idx4, w4, Lv))
+        b_fn[case], b_buckets[case], b_rows[case] = b[:2], b[2], b[3]
+        del upd, index, flat
+    idx4 = cases["uniform"][0]
+    return report_scatter("scatter_acc", f"value {tuple(value.shape)} Q={DEFORM_Q} p4={idx4.shape[1] // DEFORM_Q}",
+                          rows, b_fn, b_buckets, b_rows, "scatter_add_")
+
+
+def check_scatter_acc_pairs(dev, cases: dict, L2: int):
+    """Kernel B8's two launches (`scatter_acc_pairs_buckets`, then the rows
+    pass) at G = 32, L2 = 33600, c = 64, Q = 700, on uniform and on
+    clustered sampling points (`scatter_case`), beside the two
+    `scatter_add_`s of the same updates."""
+    from tamtr_torch.kernels.deform_scatter import (
+        scatter_acc_pairs, scatter_acc_pairs_buckets, scatter_acc_pairs_buckets_ref, scatter_acc_pairs_ref,
+        scatter_acc_pairs_rows_ref,
+    )
+
+    rows, b_fn, b_buckets, b_rows = {}, {}, {}, {}
+    for case, (idx2, wa, wb, dout) in cases.items():
+        G, nU2 = idx2.shape
+        c = dout.shape[-1]
+        d = dout.repeat_interleave(nU2 // DEFORM_Q, 1)
+        ua, ub = wa[..., None] * d, wb[..., None] * d
+        ia = idx2.long()[..., None].expand(G, nU2, c)
+        gi = torch.arange(G, device=dev)[:, None] * L2
+        flat = torch.cat([gi + idx2.long(), gi + idx2.long() + 1], 1).reshape(-1)
+        upd = torch.cat([ua, ub], 1).reshape(-1, c)
+        rows[case] = scatter_case(
+            lambda: scatter_acc_pairs(idx2, wa, wb, dout, L2), lambda: scatter_acc_pairs_buckets(idx2, wa, wb, L2),
+            lambda: scatter_acc_pairs_buckets_ref(idx2, wa, wb, L2),
+            lambda: scatter_acc_pairs_ref(idx2, wa, wb, dout, L2),
+            lambda: scatter_acc_pairs_rows_ref(idx2, wa, wb, dout, L2), flat, upd,
+            lambda: torch.zeros(G, L2, c, device=dev).scatter_add_(1, ia, ua).scatter_add_(1, ia + 1, ub))
+        # bytes: the output written once (all of it), dout, idx2, wa and wb
+        # read once; operations: two multiplies and two adds per pair and channel
+        in_bytes = 4 * 3 * G * nU2
+        out_bytes = 4 * (G * L2 * c + dout.numel())
+        b = scatter_bounds(in_bytes + out_bytes, 4 * G * nU2 * c, in_bytes, out_bytes,
+                           scatter_acc_pairs_buckets(idx2, wa, wb, L2))
+        b_fn[case], b_buckets[case], b_rows[case] = b[:2], b[2], b[3]
+        del d, ua, ub, ia, flat, upd
+    G, nU2 = cases["uniform"][0].shape
+    return report_scatter("scatter_acc_pairs", f"G={G} L2={L2} c={cases['uniform'][3].shape[-1]} Q={DEFORM_Q} "
+                          f"pairs/query={nU2 // DEFORM_Q}", rows, b_fn, b_buckets, b_rows, "2 x scatter_add_")
 
 
 def drive_ops(dev):
@@ -1302,9 +1423,10 @@ def main() -> int:
     auction_any = check_auction_any_size(dev)
     scan1d_rows, scan1d_err = check_selective_scan(dev)
     value, gather_args, pairs, Lv = decoder_scatter_inputs(17, dev)
-    scatter = check_scatter_acc(dev, value, gather_args, Lv)
-    scatter_pairs = check_scatter_acc_pairs(dev, pairs, Lv)
-    del value, gather_args, pairs
+    _, gather_clustered, pairs_clustered, _ = decoder_scatter_inputs(18, dev, clustered=True)
+    scatter = check_scatter_acc(dev, value, dict(uniform=gather_args, clustered=gather_clustered), Lv)
+    scatter_pairs = check_scatter_acc_pairs(dev, dict(uniform=pairs, clustered=pairs_clustered), Lv)
+    del value, gather_args, pairs, gather_clustered, pairs_clustered
     ops_launches = drive_ops(dev)
     check_parity(dev)
     check_train_parity(dev)
@@ -1381,12 +1503,14 @@ def main() -> int:
                                                           "bound_output_ms")},
              bound_by=max(levels1d, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
              sums_of="the three 640 px levels, G = 4", per_level=scan1d_rows),
-        dict(name="scatter_acc", route="cuda", source="tamtr_torch/csrc/deform_scatter.cu",
-             replaces="tamtr_tpu/kernels/deform_scatter.py:86",
-             **slice3("scatter_acc", "tamtr_torch.kernels.deform_scatter.weighted_gather (backward)"), **scatter),
-        dict(name="scatter_acc_pairs", route="cuda", source="tamtr_torch/csrc/deform_scatter.cu",
-             replaces="tamtr_tpu/kernels/deform_scatter.py:359",
-             **slice3("scatter_acc_pairs", "tamtr_torch.kernels.deform_scatter.scatter_acc_pairs"), **scatter_pairs),
+        dict(name="scatter_acc (scatter_acc_buckets + rows pass)", route="cuda",
+             source="tamtr_torch/csrc/deform_scatter.cu", replaces="tamtr_tpu/kernels/deform_scatter.py:86",
+             **slice3("scatter_acc", "tamtr_torch.kernels.deform_scatter.weighted_gather (backward)"),
+             launches_buckets=ops_launches["scatter_acc_buckets"], **scatter),
+        dict(name="scatter_acc_pairs (scatter_acc_pairs_buckets + rows pass)", route="cuda",
+             source="tamtr_torch/csrc/deform_scatter.cu", replaces="tamtr_tpu/kernels/deform_scatter.py:359",
+             **slice3("scatter_acc_pairs", "tamtr_torch.kernels.deform_scatter.scatter_acc_pairs"),
+             launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

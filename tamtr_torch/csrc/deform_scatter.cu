@@ -1,5 +1,6 @@
 // Row and pair scatter-accumulate, fp32: the backward of the generic
-// weighted gather (kernel B7) and the pair scatter without dw (kernel B8).
+// weighted gather (kernel B7) and the pair scatter without dw (kernel B8),
+// each two launches with no float atomics, every output row written once.
 //
 // scatter_acc (B7) replaces the TPU kernel
 // `tamtr_tpu/kernels/deform_scatter.py:_scatter_kernel` (launched by
@@ -8,8 +9,7 @@
 // u = q p4 + j, has the value gradient
 //     dvalue[b, idx[b, u, h], h, :] += w[b, u, h] * dout[b, q, h, :]
 // JAX's kernel works head-major on (B nh, L, c) copies; this one reads idx,
-// w (B, nU, nh) and dout (B, Q, nh, c) and writes dvalue (B, L, nh, c) in
-// place.
+// w (B, nU, nh) and dout (B, Q, nh, c) and writes dvalue (B, L, nh, c).
 //
 // scatter_acc_pairs (B8) replaces the TPU kernel
 // `tamtr_tpu/kernels/deform_scatter.py:_scatter_pairs_kernel` (launched by
@@ -17,99 +17,97 @@
 // q = u / (nU2 / Q),
 //     out[g, idx2[g, u]]     += wa[g, u] * dout[g, q, :]
 //     out[g, idx2[g, u] + 1] += wb[g, u] * dout[g, q, :]
-// with idx2, wa, wb (G, nU2), dout (G, Q, c), out (G, L2, c).
+// with idx2, wa, wb (G, nU2), dout (G, Q, c), out (G, L2, c): the value half
+// of the gather backward B4 with one head, no dw and no last-row shift.
 //
-// Indices are the caller's to keep in range ([0, L) for B7, pair starts in
-// [0, L2 - 1) for B8); a row outside the output is skipped, never written.
+// A row outside the output is skipped, never written: B7's idx outside
+// [0, L); B8's rows outside [0, L2), so a start of L2 - 1 writes row L2 - 1
+// only and a start of -1 row 0 only.
 //
-// Design: one warp per (b, q, head) for B7 and per (g, q) for B8, as the
-// gather backward B4 (`bilinear_gather_bwd.cu`): the warp walks the query's
-// updates, its lanes over the channels, and adds into a zeroed output with
-// fp32 atomicAdd. Rows shared by several updates are summed in an order that
-// changes from run to run, so neither output is bitwise deterministic (the
-// TPU kernels, which add one update at a time, are).
+// The TPU kernels add one update at a time, in update order, into a VMEM
+// block. Both run here on the two launches of `row_buckets.cuh`, which B4
+// uses too: the buckets launch sorts each group's updates stably by first
+// row (a radix sort spread over a cluster of blocks) and lists the rows of
+// more than 16 terms in 32-term segments; the rows pass sums each row in a
+// fixed order and writes it once, zeros where no update lands, so the
+// output needs no zero fill and is bitwise repeatable:
+//   - B7: row r sums w dout over its updates in update order u (within a
+//     segment, the TPU kernel's own order);
+//   - B8: row r sums wa dout over the pairs starting on r, then wb dout
+//     over those starting on r - 1, each in pair order;
+// in segments of 32 terms summed from zero and added in turn, every product
+// and add __fmul_rn / __fadd_rn, as `scatter_acc_rows_ref` and
+// `scatter_acc_pairs_rows_ref` (kernels/deform_scatter.py) transcribe.
+// Launch 2 takes c <= 64 channels of rows whose stride is cs; the wrapper
+// launches it once per 64 channels.
 //
-// Bound on the card: by bytes: the whole output written once (it is zeroed,
-// then every row any update reaches is added to), dout, the indices and the
-// weights read once; at the 640 px decoder shapes (B7: value
+// Bound on the card: by bytes: the whole output written once, dout, the
+// indices and the weights read once; at the 640 px decoder shapes (B7: value
 // (4, 33600, 8, 64), Q = 700, p4 = 48; B8: G = 32, L2 = 33600, c = 64,
-// Q = 700, 24 pairs per query) ~0.29 GB, ~0.09 ms at 3.35 TB/s. The
-// zeroing pass and the dependent index-then-atomic chains make this simple
-// design latency bound.
+// Q = 700, 24 pairs per query) ~0.29 GB, ~0.09 ms at 3.35 TB/s. The buckets
+// add 11-13 MB of traffic (offsets, order, weights in bucket order; the
+// sort's passes stay in L2). What holds the rows pass back: each term waits on a
+// dependent L2 load of its dout row.
 
-#include <cuda_runtime.h>
+#include "row_buckets.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32) scatter_acc_kernel(
-    const int* __restrict__ idx, const float* __restrict__ w, const float* __restrict__ dout,
-    float* __restrict__ dvalue, int B, int L, int nh, int c, int Q, int p4) {
-  const long long warp = (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (warp >= (long long)B * Q * nh) return;
-  const int lane = threadIdx.x % 32;
-  const int h = warp % nh;
-  const long long bq = warp / nh;  // b * Q + q
-  const long long b = bq / Q;
-  const long long row_stride = (long long)nh * c;
-  const float* d_row = dout + warp * c;
-  float* dv_b = dvalue + b * L * row_stride + (long long)h * c;
-  for (int j = 0; j < p4; ++j) {
-    const long long p = (bq * p4 + j) * nh + h;
-    const int i = idx[p];
-    if ((unsigned)i >= (unsigned)L) continue;
-    const float wt = w[p];
-    float* row = dv_b + (long long)i * row_stride;
-    for (int ch = lane; ch < c; ch += 32) atomicAdd(row + ch, wt * d_row[ch]);
-  }
-}
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32) scatter_acc_pairs_kernel(
-    const int* __restrict__ idx2, const float* __restrict__ wa, const float* __restrict__ wb,
-    const float* __restrict__ dout, float* __restrict__ out, int G, int L2, int c, int Q,
-    int per_q) {
-  const long long warp = (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (warp >= (long long)G * Q) return;
-  const int lane = threadIdx.x % 32;
-  const long long g = warp / Q;
-  const float* d_row = dout + warp * c;
-  float* out_g = out + g * L2 * c;
-  for (int j = 0; j < per_q; ++j) {
-    const long long p = warp * per_q + j;  // g * nU2 + q * per_q + j
-    const int i = idx2[p];
-    const float a = wa[p], bw = wb[p];
-    const bool in0 = (unsigned)i < (unsigned)L2, in1 = (unsigned)(i + 1) < (unsigned)L2;
-    float* r0 = out_g + (long long)i * c;
-    for (int ch = lane; ch < c; ch += 32) {
-      const float v = d_row[ch];
-      if (in0) atomicAdd(r0 + ch, a * v);
-      if (in1) atomicAdd(r0 + c + ch, bw * v);
-    }
-  }
-}
-
-unsigned blocks_for(long long warps) {
-  return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
+using RowsRule = Rule</*pairs=*/false, /*skip=*/true, /*dw=*/false>;   // B7
+using PairsRule = Rule</*pairs=*/true, /*skip=*/true, /*dw=*/false>;   // B8
 
 }  // namespace
 
-// dvalue (B, L, nh, c) must arrive zeroed.
-extern "C" int scatter_acc(const int* idx, const float* w, const float* dout, float* dvalue, int B,
-                           int L, int nh, int c, int Q, int p4, void* stream) {
-  if (B < 1 || L < 1 || nh < 1 || c < 1 || Q < 1 || p4 < 1) return (int)cudaErrorInvalidValue;
-  scatter_acc_kernel<<<blocks_for((long long)B * Q * nh), kWarpsPerBlock * 32, 0,
-                       (cudaStream_t)stream>>>(idx, w, dout, dvalue, B, L, nh, c, Q, p4);
-  return (int)cudaGetLastError();
+// B7 launch 1. idx (B, n, nh) int32, w (B, n, nh) fp32 -> offsets
+// (B, nh, L + 1) int32, order (B, nh, n) int32, upd_w (B, nh, n) fp32 (w in
+// bucket order), and the long rows' segments: items (B nh ceil(n / 8), 4)
+// int32 with their count n_items (1,), done (as items' rows) int32.
+// Scratch: bufs (B nh, 2, n, 2) and keys (B nh, n) int32.
+extern "C" int scatter_acc_buckets(const int* idx, const float* w, int* offsets, int* order, float* upd_w,
+                                   int* items, int* done, int* n_items, int* bufs, int* keys, int B, int n, int nh,
+                                   int L, void* stream) {
+  if (B < 1 || n < 1 || nh < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  const BucketArgs a{idx, w, nullptr, 1, offsets, order, upd_w, reinterpret_cast<int4*>(items), done, n_items,
+                     reinterpret_cast<int2*>(bufs), keys, n, nh, L, L, 0, 0, 0, 0};
+  return (int)launch_buckets<RowsRule>(a, B * nh, (cudaStream_t)stream);
 }
 
-// out (G, L2, c) must arrive zeroed.
-extern "C" int scatter_acc_pairs(const int* idx2, const float* wa, const float* wb,
-                                 const float* dout, float* out, int G, int L2, int c, int Q,
-                                 int per_q, void* stream) {
-  if (G < 1 || L2 < 1 || c < 1 || Q < 1 || per_q < 1) return (int)cudaErrorInvalidValue;
-  scatter_acc_pairs_kernel<<<blocks_for((long long)G * Q), kWarpsPerBlock * 32, 0,
-                             (cudaStream_t)stream>>>(idx2, wa, wb, dout, out, G, L2, c, Q, per_q);
-  return (int)cudaGetLastError();
+// B8 launch 1. idx2, wa, wb (G, n) -> offsets (G, L2 + 2) int32 (bucket
+// s + 1 holds the pairs starting on s), order (G, n) int32, upd_w (G, n, 2)
+// fp32 ((wa, wb) in bucket order), the segments and scratch as B7's.
+extern "C" int scatter_acc_pairs_buckets(const int* idx2, const float* wa, const float* wb, int* offsets,
+                                         int* order, float* upd_w, int* items, int* done, int* n_items, int* bufs,
+                                         int* keys, int G, int n, int L2, void* stream) {
+  if (G < 1 || n < 1 || L2 < 1) return (int)cudaErrorInvalidValue;
+  const BucketArgs a{idx2, wa, wb, 1, offsets, order, upd_w, reinterpret_cast<int4*>(items), done, n_items,
+                     reinterpret_cast<int2*>(bufs), keys, n, 1, L2, L2 + 1, 0, 0, 0, 0};
+  return (int)launch_buckets<PairsRule>(a, G, (cudaStream_t)stream);
+}
+
+// Launch 2 of either, on its launch 1's buckets and segments: dout
+// (B, Q, nh, cs) -> out (B, rows, nh, cs), channels [0, c), partials (as
+// items' rows, c) fp32 scratch. Every row is written. B8's groups are its
+// G rows of (G, Q, c): B = G, nh = 1.
+static int rows_pass(bool pairs, const float* dout, const int* offsets, const int* order, const float* upd_w,
+                     const int* items, int* done, const int* n_items, float* partials, float* out, int B, int rows,
+                     int nh, int c, int cs, int Q, int ppq, void* stream) {
+  if (B < 1 || nh < 1) return (int)cudaErrorInvalidValue;
+  RowArgs a{nullptr, nullptr, dout, offsets, order, upd_w, reinterpret_cast<const int4*>(items), done, n_items,
+            partials, out, nullptr, B * nh, rows, rows + (pairs ? 1 : 0), nh, c, cs, Q, ppq, 0.f, 0};
+  return (int)(pairs ? launch_rows<PairsRule>(a, (cudaStream_t)stream)
+                     : launch_rows<RowsRule>(a, (cudaStream_t)stream));
+}
+
+extern "C" int scatter_acc(const float* dout, const int* offsets, const int* order, const float* upd_w,
+                           const int* items, int* done, const int* n_items, float* partials, float* dvalue, int B,
+                           int L, int nh, int c, int cs, int Q, int p4, void* stream) {
+  return rows_pass(false, dout, offsets, order, upd_w, items, done, n_items, partials, dvalue, B, L, nh, c, cs, Q, p4,
+                   stream);
+}
+
+extern "C" int scatter_acc_pairs(const float* dout, const int* offsets, const int* order, const float* upd_w,
+                                 const int* items, int* done, const int* n_items, float* partials, float* out, int G,
+                                 int L2, int nh, int c, int cs, int Q, int per_q, void* stream) {
+  return rows_pass(true, dout, offsets, order, upd_w, items, done, n_items, partials, out, G, L2, nh, c, cs, Q,
+                   per_q, stream);
 }

@@ -22,7 +22,9 @@ One-direction scan: `selective_scan` replaces the TPU kernel
 `_scan_kernel` (via `_run_scan` and `selective_scan_pallas`). On CUDA tensors
 its forward launches `csrc/selective_scan_fwd.cu` (B6), the segment-parallel
 scan of B1 with delta given: `selective_scan_fwd_summaries`,
-`selective_scan_fwd_combine` and `selective_scan_fwd_output`. On CPU tensors
+`selective_scan_fwd_combine` and `selective_scan_fwd_output`, on the pieces
+of `scan1d_pieces` where the shape needs them (the state padded to a
+compiled size, N > 32 split, G and Din cut to the grid). On CPU tensors
 it runs `selective_scan_ref`, the plain version of `selective_scan_xla`. Its
 backward is `selective_scan_bwd_ref` on both devices: the JAX package has no
 backward kernel for it either (its `_bwd` is the autodiff of the XLA oracle).
@@ -45,6 +47,12 @@ from tamtr_torch.kernels import _build
 SCAN_CHUNK = 128
 SEG_CHANNELS = 32  # channels per block of the segment kernels, forward and backward (csrc kDB)
 SEG_STEPS = 48  # steps per segment of the segment-parallel scans (csrc kSeg)
+# the state sizes B6's kernels are compiled for, and the groups and channels
+# one launch takes (the grid's y and z, 32 channels a block);
+# `_selective_scan_cuda` cuts other shapes into such pieces
+SCAN1D_STATES = (4, 8, 16, 32)
+SCAN1D_MAX_G = 65535
+SCAN1D_MAX_DIN = 65535 * 32
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -484,8 +492,9 @@ def _check_scan1d(name, u, delta, A, Bs, Cs=None, D=None):
             or tuple(Bs.shape) != (G, L, N) or (Cs is not None and tuple(Cs.shape) != (G, L, N)) \
             or (D is not None and tuple(D.shape) != (G, Din)):
         raise ValueError(f"{name}: inconsistent shapes")
-    if N not in (4, 8, 16, 32):
-        raise ValueError(f"{name}: the kernel needs N in (4, 8, 16, 32), got {N}")
+    if N not in SCAN1D_STATES or G > SCAN1D_MAX_G or Din > SCAN1D_MAX_DIN:
+        raise ValueError(f"{name}: a launch takes N in {SCAN1D_STATES}, G <= {SCAN1D_MAX_G} and Din <= "
+                         f"{SCAN1D_MAX_DIN}, got N={N}, G={G}, Din={Din} (`selective_scan` cuts any shape)")
     return [t.contiguous() if t is not None else None for t in (u, delta, A, Bs, Cs, D)]
 
 
@@ -544,11 +553,49 @@ def selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in):
     return y
 
 
-def _selective_scan_cuda(u, delta, A, Bs, Cs, D):
-    """Kernel B6 on fp32 inputs: its three launches."""
+def scan1d_pieces(scan, u, delta, A, Bs, Cs, D, max_g: int = SCAN1D_MAX_G, max_din: int = SCAN1D_MAX_DIN):
+    """y of the one-direction scan, `scan(u, delta, A, Bs, Cs, D)` run on
+    pieces that B6's kernels take: the state lanes in groups of at most 32,
+    each padded with zeros up to a size in `SCAN1D_STATES` (B = C = 0 and
+    A = -1: a padded lane stays 0 from h = 0 and adds nothing to y), the
+    groups' outputs added in turn, D in the first group only; each group's
+    scan cut into launches of at most `max_g` groups and `max_din` channels.
+    One piece, without a copy, where the inputs fit."""
+    G, L, Din = u.shape
+    N = A.shape[-1]
+    y = None
+    for n0 in range(0, N, 32):
+        n1 = min(n0 + 32, N)
+        pad = next(k for k in SCAN1D_STATES if k >= n1 - n0) - (n1 - n0)
+        A_s, B_s, C_s = (t[..., n0:n1] for t in (A, Bs, Cs))
+        if pad:
+            A_s = torch.nn.functional.pad(A_s, (0, pad), value=-1.0)
+            B_s, C_s = (torch.nn.functional.pad(t, (0, pad)) for t in (B_s, C_s))
+        D_s = D if n0 == 0 else None
+        blocks = []
+        for g0 in range(0, G, max_g):
+            g = slice(g0, g0 + max_g)
+            cols = [scan(u[g, :, d0:d0 + max_din], delta[g, :, d0:d0 + max_din], A_s[g, d0:d0 + max_din], B_s[g],
+                         C_s[g], None if D_s is None else D_s[g, d0:d0 + max_din])
+                    for d0 in range(0, Din, max_din)]
+            blocks.append(cols[0] if len(cols) == 1 else torch.cat(cols, 2))
+        part = blocks[0] if len(blocks) == 1 else torch.cat(blocks, 0)
+        y = part if y is None else y + part
+    return y
+
+
+def _scan1d_launches(u, delta, A, Bs, Cs, D):
+    """Kernel B6's three launches on one piece that they take."""
     h_loc, sdt = selective_scan_fwd_summaries(u, delta, A, Bs)
     h_in = selective_scan_fwd_combine(A.contiguous(), h_loc, sdt, u.shape[1])
-    y = selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in)
+    return selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in)
+
+
+def _selective_scan_cuda(u, delta, A, Bs, Cs, D):
+    """Kernel B6 on fp32 inputs of any shape: its three launches on each
+    piece of `scan1d_pieces` (one piece at N in `SCAN1D_STATES`, G and Din
+    within the grid)."""
+    y = scan1d_pieces(_scan1d_launches, u, delta, A, Bs, Cs, D)
     selective_scan.launches += 1
     return y
 

@@ -226,12 +226,11 @@ def test_bilinear_gather_bwd_kernel_is_bitwise_repeatable(card, c, hot):
     value, w_pairs, idx2, dout = (t.to(card) for t in (value, w_pairs, idx2, dout))
     buckets, buckets_ref = pair_buckets(idx2, w_pairs, Lv), pair_buckets_ref(idx2, w_pairs, Lv)
     assert all(torch.equal(a, b) for a, b in zip(buckets, buckets_ref))
-    order_ref = buckets_ref[1]
     dv, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout)
     dv2, dw2 = bilinear_gather_bwd(value, idx2, w_pairs, dout)
     torch.cuda.synchronize()
     assert torch.equal(dv, dv2) and torch.equal(dw, dw2)
-    dv_rows, dw_rows = bilinear_gather_bwd_rows_ref(value, idx2, w_pairs, dout, order_ref)
+    dv_rows, dw_rows = bilinear_gather_bwd_rows_ref(value, idx2, w_pairs, dout)
     assert torch.equal(dv, dv_rows)
     torch.testing.assert_close(dw, dw_rows, atol=1e-5, rtol=1e-5)
     dv_ref, dw_ref = bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
@@ -342,14 +341,17 @@ def _within_fp32_sum_bound(got, rows, upd, shape):
 
 
 def test_weighted_gather_bwd_kernel_matches_plain(card):
-    """B7 (dvalue of `weighted_gather`) and its plain scatter against the
-    fp64 sum of the updates, each entry within its row's fp32 summation
-    bound (n 2^-24 sum |w dout|, n the row's updates), with a row that 1440
-    updates hit (all 30 queries x 48 of one image and head); dw against the
-    plain version at 1e-5. (A flat 1e-5 held only up to rows of tens of
-    updates: fp32 sums of 1440 terms, in the atomics' order or any other,
-    differ by more.)"""
-    from tamtr_torch.kernels.deform_scatter import scatter_acc, scatter_acc_ref, weighted_gather, weighted_gather_ref
+    """B7 (dvalue of `weighted_gather`: buckets, then the rows pass, two
+    launches a call) bitwise equal to its rows transcription and over two
+    calls; it and its plain scatter against the fp64 sum of the updates,
+    each entry within its row's fp32 summation bound (n 2^-24 sum |w dout|,
+    n the row's updates), with a row that 1440 updates hit (all 30 queries
+    x 48 of one image and head); on rows of at most SEG_TERMS updates
+    bitwise the plain scatter; dw against the plain version at 1e-5."""
+    from tamtr_torch.kernels.deform_scatter import (
+        SEG_TERMS, scatter_acc, scatter_acc_buckets, scatter_acc_ref, scatter_acc_rows_ref, weighted_gather,
+        weighted_gather_ref,
+    )
 
     g = torch.Generator().manual_seed(8)
     B, L, nh, c, Q, p4 = 2, 500, 8, 64, 30, 48
@@ -359,28 +361,38 @@ def test_weighted_gather_bwd_kernel_matches_plain(card):
     idx = idx.to(card)
     w = torch.randn(B, Q * p4, nh, generator=g).to(card).requires_grad_()
     dout = torch.randn(B, Q, nh, c, generator=g).to(card)
-    before = scatter_acc.launches
+    before = scatter_acc.launches, scatter_acc_buckets.launches
     dv, dw = torch.autograd.grad(weighted_gather(value, idx, w, p4), (value, w), dout)
     torch.cuda.synchronize()
-    assert scatter_acc.launches == before + 1
+    assert (scatter_acc.launches, scatter_acc_buckets.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(dv, scatter_acc(idx, w.detach(), dout, L))
+    assert torch.equal(dv, scatter_acc_rows_ref(idx, w.detach(), dout, L))
     bi = torch.arange(B, device=card)[:, None, None]
     hi = torch.arange(nh, device=card)[None, None, :]
     rows = ((bi * L + idx.long()) * nh + hi).reshape(-1)
     upd = (w.detach()[..., None] * dout.repeat_interleave(p4, 1)).reshape(-1, c)
-    for got in (dv, scatter_acc_ref(idx, w.detach(), dout, L)):
+    plain = scatter_acc_ref(idx, w.detach(), dout, L)
+    for got in (dv, plain):
         ok, hottest = _within_fp32_sum_bound(got, rows, upd, (B, L, nh, c))
         assert ok and hottest == Q * p4
+    n_row = torch.zeros(B * L * nh, device=card).index_add_(0, rows, torch.ones_like(rows, dtype=torch.float32))
+    short = (n_row <= SEG_TERMS).view(B, L, nh, 1).expand_as(dv)
+    assert torch.equal(dv[short], plain[short])
     dw_ref = torch.autograd.grad(weighted_gather_ref(value, idx, w, p4), w, dout)[0]
     torch.testing.assert_close(dw, dw_ref, atol=1e-5, rtol=1e-5)
 
 
 def test_scatter_acc_pairs_kernel_matches_plain(card):
-    """B8 against the plain pair scatter at 1e-5, pairs at start L2 - 2 and
-    repeated; a start of L2 - 1, outside the contract, writes nothing past
-    the last row. Then a hot row: all 1440 pairs of one group start on one
-    row, and the kernel and the plain version hold against the fp64 sum
-    within each row's fp32 summation bound (n 2^-24 sum |w dout|)."""
-    from tamtr_torch.kernels.deform_scatter import scatter_acc_pairs, scatter_acc_pairs_ref
+    """B8 (buckets, then the rows pass, two launches a call) against the
+    plain pair scatter at 1e-5 and bitwise against its rows transcription,
+    pairs at start L2 - 2 and repeated; starts of -1, L2 - 1 and L2 follow
+    the skip rule as the plain version does (row 0 alone, row L2 - 1 alone,
+    nothing). Then a hot row: all 1440 pairs of one group start on one row,
+    and the kernel and the plain version hold against the fp64 sum within
+    each row's fp32 summation bound (n 2^-24 sum |w dout|)."""
+    from tamtr_torch.kernels.deform_scatter import (
+        scatter_acc_pairs, scatter_acc_pairs_buckets, scatter_acc_pairs_ref, scatter_acc_pairs_rows_ref,
+    )
 
     g = torch.Generator().manual_seed(9)
     G, L2, c, Q, per_q = 16, 700, 64, 40, 24
@@ -390,19 +402,25 @@ def test_scatter_acc_pairs_kernel_matches_plain(card):
     wa, wb = torch.randn(G, Q * per_q, generator=g), torch.randn(G, Q * per_q, generator=g)
     dout = torch.randn(G, Q, c, generator=g)
     args = [t.to(card) for t in (idx2, wa, wb, dout)]
-    before = scatter_acc_pairs.launches
+    before = scatter_acc_pairs.launches, scatter_acc_pairs_buckets.launches
     out = scatter_acc_pairs(*args, L2)
     torch.cuda.synchronize()
-    assert scatter_acc_pairs.launches == before + 1
+    assert (scatter_acc_pairs.launches, scatter_acc_pairs_buckets.launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(out, scatter_acc_pairs_ref(*args, L2), atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, scatter_acc_pairs_rows_ref(*args, L2))
     edge = args[0].clone()
-    edge[2, 0] = L2 - 1
+    edge[2, :3] = torch.tensor([-1, L2 - 1, L2], dtype=torch.int32)
     out = scatter_acc_pairs(edge, *args[1:], L2)
     torch.cuda.synchronize()
+    assert torch.equal(out, scatter_acc_pairs_rows_ref(edge, *args[1:], L2))
+    torch.testing.assert_close(out, scatter_acc_pairs_ref(edge, *args[1:], L2), atol=1e-5, rtol=1e-5)
+    rest = edge.clone()
+    rest[2, :3] = 5
     wa0, wb0 = args[1].clone(), args[2].clone()
-    wa0[2, 0] = wb0[2, 0] = 0.0
-    want = scatter_acc_pairs_ref(args[0], wa0, wb0, args[3], L2)
-    want[2, L2 - 1] += args[1][2, 0] * args[3][2, 0]
+    wa0[2, :3] = wb0[2, :3] = 0.0
+    want = scatter_acc_pairs_ref(rest, wa0, wb0, args[3], L2)
+    want[2, 0] += args[2][2, 0] * args[3][2, 0]
+    want[2, L2 - 1] += args[1][2, 1] * args[3][2, 0]
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
 
     Q = 60  # 1440 pairs a group
@@ -415,9 +433,156 @@ def test_scatter_acc_pairs_kernel_matches_plain(card):
     rows = torch.cat([gi + args[0].long(), gi + args[0].long() + 1], 1).reshape(-1)
     d = args[3].repeat_interleave(per_q, 1)
     upd = torch.cat([args[1][..., None] * d, args[2][..., None] * d], 1).reshape(-1, c)
-    for got in (scatter_acc_pairs(*args, L2), scatter_acc_pairs_ref(*args, L2)):
+    out = scatter_acc_pairs(*args, L2)
+    assert torch.equal(out, scatter_acc_pairs(*args, L2)) and torch.equal(out, scatter_acc_pairs_rows_ref(*args, L2))
+    for got in (out, scatter_acc_pairs_ref(*args, L2)):
         ok, hottest = _within_fp32_sum_bound(got, rows, upd, (G, L2, c))
         assert ok and hottest == Q * per_q
+
+
+def _decoder_points(g, B, Q, shapes, clustered, nh=8, P=4):
+    """Sampling points and attention weights at the decoder's shapes, one in
+    the global last pixel cell; `clustered` snaps the last level's points to
+    3 x 3 cell centres (hundreds of pairs on a start row)."""
+    nl = len(shapes)
+    loc = torch.rand(B, Q, nh, nl, P, 2, generator=g) * 1.1 - 0.05
+    if clustered:
+        loc[:, :, :, nl - 1] = (torch.floor(loc[:, :, :, nl - 1].clamp(0, 0.999) * 3) + 0.5) / 3
+    H, W = shapes[-1]
+    loc[0, 0, 0, nl - 1, 0] = torch.tensor([1 - 0.2 / W, 1 - 0.2 / H])
+    w_att = torch.rand(B, Q, nh, nl, P, generator=g)
+    return loc, w_att / w_att.sum((-1, -2), keepdim=True)
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+def test_row_scatters_and_buckets_at_the_decoder_shapes(card, clustered):
+    """At value (4, 33600, 8, 64), Q = 700 (the 640 px decoder with its dn
+    queries), on uniform and clustered points: B7 on the corner rows and
+    weights and B8 on the shifted pairs (G = 32), each bitwise equal to its
+    rows transcription and over two calls, its buckets equal to their plain
+    version; B4's buckets launch equal to `pair_buckets_ref` on the pairs."""
+    from tamtr_torch.kernels.deform_scatter import (
+        _shift_last_row, pair_buckets, pair_buckets_ref, scatter_acc, scatter_acc_buckets, scatter_acc_buckets_ref,
+        scatter_acc_pairs, scatter_acc_pairs_buckets, scatter_acc_pairs_buckets_ref, scatter_acc_pairs_rows_ref,
+        scatter_acc_rows_ref,
+    )
+    from tamtr_torch.nn.decoder import deform_sampling_pairs
+
+    shapes = [(160, 160), (80, 80), (40, 40)]
+    B, Q, nh, c = 4, 700, 8, 64
+    Lv = sum(h * w for h, w in shapes)
+    g = torch.Generator().manual_seed(13 + clustered)
+    loc, w_att = _decoder_points(g, B, Q, shapes, clustered)
+    dout = torch.randn(B, Q, nh, c, generator=g).to(card)
+    idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc.to(card), w_att.to(card))
+    assert all(torch.equal(a, b) for a, b in zip(pair_buckets(idx2, w_pairs, Lv), pair_buckets_ref(idx2, w_pairs, Lv)))
+
+    w4 = w_pairs.transpose(2, 3).reshape(B, idx4.shape[1], nh).contiguous()
+    got = scatter_acc(idx4, w4, dout, Lv)
+    assert torch.equal(got, scatter_acc(idx4, w4, dout, Lv))
+    assert torch.equal(got, scatter_acc_rows_ref(idx4, w4, dout, Lv))
+    assert all(torch.equal(a, b) for a, b in zip(scatter_acc_buckets(idx4, w4, Lv),
+                                                 scatter_acc_buckets_ref(idx4, w4, Lv)))
+    del got
+
+    i2, wp, _ = _shift_last_row(idx2, w_pairs, Lv)
+    per_g = lambda t: t.transpose(1, 2).reshape(B * nh, -1).contiguous()  # noqa: E731
+    pairs = (per_g(i2), per_g(wp[..., 0]), per_g(wp[..., 1]), dout.transpose(1, 2).reshape(B * nh, Q, c).contiguous())
+    got = scatter_acc_pairs(*pairs, Lv)
+    assert torch.equal(got, scatter_acc_pairs(*pairs, Lv))
+    assert torch.equal(got, scatter_acc_pairs_rows_ref(*pairs, Lv))
+    assert all(torch.equal(a, b) for a, b in zip(scatter_acc_pairs_buckets(*pairs[:3], Lv),
+                                                 scatter_acc_pairs_buckets_ref(*pairs[:3], Lv)))
+
+
+@pytest.mark.parametrize("c", [33, 130])
+def test_row_scatters_any_channels(card, c):
+    """B7 and B8 at an odd c (padded to even) and at c > 64 (a rows launch
+    per 64 channels, the arrival counts reset between them), with rows of
+    more than SEG_TERMS terms: bitwise their rows transcriptions, and two
+    launches a call per 64 channels."""
+    from tamtr_torch.kernels.deform_scatter import (
+        scatter_acc, scatter_acc_buckets, scatter_acc_pairs, scatter_acc_pairs_buckets, scatter_acc_pairs_rows_ref,
+        scatter_acc_rows_ref,
+    )
+
+    g = torch.Generator().manual_seed(c)
+    B, L, nh, Q, p4 = 2, 300, 4, 50, 24
+    idx = torch.randint(0, L, (B, Q * p4, nh), generator=g, dtype=torch.int32)
+    idx[0, :200, 1] = 17  # a row of 200 terms: 7 segments
+    w, dout = torch.randn(B, Q * p4, nh, generator=g), torch.randn(B, Q, nh, c, generator=g)
+    idx, w, dout = (t.to(card) for t in (idx, w, dout))
+    before = scatter_acc.launches, scatter_acc_buckets.launches
+    got = scatter_acc(idx, w, dout, L)
+    torch.cuda.synchronize()
+    assert (scatter_acc.launches, scatter_acc_buckets.launches) == (before[0] + -(-c // 64), before[1] + 1)
+    assert got.shape == (B, L, nh, c) and torch.equal(got, scatter_acc_rows_ref(idx, w, dout, L))
+
+    pairs = (idx[..., 0].contiguous(), w[..., 0].contiguous(), w[..., 1].contiguous(), dout[:, :, 0].contiguous())
+    before = scatter_acc_pairs.launches, scatter_acc_pairs_buckets.launches
+    got = scatter_acc_pairs(*pairs, L)
+    torch.cuda.synchronize()
+    assert (scatter_acc_pairs.launches, scatter_acc_pairs_buckets.launches) == (before[0] + -(-c // 64), before[1] + 1)
+    assert got.shape == (B, L, c) and torch.equal(got, scatter_acc_pairs_rows_ref(*pairs, L))
+
+
+@pytest.mark.parametrize("n,rows", [
+    (131077, 1_000_000),  # the share and the bucket range beyond shared memory: global passes, binary searches
+    (5003, 2_000_000),  # shares staged, offsets by binary search
+    (200_003, 1000),  # shares from global memory, offsets counted
+])
+def test_row_scatters_beyond_shared_memory(card, n, rows):
+    """B7 and B8 on one group whose share of the sort or range of buckets
+    does not fit a block's shared memory (the kernel's global-memory paths):
+    buckets equal to their plain versions, outputs bitwise their rows
+    transcriptions, with out-of-range starts."""
+    from tamtr_torch.kernels.deform_scatter import (
+        scatter_acc, scatter_acc_buckets, scatter_acc_buckets_ref, scatter_acc_pairs, scatter_acc_pairs_buckets,
+        scatter_acc_pairs_buckets_ref, scatter_acc_pairs_rows_ref, scatter_acc_rows_ref,
+    )
+
+    g = torch.Generator().manual_seed(n % 97)
+    c = 8
+    idx = torch.randint(-1, rows + 1, (1, n), generator=g, dtype=torch.int32)
+    idx[0, : n // 4] = rows // 3  # a hot row
+    w, w2 = torch.randn(1, n, generator=g), torch.randn(1, n, generator=g)
+    dout = torch.randn(1, n, c, generator=g)
+    idx, w, w2, dout = (t.to(card) for t in (idx, w, w2, dout))
+    assert all(torch.equal(a, b) for a, b in zip(scatter_acc_pairs_buckets(idx, w, w2, rows),
+                                                 scatter_acc_pairs_buckets_ref(idx, w, w2, rows)))
+    assert torch.equal(scatter_acc_pairs(idx, w, w2, dout, rows), scatter_acc_pairs_rows_ref(idx, w, w2, dout, rows))
+    i7, w7, d7 = idx[..., None], w[..., None], dout[:, :, None]
+    assert all(torch.equal(a, b) for a, b in zip(scatter_acc_buckets(i7, w7, rows), scatter_acc_buckets_ref(i7, w7, rows)))
+    assert torch.equal(scatter_acc(i7, w7, d7, rows), scatter_acc_rows_ref(i7, w7, d7, rows))
+
+
+@pytest.mark.parametrize("G,L,Din,N", [
+    (3, 100, 40, 1),  # padded to 4 state lanes
+    (2, 77, 64, 3),  # padded to 4
+    (2, 130, 40, 12),  # padded to 16
+    (2, 50, 64, 48),  # two state groups: 32 and 16
+    (70000, 5, 8, 4),  # G beyond the grid's y: two launches' pieces
+])
+def test_selective_scan_kernel_any_shape(card, G, L, Din, N):
+    """B6 on shapes its kernels are not compiled for: the state padded and
+    split, G cut into pieces (`scan1d_pieces`), against the plain scan at
+    1e-4; three launches a piece."""
+    from tamtr_torch.kernels.selective_scan import (
+        SCAN1D_MAX_G, selective_scan, selective_scan_fwd_summaries, selective_scan_ref,
+    )
+
+    g = torch.Generator().manual_seed(G + N)
+    u, delta = torch.randn(G, L, Din, generator=g), torch.rand(G, L, Din, generator=g) * 0.1
+    A = -torch.exp(torch.rand(G, Din, N, generator=g) * math.log(N + 1))
+    Bs, Cs = torch.randn(G, L, N, generator=g), torch.randn(G, L, N, generator=g)
+    D = torch.randn(G, Din, generator=g)
+    args = [t.to(card) for t in (u, delta, A, Bs, Cs, D)]
+    before = selective_scan.launches, selective_scan_fwd_summaries.launches
+    y = selective_scan(*args)
+    torch.cuda.synchronize()
+    pieces = -(-N // 32) * -(-G // SCAN1D_MAX_G)
+    assert (selective_scan.launches, selective_scan_fwd_summaries.launches) == (before[0] + 1, before[1] + pieces)
+    torch.testing.assert_close(y, selective_scan_ref(*args), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("B,M", [(160, 300), (6, 600)])
