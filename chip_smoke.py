@@ -73,8 +73,19 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    classes, 30-250 valid gts per image, one over-full image); 2 warm-up
    steps, then every launch counter is zeroed, 5 timed steps run, and the
    counters must equal `TRAIN_LAUNCHES_PER_STEP` times 5.
-9. One JSON line of per-kernel numbers, then the result line
-   `{"ok": true, "device": {...}}` last.
+9. fit: the dataset path. `Engine.train` on the generated dataset of
+   `tools/smoke_train_torch.py` (640 px PNGs, 16 train and 8 val images,
+   max_gt 32) with `tamtr.yaml` (nc 3): 2 epochs at batch 4, 2 loader
+   workers, warmup 4, val and `last` each epoch; then `resume=True` for a
+   third epoch, and `Engine.val` on `best`. Losses finite, metrics in
+   [0, 1], 3 rows in results.csv, the resumed run's epoch, ni, count and
+   generator those of the checkpoint; the launch counters (zeroed before
+   train and before val) equal the per-step and per-forward counts times
+   the steps and forwards; the card's val forward on 2 val images equal to
+   the CPU's with the same EMA weights (`same_set`). One JSON line: step ms,
+   loader wait, val images/s, mAP, peak memory.
+10. One JSON line of per-kernel numbers (`launches_fit`: the fit phase's),
+   then the result line `{"ok": true, "device": {...}}` last.
 """
 
 from __future__ import annotations
@@ -124,6 +135,8 @@ TRAIN_LAUNCHES_PER_STEP = {
 OPS_LAUNCHES = {"selective_scan_fwd": 3, "selective_scan_fwd_summaries": 3, "selective_scan_fwd_combine": 3,
                 "selective_scan_fwd_output": 3, "scatter_acc_buckets": 1, "scatter_acc": 1,
                 "scatter_acc_pairs_buckets": 1, "scatter_acc_pairs": 1, "auction_match": 1}
+# the fit phase: the generated dataset of tools/smoke_train_torch.py
+FIT_TRAIN, FIT_VAL, FIT_MAX_GT = 16, 8, 32
 # the decoder's sampling at 640 px: batch 4, Q = 700 (dn queries included)
 DEFORM_B, DEFORM_Q = 4, 700
 
@@ -1141,11 +1154,32 @@ def spread_scores(model, seed: int):
         sh.bias.zero_()
 
 
+def same_set(got: np.ndarray, want: np.ndarray):
+    """Eval outputs (B, nq, 4 + nc), card against CPU, as a tie-robust set:
+    rows paired by a min-cost assignment on their largest difference, each
+    pair within 1e-3; at most 2 unpaired rows an image (near-tied queries
+    the top-k selection swaps), whose best scores agree at 5e-3. Returns the
+    worst paired difference and the unpaired count."""
+    from scipy.optimize import linear_sum_assignment
+
+    worst, unmatched = 0.0, 0
+    for b in range(got.shape[0]):
+        dist = np.abs(got[b][:, None] - want[b][None]).max(-1)
+        r, c = linear_sum_assignment(dist)
+        matched = dist[r, c] < 1e-3
+        unmatched += int((~matched).sum())
+        worst = max(worst, float(dist[r, c][matched].max()))
+        if (~matched).sum() > 2:
+            raise AssertionError(f"GPU vs CPU: {(~matched).sum()} unmatched rows, {np.sort(dist[r, c])[-3:]}")
+        if not matched.all():
+            np.testing.assert_allclose(np.sort(got[b][r[~matched], 4:].max(-1)),
+                                       np.sort(want[b][c[~matched], 4:].max(-1)), atol=5e-3)
+    return worst, unmatched
+
+
 def check_parity(dev):
     """Full-width model on the card vs on the CPU, same weights, TF32 off."""
     import copy
-
-    from scipy.optimize import linear_sum_assignment
 
     from tamtr_torch.nn.graph import TAMTRModel
     from tamtr_torch.weights import init_parameters
@@ -1164,18 +1198,7 @@ def check_parity(dev):
         t0 = time.perf_counter()
         want = cpu_model(img, txt)["pred"].numpy()
         cpu_s = time.perf_counter() - t0
-    worst, unmatched = 0.0, 0
-    for b in range(got.shape[0]):
-        dist = np.abs(got[b][:, None] - want[b][None]).max(-1)
-        r, c = linear_sum_assignment(dist)
-        matched = dist[r, c] < 1e-3
-        unmatched += int((~matched).sum())
-        worst = max(worst, float(dist[r, c][matched].max()))
-        if (~matched).sum() > 2:
-            raise AssertionError(f"GPU vs CPU: {(~matched).sum()} unmatched rows, {np.sort(dist[r, c])[-3:]}")
-        if not matched.all():
-            np.testing.assert_allclose(np.sort(got[b][r[~matched], 4:].max(-1)),
-                                       np.sort(want[b][c[~matched], 4:].max(-1)), atol=5e-3)
+    worst, unmatched = same_set(got, want)
     if not np.isfinite(got).all() or want[..., 4:].std() < 0.05:
         raise AssertionError("parity outputs are not finite or carry no score spread")
     print(f"parity tamtr.yaml 128px b2: worst matched row diff {worst:.3g}, unmatched {unmatched}, "
@@ -1394,6 +1417,89 @@ def serve(dev):
     return launches
 
 
+def fit(dev):
+    """The dataset path: `Engine.train` on the generated dataset of
+    `tools/smoke_train_torch.py` (640 px, 16 train and 8 val images, max_gt
+    32) with the full-width `tamtr.yaml` (nc 3): 2 epochs at batch 4, 2
+    loader workers, val after each epoch, `last` saved each epoch; then
+    `resume=True` for a third epoch from `last`, and `Engine.val` on `best`.
+    Every launch counter is zeroed before train and before val and read
+    after each; the card's val forward on the first 2 val images is held
+    against the CPU's with the same EMA weights (`same_set`)."""
+    import copy
+    import csv
+    import shutil
+    from pathlib import Path
+
+    from tamtr_torch.engine.model import Engine
+    from tools.smoke_train_torch import make_dataset
+
+    root = Path("build/fit")
+    shutil.rmtree(root, ignore_errors=True)
+    data = str(make_dataset(root, FIT_TRAIN, FIT_VAL, TRAIN_IMGSZ))
+    args = dict(data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=2, warmup_epochs=4,
+                val_interval=1, save_interval=1, conf=0.05, plots=False, project=str(root / "runs"), name="fit")
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    first = Engine("tamtr.yaml")
+    first.train(epochs=2, **args)
+    seen = {}
+    resumed = Engine("tamtr.yaml")
+    resumed.callbacks.add("on_train_start", lambda e: seen.update(
+        ni=e.trainer.ni, count=e.trainer.count, generator=e.trainer.generator.get_state().clone()))
+    resumed.callbacks.add("on_train_epoch_start", lambda e, epoch: seen.setdefault("epoch", epoch))
+    res = resumed.train(epochs=3, resume=True, **args)
+    train_s = time.perf_counter() - t0
+    train_launches = {k: f.launches for k, f in counters.items()}
+    steps = len(first.timing["step_ms"]) + len(resumed.timing["step_ms"])
+    val_forwards = 3 * math.ceil(FIT_VAL / TRAIN_BATCH)
+    want = {k: TRAIN_LAUNCHES_PER_STEP[k] * steps + FORWARD_LAUNCHES.get(k, 0) * val_forwards for k in counters}
+    with open(root / "runs" / "fit" / "results.csv") as f:
+        rows = list(csv.DictReader(f))
+    restored = (seen.get("epoch") == 2 and seen.get("ni") == first.trainer.ni and seen.get("count") == first.trainer.count
+                and torch.equal(seen.get("generator", torch.empty(0)), first.trainer.generator.get_state()))
+
+    counters = zero_counters()
+    best = Engine("tamtr.yaml").load(root / "runs" / "fit" / "weights" / "best.pt")
+    val = best.val(**args)
+    val_launches = {k: f.launches for k, f in counters.items()}
+    val_want = {k: FORWARD_LAUNCHES.get(k, 0) * math.ceil(FIT_VAL / TRAIN_BATCH) for k in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    from tamtr_torch.data.dataset import DetectionDataset
+
+    ds = DetectionDataset(Path(data).parent / "val" / "images", imgsz=TRAIN_IMGSZ)
+    img = torch.from_numpy(np.stack([ds.get_val(i)[0] for i in range(2)]))
+    txt = torch.as_tensor(best.txt_feats[None], dtype=torch.float32)
+    cpu_model = copy.deepcopy(best.model).cpu()
+    with torch.inference_mode():
+        got = best.model(img.to(dev), txt.to(dev))["pred"].cpu().numpy()
+        want_cpu = cpu_model(img, txt)["pred"].numpy()
+    worst, unmatched = same_set(got, want_cpu)
+
+    step_ms = np.asarray(first.timing["step_ms"][2:] + resumed.timing["step_ms"][1:])
+    wait_ms = np.asarray(first.timing["wait_ms"][2:] + resumed.timing["wait_ms"][1:])
+    losses = [float(r["loss"]) for r in rows]
+    in_range = all(0.0 <= m[k] <= 1.0 for m in (res, val) for k in ("mAP50", "mAP50-95", "precision", "recall"))
+    summary = dict(step_ms_median=float(np.median(step_ms)), loader_wait_ms_mean=float(wait_ms.mean()),
+                   loader_wait_ms_median=float(np.median(wait_ms)),
+                   loader_wait_share=float(wait_ms.sum() / (wait_ms.sum() + step_ms.sum())),
+                   val_images_per_sec=val["images_per_sec"], mAP50=val["mAP50"], mAP50_95=val["mAP50-95"],
+                   max_memory_allocated_mib=peak / 2**20, train_and_resume_s=train_s, steps=steps,
+                   timed_steps=len(step_ms), val_parity_worst=worst, val_parity_unmatched=unmatched)
+    print(f"fit tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} on {FIT_TRAIN}+{FIT_VAL} generated images: "
+          f"{json.dumps(summary)}; results.csv losses {[round(x, 4) for x in losses]}; resume restored epoch, ni, "
+          f"count and generator: {restored}; launches train {train_launches}, val {val_launches}", flush=True)
+    if not (len(rows) == 3 and all(math.isfinite(x) for x in losses) and in_range and restored):
+        raise AssertionError(f"fit: rows {len(rows)}, losses {losses}, metrics in [0, 1] {in_range}, "
+                             f"resume restored {restored} ({ {k: v for k, v in seen.items() if k != 'generator'} })")
+    if train_launches != want or val_launches != val_want:
+        raise AssertionError(f"fit launches: train {train_launches} (want {want}), val {val_launches} "
+                             f"(want {val_want})")
+    return {k: train_launches[k] + val_launches[k] for k in counters}, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1435,10 +1541,12 @@ def main() -> int:
     gather_bwd.update(check_gather_bwd_step(b4_calls))
     gather_step = check_gather_fwd_step(b4_calls)
     del b4_calls
+    fit_launches, fit_summary = fit(dev)
 
     def slice3(name, reached_through):
         return dict(launches=ops_launches[name], launches_serve=launches[name],
-                    launches_train=train_launches[name], reached_through=reached_through)
+                    launches_train=train_launches[name], launches_fit=fit_launches[name],
+                    reached_through=reached_through)
 
     fwd1, fwd4 = ([r for r in scan_rows if r["B"] == b] for b in (1, TRAIN_BATCH))
     levels1d = scan1d_rows[:len(LEVELS_640)]
@@ -1446,7 +1554,8 @@ def main() -> int:
         dict(name="ss2d_scan_fwd", route="cuda", source="tamtr_torch/csrc/ss2d_scan_fwd.cu",
              replaces="tamtr_tpu/kernels/selective_scan.py:448", launches=launches["ss2d_scan_fwd"],
              **{f"launches_{p}": launches[f"ss2d_scan_fwd_{p}"] for p in ("summaries", "combine", "output")},
-             launches_train=train_launches["ss2d_scan_fwd"], max_abs_err=scan_err,
+             launches_train=train_launches["ss2d_scan_fwd"], launches_fit=fit_launches["ss2d_scan_fwd"],
+             max_abs_err=scan_err,
              **{k: sum(r[k] for r in fwd1) for k in ("ms", "ms_summaries", "ms_combine", "ms_output", "plain_ms",
                                                         "bound_ms", "bound_summaries_ms", "bound_combine_ms",
                                                         "bound_output_ms")},
@@ -1457,7 +1566,7 @@ def main() -> int:
              per_level=scan_rows),
         dict(name="bilinear_gather_fwd", route="cuda", source="tamtr_torch/csrc/bilinear_gather_fwd.cu",
              replaces="tamtr_tpu/kernels/deform_scatter.py:195", launches=launches["bilinear_gather_fwd"],
-             launches_train=train_launches["bilinear_gather_fwd"],
+             launches_train=train_launches["bilinear_gather_fwd"], launches_fit=fit_launches["bilinear_gather_fwd"],
              **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_train["max_abs_err"],
                                              gather_step["max_abs_err_step"])},
              ms_of="CUDA events over back-to-back calls, as for every kernel; ms_device: the kernel's own "
@@ -1468,6 +1577,7 @@ def main() -> int:
         dict(name="ss2d_scan_carriers (B3a segment summaries + ss2d_scan_combine)", route="cuda",
              source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:663",
              launches=train_launches["ss2d_scan_carriers"], launches_combine=train_launches["ss2d_scan_combine"],
+             launches_fit=fit_launches["ss2d_scan_carriers"], launches_fit_combine=fit_launches["ss2d_scan_combine"],
              max_abs_err=bwd_err, ms=sum(r["ms_summaries"] + r["ms_combine"] for r in bwd_rows),
              ms_summaries=sum(r["ms_summaries"] for r in bwd_rows), ms_combine=sum(r["ms_combine"] for r in bwd_rows),
              plain_ms=sum(r["plain_ms"] for r in bwd_rows), plain_of="the whole plain backward",
@@ -1477,7 +1587,8 @@ def main() -> int:
              per_level=bwd_rows),
         dict(name="ss2d_scan_bwd_walk (B3b segment walk)", route="cuda",
              source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:684",
-             launches=train_launches["ss2d_scan_bwd_walk"], max_abs_err=bwd_err,
+             launches=train_launches["ss2d_scan_bwd_walk"], launches_fit=fit_launches["ss2d_scan_bwd_walk"],
+             max_abs_err=bwd_err,
              ms=sum(r["ms_walk"] for r in bwd_rows), plain_ms=sum(r["plain_ms"] for r in bwd_rows),
              plain_of="the whole plain backward", bound_ms=sum(r["bound_b3b_ms"] for r in bwd_rows),
              bound_by=max(bwd_rows, key=lambda r: r["bound_b3b_ms"])["bound_b3b_by"],
@@ -1488,9 +1599,11 @@ def main() -> int:
         dict(name="bilinear_gather_bwd (pair_buckets + rows pass)", route="cuda",
              source="tamtr_torch/csrc/bilinear_gather_bwd.cu", replaces="tamtr_tpu/kernels/deform_scatter.py:283",
              launches=train_launches["bilinear_gather_bwd"], launches_buckets=train_launches["pair_buckets"],
+             launches_fit=fit_launches["bilinear_gather_bwd"], launches_fit_buckets=fit_launches["pair_buckets"],
              **gather_bwd),
         dict(name="auction_assignment", route="cuda", source="tamtr_torch/csrc/auction.cu",
-             replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_assignment"], **auction,
+             replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_assignment"],
+             launches_fit=fit_launches["auction_assignment"], **auction,
              launches_auction_match=slice3("auction_match", "tamtr_torch.kernels.auction.auction_match"),
              any_size=auction_any),
         dict(name="selective_scan_fwd", route="cuda", source="tamtr_torch/csrc/selective_scan_fwd.cu",
@@ -1512,6 +1625,7 @@ def main() -> int:
              **slice3("scatter_acc_pairs", "tamtr_torch.kernels.deform_scatter.scatter_acc_pairs"),
              launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs),
     ]
+    print(json.dumps({"fit": fit_summary}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

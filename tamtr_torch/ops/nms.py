@@ -10,7 +10,7 @@ with a validity mask.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -58,20 +58,42 @@ def multiclass_nms(
 
 
 def postprocess_predictions(
-    pred: torch.Tensor, conf_thres: float = 0.4, iou_thres: float = 0.6, max_det: int = 300
+    pred: torch.Tensor, conf_thres: float = 0.4, iou_thres: float = 0.6, max_det: int = 300,
+    legacy_val_mask: bool = False, classes: Optional[Sequence[int]] = None, single_cls: bool = False,
 ):
     """Decode the head's eval output for a batch: best class per query,
     strict `> conf_thres` filter, then class-offset NMS per image.
+
+    - `classes`: a query whose best class is not in `classes` is dropped,
+      not given its best allowed class (the filter follows the argmax).
+    - `single_cls`: every detection gets class 0, so all suppress each other.
+    - `legacy_val_mask`: the reference val protocol's quirk: the conf mask
+      is computed in the original query order but applied to the
+      score-sorted array, so query i survives iff the original query at i's
+      sort rank passed the threshold. The validator sets it, predict keeps
+      the plain filter (`tamtr_tpu/ops/nms.py:postprocess_predictions`).
 
     Args:
       pred: (B, nq, 4 + nc) normalized cxcywh + sigmoid scores.
     Returns:
       boxes_xyxy (B, max_det, 4) normalized, scores (B, max_det),
-      labels (B, max_det) int32, valid (B, max_det) bool.
+      labels (B, max_det) int32, valid (B, max_det) bool, and the kept
+      source query indices (B, max_det) int32 (0 where not valid).
     """
     bboxes = xywh2xyxy(pred[..., :4])
     scores, labels = pred[..., 4:].max(-1)
-    scores = torch.where(scores > conf_thres, scores, torch.zeros_like(scores))
+    if classes is not None:
+        allowed = torch.zeros(pred.shape[-1] - 4, dtype=torch.bool, device=pred.device)
+        allowed[torch.as_tensor(list(classes), dtype=torch.long, device=pred.device)] = True
+        scores = torch.where(allowed[labels], scores, torch.zeros_like(scores))
+    if single_cls:
+        labels = torch.zeros_like(labels)
+    if legacy_val_mask:
+        ranks = torch.argsort(torch.argsort(-scores, dim=-1, stable=True), dim=-1, stable=True)
+        gate = torch.gather(scores, -1, ranks) > conf_thres
+    else:
+        gate = scores > conf_thres
+    scores = torch.where(gate, scores, torch.zeros_like(scores))
     outs = []
     for b, s, lab in zip(bboxes, scores, labels):
         keep, valid = multiclass_nms(b, s, lab, iou_thres, max_det)
@@ -81,5 +103,6 @@ def postprocess_predictions(
             torch.where(valid, s[safe], torch.zeros_like(s[safe])),
             lab[safe].to(torch.int32),
             valid,
+            safe.to(torch.int32),
         ))
     return tuple(torch.stack(parts) for parts in zip(*outs))

@@ -146,6 +146,23 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.ni, self.last_opt, self.count = 0, -1, 0
 
+    def state_dict(self) -> Dict:
+        """Everything a resumed run needs to continue bitwise: the model, the
+        EMA, the optimizer, the accumulated gradient, the counters and the
+        generator of the CDN noise and DropPath masks."""
+        return {"model": self.model.state_dict(), "ema": self.ema.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "acc": self.acc, "ni": self.ni,
+                "count": self.count, "last_opt": self.last_opt, "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.ema.load_state_dict(state["ema"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        with torch.no_grad():
+            torch._foreach_copy_(self.acc, [a.to(self.device) for a in state["acc"]])
+        self.ni, self.count, self.last_opt = state["ni"], state["count"], state["last_opt"]
+        self.generator.set_state(state["generator"])
+
     def _batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         out = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
         img = out["img"]

@@ -39,12 +39,17 @@ def test_json_configs_equal_the_yaml(name):
 def test_import_without_jax_yaml_or_cv2():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tamtr_tpu', 'yaml', 'cv2'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         "import tamtr_torch, tamtr_torch.weights, tamtr_torch.kernels._build, chip_smoke\n"
         "import tamtr_torch.train.trainer, tamtr_torch.losses.detr_loss, tamtr_torch.losses.matcher\n"
         "import tamtr_torch.kernels.auction, tamtr_torch.ops.boxes\n"
-        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2')\n"
+        "import tamtr_torch.config, tamtr_torch.engine.model, tamtr_torch.engine.checkpoint\n"
+        "import tamtr_torch.data.dataset, tamtr_torch.data.augment, tamtr_torch.data.imgproc\n"
+        "import tamtr_torch.data.image_io, tamtr_torch.data.text, tamtr_torch.utils.metrics\n"
+        "import tamtr_torch.utils.coco, tamtr_torch.utils.callbacks, tamtr_torch.utils.checks\n"
+        "import tamtr_torch.utils.files, tools.smoke_train_torch\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL')\n"
         "          and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
     )
@@ -138,7 +143,7 @@ def test_predict_resizes_and_scales_to_each_image():
     x = torch.cat([x0, torch.from_numpy(im_f)[None]])
     with torch.no_grad():
         pred = det.model(x, torch.from_numpy(txt)[None])["pred"]
-    boxes, scores, labels, valid = pnms.postprocess_predictions(pred, 0.0, 0.5, 10)
+    boxes, scores, labels, valid, _ = pnms.postprocess_predictions(pred, 0.0, 0.5, 10)
     for i, (h, w) in enumerate([(48, 80), (64, 64)]):
         r = res[i]
         assert r["boxes"].shape == (len(r["scores"]), 4) and 0 < len(r["scores"]) <= 10

@@ -631,3 +631,39 @@ def test_auction_assignment_kernel_any_batch_and_size(card, B, M):
     torch.cuda.synchronize()
     assert auction_assignment.launches == before + 1
     assert torch.equal(got.cpu(), auction_assignment_ref(cost, mask))
+
+
+def test_engine_trains_and_validates_on_a_dataset(card, tmp_path):
+    """One epoch of `Engine.train` on the generated dataset of
+    `tools/smoke_train_torch.py` at 128 px with the full-width model, then
+    `Engine.val` on the `best` checkpoint, all on the card: the scan and
+    gather forward and backward kernels and the auction launch in training,
+    the forward kernels in val."""
+    import sys
+    from pathlib import Path
+
+    from tamtr_torch.engine.model import Engine
+    from tamtr_torch.kernels.auction import auction_assignment
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_bwd, pair_buckets
+    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    from smoke_train_torch import make_dataset
+
+    data = str(make_dataset(tmp_path / "data", 8, 4, 128))
+    train_kernels = (ss2d_scan, bilinear_gather, ss2d_scan_carriers, ss2d_scan_bwd_walk, pair_buckets,
+                     bilinear_gather_bwd, auction_assignment)
+    for f in train_kernels:
+        f.launches = 0
+    eng = Engine("tamtr.yaml")
+    res = eng.train(data=data, epochs=1, batch=4, imgsz=128, max_gt=16, workers=2, warmup_epochs=2, conf=0.05,
+                    plots=False, project=str(tmp_path / "runs"), name="run")
+    assert all(f.launches > 0 for f in train_kernels), {f.__name__: f.launches for f in train_kernels}
+    assert all(0.0 <= res[k] <= 1.0 for k in ("mAP50", "mAP50-95", "precision", "recall"))
+    for f in train_kernels:
+        f.launches = 0
+    val = Engine("tamtr.yaml").load(tmp_path / "runs" / "run" / "weights" / "best.pt").val(
+        data=data, imgsz=128, batch=4, conf=0.05, plots=False)
+    assert ss2d_scan.launches == 3 and bilinear_gather.launches == 3  # one forward of the 4 val images
+    assert all(f.launches == 0 for f in train_kernels[2:])
+    assert val["mAP50"] == pytest.approx(res["mAP50"], abs=1e-6)
