@@ -55,6 +55,13 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    (batch-wide stop, row mask) on the transposed train cost. Each of B6-B8
    and `auction_match` must have launched; serve and train count 0 for
    them.
+4b. ss2d_pieces: `ss2d_scan` at state sizes 8 and 24 and width 96 (not a
+   multiple of 32), on the pieces of `ss2d_pieces`: forward (1e-4) and all
+   eight gradients (2e-3) against the plain scan; B1 and B3 once a piece.
+4c. jpeg: every committed JPEG fixture (`tests/torch_data/jpeg`, written by
+   `tools/make_jpeg_fixtures_torch.py`) decoded by the host C++ decoder to
+   the sha256 digest cv2 gave (the machine has no cv2); host decode ms per
+   megapixel.
 5. parity: the full-width `tamtr.yaml` model (nc=10) at 128 px, batch 2,
    on the card and on the CPU with the same state dict, compared as a
    tie-robust set at 1e-3. The whole run keeps TF32 off (full fp32).
@@ -68,6 +75,17 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    batch-4 request of 1360x765 uint8 images (resized to 640 px on the card).
    Every launch counter is zeroed just before and read just after: each
    must equal `FORWARD_LAUNCHES` times the forwards.
+7b. predict_files: `TAMTR.predict(<the fixture directory>)` of the same
+   full-width model (nc 10, `spread_scores` weights, unit-norm random text
+   rows as its classes) at 640 px, without and with TTA (640, 544 flipped,
+   416): launches counted per run; two fixtures predicted on the card and
+   on the CPU, each forward compared as a set at 1e-3 and each image's
+   detections; ms per image at both settings.
+7c. serve_http: `ModelServer` on 127.0.0.1 over `AutoBackend` of that
+   model (called from the server's one model thread); through
+   `RemoteModel` batch 1 five times, batch 4 twice and 4 concurrent
+   batch-1 requests, each reply bitwise the in-process forward; ms over
+   HTTP beside the in-process ms.
 8. train: `TAMTR(...).trainer()` on `tamtr.yaml` at 640 px, batch 4,
    max_gt 300, accumulate 1, seeded synthetic batches (uint8 frames, 10
    classes, 30-250 valid gts per image, one over-full image); 2 warm-up
@@ -84,6 +102,12 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    the steps and forwards; the card's val forward on 2 val images equal to
    the CPU's with the same EMA weights (`same_set`). One JSON line: step ms,
    loader wait, val images/s, mAP, peak memory.
+9b. cli: `python -m tamtr_torch predict model=<fit's best.pt>
+   source=<fixtures> save=True` in a subprocess, which prints its launch
+   counters: exit 0, one line and one PNG per image.
+Every phase from 4b on zeroes the launch counters before it runs and checks
+after it that B1 and B2 ran `FORWARD_LAUNCHES` times its forwards, and no
+other kernel ran (B1 and B3 once a piece in ss2d_pieces).
 10. One JSON line of per-kernel numbers (`launches_fit`: the fit phase's),
    then the result line `{"ok": true, "device": {...}}` last.
 """
@@ -1500,6 +1524,285 @@ def fit(dev):
     return {k: train_launches[k] + val_launches[k] for k in counters}, summary
 
 
+# the JPEG fixtures of tools/make_jpeg_fixtures_torch.py, with their cv2 digests
+JPEG_FIXTURES = "tests/torch_data/jpeg"
+# predict_files: the fixtures whose forwards are also run on the CPU
+PARITY_FIXTURES = ("exif6_q90.jpg", "visdrone_1360x765_q85.jpg")
+
+
+def check_counts(phase: str, counters, forwards: int, extra=None):
+    """Every launch counter read after `phase`: B1 and B2 ran
+    FORWARD_LAUNCHES times `forwards`, `extra` the counts of any other
+    kernel, and no kernel else."""
+    launches = {k: f.launches for k, f in counters.items()}
+    want = {k: FORWARD_LAUNCHES.get(k, 0) * forwards + (extra or {}).get(k, 0) for k in counters}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, want {want}")
+    return launches
+
+
+def check_ss2d_pieces(dev):
+    """The fused scan at state sizes and widths B1 and B3 are not compiled
+    for (N in 8, 24; D = 96, not a multiple of 32), on the pieces of
+    `ss2d_pieces` (one piece per group of 16 state lanes): forward within
+    1e-4 and all eight gradients within 2e-3 of the plain scan and its
+    plain backward, on the card. B1 and B3 launch once per piece."""
+    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_bwd_ref, ss2d_scan_ref
+
+    g = torch.Generator().manual_seed(21)
+    counters = zero_counters()
+    err_f = err_b = 0.0
+    pieces = 0
+    for N in (8, 24):
+        D, L, B = 96, 40 * 40, 2
+        R = math.ceil(D / 32)
+        args = [torch.randn(B, 2, L, D, generator=g), torch.randn(B, 2, 2, L, R, generator=g) * 0.6,
+                (torch.rand(4, D, R, generator=g) * 2 - 1) * R**-0.5, torch.rand(4, D, generator=g) * -2 - 2,
+                -torch.exp(torch.rand(4, D, N, generator=g) * 1.5), torch.randn(B, 2, 2, L, N, generator=g) * 0.6,
+                torch.randn(B, 2, 2, L, N, generator=g) * 0.6, torch.randn(4, D, generator=g)]
+        args = [t.to(dev) for t in args]
+        dy = torch.randn(B, 4, L, D, generator=g).to(dev)
+        ts = [t.clone().requires_grad_(True) for t in args]
+        y = ss2d_scan(*ts)
+        y.backward(dy)
+        pieces += -(-N // 16)
+        err_f = max(err_f, (y.detach() - ss2d_scan_ref(*args)).abs().max().item())
+        for t, want in zip(ts, ss2d_scan_bwd_ref(*args, dy)):
+            if not torch.allclose(t.grad, want, atol=2e-3, rtol=2e-3):
+                raise AssertionError(f"ss2d_pieces N={N} D={D}: a gradient off by {(t.grad - want).abs().max()}")
+            err_b = max(err_b, (t.grad - want).abs().max().item())
+    if err_f > 1e-4:
+        raise AssertionError(f"ss2d_pieces: forward off by {err_f}")
+    per_piece = {"ss2d_scan_fwd": 1, "ss2d_scan_fwd_summaries": 1, "ss2d_scan_fwd_combine": 1,
+                 "ss2d_scan_fwd_output": 1, "ss2d_scan_carriers": 1, "ss2d_scan_combine": 1, "ss2d_scan_bwd_walk": 1}
+    launches = check_counts("ss2d_pieces", counters, 0, {k: v * pieces for k, v in per_piece.items()})
+    print(f"ss2d_pieces N in (8, 24), D=96, L=1600, B=2: forward max_abs_err {err_f:.3g}, backward {err_b:.3g}; "
+          f"launches {launches}", flush=True)
+    return {"max_abs_err_fwd": err_f, "max_abs_err_bwd": err_b, "pieces": pieces}
+
+
+def check_jpeg():
+    """Every committed JPEG fixture decoded on this machine (the host C++
+    decoder, `csrc/jpeg_decode.cpp`) to the sha256 digest cv2 gave when it
+    was written; the host decode time per megapixel."""
+    import hashlib
+    from pathlib import Path
+
+    from tamtr_torch.data.image_io import imread, jpeg_shape
+
+    counters = zero_counters()
+    root = Path(JPEG_FIXTURES)
+    expected = json.loads((root / "expected.json").read_text())
+    imread(root / next(iter(expected)))  # builds the decoder
+    ms_per_mp = {}
+    for name, want in expected.items():
+        t0 = time.perf_counter()
+        for _ in range(3):
+            img = imread(root / name)
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        if list(img.shape) != want["shape"] or tuple(jpeg_shape(root / name)) != img.shape[:2] \
+                or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]:
+            raise AssertionError(f"jpeg: {name} does not decode to its cv2 digest")
+        ms_per_mp[name] = ms / (img.shape[0] * img.shape[1] / 1e6)
+    check_counts("jpeg", counters, 0)
+    print(f"jpeg: {len(expected)} fixtures equal their cv2 sha256 digests; host decode ms per megapixel (host "
+          f"time on the card's machine): {json.dumps({k: round(v, 3) for k, v in ms_per_mp.items()})}", flush=True)
+    return ms_per_mp
+
+
+def serve_model(seed: int = 1):
+    """The full-width `tamtr.yaml` detector (nc 10, `spread_scores`
+    weights) with 10 unit-norm random class text rows set as its classes."""
+    from tamtr_torch import TAMTR
+
+    det = TAMTR("tamtr.yaml", nc=10, seed=0)
+    spread_scores(det.model, seed=seed)
+    text = np.random.default_rng(4).standard_normal((10, 512)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    det.set_classes([f"class{i}" for i in range(10)], text)
+    return det
+
+
+@contextlib.contextmanager
+def recording_forwards(model, calls: list):
+    """Keeps each forward's (img, text, pred) on the CPU."""
+    h = model.register_forward_hook(lambda m, a, out: calls.append(
+        (a[0].detach().cpu(), a[1].detach().cpu(), out["pred"].detach().cpu())))
+    try:
+        yield
+    finally:
+        h.remove()
+
+
+def same_results(got, want):
+    """Two predict results of one image as a set: rows of normalized box
+    and score paired by a min-cost assignment, each pair within 1e-3 with
+    the same label, at most 2 rows of either side unpaired."""
+    from scipy.optimize import linear_sum_assignment
+
+    def rows(r):
+        oh, ow = r.orig_shape
+        return np.concatenate([r.boxes.xyxy / np.array([ow, oh, ow, oh], np.float32), r.boxes.conf[:, None]], 1)
+
+    g, w = rows(got), rows(want)
+    if not len(g) or not len(w):
+        return 0.0, len(g) + len(w)
+    dist = np.abs(g[:, None] - w[None]).max(-1)
+    r, c = linear_sum_assignment(dist)
+    ok = (dist[r, c] < 1e-3) & (got.boxes.cls[r] == want.boxes.cls[c])
+    return float(dist[r, c][ok].max(initial=0.0)), int(len(g) + len(w) - 2 * ok.sum())
+
+
+def predict_files(dev):
+    """`TAMTR.predict(<fixture directory>)` on the card at 640 px, without
+    and with TTA (3 passes: 640, 544 flipped, 416), each image read by the
+    host JPEG decoder and resized as cv2 resizes. Each launch counter is
+    zeroed before and read after: B1 and B2 ran once per forward, nothing
+    else. Two fixtures are predicted again on the card and on the CPU
+    (`Engine.predict`, the same weights and classes): each forward's input
+    is bitwise the card's, its output equal to the card's as a tie-robust
+    set at 1e-3 (`same_set`), and each image's detections too
+    (`same_results`)."""
+    import copy
+
+    from tamtr_torch.engine.model import Engine
+
+    det = serve_model()
+    n = len(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    det.predict(JPEG_FIXTURES, augment=True)  # warm-up: conv algorithms at the three sizes
+    out, ms, launches = {}, {}, {}
+    for augment in (False, True):
+        counters = zero_counters()
+        t0 = time.perf_counter()
+        res = det.predict(JPEG_FIXTURES, augment=augment)
+        ms[augment] = (time.perf_counter() - t0) * 1e3 / len(res)
+        run = check_counts(f"predict_files augment={augment}", counters, n * (3 if augment else 1))
+        launches = {k: launches.get(k, 0) + v for k, v in run.items()}
+        if len(res) != n or not all(np.isfinite(r.boxes.xyxy).all() for r in res):
+            raise AssertionError(f"predict_files: {len(res)} results for {n} images, or boxes not finite")
+        out[augment] = res
+    cpu = Engine("tamtr.yaml", device="cpu")
+    cpu.model = copy.deepcopy(det.model).cpu()
+    cpu.set_classes(det._engine.names, det._engine.txt_feats)
+    paths = [f"{JPEG_FIXTURES}/{f}" for f in PARITY_FIXTURES]
+    card_calls, cpu_calls = [], []
+    t0 = time.perf_counter()
+    with recording_forwards(det.model, card_calls), recording_forwards(cpu.model, cpu_calls):
+        pairs = [(g, c, a) for a in (False, True)
+                 for g, c in zip(det.predict(paths, augment=a), cpu.predict(paths, imgsz=det.imgsz, augment=a))]
+    cpu_s = time.perf_counter() - t0
+    worst = unmatched = worst_r = unpaired = 0
+    for (img, _, pred), (img_c, _, pred_c) in zip(card_calls, cpu_calls, strict=True):
+        if not torch.equal(img, img_c):
+            raise AssertionError("predict_files: the card's and the CPU's inputs differ")
+        w, u = same_set(pred.numpy(), pred_c.numpy())
+        worst, unmatched = max(worst, w), unmatched + u
+    for g, c, a in pairs:
+        w, u = same_results(g, c)
+        if u > 2:
+            raise AssertionError(f"predict_files: {g.path} augment={a}: {u} detections unpaired with the CPU's")
+        worst_r, unpaired = max(worst_r, w), unpaired + u
+    summary = dict(images=n, ms_per_image=ms[False], ms_per_image_tta=ms[True],
+                   detections=[len(r) for r in out[False]], detections_tta=[len(r) for r in out[True]],
+                   parity_forwards=len(card_calls), parity_worst=worst, parity_unmatched=unmatched,
+                   results_worst=worst_r, results_unpaired=unpaired)
+    print(f"predict_files tamtr.yaml 640px on {n} JPEG fixtures: {json.dumps(summary)}; card and cpu predict of "
+          f"{len(paths)} fixtures {cpu_s:.1f} s; launches {launches}", flush=True)
+    return summary, det, launches
+
+
+def serve_http(det):
+    """`ModelServer` on 127.0.0.1 (a free port) over `AutoBackend` of the
+    predict model; through `RemoteModel`: batch 1 five times, batch 4 twice,
+    then 4 batch-1 requests at once. Each reply's pred equals, bitwise, the
+    in-process forward of the same inputs; request ms over HTTP beside the
+    in-process ms. The counters: B1 and B2 once per forward, in-process
+    ones included."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tamtr_torch.data.image_io import imread
+    from tamtr_torch.data.imgproc import resize_linear
+    from tamtr_torch.nn.autobackend import AutoBackend
+    from tamtr_torch.serve import ModelServer, RemoteModel
+
+    backend = AutoBackend(det.model, imgsz=det.imgsz, device=det.device)
+    names = sorted(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    sz = (det.imgsz, det.imgsz)
+    frames = np.stack([resize_linear(imread(f"{JPEG_FIXTURES}/{f}"), sz)[..., ::-1] for f in names[:4]])
+    frames = frames.astype(np.float32) / 255.0
+    txt = det._engine.txt_feats[None].astype(np.float32)
+    backend(frames[:1], txt), backend(frames, txt)  # warm-up at both batch sizes
+    srv = ModelServer(backend, meta={"nc": 10}).start()
+    try:
+        rm = RemoteModel(srv.url)
+        rm(frames[:1], txt), rm(frames, txt)
+        counters = zero_counters()
+        reqs = [frames[i % 4][None].copy() for i in range(5)] + [frames, frames]  # whole arrays, as a request's
+        http_ms, local_ms, mismatched = [], [], 0
+        for x in reqs:
+            t0 = time.perf_counter()
+            (got,) = rm(x, txt)
+            t1 = time.perf_counter()
+            want = backend(x, txt)
+            t2 = time.perf_counter()
+            http_ms.append((t1 - t0) * 1e3)
+            local_ms.append((t2 - t1) * 1e3)
+            mismatched += int(not np.array_equal(got, want))
+        singles = [frames[i][None].copy() for i in range(4)]
+        with ThreadPoolExecutor(4) as pool:
+            par = list(pool.map(lambda x: rm(x, txt)[0], singles))
+        mismatched += sum(int(not np.array_equal(p, backend(x, txt))) for p, x in zip(par, singles))
+        forwards = 2 * (len(reqs) + len(singles))
+        launches = check_counts("serve_http", counters, forwards)
+    finally:
+        srv.stop()
+    if mismatched:
+        raise AssertionError(f"serve_http: {mismatched} replies differ from the in-process forward")
+    summary = dict(http_ms_b1=http_ms[:5], local_ms_b1=local_ms[:5], http_ms_b4=http_ms[5:], local_ms_b4=local_ms[5:],
+                   concurrent=len(singles), forwards=forwards)
+    print(f"serve_http tamtr.yaml 640px: {json.dumps(summary)}; launches {launches}", flush=True)
+    return summary, launches
+
+
+def cli(best: str):
+    """`python -m tamtr_torch predict model=<best.pt> source=<fixtures>
+    save=True` in a subprocess on the card, which then prints its launch
+    counters: exit 0, one line and one PNG per image, B1 and B2 once per
+    forward and nothing else."""
+    import shutil
+    from pathlib import Path
+
+    out = Path("build/cli")
+    shutil.rmtree(out, ignore_errors=True)
+    n = len(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    argv = ["tamtr_torch", "predict", f"model={best}", f"source={JPEG_FIXTURES}", "save=True", f"project={out}"]
+    code = ("import json, runpy, sys\n"
+            "torch = __import__('torch'); torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            f"sys.argv = {argv!r}\n"
+            "from chip_smoke import zero_counters\n"
+            "counters = zero_counters()\n"
+            "runpy.run_module('tamtr_torch', run_name='__main__')\n"
+            "print(json.dumps({k: f.launches for k, f in counters.items()}))\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0:
+        raise AssertionError(f"cli: exit {res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    preds = [ln for ln in lines[:-1] if ln.endswith(" detections")]
+    pngs = sorted(p.name for p in (out / "predict").glob("*.png"))
+    launches = json.loads(lines[-1])
+    want = {k: FORWARD_LAUNCHES.get(k, 0) * n for k in launches}
+    if len(preds) != n or len(pngs) != n or launches != want:
+        raise AssertionError(f"cli: {len(preds)} lines and {len(pngs)} PNGs for {n} images; launches {launches}, "
+                             f"want {want}")
+    print(f"cli: python -m tamtr_torch predict on {n} fixtures: exit 0, {len(preds)} lines, {len(pngs)} PNGs, "
+          f"{wall:.1f} s wall (process start, model load, kernels loaded from build/); launches {launches}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1534,14 +1837,20 @@ def main() -> int:
     scatter_pairs = check_scatter_acc_pairs(dev, dict(uniform=pairs, clustered=pairs_clustered), Lv)
     del value, gather_args, pairs, gather_clustered, pairs_clustered
     ops_launches = drive_ops(dev)
+    pieces = check_ss2d_pieces(dev)
+    jpeg_ms_per_mp = check_jpeg()
     check_parity(dev)
     check_train_parity(dev)
     launches = serve(dev)
+    predict_summary, det, predict_launches = predict_files(dev)
+    http_summary, http_launches = serve_http(det)
+    del det
     train_launches, _, _, b4_calls = train(dev)
     gather_bwd.update(check_gather_bwd_step(b4_calls))
     gather_step = check_gather_fwd_step(b4_calls)
     del b4_calls
     fit_launches, fit_summary = fit(dev)
+    cli_launches = cli("build/fit/runs/fit/weights/best.pt")
 
     def slice3(name, reached_through):
         return dict(launches=ops_launches[name], launches_serve=launches[name],
@@ -1560,6 +1869,9 @@ def main() -> int:
                                                         "bound_ms", "bound_summaries_ms", "bound_combine_ms",
                                                         "bound_output_ms")},
              bound_by=max(fwd1, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
+             launches_predict_files=predict_launches["ss2d_scan_fwd"],
+             launches_serve_http=http_launches["ss2d_scan_fwd"], launches_cli=cli_launches["ss2d_scan_fwd"],
+             ss2d_pieces=pieces,
              batch=1, ms_b4=sum(r["ms"] for r in fwd4), plain_ms_b4=sum(r["plain_ms"] for r in fwd4),
              bound_ms_b4=sum(r["bound_ms"] for r in fwd4),
              bound_of_launches="each launch alone, the segment states it writes or reads included",
@@ -1567,6 +1879,9 @@ def main() -> int:
         dict(name="bilinear_gather_fwd", route="cuda", source="tamtr_torch/csrc/bilinear_gather_fwd.cu",
              replaces="tamtr_tpu/kernels/deform_scatter.py:195", launches=launches["bilinear_gather_fwd"],
              launches_train=train_launches["bilinear_gather_fwd"], launches_fit=fit_launches["bilinear_gather_fwd"],
+             launches_predict_files=predict_launches["bilinear_gather_fwd"],
+             launches_serve_http=http_launches["bilinear_gather_fwd"],
+             launches_cli=cli_launches["bilinear_gather_fwd"],
              **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_train["max_abs_err"],
                                              gather_step["max_abs_err_step"])},
              ms_of="CUDA events over back-to-back calls, as for every kernel; ms_device: the kernel's own "
@@ -1626,6 +1941,8 @@ def main() -> int:
              launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs),
     ]
     print(json.dumps({"fit": fit_summary}))
+    print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary,
+                      "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

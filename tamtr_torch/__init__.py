@@ -7,4 +7,5 @@ cv2. Its hand-written CUDA kernels (`csrc/`) build with nvcc on first use.
 
 from tamtr_torch.api import TAMTR
 
-__all__ = ["TAMTR"]
+__version__ = "0.1.0"
+__all__ = ["TAMTR", "__version__"]

@@ -1,18 +1,23 @@
-"""User entry point: `TAMTR(...).predict(images, text)`,
-`TAMTR(...).trainer()`, and `TAMTR(...).train(data=...)` / `.val(data=...)`.
+"""User entry point: `TAMTR(...).predict(source)` or `.predict(images,
+text)`, `TAMTR(...).trainer()`, and `TAMTR(...).train(data=...)` /
+`.val(data=...)`.
 
-`predict` mirrors the per-image results of the JAX package's predict
-(`tamtr_tpu/engine/model.py:predict`): each image is resized to `imgsz`,
-run through the eval forward, postprocessed (conf filter, class-offset NMS),
-and its boxes scaled back to the image's own pixels. Decoding image files
-and test-time augmentation are not ported yet. `trainer` returns a
+`predict(source)` with a path, a directory or a list of paths runs
+`Engine.predict` (the JAX package's `tamtr_tpu/engine/model.py:predict`):
+each file read, resized as cv2 resizes, the eval forward (three passes with
+augment=True), NMS, and `Results` in the image's pixels, for the classes of
+`set_classes` (or of a loaded or trained model). `predict(images, text)`
+takes arrays already in memory: each image resized to `imgsz` on the device
+(bilinear), run through the eval forward with the given class embeddings,
+postprocessed (conf filter, class-offset NMS), and its boxes scaled back
+to the image's own pixels. `trainer` returns a
 `tamtr_torch.train.trainer.Trainer` over the model, whose `step(batch)` is
-one training step. `train`, `val`, `load` and `set_classes` go through one
-`tamtr_torch.engine.model.Engine` on the same device, built on first use,
-as the JAX package's `TAMTR` sends every call through its engine. The
-engine holds the detector's one model: `predict`, `trainer`, `val` and
-`load_jax_variables` all use it, and after `train` it is the trained EMA
-model.
+one training step. `train`, `val`, `load`, `set_classes` and file predict
+go through one `tamtr_torch.engine.model.Engine` on the same device, built
+on first use, as the JAX package's `TAMTR` sends every call through its
+engine. The engine holds the detector's one model: `predict`, `trainer`,
+`val` and `load_jax_variables` all use it, and after `train` it is the
+trained EMA model.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 
 from tamtr_torch.config import load_data_yaml
 from tamtr_torch.engine.model import Engine
+from tamtr_torch.engine.results import Results
 from tamtr_torch.nn.graph import TAMTRModel
 from tamtr_torch.ops.nms import postprocess_predictions
 from tamtr_torch.train.trainer import Trainer, TrainConfig
@@ -110,10 +116,12 @@ class TAMTR:
         """mAP of this detector's model (trained, loaded or bridged) on `data=`."""
         return self._lazy_engine().val(**{"imgsz": self.imgsz, **overrides})
 
-    def load(self, ckpt_path: Union[str, Path]) -> "TAMTR":
+    def load(self, ckpt_path: Union[str, Path], nc: Optional[int] = None,
+             names: Optional[List[str]] = None) -> "TAMTR":
         """The EMA weights of a checkpoint written by `train` (`weights/last.pt`
-        or `best.pt`), with its classes and model config."""
-        self._lazy_engine().load(ckpt_path)
+        or `best.pt`), with its classes and model config (`nc` and `names`
+        for a checkpoint without them)."""
+        self._lazy_engine().load(ckpt_path, nc=nc, names=names)
         self.nc = self._engine.model.nc
         return self
 
@@ -147,18 +155,32 @@ class TAMTR:
         return torch.stack(batch), sizes
 
     @torch.inference_mode()
-    def predict(self, images, text, conf: float = 0.25, iou: float = 0.7,
-                max_det: int = 300) -> List[Dict[str, np.ndarray]]:
-        """Detect objects of the K classes embedded in `text`.
+    def predict(self, images, text=None, conf: float = 0.25, iou: float = 0.7,
+                max_det: int = 300, **overrides) -> Union[List[Results], List[Dict[str, np.ndarray]]]:
+        """Detect objects in image files, or in images in memory.
 
         Args:
-          images: (B, H, W, 3) or (H, W, 3) uint8 or float in [0, 1], or a
-            list of (H, W, 3) images of any sizes.
-          text: (K, hd) or (1|B, K, hd) class embeddings.
+          images: a path, a directory or a list of paths (with `text`
+            None): `Engine.predict` over the files, for this detector's
+            classes, at `imgsz`, with the engine's options in `overrides`
+            (augment, classes, save, project, name, ...); one `Results` per
+            image. Or (B, H, W, 3) or (H, W, 3) uint8 or float in [0, 1], or
+            a list of (H, W, 3) images of any sizes, with `text`.
+          text: (K, hd) or (1|B, K, hd) class embeddings of the images in
+            memory.
         Returns:
-          one dict per image: "boxes" (n, 4) xyxy in the image's pixels,
-          "scores" (n,), "labels" (n,) int32.
+          one `Results` per file; or one dict per image in memory: "boxes"
+          (n, 4) xyxy in the image's pixels, "scores" (n,), "labels" (n,)
+          int32.
         """
+        if text is None:
+            if not isinstance(images, (str, Path, list, tuple)) or (
+                    isinstance(images, (list, tuple)) and not all(isinstance(x, (str, Path)) for x in images)):
+                raise ValueError("predict takes a path, a directory or a list of paths, or images with text")
+            eng = self._lazy_engine()
+            eng.model = self.model  # the seeded model when none was trained, loaded or set
+            return eng.predict(images, **{"imgsz": self.imgsz, "conf": conf, "iou": iou, "max_det": max_det,
+                                          **overrides})
         img, sizes = self._to_batch(images)
         txt = torch.as_tensor(np.asarray(text) if isinstance(text, np.ndarray) else text)
         txt = txt.to(self.device, torch.float32)

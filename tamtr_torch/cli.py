@@ -1,0 +1,141 @@
+"""CLI: `python -m tamtr_torch <task> <mode> k=v ...` (a port of the JAX
+package's `tamtr_tpu/cli.py`, the reference's `yolo` entry point,
+`cfg/__init__.py:entrypoint`).
+
+    python -m tamtr_torch detect train model=tamtr.yaml data=visdrone.yaml epochs=300 batch=6
+    python -m tamtr_torch detect val model=runs/detect/train/weights/best.pt data=visdrone.yaml
+    python -m tamtr_torch detect predict model=runs/detect/train/weights/best.pt source=images/ save=True
+    python -m tamtr_torch serve model=runs/detect/train/weights/best.pt port=8000
+
+A positional task and mode, and `key=value` overrides. The model is a model
+config (weights from `seed`) or a checkpoint written by `train`. Everything
+runs on the card unless `device=cpu` is given. `predict` prints one line
+per image; with save=True it writes each plot as a PNG under
+`project/predict` (default `runs/predict`). `serve` serves a checkpoint
+over HTTP (`tamtr_torch.serve`). The modes `track`, `export`, `benchmark`
+and `tune`, the `settings` command and the segment, pose and classify
+tasks are not ported: they exit with a message naming their ROADMAP entry.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+from typing import Any, Dict, List
+
+TASKS = ("detect", "segment", "pose", "classify")
+MODES = ("train", "val", "predict", "track", "export", "benchmark", "tune", "serve")
+
+# default model config per task (detect is the flagship TAM-TR)
+TASK_MODELS = {
+    "detect": "tamtr.yaml",
+    "segment": "yolo-seg-gelan.yaml",
+    "pose": "yolo-pose-gelan.yaml",
+    "classify": "classify-gelan.yaml",
+}
+# what is not ported, and where ROADMAP.md queues it
+NOT_PORTED = {
+    "track": "queue A, item 3 (track, with video sources and AnnotatedVideoWriter)",
+    "export": "queue A, item 7 (engine/exporter.py and the AutoBackend export formats)",
+    "benchmark": "queue A, item 7 (benchmarks.py)",
+    "tune": "queue A, item 7 (engine/tuner.py)",
+    "settings": "queue A, item 3 (settings.py and crash.py)",
+    "segment": "queue A, item 7 (the other heads)",
+    "pose": "queue A, item 7 (the other heads)",
+    "classify": "queue A, item 7 (the other heads)",
+}
+
+
+def _parse_value(v: str) -> Any:
+    if v.lower() in ("true", "false"):
+        return v.lower() == "true"
+    if v.lower() in ("none", "null"):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            pass
+    return v
+
+
+def parse_args(argv: List[str]):
+    task, mode = "detect", None
+    overrides: Dict[str, Any] = {}
+    for a in argv:
+        if "=" in a:
+            k, v = a.split("=", 1)
+            overrides[k] = _parse_value(v)
+        elif a in TASKS:
+            task = a
+        elif a in MODES:
+            mode = a
+        elif a in ("-h", "--help", "help"):
+            print(__doc__)
+            raise SystemExit(0)
+        elif a == "version":
+            from tamtr_torch import __version__
+
+            print(__version__)
+            raise SystemExit(0)
+        else:
+            close = [m for m in MODES + TASKS if a in m]
+            raise SystemExit(f"unknown argument {a!r}" + (f" (did you mean {close[0]!r}?)" if close else ""))
+    if mode is None:
+        raise SystemExit(f"specify a mode: {MODES}")
+    return task, mode, overrides
+
+
+def _not_ported(what: str) -> SystemExit:
+    return SystemExit(f"{what} is not ported to tamtr_torch yet: ROADMAP.md {NOT_PORTED[what]}")
+
+
+def main(argv: List[str] | None = None) -> None:
+    argv = argv if argv is not None else sys.argv[1:]
+    if argv and argv[0] == "settings":
+        raise _not_ported("settings")
+    task, mode, ov = parse_args(argv)
+    for what in (mode, task):
+        if what in NOT_PORTED:
+            raise _not_ported(what)
+    device = ov.pop("device", None)
+    if mode == "serve":
+        from tamtr_torch.serve import serve_checkpoint
+
+        if "model" not in ov:
+            raise SystemExit("serve requires model=<checkpoint>, e.g. "
+                             "`python -m tamtr_torch serve model=runs/detect/train/weights/best.pt port=8000`")
+        srv = serve_checkpoint(str(ov.pop("model")), endpoint=str(ov.pop("endpoint", "tamtr")),
+                               host=str(ov.pop("host", "127.0.0.1")), port=int(ov.pop("port", 8000)),
+                               nc=ov.pop("nc", None), imgsz=ov.pop("imgsz", None), device=device)
+        print(f"serving at {srv.url}", flush=True)
+        srv.serve_forever()
+        return
+    from tamtr_torch import TAMTR
+
+    model_arg = str(ov.pop("model", TASK_MODELS[task]))
+    is_cfg = model_arg.endswith((".yaml", ".yml", ".json"))
+    kw = {"imgsz": ov["imgsz"]} if "imgsz" in ov else {}
+    model = TAMTR(model_arg if is_cfg else TASK_MODELS[task], device=device, seed=ov.get("seed", 0), **kw)
+    if not is_cfg:
+        # nc= / names= help load checkpoints without that metadata
+        names = ov.pop("names", None)
+        model.load(model_arg, nc=ov.pop("nc", None), names=names.split(",") if isinstance(names, str) else names)
+    if mode == "train":
+        print(model.train(**ov))
+    elif mode == "val":
+        print(model.val(**ov))
+    elif mode == "predict":
+        source = ov.pop("source", None)
+        if source is None:
+            raise SystemExit("predict requires source=<image, directory or glob>")
+        save = ov.pop("save", False)
+        out = Path(ov.get("project") or "runs") / "predict"
+        for r in model.predict(source, **ov):
+            print(f"{r.path}: {len(r)} detections", flush=True)
+            if save:
+                r.save(out / Path(r.path).name)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,7 +14,7 @@ the JAX package's `tamtr_tpu/data/dataset.py`, detect task).
   bi))`, so the batches are the JAX package's and do not depend on the
   worker count.
 
-Images are read by `data/image_io.py` (PNG and `.npy`; no JPEG yet).
+Images are read by `data/image_io.py` (PNG, baseline JPEG, 24-bit BMP, `.npy`).
 `ClassificationDataset` is not ported.
 """
 
@@ -32,7 +32,7 @@ import torch
 from tamtr_torch.data import augment as A
 from tamtr_torch.data import imgproc
 from tamtr_torch.data.image_io import imread as _imread
-from tamtr_torch.data.image_io import png_shape
+from tamtr_torch.data.image_io import image_shape
 from tamtr_torch.utils.log import LOGGER
 
 IMG_EXTS = {".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp"}
@@ -239,9 +239,10 @@ class DetectionDataset:
         self._mosaic_on = False
 
     def _image_shape(self, i: int) -> Tuple[int, int]:
-        """(h, w) of image i; a PNG's from its header, without decoding."""
-        if Path(self.im_files[i]).suffix.lower() == ".png":
-            return png_shape(self.im_files[i])
+        """(h, w) of image i; a PNG's or a JPEG's from its headers, without
+        decoding."""
+        if Path(self.im_files[i]).suffix.lower() in (".png", ".jpg", ".jpeg"):
+            return image_shape(self.im_files[i])
         return self._read(i).img.shape[:2]
 
     def set_rectangle(self, batch_size: int, stride: int = 32, pad: float = 0.5) -> None:

@@ -1,17 +1,20 @@
-"""Engine: train and val of the TAM-TR detector on a dataset (a port of the
-JAX package's `tamtr_tpu/engine/model.py`, `Engine.train`, `val`,
-`_validate`, `load` and `set_classes`, for the `ManbaWorldDecoder` head).
+"""Engine: train, val and predict of the TAM-TR detector (a port of the
+JAX package's `tamtr_tpu/engine/model.py`: `Engine.train`, `val`,
+`_validate`, `predict`, `load` and `set_classes`, for the
+`ManbaWorldDecoder` head).
 
     train(data=...): DetectionDataset + Loader -> Trainer.step per batch
       -> every val_interval epochs _validate with the EMA weights
       -> a results.csv row, checkpoints `last` and `best`, resume
     val(data=...): the same _validate on loaded weights
+    predict(source): image files -> the eval forward (with TTA when
+      augment=True) -> NMS -> `Results` in the images' pixels
 
 The engine runs on the card unless `device="cpu"` is given. Not ported:
 the mesh, sequence parallelism and ZeRO, autobatch, fuse and half,
-classify/segment/pose, predict, track, tune and export; the plots (the
-confusion matrix of `cfg.plots` is not computed: matplotlib is not on the
-card's machine).
+classify/segment/pose, video and stream sources, track, tune and export;
+the plots (the confusion matrix of `cfg.plots` is not computed: matplotlib
+is not on the card's machine).
 """
 
 from __future__ import annotations
@@ -28,10 +31,14 @@ import torch
 
 from tamtr_torch.config import Config, get_cfg, load_data_yaml
 from tamtr_torch.data.dataset import AugConfig, DetectionDataset, Loader
+from tamtr_torch.data.image_io import imread
+from tamtr_torch.data.imgproc import resize_linear
+from tamtr_torch.data.loaders import VID_EXTS
 from tamtr_torch.data.text import TextEmbedder, class_text_embeddings
 from tamtr_torch.engine.checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
 from tamtr_torch.nn.graph import TAMTRModel
-from tamtr_torch.ops.nms import postprocess_predictions
+from tamtr_torch.engine.results import Results
+from tamtr_torch.ops.nms import multiclass_nms, postprocess_predictions
 from tamtr_torch.train.trainer import Trainer, TrainConfig
 from tamtr_torch.utils.callbacks import Callbacks
 from tamtr_torch.utils.checks import check_imgsz
@@ -56,6 +63,21 @@ class EarlyStopping:
             self.best_fitness = fitness
             self.best_epoch = epoch
         return (epoch - self.best_epoch) >= self.patience
+
+
+def to_image_pixels(boxes: np.ndarray, input_hw, orig_hw, lb=None) -> np.ndarray:
+    """Normalized xyxy boxes of an (h, w) network input in the (oh, ow)
+    image's own pixels: the square stretch undone, or with `lb` = (ratio,
+    left, top) of a rect val batch the letterbox undone and the boxes
+    clipped to the image."""
+    oh, ow = orig_hw
+    if lb is None:
+        return boxes * np.array([ow, oh, ow, oh], np.float32)
+    ratio, left, top = lb
+    bh, bw = input_hw
+    pb = boxes * np.array([bw, bh, bw, bh], np.float32)
+    pb = (pb - np.array([left, top, left, top], np.float32)) / ratio
+    return pb.clip(0, [ow, oh, ow, oh])
 
 
 def text_width(model: TAMTRModel) -> int:
@@ -264,7 +286,10 @@ class Engine:
         n = len(ds)
         coco_records = [] if cfg.save_json else None
         t0 = time.time()
-        if cfg.rect:
+        # rect val letterboxes aspect-ratio-binned batches for a YOLO Detect
+        # head only; the TAM-TR protocol stretches square (the reference's
+        # `rtdetrworld/val.py`, rect=False), as the JAX engine does
+        if cfg.rect and model.head_type == "Detect":
             ds.set_rectangle(bs)  # reorders by aspect ratio; chunks align
         batches = [list(range(s, min(s + bs, n))) for s in range(0, n, bs)]
 
@@ -286,14 +311,7 @@ class Engine:
                 for k, i in enumerate(idxs):
                     _, raw, (oh, ow), lb = items[k]
                     sel = valid[k] & (scores[k] > 0)
-                    if lb is not None:  # rect: undo the letterbox (ratio, pads)
-                        ratio, left, top = lb
-                        bh, bw = imgs[k].shape[:2]
-                        pb = boxes[k][sel] * np.array([bw, bh, bw, bh], np.float32)
-                        pb = (pb - np.array([left, top, left, top], np.float32)) / ratio
-                        pb = pb.clip(0, [ow, oh, ow, oh])
-                    else:
-                        pb = boxes[k][sel] * np.array([ow, oh, ow, oh], np.float32)
+                    pb = to_image_pixels(boxes[k][sel], imgs[k].shape[:2], (oh, ow), lb)
                     pc = labels[k][sel].astype(np.float32)
                     ps = scores[k][sel]
                     tp = match_predictions(pb, pc, raw.boxes, raw.cls.astype(np.float32))
@@ -310,6 +328,83 @@ class Engine:
                     f"P={res['precision']:.4f} R={res['recall']:.4f} ({res['images_per_sec']:.1f} img/s)")
         self.callbacks.fire("on_val_end", self, res)
         return res
+
+    # ---------------------------------------------------------------- predict
+    @torch.inference_mode()
+    def predict(self, source: Any, **overrides: Any) -> List[Results]:
+        """Detections of the engine's classes (`names`, `txt_feats`) in
+        image files: a path, a directory (its .jpg, .jpeg, .png, .bmp and
+        .webp files at any depth, sorted) or a list of paths.
+
+        Each image is read (BGR), resized to (imgsz, imgsz) as cv2.resize
+        does (`data/imgproc.py:resize_linear`), turned to RGB in [0, 1] and
+        run through the eval forward; `postprocess_predictions` keeps the
+        boxes above `conf` (default 0.25) after class-offset NMS at `iou`,
+        up to `max_det`, of `classes`. With augment=True three passes run
+        (imgsz; imgsz x 0.83, flipped; imgsz x 0.67, both snapped to 32) and
+        a class-offset NMS over the `max_det` x 3 padded rows merges them.
+        Boxes are in the image's own pixels. Writes nothing unless
+        save=True: then each plot is a PNG under `project/name`."""
+        cfg = get_cfg(self.cfg, overrides=overrides)
+        cfg.save = bool(overrides.get("save", False))
+        if self.model is None or self.txt_feats is None:
+            raise RuntimeError("no weights or classes: train, load or set a model and set_classes first")
+        if isinstance(source, int) or (isinstance(source, str) and (
+                source.isdigit() or Path(source).suffix.lower() in VID_EXTS)):
+            raise NotImplementedError(f"source {source!r}: video and stream sources need a video decoder, "
+                                      "which tamtr_torch does not have")
+        if isinstance(source, (str, Path)):
+            p = Path(source)
+            paths = (sorted(str(f) for f in p.rglob("*") if f.suffix.lower() in
+                            {".jpg", ".jpeg", ".png", ".bmp", ".webp"})
+                     if p.is_dir() else [str(p)])
+        else:
+            paths = [str(x) for x in source]
+        model = self.model.eval()
+        dev = next(model.parameters()).device
+        conf = cfg.conf if cfg.conf is not None else 0.25
+        txt = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=dev)
+        # TTA (the reference's `_predict_augment`, `tasks.py:272-307`): scales
+        # 1 / 0.83 / 0.67 snapped to the stride grid, the middle one flipped
+        passes = [(cfg.imgsz, False)]
+        if cfg.augment:
+            passes += [(max(round(cfg.imgsz * 0.83 / 32) * 32, 32), True),
+                       (max(round(cfg.imgsz * 0.67 / 32) * 32, 32), False)]
+        results = []
+        for path in paths:
+            im0 = imread(path)
+            if im0 is None:
+                raise FileNotFoundError(f"cannot read image {path}")
+            oh, ow = im0.shape[:2]
+            all_b, all_s, all_l = [], [], []
+            for sz, flip in passes:
+                img = resize_linear(im0, (sz, sz))[..., ::-1].astype(np.float32) / 255.0
+                if flip:
+                    img = img[:, ::-1]
+                pred = model(torch.from_numpy(np.ascontiguousarray(img)[None]).to(dev), txt)["pred"]
+                boxes, scores, labels, valid, _ = (t.cpu().numpy() for t in postprocess_predictions(
+                    pred, conf, cfg.iou, cfg.max_det, classes=cfg.classes, single_cls=cfg.single_cls))
+                sel = valid[0] & (scores[0] > 0)
+                b = boxes[0][sel]
+                if flip:  # un-flip normalized xyxy
+                    b = np.stack([1 - b[:, 2], b[:, 1], 1 - b[:, 0], b[:, 3]], -1)
+                all_b.append(b)
+                all_s.append(scores[0][sel])
+                all_l.append(labels[0][sel])
+            b, s, lab = np.concatenate(all_b), np.concatenate(all_s), np.concatenate(all_l)
+            if len(passes) > 1 and len(b):
+                pad = cfg.max_det * len(passes) - len(b)
+                keep, valid_k = (t.numpy() for t in multiclass_nms(
+                    torch.from_numpy(np.pad(b, ((0, pad), (0, 0)))), torch.from_numpy(np.pad(s, (0, pad))),
+                    torch.from_numpy(np.pad(lab, (0, pad))), cfg.iou, cfg.max_det))
+                idx = keep[valid_k]
+                b, s, lab = b[idx[idx < len(b)]], s[idx[idx < len(s)]], lab[idx[idx < len(lab)]]
+            r = Results(path, b * np.array([ow, oh, ow, oh], np.float32), s, lab, self.names,
+                        orig_shape=(oh, ow))
+            if cfg.save:  # annotated image output (reference save=True), PNG
+                r.save(Path(cfg.project or "runs/detect") / (cfg.name or "predict") / Path(path).name)
+            results.append(r)
+        return results
 
     # ------------------------------------------------------------- weights
     def load(self, ckpt_path: Union[str, Path], nc: Optional[int] = None,

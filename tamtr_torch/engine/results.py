@@ -1,0 +1,106 @@
+"""Prediction results (a port of the JAX package's
+`tamtr_tpu/engine/results.py`: `Boxes` and `Results`, detect task).
+
+`Results` wraps one image's detections: `.boxes` (xyxy pixels, conf, cls),
+`.plot()`, `.save()`, `.save_txt()` and `.tojson()`, and dict-style access
+("path", "boxes", "scores", "labels", "names") for callers that treat a
+result as a mapping. The text outputs are byte-equal to the JAX package's
+for the same detections. `save` writes PNG (`data/image_io.py:imwrite_png`)
+under the given path's stem with a `.png` suffix: the port has no JPEG
+encoder. Masks (the segment head), `orig_img` and `AnnotatedVideoWriter`
+(frames of video sources) are not ported.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Optional, Sequence
+
+import numpy as np
+
+
+class Boxes:
+    """Detection boxes accessor: xyxy pixels + conf + cls."""
+
+    def __init__(self, xyxy: np.ndarray, conf: np.ndarray, cls: np.ndarray):
+        self.xyxy = np.asarray(xyxy, np.float32).reshape(-1, 4)
+        self.conf = np.asarray(conf, np.float32).reshape(-1)
+        self.cls = np.asarray(cls).reshape(-1)
+
+    def __len__(self) -> int:
+        return len(self.conf)
+
+    @property
+    def xywh(self) -> np.ndarray:
+        b = self.xyxy
+        return np.stack(
+            [(b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2, b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], -1)
+
+
+class Results:
+    """One image's detections; `plot` reads the image again from `path`."""
+
+    def __init__(self, path: str, boxes: np.ndarray, scores: np.ndarray, labels: np.ndarray,
+                 names: Sequence[str], orig_shape: Optional[tuple] = None):
+        self.path = path
+        self.names = list(names)
+        self.boxes = Boxes(boxes, scores, labels)
+        self.orig_shape = orig_shape
+
+    def __len__(self) -> int:
+        return len(self.boxes)
+
+    def __getitem__(self, key: str):
+        return {
+            "path": self.path,
+            "boxes": self.boxes.xyxy,
+            "scores": self.boxes.conf,
+            "labels": self.boxes.cls,
+            "names": self.names,
+        }[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in ("path", "boxes", "scores", "labels", "names")
+
+    def plot(self, line_width: Optional[int] = None) -> np.ndarray:
+        """The BGR image with the detections drawn (`utils/plotting.py`)."""
+        from tamtr_torch.data.image_io import imread
+        from tamtr_torch.utils.plotting import annotate_image
+
+        b = self.boxes
+        return annotate_image(imread(self.path), b.xyxy, b.conf, b.cls, self.names, line_width)
+
+    def save(self, path: str | Path) -> Path:
+        """Write the plot as a PNG at `path` with its suffix made `.png`;
+        returns the path written."""
+        from tamtr_torch.data.image_io import imwrite_png
+
+        out = Path(path).with_suffix(".png")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        imwrite_png(out, self.plot())
+        return out
+
+    def save_txt(self, path: str | Path, save_conf: bool = False) -> None:
+        """YOLO-format lines: cls cx cy w h [conf] normalized to orig_shape."""
+        oh, ow = self.orig_shape or (1, 1)
+        lines = []
+        for b, c, l in zip(self.boxes.xywh, self.boxes.conf, self.boxes.cls):
+            vals = [int(l), b[0] / ow, b[1] / oh, b[2] / ow, b[3] / oh]
+            if save_conf:
+                vals.append(float(c))
+            lines.append(" ".join(f"{v:.6g}" for v in vals))
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text("\n".join(lines))
+
+    def tojson(self) -> str:
+        out = []
+        for b, c, l in zip(self.boxes.xyxy, self.boxes.conf, self.boxes.cls):
+            name = self.names[int(l)] if int(l) < len(self.names) else str(int(l))
+            out.append({
+                "name": name,
+                "class": int(l),
+                "confidence": round(float(c), 5),
+                "box": {"x1": float(b[0]), "y1": float(b[1]), "x2": float(b[2]), "y2": float(b[3])},
+            })
+        return json.dumps(out)

@@ -47,6 +47,7 @@ from tamtr_torch.kernels import _build
 SCAN_CHUNK = 128
 SEG_CHANNELS = 32  # channels per block of the segment kernels, forward and backward (csrc kDB)
 SEG_STEPS = 48  # steps per segment of the segment-parallel scans (csrc kSeg)
+SS2D_STATES = 16  # the state size B1's and B3's kernels are compiled for (`ss2d_pieces` pads to it)
 # the state sizes B6's kernels are compiled for, and the groups and channels
 # one launch takes (the grid's y and z, 32 channels a block);
 # `_selective_scan_cuda` cuts other shapes into such pieces
@@ -229,8 +230,8 @@ def _check_cuda(name, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, d_mult: int):
             or tuple(dt_w.shape) != (4, D, R) or tuple(A.shape) != (4, D, N) \
             or tuple(dt_b.shape) != (4, D) or tuple(Ds.shape) != (4, D):
         raise ValueError(f"{name}: inconsistent shapes")
-    if N != 16 or D % d_mult:
-        raise ValueError(f"{name}: the kernel needs N == 16 and D % {d_mult} == 0, got N={N} D={D}")
+    if N != SS2D_STATES or D % d_mult:
+        raise ValueError(f"{name}: the kernel needs N == {SS2D_STATES} and D % {d_mult} == 0, got N={N} D={D}")
     dts_raw, Bs, Cs = (_rows_in_place(t, B, L) for t in (dts_raw, Bs, Cs))
     return (layouts.contiguous(), dts_raw, dt_w.contiguous(), dt_b.contiguous(), A.contiguous(),
             Bs, Cs, Ds.contiguous())
@@ -459,10 +460,42 @@ class _SS2DScan(torch.autograd.Function):
         return ss2d_scan_bwd(*ctx.saved_tensors, dy)
 
 
+def ss2d_pieces(scan, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
+    """y of the fused scan, `scan(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)`
+    run on pieces that B1's and B3's kernels take (N == SS2D_STATES, D a
+    multiple of SEG_CHANNELS): the state lanes in groups of 16, a short group
+    padded with B = C = 0 and A = -1 (a padded lane stays 0 and adds nothing
+    to y), the groups' outputs added, Ds in the first group only (zeros in
+    the others); the channels padded with u = 0, dt_w = dt_b = 0, A = -1 and
+    Ds = 0, and y cut back. Autograd sums the gradients of the inputs the
+    groups share; those of A, Bs and Cs are the groups' slices, the padding
+    dropped. One piece, without a copy, where the inputs fit."""
+    D, N = A.shape[1], A.shape[2]
+    if N == SS2D_STATES and D % SEG_CHANNELS == 0:
+        return scan(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
+    pad = torch.nn.functional.pad
+    pd = -D % SEG_CHANNELS
+    if pd:
+        layouts, dt_b, Ds = pad(layouts, (0, pd)), pad(dt_b, (0, pd)), pad(Ds, (0, pd))
+        dt_w, A = pad(dt_w, (0, 0, 0, pd)), pad(A, (0, 0, 0, pd), value=-1.0)
+    y = None
+    for n0 in range(0, N, SS2D_STATES):
+        pn = SS2D_STATES - min(SS2D_STATES, N - n0)
+        A_s, B_s, C_s = (t[..., n0:n0 + SS2D_STATES] for t in (A, Bs, Cs))
+        if pn:
+            A_s, B_s, C_s = pad(A_s, (0, pn), value=-1.0), pad(B_s, (0, pn)), pad(C_s, (0, pn))
+        part = scan(layouts, dts_raw, dt_w, dt_b, A_s, B_s, C_s, Ds if n0 == 0 else torch.zeros_like(Ds))
+        y = part if y is None else y + part
+    return y[..., :D] if pd else y
+
+
 def ss2d_scan(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
-    """The fused scan: kernel B1 for CUDA tensors, the plain version for CPU
-    ones; differentiable through `ss2d_scan_bwd`."""
-    if layouts.device.type not in ("cpu", "cuda"):
+    """The fused scan: kernel B1 for CUDA tensors (at any N and D, on the
+    pieces of `ss2d_pieces`), the plain version for CPU ones; differentiable
+    through `ss2d_scan_bwd`."""
+    if layouts.device.type == "cuda":
+        return ss2d_pieces(_SS2DScan.apply, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
+    if layouts.device.type != "cpu":
         raise RuntimeError(f"ss2d_scan: no kernel for device {layouts.device}")
     return _SS2DScan.apply(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
 

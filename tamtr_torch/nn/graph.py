@@ -130,6 +130,11 @@ class TAMTRModel(nn.Module):
         ))
         self.model = nn.ModuleList(layers)
 
+    @property
+    def head_type(self) -> str:
+        """The head's class name, as the JAX `TAMTRModel.head_type`."""
+        return type(self.model[-1]).__name__
+
     @classmethod
     def from_cfg(cls, path: str | Path, nc: Optional[int] = None, **kw) -> "TAMTRModel":
         return cls(load_model_cfg(path), nc, **kw)

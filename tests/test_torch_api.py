@@ -49,6 +49,9 @@ def test_import_without_jax_yaml_or_cv2():
         "import tamtr_torch.data.image_io, tamtr_torch.data.text, tamtr_torch.utils.metrics\n"
         "import tamtr_torch.utils.coco, tamtr_torch.utils.callbacks, tamtr_torch.utils.checks\n"
         "import tamtr_torch.utils.files, tools.smoke_train_torch\n"
+        "import tamtr_torch.cli, tamtr_torch.serve, tamtr_torch.nn.autobackend, tamtr_torch.engine.results\n"
+        "import tamtr_torch.utils.plotting, tamtr_torch.data.loaders, tamtr_torch.data.converter\n"
+        "import tools.convert_visdrone_torch\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL')\n"
         "          and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

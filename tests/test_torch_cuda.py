@@ -667,3 +667,56 @@ def test_engine_trains_and_validates_on_a_dataset(card, tmp_path):
     assert ss2d_scan.launches == 3 and bilinear_gather.launches == 3  # one forward of the 4 val images
     assert all(f.launches == 0 for f in train_kernels[2:])
     assert val["mAP50"] == pytest.approx(res["mAP50"], abs=1e-6)
+
+
+def _pieces_args(card, N, D, B=2, L=63, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    R = math.ceil(D / 32)
+    layouts = torch.randn(B, 2, L, D, generator=g)
+    dts_raw, Bs, Cs = (torch.randn(B, 2, 2, L, R + 2 * N, generator=g) * 0.6).split([R, N, N], -1)
+    dt_w = (torch.rand(4, D, R, generator=g) * 2 - 1) * R**-0.5
+    dt_b = torch.rand(4, D, generator=g) * -2 - 2
+    A = -torch.exp(torch.rand(4, D, N, generator=g) * 1.5)
+    Ds = torch.randn(4, D, generator=g)
+    dy = torch.randn(B, 4, L, D, generator=g)
+    return [t.to(card) for t in (layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)], dy.to(card)
+
+
+@pytest.mark.parametrize("N", [1, 8, 12, 24, 48])
+@pytest.mark.parametrize("D", [40, 96])
+def test_ss2d_scan_any_state_size_and_width(card, N, D):
+    """`ss2d_scan` on the card at state sizes and widths B1 and B3 are not
+    compiled for, on the pieces of `ss2d_pieces` (one B1 call per group of
+    16 state lanes): the forward within 1e-4 and the eight gradients
+    within 2e-3 of the plain scan and its plain backward."""
+    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_bwd_ref, ss2d_scan_carriers, ss2d_scan_ref
+
+    args, dy = _pieces_args(card, N, D)
+    ts = [t.detach().clone().requires_grad_(True) for t in args]
+    before, before_bwd = ss2d_scan.launches, ss2d_scan_carriers.launches
+    y = ss2d_scan(*ts)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    groups = -(-N // 16)
+    assert (ss2d_scan.launches - before, ss2d_scan_carriers.launches - before_bwd) == (groups, groups)
+    torch.testing.assert_close(y.detach(), ss2d_scan_ref(*args), atol=1e-4, rtol=1e-4)
+    for t, want in zip(ts, ss2d_scan_bwd_ref(*args, dy)):
+        torch.testing.assert_close(t.grad, want, atol=2e-3, rtol=2e-3)
+
+
+def test_jpeg_fixtures_decode_to_their_cv2_digests(card):
+    """The committed JPEG fixtures decode, on the card's machine (no cv2
+    there), to the sha256 digests cv2 gave when they were written
+    (`tools/make_jpeg_fixtures_torch.py`)."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from tamtr_torch.data.image_io import imread, jpeg_shape
+
+    root = Path(__file__).resolve().parent / "torch_data" / "jpeg"
+    expected = json.loads((root / "expected.json").read_text())
+    for name, want in expected.items():
+        img = imread(root / name)
+        assert list(img.shape) == want["shape"] and tuple(jpeg_shape(root / name)) == img.shape[:2], name
+        assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"], name

@@ -96,6 +96,9 @@ def test_image_io_edges(tmp_path):
     assert imread(tmp_path / "missing.png") is None
     (tmp_path / "empty.png").write_bytes(b"")
     assert imread(tmp_path / "empty.png") is None
+    assert imread(tmp_path / "a.jpg") is None  # a missing JPEG, as any missing file
+    # a JPEG mode the reader does not take: SOI, then a progressive frame header (SOF2)
+    (tmp_path / "a.jpg").write_bytes(bytes.fromhex("ffd8ffc2001108001000100301220002110103110100"))
     with pytest.raises(NotImplementedError, match="JPEG"):
         imread(tmp_path / "a.jpg")
     arr = np.arange(24, dtype=np.uint8).reshape(2, 4, 3)

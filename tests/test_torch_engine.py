@@ -11,8 +11,6 @@ that mAP is neither 0 nor 1. The engine's training path is held in
 """
 
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,30 +21,13 @@ from tamtr_torch.engine.model import Engine
 from tamtr_torch.nn.graph import TAMTRModel as PortModel
 from tamtr_torch.weights import from_jax_variables
 
-from torch_engine_data import HD, IMG, NAMES, NC, one_thread, unit_text, write_val_split  # noqa: F401
+from torch_engine_data import (HD, IMG, NAMES, NC, jax_nano_variables, one_thread,  # noqa: F401
+                               unit_text, write_val_split)
 
 
 @pytest.fixture(scope="module")
 def jax_nano():
-    from tamtr_tpu.nn.graph import TAMTRModel
-
-    model = TAMTRModel.from_yaml("tamtr-nano.yaml", nc=NC)
-    v = jax.device_get(jax.jit(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, IMG, IMG, 3)), jnp.zeros((1, NC, HD)), None, False))())
-    to_np = lambda t: {k: to_np(x) if hasattr(x, "items") else np.array(x) for k, x in t.items()}  # noqa: E731
-    params, batch_stats = to_np(v["params"]), to_np(v["batch_stats"])
-    rng = np.random.default_rng(0)
-    for name, sub in params["head"].items():
-        if name.startswith("dec_score_head"):
-            sub["bias"] = np.zeros_like(sub["bias"])
-        if name.startswith(("dec_bbox_head", "enc_bbox_head")):
-            k = sub["layers2"]["kernel"]
-            sub["layers2"]["kernel"] = (rng.standard_normal(k.shape) * 0.05).astype(np.float32)
-        if name.startswith("layer"):
-            for lin in ("sampling_offsets", "attention_weights"):
-                k = sub["cross_attn"][lin]["kernel"]
-                sub["cross_attn"][lin]["kernel"] = (rng.standard_normal(k.shape) * 0.05).astype(np.float32)
-    return model, params, batch_stats
+    return jax_nano_variables()
 
 
 @pytest.fixture(scope="module")
@@ -87,6 +68,29 @@ def test_val_matches_jax_engine(jax_nano, port_nano, txt, val_data):
     je.set_classes(NAMES, txt)
     want = je.val(**args)
     assert 0 < want["mAP50"] < 1 and 0 < want["recall"] < 1
+    for k in ("mAP50", "mAP50-95", "precision", "recall"):
+        assert abs(got[k] - want[k]) <= 1e-3, (k, got[k], want[k])
+
+
+def test_rect_val_matches_jax_engine(jax_nano, port_nano, txt, val_data):
+    """With rect=True both engines stretch the ManbaWorldDecoder's val
+    square (rect letterboxes a YOLO Detect head only): mAP50, mAP50-95,
+    precision and recall equal the JAX `Engine.val`'s within 1e-3."""
+    from tamtr_tpu.engine.checkpoint import InferenceState
+    from tamtr_tpu.engine.model import Engine as JaxEngine
+
+    jmodel, params, batch_stats = jax_nano
+    eng = Engine("tamtr-nano.yaml", device="cpu")
+    eng.model = port_nano
+    eng.set_classes(NAMES, txt)
+    args = dict(data=str(val_data), imgsz=IMG, batch=2, conf=0.25, workers=1, plots=False, rect=True)
+    got = eng.val(**args)
+    je = JaxEngine("tamtr-nano.yaml")
+    je.model = jmodel
+    je.state = InferenceState(params, batch_stats)
+    je.set_classes(NAMES, txt)
+    want = je.val(**args)
+    assert 0 < want["mAP50"] < 1
     for k in ("mAP50", "mAP50-95", "precision", "recall"):
         assert abs(got[k] - want[k]) <= 1e-3, (k, got[k], want[k])
 

@@ -1,7 +1,10 @@
 """What the port's engine tests share (`tests/test_torch_engine.py`,
-`tests/test_torch_engine_train.py`): the nano shapes, one torch thread, the
-class text table and a 64 px PNG val split labelled by a model. Not a
-conftest: that one imports JAX, and the train tests need none."""
+`tests/test_torch_engine_train.py`, `tests/test_torch_predict.py`,
+`tests/test_torch_cli.py`): the nano shapes, one torch thread, the class
+text table, a 64 px PNG val split labelled by a model, and the JAX nano
+model's variables with spread head weights. Not a conftest: that one
+imports JAX, and the train tests need none (`jax_nano_variables` imports
+it when called)."""
 
 import json
 
@@ -51,3 +54,32 @@ def write_val_split(root, model, txt):
     data = root / "data.json"
     data.write_text(json.dumps({"path": str(root), "train": "images", "val": "images", "nc": NC, "names": NAMES}))
     return data
+
+
+def jax_nano_variables():
+    """(JAX `TAMTRModel`, params, batch_stats) of `tamtr-nano.yaml` at nc =
+    NC, initialised under `jax.jit` from key 0, as numpy trees; the
+    zero-initialised head layers given small random values from a numpy
+    seed and the contrastive bias 0, so that scores spread."""
+    import jax
+    import jax.numpy as jnp
+
+    from tamtr_tpu.nn.graph import TAMTRModel
+
+    model = TAMTRModel.from_yaml("tamtr-nano.yaml", nc=NC)
+    v = jax.device_get(jax.jit(lambda: model.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, IMG, IMG, 3)), jnp.zeros((1, NC, HD)), None, False))())
+    to_np = lambda t: {k: to_np(x) if hasattr(x, "items") else np.array(x) for k, x in t.items()}  # noqa: E731
+    params, batch_stats = to_np(v["params"]), to_np(v["batch_stats"])
+    rng = np.random.default_rng(0)
+    for name, sub in params["head"].items():
+        if name.startswith("dec_score_head"):
+            sub["bias"] = np.zeros_like(sub["bias"])
+        if name.startswith(("dec_bbox_head", "enc_bbox_head")):
+            k = sub["layers2"]["kernel"]
+            sub["layers2"]["kernel"] = (rng.standard_normal(k.shape) * 0.05).astype(np.float32)
+        if name.startswith("layer"):
+            for lin in ("sampling_offsets", "attention_weights"):
+                k = sub["cross_attn"][lin]["kernel"]
+                sub["cross_attn"][lin]["kernel"] = (rng.standard_normal(k.shape) * 0.05).astype(np.float32)
+    return model, params, batch_stats
