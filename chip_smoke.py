@@ -59,9 +59,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    multiple of 32), on the pieces of `ss2d_pieces`: forward (1e-4) and all
    eight gradients (2e-3) against the plain scan; B1 and B3 once a piece.
 4c. jpeg: every committed JPEG fixture (`tests/torch_data/jpeg`, written by
-   `tools/make_jpeg_fixtures_torch.py`) decoded by the host C++ decoder to
-   the sha256 digest cv2 gave (the machine has no cv2); host decode ms per
-   megapixel.
+   `tools/make_jpeg_fixtures_torch.py`: baseline and progressive) decoded by
+   the host C++ decoder to the sha256 digest cv2 gave (the machine has no
+   cv2), and its decode encoded by the host C++ encoder
+   (`csrc/jpeg_encode.cpp`) to the sha256 of `cv2.imencode`'s bytes; host
+   decode and encode ms per megapixel.
 5. parity: the full-width `tamtr.yaml` model (nc=10) at 128 px, batch 2,
    on the card and on the CPU with the same state dict, compared as a
    tie-robust set at 1e-3. The whole run keeps TF32 off (full fp32).
@@ -86,6 +88,15 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    `RemoteModel` batch 1 five times, batch 4 twice and 4 concurrent
    batch-1 requests, each reply bitwise the in-process forward; ms over
    HTTP beside the in-process ms.
+7d. track: 12 generated 1360x765 frames (coloured boxes moving across
+   noise, two crossing) written as JPEG by the host encoder and read back
+   by the decoder; `TAMTR.track(<directory>)` of the same model at 640 px
+   with `bytetrack` and with `botsort` (gmc_method="none", ReID): B1 and
+   B2 once per forward, one forward per frame and tracker; the track ids
+   equal, and the normalized boxes within 1e-3 of, those of the CPU's
+   forward of each frame fed to the same trackers
+   (`update_result_with_tracks`); ms per frame split into read, model and
+   tracker host time.
 8. train: `TAMTR(...).trainer()` on `tamtr.yaml` at 640 px, batch 4,
    max_gt 300, accumulate 1, seeded synthetic batches (uint8 frames, 10
    classes, 30-250 valid gts per image, one over-full image); 2 warm-up
@@ -104,7 +115,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    loader wait, val images/s, mAP, peak memory.
 9b. cli: `python -m tamtr_torch predict model=<fit's best.pt>
    source=<fixtures> save=True` in a subprocess, which prints its launch
-   counters: exit 0, one line and one PNG per image.
+   counters: exit 0, one line and one plot per image, written under the
+   image's own name (JPEG).
 Every phase from 4b on zeroes the launch counters before it runs and checks
 after it that B1 and B2 ran `FORWARD_LAUNCHES` times its forwards, and no
 other kernel ran (B1 and B3 once a piece in ss2d_pieces).
@@ -1528,6 +1540,9 @@ def fit(dev):
 JPEG_FIXTURES = "tests/torch_data/jpeg"
 # predict_files: the fixtures whose forwards are also run on the CPU
 PARITY_FIXTURES = ("exif6_q90.jpg", "visdrone_1360x765_q85.jpg")
+# track: the generated sequence (VisDrone's frame size) and the trackers run over it
+TRACK_FRAMES, TRACK_HW = 12, (765, 1360)
+TRACKERS = {"bytetrack": {}, "botsort": {"gmc_method": "none", "with_reid": True}}
 
 
 def check_counts(phase: str, counters, forwards: int, extra=None):
@@ -1582,32 +1597,43 @@ def check_ss2d_pieces(dev):
 
 
 def check_jpeg():
-    """Every committed JPEG fixture decoded on this machine (the host C++
-    decoder, `csrc/jpeg_decode.cpp`) to the sha256 digest cv2 gave when it
-    was written; the host decode time per megapixel."""
+    """Every committed JPEG fixture (baseline and progressive) decoded on
+    this machine (the host C++ decoder, `csrc/jpeg_decode.cpp`) to the
+    sha256 digest cv2 gave when it was written, and that decode encoded (the
+    host C++ encoder, `csrc/jpeg_encode.cpp`, quality 95) to the sha256 of
+    `cv2.imencode`'s bytes; the host decode and encode times per
+    megapixel."""
     import hashlib
     from pathlib import Path
 
-    from tamtr_torch.data.image_io import imread, jpeg_shape
+    from tamtr_torch.data.image_io import encode_jpeg, imread, jpeg_shape
 
     counters = zero_counters()
     root = Path(JPEG_FIXTURES)
     expected = json.loads((root / "expected.json").read_text())
-    imread(root / next(iter(expected)))  # builds the decoder
-    ms_per_mp = {}
+    encode_jpeg(imread(root / next(iter(expected))))  # builds the decoder and the encoder
+    decode_ms, encode_ms = {}, {}
     for name, want in expected.items():
         t0 = time.perf_counter()
         for _ in range(3):
             img = imread(root / name)
-        ms = (time.perf_counter() - t0) / 3 * 1e3
+        t1 = time.perf_counter()
+        for _ in range(3):
+            data = encode_jpeg(img)
+        t2 = time.perf_counter()
         if list(img.shape) != want["shape"] or tuple(jpeg_shape(root / name)) != img.shape[:2] \
                 or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]:
             raise AssertionError(f"jpeg: {name} does not decode to its cv2 digest")
-        ms_per_mp[name] = ms / (img.shape[0] * img.shape[1] / 1e6)
+        if hashlib.sha256(data).hexdigest() != want["imencode_sha256"]:
+            raise AssertionError(f"jpeg: the encode of {name}'s decode is not cv2.imencode's bytes")
+        mp = img.shape[0] * img.shape[1] / 1e6
+        decode_ms[name] = (t1 - t0) / 3 * 1e3 / mp
+        encode_ms[name] = (t2 - t1) / 3 * 1e3 / mp
     check_counts("jpeg", counters, 0)
-    print(f"jpeg: {len(expected)} fixtures equal their cv2 sha256 digests; host decode ms per megapixel (host "
-          f"time on the card's machine): {json.dumps({k: round(v, 3) for k, v in ms_per_mp.items()})}", flush=True)
-    return ms_per_mp
+    print(f"jpeg: {len(expected)} fixtures equal their cv2 sha256 digests, decoded and encoded; host ms per "
+          f"megapixel (host time on the card's machine): decode {json.dumps({k: round(v, 3) for k, v in decode_ms.items()})}"
+          f"; encode {json.dumps({k: round(v, 3) for k, v in encode_ms.items()})}", flush=True)
+    return decode_ms, encode_ms
 
 
 def serve_model(seed: int = 1):
@@ -1764,17 +1790,115 @@ def serve_http(det):
     return summary, launches
 
 
+def track_sequence(root, seed: int = 31):
+    """TRACK_FRAMES frames of TRACK_HW (VisDrone's frame size): 6 boxes of
+    their own colours moving at constant velocity across noise, two of them
+    crossing, written as JPEG by the host encoder (quality 95) under `root`
+    and read back by the host decoder: each decode within 4 levels mean of
+    its frame. Returns the encode ms per frame."""
+    from tamtr_torch.data.image_io import imread, imwrite
+
+    H, W = TRACK_HW
+    rng = np.random.default_rng(seed)
+    start = rng.uniform([60, 60], [W - 400, H - 300], (6, 2))
+    start[0], start[1] = (150, 300), (1100, 330)
+    vel = rng.uniform(-15, 15, (6, 2))
+    vel[0], vel[1] = (45, 2), (-45, 0)
+    size = rng.uniform([60, 50], [220, 160], (6, 2))
+    colours = rng.integers(80, 256, (6, 3))
+    ms = []
+    for f in range(TRACK_FRAMES):
+        frame = rng.integers(30, 46, (H, W, 3), dtype=np.uint8)
+        for (x, y), (w, h), c in zip((start + vel * f).astype(int), size.astype(int), colours):
+            frame[max(y, 0):max(y + h, 0), max(x, 0):max(x + w, 0)] = c
+        t0 = time.perf_counter()
+        imwrite(root / f"{f:04d}.jpg", frame)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        back = imread(root / f"{f:04d}.jpg")
+        err = np.abs(back.astype(np.int16) - frame).mean()
+        if back.shape != frame.shape or err > 4:
+            raise AssertionError(f"track: frame {f} reads back as {back.shape}, mean error {err}")
+    return ms
+
+
+def track(det):
+    """`TAMTR.track(<a generated JPEG sequence>)` on the card with each
+    tracker of TRACKERS, every launch counter zeroed before and read after:
+    B1 and B2 once per forward, one forward per frame and tracker, nothing
+    else. The CPU's forward of each frame (`Engine.predict`, the same
+    weights and classes) fed to the same trackers
+    (`update_result_with_tracks`) gives the same track ids and boxes within
+    1e-3 (normalized). Ms per frame: read, model and tracker host time."""
+    import copy
+    import shutil
+    from pathlib import Path
+
+    from tamtr_torch.data.image_io import imread
+    from tamtr_torch.engine.model import Engine
+    from tamtr_torch.trackers.byte_tracker import Track
+    from tamtr_torch.trackers.track import make_tracker, update_result_with_tracks
+
+    root = Path("build/track")
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    encode_ms = track_sequence(root)
+    counters = zero_counters()
+    card, timing = {}, {}
+    for name, kw in TRACKERS.items():
+        Track.reset_id()
+        card[name] = det.track(str(root), tracker=name, **kw)
+        timing[name] = {k: float(np.median(v)) for k, v in det._engine.timing.items()}
+    launches = check_counts("track", counters, TRACK_FRAMES * len(TRACKERS))
+    cpu = Engine("tamtr.yaml", device="cpu")
+    cpu.model = copy.deepcopy(det.model).cpu()
+    cpu.set_classes(det._engine.names, det._engine.txt_feats)
+    t0 = time.perf_counter()
+    detections = cpu.predict(str(root), imgsz=det.imgsz, conf=0.25, iou=0.7, max_det=300)
+    cpu_s = time.perf_counter() - t0
+    worst, ids = 0.0, {}
+    for name, kw in TRACKERS.items():
+        Track.reset_id()
+        tracker = make_tracker(name, **kw)
+        for g, r in zip(card[name], detections, strict=True):
+            want = copy.deepcopy(r)
+            update_result_with_tracks(want, tracker, frame=imread(r.path))
+            if g.path != want.path or not np.array_equal(g.track_ids, want.track_ids):
+                raise AssertionError(f"track {name}: {g.path}: ids {g.track_ids} on the card, {want.track_ids} "
+                                     "on the CPU")
+            scale = np.array([TRACK_HW[1], TRACK_HW[0]] * 2, np.float32)
+            if len(g.track_ids):
+                worst = max(worst, float(np.abs(g.boxes.xyxy / scale - want.boxes.xyxy / scale).max()))
+        ids[name] = sorted({int(i) for r in card[name] for i in r.track_ids})
+    scores = np.concatenate([r.boxes.conf for r in detections])
+    quantiles = np.quantile(scores, [0, 0.5, 0.9, 1]).tolist() if len(scores) else []
+    if not all(ids.values()):
+        raise AssertionError(f"track: ids {ids} on {TRACK_FRAMES} frames; detection score quantiles {quantiles}")
+    if worst > 1e-3:
+        raise AssertionError(f"track: boxes off the CPU's by {worst}")
+    summary = dict(frames=TRACK_FRAMES, ms_per_frame={k: {**v, "total": sum(v.values())} for k, v in timing.items()},
+                   encode_ms_per_frame=float(np.median(encode_ms)), ids={k: len(v) for k, v in ids.items()},
+                   tracks_per_frame={k: [len(r.track_ids) for r in v] for k, v in card.items()},
+                   boxes_worst=worst, detection_score_quantiles=quantiles, cpu_predict_s=cpu_s)
+    print(f"track tamtr.yaml {det.imgsz}px on {TRACK_FRAMES} generated {TRACK_HW[1]}x{TRACK_HW[0]} JPEG frames: "
+          f"{json.dumps(summary)}; launches {launches}", flush=True)
+    return summary, launches
+
+
 def cli(best: str):
     """`python -m tamtr_torch predict model=<best.pt> source=<fixtures>
     save=True` in a subprocess on the card, which then prints its launch
-    counters: exit 0, one line and one PNG per image, B1 and B2 once per
+    counters: exit 0, one line and one plot per image under the image's own
+    name (JPEG: each file a JPEG that decodes), B1 and B2 once per
     forward and nothing else."""
     import shutil
     from pathlib import Path
 
+    from tamtr_torch.data.image_io import imread
+
     out = Path("build/cli")
     shutil.rmtree(out, ignore_errors=True)
-    n = len(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    names = sorted(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    n = len(names)
     argv = ["tamtr_torch", "predict", f"model={best}", f"source={JPEG_FIXTURES}", "save=True", f"project={out}"]
     code = ("import json, runpy, sys\n"
             "torch = __import__('torch'); torch.backends.cuda.matmul.allow_tf32 = False\n"
@@ -1791,13 +1915,14 @@ def cli(best: str):
     if res.returncode != 0:
         raise AssertionError(f"cli: exit {res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
     preds = [ln for ln in lines[:-1] if ln.endswith(" detections")]
-    pngs = sorted(p.name for p in (out / "predict").glob("*.png"))
+    plots = sorted(p.name for p in (out / "predict").iterdir())
+    if plots != names or any(imread(out / "predict" / f) is None for f in plots):
+        raise AssertionError(f"cli: wrote {plots}, want readable plots named {names}")
     launches = json.loads(lines[-1])
     want = {k: FORWARD_LAUNCHES.get(k, 0) * n for k in launches}
-    if len(preds) != n or len(pngs) != n or launches != want:
-        raise AssertionError(f"cli: {len(preds)} lines and {len(pngs)} PNGs for {n} images; launches {launches}, "
-                             f"want {want}")
-    print(f"cli: python -m tamtr_torch predict on {n} fixtures: exit 0, {len(preds)} lines, {len(pngs)} PNGs, "
+    if len(preds) != n or launches != want:
+        raise AssertionError(f"cli: {len(preds)} lines for {n} images; launches {launches}, want {want}")
+    print(f"cli: python -m tamtr_torch predict on {n} fixtures: exit 0, {len(preds)} lines, {len(plots)} plots, "
           f"{wall:.1f} s wall (process start, model load, kernels loaded from build/); launches {launches}",
           flush=True)
     return launches
@@ -1838,12 +1963,13 @@ def main() -> int:
     del value, gather_args, pairs, gather_clustered, pairs_clustered
     ops_launches = drive_ops(dev)
     pieces = check_ss2d_pieces(dev)
-    jpeg_ms_per_mp = check_jpeg()
+    jpeg_ms_per_mp, jpeg_encode_ms_per_mp = check_jpeg()
     check_parity(dev)
     check_train_parity(dev)
     launches = serve(dev)
     predict_summary, det, predict_launches = predict_files(dev)
     http_summary, http_launches = serve_http(det)
+    track_summary, track_launches = track(det)
     del det
     train_launches, _, _, b4_calls = train(dev)
     gather_bwd.update(check_gather_bwd_step(b4_calls))
@@ -1871,6 +1997,7 @@ def main() -> int:
              bound_by=max(fwd1, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
              launches_predict_files=predict_launches["ss2d_scan_fwd"],
              launches_serve_http=http_launches["ss2d_scan_fwd"], launches_cli=cli_launches["ss2d_scan_fwd"],
+             launches_track=track_launches["ss2d_scan_fwd"],
              ss2d_pieces=pieces,
              batch=1, ms_b4=sum(r["ms"] for r in fwd4), plain_ms_b4=sum(r["plain_ms"] for r in fwd4),
              bound_ms_b4=sum(r["bound_ms"] for r in fwd4),
@@ -1881,7 +2008,7 @@ def main() -> int:
              launches_train=train_launches["bilinear_gather_fwd"], launches_fit=fit_launches["bilinear_gather_fwd"],
              launches_predict_files=predict_launches["bilinear_gather_fwd"],
              launches_serve_http=http_launches["bilinear_gather_fwd"],
-             launches_cli=cli_launches["bilinear_gather_fwd"],
+             launches_cli=cli_launches["bilinear_gather_fwd"], launches_track=track_launches["bilinear_gather_fwd"],
              **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_train["max_abs_err"],
                                              gather_step["max_abs_err_step"])},
              ms_of="CUDA events over back-to-back calls, as for every kernel; ms_device: the kernel's own "
@@ -1941,8 +2068,9 @@ def main() -> int:
              launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs),
     ]
     print(json.dumps({"fit": fit_summary}))
-    print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary,
-                      "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp}))
+    print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary, "track": track_summary,
+                      "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp,
+                      "jpeg_host_encode_ms_per_megapixel": jpeg_encode_ms_per_mp}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,6 +2,11 @@
 text)`, `TAMTR(...).trainer()`, and `TAMTR(...).train(data=...)` /
 `.val(data=...)`.
 
+`track(source)` runs `Engine.track` over a sequence of frames (arrays,
+image files, a directory or a glob): the file predict's forward on each
+frame, then a tracker ("bytetrack", or "botsort" with gmc_method="none"),
+one `Results` with `track_ids` per frame.
+
 `predict(source)` with a path, a directory or a list of paths runs
 `Engine.predict` (the JAX package's `tamtr_tpu/engine/model.py:predict`):
 each file read, resized as cv2 resizes, the eval forward (three passes with
@@ -129,6 +134,22 @@ class TAMTR:
         """Open-vocabulary retarget for `val`: new class names, with their
         (K, hd) text embeddings or the class-name ones."""
         self._lazy_engine().set_classes(classes, embeddings)
+
+    def track(self, source, tracker: str = "bytetrack", persist: bool = False, conf: float = 0.25,
+              iou: float = 0.7, max_det: int = 300, **overrides) -> List[Results]:
+        """Multi-object tracking over a sequence of frames: an (H, W, 3) BGR
+        uint8 array, a list of sources, a directory, a glob or an image file
+        (`Engine.track`), for this detector's classes, at `imgsz`. `tracker`
+        is "bytetrack" (the default) or "botsort", which needs
+        gmc_method="none" (the camera-motion methods need cv2); the
+        tracker's keys (gmc_method, with_reid, track_buffer, match_thresh,
+        proximity_thresh, appearance_thresh) go in `overrides`. persist=True
+        goes on with the tracker of the previous call. One `Results` per
+        frame, its boxes the tracked ones and `track_ids` their ids."""
+        eng = self._lazy_engine()
+        eng.model = self.model  # the seeded model when none was trained, loaded or set
+        return eng.track(source, tracker=tracker, persist=persist,
+                         **{"imgsz": self.imgsz, "conf": conf, "iou": iou, "max_det": max_det, **overrides})
 
     def _to_batch(self, images: Union[ImageLike, Sequence[ImageLike]]):
         """(B, imgsz, imgsz, 3) float in [0, 1] on the device, and each image's (h, w)."""

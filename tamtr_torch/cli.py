@@ -5,16 +5,21 @@ package's `tamtr_tpu/cli.py`, the reference's `yolo` entry point,
     python -m tamtr_torch detect train model=tamtr.yaml data=visdrone.yaml epochs=300 batch=6
     python -m tamtr_torch detect val model=runs/detect/train/weights/best.pt data=visdrone.yaml
     python -m tamtr_torch detect predict model=runs/detect/train/weights/best.pt source=images/ save=True
+    python -m tamtr_torch detect track model=runs/detect/train/weights/best.pt source=frames/ tracker=bytetrack
     python -m tamtr_torch serve model=runs/detect/train/weights/best.pt port=8000
 
 A positional task and mode, and `key=value` overrides. The model is a model
 config (weights from `seed`) or a checkpoint written by `train`. Everything
 runs on the card unless `device=cpu` is given. `predict` prints one line
-per image; with save=True it writes each plot as a PNG under
-`project/predict` (default `runs/predict`). `serve` serves a checkpoint
-over HTTP (`tamtr_torch.serve`). The modes `track`, `export`, `benchmark`
-and `tune`, the `settings` command and the segment, pose and classify
-tasks are not ported: they exit with a message naming their ROADMAP entry.
+per image; with save=True it writes each plot under `project/predict`
+(default `runs/predict`) with the image's name and format. `track` prints
+one line per frame of an image sequence (a directory, a glob or images):
+its track count and ids; `tracker=botsort` needs `gmc_method=none`.
+`serve` serves a checkpoint over HTTP (`tamtr_torch.serve`). The modes
+`export`, `benchmark` and `tune`, the `settings` command and the segment,
+pose and classify tasks are not ported: they exit with a message naming
+their ROADMAP entry; so do video and stream sources of `predict` and
+`track`.
 """
 
 from __future__ import annotations
@@ -35,7 +40,6 @@ TASK_MODELS = {
 }
 # what is not ported, and where ROADMAP.md queues it
 NOT_PORTED = {
-    "track": "queue A, item 3 (track, with video sources and AnnotatedVideoWriter)",
     "export": "queue A, item 7 (engine/exporter.py and the AutoBackend export formats)",
     "benchmark": "queue A, item 7 (benchmarks.py)",
     "tune": "queue A, item 7 (engine/tuner.py)",
@@ -98,6 +102,13 @@ def main(argv: List[str] | None = None) -> None:
     for what in (mode, task):
         if what in NOT_PORTED:
             raise _not_ported(what)
+    source = ov.get("source")
+    if mode in ("predict", "track") and source is not None:
+        from tamtr_torch.data.loaders import unsupported_source
+
+        why = unsupported_source(str(source))
+        if why:
+            raise SystemExit(f"{why} (ROADMAP.md queue A, item 2)")
     device = ov.pop("device", None)
     if mode == "serve":
         from tamtr_torch.serve import serve_checkpoint
@@ -135,6 +146,12 @@ def main(argv: List[str] | None = None) -> None:
             print(f"{r.path}: {len(r)} detections", flush=True)
             if save:
                 r.save(out / Path(r.path).name)
+    elif mode == "track":
+        source = ov.pop("source", None)
+        if source is None:
+            raise SystemExit("track requires source=<directory, glob or images>")
+        for r in model.track(source, tracker=ov.pop("tracker", "bytetrack"), **ov):
+            print(f"{r.path}: {len(r.track_ids)} tracks {sorted(set(r.track_ids.tolist()))}", flush=True)
 
 
 if __name__ == "__main__":

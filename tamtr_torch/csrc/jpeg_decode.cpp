@@ -1,10 +1,18 @@
-// Baseline JPEG decoding on the host, for the port's image reader
-// (`tamtr_torch/data/image_io.py:decode_jpeg`). The output is what
+// Baseline and progressive JPEG decoding on the host, for the port's image
+// reader (`tamtr_torch/data/image_io.py:decode_jpeg`). The output is what
 // `cv2.imdecode(buf, cv2.IMREAD_COLOR)` gives before it applies the EXIF
 // orientation (done in Python): BGR uint8, bitwise, because every step is
 // libjpeg-turbo's default decompression path, which OpenCV uses:
 //   - Huffman-coded sequential DCT, 8-bit samples (SOF0 / SOF1), interleaved
 //     or not, with restart intervals;
+//   - Huffman-coded progressive DCT (SOF2, `jdphuff.c`): any scan script of
+//     DC first and refinement scans (interleaved or not) and AC first and
+//     refinement scans (one component, with EOB runs), restart intervals;
+//     every scan fills one coefficient buffer, whose blocks then take the
+//     IDCT that a sequential file's blocks take as they are decoded. libjpeg's block smoothing
+//     (`jdcoefct.c:smoothing_ok`) changes the output only while a
+//     component's coefficients 1-9 miss bits (a script cut short): such a
+//     file is refused, so a complete one decodes bitwise;
 //   - dequantization and the accurate integer IDCT (`jidctint.c`,
 //     CONST_BITS 13, PASS1_BITS 2) through the post-IDCT range-limit table
 //     (`jdmaster.c:prepare_range_limit_table`, indices masked to 10 bits);
@@ -17,8 +25,8 @@
 //     range-limit table; a gray image repeated into three channels; an RGB
 //     file (Adobe transform 0, or component ids 'R', 'G', 'B' without JFIF
 //     or Adobe markers) copied.
-// Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files,
-// and CMYK / YCCK, are refused with a message.
+// Arithmetic-coded, lossless, hierarchical and 12-bit files, and CMYK / YCCK,
+// are refused with a message.
 //
 // C entry point: jpeg_decode(data, n, out, h, w, msg, msg_len) writes the
 // (h, w, 3) BGR image into `out` (h, w from the caller's header parse, held
@@ -58,6 +66,10 @@ struct Component {
   int bw, bh;          // blocks in the plane (a whole number of MCUs)
   int dw, dh;          // downsampled width and height (samples that hold image data)
   std::vector<uint8_t> plane;  // (bh * 8) rows of (bw * 8) samples
+  std::vector<int16_t> coef;   // progressive: (bh, bw, 64) quantized coefficients (JCOEF), natural order
+  int coef_bits[64];           // progressive: the Al of the last scan of each coefficient, -1 before any
+  uint16_t q[64];              // the quantization table, latched at the component's first scan
+  bool latched = false;
   int pred = 0;
 };
 
@@ -65,7 +77,8 @@ struct Decoder {
   const uint8_t* d;
   long n, pos = 0;
   int width = 0, height = 0, hmax = 1, vmax = 1, restart = 0;
-  bool jfif = false, adobe = false, have_sof = false;
+  bool jfif = false, adobe = false, have_sof = false, progressive = false;
+  int eobrun = 0;
   int adobe_transform = -1;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
@@ -129,8 +142,9 @@ struct Decoder {
     height = word();
     width = word();
     int nc = byte();
-    if (marker != 0xC0 && marker != 0xC1)
-      throw Fail{2, marker == 0xC2 ? "progressive" : marker == 0xC3 ? "lossless" : marker >= 0xC9 ? "arithmetic-coded" : "hierarchical"};
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2)
+      throw Fail{2, marker == 0xC3 ? "lossless" : marker >= 0xC9 ? "arithmetic-coded" : "hierarchical"};
+    progressive = marker == 0xC2;
     if (precision != 8) throw Fail{2, std::to_string(precision) + "-bit"};
     if (nc != 1 && nc != 3) throw Fail{2, nc == 4 ? "CMYK/YCCK" : std::to_string(nc) + "-component"};
     if (height == 0 || width == 0) throw Fail{2, "zero height (DNL marker)"};
@@ -154,6 +168,8 @@ struct Decoder {
       c.dw = (width * c.h + hmax - 1) / hmax;
       c.dh = (height * c.v + vmax - 1) / vmax;
       c.plane.assign((size_t)c.bw * 8 * c.bh * 8, 0);
+      if (progressive) c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      for (int& b : c.coef_bits) b = -1;
     }
     have_sof = true;
   }
@@ -215,13 +231,16 @@ struct Decoder {
     if (pos + 1 < n) pos += 2;
     hit_marker = false;
     for (auto& c : comps) c.pred = 0;
+    eobrun = 0;
   }
 
+  int16_t* block_of(Component& c, int bx, int by) { return &c.coef[((size_t)by * c.bw + bx) * 64]; }
+
+  // sequential: a whole block into `coef` (zeroed), then through the IDCT
   void decode_block(Component& c, int bx, int by) {
     const Huff& hd = dc[c.td];
     const Huff& ha = ac[c.ta];
-    int32_t coef[64];
-    std::memset(coef, 0, sizeof(coef));
+    int16_t coef[64] = {};
     int s = decode(hd);
     int diff = s ? extend(get_bits(s), s) : 0;
     c.pred += diff;
@@ -237,7 +256,87 @@ struct Decoder {
         k += 15;
       }
     }
-    idct_islow(coef, qt[c.tq], &c.plane[(size_t)by * 8 * c.bw * 8 + (size_t)bx * 8], c.bw * 8);
+    idct_block(c, coef, bx, by);
+  }
+
+  static void idct_block(Component& c, const int16_t* coef, int bx, int by) {
+    idct_islow(coef, c.q, &c.plane[(size_t)by * 8 * c.bw * 8 + (size_t)bx * 8], c.bw * 8);
+  }
+
+  // jdphuff.c: decode_mcu_DC_first / decode_mcu_DC_refine, one block
+  void decode_dc(Component& c, int bx, int by, int ah, int al) {
+    int16_t* coef = block_of(c, bx, by);
+    if (ah == 0) {
+      int s = decode(dc[c.td]);
+      c.pred += s ? extend(get_bits(s), s) : 0;
+      coef[0] = (int16_t)((uint32_t)c.pred << al);
+    } else if (get_bits(1)) {
+      coef[0] = (int16_t)(coef[0] | (1 << al));
+    }
+  }
+
+  // jdphuff.c: decode_mcu_AC_first, one block of a one-component scan
+  void decode_ac_first(Component& c, int bx, int by, int ss, int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    int16_t* coef = block_of(c, bx, by);
+    const Huff& t = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode(t), r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        coef[kNatural[k]] = (int16_t)((uint32_t)extend(get_bits(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += get_bits(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c: decode_mcu_AC_refine, one block of a one-component scan
+  void decode_ac_refine(Component& c, int bx, int by, int ss, int se, int al) {
+    int16_t* coef = block_of(c, bx, by);
+    const Huff& t = ac[c.ta];
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    auto refine = [&](int16_t& v) {
+      if (get_bits(1) && (v & p1) == 0) v = (int16_t)(v + (v >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode(t), r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = get_bits(1) ? p1 : m1;  // the size of a new coefficient is 1
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += get_bits(r);
+          break;  // the rest of the block is the EOB run's
+        }
+        do {  // skip r zero coefficients, refining the nonzero ones passed
+          int16_t& v = coef[kNatural[k]];
+          if (v != 0) {
+            refine(v);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) coef[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& v = coef[kNatural[k]];
+        if (v != 0) refine(v);
+      }
+      --eobrun;
+    }
   }
 
   // jidctint.c: jpeg_idct_islow
@@ -249,13 +348,13 @@ struct Decoder {
     if (j < 896) return 0;
     return (uint8_t)(j - 896);
   }
-  static void idct_islow(const int32_t* in, const uint16_t* q, uint8_t* out, int stride) {
+  static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
     const int CB = 13, P1 = 2;
     const int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
                   F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
     int ws[64];
     for (int c = 0; c < 8; ++c) {
-      const int32_t* ip = in + c;
+      const int16_t* ip = in + c;
       const uint16_t* qp = q + c;
       int* wp = ws + c;
       if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
@@ -364,14 +463,39 @@ struct Decoder {
       if (!c) throw Fail{1, "scan names an unknown component"};
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
-        throw Fail{1, "scan uses an undefined Huffman table"};
-      if (!qt_defined[c->tq]) throw Fail{1, "component uses an undefined quantization table"};
+      if (c->td > 3 || c->ta > 3) throw Fail{1, "bad Huffman table id"};
       sc.push_back(c);
     }
-    int ss = byte(), se = byte(), ahal = byte();
-    if (ss != 0 || se != 63 || ahal != 0) throw Fail{2, "progressive (spectral selection)"};
+    int ss = byte(), se = byte(), ahal = byte(), ah = ahal >> 4, al = ahal & 15;
+    if (!progressive && (ss != 0 || se != 63 || ahal != 0)) throw Fail{1, "sequential scan with spectral selection"};
+    if (progressive && (ss > se || se > 63 || (ss == 0 && se != 0) || (ss > 0 && ns != 1) || al > 13 ||
+                        (ah && ah != al + 1)))
+      throw Fail{1, "bad progressive scan parameters"};
+    for (auto* c : sc) {
+      bool need_dc = !progressive || (ss == 0 && ah == 0), need_ac = !progressive || ss > 0;
+      if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
+        throw Fail{1, "scan uses an undefined Huffman table"};
+      if (!qt_defined[c->tq]) throw Fail{1, "component uses an undefined quantization table"};
+      if (!c->latched) {
+        std::memcpy(c->q, qt[c->tq], sizeof(c->q));
+        c->latched = true;
+      }
+      if (progressive)
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+    }
+    // one block of this scan
+    auto block = [&](Component& c, int bx, int by) {
+      if (!progressive)
+        decode_block(c, bx, by);
+      else if (ss == 0)
+        decode_dc(c, bx, by, ah, al);
+      else if (ah == 0)
+        decode_ac_first(c, bx, by, ss, se, al);
+      else
+        decode_ac_refine(c, bx, by, ss, se, al);
+    };
     for (auto* c : sc) c->pred = 0;
+    eobrun = 0;
     bits = 0;
     nbits = 0;
     hit_marker = false;
@@ -385,7 +509,7 @@ struct Decoder {
             restart_marker();
             left = restart;
           }
-          decode_block(c, bx, by);
+          block(c, bx, by);
           --left;
         }
     } else {
@@ -398,7 +522,7 @@ struct Decoder {
           }
           for (auto* c : sc)
             for (int v = 0; v < c->v; ++v)
-              for (int h = 0; h < c->h; ++h) decode_block(*c, mx * c->h + h, my * c->v + v);
+              for (int h = 0; h < c->h; ++h) block(*c, mx * c->h + h, my * c->v + v);
           --left;
         }
     }
@@ -453,6 +577,27 @@ struct Decoder {
       pos = end;
     }
     if (!scanned) throw Fail{1, "no scan"};
+    if (!progressive) return;
+    if (smoothing_ok()) throw Fail{2, "progressive with coefficient bits missing (libjpeg's block smoothing)"};
+    for (auto& c : comps) {
+      if (!c.latched) std::memset(c.q, 0, sizeof(c.q));  // in no scan: jddctmgr.c's zero multipliers
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx) idct_block(c, block_of(c, bx, by), bx, by);
+    }
+  }
+
+  // jdcoefct.c: smoothing_ok after the last scan (libjpeg-turbo 2.1 on: the
+  // DC and the first 9 AC coefficients in zigzag order); true where libjpeg
+  // would smooth the blocks
+  bool smoothing_ok() const {
+    bool useful = false;
+    for (const auto& c : comps) {
+      for (int k = 0; k < 10; ++k)
+        if (!c.latched || c.q[kNatural[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
   }
 
   // ---- upsampling to full size and colour conversion

@@ -3,14 +3,14 @@
 // serial along the row, which numpy cannot vectorise; this loop reads all
 // five filter types.
 //
-// raw: h rows of (1 filter byte + w * bpp bytes), as inflated from IDAT.
-// out: h * w * bpp bytes. Returns 0, or 1 + the row whose filter byte is
-// not 0-4.
+// raw: h rows of (1 filter byte + `stride` bytes), as inflated from IDAT (or
+// one Adam7 pass of it). `bpp` is the bytes per complete pixel, at least 1
+// (the filters' left neighbour). out: h * stride bytes. Returns 0, or 1 +
+// the row whose filter byte is not 0-4.
 #include <cstdint>
 #include <cstdlib>
 
-extern "C" int png_unfilter(const uint8_t* raw, uint8_t* out, int h, int w, int bpp) {
-  const long stride = (long)w * bpp;
+extern "C" int png_unfilter(const uint8_t* raw, uint8_t* out, int h, long stride, int bpp) {
   for (int r = 0; r < h; ++r) {
     const uint8_t* f = raw + r * (stride + 1);
     const int type = f[0];

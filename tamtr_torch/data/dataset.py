@@ -14,7 +14,7 @@ the JAX package's `tamtr_tpu/data/dataset.py`, detect task).
   bi))`, so the batches are the JAX package's and do not depend on the
   worker count.
 
-Images are read by `data/image_io.py` (PNG, baseline JPEG, 24-bit BMP, `.npy`).
+Images are read by `data/image_io.py` (PNG, JPEG, BMP, `.npy`).
 `ClassificationDataset` is not ported.
 """
 

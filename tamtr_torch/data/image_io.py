@@ -1,5 +1,5 @@
-"""Image files without cv2 or PIL: PNG, baseline JPEG, 24-bit BMP and
-`.npy` in, PNG out.
+"""Image files without cv2 or PIL: PNG, JPEG (baseline and progressive), BMP
+and `.npy` in; JPEG, PNG and BMP out.
 
 `imread` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns for the
 files it reads: (H, W, 3) uint8 in BGR order (a gray image repeated into
@@ -8,23 +8,36 @@ or empty. So the dataset and augmentation code stays a line-for-line copy of
 the JAX package's, which reads through cv2 (`tamtr_tpu/utils/patches.py`).
 The format is told by the file's first bytes, as cv2 tells it.
 
-PNG: non-interlaced, 8-bit gray, RGB or RGBA. The IDAT stream is inflated
+PNG: every standard mode, as cv2 reads it through libpng: gray at 1, 2,
+4, 8 and 16 bits (the low depths scaled to 8 bits), gray + alpha, RGB,
+RGBA, palette (PLTE expanded, tRNS dropped), 16-bit samples cut to their
+high byte, alpha dropped, Adam7 interlace. The IDAT stream is inflated
 with `zlib`; rows are unfiltered by `csrc/png_unfilter.cpp` (all five
-filter types; cv2's writer uses every one), built by the host C++ compiler
-on first use.
+filter types), built by the host C++ compiler on first use.
 
 JPEG: `csrc/jpeg_decode.cpp`, built the same way, decodes Huffman-coded
-sequential 8-bit files (gray or YCbCr, any integral sampling, restart
-intervals) bitwise as `cv2.imdecode` does (libjpeg-turbo's defaults: the
-accurate integer IDCT, fancy upsampling, fixed-point YCbCr -> RGB); the EXIF
-orientation (APP1 tag 0x0112) is applied here, as `cv2.imdecode` applies it.
-Progressive, arithmetic-coded, lossless, hierarchical, 12-bit and CMYK files
-raise NotImplementedError naming the file and the mode. `jpeg_shape` reads
-the frame header and the orientation tag without decoding.
+sequential and progressive 8-bit files (gray or YCbCr, any integral
+sampling, restart intervals) bitwise as `cv2.imdecode` does (libjpeg-turbo's
+defaults: the accurate integer IDCT, fancy upsampling, fixed-point YCbCr ->
+RGB); the EXIF orientation (APP1 tag 0x0112) is applied here, as
+`cv2.imdecode` applies it. Arithmetic-coded, lossless, hierarchical, 12-bit
+and CMYK files, and a progressive file whose scans leave coefficient bits
+missing (libjpeg smooths those blocks), raise NotImplementedError naming
+the file and the mode. `jpeg_shape` reads the frame header and the
+orientation tag without decoding.
 
-BMP: uncompressed 24-bit (cv2's writer for colour images). WebP and TIFF
-raise NotImplementedError. `imwrite_png` writes filter-0 rows, which cv2
-reads back bitwise.
+BMP: what OpenCV's BMP reader takes from a BITMAPINFOHEADER or later:
+1, 4 and 8-bit palette, 16-bit 555 and 565, 24-bit, 32-bit (alpha
+dropped), RLE4 and RLE8, bottom-up and top-down rows, each transcribed from
+OpenCV (`grfmt_bmp.cpp`) and held bitwise to it. WebP and TIFF raise
+NotImplementedError.
+
+Out: `imencode(ext, img)` / `imwrite(path, img)` choose the format by the
+suffix, as cv2 does. `.jpg`, `.jpeg` and `.jpe` go to `encode_jpeg`
+(`csrc/jpeg_encode.cpp`), whose bytes equal `cv2.imencode`'s at any
+quality; `.bmp` to `encode_bmp`, byte-equal to cv2's; `.png` to
+`encode_png`, filter-0 rows that cv2 reads back bitwise (its
+bytes are not cv2's).
 """
 
 from __future__ import annotations
@@ -39,7 +52,11 @@ from typing import BinaryIO, Dict, Optional, Tuple
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG color type -> samples per pixel: gray, RGB, RGBA
+# PNG color type -> samples per pixel, and the bit depths the type allows
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
@@ -52,14 +69,13 @@ def _chunks(data: bytes):
         p += 12 + n
 
 
-def _ihdr(body: bytes) -> Tuple[int, int, int]:
-    """(h, w, samples per pixel) of an IHDR chunk this reader supports."""
-    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f"PNG with bit depth {depth}, color type {ctype}, interlace {interlace}: only "
-            "non-interlaced 8-bit gray, RGB and RGBA are decoded")
-    return h, w, _CHANNELS[ctype]
+def _ihdr(body: bytes) -> Tuple[int, int, int, int, int]:
+    """(h, w, bit depth, color type, interlace) of a valid IHDR chunk."""
+    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body[:13])
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or interlace > 1 or not w or not h:
+        raise ValueError(f"PNG with bit depth {depth}, color type {ctype}, interlace {interlace}, size {w}x{h}: "
+                         "not a valid PNG header")
+    return h, w, depth, ctype, interlace
 
 
 def png_shape(path: str | Path) -> Tuple[int, int]:
@@ -73,36 +89,75 @@ def png_shape(path: str | Path) -> Tuple[int, int]:
     return h, w
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """(H, W, C) uint8 in the file's channel order (gray, RGB or RGBA)."""
+def _png_samples(raw: memoryview, h: int, w: int, depth: int, c: int) -> np.ndarray:
+    """(h, w, c) samples of h filtered rows of w pixels at `depth` bits:
+    uint8, the 16-bit ones cut to their high byte (libpng's strip_16)."""
     from tamtr_torch.kernels import _build
 
-    shape, idat = None, []
+    stride = (w * c * depth + 7) // 8
+    if len(raw) < h * (stride + 1):
+        raise ValueError(f"PNG data holds {len(raw)} bytes, expected {h * (stride + 1)}")
+    rows = np.empty((h, stride), np.uint8)
+    fn = _build.load("png_unfilter").png_unfilter
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    bad = fn(bytes(raw[:h * (stride + 1)]), rows.ctypes.data, h, stride, max(1, c * depth // 8))
+    if bad:
+        raise ValueError(f"PNG row {bad - 1} has an unknown filter type")
+    if depth == 16:
+        return np.ascontiguousarray(rows.reshape(h, w, c, 2)[..., 0])
+    if depth == 8:
+        return rows.reshape(h, w, c)
+    bits = np.unpackbits(rows, axis=1)[:, :w * c * depth].reshape(h, w * c, depth)
+    vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
+    return vals.reshape(h, w, c)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 BGR, bitwise `cv2.imdecode(data, cv2.IMREAD_COLOR)`
+    (libpng with OpenCV's transforms: palette and gray expanded, 16 bits cut
+    to 8, alpha and tRNS dropped)."""
+    header, palette, idat = None, None, []
     for tag, body in _chunks(data):
         if tag == b"IHDR":
-            shape = _ihdr(body)
+            header = _ihdr(body)
+        elif tag == b"PLTE":
+            palette = np.zeros((256, 3), np.uint8)
+            n = min(len(body) // 3, 256)
+            palette[:n] = np.frombuffer(body, np.uint8, 3 * n).reshape(n, 3)
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
             break
-    if shape is None:
+    if header is None:
         raise ValueError("PNG without an IHDR chunk")
-    h, w, c = shape
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (w * c + 1):
-        raise ValueError(f"PNG data holds {len(raw)} bytes, expected {h * (w * c + 1)}")
-    out = np.empty((h, w, c), np.uint8)
-    fn = _build.load("png_unfilter").png_unfilter
-    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    bad = fn(raw, out.ctypes.data, h, w, c)
-    if bad:
-        raise ValueError(f"PNG row {bad - 1} has an unknown filter type")
-    return out
+    h, w, depth, ctype, interlace = header
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without a PLTE chunk")
+    c = _CHANNELS[ctype]
+    raw = memoryview(zlib.decompress(b"".join(idat)))
+    if not interlace:
+        px = _png_samples(raw, h, w, depth, c)
+    else:
+        px = np.empty((h, w, c), np.uint8)
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no rows, not even filter bytes
+            px[y0::dy, x0::dx] = _png_samples(raw, ph, pw, depth, c)
+            raw = raw[ph * ((pw * c * depth + 7) // 8 + 1):]
+    if ctype == 3:
+        return np.ascontiguousarray(palette[px[..., 0]][..., ::-1])
+    if ctype in (0, 4):
+        gray = px[..., 0]
+        if depth < 8:  # png_set_expand_gray_1_2_4_to_8: 1 -> 255, 2 -> 85, 4 -> 17 per step
+            gray = gray * np.uint8(255 // ((1 << depth) - 1))
+        return np.repeat(gray[..., None], 3, axis=2)
+    return np.ascontiguousarray(px[..., 2::-1])  # RGB(A) -> BGR
 
 
 # SOFn markers of the modes `decode_jpeg` refuses
-_JPEG_MODES = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical progressive",
+_JPEG_MODES = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical progressive",
                0xC7: "hierarchical lossless", 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
                0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
                0xCE: "arithmetic-coded hierarchical progressive", 0xCF: "arithmetic-coded hierarchical lossless"}
@@ -158,11 +213,11 @@ def _jpeg_header(f: BinaryIO, name: str) -> Dict[str, int]:
         if marker == 0xE1 and not seen_app1:
             info["orientation"], seen_app1 = exif_orientation(body), True
         elif marker == 0xCC:
-            raise NotImplementedError(f"{name}: arithmetic-coded JPEG is not decoded (baseline Huffman only)")
+            raise NotImplementedError(f"{name}: arithmetic-coded JPEG is not decoded (Huffman-coded only)")
         elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8):
             if marker in _JPEG_MODES:
                 raise NotImplementedError(f"{name}: {_JPEG_MODES[marker]} JPEG is not decoded "
-                                          "(baseline Huffman only)")
+                                          "(Huffman-coded baseline and progressive only)")
             precision, h, w, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise NotImplementedError(f"{name}: {precision}-bit JPEG is not decoded (8-bit only)")
@@ -219,17 +274,149 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return apply_orientation(out, info["orientation"])
 
 
+def _bmp_fill(out: np.ndarray, pos: int, line_end: int, y: int, count: int, w: int, h: int,
+              colour: np.ndarray) -> Tuple[int, int, int]:
+    """OpenCV's `FillUniColor` over the flat (h * w, 3) rows in decode order:
+    `count` pixels of `colour` from `pos`, wrapping to the next row at each
+    row end (at least one wrap check, even for count 0)."""
+    while True:
+        end = min(pos + count, line_end)
+        count -= end - pos
+        out[pos:end] = colour
+        pos = end
+        if pos >= line_end:
+            line_end += w
+            pos = line_end - w
+            y += 1
+            if y >= h:
+                break
+        if count <= 0:
+            break
+    return pos, line_end, y
+
+
+def _bmp_rle(data: bytes, at: int, w: int, h: int, palette: np.ndarray, four: bool) -> np.ndarray:
+    """(h * w, 3) BGR rows in decode order of an RLE8 or RLE4 stream, as
+    OpenCV's `BmpDecoder::readData` decodes it: skipped pixels (end of line,
+    delta, end of bitmap) take palette entry 0, an RLE4 delta moves along
+    the row only, a run past its row's end stops the decode."""
+    out = np.zeros((h * w, 3), np.uint8)
+    pos, line_end, y, ended_row = 0, w, 0, 0
+    n = len(data)
+    while at + 2 <= n:
+        count, code = data[at], data[at + 1]
+        at += 2
+        if count:  # encoded mode: a run of one index (RLE4: two alternating)
+            if pos + count > line_end:
+                break
+            if four:
+                out[pos:pos + count:2] = palette[code >> 4]
+                out[pos + 1:pos + count:2] = palette[code & 15]
+                pos += count
+            else:
+                prev_y = y
+                pos, line_end, y = _bmp_fill(out, pos, line_end, y, count, w, h, palette[code])
+                ended_row = y - prev_y
+                if y >= h:
+                    break
+        elif code > 2:  # absolute mode: `code` indices, padded to a word
+            if pos + code > line_end:
+                break
+            if four:
+                size = (((code + 1) >> 1) + 1) & ~1
+                packed = np.frombuffer(data, np.uint8, min(size, n - at), at)
+                idx = np.stack([packed >> 4, packed & 15], 1).reshape(-1)[:code]
+            else:
+                size = (code + 1) & ~1
+                idx = np.frombuffer(data, np.uint8, min(code, n - at), at)
+            if len(idx) < code:
+                break
+            out[pos:pos + code] = palette[idx]
+            pos += code
+            at += size
+            ended_row = 0
+        elif four:  # end of line, end of bitmap (rest of the row), delta (dx only)
+            shift = line_end - pos
+            if code == 2:
+                shift = data[at] if at < n else 0
+                at += 2
+            pos, line_end, y = _bmp_fill(out, pos, line_end, y, shift, w, h, palette[0])
+            if y >= h:
+                break
+        else:  # end of line (none right after a run that ended the row), end of bitmap, delta
+            shift, rows = line_end - pos, h - y
+            if code or not ended_row or shift < w:
+                if code == 2:
+                    shift, rows = (data[at], data[at + 1]) if at + 1 < n else (0, 0)
+                    at += 2
+                if code:
+                    shift += rows * w
+                pos, line_end, y = _bmp_fill(out, pos, line_end, y, shift, w, h, palette[0])
+                if y >= h:
+                    break
+            ended_row = 0
+    return out
+
+
 def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W, 3) uint8 BGR of an uncompressed 24-bit BMP, as cv2 reads it
-    (rows bottom-up unless the height is negative, each padded to 4 bytes)."""
-    offset, = struct.unpack("<I", data[10:14])
-    w, h, planes, bpp, compression = struct.unpack("<iiHHI", data[18:34])
-    if bpp != 24 or compression != 0:
-        raise NotImplementedError(f"{name}: {bpp}-bit BMP with compression {compression} is not decoded "
-                                  "(uncompressed 24-bit only)")
-    stride = (w * 3 + 3) // 4 * 4
-    rows = np.frombuffer(data, np.uint8, stride * abs(h), offset).reshape(abs(h), stride)[:, :w * 3]
-    img = rows.reshape(abs(h), w, 3)
+    """(H, W, 3) uint8 BGR, bitwise `cv2.imdecode(data, cv2.IMREAD_COLOR)`,
+    for a BMP with a BITMAPINFOHEADER or a later header: 1, 4 or 8-bit
+    palette, 16-bit (555, or 565 by its bit fields; each field shifted to the
+    top of its byte, as OpenCV widens it), 24-bit, 32-bit (the fourth byte
+    dropped, any bit fields ignored), RLE8 and RLE4; rows bottom-up unless
+    the height is negative, each padded to 4 bytes. The bit fields and the
+    palette are read after the header, where OpenCV reads them."""
+    if len(data) < 54:
+        raise ValueError(f"{name}: BMP shorter than its headers")
+    offset, size = struct.unpack("<II", data[10:18])
+    if size < 36:
+        raise NotImplementedError(f"{name}: BMP with a {size}-byte (OS/2) header is not decoded")
+    w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
+    (colours,) = struct.unpack("<I", data[46:50])
+    at = 14 + size
+    ok = w > 0 and h != 0 and (
+        (bpp in (1, 4, 8, 24, 32) and comp == 0) or (bpp in (16, 32) and comp in (0, 3))
+        or (bpp == 4 and comp == 2) or (bpp == 8 and comp == 1))
+    if not ok:
+        raise NotImplementedError(f"{name}: {bpp}-bit BMP with compression {comp} is not decoded")
+    palette = np.zeros((256, 3), np.uint8)
+    if bpp <= 8:
+        if colours > 256:
+            raise ValueError(f"{name}: BMP palette of {colours} colours")
+        k = colours or 1 << bpp
+        entries = np.frombuffer(data, np.uint8, 4 * k, at).reshape(k, 4)
+        palette[:k] = entries[:, :3]
+    elif bpp == 16:
+        if comp == 3:
+            red, green, blue = struct.unpack("<III", data[at:at + 12])
+            if (red, green, blue) == (0x7C00, 0x3E0, 0x1F):
+                bpp = 15
+            elif (red, green, blue) != (0xF800, 0x7E0, 0x1F):
+                raise NotImplementedError(f"{name}: 16-bit BMP with bit fields {red:#x}, {green:#x}, {blue:#x} "
+                                          "is not decoded (555 and 565 only)")
+        else:
+            bpp = 15
+    ah = abs(h)
+    if comp in (1, 2):
+        img = _bmp_rle(data, offset, w, ah, palette, four=comp == 2).reshape(ah, w, 3)
+    else:
+        pitch = ((w * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & -4
+        rows = np.frombuffer(data, np.uint8, pitch * ah, offset).reshape(ah, pitch)
+        if bpp == 1:
+            img = palette[np.unpackbits(rows, axis=1)[:, :w]]
+        elif bpp == 4:
+            img = palette[np.stack([rows >> 4, rows & 15], 2).reshape(ah, -1)[:, :w]]
+        elif bpp == 8:
+            img = palette[rows[:, :w]]
+        elif bpp in (15, 16):
+            t = rows[:, :2 * w].copy().view("<u2").astype(np.int32)
+            if bpp == 15:  # icvCvt_BGR5552BGR_8u_C2C3R
+                img = np.stack([t << 3, (t >> 2) & ~7, (t >> 7) & ~7], -1) & 0xFF
+            else:  # icvCvt_BGR5652BGR_8u_C2C3R
+                img = np.stack([t << 3, (t >> 3) & ~3, (t >> 8) & ~7], -1) & 0xFF
+            img = img.astype(np.uint8)
+        else:
+            img = rows[:, :w * bpp // 8].reshape(ah, w, bpp // 8)[..., :3]
     return np.ascontiguousarray(img[::-1] if h > 0 else img)
 
 
@@ -251,12 +438,9 @@ def imread(filename: str | Path) -> Optional[np.ndarray]:
     if data[:2] == b"BM":
         return decode_bmp(data, str(path))
     if data[:8] != PNG_SIGNATURE:
-        raise NotImplementedError(f"{path}: only PNG, baseline JPEG, 24-bit BMP and .npy are decoded "
+        raise NotImplementedError(f"{path}: only PNG, JPEG, BMP and .npy are decoded "
                                   f"(not WebP, TIFF or other formats)")
-    img = decode_png(data)
-    if img.shape[2] == 1:
-        return np.repeat(img, 3, axis=2)
-    return np.ascontiguousarray(img[..., 2::-1])  # RGB(A) -> BGR
+    return decode_png(data)
 
 
 def image_shape(path: str | Path) -> Tuple[int, int]:
@@ -273,11 +457,17 @@ def image_shape(path: str | Path) -> Tuple[int, int]:
     return img.shape[:2]
 
 
-def imwrite_png(filename: str | Path, img: np.ndarray, level: int = 6) -> None:
-    """Write (H, W) gray or (H, W, 3) BGR uint8 as an 8-bit PNG (filter 0)."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(f"imwrite_png takes (H, W) or (H, W, 3) uint8, got {img.shape} {img.dtype}")
+def _image_u8(img: np.ndarray, what: str) -> np.ndarray:
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3) \
+            or not img.shape[0] or not img.shape[1]:
+        raise ValueError(f"{what} takes (H, W) or (H, W, 3) uint8, got {img.shape} {img.dtype}")
+    return img
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """(H, W) gray or (H, W, 3) BGR uint8 as an 8-bit PNG (filter-0 rows)."""
+    img = _image_u8(img, "encode_png")
     h, w = img.shape[:2]
     rows = img if img.ndim == 2 else img[..., ::-1]  # BGR -> RGB
     raw = np.zeros((h, 1 + rows[0].size), np.uint8)
@@ -287,6 +477,72 @@ def imwrite_png(filename: str | Path, img: np.ndarray, level: int = 6) -> None:
         return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
 
     ctype = 0 if img.ndim == 2 else 2
-    png = (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + chunk(b"IEND", b""))
-    Path(filename).write_bytes(png)
+    return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + chunk(b"IEND", b""))
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W) gray or (H, W, 3) BGR uint8 as a baseline JPEG: the bytes of
+    `cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality])` (4:2:0
+    for colour, one component for gray; `csrc/jpeg_encode.cpp`)."""
+    from tamtr_torch.kernels import _build
+
+    img = _image_u8(img, "encode_jpeg")
+    if img.shape[0] > 65535 or img.shape[1] > 65535:
+        raise ValueError(f"encode_jpeg: {img.shape[:2]} is larger than JPEG's 65535 x 65535")
+    fn = _build.load("jpeg_encode").jpeg_encode
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_long]
+    fn.restype = ctypes.c_long
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else 3
+    out = np.empty(img.size // 2 + 2048, np.uint8)
+    n = fn(img.ctypes.data, h, w, c, int(quality), out.ctypes.data, out.size)
+    if n > out.size:
+        out = np.empty(n, np.uint8)
+        n = fn(img.ctypes.data, h, w, c, int(quality), out.ctypes.data, out.size)
+    if n < 0:
+        raise ValueError(f"encode_jpeg: bad image {img.shape}")
+    return out[:n].tobytes()
+
+
+def encode_bmp(img: np.ndarray) -> bytes:
+    """(H, W) gray or (H, W, 3) BGR uint8 as OpenCV's BMP writer writes it:
+    a 40-byte header, 8 bits with a gray palette or 24 bits, rows bottom-up
+    padded to 4 bytes."""
+    img = _image_u8(img, "encode_bmp")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else 3
+    step = (w * c + 3) & -4
+    head = 14 + 40 + (1024 if c == 1 else 0)
+    out = bytearray(b"BM" + struct.pack("<III", step * h + head, 0, head))
+    out += struct.pack("<IiiHHIIIIII", 40, w, h, 1, 8 * c, 0, 0, 0, 0, 0, 0)
+    if c == 1:  # FillGrayPalette: (i, i, i, 0)
+        palette = np.zeros((256, 4), np.uint8)
+        palette[:, :3] = np.arange(256, dtype=np.uint8)[:, None]
+        out += palette.tobytes()
+    rows = np.zeros((h, step), np.uint8)
+    rows[:, :w * c] = img.reshape(h, w * c)
+    return bytes(out) + rows[::-1].tobytes()
+
+
+def imencode(ext: str, img: np.ndarray, quality: int = 95) -> bytes:
+    """The bytes of `img` ((H, W) gray or (H, W, 3) BGR uint8) in the format
+    of `ext` (".jpg", ".jpeg", ".jpe", ".png" or ".bmp", as cv2 tells it),
+    `quality` for JPEG; another suffix raises NotImplementedError naming it."""
+    ext = ext.lower() if ext.startswith(".") else "." + ext.lower()
+    if ext in (".jpg", ".jpeg", ".jpe"):
+        return encode_jpeg(img, quality)
+    if ext == ".png":
+        return encode_png(img)
+    if ext == ".bmp":
+        return encode_bmp(img)
+    raise NotImplementedError(f"writing {ext!r} images is not ported (JPEG, PNG and BMP only)")
+
+
+def imwrite(filename: str | Path, img: np.ndarray, quality: int = 95) -> bool:
+    """Write `img` at `filename` in the format its suffix names (`imencode`),
+    through Python's file API, so any path works (the JAX package's
+    `utils/patches.py:imwrite`); True once written."""
+    Path(filename).write_bytes(imencode(Path(filename).suffix, img, quality))
+    return True

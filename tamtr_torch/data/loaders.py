@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import glob
 from pathlib import Path
-from typing import Any, Generator, Tuple
+from typing import Any, Generator, Optional, Tuple
 
 import numpy as np
 
@@ -20,6 +20,19 @@ from tamtr_torch.data.image_io import imread
 
 IMG_EXTS = {".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp"}
 VID_EXTS = {".avi", ".mp4", ".mkv", ".mov", ".wmv", ".m4v", ".mpg", ".mpeg", ".webm"}
+
+
+def unsupported_source(source: Any) -> Optional[str]:
+    """Why `source` cannot be read by the port (a webcam index, a stream
+    URL, a screen or a video file: each needs a decoder or a grabber the
+    port does not have), or None for an image source."""
+    if isinstance(source, int) or (isinstance(source, str) and (source.isdigit() or "://" in source)):
+        return f"source {source!r}: webcam and stream sources need a video decoder, which tamtr_torch does not have"
+    if isinstance(source, str) and source.split()[0:1] == ["screen"]:
+        return f"source {source!r}: screen capture is not ported"
+    if isinstance(source, (str, Path)) and Path(source).suffix.lower() in VID_EXTS:
+        return f"{source}: video sources need a video decoder, which tamtr_torch does not have"
+    return None
 
 
 def load_inference_source(source: Any, vid_stride: int = 1,
@@ -34,14 +47,10 @@ def load_inference_source(source: Any, vid_stride: int = 1,
         for s in source:
             yield from load_inference_source(s, vid_stride, stream_buffer)
         return
-    if isinstance(source, int) or (isinstance(source, str) and (source.isdigit() or "://" in source)):
-        raise NotImplementedError(f"source {source!r}: webcam and stream sources need a video decoder, "
-                                  "which tamtr_torch does not have")
-    if isinstance(source, str) and source.split()[0:1] == ["screen"]:
-        raise NotImplementedError(f"source {source!r}: screen capture is not ported")
+    why = unsupported_source(source)
+    if why:
+        raise NotImplementedError(why)
     p = Path(source)
-    if p.suffix.lower() in VID_EXTS:
-        raise NotImplementedError(f"{p}: video sources need a video decoder, which tamtr_torch does not have")
     if p.is_dir():
         for f in sorted(p.rglob("*")):
             if f.suffix.lower() in IMG_EXTS:

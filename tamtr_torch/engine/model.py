@@ -33,7 +33,7 @@ from tamtr_torch.config import Config, get_cfg, load_data_yaml
 from tamtr_torch.data.dataset import AugConfig, DetectionDataset, Loader
 from tamtr_torch.data.image_io import imread
 from tamtr_torch.data.imgproc import resize_linear
-from tamtr_torch.data.loaders import VID_EXTS
+from tamtr_torch.data.loaders import load_inference_source, unsupported_source
 from tamtr_torch.data.text import TextEmbedder, class_text_embeddings
 from tamtr_torch.engine.checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
 from tamtr_torch.nn.graph import TAMTRModel
@@ -106,6 +106,7 @@ class Engine:
         self.cfg: Optional[Config] = None
         self.callbacks = Callbacks()
         self.timing: Dict[str, List[float]] = {}
+        self._tracker = None  # `track`'s, kept across calls with persist=True
 
     # ------------------------------------------------------------------ train
     def train(self, **overrides: Any) -> Dict[str, float]:
@@ -344,15 +345,15 @@ class Engine:
         (imgsz; imgsz x 0.83, flipped; imgsz x 0.67, both snapped to 32) and
         a class-offset NMS over the `max_det` x 3 padded rows merges them.
         Boxes are in the image's own pixels. Writes nothing unless
-        save=True: then each plot is a PNG under `project/name`."""
+        save=True: then each plot goes under `project/name` with the
+        source's own name and format."""
         cfg = get_cfg(self.cfg, overrides=overrides)
         cfg.save = bool(overrides.get("save", False))
         if self.model is None or self.txt_feats is None:
             raise RuntimeError("no weights or classes: train, load or set a model and set_classes first")
-        if isinstance(source, int) or (isinstance(source, str) and (
-                source.isdigit() or Path(source).suffix.lower() in VID_EXTS)):
-            raise NotImplementedError(f"source {source!r}: video and stream sources need a video decoder, "
-                                      "which tamtr_torch does not have")
+        why = unsupported_source(source)
+        if why:
+            raise NotImplementedError(why)
         if isinstance(source, (str, Path)):
             p = Path(source)
             paths = (sorted(str(f) for f in p.rglob("*") if f.suffix.lower() in
@@ -361,9 +362,8 @@ class Engine:
         else:
             paths = [str(x) for x in source]
         model = self.model.eval()
-        dev = next(model.parameters()).device
         conf = cfg.conf if cfg.conf is not None else 0.25
-        txt = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=dev)
+        txt = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=next(model.parameters()).device)
         # TTA (the reference's `_predict_augment`, `tasks.py:272-307`): scales
         # 1 / 0.83 / 0.67 snapped to the stride grid, the middle one flipped
         passes = [(cfg.imgsz, False)]
@@ -378,19 +378,13 @@ class Engine:
             oh, ow = im0.shape[:2]
             all_b, all_s, all_l = [], [], []
             for sz, flip in passes:
-                img = resize_linear(im0, (sz, sz))[..., ::-1].astype(np.float32) / 255.0
-                if flip:
-                    img = img[:, ::-1]
-                pred = model(torch.from_numpy(np.ascontiguousarray(img)[None]).to(dev), txt)["pred"]
-                boxes, scores, labels, valid, _ = (t.cpu().numpy() for t in postprocess_predictions(
-                    pred, conf, cfg.iou, cfg.max_det, classes=cfg.classes, single_cls=cfg.single_cls))
-                sel = valid[0] & (scores[0] > 0)
-                b = boxes[0][sel]
+                b, s, lab = self._detect(model, im0, sz, txt, conf, cfg.iou, cfg.max_det, flip=flip,
+                                         classes=cfg.classes, single_cls=cfg.single_cls)
                 if flip:  # un-flip normalized xyxy
                     b = np.stack([1 - b[:, 2], b[:, 1], 1 - b[:, 0], b[:, 3]], -1)
                 all_b.append(b)
-                all_s.append(scores[0][sel])
-                all_l.append(labels[0][sel])
+                all_s.append(s)
+                all_l.append(lab)
             b, s, lab = np.concatenate(all_b), np.concatenate(all_s), np.concatenate(all_l)
             if len(passes) > 1 and len(b):
                 pad = cfg.max_det * len(passes) - len(b)
@@ -401,9 +395,74 @@ class Engine:
                 b, s, lab = b[idx[idx < len(b)]], s[idx[idx < len(s)]], lab[idx[idx < len(lab)]]
             r = Results(path, b * np.array([ow, oh, ow, oh], np.float32), s, lab, self.names,
                         orig_shape=(oh, ow))
-            if cfg.save:  # annotated image output (reference save=True), PNG
+            if cfg.save:  # annotated image output (reference save=True)
                 r.save(Path(cfg.project or "runs/detect") / (cfg.name or "predict") / Path(path).name)
             results.append(r)
+        return results
+
+    @staticmethod
+    def _detect(model: TAMTRModel, im0: np.ndarray, sz: int, txt: torch.Tensor, conf: float, iou: float,
+                max_det: int, flip: bool = False, classes=None, single_cls: bool = False):
+        """One BGR image stretched to (sz, sz) as cv2.resize does, turned to
+        RGB in [0, 1] (and mirrored with `flip`), through the eval forward
+        and `postprocess_predictions`: normalized xyxy boxes, scores and
+        labels of the kept detections."""
+        img = resize_linear(im0, (sz, sz))[..., ::-1].astype(np.float32) / 255.0
+        if flip:
+            img = img[:, ::-1]
+        pred = model(torch.from_numpy(np.ascontiguousarray(img)[None]).to(txt.device), txt)["pred"]
+        boxes, scores, labels, valid, _ = (t.cpu().numpy() for t in postprocess_predictions(
+            pred, conf, iou, max_det, classes=classes, single_cls=single_cls))
+        sel = valid[0] & (scores[0] > 0)
+        return boxes[0][sel], scores[0][sel], labels[0][sel]
+
+    # ------------------------------------------------------------------ track
+    @torch.inference_mode()
+    def track(self, source: Any, tracker: str = "bytetrack", persist: bool = False,
+              **overrides: Any) -> List[Results]:
+        """Multi-object tracking over a sequence of frames (the JAX package's
+        `Engine.track`, the reference's `Model.track`): an array, a list, a
+        directory (its images at any depth, sorted), a glob or an image file
+        (`data/loaders.py:load_inference_source`; video and stream sources
+        raise). Each frame is stretched to (imgsz, imgsz) as cv2.resize does,
+        turned to RGB in [0, 1] and run through the eval forward at `conf`
+        (0.25 by default); its detections, in the frame's pixels, go through
+        the tracker ("bytetrack", or "botsort" with gmc_method="none"), and
+        each `Results` holds the tracked boxes and their `track_ids`. The
+        tracker's own keys (gmc_method, with_reid, proximity_thresh,
+        appearance_thresh, track_buffer, match_thresh) ride `overrides`.
+        With persist=True the tracker of the previous call goes on.
+        `timing` gets the read, model and tracker ms of each frame."""
+        from tamtr_torch.trackers.track import make_tracker, update_result_with_tracks
+
+        tracker_args = {k: overrides.pop(k) for k in ("gmc_method", "with_reid", "proximity_thresh",
+                                                      "appearance_thresh", "track_buffer", "match_thresh")
+                        if k in overrides}
+        cfg = get_cfg(self.cfg, overrides=overrides)
+        if self.model is None or self.txt_feats is None:
+            raise RuntimeError("no weights or classes: train, load or set a model and set_classes first")
+        if not persist or self._tracker is None:
+            self._tracker = make_tracker(tracker, **tracker_args)
+        model = self.model.eval()
+        conf = cfg.conf if cfg.conf is not None else 0.25
+        txt = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=next(model.parameters()).device)
+        self.timing = {"read_ms": [], "model_ms": [], "tracker_ms": []}
+        results = []
+        frames = load_inference_source(source, cfg.vid_stride, cfg.stream_buffer)
+        t0 = time.perf_counter()
+        for name, frame in frames:
+            t1 = time.perf_counter()
+            oh, ow = frame.shape[:2]
+            b, s, lab = self._detect(model, frame, cfg.imgsz, txt, conf, cfg.iou, cfg.max_det)
+            r = Results(name, b * np.array([ow, oh, ow, oh], np.float32), s, lab, self.names, orig_shape=(oh, ow),
+                        orig_img=frame)
+            t2 = time.perf_counter()
+            update_result_with_tracks(r, self._tracker, frame=frame)
+            results.append(r)
+            t3 = time.perf_counter()
+            for k, a, b in (("read_ms", t0, t1), ("model_ms", t1, t2), ("tracker_ms", t2, t3)):
+                self.timing[k].append((b - a) * 1e3)
+            t0 = time.perf_counter()
         return results
 
     # ------------------------------------------------------------- weights

@@ -4,11 +4,12 @@
 `Results` wraps one image's detections: `.boxes` (xyxy pixels, conf, cls),
 `.plot()`, `.save()`, `.save_txt()` and `.tojson()`, and dict-style access
 ("path", "boxes", "scores", "labels", "names") for callers that treat a
-result as a mapping. The text outputs are byte-equal to the JAX package's
-for the same detections. `save` writes PNG (`data/image_io.py:imwrite_png`)
-under the given path's stem with a `.png` suffix: the port has no JPEG
-encoder. Masks (the segment head), `orig_img` and `AnnotatedVideoWriter`
-(frames of video sources) are not ported.
+result as a mapping; `Engine.track` sets `track_ids`. The text outputs are
+byte-equal to the JAX package's for the same detections. `save` writes the
+plot at the path it is given, in the format its suffix names
+(`data/image_io.py:imwrite`: JPEG and BMP byte-equal to `cv2.imencode`,
+PNG), as the JAX package's writes through cv2. Masks (the segment head)
+and `AnnotatedVideoWriter` (frames of video sources) are not ported.
 """
 
 from __future__ import annotations
@@ -39,14 +40,17 @@ class Boxes:
 
 
 class Results:
-    """One image's detections; `plot` reads the image again from `path`."""
+    """One image's detections; `plot` draws on `orig_img` (the BGR frame of
+    a source that is not a file) or reads the image again from `path`."""
 
     def __init__(self, path: str, boxes: np.ndarray, scores: np.ndarray, labels: np.ndarray,
-                 names: Sequence[str], orig_shape: Optional[tuple] = None):
+                 names: Sequence[str], orig_shape: Optional[tuple] = None, orig_img: Optional[np.ndarray] = None):
         self.path = path
         self.names = list(names)
         self.boxes = Boxes(boxes, scores, labels)
         self.orig_shape = orig_shape
+        self.orig_img = orig_img
+        self.track_ids: Optional[np.ndarray] = None  # one id per box, set by `Engine.track`
 
     def __len__(self) -> int:
         return len(self.boxes)
@@ -69,16 +73,18 @@ class Results:
         from tamtr_torch.utils.plotting import annotate_image
 
         b = self.boxes
-        return annotate_image(imread(self.path), b.xyxy, b.conf, b.cls, self.names, line_width)
+        img = self.orig_img.copy() if self.orig_img is not None else imread(self.path)
+        return annotate_image(img, b.xyxy, b.conf, b.cls, self.names, line_width)
 
     def save(self, path: str | Path) -> Path:
-        """Write the plot as a PNG at `path` with its suffix made `.png`;
+        """Write the plot at `path`, in the format of its suffix (.jpg,
+        .jpeg, .jpe, .png or .bmp; another raises NotImplementedError);
         returns the path written."""
-        from tamtr_torch.data.image_io import imwrite_png
+        from tamtr_torch.data.image_io import imwrite
 
-        out = Path(path).with_suffix(".png")
+        out = Path(path)
         out.parent.mkdir(parents=True, exist_ok=True)
-        imwrite_png(out, self.plot())
+        imwrite(out, self.plot())
         return out
 
     def save_txt(self, path: str | Path, save_conf: bool = False) -> None:

@@ -27,6 +27,30 @@ def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1], dim=-1)
 
 
+def xywh2ltwh(x: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h) -> (left, top, w, h)."""
+    cx, cy, w, h = x.unbind(-1)
+    return torch.stack([cx - w * 0.5, cy - h * 0.5, w, h], dim=-1)
+
+
+def ltwh2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(left, top, w, h) -> (cx, cy, w, h)."""
+    l, t, w, h = x.unbind(-1)
+    return torch.stack([l + w * 0.5, t + h * 0.5, w, h], dim=-1)
+
+
+def ltwh2xyxy(x: torch.Tensor) -> torch.Tensor:
+    """(left, top, w, h) -> (x1, y1, x2, y2)."""
+    l, t, w, h = x.unbind(-1)
+    return torch.stack([l, t, l + w, t + h], dim=-1)
+
+
+def xyxy2ltwh(x: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (left, top, w, h)."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)
+
+
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, GIoU: bool = False,
              DIoU: bool = False, CIoU: bool = False, RIOU: bool = False, eps: float = 1e-7) -> torch.Tensor:
     """Elementwise (broadcasting) IoU between box1 and box2 (trailing axis 4);

@@ -131,12 +131,12 @@ def annotate_image(
 
 def save_annotated(results: List[Dict], save_dir: str | Path) -> None:
     """Each result ("path", "boxes", "scores", "labels", "names") annotated
-    over its image, written as a PNG under `save_dir` with the source's
-    stem (no JPEG encoder in the port)."""
-    from tamtr_torch.data.image_io import imread, imwrite_png
+    over its image, written under `save_dir` with the source's name, in the
+    format its suffix names (`data/image_io.py:imwrite`)."""
+    from tamtr_torch.data.image_io import imread, imwrite
 
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     for r in results:
         out = annotate_image(imread(r["path"]), r["boxes"], r["scores"], r["labels"], r["names"])
-        imwrite_png(save_dir / f"{Path(r['path']).stem}.png", out)
+        imwrite(save_dir / Path(r["path"]).name, out)

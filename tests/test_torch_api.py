@@ -27,7 +27,7 @@ def one_thread():
     torch.set_num_threads(prev)
 
 
-@pytest.mark.parametrize("name", ["tamtr", "tamtr-nano"])
+@pytest.mark.parametrize("name", ["tamtr", "tamtr-nano", "tamtr-mid"])
 def test_json_configs_equal_the_yaml(name):
     with open(REPO / "tamtr_tpu" / "cfg" / "models" / f"{name}.yaml") as f:
         want = yaml.safe_load(f)
@@ -51,7 +51,7 @@ def test_import_without_jax_yaml_or_cv2():
         "import tamtr_torch.utils.files, tools.smoke_train_torch\n"
         "import tamtr_torch.cli, tamtr_torch.serve, tamtr_torch.nn.autobackend, tamtr_torch.engine.results\n"
         "import tamtr_torch.utils.plotting, tamtr_torch.data.loaders, tamtr_torch.data.converter\n"
-        "import tools.convert_visdrone_torch\n"
+        "import tools.convert_visdrone_torch, tamtr_torch.trackers.track, tamtr_torch.trackers.bot_sort\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL')\n"
         "          and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
@@ -79,6 +79,17 @@ def test_box_ops_match_jax():
         pboxes.box_iou_pairwise(torch.from_numpy(xyxy[:5]), torch.from_numpy(xyxy)).numpy(),
         np.asarray(jboxes.box_iou_pairwise(jnp.asarray(xyxy[:5]), jnp.asarray(xyxy))), atol=1e-6,
     )
+
+
+@pytest.mark.parametrize("name", ["xywh2ltwh", "ltwh2xywh", "ltwh2xyxy", "xyxy2ltwh"])
+def test_box_conversions_match_jax(name):
+    """The left-top-width-height conversions, on a (3, 5, 4) batch, at 1e-7."""
+    from tamtr_tpu.ops import boxes as jboxes
+
+    x = np.random.default_rng(len(name)).uniform(-50, 700, (3, 5, 4)).astype(np.float32)
+    got = getattr(pboxes, name)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(getattr(jboxes, name)(jnp.asarray(x))), rtol=0, atol=1e-7)
+    assert got.shape == x.shape
 
 
 @pytest.mark.parametrize("max_det", [300, 4])

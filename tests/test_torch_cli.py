@@ -46,7 +46,7 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv,entry", [
-    (["track", "source=v.mp4"], "queue A, item 3"), (["export", "format=onnx"], "queue A, item 7"),
+    (["track", "source=v.mp4"], "need a video decoder"), (["export", "format=onnx"], "queue A, item 7"),
     (["benchmark"], "queue A, item 7"), (["tune"], "queue A, item 7"), (["settings", "reset"], "queue A, item 3"),
     (["segment", "train"], "queue A, item 7"), (["serve"], "model=<checkpoint>"),
 ])
@@ -104,3 +104,24 @@ def test_python_m_tamtr_torch_runs_without_jax():
     assert res.returncode == 0 and res.stdout.strip() == "0.1.0", res.stderr
     res = run(["export", "format=onnx"])
     assert res.returncode == 1 and "ROADMAP.md queue A, item 7" in res.stderr
+
+
+def test_cli_track_on_a_trained_checkpoint(trained, capsys):
+    """`track` over the val images as a sequence: one line per frame with
+    its track count and ids, those of `TAMTR.track` with the same tracker
+    (the ids themselves are held against JAX's in `test_torch_predict.py`)."""
+    from tamtr_torch import TAMTR
+    from tamtr_torch.trackers.byte_tracker import Track
+
+    root, data = trained
+    best = root / "run" / "weights" / "best.pt"
+    images = Path(data).parent / "val" / "images"
+    Track.reset_id()
+    cli.main(["detect", "track", f"model={best}", f"source={images}", f"imgsz={IMG}", "conf=0.01",
+              "tracker=botsort", "gmc_method=none", "device=cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    Track.reset_id()
+    det = TAMTR(device="cpu", imgsz=IMG).load(best)
+    res = det.track(str(images), tracker="botsort", gmc_method="none", conf=0.01)
+    want = [f"{r.path}: {len(r.track_ids)} tracks {sorted(set(r.track_ids.tolist()))}" for r in res]
+    assert lines == want and len(lines) == len(sorted(images.glob("*.png")))

@@ -720,3 +720,73 @@ def test_jpeg_fixtures_decode_to_their_cv2_digests(card):
         img = imread(root / name)
         assert list(img.shape) == want["shape"] and tuple(jpeg_shape(root / name)) == img.shape[:2], name
         assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"], name
+
+
+def test_jpeg_fixtures_encode_to_their_cv2_digests(card):
+    """Each committed fixture's decode, encoded on the card's machine by the
+    host encoder at quality 95, gives the sha256 of the bytes
+    `cv2.imencode(".jpg", ...)` gave when the fixtures were written."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from tamtr_torch.data.image_io import encode_jpeg, imread
+
+    root = Path(__file__).resolve().parent / "torch_data" / "jpeg"
+    expected = json.loads((root / "expected.json").read_text())
+    assert any(name.startswith("prog") for name in expected)
+    for name, want in expected.items():
+        assert hashlib.sha256(encode_jpeg(imread(root / name))).hexdigest() == want["imencode_sha256"], name
+
+
+@torch.no_grad()
+def _spread_scores(model, seed: int):
+    """Small random values in the zero-initialised head layers and a zero
+    contrastive bias (as `chip_smoke.py:spread_scores`), so that scores
+    spread and boxes move."""
+    g = torch.Generator().manual_seed(seed)
+    head = model.model[-1]
+    for mlp in [head.enc_bbox_head, *head.dec_bbox_head]:
+        mlp.layers[-1].weight.copy_(torch.randn(mlp.layers[-1].weight.shape, generator=g) * 0.05)
+    for layer in head.decoder["layers"]:
+        for lin in (layer.cross_attn.sampling_offsets, layer.cross_attn.attention_weights):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+    for sh in head.dec_score_head:
+        sh.bias.zero_()
+
+
+@pytest.mark.parametrize("tracker,kw", [("bytetrack", {}), ("botsort", {"gmc_method": "none", "with_reid": True})])
+def test_track_on_the_card_matches_the_cpu(card, tmp_path, tracker, kw):
+    """`TAMTR.track` of the nano model over 6 generated JPEG frames at 64 px
+    on the card and on the CPU (the same weights, classes and tracker): the
+    same track ids, boxes at 1e-3 of the frame; B1 and B2 once per frame."""
+    import numpy as np
+
+    from tamtr_torch.api import TAMTR
+    from tamtr_torch.data.image_io import imwrite
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather
+    from tamtr_torch.kernels.selective_scan import ss2d_scan
+    from tamtr_torch.trackers.byte_tracker import Track
+
+    rng = np.random.default_rng(9)
+    for f in range(6):
+        frame = rng.integers(0, 50, (96, 128, 3), dtype=np.uint8)
+        for k in range(3):
+            x, y = 8 + 30 * k + 5 * f, 10 + 20 * k + 2 * f
+            frame[y:y + 24, x:x + 30] = (60 + 60 * k, 200 - 50 * k, 90)
+        imwrite(tmp_path / f"{f:03d}.jpg", frame)
+    text = rng.standard_normal((3, 128)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        det = TAMTR("tamtr-nano.yaml", nc=3, device=dev, imgsz=64, seed=2)
+        _spread_scores(det.model, seed=2)
+        det.set_classes(["a", "b", "c"], text)
+        Track.reset_id()
+        ss2d_scan.launches = bilinear_gather.launches = 0
+        results[dev] = det.track(str(tmp_path), tracker=tracker, conf=0.05, **kw)
+        assert (ss2d_scan.launches, bilinear_gather.launches) == ((0, 0) if dev == "cpu" else (18, 18))
+    assert sum(len(r.track_ids) for r in results["cpu"]) > 0
+    for g, w in zip(results["cuda"], results["cpu"], strict=True):
+        np.testing.assert_array_equal(g.track_ids, w.track_ids)
+        np.testing.assert_allclose(g.boxes.xyxy / 128, w.boxes.xyxy / 128, rtol=0, atol=1e-3)

@@ -32,7 +32,7 @@ from tamtr_torch.data import augment as PA
 from tamtr_torch.data import dataset as PD
 from tamtr_torch.data import imgproc
 from tamtr_torch.data import text as PT
-from tamtr_torch.data.image_io import imread, imwrite_png, png_shape
+from tamtr_torch.data.image_io import imread, imwrite, png_shape
 
 
 def _png_filters(path):
@@ -87,7 +87,7 @@ def test_png_writer_reads_back_through_cv2(tmp_path):
         if kind == "rgba":
             continue
         p = tmp_path / f"{kind}.png"
-        imwrite_png(p, img)
+        imwrite(p, img)
         np.testing.assert_array_equal(cv2.imread(str(p), cv2.IMREAD_UNCHANGED), img)
         np.testing.assert_array_equal(imread(p), cv2.imread(str(p)))
 
@@ -97,15 +97,15 @@ def test_image_io_edges(tmp_path):
     (tmp_path / "empty.png").write_bytes(b"")
     assert imread(tmp_path / "empty.png") is None
     assert imread(tmp_path / "a.jpg") is None  # a missing JPEG, as any missing file
-    # a JPEG mode the reader does not take: SOI, then a progressive frame header (SOF2)
-    (tmp_path / "a.jpg").write_bytes(bytes.fromhex("ffd8ffc2001108001000100301220002110103110100"))
+    # a JPEG mode the reader does not take: SOI, then a lossless frame header (SOF3)
+    (tmp_path / "a.jpg").write_bytes(bytes.fromhex("ffd8ffc3001108001000100301220002110103110100"))
     with pytest.raises(NotImplementedError, match="JPEG"):
         imread(tmp_path / "a.jpg")
     arr = np.arange(24, dtype=np.uint8).reshape(2, 4, 3)
     np.save(tmp_path / "a.npy", arr)
     np.testing.assert_array_equal(imread(tmp_path / "a.npy"), arr)
     with pytest.raises(ValueError):
-        imwrite_png(tmp_path / "f.png", np.zeros((4, 4, 3), np.float32))
+        imwrite(tmp_path / "f.png", np.zeros((4, 4, 3), np.float32))
 
 
 def _sample(rng, h=96, w=128, n=6, texts=None):

@@ -1,12 +1,16 @@
-"""The port's JPEG and BMP readers (`tamtr_torch/data/image_io.py`,
-`csrc/jpeg_decode.cpp`) against cv2, bitwise: `decode_jpeg` equals
-`cv2.imdecode(buf, cv2.IMREAD_COLOR)` at qualities 50, 75 and 95, in the
-4:4:4, 4:2:2, 4:2:0 and 4:4:0 chroma modes, in gray, with restart
-intervals, at 1x1, 17x33 and 1361x767, and with each EXIF orientation 1-8
-spliced in; progressive files raise NotImplementedError naming the file;
-`jpeg_shape` equals the decoded shape; the committed fixtures decode to
-their cv2 digests. The images are smooth gradients with edges and noise,
-from numpy seeds."""
+"""The port's JPEG codec and BMP reader (`tamtr_torch/data/image_io.py`,
+`csrc/jpeg_decode.cpp`, `csrc/jpeg_encode.cpp`) against cv2, bitwise:
+`decode_jpeg` equals `cv2.imdecode(buf, cv2.IMREAD_COLOR)` at qualities 50,
+75 and 95, in the 4:4:4, 4:2:2, 4:2:0 and 4:4:0 chroma modes, in gray, with
+restart intervals, at 1x1, 17x33 and 1361x767, with each EXIF orientation
+1-8 spliced in, and progressive (the same modes, sizes and restarts); a
+progressive file whose scans stop before every coefficient is whole (which
+libjpeg smooths) raises NotImplementedError naming the file; `jpeg_shape`
+equals the decoded shape; the committed fixtures decode to their cv2
+digests. `encode_jpeg` / `imencode(".jpg")` equal `cv2.imencode`'s bytes on
+the fixtures' decodes, at odd sizes, in gray and at qualities 75, 90 and
+95, and on each fixture give the digest cv2 gave. The images are smooth
+gradients with edges and noise, from numpy seeds."""
 
 import hashlib
 import json
@@ -17,7 +21,7 @@ import cv2
 import numpy as np
 import pytest
 
-from tamtr_torch.data.image_io import decode_bmp, decode_jpeg, imread, jpeg_shape
+from tamtr_torch.data.image_io import decode_bmp, decode_jpeg, encode_jpeg, imencode, imread, jpeg_shape
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "torch_data" / "jpeg"
@@ -86,14 +90,51 @@ def test_exif_orientation_matches_cv2(orientation, tmp_path):
         assert np.array_equal(imread(path), cv2.imread(str(path), cv2.IMREAD_COLOR))
 
 
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("sampling", list(SAMPLING) + ["gray"])
+@pytest.mark.parametrize("q", [50, 95])
+def test_progressive_jpeg_matches_cv2(q, sampling, size):
+    """cv2's progressive script (DC first and refinement scans, AC spectral
+    bands with successive approximation, EOB runs) in every chroma mode and
+    in gray; `jpeg_shape` reads the SOF2 header."""
+    img = scene(*size, seed=2 * q + size[0])
+    params = [cv2.IMWRITE_JPEG_QUALITY, q, cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    if sampling == "gray":
+        img = img[..., 1]
+    else:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling]]
+    data = encode(img, *params)
+    assert b"\xff\xc2" in data
+    assert_bitwise(data)
+
+
+@pytest.mark.parametrize("sampling,rst", [("420", 1), ("444", 3), ("gray", 5)])
+def test_progressive_restart_intervals_match_cv2(sampling, rst):
+    img = scene(75, 131, seed=rst)
+    params = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, rst]
+    if sampling == "gray":
+        img = img[..., 0]
+    else:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling]]
+    data = encode(img, *params)
+    assert b"\xff\xd0" in data
+    assert_bitwise(data)
+
+
 def test_progressive_jpeg_raises_naming_the_file(tmp_path):
+    """A progressive file cut after any of its scans but the last (EOI
+    after it): libjpeg smooths the blocks whose first coefficients still
+    miss bits, which the decoder does not do, so it raises naming the file
+    and the mode; the header still gives the shape."""
     data = encode(scene(40, 48, seed=1), cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
-    path = tmp_path / "prog.jpg"
-    path.write_bytes(data)
-    with pytest.raises(NotImplementedError, match=r"prog\.jpg.*progressive"):
-        imread(path)
-    with pytest.raises(NotImplementedError, match="progressive"):
-        jpeg_shape(path)
+    scans = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    assert len(scans) == 10
+    for k in (1, 5, 9):
+        path = tmp_path / f"prog{k}.jpg"
+        path.write_bytes(data[:scans[k]] + b"\xff\xd9")
+        with pytest.raises(NotImplementedError, match=rf"prog{k}\.jpg.*progressive"):
+            imread(path)
+        assert jpeg_shape(path) == (40, 48)
 
 
 def test_fixtures_decode_to_their_cv2_digests():
@@ -101,7 +142,7 @@ def test_fixtures_decode_to_their_cv2_digests():
     sha256 of each decode equals the one cv2 gave when they were written,
     and cv2's own decode here; `jpeg_shape` equals the decoded shape."""
     expected = json.loads((FIXTURES / "expected.json").read_text())
-    assert len(expected) == 8 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 2 * 2**20
+    assert len(expected) == 12 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 2 * 2**20
     for name, want in expected.items():
         img = imread(FIXTURES / name)
         assert list(img.shape) == want["shape"] and tuple(jpeg_shape(FIXTURES / name)) == img.shape[:2]
@@ -122,3 +163,38 @@ def test_bmp_matches_cv2(size, tmp_path):
     cv2.imwrite(str(webp), img)
     with pytest.raises(NotImplementedError, match="WebP"):
         imread(webp)
+
+
+def assert_same_bytes(got: bytes, want: bytes):
+    """Equal bytes, or the first differing offset and the decodes' largest
+    pixel difference."""
+    if got != want:
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+        diff = np.abs(cv2_decode(got).astype(int) - cv2_decode(want)).max() if len(got) > first else None
+        raise AssertionError(f"{len(got)} vs {len(want)} bytes, first difference at {first}, pixels off by {diff}")
+
+
+@pytest.mark.parametrize("name", sorted(json.loads((FIXTURES / "expected.json").read_text())))
+def test_encode_jpeg_fixtures_match_cv2(name):
+    """Each fixture's decode encoded at the default quality 95: cv2's bytes,
+    and the digest `expected.json` records for the card's machine."""
+    img = imread(FIXTURES / name)
+    got = encode_jpeg(img)
+    assert_same_bytes(got, cv2.imencode(".jpg", img)[1].tobytes())
+    assert hashlib.sha256(got).hexdigest() == json.loads((FIXTURES / "expected.json").read_text())[name][
+        "imencode_sha256"]
+
+
+@pytest.mark.parametrize("gray", [False, True], ids=["bgr", "gray"])
+@pytest.mark.parametrize("size", [(1, 1), (17, 9), (33, 65), (9, 17), (16, 16)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("q", [75, 90, 95])
+def test_encode_jpeg_matches_cv2(q, size, gray):
+    """Odd sizes (edge replication, dummy blocks of the 4:2:0 MCU) and gray
+    input (one component), through `imencode` and each JPEG suffix."""
+    img = scene(*size, seed=q + 3 * size[0])
+    if gray:
+        img = np.ascontiguousarray(img[..., 2])
+    want = encode(img, cv2.IMWRITE_JPEG_QUALITY, q)
+    assert_same_bytes(encode_jpeg(img, q), want)
+    for ext in (".jpg", ".JPEG", ".jpe"):
+        assert imencode(ext, img, q) == want

@@ -12,6 +12,11 @@ images of several sizes at imgsz 64.
   JAX's, and `plot` is equal to JAX's outside bands of `lw + 2` px around
   each box edge and each label box (JAX's and the port's).
 - `load_inference_source` yields JAX's names and frames.
+- `save` writes the name and the format JAX's writes for the same path:
+  `.jpg`/`.jpeg`/`.bmp` bytes equal `cv2.imencode` of the port's own plot,
+  `.png` reads back as the plot.
+- `Engine.track` over a directory of JPEG frames: track ids equal JAX's and
+  boxes at 1e-3, with `bytetrack` and with `botsort` (GMC "none", ReID).
 """
 
 import json
@@ -95,17 +100,20 @@ def test_predict_matches_jax(engines, source, augment):
         np.testing.assert_array_equal(gr[r, 5], wr[c, 5])
 
 
-def test_predict_save_writes_pngs(engines, source, tmp_path):
-    """save=True writes each plot as a PNG under project/name with the
-    source's stem; without it nothing is written."""
+def test_predict_save_writes_the_source_name_and_format(engines, source, tmp_path):
+    """save=True writes each plot under project/name with the source's own
+    name, in its format (JPEG bytes those of cv2.imencode, as the JAX
+    engine writes them); without it nothing is written."""
     from tamtr_torch.data.image_io import imread
 
     _, det = engines
     res = det.predict(str(source), save=True, project=str(tmp_path), name="pred")
     out = sorted(p.name for p in (tmp_path / "pred").iterdir())
-    assert out == sorted(f"{Path(r.path).stem}.png" for r in res)
+    assert out == sorted(Path(r.path).name for r in res)
     a = next(r for r in res if r.path.endswith("a.png"))
     np.testing.assert_array_equal(imread(tmp_path / "pred" / "a.png"), a.plot())
+    g = next(r for r in res if r.path.endswith("gray_q85.jpg"))
+    assert (tmp_path / "pred" / "gray_q85.jpg").read_bytes() == cv2.imencode(".jpg", g.plot())[1].tobytes()
     det.predict(str(source / "a.png"), project=str(tmp_path), name="nosave")
     assert not (tmp_path / "nosave").exists()
 
@@ -122,14 +130,35 @@ def _same_detections(engines, source):
 
 
 def test_save_annotated_writes_each_plot(engines, source, tmp_path):
-    """`save_annotated` writes each result's plot as a PNG under the
-    source's stem."""
-    from tamtr_torch.data.image_io import imread
+    """`save_annotated` writes each result's plot under the source's name,
+    in its format (here JPEG: cv2.imencode's bytes of the plot)."""
     from tamtr_torch.utils.plotting import save_annotated
 
     port, _ = _same_detections(engines, source)
     save_annotated([{k: port[k] for k in ("path", "boxes", "scores", "labels", "names")}], tmp_path)
-    np.testing.assert_array_equal(imread(tmp_path / "exif6_q90.png"), port.plot())
+    assert (tmp_path / "exif6_q90.jpg").read_bytes() == cv2.imencode(".jpg", port.plot())[1].tobytes()
+
+
+@pytest.mark.parametrize("suffix", [".jpg", ".jpeg", ".png", ".bmp"])
+def test_results_save_writes_what_jax_writes(engines, source, tmp_path, suffix):
+    """`Results.save(path)` writes at `path`, as the JAX package's does, in
+    the same format; the JPEG and BMP bytes are cv2.imencode's of the
+    port's plot, the PNG reads back as the plot."""
+    from tamtr_torch.data.image_io import imread
+
+    port, jax_r = _same_detections(engines, source)
+    got = port.save(tmp_path / "port" / f"x{suffix}")
+    jax_r.save(tmp_path / "jax" / f"x{suffix}")
+    assert got == tmp_path / "port" / f"x{suffix}"
+    assert [p.name for p in (tmp_path / "port").iterdir()] == [p.name for p in (tmp_path / "jax").iterdir()]
+    magic = {".jpg": b"\xff\xd8", ".jpeg": b"\xff\xd8", ".png": b"\x89PNG", ".bmp": b"BM"}[suffix]
+    assert got.read_bytes()[:len(magic)] == (tmp_path / "jax" / f"x{suffix}").read_bytes()[:len(magic)] == magic
+    plot = port.plot()
+    if suffix == ".png":
+        np.testing.assert_array_equal(imread(got), plot)
+        np.testing.assert_array_equal(cv2.imread(str(got)), plot)
+    else:
+        assert got.read_bytes() == cv2.imencode(suffix, plot)[1].tobytes()
 
 
 def test_text_outputs_byte_equal_to_jax(engines, source, tmp_path):
@@ -194,3 +223,48 @@ def test_load_inference_source_matches_jax(source):
     for bad in (0, "0", "clip.mp4", "screen"):
         with pytest.raises(NotImplementedError):
             list(load_inference_source(bad))
+
+
+@pytest.fixture(scope="module")
+def frames(tmp_path_factory):
+    """8 frames of 96x128: 3 coloured boxes moving across noise, written as
+    JPEG by the port's encoder (cv2's bytes)."""
+    from tamtr_torch.data.image_io import imwrite
+
+    root = tmp_path_factory.mktemp("frames")
+    rng = np.random.default_rng(12)
+    start = np.array([[8, 10], [80, 30], [40, 60]])
+    vel = np.array([[6, 2], [-5, 1], [3, -3]])
+    colours = rng.integers(60, 256, (3, 3))
+    for f in range(8):
+        frame = rng.integers(0, 50, (96, 128, 3), dtype=np.uint8)
+        for (x, y), c in zip(start + vel * f, colours):
+            frame[y:y + 24, x:x + 30] = c
+        imwrite(root / f"{f:03d}.jpg", frame)
+    return root
+
+
+@pytest.mark.parametrize("tracker", ["bytetrack", "botsort"])
+def test_track_matches_jax(engines, frames, tracker):
+    """`TAMTR.track` over the frame directory against the JAX engine's
+    `track` (both id counters reset): the same frames, track ids equal,
+    tracked boxes at 1e-3, scores and classes equal at 1e-3."""
+    from tamtr_tpu.trackers.byte_tracker import Track as JaxTrack
+
+    from tamtr_torch.trackers.byte_tracker import Track
+
+    je, det = engines
+    kw = {"gmc_method": "none", "with_reid": True} if tracker == "botsort" else {}
+    JaxTrack._count = 0
+    want = je.track(str(frames), tracker=tracker, imgsz=IMG, conf=0.1, **dict(kw))
+    Track.reset_id()
+    got = det.track(str(frames), tracker=tracker, conf=0.1, **kw)
+    assert [r.path for r in got] == [r.path for r in want] and len(got) == 8
+    assert sum(len(r.track_ids) for r in want) > 8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.track_ids, w.track_ids)
+        np.testing.assert_allclose(g.boxes.xyxy, w.boxes.xyxy, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(g.boxes.conf, w.boxes.conf, rtol=0, atol=1e-3)
+        np.testing.assert_array_equal(g.boxes.cls, w.boxes.cls)
+        assert g.orig_img is not None and g.orig_shape == w.orig_shape == (96, 128)
+    assert set(det._engine.timing) == {"read_ms", "model_ms", "tracker_ms"}

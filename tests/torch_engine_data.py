@@ -34,7 +34,7 @@ def write_val_split(root, model, txt):
     """6 val PNGs of 64 px (the val resize is the identity) under `root`,
     labelled with `model`'s top-3 detections, boxes jittered by up to 8%;
     returns the `data.json` path."""
-    from tamtr_torch.data.image_io import imwrite_png
+    from tamtr_torch.data.image_io import imwrite
     from tamtr_torch.ops.nms import postprocess_predictions
 
     (root / "images").mkdir()
@@ -45,7 +45,7 @@ def write_val_split(root, model, txt):
         pred = model(torch.from_numpy(imgs[..., ::-1] / np.float32(255)), torch.from_numpy(txt[None]))["pred"]
     boxes, scores, labels, valid, _ = (t.numpy() for t in postprocess_predictions(pred, 0.25, 0.7, 300))
     for i, img in enumerate(imgs):
-        imwrite_png(root / "images" / f"{i}.png", img)
+        imwrite(root / "images" / f"{i}.png", img)
         xyxy = boxes[i][valid[i]][:3] * (1 + rng.uniform(-0.08, 0.08, (min(3, valid[i].sum()), 4)))
         xyxy = xyxy.clip(0, 1)
         lines = [f"{c} {(a + c2) / 2:.5f} {(b + d) / 2:.5f} {c2 - a:.5f} {d - b:.5f}"

@@ -8,11 +8,14 @@ Needs cv2, so it runs where cv2 is installed (not on the card's machine):
 Each image is a smooth gradient with hard edges and mild noise, written by
 `cv2.imencode` at quality 75-95 in each chroma sampling mode (4:4:4, 4:2:2,
 4:2:0, 4:4:0), in gray, with a restart interval, with an EXIF orientation
-tag (6: rotate 90 degrees clockwise) spliced in, and at VisDrone's
-1360x765 frame size. `expected.json` beside them holds each file's shape and
-the sha256 of `cv2.imdecode(..., cv2.IMREAD_COLOR)`: the oracle the card's
-machine, which has no cv2, checks `tamtr_torch.data.image_io.decode_jpeg`
-against (`chip_smoke.py`, `tests/test_torch_cuda.py`).
+tag (6: rotate 90 degrees clockwise) spliced in, at VisDrone's 1360x765
+frame size, and progressive (`IMWRITE_JPEG_PROGRESSIVE`: 4:4:4, 4:2:0,
+gray, and 4:2:0 with a restart interval). `expected.json` beside them holds
+each file's shape, the sha256 of `cv2.imdecode(..., cv2.IMREAD_COLOR)`
+(`sha256`) and the sha256 of `cv2.imencode(".jpg", <that decode>)` at the
+default quality 95 (`imencode_sha256`): the oracles the card's machine,
+which has no cv2, checks `tamtr_torch.data.image_io.decode_jpeg` and
+`encode_jpeg` against (`chip_smoke.py`, `tests/test_torch_cuda.py`).
 """
 
 from __future__ import annotations
@@ -76,6 +79,11 @@ def fixtures():
     yield "rst_q80.jpg", enc(scene(190, 270, 6), Q, 80, cv2.IMWRITE_JPEG_RST_INTERVAL, 5)
     yield "exif6_q90.jpg", splice_after_app0(enc(scene(210, 300, 7), Q, 90), exif_app1(6))
     yield "visdrone_1360x765_q85.jpg", enc(scene(765, 1360, 8), Q, 85)
+    P = cv2.IMWRITE_JPEG_PROGRESSIVE
+    yield "prog444_q90.jpg", enc(scene(150, 200, 9), Q, 90, P, 1, S, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)
+    yield "prog420_q85.jpg", enc(scene(157, 203, 10), Q, 85, P, 1, S, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420)
+    yield "proggray_q80.jpg", enc(scene(141, 187, 11)[..., 0], Q, 80, P, 1)
+    yield "progrst_q85.jpg", enc(scene(133, 171, 12), Q, 85, P, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, 4)
 
 
 def main(argv=None) -> int:
@@ -89,7 +97,8 @@ def main(argv=None) -> int:
     for name, data in fixtures():
         (out / name).write_bytes(data)
         img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-        expected[name] = {"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+        expected[name] = {"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest(),
+                          "imencode_sha256": hashlib.sha256(cv2.imencode(".jpg", img)[1].tobytes()).hexdigest()}
         total += len(data)
     (out / "expected.json").write_text(json.dumps(expected, indent=1) + "\n")
     print(f"wrote {len(expected)} fixtures, {total} bytes, to {out}")

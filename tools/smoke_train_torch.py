@@ -64,13 +64,13 @@ def make_images(n: int, imgsz: int, seed: int):
 
 def make_dataset(root: Path, n_train: int, n_val: int, imgsz: int, seed: int = 0) -> Path:
     """Write YOLO-layout PNG images and labels, and data.json, under `root`."""
-    from tamtr_torch.data.image_io import imwrite_png
+    from tamtr_torch.data.image_io import imwrite
 
     for split, n, s in (("train", n_train, seed), ("val", n_val, seed + 1)):
         (root / split / "images").mkdir(parents=True, exist_ok=True)
         (root / split / "labels").mkdir(parents=True, exist_ok=True)
         for i, (img, lines) in enumerate(make_images(n, imgsz, s)):
-            imwrite_png(root / split / "images" / f"im{i:03d}.png", img)
+            imwrite(root / split / "images" / f"im{i:03d}.png", img)
             (root / split / "labels" / f"im{i:03d}.txt").write_text("\n".join(lines))
     data = root / "data.json"
     data.write_text(json.dumps({"path": str(root), "train": "train/images", "val": "val/images",
