@@ -97,6 +97,20 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    forward of each frame fed to the same trackers
    (`update_result_with_tracks`); ms per frame split into read, model and
    tracker host time.
+7e. fuse: the deploy fuse (`nn/fuse.py`, `fuse=True`) on the serve model
+   of 7b at 640 px: the fused twin's pred against the unfused model's at
+   batch 1 and 4 (1e-4 as a tie-robust set), B1 and B2 launched as often
+   per forward by both; the aten convolution and batch_norm ops per forward
+   and the CUDA kernels they launch (torch.profiler), unfused and fused;
+   serve requests (`TAMTR.predict(images, text, fuse=...)`) at batch 1 and
+   4 timed in rounds of unfused, fused, fused, unfused; `TAMTR.predict(<the
+   fixture directory>, fuse=True)` against fuse=False (1e-4, the same
+   labels).
+7f. autobatch: `batch=-1`'s probes (`utils/autobatch.py`) for `tamtr.yaml`
+   at 640 px, max_gt 300 with every slot a box: one training step at batch
+   1 and at 2 and their peak memory, the fitted batch (0.60 of the card's
+   memory), then one step at that batch: its loss finite and its peak
+   0.60 +- 0.10 of the card's memory, or the run fails.
 8. train: `TAMTR(...).trainer()` on `tamtr.yaml` at 640 px, batch 4,
    max_gt 300, accumulate 1, seeded synthetic batches (uint8 frames, 10
    classes, 30-250 valid gts per image, one over-full image); 2 warm-up
@@ -112,14 +126,22 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    train and before val) equal the per-step and per-forward counts times
    the steps and forwards; the card's val forward on 2 val images equal to
    the CPU's with the same EMA weights (`same_set`). One JSON line: step ms,
-   loader wait, val images/s, mAP, peak memory.
+   loader wait, val images/s, mAP, peak memory. plots=True: the run
+   directory must hold `results.png`, `train_batch0-2.jpg` and
+   `confusion_matrix.png`, each readable.
 9b. cli: `python -m tamtr_torch predict model=<fit's best.pt>
    source=<fixtures> save=True` in a subprocess, which prints its launch
    counters: exit 0, one line and one plot per image, written under the
    image's own name (JPEG).
+9c. info: `TAMTR("tamtr.yaml").load(<fit's best.pt>).info()` on the card:
+   its layers, params and GFLOPs at 640 px those of the same model on the
+   CPU, the operation counts (`utils/profiler.py:flops_of`) equal exactly.
 Every phase from 4b on zeroes the launch counters before it runs and checks
 after it that B1 and B2 ran `FORWARD_LAUNCHES` times its forwards, and no
 other kernel ran (B1 and B3 once a piece in ss2d_pieces).
+The autobatch phase checks instead that its three steps launched each
+kernel `TRAIN_LAUNCHES_PER_STEP` times three.
+Each result line ends with the card's name and power limit in brackets.
 10. One JSON line of per-kernel numbers (`launches_fit`: the fit phase's),
    then the result line `{"ok": true, "device": {...}}` last.
 """
@@ -175,6 +197,14 @@ OPS_LAUNCHES = {"selective_scan_fwd": 3, "selective_scan_fwd_summaries": 3, "sel
 FIT_TRAIN, FIT_VAL, FIT_MAX_GT = 16, 8, 32
 # the decoder's sampling at 640 px: batch 4, Q = 700 (dn queries included)
 DEFORM_B, DEFORM_Q = 4, 700
+
+
+CARD = ""  # the card's name and power limit as nvidia-smi prints them, set by main
+
+
+def say(*args, **_):
+    """A result line, with the card it ran on."""
+    print(*args, f"[{CARD}]", flush=True)
 
 
 def launch_counters():
@@ -357,7 +387,7 @@ def check_ss2d_scan(dev, batches=(1, TRAIN_BATCH)):
                              bound_summaries_by=b_sum[1], bound_combine_ms=b_comb[0], bound_combine_by=b_comb[1],
                              bound_output_ms=b_out[0], bound_output_by=b_out[1], blocks_per_sm=occ,
                              max_abs_err=e, bitwise_repeat=bitwise))
-            print(f"ss2d_scan_fwd B={B} L={L} D={D} R={R} segments={S}: max_abs_err={e:.3g} bitwise repeat {bitwise} "
+            say(f"ss2d_scan_fwd B={B} L={L} D={D} R={R} segments={S}: max_abs_err={e:.3g} bitwise repeat {bitwise} "
                   f"ms={ms:.4f} (summaries {ms_sum:.4f} + combine {ms_comb:.4f} + output {ms_out:.4f}) "
                   f"plain_ms={plain:.3f} bound_ms={b_fn[0]:.4f} ({b_fn[1]}); each launch with the segment states' "
                   f"traffic: summaries {b_sum[0]:.4f} ({b_sum[1]}) combine {b_comb[0]:.4f} ({b_comb[1]}) output "
@@ -443,7 +473,7 @@ def check_bilinear_gather(dev):
     lib = grid_sample_deform(value, shapes, loc, w_att)
     e_lib = (bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P) - lib).abs().max().item()
     lib_ms = cuda_ms(lambda: grid_sample_deform(value, shapes, loc, w_att), iters=20)
-    print(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={row['max_abs_err']:.3g} (plain vs grid_sample "
+    say(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={row['max_abs_err']:.3g} (plain vs grid_sample "
           f"{e_lib:.3g}), bitwise over two calls {row['bitwise_repeat']}; ms={row['ms']:.4f} (events over "
           f"back-to-back calls) ms_device={row['ms_device']:.5f} (profiler) plain_ms={row['plain_ms']:.4f} "
           f"library_ms={lib_ms:.4f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; one launch costs more)",
@@ -513,7 +543,7 @@ def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
                          ms_walk=ms_walk, ms_with_assembly=whole, plain_ms=plain, blocks_per_sm=occ,
                          bound_ms=b_fn[0], bound_by=b_fn[1], bound_b3a_ms=b_a[0], bound_b3a_by=b_a[1],
                          bound_b3b_ms=b_b[0], bound_b3b_by=b_b[1], max_abs_err=e, bitwise_repeat=bitwise))
-        print(f"ss2d_scan_bwd B={B} L={L} D={D} R={R} segments={S}: max_abs_err={e:.3g} bitwise repeat {bitwise} "
+        say(f"ss2d_scan_bwd B={B} L={L} D={D} R={R} segments={S}: max_abs_err={e:.3g} bitwise repeat {bitwise} "
               f"ms={ms_sum + ms_comb + ms_walk:.4f} (B3a summaries {ms_sum:.4f} + combine {ms_comb:.4f}, "
               f"B3b walk {ms_walk:.4f}; with the torch assembly {whole:.4f}) plain_ms={plain:.3f} "
               f"bound_ms {b_fn[0]:.4f} ({b_fn[1]}); each launch with the summaries' traffic: "
@@ -556,7 +586,7 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     b2, b2_ok = time_gather_fwd(value, idx2, w_pairs, Q, lambda: bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P),
                                 iters=20)
     b2["library_ms"] = cuda_ms(lambda: grid_sample_deform(value, shapes, loc, w_att), iters=5)
-    print(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={b2['max_abs_err']:.3g}, bitwise over two calls "
+    say(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={b2['max_abs_err']:.3g}, bitwise over two calls "
           f"{b2['bitwise_repeat']}; ms={b2['ms']:.4f} (events) ms_device={b2['ms_device']:.5f} (profiler) "
           f"plain_ms={b2['plain_ms']:.4f} library_ms={b2['library_ms']:.4f} (F.grid_sample) "
           f"bound_ms={b2['bound_ms']:.5f} ({b2['bound_by']})", flush=True)
@@ -608,7 +638,7 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     e_lib = (lib_g[0] - g_plain[0]).abs().max().item()
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True), iters=5)
     b_ms, b_by, b_buckets, b_rows = gather_bwd_bounds(value, idx2, w_pairs, dout, buckets)
-    print(f"bilinear_gather_bwd B={B} Lv={Lv} Q={Q}: max_abs_err={e:.3g} (dvalue, dw); buckets equal the plain "
+    say(f"bilinear_gather_bwd B={B} Lv={Lv} Q={Q}: max_abs_err={e:.3g} (dvalue, dw); buckets equal the plain "
           f"version {same_buckets}; dvalue bitwise over two calls {repeat}, bitwise the plain row-owned version "
           f"{rows_bitwise}; hot row: bitwise over two calls {hot_repeat}, the plain row-owned version {hot_rows}; "
           f"through the core, max error / max entry of d(value, loc, w_att) {[float(f'{c:.3g}') for c in chain]}; "
@@ -692,7 +722,7 @@ def check_gather_fwd_step(calls):
         ok &= good
     mean = {k: sum(r[k] for r in rows) / len(rows) for k in ("ms", "ms_device", "plain_ms", "bound_ms")}
     err = max(r["max_abs_err"] for r in rows)
-    print(f"bilinear_gather_fwd on the training step's pairs ({len(rows)} calls): max_abs_err={err:.3g}, bitwise "
+    say(f"bilinear_gather_fwd on the training step's pairs ({len(rows)} calls): max_abs_err={err:.3g}, bitwise "
           f"over two calls {all(r['bitwise_repeat'] for r in rows)}; per call ms={mean['ms']:.4f} (events) ms_device="
           f"{mean['ms_device']:.5f} (profiler) plain_ms={mean['plain_ms']:.4f} bound_ms={mean['bound_ms']:.5f}", flush=True)
     if not ok:
@@ -731,7 +761,7 @@ def check_gather_bwd_step(calls):
     ms_device = device_ms(every(bilinear_gather_bwd), iters=20) / n
     ms_buckets_device = device_ms(every(lambda v, i, w, d: pair_buckets(i, w, v.shape[1])), iters=20) / n
     plain = cuda_ms(every(bilinear_gather_bwd_ref), iters=5) / n
-    print(f"bilinear_gather_bwd on the training step's pairs ({n} calls, up to {most} terms on a row): "
+    say(f"bilinear_gather_bwd on the training step's pairs ({n} calls, up to {most} terms on a row): "
           f"max_abs_err={err:.3g}; dvalue bitwise over two calls and equal to the plain row-owned version {ok}; "
           f"ms per call {ms:.4f} (events; buckets alone {ms_buckets:.4f}) ms_device {ms_device:.4f} (profiler; "
           f"buckets {ms_buckets_device:.4f} bound {bounds[1]:.5f}, rows {ms_device - ms_buckets_device:.4f} bound "
@@ -803,7 +833,7 @@ def check_auction(dev):
     nbytes = C.numel() * 4 + mask.numel() + got.numel() * 4
     flops = sum(r * nq * TRAIN_MAX_GT * 3 for r in rounds)
     b_ms, b_by = bound(nbytes, flops)
-    print(f"auction_assignment cost (16, 100, 300): valid {TRAIN_VALID} x 4 layers, rounds per image {rounds}, "
+    say(f"auction_assignment cost (16, 100, 300): valid {TRAIN_VALID} x 4 layers, rounds per image {rounds}, "
           f"assignments identical to the CPU's and the plain version's {same} (differing entries {e:.0f}), "
           f"no host sync (sync debug mode error), assigned per image {(got[:4] >= 0).sum(1).tolist()}, "
           f"ms={ms:.4f} (one launch) plain_ms={plain:.3f} bound_ms={b_ms:.5f} ({b_by}); "
@@ -834,7 +864,7 @@ def check_auction_any_size(dev):
         ms = cuda_ms(lambda: auction_assignment(C, mask), iters=3)
         ms_match = cuda_ms(lambda: auction_match(C, mask), iters=3)
         plain = cuda_ms(lambda: auction_assignment_ref(C, mask), iters=1, warmup=0)
-        print(f"auction cost {tuple(C.shape)}: auction_assignment and auction_match identical to the plain "
+        say(f"auction cost {tuple(C.shape)}: auction_assignment and auction_match identical to the plain "
               f"versions {differ == 0} (differing entries {differ}), assigned per problem min "
               f"{int((got >= 0).sum(1).min())} max {int((got >= 0).sum(1).max())}, auction_assignment ms={ms:.4f} "
               f"plain_ms={plain:.3f}, auction_match ms={ms_match:.4f}", flush=True)
@@ -922,7 +952,7 @@ def check_selective_scan(dev):
                          blocks_per_sm=occ, launches_per_call=launches[0] / 2,
                          phase_launches_per_call=[n / 2 for n in launches[1:]], max_abs_err=e,
                          bitwise_repeat=bitwise))
-        print(f"selective_scan_fwd G={G} L={L} Din={Din} N={N} D {D is not None} segments={S}: max_abs_err={e:.3g} "
+        say(f"selective_scan_fwd G={G} L={L} Din={Din} N={N} D {D is not None} segments={S}: max_abs_err={e:.3g} "
               f"bitwise repeat {bitwise}, launches per call {launches[0] / 2} (phases "
               f"{[n / 2 for n in launches[1:]]}); ms={ms:.4f} (summaries {ms_sum:.4f} + combine {ms_comb:.4f} + "
               f"output {ms_out:.4f}) plain_ms={plain:.3f} bound_ms={b_fn[0]:.4f} ({b_fn[1]}); each launch with the "
@@ -1030,7 +1060,7 @@ def report_scatter(name: str, shape: str, rows: dict, b_fn, b_buckets, b_rows, l
     and on uniform points 1e-5 from the plain version (the library call
     within 1e-4 of it)."""
     for case, r in rows.items():
-        print(f"{name} {shape} {case}: max_abs_err={r['max_abs_err']:.3g} (within 1e-5 {r['within_1e5']}, "
+        say(f"{name} {shape} {case}: max_abs_err={r['max_abs_err']:.3g} (within 1e-5 {r['within_1e5']}, "
               f"{lib_name} vs plain {r['library_err']:.3g}); bitwise over two calls {r['bitwise_repeat']}, bitwise "
               f"the plain row-owned version {r['rows_bitwise']}; buckets equal the plain version "
               f"{r['buckets_equal']}; up to {r['most_terms_on_a_row']} terms on a row, within the fp32 sum bound "
@@ -1165,7 +1195,7 @@ def drive_ops(dev):
     full = mask.sum(1) >= C.shape[1]
     matched = per_query[full]
     assigned = bool((matched >= 0).all()) and all(len(set(r.tolist())) == len(r) for r in matched.cpu())
-    print(f"ops: selective_scan fwd+bwd at 3 levels, weighted_gather fwd+bwd, scatter_acc_pairs, auction_match "
+    say(f"ops: selective_scan fwd+bwd at 3 levels, weighted_gather fwd+bwd, scatter_acc_pairs, auction_match "
           f"(transposed, row mask): outputs finite {finite}, shapes {shapes}, full images fully assigned "
           f"{assigned}, launches {launches}", flush=True)
     shapes = shapes and assigned
@@ -1190,10 +1220,10 @@ def spread_scores(model, seed: int):
         sh.bias.zero_()
 
 
-def same_set(got: np.ndarray, want: np.ndarray):
+def same_set(got: np.ndarray, want: np.ndarray, tol: float = 1e-3):
     """Eval outputs (B, nq, 4 + nc), card against CPU, as a tie-robust set:
     rows paired by a min-cost assignment on their largest difference, each
-    pair within 1e-3; at most 2 unpaired rows an image (near-tied queries
+    pair within `tol`; at most 2 unpaired rows an image (near-tied queries
     the top-k selection swaps), whose best scores agree at 5e-3. Returns the
     worst paired difference and the unpaired count."""
     from scipy.optimize import linear_sum_assignment
@@ -1202,7 +1232,7 @@ def same_set(got: np.ndarray, want: np.ndarray):
     for b in range(got.shape[0]):
         dist = np.abs(got[b][:, None] - want[b][None]).max(-1)
         r, c = linear_sum_assignment(dist)
-        matched = dist[r, c] < 1e-3
+        matched = dist[r, c] < tol
         unmatched += int((~matched).sum())
         worst = max(worst, float(dist[r, c][matched].max()))
         if (~matched).sum() > 2:
@@ -1237,7 +1267,7 @@ def check_parity(dev):
     worst, unmatched = same_set(got, want)
     if not np.isfinite(got).all() or want[..., 4:].std() < 0.05:
         raise AssertionError("parity outputs are not finite or carry no score spread")
-    print(f"parity tamtr.yaml 128px b2: worst matched row diff {worst:.3g}, unmatched {unmatched}, "
+    say(f"parity tamtr.yaml 128px b2: worst matched row diff {worst:.3g}, unmatched {unmatched}, "
           f"cpu forward {cpu_s:.2f} s", flush=True)
     return worst
 
@@ -1351,7 +1381,7 @@ def check_train_parity(dev):
         step = (steps[1][0][k] - before[k].detach()).abs()
         flips += int((live & ((steps[0][0][k] - steps[1][0][k]).abs() > 1e-6 + 0.02 * step)).sum())
         moved += int((live & (step > 0)).sum())
-    print(f"train parity tamtr.yaml 128px b2: loss card {steps[0][1]:.6f} cpu {steps[1][1]:.6f}; as run: "
+    say(f"train parity tamtr.yaml 128px b2: loss card {steps[0][1]:.6f} cpu {steps[1][1]:.6f}; as run: "
           f"worst loss-component rel diff {worst_item:.3g}, assignments agree {agree:.4f}; with the cpu's "
           f"assignment and top-k: worst loss-component rel diff {worst_fixed:.3g} vs fp32 noise {item_noise:.3g}, gradient |card - cpu| / "
           f"|cpu| {d_card / flat(cpu_g).norm().item():.3g} vs fp32 noise |cpu - fp64| / |cpu| "
@@ -1391,7 +1421,7 @@ def train(dev):
     finite = all(math.isfinite(v) for m in logs for v in m.values())
     moved = any(not torch.equal(p0[k], v) for k, v in tr.model.state_dict().items() if v.is_floating_point())
     ema_moved = any(not torch.equal(p0[k], v) for k, v in tr.ema.state_dict().items() if v.is_floating_point())
-    print(f"train tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}: step ms "
+    say(f"train tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}: step ms "
           f"{[round(t, 3) for t in times]}, loss {[round(m['loss'], 4) for m in logs]}, giou/class/bbox "
           f"{[(round(m['giou'], 3), round(m['class'], 3), round(m['bbox'], 3)) for m in logs]}, grad_norm "
           f"{[round(m['grad_norm'], 2) for m in logs]}, max_memory_allocated {peak / 2**20:.1f} MiB, "
@@ -1446,7 +1476,7 @@ def serve(dev):
     want = {k: FORWARD_LAUNCHES.get(k, 0) * forwards for k in counters}
     if len(res4) != 4 or launches != want:
         raise AssertionError(f"launches {launches} after {forwards} forwards; want {want}")
-    print(f"serve tamtr.yaml 640px: batch-1 ms {[round(t, 3) for t in times['b1']]}, "
+    say(f"serve tamtr.yaml 640px: batch-1 ms {[round(t, 3) for t in times['b1']]}, "
           f"batch-4 ms {[round(t, 3) for t in times['b4']]}, detections/image {len(res[0]['scores'])}, "
           f"max_memory_allocated {peak / 2**20:.1f} MiB, forwards {forwards}, launches {launches}",
           flush=True)
@@ -1474,7 +1504,7 @@ def fit(dev):
     shutil.rmtree(root, ignore_errors=True)
     data = str(make_dataset(root, FIT_TRAIN, FIT_VAL, TRAIN_IMGSZ))
     args = dict(data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=2, warmup_epochs=4,
-                val_interval=1, save_interval=1, conf=0.05, plots=False, project=str(root / "runs"), name="fit")
+                val_interval=1, save_interval=1, conf=0.05, plots=True, project=str(root / "runs"), name="fit")
     torch.cuda.reset_peak_memory_stats()
     counters = zero_counters()
     t0 = time.perf_counter()
@@ -1495,6 +1525,10 @@ def fit(dev):
         rows = list(csv.DictReader(f))
     restored = (seen.get("epoch") == 2 and seen.get("ni") == first.trainer.ni and seen.get("count") == first.trainer.count
                 and torch.equal(seen.get("generator", torch.empty(0)), first.trainer.generator.get_state()))
+    from tamtr_torch.data.image_io import imread
+
+    plots = ["results.png", "train_batch0.jpg", "train_batch1.jpg", "train_batch2.jpg", "confusion_matrix.png"]
+    unreadable = [f for f in plots if imread(root / "runs" / "fit" / f) is None]
 
     counters = zero_counters()
     best = Engine("tamtr.yaml").load(root / "runs" / "fit" / "weights" / "best.pt")
@@ -1524,12 +1558,14 @@ def fit(dev):
                    val_images_per_sec=val["images_per_sec"], mAP50=val["mAP50"], mAP50_95=val["mAP50-95"],
                    max_memory_allocated_mib=peak / 2**20, train_and_resume_s=train_s, steps=steps,
                    timed_steps=len(step_ms), val_parity_worst=worst, val_parity_unmatched=unmatched)
-    print(f"fit tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} on {FIT_TRAIN}+{FIT_VAL} generated images: "
+    say(f"fit tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} on {FIT_TRAIN}+{FIT_VAL} generated images: "
           f"{json.dumps(summary)}; results.csv losses {[round(x, 4) for x in losses]}; resume restored epoch, ni, "
-          f"count and generator: {restored}; launches train {train_launches}, val {val_launches}", flush=True)
-    if not (len(rows) == 3 and all(math.isfinite(x) for x in losses) and in_range and restored):
+          f"count and generator: {restored}; plots {plots} read back; launches train {train_launches}, "
+          f"val {val_launches}", flush=True)
+    if not (len(rows) == 3 and all(math.isfinite(x) for x in losses) and in_range and restored and not unreadable):
         raise AssertionError(f"fit: rows {len(rows)}, losses {losses}, metrics in [0, 1] {in_range}, "
-                             f"resume restored {restored} ({ {k: v for k, v in seen.items() if k != 'generator'} })")
+                             f"resume restored {restored} ({ {k: v for k, v in seen.items() if k != 'generator'} }), "
+                             f"plots missing or unreadable {unreadable}")
     if train_launches != want or val_launches != val_want:
         raise AssertionError(f"fit launches: train {train_launches} (want {want}), val {val_launches} "
                              f"(want {val_want})")
@@ -1591,7 +1627,7 @@ def check_ss2d_pieces(dev):
     per_piece = {"ss2d_scan_fwd": 1, "ss2d_scan_fwd_summaries": 1, "ss2d_scan_fwd_combine": 1,
                  "ss2d_scan_fwd_output": 1, "ss2d_scan_carriers": 1, "ss2d_scan_combine": 1, "ss2d_scan_bwd_walk": 1}
     launches = check_counts("ss2d_pieces", counters, 0, {k: v * pieces for k, v in per_piece.items()})
-    print(f"ss2d_pieces N in (8, 24), D=96, L=1600, B=2: forward max_abs_err {err_f:.3g}, backward {err_b:.3g}; "
+    say(f"ss2d_pieces N in (8, 24), D=96, L=1600, B=2: forward max_abs_err {err_f:.3g}, backward {err_b:.3g}; "
           f"launches {launches}", flush=True)
     return {"max_abs_err_fwd": err_f, "max_abs_err_bwd": err_b, "pieces": pieces}
 
@@ -1630,7 +1666,7 @@ def check_jpeg():
         decode_ms[name] = (t1 - t0) / 3 * 1e3 / mp
         encode_ms[name] = (t2 - t1) / 3 * 1e3 / mp
     check_counts("jpeg", counters, 0)
-    print(f"jpeg: {len(expected)} fixtures equal their cv2 sha256 digests, decoded and encoded; host ms per "
+    say(f"jpeg: {len(expected)} fixtures equal their cv2 sha256 digests, decoded and encoded; host ms per "
           f"megapixel (host time on the card's machine): decode {json.dumps({k: round(v, 3) for k, v in decode_ms.items()})}"
           f"; encode {json.dumps({k: round(v, 3) for k, v in encode_ms.items()})}", flush=True)
     return decode_ms, encode_ms
@@ -1660,10 +1696,10 @@ def recording_forwards(model, calls: list):
         h.remove()
 
 
-def same_results(got, want):
+def same_results(got, want, tol: float = 1e-3):
     """Two predict results of one image as a set: rows of normalized box
-    and score paired by a min-cost assignment, each pair within 1e-3 with
-    the same label, at most 2 rows of either side unpaired."""
+    and score paired by a min-cost assignment, each pair within `tol` with
+    the same label; the worst paired difference and the unpaired count."""
     from scipy.optimize import linear_sum_assignment
 
     def rows(r):
@@ -1675,7 +1711,7 @@ def same_results(got, want):
         return 0.0, len(g) + len(w)
     dist = np.abs(g[:, None] - w[None]).max(-1)
     r, c = linear_sum_assignment(dist)
-    ok = (dist[r, c] < 1e-3) & (got.boxes.cls[r] == want.boxes.cls[c])
+    ok = (dist[r, c] < tol) & (got.boxes.cls[r] == want.boxes.cls[c])
     return float(dist[r, c][ok].max(initial=0.0)), int(len(g) + len(w) - 2 * ok.sum())
 
 
@@ -1732,7 +1768,7 @@ def predict_files(dev):
                    detections=[len(r) for r in out[False]], detections_tta=[len(r) for r in out[True]],
                    parity_forwards=len(card_calls), parity_worst=worst, parity_unmatched=unmatched,
                    results_worst=worst_r, results_unpaired=unpaired)
-    print(f"predict_files tamtr.yaml 640px on {n} JPEG fixtures: {json.dumps(summary)}; card and cpu predict of "
+    say(f"predict_files tamtr.yaml 640px on {n} JPEG fixtures: {json.dumps(summary)}; card and cpu predict of "
           f"{len(paths)} fixtures {cpu_s:.1f} s; launches {launches}", flush=True)
     return summary, det, launches
 
@@ -1786,7 +1822,7 @@ def serve_http(det):
         raise AssertionError(f"serve_http: {mismatched} replies differ from the in-process forward")
     summary = dict(http_ms_b1=http_ms[:5], local_ms_b1=local_ms[:5], http_ms_b4=http_ms[5:], local_ms_b4=local_ms[5:],
                    concurrent=len(singles), forwards=forwards)
-    print(f"serve_http tamtr.yaml 640px: {json.dumps(summary)}; launches {launches}", flush=True)
+    say(f"serve_http tamtr.yaml 640px: {json.dumps(summary)}; launches {launches}", flush=True)
     return summary, launches
 
 
@@ -1879,7 +1915,7 @@ def track(det):
                    encode_ms_per_frame=float(np.median(encode_ms)), ids={k: len(v) for k, v in ids.items()},
                    tracks_per_frame={k: [len(r.track_ids) for r in v] for k, v in card.items()},
                    boxes_worst=worst, detection_score_quantiles=quantiles, cpu_predict_s=cpu_s)
-    print(f"track tamtr.yaml {det.imgsz}px on {TRACK_FRAMES} generated {TRACK_HW[1]}x{TRACK_HW[0]} JPEG frames: "
+    say(f"track tamtr.yaml {det.imgsz}px on {TRACK_FRAMES} generated {TRACK_HW[1]}x{TRACK_HW[0]} JPEG frames: "
           f"{json.dumps(summary)}; launches {launches}", flush=True)
     return summary, launches
 
@@ -1922,13 +1958,189 @@ def cli(best: str):
     want = {k: FORWARD_LAUNCHES.get(k, 0) * n for k in launches}
     if len(preds) != n or launches != want:
         raise AssertionError(f"cli: {len(preds)} lines for {n} images; launches {launches}, want {want}")
-    print(f"cli: python -m tamtr_torch predict on {n} fixtures: exit 0, {len(preds)} lines, {len(plots)} plots, "
+    say(f"cli: python -m tamtr_torch predict on {n} fixtures: exit 0, {len(preds)} lines, {len(plots)} plots, "
           f"{wall:.1f} s wall (process start, model load, kernels loaded from build/); launches {launches}",
           flush=True)
     return launches
 
+# the fuse phase: serve requests timed in rounds of unfused, fused, fused,
+# unfused, this many requests a turn
+FUSE_ROUNDS, FUSE_REQUESTS = 3, 4
+
+
+def profiled_ops(model, img, txt):
+    """One eval forward under torch.profiler: the count of the aten
+    convolution and batch_norm ops, the CUDA kernels those ops launched, all
+    CUDA kernels of the forward and their summed device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(img, txt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(img, txt)
+            torch.cuda.synchronize()
+    events = prof.events()
+
+    def kernels(e):
+        return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
+
+    out = {}
+    for op in ("convolution", "batch_norm"):
+        top = [e for e in events if e.name == f"aten::{op}"]
+        out[op] = len(top)
+        out[f"{op}_kernels"] = sum(kernels(e) for e in top)
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["kernels"] = len(device)
+    out["device_ms"] = sum(e.device_time for e in device) / 1e3
+    return out
+
+
+def fuse(dev):
+    """`fuse=True`, the deploy fuse, on the full-width serve model at 640 px:
+    the fused twin's pred against the unfused model's at batch 1 and 4
+    (1e-4, `same_set`), with B1 and B2 launched as often per forward; the
+    convolution and batch_norm ops and their kernels per forward
+    (torch.profiler) before and after fusing; serve requests at batch 1 and
+    4 timed fused and unfused in turns; `TAMTR.predict(<fixtures>,
+    fuse=True)` against fuse=False (1e-4, the same labels). Every launch
+    counter is zeroed before and read after: B1 and B2 once per forward."""
+    from tamtr_torch.config import get_cfg
+
+    det = serve_model()
+    rng = np.random.default_rng(4)
+    text = det._engine.txt_feats
+    frames = [rng.integers(0, 256, (765, 1360, 3), dtype=np.uint8) for _ in range(4)]
+    n_fix = len(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    counters = zero_counters()
+    forwards = 0
+    plain = det.model
+    fused = det._engine._eval_model(plain, get_cfg(overrides={"fuse": True}))
+    txt = torch.as_tensor(text[None], device=dev)
+    parity, per_forward = {}, {}
+    for b in (1, 4):
+        img = torch.from_numpy(rng.random((b, TRAIN_IMGSZ, TRAIN_IMGSZ, 3), dtype=np.float32)).to(dev)
+        preds = {}
+        for name, model in (("unfused", plain), ("fused", fused)):
+            before = {k: f.launches for k, f in counters.items()}
+            with torch.inference_mode():
+                preds[name] = model(img, txt)["pred"].cpu().numpy()
+            forwards += 1
+            per_forward[(b, name)] = {k: f.launches - before[k] for k, f in counters.items() if f.launches - before[k]}
+        if per_forward[(b, "unfused")] != per_forward[(b, "fused")]:
+            raise AssertionError(f"fuse b{b}: launches per forward {per_forward}")
+        parity[f"b{b}_worst"], parity[f"b{b}_unmatched"] = same_set(preds["fused"], preds["unfused"], tol=1e-4)
+    img1 = torch.from_numpy(rng.random((1, TRAIN_IMGSZ, TRAIN_IMGSZ, 3), dtype=np.float32)).to(dev)
+    ops = {name: profiled_ops(model, img1, txt) for name, model in (("unfused", plain), ("fused", fused))}
+    forwards += 4
+    if ops["fused"]["batch_norm"] != 0 or ops["fused"]["convolution"] >= ops["unfused"]["convolution"]:
+        raise AssertionError(f"fuse: ops per forward {ops}")
+
+    times = {(b, f): [] for b in (1, 4) for f in (False, True)}
+
+    def request(b, f):
+        t0 = time.perf_counter()
+        res = det.predict(frames[0] if b == 1 else frames, text, fuse=f)  # ends in host copies
+        dt = (time.perf_counter() - t0) * 1e3
+        if len(res) != b:
+            raise AssertionError("fuse: malformed predict result")
+        return dt
+
+    for b in (1, 4):
+        for f in (False, True):  # warm-up: conv algorithms of both models
+            request(b, f)
+            forwards += 1
+    for _ in range(FUSE_ROUNDS):
+        for b in (1, 4):
+            for f in (False, True, True, False):
+                for _ in range(FUSE_REQUESTS):
+                    times[(b, f)].append(request(b, f))
+                    forwards += 1
+    files = {f: det.predict(JPEG_FIXTURES, fuse=f) for f in (False, True)}
+    forwards += 2 * n_fix
+    worst_r = unpaired = 0
+    for g, w in zip(files[True], files[False], strict=True):
+        wr, u = same_results(g, w, tol=1e-4)
+        if u > 2:
+            raise AssertionError(f"fuse: {g.path}: {u} detections unpaired with fuse=False's")
+        worst_r, unpaired = max(worst_r, wr), unpaired + u
+    launches = check_counts("fuse", counters, forwards)
+    med = {f"{'fused' if f else 'unfused'}_b{b}_ms_median": float(np.median(t)) for (b, f), t in times.items()}
+    summary = dict(card=CARD, **parity, results_worst=worst_r, results_unpaired=unpaired,
+                   ops_per_forward=ops, **med,
+                   ms={f"{'fused' if f else 'unfused'}_b{b}": [round(x, 3) for x in t] for (b, f), t in times.items()})
+    say(f"fuse tamtr.yaml 640px: {json.dumps(summary)}; launches {launches}", flush=True)
+    return summary, launches
+
+
+def autobatch_phase(dev):
+    """`batch=-1`: the probe training steps of `autobatch_train` for
+    `tamtr.yaml` at 640 px, max_gt 300 (every slot a box), at batch 1 and 2,
+    their peaks, the fitted batch, then one `Trainer.step` at that batch:
+    its loss finite and its peak 0.60 +- 0.10 of the card's memory. Every
+    launch counter is zeroed before and read after: three training steps."""
+    import gc
+
+    from tamtr_torch.utils.autobatch import DEFAULT_FRACTION, autobatch, device_memory_bytes, train_step_peak
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = zero_counters()
+    limit = device_memory_bytes(dev)
+    peaks = {}
+
+    def probe(b):
+        peaks[b], _ = train_step_peak("tamtr.yaml", 10, TRAIN_IMGSZ, TRAIN_MAX_GT, b, dev)
+        return peaks[b]
+
+    t0 = time.perf_counter()
+    fit = autobatch(probe, limit)
+    probe_s = time.perf_counter() - t0
+    peak, m = train_step_peak("tamtr.yaml", 10, TRAIN_IMGSZ, TRAIN_MAX_GT, fit, dev)
+    share = peak / limit
+    launches = check_counts("autobatch", counters, 0, {k: 3 * v for k, v in TRAIN_LAUNCHES_PER_STEP.items()})
+    summary = dict(card=CARD, memory_bytes=limit, probe_peak_bytes={str(b): v for b, v in peaks.items()},
+                   fitted_batch=fit, step_peak_bytes=peak, step_peak_share=share, loss=m["loss"],
+                   probes_s=probe_s)
+    say(f"autobatch tamtr.yaml {TRAIN_IMGSZ}px max_gt {TRAIN_MAX_GT}: {json.dumps(summary)}; launches {launches}",
+          flush=True)
+    if not (math.isfinite(m["loss"]) and abs(share - DEFAULT_FRACTION) <= 0.10):
+        raise AssertionError(f"autobatch: batch {fit}, loss {m['loss']}, peak share {share:.3f} "
+                             f"(want {DEFAULT_FRACTION} +- 0.10)")
+    return summary, launches
+
+
+def info(best: str):
+    """`TAMTR("tamtr.yaml").load(<fit's best.pt>).info()` on the card: its
+    params and GFLOPs those of the same model on the CPU (`variable_count`,
+    `flops_of`: the operation counts equal exactly). Every launch counter
+    is zeroed before and read after: two forwards on the card."""
+    from tamtr_torch import TAMTR
+    from tamtr_torch.api import variable_count
+    from tamtr_torch.utils.profiler import flops_of
+
+    counters = zero_counters()
+    det = TAMTR("tamtr.yaml").load(best)
+    line = det.info(imgsz=TRAIN_IMGSZ)
+    model = det.model
+    txt = torch.zeros(1, model.nc, model.model[-1].hd)
+    img = torch.zeros(1, TRAIN_IMGSZ, TRAIN_IMGSZ, 3)
+    card = flops_of(model, img.cuda(), txt.cuda())
+    launches = check_counts("info", counters, 2)
+    cpu_model = TAMTR("tamtr.yaml", device="cpu").load(best).model
+    t0 = time.perf_counter()
+    cpu = flops_of(cpu_model, img, txt)
+    cpu_s = time.perf_counter() - t0
+    want = (f"TAMTR(tamtr.yaml): {len(cpu_model.specs) + 1} layers, {variable_count(cpu_model) / 1e6:.1f}M params, "
+            f"{cpu['gflops']:.1f} GFLOPs @ {TRAIN_IMGSZ}px")
+    say(f"info: {line!r}; flops card {card}, cpu {cpu} ({cpu_s:.1f} s); launches {launches}", flush=True)
+    if line != want or card != cpu:
+        raise AssertionError(f"info: card {line!r} {card}, cpu {want!r} {cpu}")
+    return launches
+
 
 def main() -> int:
+    global CARD
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1941,6 +2153,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    CARD = smi
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
 
@@ -1971,12 +2184,15 @@ def main() -> int:
     http_summary, http_launches = serve_http(det)
     track_summary, track_launches = track(det)
     del det
+    fuse_summary, fuse_launches = fuse(dev)
+    autobatch_summary, autobatch_launches = autobatch_phase(dev)
     train_launches, _, _, b4_calls = train(dev)
     gather_bwd.update(check_gather_bwd_step(b4_calls))
     gather_step = check_gather_fwd_step(b4_calls)
     del b4_calls
     fit_launches, fit_summary = fit(dev)
     cli_launches = cli("build/fit/runs/fit/weights/best.pt")
+    info_launches = info("build/fit/runs/fit/weights/best.pt")
 
     def slice3(name, reached_through):
         return dict(launches=ops_launches[name], launches_serve=launches[name],
@@ -1997,7 +2213,8 @@ def main() -> int:
              bound_by=max(fwd1, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
              launches_predict_files=predict_launches["ss2d_scan_fwd"],
              launches_serve_http=http_launches["ss2d_scan_fwd"], launches_cli=cli_launches["ss2d_scan_fwd"],
-             launches_track=track_launches["ss2d_scan_fwd"],
+             launches_track=track_launches["ss2d_scan_fwd"], launches_fuse=fuse_launches["ss2d_scan_fwd"],
+             launches_info=info_launches["ss2d_scan_fwd"], launches_autobatch=autobatch_launches["ss2d_scan_fwd"],
              ss2d_pieces=pieces,
              batch=1, ms_b4=sum(r["ms"] for r in fwd4), plain_ms_b4=sum(r["plain_ms"] for r in fwd4),
              bound_ms_b4=sum(r["bound_ms"] for r in fwd4),
@@ -2009,6 +2226,8 @@ def main() -> int:
              launches_predict_files=predict_launches["bilinear_gather_fwd"],
              launches_serve_http=http_launches["bilinear_gather_fwd"],
              launches_cli=cli_launches["bilinear_gather_fwd"], launches_track=track_launches["bilinear_gather_fwd"],
+             launches_fuse=fuse_launches["bilinear_gather_fwd"], launches_info=info_launches["bilinear_gather_fwd"],
+             launches_autobatch=autobatch_launches["bilinear_gather_fwd"],
              **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_train["max_abs_err"],
                                              gather_step["max_abs_err_step"])},
              ms_of="CUDA events over back-to-back calls, as for every kernel; ms_device: the kernel's own "
@@ -2020,6 +2239,7 @@ def main() -> int:
              source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:663",
              launches=train_launches["ss2d_scan_carriers"], launches_combine=train_launches["ss2d_scan_combine"],
              launches_fit=fit_launches["ss2d_scan_carriers"], launches_fit_combine=fit_launches["ss2d_scan_combine"],
+             launches_autobatch=autobatch_launches["ss2d_scan_carriers"],
              max_abs_err=bwd_err, ms=sum(r["ms_summaries"] + r["ms_combine"] for r in bwd_rows),
              ms_summaries=sum(r["ms_summaries"] for r in bwd_rows), ms_combine=sum(r["ms_combine"] for r in bwd_rows),
              plain_ms=sum(r["plain_ms"] for r in bwd_rows), plain_of="the whole plain backward",
@@ -2030,6 +2250,7 @@ def main() -> int:
         dict(name="ss2d_scan_bwd_walk (B3b segment walk)", route="cuda",
              source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:684",
              launches=train_launches["ss2d_scan_bwd_walk"], launches_fit=fit_launches["ss2d_scan_bwd_walk"],
+             launches_autobatch=autobatch_launches["ss2d_scan_bwd_walk"],
              max_abs_err=bwd_err,
              ms=sum(r["ms_walk"] for r in bwd_rows), plain_ms=sum(r["plain_ms"] for r in bwd_rows),
              plain_of="the whole plain backward", bound_ms=sum(r["bound_b3b_ms"] for r in bwd_rows),
@@ -2042,10 +2263,12 @@ def main() -> int:
              source="tamtr_torch/csrc/bilinear_gather_bwd.cu", replaces="tamtr_tpu/kernels/deform_scatter.py:283",
              launches=train_launches["bilinear_gather_bwd"], launches_buckets=train_launches["pair_buckets"],
              launches_fit=fit_launches["bilinear_gather_bwd"], launches_fit_buckets=fit_launches["pair_buckets"],
+             launches_autobatch=autobatch_launches["bilinear_gather_bwd"],
              **gather_bwd),
         dict(name="auction_assignment", route="cuda", source="tamtr_torch/csrc/auction.cu",
              replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_assignment"],
-             launches_fit=fit_launches["auction_assignment"], **auction,
+             launches_fit=fit_launches["auction_assignment"],
+             launches_autobatch=autobatch_launches["auction_assignment"], **auction,
              launches_auction_match=slice3("auction_match", "tamtr_torch.kernels.auction.auction_match"),
              any_size=auction_any),
         dict(name="selective_scan_fwd", route="cuda", source="tamtr_torch/csrc/selective_scan_fwd.cu",
@@ -2068,6 +2291,7 @@ def main() -> int:
              launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs),
     ]
     print(json.dumps({"fit": fit_summary}))
+    print(json.dumps({"fuse": fuse_summary, "autobatch": autobatch_summary}))
     print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary, "track": track_summary,
                       "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp,
                       "jpeg_host_encode_ms_per_megapixel": jpeg_encode_ms_per_mp}))

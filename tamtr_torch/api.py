@@ -2,6 +2,11 @@
 text)`, `TAMTR(...).trainer()`, and `TAMTR(...).train(data=...)` /
 `.val(data=...)`.
 
+`info()` gives the model's summary: layers, parameters and, once a model
+is held, GFLOPs. `fuse=True` to `predict`, `track` or `val` runs the fused
+twin of the model (`nn/fuse.py`); `train(batch=-1)` fits the batch to the
+card's memory.
+
 `track(source)` runs `Engine.track` over a sequence of frames (arrays,
 image files, a directory or a glob): the file predict's forward on each
 frame, then a tracker ("bytetrack", or "botsort" with gmc_method="none"),
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tamtr_torch.config import load_data_yaml
+from tamtr_torch.config import get_cfg, load_data_yaml
 from tamtr_torch.engine.model import Engine
 from tamtr_torch.engine.results import Results
 from tamtr_torch.nn.graph import TAMTRModel
@@ -43,6 +48,12 @@ from tamtr_torch.train.trainer import Trainer, TrainConfig
 from tamtr_torch.weights import from_jax_variables, init_parameters
 
 ImageLike = Union[np.ndarray, torch.Tensor]
+
+
+def variable_count(model: torch.nn.Module) -> int:
+    """The numbers a model holds as the JAX package counts its variables:
+    parameters and BatchNorm statistics, without `num_batches_tracked`."""
+    return sum(t.numel() for name, t in model.state_dict().items() if not name.endswith("num_batches_tracked"))
 
 
 class TAMTR:
@@ -88,6 +99,32 @@ class TAMTR:
             init_parameters(net, self.seed)
             eng.model = net.to(self.device).eval()
         return eng.model
+
+    def info(self, imgsz: int = 640, nc: int = 80) -> str:
+        """The model's summary, logged and returned, as the JAX package's
+        `TAMTR.info` gives it: "TAMTR(<cfg>): <n> layers, <x>M params", with
+        ", <g> GFLOPs @ <imgsz>px" once the engine holds a model (trained,
+        loaded, set, or made by a predict). Layers are the graph's rows and
+        the head; params count every variable the JAX package holds: the
+        parameters and the BatchNorm statistics (not `num_batches_tracked`).
+        A config with no model yet is counted at `nc` classes. GFLOPs are one
+        eval forward at batch 1 (`utils/profiler.py:flops_of`)."""
+        from tamtr_torch.utils.log import LOGGER
+        from tamtr_torch.utils.profiler import flops_of
+
+        held = self._engine.model if self._engine is not None else None
+        model = held if held is not None else TAMTRModel.from_cfg(self.model_cfg, nc=nc)
+        n_params = variable_count(model)
+        gflops = ""
+        if held is not None:
+            dev = next(model.parameters()).device
+            img = torch.zeros(1, imgsz, imgsz, 3, device=dev)
+            txt = torch.zeros(1, model.nc, model.model[-1].hd, device=dev)
+            gflops = f", {flops_of(model.eval(), img, txt)['gflops']:.1f} GFLOPs @ {imgsz}px"
+        summary = (f"{type(self).__name__}({self.model_cfg}): {len(model.specs) + 1} layers, "
+                   f"{n_params / 1e6:.1f}M params{gflops}")
+        LOGGER.info(summary)
+        return summary
 
     def load_jax_variables(self, params: Dict, batch_stats: Dict) -> "TAMTR":
         """Load the JAX package's flax variables (nested dicts of arrays)."""
@@ -189,6 +226,8 @@ class TAMTR:
             a list of (H, W, 3) images of any sizes, with `text`.
           text: (K, hd) or (1|B, K, hd) class embeddings of the images in
             memory.
+          fuse=True (in `overrides`) runs the fused twin of the model
+            (`nn/fuse.py`) on either path; half=True raises (not ported).
         Returns:
           one `Results` per file; or one dict per image in memory: "boxes"
           (n, 4) xyxy in the image's pixels, "scores" (n,), "labels" (n,)
@@ -202,13 +241,13 @@ class TAMTR:
             eng.model = self.model  # the seeded model when none was trained, loaded or set
             return eng.predict(images, **{"imgsz": self.imgsz, "conf": conf, "iou": iou, "max_det": max_det,
                                           **overrides})
+        model = self._lazy_engine()._eval_model(self.model, get_cfg(overrides=overrides))
         img, sizes = self._to_batch(images)
         txt = torch.as_tensor(np.asarray(text) if isinstance(text, np.ndarray) else text)
         txt = txt.to(self.device, torch.float32)
         if txt.ndim == 2:
             txt = txt[None]
-        self.model.eval()
-        pred = self.model(img, txt)["pred"]
+        pred = model(img, txt)["pred"]
         boxes, scores, labels, valid, _ = postprocess_predictions(pred, conf, iou, max_det)
         results = []
         for i, (h, w) in enumerate(sizes):

@@ -7,6 +7,7 @@ package's `tamtr_tpu/cli.py`, the reference's `yolo` entry point,
     python -m tamtr_torch detect predict model=runs/detect/train/weights/best.pt source=images/ save=True
     python -m tamtr_torch detect track model=runs/detect/train/weights/best.pt source=frames/ tracker=bytetrack
     python -m tamtr_torch serve model=runs/detect/train/weights/best.pt port=8000
+    python -m tamtr_torch settings [reset] [key=value ...]
 
 A positional task and mode, and `key=value` overrides. The model is a model
 config (weights from `seed`) or a checkpoint written by `train`. Everything
@@ -15,11 +16,17 @@ per image; with save=True it writes each plot under `project/predict`
 (default `runs/predict`) with the image's name and format. `track` prints
 one line per frame of an image sequence (a directory, a glob or images):
 its track count and ids; `tracker=botsort` needs `gmc_method=none`.
-`serve` serves a checkpoint over HTTP (`tamtr_torch.serve`). The modes
-`export`, `benchmark` and `tune`, the `settings` command and the segment,
-pose and classify tasks are not ported: they exit with a message naming
-their ROADMAP entry; so do video and stream sources of `predict` and
-`track`.
+`serve` serves a checkpoint over HTTP (`tamtr_torch.serve`). `settings`
+prints the user settings (`utils/settings.py`), after setting the given
+keys or, with `reset`, the defaults. `fuse=True` runs val, predict and
+track on the fused model; `batch=-1` fits train's batch to the card. The
+modes `export`, `benchmark` and `tune` and the segment, pose and classify
+tasks are not ported: they exit with a message naming their ROADMAP entry;
+so do video and stream sources of `predict` and `track`, and `half=True`
+raises.
+
+`main` first installs the crash-report hook (`utils/crash.py`), which
+writes a report of an unhandled exception when the settings' `sync` is on.
 """
 
 from __future__ import annotations
@@ -43,7 +50,6 @@ NOT_PORTED = {
     "export": "queue A, item 7 (engine/exporter.py and the AutoBackend export formats)",
     "benchmark": "queue A, item 7 (benchmarks.py)",
     "tune": "queue A, item 7 (engine/tuner.py)",
-    "settings": "queue A, item 3 (settings.py and crash.py)",
     "segment": "queue A, item 7 (the other heads)",
     "pose": "queue A, item 7 (the other heads)",
     "classify": "queue A, item 7 (the other heads)",
@@ -94,10 +100,31 @@ def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to tamtr_torch yet: ROADMAP.md {NOT_PORTED[what]}")
 
 
+def settings_command(args: List[str]) -> None:
+    """`settings [reset] [key=value ...]` (the JAX CLI's, the reference's
+    `handle_yolo_settings`): reset, or set and save the keys, then print
+    the settings as YAML."""
+    from tamtr_torch.config import dump_flat_yaml
+    from tamtr_torch.utils.settings import SettingsManager
+
+    settings = SettingsManager()
+    if args and args[0] == "reset":
+        settings.reset()
+        print("settings reset to defaults")
+    elif args:
+        settings.update({k: _parse_value(v) for k, v in (a.split("=", 1) for a in args)})
+        settings.save()
+    print(dump_flat_yaml(dict(settings)))
+
+
 def main(argv: List[str] | None = None) -> None:
+    from tamtr_torch.utils.crash import set_crash_reporting
+
+    set_crash_reporting()
     argv = argv if argv is not None else sys.argv[1:]
     if argv and argv[0] == "settings":
-        raise _not_ported("settings")
+        settings_command(argv[1:])
+        return
     task, mode, ov = parse_args(argv)
     for what in (mode, task):
         if what in NOT_PORTED:

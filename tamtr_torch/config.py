@@ -185,13 +185,30 @@ _INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
 _FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
 
 
+_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v", "f": "\f",
+            "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\", "N": "\x85", "_": "\xa0",
+            "L": "\u2028", "P": "\u2029"}
+_ESCAPE = re.compile(r"\\(x[0-9A-Fa-f]{2}|u[0-9A-Fa-f]{4}|U[0-9A-Fa-f]{8}|.)")
+
+
+def _unescape_double(inner: str) -> str:
+    """The text of a YAML double-quoted scalar, its escapes decoded."""
+    def one(m):
+        e = m.group(1)
+        return chr(int(e[1:], 16)) if len(e) > 1 else _ESCAPES.get(e, e)
+
+    return _ESCAPE.sub(one, inner)
+
+
 def _scalar(text: str) -> Any:
     """A YAML scalar or flow list of the subset."""
     s = text.strip()
     if s in ("", "~", "null", "Null", "NULL"):
         return None
-    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
-        return s[1:-1]
+    if len(s) >= 2 and s[0] == s[-1] == "'":
+        return s[1:-1].replace("''", "'")
+    if len(s) >= 2 and s[0] == s[-1] == '"':
+        return _unescape_double(s[1:-1])
     if s.startswith("[") and s.endswith("]"):
         inner = s[1:-1].strip()
         return [_scalar(x) for x in inner.split(",")] if inner else []
@@ -253,6 +270,39 @@ def parse_config_text(text: str, name: str = "<config>") -> Dict[str, Any]:
         out[key] = _scalar(v)
         block_key = key if not v.strip() else None
     return out
+
+
+_PLAIN = re.compile(r"[A-Za-z0-9_/][A-Za-z0-9_./-]*$")
+
+
+def dump_flat_yaml(d: Dict[str, Any]) -> str:
+    """`key: value` lines of a flat mapping of str, bool, int and None
+    values, which `yaml.safe_load` reads back equal (and so does
+    `parse_config_text`): a string is written plain only where it cannot be
+    read as anything else, else single-quoted, or double-quoted with its
+    non-printable characters escaped when it holds other than printable
+    ASCII."""
+    lines = []
+    for k, v in d.items():
+        if v is None:
+            text = "null"
+        elif isinstance(v, bool):
+            text = "true" if v else "false"
+        elif isinstance(v, int):
+            text = str(v)
+        elif not isinstance(v, str):
+            raise TypeError(f"{k}: a {type(v).__name__} value has no flat YAML form here")
+        elif _PLAIN.match(v) and _scalar(v) == v and not re.match(r"[-+]?0[xob]|[-+]?\.", v):
+            text = v
+        elif v.isascii() and v.isprintable():
+            text = "'" + v.replace("'", "''") + "'"
+        else:
+            text = '"' + "".join(ch if ch.isprintable() and ch not in '"\\' else
+                                 f"\\{ch}" if ch in '"\\' else
+                                 f"\\u{ord(ch):04x}" if ord(ch) < 0x10000 else f"\\U{ord(ch):08x}"
+                                 for ch in v) + '"'
+        lines.append(f"{k}: {text}")
+    return "\n".join(lines) + "\n"
 
 
 def _load_mapping(path: str | Path) -> Dict[str, Any]:

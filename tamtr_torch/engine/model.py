@@ -9,12 +9,19 @@ JAX package's `tamtr_tpu/engine/model.py`: `Engine.train`, `val`,
     val(data=...): the same _validate on loaded weights
     predict(source): image files -> the eval forward (with TTA when
       augment=True) -> NMS -> `Results` in the images' pixels
+    track(source): a sequence of frames -> the eval forward -> a tracker
+
+val, predict and track run the fused twin of the model under fuse=True
+(`nn/fuse.py`). train(batch=-1) fits the batch to the card's memory
+(`utils/autobatch.py`). With plots=True (the default) train writes
+`train_batch0-2.jpg`, `results.png` and, from val, `confusion_matrix.png`
+into its run directory, and logs to TensorBoard under `tb/` when it is
+installed; the other logger integrations attach as the settings allow
+(`utils/callbacks.py`, `utils/settings.py`).
 
 The engine runs on the card unless `device="cpu"` is given. Not ported:
-the mesh, sequence parallelism and ZeRO, autobatch, fuse and half,
-classify/segment/pose, video and stream sources, track, tune and export;
-the plots (the confusion matrix of `cfg.plots` is not computed: matplotlib
-is not on the card's machine).
+the mesh, sequence parallelism and ZeRO, half (bf16 eval: it raises),
+classify/segment/pose, video and stream sources, tune and export.
 """
 
 from __future__ import annotations
@@ -38,14 +45,17 @@ from tamtr_torch.data.text import TextEmbedder, class_text_embeddings
 from tamtr_torch.engine.checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
 from tamtr_torch.nn.graph import TAMTRModel
 from tamtr_torch.engine.results import Results
+from tamtr_torch.nn.fuse import fuse_model
 from tamtr_torch.ops.nms import multiclass_nms, postprocess_predictions
 from tamtr_torch.train.trainer import Trainer, TrainConfig
-from tamtr_torch.utils.callbacks import Callbacks
+from tamtr_torch.utils.callbacks import Callbacks, add_tensorboard, attach_integrations
 from tamtr_torch.utils.checks import check_imgsz
 from tamtr_torch.utils.coco import predictions_to_coco
 from tamtr_torch.utils.files import increment_path
 from tamtr_torch.utils.log import LOGGER
-from tamtr_torch.utils.metrics import DetMetrics, match_predictions
+from tamtr_torch.utils.metrics import ConfusionMatrix, DetMetrics, match_predictions
+from tamtr_torch.utils.plotting import plot_images, plot_results
+from tamtr_torch.utils.settings import SettingsManager
 from tamtr_torch.weights import init_parameters
 
 
@@ -85,6 +95,16 @@ def text_width(model: TAMTRModel) -> int:
     return model.model[-1].hd
 
 
+def weights_key(model: torch.nn.Module) -> tuple:
+    """What changes when `model`'s weights do: the model, and each parameter
+    and buffer's storage and version counter (which every in-place write,
+    an optimizer or EMA step or `load_state_dict`, advances). Tensors made
+    under inference mode carry no counter and count by storage alone."""
+    return (id(model),) + tuple((t.data_ptr(), -1 if t.is_inference() else t._version)
+                                for m in model.modules() for d in (m._parameters, m._buffers)
+                                for t in d.values() if t is not None)
+
+
 class Engine:
     """Trains and validates one model config on datasets.
 
@@ -107,6 +127,8 @@ class Engine:
         self.callbacks = Callbacks()
         self.timing: Dict[str, List[float]] = {}
         self._tracker = None  # `track`'s, kept across calls with persist=True
+        self._fused = None  # (weights_key, fused twin) of the last fuse=True call
+        self._last_run_dir: Optional[Path] = None  # val's plots go here after a train
 
     # ------------------------------------------------------------------ train
     def train(self, **overrides: Any) -> Dict[str, float]:
@@ -114,8 +136,8 @@ class Engine:
         self.cfg = cfg
         if not cfg.data:
             raise ValueError("train requires data=...")
-        if cfg.batch < 1:
-            raise ValueError(f"batch={cfg.batch}: autobatch is not ported; give a batch size")
+        if cfg.batch < 1 and cfg.batch != -1:
+            raise ValueError(f"batch={cfg.batch}: give a batch size, or -1 to fit it to the card's memory")
         # SIGTERM / SIGINT set a flag; the epoch loop saves `last` and stops,
         # so resume=True continues from the interrupted epoch
         preempted = {"flag": False}
@@ -142,6 +164,11 @@ class Engine:
         nc = data["nc"]
         self.names = data["names"]
         cfg.imgsz = check_imgsz(cfg.imgsz, stride=32)
+        if cfg.batch == -1:
+            # fit the batch to the card: two probe training steps (`autobatch_train`)
+            from tamtr_torch.utils.autobatch import autobatch_train
+
+            cfg.batch = autobatch_train(self.model_cfg, nc, cfg.imgsz, cfg.max_gt, device=dev, default=4)
         model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=cfg.max_gt)
         init_parameters(model, cfg.seed)
         width = text_width(model)
@@ -174,6 +201,11 @@ class Engine:
         if not cfg.resume and not cfg.exist_ok:
             run_dir = increment_path(run_dir)
         run_dir.mkdir(parents=True, exist_ok=True)
+        self._last_run_dir = run_dir
+        if cfg.plots:
+            add_tensorboard(self.callbacks, str(run_dir / "tb"))
+        # the settings gate the other integrations; TensorBoard goes with plots above
+        attach_integrations(self.callbacks, run_dir, settings={**SettingsManager(), "tensorboard": False})
         csv_path = run_dir / "results.csv"
         start_epoch = 0
         last = run_dir / "weights" / "last.pt"
@@ -209,6 +241,8 @@ class Engine:
                 ts = time.perf_counter()
                 if batch is None:
                     break
+                if cfg.plots and epoch == start_epoch and n_steps < 3:
+                    self._plot_batch(batch, run_dir / f"train_batch{n_steps}.jpg")
                 m = trainer.step({
                     "img": batch["img"],
                     # per-image sampled texts (RandomLoadText) when present, else the class table
@@ -251,9 +285,22 @@ class Engine:
                     save_checkpoint(last, trainer, {"epoch": epoch, **meta})
                     LOGGER.info("preemption checkpoint saved; resume with resume=True")
                 break
+        if cfg.plots:
+            plot_results(csv_path)
         self.callbacks.fire("on_train_end", self, metrics_out, run_dir)
         self.callbacks.fire("teardown", self)
         return metrics_out
+
+    def _plot_batch(self, batch: Dict[str, Any], path: Path) -> None:
+        """The training batch's mosaic with its labels (`plot_images`); a
+        failure is logged and training goes on."""
+        cls, mask = np.asarray(batch["cls"]), np.asarray(batch["mask"]).reshape(-1)
+        bi = np.repeat(np.arange(len(cls)), cls.shape[1])
+        try:
+            plot_images(np.asarray(batch["img"]), bi[mask], cls.reshape(-1)[mask],
+                        np.asarray(batch["bboxes"]).reshape(-1, 4)[mask], names=self.names, save_path=path)
+        except (OSError, ValueError) as e:
+            LOGGER.warning(f"{path.name} not written: {e}")
 
     # -------------------------------------------------------------------- val
     def val(self, **overrides: Any) -> Dict[str, float]:
@@ -279,9 +326,10 @@ class Engine:
         ds = DetectionDataset(split_dir, imgsz=cfg.imgsz, augment=False,
                               classes=cfg.classes, single_cls=cfg.single_cls)
         conf = cfg.conf if cfg.conf is not None else 0.4
-        model.eval()
+        model = self._eval_model(model, cfg)
         dev = next(model.parameters()).device
         metrics = DetMetrics()
+        confusion = ConfusionMatrix(len(self.names) or model.nc, conf=conf) if cfg.plots else None
         bs = max(cfg.batch, 1)
         txt_all = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=dev)
         n = len(ds)
@@ -317,6 +365,8 @@ class Engine:
                     ps = scores[k][sel]
                     tp = match_predictions(pb, pc, raw.boxes, raw.cls.astype(np.float32))
                     metrics.update(tp, ps, pc, raw.cls.astype(np.float32))
+                    if confusion is not None:
+                        confusion.process_batch(pb, ps, pc.astype(np.int64), raw.boxes, raw.cls)
                     if coco_records is not None:
                         stem = Path(ds.im_files[i]).stem
                         coco_records.append({"image_id": int(stem) if stem.isnumeric() else i, "boxes": pb,
@@ -324,6 +374,10 @@ class Engine:
         if coco_records is not None:
             predictions_to_coco(coco_records, Path(cfg.project or "runs") / "predictions.json")
         res = metrics.compute()
+        if confusion is not None:
+            out_dir = self._last_run_dir or Path(cfg.project or "runs")
+            out_dir.mkdir(parents=True, exist_ok=True)
+            confusion.plot(out_dir / "confusion_matrix.png", names=self.names)
         res["images_per_sec"] = n / max(time.time() - t0, 1e-9)
         LOGGER.info(f"val: mAP50={res['mAP50']:.4f} mAP50-95={res['mAP50-95']:.4f} "
                     f"P={res['precision']:.4f} R={res['recall']:.4f} ({res['images_per_sec']:.1f} img/s)")
@@ -361,7 +415,7 @@ class Engine:
                      if p.is_dir() else [str(p)])
         else:
             paths = [str(x) for x in source]
-        model = self.model.eval()
+        model = self._eval_model(self.model, cfg)
         conf = cfg.conf if cfg.conf is not None else 0.25
         txt = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=next(model.parameters()).device)
         # TTA (the reference's `_predict_augment`, `tasks.py:272-307`): scales
@@ -443,7 +497,7 @@ class Engine:
             raise RuntimeError("no weights or classes: train, load or set a model and set_classes first")
         if not persist or self._tracker is None:
             self._tracker = make_tracker(tracker, **tracker_args)
-        model = self.model.eval()
+        model = self._eval_model(self.model, cfg)
         conf = cfg.conf if cfg.conf is not None else 0.25
         txt = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=next(model.parameters()).device)
         self.timing = {"read_ms": [], "model_ms": [], "tracker_ms": []}
@@ -465,11 +519,44 @@ class Engine:
             t0 = time.perf_counter()
         return results
 
+    def _eval_model(self, model: TAMTRModel, cfg: Config) -> TAMTRModel:
+        """The model val, predict and track run (the JAX package's
+        `_resolve_eval_model`): `model` in eval mode, or with cfg.fuse its
+        fused twin (`nn/fuse.fuse_model`), cached and built again whenever
+        `model` or any of its weights changed since (`weights_key`); `model`
+        itself is never changed. half=True raises: bf16 eval is not ported."""
+        if cfg.half:
+            raise NotImplementedError("half=True (bf16 eval) is not ported to tamtr_torch yet: "
+                                      "ROADMAP.md queue A, item 5")
+        if not cfg.fuse:
+            return model.eval()
+        key = weights_key(model)
+        if self._fused is None or self._fused[0] != key:
+            self._fused = (key, fuse_model(model))
+        return self._fused[1]
+
     # ------------------------------------------------------------- weights
     def load(self, ckpt_path: Union[str, Path], nc: Optional[int] = None,
              names: Optional[List[str]] = None) -> "Engine":
         """The EMA weights of a checkpoint (`weights/last.pt` or `best.pt`);
-        its meta supplies nc, names and the model config."""
+        its meta supplies nc, names and the model config.
+
+        A bare known asset name that is not a file here ("TAM_TR.pt") is
+        fetched from the project's release (`utils/downloads.py`); when it
+        cannot be reached, HUBModelError. A fetched reference checkpoint
+        cannot be loaded yet: NotImplementedError."""
+        p = Path(ckpt_path)
+        if not p.exists() and p.name == str(ckpt_path):
+            from tamtr_torch.utils.downloads import ASSETS_NAMES, attempt_download_asset
+            from tamtr_torch.utils.errors import HUBModelError
+
+            if p.name in ASSETS_NAMES:
+                try:
+                    attempt_download_asset(p.name)
+                except ConnectionError as e:
+                    raise HUBModelError(f"could not fetch asset {p.name!r}: {e}") from e
+                raise NotImplementedError(f"{p.name} is the reference's checkpoint; loading it is not ported to "
+                                          "tamtr_torch yet: ROADMAP.md queue A, item 7")
         ema, meta = load_checkpoint_raw(ckpt_path)
         nc = nc or meta.get("nc")
         if not nc:

@@ -69,18 +69,19 @@ def parse_graph(cfg: Dict[str, Any], nc: Optional[int] = None):
     return tuple(specs), head_spec, tuple(sorted(save)), nc
 
 
-def _build_layer(m: str, args, c_in: List[int], gc: int):
-    """(module, output channels) for one graph row; c_in are its input widths."""
+def _build_layer(m: str, args, c_in: List[int], gc: int, deploy: bool = False):
+    """(module, output channels) for one graph row; c_in are its input widths;
+    deploy=True builds the RepConvN blocks fused."""
     c1 = c_in[0]
     if m == "Conv":
         c2, k, s = (list(args) + [1, 1])[:3]
         return L.ConvBN(c1, c2, k, s), c2
     if m == "RepNCSPELAN4":
         c2, c3, c4, n = args
-        return L.RepNCSPELAN4(c1, c2, c3, c4, n), c2
+        return L.RepNCSPELAN4(c1, c2, c3, c4, n, deploy=deploy), c2
     if m == "TIAGELAN":
         c2, c3, c4, n, nh = args
-        return L.TIAGELAN(c1, c2, c3, c4, n, nh, gc=gc), c2
+        return L.TIAGELAN(c1, c2, c3, c4, n, nh, gc=gc, deploy=deploy), c2
     if m == "SPPELAN":
         c2, c3 = args
         return L.SPPELAN(c1, c2, c3), c2
@@ -104,14 +105,16 @@ class TAMTRModel(nn.Module):
     "mask" (B, M)} padded to `max_gt`, the head's train dict (see
     `ManbaWorldDecoder`); DropPath and CDN noise draw from `generator`.
 
-    `max_gt`, `num_denoising` and `vss_drop_path` are the JAX `TAMTRModel`'s
-    settings (`tamtr_tpu/nn/graph.py:160-167`), with its defaults; the CDN
-    noise settings are the head's (`label_noise_ratio`, `box_noise_scale`).
+    `max_gt`, `num_denoising`, `vss_drop_path` and `deploy` are the JAX
+    `TAMTRModel`'s settings (`tamtr_tpu/nn/graph.py:160-171`), with its
+    defaults; the CDN noise settings are the head's (`label_noise_ratio`,
+    `box_noise_scale`). deploy=True builds every RepConvN fused (the layout
+    of JAX's `fuse_repconv_variables`).
     """
 
     def __init__(self, cfg: Dict[str, Any], nc: Optional[int] = None, max_gt: int = 128,
                  num_denoising: int = 100, vss_drop_path: float = 0.1,
-                 label_noise_ratio: float = 0.5, box_noise_scale: float = 1.0):
+                 label_noise_ratio: float = 0.5, box_noise_scale: float = 1.0, deploy: bool = False):
         super().__init__()
         self.specs, (self.head_from, head_args), self.save, self.nc = parse_graph(cfg, nc)
         _, hd, nq, ndp, nh, ndl = head_args[:6]
@@ -120,7 +123,7 @@ class TAMTRModel(nn.Module):
         for idx, f, m, args in self.specs:
             froms = f if isinstance(f, tuple) else (f,)
             c_in = [ch[j if j >= 0 else idx + j] if j != -1 else (ch[-1] if ch else 3) for j in froms]
-            mod, c2 = _build_layer(m, args, c_in, gc=hd)
+            mod, c2 = _build_layer(m, args, c_in, gc=hd, deploy=deploy)
             layers.append(mod)
             ch.append(c2)
         layers.append(ManbaWorldDecoder(

@@ -80,26 +80,31 @@ class ConvBN(nn.Module):
 
 
 class RepConvN(nn.Module):
-    """RepVGG block: 3x3 and 1x1 branches summed (no identity branch)."""
+    """RepVGG block: 3x3 and 1x1 branches summed (no identity branch). With
+    deploy=True it is the fused form (`tamtr_tpu/nn/layers.py:113-122`): one
+    biased 3x3 conv `fused`, whose weights `nn.fuse.fuse_repconv` makes."""
 
-    def __init__(self, c1: int, c2: int, act: bool = True):
+    def __init__(self, c1: int, c2: int, act: bool = True, deploy: bool = False):
         super().__init__()
-        self.conv1 = ConvBN(c1, c2, 3, 1, p=1, act=False)
-        self.conv2 = ConvBN(c1, c2, 1, 1, p=0, act=False)
-        self.act = act
+        if deploy:
+            self.fused = nn.Conv2d(c1, c2, 3, 1, 1, bias=True)
+        else:
+            self.conv1 = ConvBN(c1, c2, 3, 1, p=1, act=False)
+            self.conv2 = ConvBN(c1, c2, 1, 1, p=0, act=False)
+        self.act, self.deploy = act, deploy
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv1(x) + self.conv2(x)
+        y = self.fused(x) if self.deploy else self.conv1(x) + self.conv2(x)
         return F.silu(y) if self.act else y
 
 
 class RepNBottleneck(nn.Module):
     """RepConvN -> Conv 3x3, with a residual when shapes allow."""
 
-    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5):
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, deploy: bool = False):
         super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = RepConvN(c1, c_)
+        self.cv1 = RepConvN(c1, c_, deploy=deploy)
         self.cv2 = ConvBN(c_, c2, 3, 1)
         self.add = shortcut and c1 == c2
 
@@ -111,13 +116,14 @@ class RepNBottleneck(nn.Module):
 class RepNCSP(nn.Module):
     """CSP bottleneck with RepN blocks."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5,
+                 deploy: bool = False):
         super().__init__()
         c_ = int(c2 * e)
         self.cv1 = ConvBN(c1, c_, 1, 1)
         self.cv2 = ConvBN(c1, c_, 1, 1)
         self.cv3 = ConvBN(2 * c_, c2, 1, 1)
-        self.m = nn.Sequential(*(RepNBottleneck(c_, c_, shortcut, e=1.0) for _ in range(n)))
+        self.m = nn.Sequential(*(RepNBottleneck(c_, c_, shortcut, e=1.0, deploy=deploy) for _ in range(n)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
@@ -126,11 +132,11 @@ class RepNCSP(nn.Module):
 class RepNCSPELAN4(nn.Module):
     """YOLOv9 CSP-ELAN block."""
 
-    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1):
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1, deploy: bool = False):
         super().__init__()
         self.cv1 = ConvBN(c1, c3, 1, 1)
-        self.cv2 = nn.Sequential(RepNCSP(c3 // 2, c4, n), ConvBN(c4, c4, 3, 1))
-        self.cv3 = nn.Sequential(RepNCSP(c4, c4, n), ConvBN(c4, c4, 3, 1))
+        self.cv2 = nn.Sequential(RepNCSP(c3 // 2, c4, n, deploy=deploy), ConvBN(c4, c4, 3, 1))
+        self.cv3 = nn.Sequential(RepNCSP(c4, c4, n, deploy=deploy), ConvBN(c4, c4, 3, 1))
         self.cv4 = ConvBN(c3 + 2 * c4, c2, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -171,8 +177,9 @@ class TIAGELAN(RepNCSPELAN4):
     and discards the result, so the data path is RepNCSPELAN4's; `attn` holds
     the parameters (checkpoint keys) and is not run."""
 
-    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1, nh: int = 8, gc: int = 512):
-        super().__init__(c1, c2, c3, c4, n)
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1, nh: int = 8, gc: int = 512,
+                 deploy: bool = False):
+        super().__init__(c1, c2, c3, c4, n, deploy=deploy)
         self.attn = MaxSigmoidAttnBlock(c3 // 2, c4, nh=nh, ec=c4, gc=gc)
 
     def forward(self, x: torch.Tensor, guide: torch.Tensor) -> torch.Tensor:

@@ -245,3 +245,11 @@ class ConfusionMatrix:
         if self.task == "detect":
             return tp[:-1], fp[:-1]
         return tp, fp
+
+    def plot(self, save_path=None, names=()) -> np.ndarray:
+        """The column-normalised matrix as a Blues heat map with class (and
+        background) labels (`utils/plotting.py:plot_confusion_matrix`),
+        written to `save_path` if given; returns the image."""
+        from tamtr_torch.utils.plotting import plot_confusion_matrix
+
+        return plot_confusion_matrix(self.matrix, save_path, names, background=self.task == "detect")

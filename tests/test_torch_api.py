@@ -39,7 +39,8 @@ def test_json_configs_equal_the_yaml(name):
 def test_import_without_jax_yaml_or_cv2():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib',\n"
+        "          'tensorboard'):\n"
         "    sys.modules[m] = None\n"
         "import tamtr_torch, tamtr_torch.weights, tamtr_torch.kernels._build, chip_smoke\n"
         "import tamtr_torch.train.trainer, tamtr_torch.losses.detr_loss, tamtr_torch.losses.matcher\n"
@@ -52,7 +53,10 @@ def test_import_without_jax_yaml_or_cv2():
         "import tamtr_torch.cli, tamtr_torch.serve, tamtr_torch.nn.autobackend, tamtr_torch.engine.results\n"
         "import tamtr_torch.utils.plotting, tamtr_torch.data.loaders, tamtr_torch.data.converter\n"
         "import tools.convert_visdrone_torch, tamtr_torch.trackers.track, tamtr_torch.trackers.bot_sort\n"
-        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL')\n"
+        "import tamtr_torch.nn.fuse, tamtr_torch.utils.profiler, tamtr_torch.utils.settings, tamtr_torch.utils.crash\n"
+        "import tamtr_torch.utils.autobatch, tamtr_torch.utils.downloads, tamtr_torch.utils.errors\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL',\n"
+        "                                                        'matplotlib', 'tensorboard')\n"
         "          and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
     )

@@ -790,3 +790,47 @@ def test_track_on_the_card_matches_the_cpu(card, tmp_path, tracker, kw):
     for g, w in zip(results["cuda"], results["cpu"], strict=True):
         np.testing.assert_array_equal(g.track_ids, w.track_ids)
         np.testing.assert_allclose(g.boxes.xyxy / 128, w.boxes.xyxy / 128, rtol=0, atol=1e-3)
+
+
+def test_fused_forward_matches_unfused_on_the_card(card):
+    """The fused twin (`nn/fuse.py`) of the full-width model against the
+    unfused model on the card at 128 px, batch 2: within 1e-4 as a
+    tie-robust set; B1 and B2 launch as often in both."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather
+    from tamtr_torch.kernels.selective_scan import ss2d_scan
+    from tamtr_torch.nn.fuse import fuse_model
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.weights import init_parameters
+
+    model = TAMTRModel.from_cfg("tamtr.yaml", nc=10)
+    init_parameters(model, 0)
+    _spread_scores(model, seed=0)
+    model = model.to(card).eval()
+    g = torch.Generator().manual_seed(3)
+    img = torch.rand(2, 128, 128, 3, generator=g).to(card)
+    txt = torch.nn.functional.normalize(torch.randn(1, 10, 512, generator=g), dim=-1).to(card)
+    fused = fuse_model(model)
+    with torch.inference_mode():
+        ss2d_scan.launches = bilinear_gather.launches = 0
+        want = model(img, txt)["pred"].cpu().numpy()
+        plain = (ss2d_scan.launches, bilinear_gather.launches)
+        got = fused(img, txt)["pred"].cpu().numpy()
+    assert (ss2d_scan.launches, bilinear_gather.launches) == (2 * plain[0], 2 * plain[1]) and plain[0] > 0
+    for b in range(2):
+        dist = np.abs(got[b][:, None] - want[b][None]).max(-1)
+        r, c = linear_sum_assignment(dist)
+        assert (dist[r, c] < 1e-4).sum() >= len(r) - 2, np.sort(dist[r, c])[-3:]
+
+
+def test_autobatch_train_on_the_card(card):
+    """`autobatch_train` of the nano model at 64 px fits a batch in [1, 64]
+    from two probe training steps, and leaves the caller's RNG as it was."""
+    from tamtr_torch.utils.autobatch import autobatch_train
+
+    state = torch.random.get_rng_state()
+    b = autobatch_train("tamtr-nano.yaml", nc=3, imgsz=64, max_gt=8, device=card, max_batch=64)
+    assert 1 <= b <= 64
+    assert torch.equal(torch.random.get_rng_state(), state)

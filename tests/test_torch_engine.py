@@ -115,3 +115,36 @@ def test_tamtr_val_after_load_jax_variables(jax_nano, port_nano, txt, val_data):
     assert got["mAP50"] > 0
     for k in ("mAP50", "mAP50-95", "precision", "recall", "fitness"):
         assert got[k] == want[k], k
+
+
+def test_val_confusion_matrix_equals_jax(jax_nano, port_nano, txt, val_data, tmp_path, monkeypatch):
+    """With plots=True both engines fill a confusion matrix over the same
+    predictions: the port's integer matrix equals JAX's, and each writes
+    `confusion_matrix.png` under `project`."""
+    import tamtr_tpu.utils.metrics as jax_metrics
+    from tamtr_tpu.engine.checkpoint import InferenceState
+    from tamtr_tpu.engine.model import Engine as JaxEngine
+
+    from tamtr_torch.data.image_io import imread
+    from tamtr_torch.utils import metrics as port_metrics
+
+    seen = {}
+    for name, mod in (("jax", jax_metrics), ("port", port_metrics)):
+        plot = mod.ConfusionMatrix.plot
+        monkeypatch.setattr(mod.ConfusionMatrix, "plot", lambda self, *a, _n=name, _p=plot, **k: (
+            seen.__setitem__(_n, self.matrix.copy()), _p(self, *a, **k))[1])
+    jmodel, params, batch_stats = jax_nano
+    eng = Engine("tamtr-nano.yaml", device="cpu")
+    eng.model = port_nano
+    eng.set_classes(NAMES, txt)
+    args = dict(data=str(val_data), imgsz=IMG, batch=2, conf=0.25, workers=1, plots=True)
+    eng.val(project=str(tmp_path / "port"), **args)
+    je = JaxEngine("tamtr-nano.yaml")
+    je.model = jmodel
+    je.state = InferenceState(params, batch_stats)
+    je.set_classes(NAMES, txt)
+    je.val(project=str(tmp_path / "jax"), **args)
+    assert seen["port"].shape == (NC + 1, NC + 1) and seen["port"].sum() > 0
+    np.testing.assert_array_equal(seen["port"], seen["jax"])
+    assert imread(tmp_path / "port" / "confusion_matrix.png") is not None
+    assert (tmp_path / "jax" / "confusion_matrix.png").exists()

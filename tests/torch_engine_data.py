@@ -16,8 +16,13 @@ NC, HD, IMG = 3, 128, 64
 NAMES = ["red box", "green box", "blue box"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
+    """One torch thread for the whole module. Module scope puts it before
+    the modules' own module-scoped fixtures (an autouse fixture comes first
+    within its scope), which train and validate: at the default of one
+    thread per core, under several test processes, a fixture that trains
+    for ~3 s alone took minutes."""
     prev = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
