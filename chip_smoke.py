@@ -55,6 +55,21 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    (batch-wide stop, row mask) on the transposed train cost. Each of B6-B8
    and `auction_match` must have launched; serve and train count 0 for
    them.
+4a. sp_blocks: the sequence-parallel scans (`tamtr_torch/parallel/
+   seq_scan.py`) with their n blocks in this process (`LocalBlocks`, the
+   all-gather a stack) at the three 640 px levels, batch 4, n = 2 and 4:
+   `ss2d_scan_sp` forward and all eight gradients against `ss2d_scan` and
+   `ss2d_scan_bwd` (1e-4, 2e-3), `selective_scan_sp` against
+   `selective_scan` at G = 4 (1e-4; the backward, plain torch in both,
+   2e-3), each bitwise over two calls; at the middle level both also
+   against their plain blocked versions (`ss2d_scan_sp_ref`,
+   `selective_scan_sp_ref`, the plain seeded scans on the same card
+   tensors) at the same bounds. The launch counters, zeroed before each
+   of the two blocked calls and read after it, must show per block the summaries,
+   the combine twice (a dry run for the block's summary, then seeded with
+   the state entering it) and the output (or B3's combine twice and the
+   walk). The blocked calls timed beside the unsplit ones, and the dry and
+   seeded combines of B1, B3 and B6 alone, one block of 2, with bounds.
 4b. ss2d_pieces: `ss2d_scan` at state sizes 8 and 24 and width 96 (not a
    multiple of 32), on the pieces of `ss2d_pieces`: forward (1e-4) and all
    eight gradients (2e-3) against the plain scan; B1 and B3 once a piece.
@@ -129,6 +144,15 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    loader wait, val images/s, mAP, peak memory. plots=True: the run
    directory must hold `results.png`, `train_batch0-2.jpg` and
    `confusion_matrix.png`, each readable.
+9a. parallel: in a process of its own, `torch.distributed` over NCCL with
+   a world of one rank on the card, deterministic algorithms on: one
+   `Trainer.step` of `tamtr.yaml` at 640 px, batch 4, max_gt 300 under the
+   data group, plain and with ZeRO, each bitwise the ungrouped step (an
+   all-reduce over one rank is the identity; the ungrouped step bitwise
+   its own repeat); then `Engine.train(fsdp=2)` for one epoch of the fit
+   dataset and `Engine.val` under the group, the launch counters zeroed
+   before each: B1-B5 must have launched. Several cards are not reached
+   here: NCCL across cards is not measured.
 9b. cli: `python -m tamtr_torch predict model=<fit's best.pt>
    source=<fixtures> save=True` in a subprocess, which prints its launch
    counters: exit 0, one line and one plot per image, written under the
@@ -2139,11 +2163,339 @@ def info(best: str):
     return launches
 
 
+def fwd_bwd(fn, args, dy):
+    """y of `fn(*args)` and the gradients of every input given dy."""
+    ts = [a.detach().requires_grad_() for a in args]
+    y = fn(*ts)
+    return y.detach(), torch.autograd.grad(y, ts, dy)
+
+
+def seeded_combine_rows(args, L: int):
+    """The combines of one block of 2 at one level (the first half of the
+    tokens), each launch alone: B1's dry run (the block's decay and leaving
+    state) and its seeded run, B3's dry run (decay and leaving carry) and
+    its run seeded with the state and the carry; times and bounds."""
+    from tamtr_torch.kernels.selective_scan import (
+        SEG_STEPS, ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_fwd_combine, ss2d_scan_fwd_summaries,
+    )
+
+    layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = args
+    Lb = L // 2
+    blk = [layouts[:, :, :Lb].contiguous(), dts_raw[..., :Lb, :].contiguous(), dt_w, dt_b, A,
+           Bs[..., :Lb, :].contiguous(), Cs[..., :Lb, :].contiguous()]
+    B, D, N = layouts.shape[0], A.shape[1], A.shape[2]
+    S = -(-Lb // SEG_STEPS)
+    dy = torch.randn(B, 4, Lb, D, device=layouts.device)
+    h_loc, sdt = ss2d_scan_fwd_summaries(*blk)
+    seed = torch.randn(B, 4, D, N, device=layouts.device) * 0.1
+    ms_dry = cuda_ms(lambda: ss2d_scan_fwd_combine(A, h_loc, sdt, Lb, dry=True), iters=5)
+    copies = iter([h_loc.clone() for _ in range(6)])
+    ms_seeded = cuda_ms(lambda: ss2d_scan_fwd_combine(A, next(copies), sdt, Lb, seed=seed), iters=5)
+    summ = ss2d_scan_carriers(*blk, dy)
+    ms_dry_bwd = cuda_ms(lambda: ss2d_scan_combine(A, *summ, Lb, dry=True), iters=5)
+    copies = iter([[t.clone() for t in summ[:2]] for _ in range(6)])
+    ms_seeded_bwd = cuda_ms(lambda: ss2d_scan_combine(A, *next(copies), summ[2], Lb, seed_h=seed, seed_c=seed),
+                            iters=5)
+    # bytes: the (B, 4, S, D, N) states (read; rewritten by a seeded run),
+    # the sums of dt and A read, the (B, 4, D, N) seeds read and ends
+    # written; ~4 operations per (b, k, segment, d, n) on each chain
+    states, sums, ends = 4 * B * S * D * N, 4 * B * S * D, 4 * B * D * N
+    rows = dict(L_block=Lb, S=S, ms_fwd_dry=ms_dry, ms_fwd_seeded=ms_seeded, ms_bwd_dry=ms_dry_bwd,
+                ms_bwd_seeded=ms_seeded_bwd)
+    for name, nbytes, ops in (("fwd_dry", states + sums + 2 * ends, states),
+                              ("fwd_seeded", 2 * states + sums + ends, states),
+                              ("bwd_dry", 2 * states + sums + 2 * ends, 2 * states),
+                              ("bwd_seeded", 4 * states + sums + 2 * ends, 2 * states)):
+        b = bound(4 * nbytes, 4 * ops)
+        rows[f"bound_{name}_ms"], rows[f"bound_{name}_by"] = b
+    return rows
+
+
+def counted(fn):
+    """(fn(), the launches it made): every launch counter zeroed just
+    before the call and read just after it."""
+    counters = zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counters.items() if f.launches}
+
+
+def sp_blocks(dev, ns=(2, 4), plain_level=LEVELS_640[1]):
+    """The sequence-parallel scans with their blocks in this process
+    (`LocalBlocks`: the exchange a stack), at the three 640 px levels, batch
+    4: `ss2d_scan_sp` forward and all eight gradients against `ss2d_scan`
+    and `ss2d_scan_bwd` (1e-4, 2e-3), bitwise over two calls, at n = 2 and
+    4 blocks; `selective_scan_sp` against `selective_scan` at G = 4 the same
+    way. At `plain_level` both are also held against their plain blocked
+    versions (`ss2d_scan_sp_ref`, `selective_scan_sp_ref`: the plain seeded
+    scans on the same card tensors) at the same bounds. Every launch
+    counter is zeroed before each of the two blocked calls and read after
+    it: per block the summaries, the combine twice (dry, then seeded) and
+    the output or walk, and no unsplit call; the totals are the sums of
+    those readings. Times of the blocked calls (all n blocks in turn on
+    this card) beside the unsplit scan's, and each seeded combine alone."""
+    from tamtr_torch.kernels.selective_scan import selective_scan, ss2d_scan, ss2d_scan_bwd
+    from tamtr_torch.parallel.seq_scan import (
+        LocalBlocks, selective_scan_sp, selective_scan_sp_ref, ss2d_scan_sp, ss2d_scan_sp_ref,
+    )
+
+    def close(y, grads, want_y, want_g):
+        e_f = (y - want_y).abs().max().item()
+        e_b = max((a - b).abs().max().item() for a, b in zip(grads, want_g))
+        ok = torch.allclose(y, want_y, rtol=1e-4, atol=1e-4) and all(
+            torch.allclose(a, b, rtol=2e-3, atol=2e-3) and bool(torch.isfinite(a).all()) for a, b in zip(grads, want_g))
+        return e_f, e_b, ok
+
+    g = torch.Generator().manual_seed(23)
+    rows, rows1d = [], []
+    err = {"fwd": 0.0, "bwd": 0.0, "fwd_1d": 0.0, "bwd_1d": 0.0, "fwd_plain": 0.0, "bwd_plain": 0.0,
+           "fwd_1d_plain": 0.0, "bwd_1d_plain": 0.0}
+    total = {k: 0 for k in launch_counters()}
+    for H, W, C in LEVELS_640:
+        args, dy = scan_inputs(g, TRAIN_BATCH, H, W, C, dev)
+        L, D = H * W, 2 * C
+        want_y, want_g = ss2d_scan(*args), ss2d_scan_bwd(*args, dy)
+        ms_fwd = cuda_ms(lambda: ss2d_scan(*args), iters=3)
+        ms_bwd = cuda_ms(lambda: ss2d_scan_bwd(*args, dy), iters=3)
+        row = dict(L=L, D=D, ms_unsplit_fwd=ms_fwd, ms_unsplit_bwd=ms_bwd, combines=seeded_combine_rows(args, L))
+        for n in ns:
+            sp = lambda *a: ss2d_scan_sp(*a, LocalBlocks(n))  # noqa: E731
+            (y, grads), launches = counted(lambda: fwd_bwd(sp, args, dy))
+            (y2, grads2), launches2 = counted(lambda: fwd_bwd(sp, args, dy))
+            want_launches = {"ss2d_scan_fwd_summaries": n, "ss2d_scan_fwd_combine": 2 * n, "ss2d_scan_fwd_output": n,
+                             "ss2d_scan_carriers": n, "ss2d_scan_combine": 2 * n, "ss2d_scan_bwd_walk": n}
+            e_f, e_b, ok = close(y, grads, want_y, want_g)
+            bitwise = torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+            plain = ""
+            if (H, W, C) == plain_level:
+                e_pf, e_pb, ok_plain = close(y, grads, *fwd_bwd(lambda *a: ss2d_scan_sp_ref(*a, LocalBlocks(n)),
+                                                                args, dy))
+                ok = ok and ok_plain
+                row[f"n{n}_plain"] = dict(max_abs_err_fwd=e_pf, max_abs_err_bwd=e_pb)
+                err["fwd_plain"], err["bwd_plain"] = max(err["fwd_plain"], e_pf), max(err["bwd_plain"], e_pb)
+                plain = f"; against the plain blocks fwd {e_pf:.3g} bwd {e_pb:.3g}"
+            del y, y2, grads, grads2
+            for reading in (launches, launches2):
+                for k, v in reading.items():
+                    total[k] += v
+            ms_sp = cuda_ms(lambda: ss2d_scan_sp(*args, LocalBlocks(n)), iters=3)
+            ms_sp_both = cuda_ms(lambda: fwd_bwd(sp, args, dy), iters=2)
+            row[f"n{n}"] = dict(max_abs_err_fwd=e_f, max_abs_err_bwd=e_b, bitwise_repeat=bitwise, launches=launches,
+                                launches_repeat=launches2, ms_fwd=ms_sp, ms_fwd_bwd=ms_sp_both)
+            err["fwd"], err["bwd"] = max(err["fwd"], e_f), max(err["bwd"], e_b)
+            say(f"sp_blocks ss2d_scan_sp B={TRAIN_BATCH} L={L} D={D} n={n}: max_abs_err fwd {e_f:.3g} bwd {e_b:.3g}"
+                f"{plain}; bitwise repeat {bitwise}; launches {launches}, on the repeat {launches2}; ms fwd "
+                f"{ms_sp:.4f} fwd+bwd {ms_sp_both:.4f} (unsplit fwd {ms_fwd:.4f}, bwd {ms_bwd:.4f}; the n blocks in "
+                f"turn on one card)", flush=True)
+            if not (ok and bitwise and launches == want_launches == launches2):
+                raise AssertionError(f"ss2d_scan_sp at L={L}, n={n}: errors {e_f}, {e_b}{plain}, bitwise {bitwise}, "
+                                     f"launches {launches}, {launches2} (want {want_launches})")
+        say(f"sp_blocks seeded combines alone, one block of 2 at L={L}: {json.dumps(row['combines'])}", flush=True)
+        rows.append(row)
+        del args, dy, want_y, want_g
+        a1, dy1 = scan1d_inputs(g, L, D, dev)
+        want_y, want_g = fwd_bwd(lambda *a: selective_scan(*a, chunk=512), a1, dy1)
+        ms_1d = cuda_ms(lambda: selective_scan(*a1), iters=3)
+        row1 = dict(G=4, L=L, Din=D, ms_unsplit_fwd=ms_1d)
+        for n in ns:
+            sp = lambda *a: selective_scan_sp(*a, LocalBlocks(n), chunk=512)  # noqa: E731
+            (y, grads), launches = counted(lambda: fwd_bwd(sp, a1, dy1))
+            (y2, grads2), launches2 = counted(lambda: fwd_bwd(sp, a1, dy1))
+            want_launches = {"selective_scan_fwd_summaries": n, "selective_scan_fwd_combine": 2 * n,
+                             "selective_scan_fwd_output": n}
+            e_f, e_b, ok = close(y, grads, want_y, want_g)
+            bitwise = torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+            plain = ""
+            if (H, W, C) == plain_level:
+                e_pf, e_pb, ok_plain = close(y, grads, *fwd_bwd(
+                    lambda *a: selective_scan_sp_ref(*a, LocalBlocks(n), chunk=512), a1, dy1))
+                ok = ok and ok_plain
+                row1[f"n{n}_plain"] = dict(max_abs_err_fwd=e_pf, max_abs_err_bwd=e_pb)
+                err["fwd_1d_plain"] = max(err["fwd_1d_plain"], e_pf)
+                err["bwd_1d_plain"] = max(err["bwd_1d_plain"], e_pb)
+                plain = f"; against the plain blocks fwd {e_pf:.3g} bwd {e_pb:.3g}"
+            del y, y2, grads, grads2
+            for reading in (launches, launches2):
+                for k, v in reading.items():
+                    total[k] += v
+            ms_sp = cuda_ms(lambda: selective_scan_sp(*a1, LocalBlocks(n)), iters=3)
+            row1[f"n{n}"] = dict(max_abs_err_fwd=e_f, max_abs_err_bwd=e_b, bitwise_repeat=bitwise,
+                                 launches=launches, launches_repeat=launches2, ms_fwd=ms_sp)
+            err["fwd_1d"], err["bwd_1d"] = max(err["fwd_1d"], e_f), max(err["bwd_1d"], e_b)
+            say(f"sp_blocks selective_scan_sp G=4 L={L} Din={D} n={n}: max_abs_err fwd {e_f:.3g} bwd {e_b:.3g} "
+                f"(the backward plain torch in both){plain}; bitwise repeat {bitwise}; launches {launches}, on the "
+                f"repeat {launches2}; ms fwd {ms_sp:.4f} (unsplit {ms_1d:.4f})", flush=True)
+            if not (ok and bitwise and launches == want_launches == launches2):
+                raise AssertionError(f"selective_scan_sp at L={L}, n={n}: errors {e_f}, {e_b}{plain}, bitwise "
+                                     f"{bitwise}, launches {launches}, {launches2} (want {want_launches})")
+        # the seeded B6 combine alone, one block of 2
+        from tamtr_torch.kernels.selective_scan import (
+            SEG_STEPS, selective_scan_fwd_combine, selective_scan_fwd_summaries,
+        )
+
+        u, delta, A, Bs = a1[0][:, :L // 2].contiguous(), a1[1][:, :L // 2].contiguous(), a1[2], a1[3][:, :L // 2]
+        h_loc, sdt = selective_scan_fwd_summaries(u, delta, A, Bs.contiguous())
+        seed = torch.randn(4, D, 16, device=dev) * 0.1
+        row1["ms_combine_dry"] = cuda_ms(lambda: selective_scan_fwd_combine(A, h_loc, sdt, L // 2, dry=True),
+                                            iters=5)
+        copies = iter([h_loc.clone() for _ in range(6)])
+        row1["ms_combine_seeded"] = cuda_ms(lambda: selective_scan_fwd_combine(A, next(copies), sdt, L // 2, seed=seed),
+                                            iters=5)
+        S = -(-(L // 2) // SEG_STEPS)
+        states, sums, ends = 4 * S * D * 16, 4 * S * D, 4 * D * 16
+        row1["bound_combine_dry_ms"], row1["bound_combine_dry_by"] = bound(4 * (states + sums + 3 * ends), 4 * states)
+        row1["bound_combine_seeded_ms"], row1["bound_combine_seeded_by"] = bound(4 * (2 * states + sums + 2 * ends),
+                                                                               4 * states)
+        rows1d.append(row1)
+        del a1, dy1, want_y, want_g, h_loc, sdt
+    return rows, rows1d, err, total
+
+
+
+def trainer_state(tr) -> dict:
+    """A trainer's model, EMA and optimizer moments, on the CPU."""
+    out = {f"model.{k}": v.cpu() for k, v in tr.model.state_dict().items()}
+    out.update({f"ema.{k}": v.cpu() for k, v in tr.ema.state_dict().items()})
+    opt = getattr(tr.optimizer, "optim", tr.optimizer)  # ZeRO's local AdamW holds every shard at world 1
+    for i, p in enumerate(tr.params):
+        for k, v in opt.state.get(p, {}).items():
+            out[f"opt.{i}.{k}"] = v.cpu()
+    return out
+
+
+def parallel_phase(data: str) -> dict:
+    """Run in a process of its own (`--parallel`): `torch.distributed` over
+    NCCL with a world of one rank on this card, deterministic kernels on.
+    One `Trainer.step` of `tamtr.yaml` at 640 px, batch 4, max_gt 300 under
+    the data group (`make_groups(1)`), plain and with ZeRO (`zero=True`),
+    each bitwise the ungrouped step (and the ungrouped step bitwise its own
+    repeat): an all-reduce over one rank is the identity. Then each kind of
+    step (ungrouped, grouped, ZeRO, and ungrouped with the deterministic
+    algorithms off) is timed in turn, two rounds, a fresh trainer's first
+    step apart from the median of its next four. Then
+    `Engine.train` (fsdp=2) for one epoch of the fit dataset and
+    `Engine.val` under the group, every launch counter zeroed before each
+    and read after."""
+    import copy
+
+    import torch.distributed as dist
+
+    from tamtr_torch.engine.model import Engine
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.parallel.dist import free_port, make_groups
+    from tamtr_torch.train.trainer import Trainer, TrainConfig
+    from tamtr_torch.weights import init_parameters
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        groups = make_groups(1)
+        model = TAMTRModel.from_cfg("tamtr.yaml", nc=10, max_gt=TRAIN_MAX_GT)
+        init_parameters(model, 0)
+        batch = synthetic_batch(5, TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT, TRAIN_VALID)
+        cfg = TrainConfig(batch_size=TRAIN_BATCH, accumulate=1, warmup_iters=1)
+
+        def step(**kw):
+            tr = Trainer(copy.deepcopy(model), cfg, device=dev, seed=1, **kw)
+            return tr.step(batch), trainer_state(tr)
+
+        def step_ms(warm: int = 4, deterministic: bool = True, **kw):
+            """ms of each `Trainer.step` of one fresh trainer: its first,
+            then `warm` more on the same batch (each synchronised)."""
+            torch.backends.cudnn.deterministic = deterministic
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            tr, out = Trainer(copy.deepcopy(model), cfg, device=dev, seed=1, **kw), []
+            for _ in range(1 + warm):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.step(batch)
+                torch.cuda.synchronize()
+                out.append(1e3 * (time.perf_counter() - t0))
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            return out
+
+        ref, again = step(), step()
+        counters = zero_counters()
+        grouped = step(groups=groups)
+        zero = step(groups=groups, zero=True)
+        step_launches = {k: f.launches for k, f in counters.items()}
+        # the world-1 cost of the data group and of ZeRO, and of the
+        # deterministic algorithms (the fit phase runs the default ones):
+        # each kind in turn, two rounds, the first step apart from the warm ones
+        kinds = (("ungrouped", {}), ("data_group", dict(groups=groups)), ("zero", dict(groups=groups, zero=True)),
+                 ("ungrouped_nondeterministic", dict(deterministic=False)))
+        timing = {k: {"first_ms": [], "warm_ms_median": []} for k, _ in kinds}
+        for _ in range(2):
+            for kind, kw in kinds:
+                ms = step_ms(**kw)
+                timing[kind]["first_ms"].append(ms[0])
+                timing[kind]["warm_ms_median"].append(float(np.median(ms[1:])))
+
+        def same(a, b):
+            return a[0] == b[0] and a[1].keys() == b[1].keys() and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+
+        bitwise = dict(repeat=same(ref, again), data_group=same(grouped, ref), zero=same(zero, ref))
+        counters = zero_counters()
+        t0 = time.perf_counter()
+        eng = Engine("tamtr.yaml")
+        res = eng.train(data=data, epochs=1, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=2,
+                        warmup_epochs=4, fsdp=2, conf=0.05, plots=False, project="build/parallel/runs", name="dp",
+                        exist_ok=True)
+        train_s = time.perf_counter() - t0
+        train_launches = {k: f.launches for k, f in counters.items()}
+        counters = zero_counters()
+        val = eng.val(data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, conf=0.05, plots=False)
+        val_launches = {k: f.launches for k, f in counters.items()}
+        steps = len(eng.timing["step_ms"])
+    finally:
+        dist.destroy_process_group()
+    in_range = all(0.0 <= m[k] <= 1.0 for m in (res, val) for k in ("mAP50", "mAP50-95", "precision", "recall"))
+    path = ("ss2d_scan_fwd", "ss2d_scan_carriers", "ss2d_scan_bwd_walk", "bilinear_gather_fwd", "bilinear_gather_bwd",
+            "auction_assignment")
+    unlaunched = [k for k in path if not (step_launches[k] and train_launches[k])] + \
+        [k for k in ("ss2d_scan_fwd", "bilinear_gather_fwd") if not val_launches[k]]
+    out = dict(backend="nccl", world=1, step_loss=ref[0]["loss"], bitwise=bitwise, step_ms=timing,
+               engine_steps=steps, engine_step_ms_median=float(np.median(eng.timing["step_ms"])),
+               engine_train_s=train_s, val_mAP50=val["mAP50"], val_mAP50_95=val["mAP50-95"],
+               launches_steps=step_launches, launches_train=train_launches, launches_val=val_launches)
+    say(f"parallel NCCL world 1: {json.dumps(out)}", flush=True)
+    if not (all(bitwise.values()) and in_range and math.isfinite(ref[0]["loss"]) and not unlaunched):
+        raise AssertionError(f"parallel: bitwise {bitwise}, metrics in [0, 1] {in_range}, "
+                             f"kernels not launched {unlaunched}")
+    return out
+
+
+def parallel(data: str) -> dict:
+    """`parallel_phase` in a process of its own (its NCCL group and the
+    deterministic algorithms stay out of this process); its result line."""
+    import os
+
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    run = subprocess.run([sys.executable, __file__, "--parallel", data], env=env, capture_output=True, text=True,
+                         timeout=900)
+    print(run.stdout, end="", flush=True)
+    if run.returncode != 0:
+        raise AssertionError(f"parallel phase failed (exit {run.returncode}):\n{run.stderr[-4000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--parallel"]:  # the parallel phase's own process
+        CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(json.dumps(parallel_phase(sys.argv[2])))
+        return 0
     from tamtr_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -2175,6 +2527,7 @@ def main() -> int:
     scatter_pairs = check_scatter_acc_pairs(dev, dict(uniform=pairs, clustered=pairs_clustered), Lv)
     del value, gather_args, pairs, gather_clustered, pairs_clustered
     ops_launches = drive_ops(dev)
+    sp_rows, sp_rows1d, sp_err, sp_launches = sp_blocks(dev)
     pieces = check_ss2d_pieces(dev)
     jpeg_ms_per_mp, jpeg_encode_ms_per_mp = check_jpeg()
     check_parity(dev)
@@ -2191,6 +2544,7 @@ def main() -> int:
     gather_step = check_gather_fwd_step(b4_calls)
     del b4_calls
     fit_launches, fit_summary = fit(dev)
+    parallel_summary = parallel("build/fit/data.json")
     cli_launches = cli("build/fit/runs/fit/weights/best.pt")
     info_launches = info("build/fit/runs/fit/weights/best.pt")
 
@@ -2216,6 +2570,10 @@ def main() -> int:
              launches_track=track_launches["ss2d_scan_fwd"], launches_fuse=fuse_launches["ss2d_scan_fwd"],
              launches_info=info_launches["ss2d_scan_fwd"], launches_autobatch=autobatch_launches["ss2d_scan_fwd"],
              ss2d_pieces=pieces,
+             launches_sp_blocks={k: sp_launches[k] for k in ("ss2d_scan_fwd_summaries", "ss2d_scan_fwd_combine",
+                                                              "ss2d_scan_fwd_output")},
+             sp_blocks_max_abs_err=sp_err["fwd"], sp_blocks_max_abs_err_plain=sp_err["fwd_plain"], sp_blocks=sp_rows,
+             launches_parallel=parallel_summary["launches_train"]["ss2d_scan_fwd"],
              batch=1, ms_b4=sum(r["ms"] for r in fwd4), plain_ms_b4=sum(r["plain_ms"] for r in fwd4),
              bound_ms_b4=sum(r["bound_ms"] for r in fwd4),
              bound_of_launches="each launch alone, the segment states it writes or reads included",
@@ -2228,6 +2586,7 @@ def main() -> int:
              launches_cli=cli_launches["bilinear_gather_fwd"], launches_track=track_launches["bilinear_gather_fwd"],
              launches_fuse=fuse_launches["bilinear_gather_fwd"], launches_info=info_launches["bilinear_gather_fwd"],
              launches_autobatch=autobatch_launches["bilinear_gather_fwd"],
+             launches_parallel=parallel_summary["launches_train"]["bilinear_gather_fwd"],
              **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_train["max_abs_err"],
                                              gather_step["max_abs_err_step"])},
              ms_of="CUDA events over back-to-back calls, as for every kernel; ms_device: the kernel's own "
@@ -2246,11 +2605,16 @@ def main() -> int:
              bound_ms=sum(r["bound_b3a_ms"] for r in bwd_rows),
              bound_by=max(bwd_rows, key=lambda r: r["bound_b3a_ms"])["bound_b3a_by"],
              bound_of="these launches alone, the segment summaries they write included", library_ms=None,
+             launches_sp_blocks={k: sp_launches[k] for k in ("ss2d_scan_carriers", "ss2d_scan_combine",
+                                                              "ss2d_scan_bwd_walk")},
+             sp_blocks_max_abs_err=sp_err["bwd"], sp_blocks_max_abs_err_plain=sp_err["bwd_plain"], sp_blocks_combines="the kernel ss2d_scan_fwd's sp_blocks rows",
+             launches_parallel=parallel_summary["launches_train"]["ss2d_scan_carriers"],
              per_level=bwd_rows),
         dict(name="ss2d_scan_bwd_walk (B3b segment walk)", route="cuda",
              source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:684",
              launches=train_launches["ss2d_scan_bwd_walk"], launches_fit=fit_launches["ss2d_scan_bwd_walk"],
              launches_autobatch=autobatch_launches["ss2d_scan_bwd_walk"],
+             launches_parallel=parallel_summary["launches_train"]["ss2d_scan_bwd_walk"],
              max_abs_err=bwd_err,
              ms=sum(r["ms_walk"] for r in bwd_rows), plain_ms=sum(r["plain_ms"] for r in bwd_rows),
              plain_of="the whole plain backward", bound_ms=sum(r["bound_b3b_ms"] for r in bwd_rows),
@@ -2264,11 +2628,13 @@ def main() -> int:
              launches=train_launches["bilinear_gather_bwd"], launches_buckets=train_launches["pair_buckets"],
              launches_fit=fit_launches["bilinear_gather_bwd"], launches_fit_buckets=fit_launches["pair_buckets"],
              launches_autobatch=autobatch_launches["bilinear_gather_bwd"],
+             launches_parallel=parallel_summary["launches_train"]["bilinear_gather_bwd"],
              **gather_bwd),
         dict(name="auction_assignment", route="cuda", source="tamtr_torch/csrc/auction.cu",
              replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_assignment"],
              launches_fit=fit_launches["auction_assignment"],
-             launches_autobatch=autobatch_launches["auction_assignment"], **auction,
+             launches_autobatch=autobatch_launches["auction_assignment"],
+             launches_parallel=parallel_summary["launches_train"]["auction_assignment"], **auction,
              launches_auction_match=slice3("auction_match", "tamtr_torch.kernels.auction.auction_match"),
              any_size=auction_any),
         dict(name="selective_scan_fwd", route="cuda", source="tamtr_torch/csrc/selective_scan_fwd.cu",
@@ -2280,7 +2646,11 @@ def main() -> int:
                                                           "bound_ms", "bound_summaries_ms", "bound_combine_ms",
                                                           "bound_output_ms")},
              bound_by=max(levels1d, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
-             sums_of="the three 640 px levels, G = 4", per_level=scan1d_rows),
+             sums_of="the three 640 px levels, G = 4", per_level=scan1d_rows,
+             launches_sp_blocks={k: sp_launches[k] for k in ("selective_scan_fwd_summaries",
+                                                              "selective_scan_fwd_combine", "selective_scan_fwd_output")},
+             sp_blocks_max_abs_err=sp_err["fwd_1d"], sp_blocks_max_abs_err_plain=sp_err["fwd_1d_plain"],
+             sp_blocks=sp_rows1d),
         dict(name="scatter_acc (scatter_acc_buckets + rows pass)", route="cuda",
              source="tamtr_torch/csrc/deform_scatter.cu", replaces="tamtr_tpu/kernels/deform_scatter.py:86",
              **slice3("scatter_acc", "tamtr_torch.kernels.deform_scatter.weighted_gather (backward)"),
@@ -2291,6 +2661,8 @@ def main() -> int:
              launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs),
     ]
     print(json.dumps({"fit": fit_summary}))
+    print(json.dumps({"sp_blocks": {"max_abs_err": sp_err, "launches": {k: v for k, v in sp_launches.items() if v}},
+                      "parallel": parallel_summary}))
     print(json.dumps({"fuse": fuse_summary, "autobatch": autobatch_summary}))
     print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary, "track": track_summary,
                       "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp,

@@ -25,12 +25,20 @@ tasks are not ported: they exit with a message naming their ROADMAP entry;
 so do video and stream sources of `predict` and `track`, and `half=True`
 raises.
 
+`device=0,1` (a list of card indices, as the reference takes it) shows the
+process those cards alone (CUDA_VISIBLE_DEVICES) and trains on all of them:
+one rank a card, started by `Engine.train(n_devices=...)`. Under
+`python -m torch.distributed.run --nproc_per_node N -m tamtr_torch train
+...` each rank joins the launcher's group instead; `fsdp=2` shards the
+optimizer state and `sp=2` the SS2D token axes (`tamtr_torch/parallel/`).
+
 `main` first installs the crash-report hook (`utils/crash.py`), which
 writes a report of an unhandled exception when the settings' `sync` is on.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from pathlib import Path
 from typing import Any, Dict, List
@@ -96,6 +104,18 @@ def parse_args(argv: List[str]):
     return task, mode, overrides
 
 
+def select_devices(device: Any) -> tuple:
+    """(device, card indices) of a `device=` value: a list of card indices
+    ("0,1") becomes "cuda" over those cards, made the only ones the process
+    sees (CUDA_VISIBLE_DEVICES, before CUDA starts); anything else is kept
+    as it is, with no indices."""
+    if not (isinstance(device, str) and "," in device):
+        return device, []
+    ids = [int(x) for x in device.split(",") if x.strip()]
+    os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, ids))
+    return "cuda", ids
+
+
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to tamtr_torch yet: ROADMAP.md {NOT_PORTED[what]}")
 
@@ -136,7 +156,9 @@ def main(argv: List[str] | None = None) -> None:
         why = unsupported_source(str(source))
         if why:
             raise SystemExit(f"{why} (ROADMAP.md queue A, item 2)")
-    device = ov.pop("device", None)
+    device, cards = select_devices(ov.pop("device", None))
+    if mode == "train" and len(cards) > 1:
+        ov.setdefault("n_devices", len(cards))
     if mode == "serve":
         from tamtr_torch.serve import serve_checkpoint
 

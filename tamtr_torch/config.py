@@ -6,9 +6,10 @@ rejects unknown keys. `load_data_yaml` reads a dataset file with the
 reference's schema checks. Files are JSON, or the YAML subset dataset and
 config files use: flat `key: value` scalars, flow lists `[a, b]`, and one
 level of block mapping (`names:` then `  0: name`) or block list (`- name`).
-JSON is valid YAML, so one `data.json` serves both packages. Keys that only
-the JAX package acts on (the mesh, sp, ZeRO, remat, bf16, export) are kept
-so that one config file serves both.
+JSON is valid YAML, so one `data.json` serves both packages. `n_devices`,
+`fsdp` and `sp` act here as in the JAX package (ranks, ZeRO-1, sequence
+parallelism: `tamtr_torch/parallel/`); keys that only the JAX package acts
+on (remat, bf16, export) are kept so that one config file serves both.
 """
 
 from __future__ import annotations
@@ -148,19 +149,16 @@ class Config:
     scan_chunk: int = 128
     match_method: str = "auto"
     text_embeddings: Optional[str] = None  # npz with per-class CLIP embeddings
-    n_devices: Optional[int] = None
-    # ZeRO-1: fsdp>1 shards the flat master-params/Adam/EMA vectors over the
-    # SAME 'data' axis the batch shards over (sharding degree = device
-    # count; the exact value beyond "on" is ignored). Per-chip optimizer
-    # state drops by the device count at NO data-parallel throughput cost —
-    # the step all-gathers params once and reduce-scatters the flat
-    # gradient. 1 = pure DP (replicated state, the reference's only mode).
+    n_devices: Optional[int] = None  # ranks, one a card; > 1 in a plain process starts them
+    # ZeRO-1: fsdp>1 shards the AdamW moments over every rank
+    # (ZeroRedundancyOptimizer); the batch splits over the data ranks as
+    # before, and the EMA and the accumulated gradient stay replicated.
+    # 1 = plain data parallelism (replicated state, the reference's mode).
     fsdp: int = 1
-    # sequence parallelism: sp>1 builds a 2-D ('data', 'sp') mesh — the
-    # batch shards over 'data', every SS2D token axis shards over 'sp'
-    # (two-phase blocked scan, parallel/seq_scan.py), and ZeRO flat vectors
-    # shard over both axes. For imagery large enough that one chip cannot
-    # hold a level-0 sequence (capability extension; reference is DP-only).
+    # sequence parallelism: sp>1 lays the ranks out as a (data, sp) mesh:
+    # the batch splits over 'data', every SS2D token axis over 'sp'
+    # (two-phase blocked scan, parallel/seq_scan.py). For imagery large
+    # enough that one card cannot hold a level-0 sequence.
     sp: int = 1
     bf16: bool = False
     val_interval: int = 1  # validate every N epochs (1 = reference behavior)

@@ -21,7 +21,9 @@
 //      is exp(A sum delta);
 //   2. combine: per (g, d, n), serial over the S segments, in place:
 //      h_in[j+1] = exp(A sum delta_j) h_in[j] + h_loc[j] from h_in[0] = 0,
-//      loads kAhead1d segments ahead of the chain;
+//      loads kAhead1d segments ahead of the chain; a block of the
+//      sequence-parallel scan seeds h_in[0] and reads what leaves the block
+//      (B1's `CombineEnds`);
 //   3. output: each block rebuilds its segment's states from h_in[j], step
 //      by step, and per step y_s = sum_n C_s[n] h_s[n] + D u_s: a thread sums
 //      its lanes for four steps at a time, a reduce-scatter across the
@@ -189,11 +191,12 @@ __global__ void __launch_bounds__(kThreads, N > 16 ? 3 : 6) scan1d_summaries_ker
 }
 
 // The combine, serial over the S segments, in place: one thread per
-// (g, d, n) turns hloc into h_in.
+// (g, d, n) turns hloc into h_in. `ends` as B1's (`ss2d_scan_seg.cuh`),
+// each (G, Din, N): seed_h, leave_h, decay and store (no carry here).
 template <int N>
 __global__ void __launch_bounds__(kCombineThreads) scan1d_combine_kernel(
     const float* __restrict__ A, const float* __restrict__ sdt, float* __restrict__ hloc, int G,
-    int Din, int S) {
+    int Din, int S, CombineEnds ends) {
   const long long DN = (long long)Din * N;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= G * DN) return;
@@ -201,26 +204,32 @@ __global__ void __launch_bounds__(kCombineThreads) scan1d_combine_kernel(
   const float a2 = A[idx] * kLog2e;  // A (G, Din, N): idx = g DN + rem
   float* p = hloc + g * S * DN + rem;
   const float* sp = sdt + g * S * Din + rem / N;
-  float v = 0.f;
+  float v = ends.seed_h != nullptr ? ends.seed_h[idx] : 0.f;
+  float sum_dt = 0.f;
   int c = 0;
   for (; c + kAhead1d <= S; c += kAhead1d) {
     float loc[kAhead1d], E[kAhead1d];
 #pragma unroll
     for (int i = 0; i < kAhead1d; ++i) {
       loc[i] = p[(c + i) * DN];
-      E[i] = ex2(a2 * sp[(long long)(c + i) * Din]);
+      const float sdt_j = sp[(long long)(c + i) * Din];
+      E[i] = ex2(a2 * sdt_j);
+      sum_dt += sdt_j;
     }
 #pragma unroll
     for (int i = 0; i < kAhead1d; ++i) {
-      p[(c + i) * DN] = v;
+      if (ends.store) p[(c + i) * DN] = v;
       v = fmaf(E[i], v, loc[i]);
     }
   }
   for (; c < S; ++c) {
-    const float loc = p[c * DN], E = ex2(a2 * sp[(long long)c * Din]);
-    p[c * DN] = v;
+    const float loc = p[c * DN], sdt_j = sp[(long long)c * Din], E = ex2(a2 * sdt_j);
+    if (ends.store) p[c * DN] = v;
     v = fmaf(E, v, loc);
+    sum_dt += sdt_j;
   }
+  if (ends.leave_h != nullptr) ends.leave_h[idx] = v;
+  if (ends.decay != nullptr) ends.decay[idx] = ex2(a2 * sum_dt);
 }
 
 template <int N>
@@ -298,10 +307,10 @@ cudaError_t summaries(const float* u, const float* delta, const float* A, const 
 
 template <int N>
 cudaError_t combine(const float* A, const float* sdt, float* hloc, int G, int L, int Din,
-                    cudaStream_t stream) {
+                    CombineEnds ends, cudaStream_t stream) {
   const long long threads = (long long)G * Din * N;
   scan1d_combine_kernel<N><<<(unsigned)((threads + kCombineThreads - 1) / kCombineThreads),
-                             kCombineThreads, 0, stream>>>(A, sdt, hloc, G, Din, segments(L));
+                             kCombineThreads, 0, stream>>>(A, sdt, hloc, G, Din, segments(L), ends);
   return cudaGetLastError();
 }
 
@@ -346,12 +355,17 @@ extern "C" int selective_scan_fwd_summaries(const float* u, const float* delta, 
   SCAN1D_DISPATCH(N, summaries, u, delta, A, Bs, hloc, sdt, G, L, Din, s)
 }
 
-// In place: hloc -> the state entering each segment.
-extern "C" int selective_scan_fwd_combine(const float* A, const float* sdt, float* hloc, int G,
-                                          int L, int Din, int N, void* stream) {
+// In place (store != 0): hloc -> the state entering each segment, from
+// seed (G, Din, N), the state entering the walk, or 0 when null. leave and
+// decay (G, Din, N), when not null, get the state past the last segment and
+// exp(A sum delta) over the walk.
+extern "C" int selective_scan_fwd_combine(const float* A, const float* sdt, float* hloc,
+                                          const float* seed, float* leave, float* decay, int G,
+                                          int L, int Din, int N, int store, void* stream) {
   if (!shapes_ok_1d(G, L, Din)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  SCAN1D_DISPATCH(N, combine, A, sdt, hloc, G, L, Din, s)
+  const CombineEnds ends{seed, nullptr, leave, nullptr, decay, store != 0};
+  SCAN1D_DISPATCH(N, combine, A, sdt, hloc, G, L, Din, ends, s)
 }
 
 // y (G, L, Din) from the state entering each segment; Dskip may be null.

@@ -261,12 +261,18 @@ extern "C" int ss2d_scan_bwd_summaries(
                                      D, R, dt_rs, b_rs, c_rs, (cudaStream_t)stream);
 }
 
-// In place: hloc -> the state entering each segment, rsum -> the carry c
-// entering each segment's last step.
+// In place (store != 0): hloc -> the state entering each segment, from
+// seed_h, and rsum -> the carry c entering each segment's last step, from
+// seed_c at the walk's last segment (each (B, 4, D, 16), 0 when null).
+// leave_c and decay (B, 4, D, 16), when not null, get the carry leaving the
+// first segment and exp(A sum dt) over the walk.
 extern "C" int ss2d_scan_bwd_combine(const float* A, const float* sdt, float* hloc, float* rsum,
-                                     int B, int L, int D, int N, void* stream) {
+                                     const float* seed_h, const float* seed_c, float* leave_c,
+                                     float* decay, int B, int L, int D, int N, int store,
+                                     void* stream) {
   if (!shapes_ok(B, L, D, 1, N)) return (int)cudaErrorInvalidValue;
-  return (int)launch_combine<true>(A, sdt, hloc, rsum, B, L, D, (cudaStream_t)stream);
+  const CombineEnds ends{seed_h, seed_c, nullptr, leave_c, decay, store != 0};
+  return (int)launch_combine<true>(A, sdt, hloc, rsum, B, L, D, ends, (cudaStream_t)stream);
 }
 
 // du, dz (B, 4, L, D) natural order; dBp, dCp (B, 4, D/32, L, 16) partial

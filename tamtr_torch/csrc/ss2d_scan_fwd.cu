@@ -122,11 +122,16 @@ extern "C" int ss2d_scan_fwd_summaries(const float* layouts, const float* dts_ra
                                       nullptr, sdt, B, L, D, R, dt_rs, b_rs, 0, (cudaStream_t)stream);
 }
 
-// In place: hloc -> the state entering each segment.
-extern "C" int ss2d_scan_fwd_combine(const float* A, const float* sdt, float* hloc, int B, int L,
-                                     int D, int N, void* stream) {
+// In place (store != 0): hloc -> the state entering each segment, from
+// seed (B, 4, D, 16), the state entering the walk, or 0 when null. leave and
+// decay (B, 4, D, 16), when not null, get the state past the last segment
+// and exp(A sum dt) over the walk.
+extern "C" int ss2d_scan_fwd_combine(const float* A, const float* sdt, float* hloc, const float* seed,
+                                     float* leave, float* decay, int B, int L, int D, int N, int store,
+                                     void* stream) {
   if (!shapes_ok(B, L, D, 1, N)) return (int)cudaErrorInvalidValue;
-  return (int)launch_combine<false>(A, sdt, hloc, nullptr, B, L, D, (cudaStream_t)stream);
+  const CombineEnds ends{seed, nullptr, leave, nullptr, decay, store != 0};
+  return (int)launch_combine<false>(A, sdt, hloc, nullptr, B, L, D, ends, (cudaStream_t)stream);
 }
 
 // y (B, 4, L, D) natural order, from the state entering each segment.

@@ -25,7 +25,14 @@
 //   - the combine across segments, per (b, k, d, n) serial over the S
 //     segments, in place: h_in[j+1] = E_j h_in[j] + h_loc[j] from
 //     h_in[0] = 0; with kCarry (the backward) also c[j-1] = E_j c[j] + r[j]
-//     from c[S-1] = 0.
+//     from c[S-1] = 0. A block of the sequence-parallel scan
+//     (`parallel/seq_scan.py`) seeds it (`CombineEnds`): h_in[0] and c[S-1]
+//     are then the state and carry entering the block from its neighbours,
+//     and the combine can report what leaves the block (h past its last
+//     segment, c before its first) and its decay exp(A sum dt), with or
+//     without writing the segments (a dry run gives the block's summary
+//     before the seeds are known). Without seeds or ends it is the plain
+//     combine, instruction for instruction on the chain.
 // Threads: channel dl = 8 warp + lane / 4 and four state lanes
 // n = 4j .. 4j + 3 (j = lane % 4) each: per-channel work (loads of dt and
 // u, their product) is shared by four lanes. exp is ex2.approx.ftz of
@@ -324,6 +331,22 @@ __global__ void __launch_bounds__(kThreads, 6) ss2d_summaries_kernel(
   if (th.j == 0) sdt[row] = sum_dt;
 }
 
+// The optional ends of a combine, each (B, 4, D, 16) for B1 and B3 and
+// (G, Din, N) for B6, null by default: seed_h, the state entering the walk's
+// first segment (else 0); seed_c, the carry entering its last segment's
+// last step (else 0; B3 only); leave_h, the state past the last segment;
+// leave_c, the carry leaving the first segment (B3 only); decay,
+// exp(A sum dt) over the whole walk. store = false leaves the segments as
+// they are and writes only the ends.
+struct CombineEnds {
+  const float* seed_h;
+  const float* seed_c;
+  float* leave_h;
+  float* leave_c;
+  float* decay;
+  bool store;
+};
+
 // The combine, serial over the S segments, in place: one thread per
 // (b, k, d, n) turns hloc into h_in; with kCarry a second one turns rsum
 // into c. Loads go 8 segments ahead of the chain.
@@ -333,7 +356,7 @@ constexpr int kCombineThreads = 256;
 template <bool kCarry>
 __global__ void __launch_bounds__(kCombineThreads, 4) ss2d_combine_kernel(
     const float* __restrict__ A, const float* __restrict__ sdt, float* __restrict__ hloc,
-    float* __restrict__ rsum, int B, int D, int S) {
+    float* __restrict__ rsum, int B, int D, int S, CombineEnds ends) {
   const long long lanes = (long long)B * 4 * D * kN;
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (kCarry ? 2 : 1) * lanes) return;
@@ -347,7 +370,9 @@ __global__ void __launch_bounds__(kCombineThreads, 4) ss2d_combine_kernel(
   // h: j = 0, 1, ..., S-1 (v_{j+1} = E_j v_j + loc_j); c: j = S-1, ..., 0
   // (v_{j-1} = E_j v_j + loc_j); each slot receives the v entering it
   const int j0 = carry ? S - 1 : 0, dj = carry ? -1 : 1;
-  float v = 0.f;
+  const float* seed = carry ? ends.seed_c : ends.seed_h;
+  float v = seed != nullptr ? seed[idx] : 0.f;
+  float sum_dt = 0.f;
   int c = 0;
   for (; c + kAhead <= S; c += kAhead) {
     float loc[kAhead], E[kAhead];
@@ -355,20 +380,26 @@ __global__ void __launch_bounds__(kCombineThreads, 4) ss2d_combine_kernel(
     for (int i = 0; i < kAhead; ++i) {
       const int j = j0 + dj * (c + i);
       loc[i] = p[j * DN];
-      E[i] = ex2(a2 * sp[(long long)j * D]);
+      const float sdt_j = sp[(long long)j * D];
+      E[i] = ex2(a2 * sdt_j);
+      sum_dt += sdt_j;
     }
 #pragma unroll
     for (int i = 0; i < kAhead; ++i) {
-      p[(j0 + dj * (c + i)) * DN] = v;
+      if (ends.store) p[(j0 + dj * (c + i)) * DN] = v;
       v = fmaf(E[i], v, loc[i]);
     }
   }
   for (; c < S; ++c) {
     const int j = j0 + dj * c;
-    const float loc = p[j * DN], E = ex2(a2 * sp[(long long)j * D]);
-    p[j * DN] = v;
+    const float loc = p[j * DN], sdt_j = sp[(long long)j * D], E = ex2(a2 * sdt_j);
+    if (ends.store) p[j * DN] = v;
     v = fmaf(E, v, loc);
+    sum_dt += sdt_j;
   }
+  float* leave = carry ? ends.leave_c : ends.leave_h;
+  if (leave != nullptr) leave[idx] = v;
+  if (!carry && ends.decay != nullptr) ends.decay[idx] = ex2(a2 * sum_dt);
 }
 
 int segments(int L) { return (L + kSeg - 1) / kSeg; }
@@ -396,10 +427,10 @@ cudaError_t launch_summaries(const float* layouts, const float* dts_raw, const f
 
 template <bool kCarry>
 cudaError_t launch_combine(const float* A, const float* sdt, float* hloc, float* rsum, int B, int L,
-                           int D, cudaStream_t stream) {
+                           int D, CombineEnds ends, cudaStream_t stream) {
   const long long threads = (kCarry ? 2LL : 1LL) * B * 4 * D * kN;
   ss2d_combine_kernel<kCarry><<<(unsigned)((threads + kCombineThreads - 1) / kCombineThreads),
-                                kCombineThreads, 0, stream>>>(A, sdt, hloc, rsum, B, D, segments(L));
+                                kCombineThreads, 0, stream>>>(A, sdt, hloc, rsum, B, D, segments(L), ends);
   return cudaGetLastError();
 }
 

@@ -405,6 +405,7 @@ class _EpochKeys(torch.utils.data.Sampler):
         ld = self.loader
         idxs = np.arange(len(ld.ds))
         np.random.default_rng(ld.seed + ld.epoch).shuffle(idxs)
+        idxs = idxs[ld.process_index::ld.process_count]  # this process's shard
         for bi in range(len(ld)):
             yield ld.epoch, bi, tuple(int(i) for i in idxs[bi * ld.bs:(bi + 1) * ld.bs]), ld.ds._mosaic_on
 
@@ -413,11 +414,16 @@ class Loader:
     """Shuffled full batches of a `DetectionDataset` per epoch (the last
     partial batch dropped), built by `workers` processes (spawned, kept
     across epochs; 0 builds them in this process), as tensors, in pinned
-    memory with `pin_memory`."""
+    memory with `pin_memory`. Process `process_index` of `process_count`
+    (a data rank) takes every process_count-th image of the epoch's
+    shuffled order, from its index on, as the JAX package's loader shards
+    by host."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int, max_gt: int = 128, seed: int = 0,
-                 workers: int = 8, pin_memory: bool = False) -> None:
+                 workers: int = 8, pin_memory: bool = False, process_index: int = 0,
+                 process_count: int = 1) -> None:
         self.ds, self.bs, self.max_gt, self.seed = dataset, batch_size, max_gt, seed
+        self.process_index, self.process_count = process_index, process_count
         self.epoch = 0
         self._dl = torch.utils.data.DataLoader(
             _Batches(dataset, max_gt, seed), batch_size=None, sampler=_EpochKeys(self),
@@ -426,7 +432,7 @@ class Loader:
         )
 
     def __len__(self) -> int:
-        return len(self.ds) // self.bs
+        return len(self.ds) // self.process_count // self.bs
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch

@@ -5,7 +5,9 @@ A checkpoint is one file, `<run_dir>/weights/{last,best}.pt`, holding
 `Trainer.state_dict()` (the model, the EMA, the optimizer, the accumulated
 gradient, `ni`, `count`, `last_opt` and the generator's state) and the
 run's meta: epoch, nc, names, model_cfg, imgsz, max_gt. A resumed run
-continues from `epoch + 1`.
+continues from `epoch + 1`. In a process group every rank calls
+`save_checkpoint` (a ZeRO optimizer's shards meet on rank 0 there) and rank
+0 alone writes; every rank loads the same file.
 """
 
 from __future__ import annotations
@@ -15,16 +17,20 @@ from pathlib import Path
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from tamtr_torch.train.trainer import Trainer
 
 
 def save_checkpoint(path: str | Path, trainer: Trainer, meta: Dict[str, Any]) -> None:
     """Write atomically: a partial file never replaces a good one."""
+    state = trainer.state_dict()
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-    torch.save({"trainer": trainer.state_dict(), "meta": meta}, tmp)
+    torch.save({"trainer": state, "meta": meta}, tmp)
     os.replace(tmp, path)
 
 

@@ -19,8 +19,21 @@ into its run directory, and logs to TensorBoard under `tb/` when it is
 installed; the other logger integrations attach as the settings allow
 (`utils/callbacks.py`, `utils/settings.py`).
 
-The engine runs on the card unless `device="cpu"` is given. Not ported:
-the mesh, sequence parallelism and ZeRO, half (bf16 eval: it raises),
+Several GPUs (the JAX package's mesh, `parallel/dist.py`): under a
+launcher (`python -m torch.distributed.run --nproc_per_node N -m
+tamtr_torch train ...`) train joins the process group it finds, one rank a
+card; `train(n_devices=N)` in a plain process starts the N ranks itself
+(`parallel/launch.py`) and then holds the trained model. The global batch
+is split over the data ranks, and each loader takes its shard of the
+images; `fsdp>1` shards the optimizer state (ZeRO-1) and `sp>1` cuts the
+SS2D token axes over groups of sp ranks (`parallel/seq_scan.py`). Rank 0
+alone writes checkpoints, results.csv and plots and fires the callbacks.
+Val is data-parallel: each rank runs every world-size-th batch and rank 0
+gathers the per-image statistics, so the metrics are the one-process
+run's.
+
+The engine runs on the card unless `device="cpu"` is given (then the ranks
+meet over gloo). Not ported: half (bf16 eval: it raises),
 classify/segment/pose, video and stream sources, tune and export.
 """
 
@@ -35,6 +48,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tamtr_torch.config import Config, get_cfg, load_data_yaml
 from tamtr_torch.data.dataset import AugConfig, DetectionDataset, Loader
@@ -47,6 +61,7 @@ from tamtr_torch.nn.graph import TAMTRModel
 from tamtr_torch.engine.results import Results
 from tamtr_torch.nn.fuse import fuse_model
 from tamtr_torch.ops.nms import multiclass_nms, postprocess_predictions
+from tamtr_torch.parallel.dist import broadcast_from_rank0, gather_to_rank0, init_distributed, make_groups
 from tamtr_torch.train.trainer import Trainer, TrainConfig
 from tamtr_torch.utils.callbacks import Callbacks, add_tensorboard, attach_integrations
 from tamtr_torch.utils.checks import check_imgsz
@@ -138,6 +153,21 @@ class Engine:
             raise ValueError("train requires data=...")
         if cfg.batch < 1 and cfg.batch != -1:
             raise ValueError(f"batch={cfg.batch}: give a batch size, or -1 to fit it to the card's memory")
+        dev = init_distributed(self.device)
+        if dev is None and (cfg.n_devices or 1) > 1:
+            return self._spawn(cfg, overrides)
+        if dev is not None:
+            self.device = dev
+        world = dist.get_world_size() if dev is not None else 1
+        sp = max(int(cfg.sp or 1), 1)
+        if cfg.n_devices and cfg.n_devices != world:
+            raise ValueError(f"n_devices={cfg.n_devices}, but {world} ranks run: start n_devices ranks")
+        if world % sp:
+            raise ValueError(f"{world} devices not divisible by sp={sp}")
+        groups = make_groups(sp) if dev is not None else None
+        n_data = world // sp
+        if cfg.batch != -1 and cfg.batch % n_data:
+            raise ValueError(f"batch {cfg.batch} must divide over {n_data} data-parallel devices")
         # SIGTERM / SIGINT set a flag; the epoch loop saves `last` and stops,
         # so resume=True continues from the interrupted epoch
         preempted = {"flag": False}
@@ -153,13 +183,51 @@ class Engine:
             except ValueError:  # not the main thread
                 pass
         try:
-            return self._train(cfg, preempted)
+            return self._train(cfg, preempted, groups)
         finally:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
 
-    def _train(self, cfg: Config, preempted: Dict[str, bool]) -> Dict[str, float]:
+    def _spawn(self, cfg: Config, overrides: Dict[str, Any]) -> Dict[str, float]:
+        """`train` on cfg.n_devices ranks started here with
+        `torch.distributed.run` (as the reference's `utils/dist.py` starts
+        its DDP run), each running `parallel/launch.py`; then the trained
+        EMA weights of the run's `last.pt` (when it saved one) are this
+        engine's model. Returns rank 0's metrics."""
+        import json
+        import os
+        import subprocess
+        import sys
+        import tempfile
+
+        from tamtr_torch.parallel.dist import free_port
+
+        with tempfile.TemporaryDirectory() as tmp:
+            spec, out = Path(tmp) / "spec.json", Path(tmp) / "out.json"
+            spec.write_text(json.dumps({"model_cfg": str(self.model_cfg), "device": self.device.type,
+                                        "overrides": overrides, "out": str(out)}, default=str))
+            root = str(Path(__file__).resolve().parents[2])
+            env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(cfg.n_devices),
+                   "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+                   "-m", "tamtr_torch.parallel.launch", str(spec)]
+            rc = subprocess.run(cmd, env=env).returncode
+            if rc != 0:
+                raise RuntimeError(f"training on {cfg.n_devices} ranks failed (exit code {rc}): {' '.join(cmd)}")
+            result = json.loads(out.read_text())
+        self._last_run_dir = Path(result["run_dir"])
+        last = self._last_run_dir / "weights" / "last.pt"
+        if last.exists():
+            self.load(last)
+            self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings,
+                                                   dim=text_width(self.model))
+        return result["metrics"]
+
+    def _train(self, cfg: Config, preempted: Dict[str, bool], groups=None) -> Dict[str, float]:
         dev = self.device
+        rank0 = groups is None or dist.get_rank() == 0
+        n_data = groups.data_size if groups is not None else 1
+        fire = self.callbacks.fire if rank0 else (lambda *a, **k: None)
         data = load_data_yaml(cfg.data)
         nc = data["nc"]
         self.names = data["names"]
@@ -169,6 +237,8 @@ class Engine:
             from tamtr_torch.utils.autobatch import autobatch_train
 
             cfg.batch = autobatch_train(self.model_cfg, nc, cfg.imgsz, cfg.max_gt, device=dev, default=4)
+            if groups is not None:  # the card's batch on every data rank
+                cfg.batch = broadcast_from_rank0(cfg.batch) * n_data
         model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=cfg.max_gt)
         init_parameters(model, cfg.seed)
         width = text_width(model)
@@ -185,27 +255,33 @@ class Engine:
             class_texts=[str(n).split("/") for n in self.names], random_text=True,
             cache=cfg.cache, classes=cfg.classes, single_cls=cfg.single_cls,
         )
-        loader = Loader(train_ds, cfg.batch, max_gt=cfg.max_gt, seed=cfg.seed, workers=cfg.workers,
-                        pin_memory=dev.type == "cuda")
+        loader = Loader(train_ds, cfg.batch // n_data, max_gt=cfg.max_gt, seed=cfg.seed, workers=cfg.workers,
+                        pin_memory=dev.type == "cuda", process_index=groups.data_rank if groups else 0,
+                        process_count=n_data)
         tc = TrainConfig(
             lr0=cfg.lr0, lrf=cfg.lrf, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
             warmup_iters=int(cfg.warmup_epochs), warmup_bias_lr=cfg.warmup_bias_lr, epochs=cfg.epochs,
             warmup_momentum=cfg.warmup_momentum, batch_size=cfg.batch, nbs=cfg.nbs,
             match_method=cfg.match_method,
         )
-        trainer = Trainer(model, tc, steps_per_epoch=len(loader), device=dev, seed=cfg.seed + 1)
+        trainer = Trainer(model, tc, steps_per_epoch=len(loader), device=dev, seed=cfg.seed + 1, groups=groups,
+                          zero=int(cfg.fsdp or 1) > 1)
         self.trainer = trainer
         self.model = trainer.ema
 
         run_dir = Path(cfg.project or "runs/detect") / (cfg.name or "train")
-        if not cfg.resume and not cfg.exist_ok:
-            run_dir = increment_path(run_dir)
-        run_dir.mkdir(parents=True, exist_ok=True)
+        if rank0:
+            if not cfg.resume and not cfg.exist_ok:
+                run_dir = increment_path(run_dir)
+            run_dir.mkdir(parents=True, exist_ok=True)
+        if groups is not None:
+            run_dir = broadcast_from_rank0(run_dir)
         self._last_run_dir = run_dir
-        if cfg.plots:
-            add_tensorboard(self.callbacks, str(run_dir / "tb"))
-        # the settings gate the other integrations; TensorBoard goes with plots above
-        attach_integrations(self.callbacks, run_dir, settings={**SettingsManager(), "tensorboard": False})
+        if rank0:
+            if cfg.plots:
+                add_tensorboard(self.callbacks, str(run_dir / "tb"))
+            # the settings gate the other integrations; TensorBoard goes with plots above
+            attach_integrations(self.callbacks, run_dir, settings={**SettingsManager(), "tensorboard": False})
         csv_path = run_dir / "results.csv"
         start_epoch = 0
         last = run_dir / "weights" / "last.pt"
@@ -214,21 +290,22 @@ class Engine:
             start_epoch = int(meta.get("epoch", -1)) + 1
             LOGGER.info(f"resumed from epoch {start_epoch}")
         stopper = EarlyStopping(cfg.patience)
-        txt = np.tile(self.txt_feats[None], (cfg.batch, 1, 1)).astype(np.float32)
+        txt = np.tile(self.txt_feats[None], (cfg.batch // n_data, 1, 1)).astype(np.float32)
         text_embedder = TextEmbedder(npz_path=cfg.text_embeddings, dim=width)
         best_fitness = 0.0
         meta = {"nc": nc, "names": self.names, "model_cfg": str(self.model_cfg), "imgsz": cfg.imgsz,
                 "max_gt": cfg.max_gt}
         self.timing = {"step_ms": [], "wait_ms": []}
 
-        LOGGER.info(f"training {self.model_cfg}: nc={nc} imgsz={cfg.imgsz} batch={cfg.batch} "
-                    f"device={dev} steps/epoch={len(loader)}")
-        self.callbacks.fire("on_train_start", self)
+        if rank0:
+            LOGGER.info(f"training {self.model_cfg}: nc={nc} imgsz={cfg.imgsz} batch={cfg.batch} "
+                        f"device={dev} ranks={dist.get_world_size() if groups else 1} steps/epoch={len(loader)}")
+        fire("on_train_start", self)
         metrics_out: Dict[str, float] = {}
         m: Dict[str, float] = {}
         for epoch in range(start_epoch, cfg.epochs):
             self._cur_epoch = epoch
-            self.callbacks.fire("on_train_epoch_start", self, epoch)
+            fire("on_train_epoch_start", self, epoch)
             if cfg.close_mosaic and epoch == cfg.epochs - cfg.close_mosaic:
                 train_ds.close_mosaic()
             loader.set_epoch(epoch)
@@ -241,7 +318,7 @@ class Engine:
                 ts = time.perf_counter()
                 if batch is None:
                     break
-                if cfg.plots and epoch == start_epoch and n_steps < 3:
+                if cfg.plots and rank0 and epoch == start_epoch and n_steps < 3:
                     self._plot_batch(batch, run_dir / f"train_batch{n_steps}.jpg")
                 m = trainer.step({
                     "img": batch["img"],
@@ -252,11 +329,12 @@ class Engine:
                 self.timing["wait_ms"].append((ts - tw) * 1e3)
                 self.timing["step_ms"].append((time.perf_counter() - ts) * 1e3)
                 n_steps += 1
-                self.callbacks.fire("on_train_batch_end", self, n_steps)
+                fire("on_train_batch_end", self, n_steps)
             ips = n_steps * cfg.batch / max(time.time() - t0, 1e-9)
             comp = {k: m[k] for k in ("giou", "class", "bbox") if k in m}
-            LOGGER.info(f"epoch {epoch + 1}/{cfg.epochs}: loss={m.get('loss', float('nan')):.3f} "
-                        + " ".join(f"{k}={v:.3f}" for k, v in comp.items()) + f" {ips:.1f} img/s")
+            if rank0:
+                LOGGER.info(f"epoch {epoch + 1}/{cfg.epochs}: loss={m.get('loss', float('nan')):.3f} "
+                            + " ".join(f"{k}={v:.3f}" for k, v in comp.items()) + f" {ips:.1f} img/s")
             row = {"epoch": epoch + 1, "loss": m.get("loss", float("nan")), **comp, "img_per_sec": ips}
             run_val = (epoch + 1) % max(cfg.val_interval, 1) == 0 or epoch == cfg.epochs - 1
             fitness = None
@@ -273,22 +351,28 @@ class Engine:
                     best_fitness = fitness
                     save_checkpoint(run_dir / "weights" / "best.pt", trainer, {"epoch": epoch, **meta})
                 if run_save or is_best:
-                    self.callbacks.fire("on_model_save", self, epoch, last, is_best)
+                    fire("on_model_save", self, epoch, last, is_best)
             if fitness is not None and stopper(epoch, fitness):
                 LOGGER.info(f"early stopping at epoch {epoch + 1}")
-                self._append_csv(csv_path, row)
+                if rank0:
+                    self._append_csv(csv_path, row)
                 break
-            self._append_csv(csv_path, row)
-            self.callbacks.fire("on_fit_epoch_end", self, epoch, row)
+            if rank0:
+                self._append_csv(csv_path, row)
+            fire("on_fit_epoch_end", self, epoch, row)
+            if groups is not None:  # a signal stops every rank at the same epoch
+                flag = torch.tensor([float(preempted["flag"])], device=dev)
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                preempted["flag"] = bool(flag.item())
             if preempted["flag"]:
                 if cfg.save:
                     save_checkpoint(last, trainer, {"epoch": epoch, **meta})
                     LOGGER.info("preemption checkpoint saved; resume with resume=True")
                 break
-        if cfg.plots:
+        if cfg.plots and rank0:
             plot_results(csv_path)
-        self.callbacks.fire("on_train_end", self, metrics_out, run_dir)
-        self.callbacks.fire("teardown", self)
+        fire("on_train_end", self, metrics_out, run_dir)
+        fire("teardown", self)
         return metrics_out
 
     def _plot_batch(self, batch: Dict[str, Any], path: Path) -> None:
@@ -314,14 +398,26 @@ class Engine:
             self.names = data["names"]
             self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings,
                                                    dim=text_width(self.model))
+        dev = init_distributed(self.device)  # under a launcher: data-parallel val
+        if dev is not None and dev != self.device:
+            self.device = dev
+            self.model.to(dev)
         return self._validate(self.model, data, cfg)
 
     @torch.inference_mode()
     def _validate(self, model: TAMTRModel, data: Dict[str, Any], cfg: Config) -> Dict[str, float]:
         """mAP of `model` on the val split, under the reference val protocol:
         conf 0.4 unless set, the conf mask applied after the score sort
-        (`legacy_val_mask`), predictions mapped to each image's own pixels."""
-        self.callbacks.fire("on_val_start", self)
+        (`legacy_val_mask`), predictions mapped to each image's own pixels.
+
+        In a process group every rank holds `model` and runs every
+        world-size-th batch; rank 0 takes the per-image statistics in the
+        one-process order, computes the metrics, writes the files, fires
+        the callbacks, and every rank returns its metrics."""
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        rank0 = world == 1 or dist.get_rank() == 0
+        if rank0:
+            self.callbacks.fire("on_val_start", self)
         split_dir = data.get(cfg.split) or data.get("val")
         ds = DetectionDataset(split_dir, imgsz=cfg.imgsz, augment=False,
                               classes=cfg.classes, single_cls=cfg.single_cls)
@@ -341,15 +437,17 @@ class Engine:
         if cfg.rect and model.head_type == "Detect":
             ds.set_rectangle(bs)  # reorders by aspect ratio; chunks align
         batches = [list(range(s, min(s + bs, n))) for s in range(0, n, bs)]
+        mine = batches[dist.get_rank()::world] if world > 1 else batches
 
         def fetch(idxs):
             return [ds.get_val(i) for i in idxs]
 
+        per_image = []  # (image index, boxes, scores, labels, gt boxes, gt classes) in image order
         with ThreadPoolExecutor(max_workers=max(cfg.workers, 1)) as pool:  # 4 batches ahead
-            futures = {bi: pool.submit(fetch, batches[bi]) for bi in range(min(4, len(batches)))}
-            for bi, idxs in enumerate(batches):
-                if bi + 4 < len(batches):
-                    futures[bi + 4] = pool.submit(fetch, batches[bi + 4])
+            futures = {bi: pool.submit(fetch, mine[bi]) for bi in range(min(4, len(mine)))}
+            for bi, idxs in enumerate(mine):
+                if bi + 4 < len(mine):
+                    futures[bi + 4] = pool.submit(fetch, mine[bi + 4])
                 items = futures.pop(bi).result()
                 imgs = [it[0] for it in items]
                 img = torch.from_numpy(np.stack(imgs)).to(dev)
@@ -361,16 +459,22 @@ class Engine:
                     _, raw, (oh, ow), lb = items[k]
                     sel = valid[k] & (scores[k] > 0)
                     pb = to_image_pixels(boxes[k][sel], imgs[k].shape[:2], (oh, ow), lb)
-                    pc = labels[k][sel].astype(np.float32)
-                    ps = scores[k][sel]
-                    tp = match_predictions(pb, pc, raw.boxes, raw.cls.astype(np.float32))
-                    metrics.update(tp, ps, pc, raw.cls.astype(np.float32))
-                    if confusion is not None:
-                        confusion.process_batch(pb, ps, pc.astype(np.int64), raw.boxes, raw.cls)
-                    if coco_records is not None:
-                        stem = Path(ds.im_files[i]).stem
-                        coco_records.append({"image_id": int(stem) if stem.isnumeric() else i, "boxes": pb,
-                                             "scores": ps, "labels": labels[k][sel]})
+                    per_image.append((i, pb, scores[k][sel], labels[k][sel], raw.boxes, raw.cls))
+        if world > 1:  # every rank's images, on rank 0, in the one-process order
+            gathered = gather_to_rank0(per_image)
+            per_image = sorted((r for part in gathered for r in part), key=lambda r: r[0]) if rank0 else []
+        for i, pb, ps, lab, gt_boxes, gt_cls in per_image:
+            pc = lab.astype(np.float32)
+            tp = match_predictions(pb, pc, gt_boxes, gt_cls.astype(np.float32))
+            metrics.update(tp, ps, pc, gt_cls.astype(np.float32))
+            if confusion is not None:
+                confusion.process_batch(pb, ps, pc.astype(np.int64), gt_boxes, gt_cls)
+            if coco_records is not None:
+                stem = Path(ds.im_files[i]).stem
+                coco_records.append({"image_id": int(stem) if stem.isnumeric() else i, "boxes": pb,
+                                     "scores": ps, "labels": lab})
+        if not rank0:
+            return broadcast_from_rank0(None)
         if coco_records is not None:
             predictions_to_coco(coco_records, Path(cfg.project or "runs") / "predictions.json")
         res = metrics.compute()
@@ -382,7 +486,7 @@ class Engine:
         LOGGER.info(f"val: mAP50={res['mAP50']:.4f} mAP50-95={res['mAP50-95']:.4f} "
                     f"P={res['precision']:.4f} R={res['recall']:.4f} ({res['images_per_sec']:.1f} img/s)")
         self.callbacks.fire("on_val_end", self, res)
-        return res
+        return broadcast_from_rank0(res) if world > 1 else res
 
     # ---------------------------------------------------------------- predict
     @torch.inference_mode()

@@ -119,19 +119,22 @@ def _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k):
     return u, dt, Bk, Ck
 
 
-def ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, chunk: int = SCAN_CHUNK):
-    """Plain PyTorch version of the fused scan (see the module docstring)."""
+def ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, chunk: int = SCAN_CHUNK, h0=None):
+    """Plain PyTorch version of the fused scan (see the module docstring).
+    `h0` (B, 4, D, N), the state entering each direction's walk, or None
+    (zeros)."""
     ys = []
     for k in range(4):
         u, dt, Bk, Ck = _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k)
-        y = selective_scan_ref(u, dt, A[k].expand(u.shape[0], *A[k].shape), Bk, Ck, chunk=chunk)
+        y = selective_scan_ref(u, dt, A[k].expand(u.shape[0], *A[k].shape), Bk, Ck, chunk=chunk,
+                               h0=None if h0 is None else h0[:, k])
         if k >= 2:
             y = y.flip(1)
         ys.append(y + layouts[:, k % 2] * Ds[k])
     return torch.stack(ys, 1)
 
 
-def _scan_bwd_one(u, dt, A, Bs, Cs, dy, chunk: int):
+def _scan_bwd_one(u, dt, A, Bs, Cs, dy, chunk: int, h0=None, carry=None):
     """Backward of one direction's S6 scan in walk order.
 
     u, dt, dy (G, L, D); A (G, D, N); Bs, Cs (G, L, N). Returns du_core = gB dt,
@@ -139,15 +142,21 @@ def _scan_bwd_one(u, dt, A, Bs, Cs, dy, chunk: int):
     `tamtr_tpu/kernels/selective_scan.py:641-660`: two passes, the first
     storing the state entering each chunk, the second walking the chunks in
     reverse with g = dL/dh.
+
+    A block of a longer walk (the sequence-parallel scan) gives `h0`
+    (G, D, N), the state entering it, and `carry` (G, D, N), a g of the
+    step after the block times that step's a: the gradients are then the
+    whole walk's on the block's steps.
     """
     G, L, D = u.shape
     starts = list(range(0, L, chunk))
-    h_in, h = [], u.new_zeros((G, D, A.shape[-1]))
+    h_in, h = [], u.new_zeros((G, D, A.shape[-1])) if h0 is None else h0
     for s0 in starts:
         h_in.append(h)
         h = linear_scan(*_chunk_ab(u, dt, A, Bs, s0, s0 + chunk), h)[:, -1]
-    g_next = torch.zeros_like(h)  # g and a of the step after the chunk
-    a_next = torch.zeros_like(h)
+    # g and a of the step after the chunk
+    g_next = torch.zeros_like(h) if carry is None else carry
+    a_next = torch.zeros_like(h) if carry is None else torch.ones_like(h)
     dA = torch.zeros_like(A)
     du, ddt, dB, dC = [], [], [], []
     for ci in reversed(range(len(starts))):
@@ -187,9 +196,27 @@ def _assemble_grads(layouts, dts_raw, dt_w, Ds, dy, du_core, dz, dBs, dCs, dA):
     return d_layouts, d_dts, d_dtw, d_dtb, dA, dBs, dCs, d_Ds
 
 
-def ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy, chunk: int = SCAN_CHUNK):
+def leaving_carry(delta, A, Cs, dy, chunk: int = SCAN_CHUNK):
+    """The carry leaving a walk backwards from a zero carry, with torch ops:
+    r = sum_s (prod_{i<=s} a_i) C_s dy_s, a_i = exp(delta_i A), (G, D, N),
+    for delta, dy (G, L, D), A (G, D, N), Cs (G, L, N) in walk order."""
+    G, L, D = delta.shape
+    r = delta.new_zeros((G, D, A.shape[-1]))
+    before = delta.new_zeros((G, D))  # sum of delta over the chunks before
+    for s0 in range(0, L, chunk):
+        cum = before[:, None] + delta[:, s0:s0 + chunk].cumsum(1)
+        r = r + torch.einsum("gsdn,gsd,gsn->gdn", torch.exp(cum[..., None] * A[:, None]),
+                             dy[:, s0:s0 + chunk], Cs[:, s0:s0 + chunk])
+        before = cum[:, -1]
+    return r
+
+
+def ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy, chunk: int = SCAN_CHUNK,
+                      h0=None, carry=None):
     """Plain backward of the fused scan: the gradients of its eight inputs
-    given dy (B, 4, L, D), written with torch ops."""
+    given dy (B, 4, L, D), written with torch ops. A block of the
+    sequence-parallel scan gives `h0` and `carry` (B, 4, D, N) per
+    direction (`_scan_bwd_one`)."""
     B, _, L, D = layouts.shape
     N = A.shape[-1]
     du_core, dz = torch.empty_like(dy), torch.empty_like(dy)
@@ -198,7 +225,8 @@ def ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy, chunk: in
     for k in range(4):
         u, dt, Bk, Ck = _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k)
         dyk = dy[:, k].flip(1) if k >= 2 else dy[:, k]
-        outs = _scan_bwd_one(u, dt, A[k].expand(B, D, N), Bk, Ck, dyk, chunk)
+        outs = _scan_bwd_one(u, dt, A[k].expand(B, D, N), Bk, Ck, dyk, chunk,
+                             h0=None if h0 is None else h0[:, k], carry=None if carry is None else carry[:, k])
         du, ddt, dBk, dCk = (t.flip(1) if k >= 2 else t for t in outs[:4])
         dt_nat = dt.flip(1) if k >= 2 else dt
         du_core[:, k], dz[:, k] = du, ddt * (1.0 - torch.exp(-dt_nat))
@@ -284,17 +312,39 @@ def _check_summaries(name, A, h_loc, sdt, L):
         raise ValueError(f"{name}: A and the summaries as the summaries kernel gives them")
 
 
-def ss2d_scan_fwd_combine(A, h_loc, sdt, L: int):
+def _ends(name, like, seeds, dry: bool):
+    """The optional seeds checked (each like `like` or None) and, for a dry
+    run, new (leave, decay) tensors of `like`'s shape, for a combine launch."""
+    for t in seeds:
+        if t is not None and (tuple(t.shape) != tuple(like.shape) or not t.is_contiguous()
+                              or t.dtype != torch.float32 or t.device != like.device):
+            raise ValueError(f"{name}: a seed must be contiguous float32 {tuple(like.shape)} on {like.device}")
+    return (_new(like.device, *like.shape), _new(like.device, *like.shape)) if dry else (None, None)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def ss2d_scan_fwd_combine(A, h_loc, sdt, L: int, seed=None, dry: bool = False):
     """Kernel B1's second launch, the pass across segments, in place on the
     summaries: h_loc becomes the state entering each segment,
-    h_in[j+1] = E_j h_in[j] + h_loc[j] with E_j = exp(A sum dt_j). Returns h_in."""
+    h_in[j+1] = E_j h_in[j] + h_loc[j] with E_j = exp(A sum dt_j). Returns h_in.
+
+    For a block of the sequence-parallel scan: `seed` (B, 4, D, 16) is the
+    state entering each direction's walk (h_in[0]; zeros when None).
+    dry=True leaves the summaries as they are and returns the block's
+    summary instead: the state leaving each walk and its decay
+    exp(A sum dt), each (B, 4, D, 16)."""
     _check_summaries("ss2d_scan_fwd_combine", A, h_loc, sdt, L)
     B, _, S, D, N = h_loc.shape
+    leave, decay = _ends("ss2d_scan_fwd_combine", h_loc[:, :, 0], (seed,), dry)
     rc = _lib("ss2d_scan_fwd").ss2d_scan_fwd_combine(
-        A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), B, L, D, N, _stream(A))
+        A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), _ptr(seed), _ptr(leave), _ptr(decay), B, L, D, N,
+        int(not dry), _stream(A))
     _build.check(rc, "ss2d_scan_fwd_combine")
     ss2d_scan_fwd_combine.launches += 1
-    return h_loc
+    return (leave, decay) if dry else h_loc
 
 
 def ss2d_scan_fwd_output(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, h_in):
@@ -367,20 +417,29 @@ def ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy):
     return h_loc, r, sdt
 
 
-def ss2d_scan_combine(A, h_loc, r, sdt, L: int):
+def ss2d_scan_combine(A, h_loc, r, sdt, L: int, seed_h=None, seed_c=None, dry: bool = False):
     """The pass across segments, in place on B3a's summaries: h_loc becomes
     the state entering each segment (h_in[j+1] = E_j h_in[j] + h_loc[j],
     E_j = exp(A sum dt_j)), r the carry entering each segment's last step
-    (c[j-1] = E_j c[j] + r[j], c[S-1] = 0). Returns (h_in, c)."""
+    (c[j-1] = E_j c[j] + r[j], c[S-1] = 0). Returns (h_in, c).
+
+    For a block of the sequence-parallel scan: `seed_h` (B, 4, D, 16) is
+    h_in[0], the state entering each direction's walk, and `seed_c` the
+    carry entering the walk's last step (c[S-1]); zeros when None.
+    dry=True leaves the summaries as they are and returns the block's
+    summary instead: the carry leaving each walk's first segment and the
+    walk's decay exp(A sum dt), each (B, 4, D, 16)."""
     _check_summaries("ss2d_scan_combine", A, h_loc, sdt, L)
     if tuple(r.shape) != tuple(h_loc.shape) or not r.is_contiguous() or r.dtype != torch.float32:
         raise ValueError("ss2d_scan_combine: r as the summaries kernel gives it")
     B, _, S, D, N = h_loc.shape
+    leave, decay = _ends("ss2d_scan_combine", h_loc[:, :, 0], (seed_h, seed_c), dry)
     rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_combine(
-        A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), r.data_ptr(), B, L, D, N, _stream(A))
+        A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), r.data_ptr(), _ptr(seed_h), _ptr(seed_c), _ptr(leave),
+        _ptr(decay), B, L, D, N, int(not dry), _stream(A))
     _build.check(rc, "ss2d_scan_bwd_combine")
     ss2d_scan_combine.launches += 1
-    return h_loc, r
+    return (leave, decay) if dry else (h_loc, r)
 
 
 def ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, h_in, carry):
@@ -434,13 +493,20 @@ def ss2d_scan_bwd(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy):
     CUDA tensors, `ss2d_scan_bwd_ref` for CPU ones."""
     if layouts.device.type == "cpu":
         return ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy)
-    layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = _check_cuda(
-        "ss2d_scan_bwd", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, SEG_CHANNELS)
+    args = _check_cuda("ss2d_scan_bwd", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, SEG_CHANNELS)
+    dy = dy.float().contiguous()
+    return bwd_from_summaries(args, dy, ss2d_scan_carriers(*args[:7], dy))
+
+
+def bwd_from_summaries(args, dy, summaries, seed_h=None, seed_c=None):
+    """The eight gradients from B3a's `summaries` (h_loc, r, sum dt) of the
+    checked `args` and dy: the combine, seeded with `seed_h` and `seed_c`
+    for a block of the sequence-parallel scan, then B3b's walk, then the
+    torch assembly. CUDA tensors only."""
+    layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = args
     B, _, L, D = layouts.shape
     N = A.shape[-1]
-    dy = dy.float().contiguous()
-    h_loc, r, sdt = ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy)
-    h_in, carry = ss2d_scan_combine(A, h_loc, r, sdt, L)
+    h_in, carry = ss2d_scan_combine(A, *summaries[:2], summaries[2], L, seed_h=seed_h, seed_c=seed_c)
     du, dz, dBp, dCp, dAp = ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, h_in, carry)
     return _assemble_grads(layouts, dts_raw, dt_w, Ds, dy, du, dz,
                            dBp.sum(2).view(B, 2, 2, L, N), dCp.sum(2).view(B, 2, 2, L, N),
@@ -500,10 +566,11 @@ def ss2d_scan(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
     return _SS2DScan.apply(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
 
 
-def selective_scan_bwd_ref(u, delta, A, Bs, Cs, D, dy, chunk: int = SCAN_CHUNK):
+def selective_scan_bwd_ref(u, delta, A, Bs, Cs, D, dy, chunk: int = SCAN_CHUNK, h0=None, carry=None):
     """Gradients (du, ddelta, dA, dBs, dCs, dD) of `selective_scan_ref`
-    (from zero state) given dy, with torch ops; dD is None when D is."""
-    du, ddelta, dB, dC, dA = _scan_bwd_one(u, delta, A, Bs, Cs, dy, chunk)
+    (from zero state, or `h0`) given dy, with torch ops; dD is None when D
+    is. `h0` and `carry` (G, Din, N) as `_scan_bwd_one` takes them."""
+    du, ddelta, dB, dC, dA = _scan_bwd_one(u, delta, A, Bs, Cs, dy, chunk, h0=h0, carry=carry)
     if D is None:
         return du, ddelta, dA, dB, dC, None
     return du + dy * D[:, None, :], ddelta, dA, dB, dC, (dy * u).sum(1)
@@ -549,10 +616,15 @@ def selective_scan_fwd_summaries(u, delta, A, Bs):
     return h_loc, sdt
 
 
-def selective_scan_fwd_combine(A, h_loc, sdt, L: int):
+def selective_scan_fwd_combine(A, h_loc, sdt, L: int, seed=None, dry: bool = False):
     """Kernel B6's second launch, the pass across segments, in place on the
     summaries: h_loc becomes the state entering each segment,
-    h_in[j+1] = E_j h_in[j] + h_loc[j] with E_j = exp(A sum delta_j). Returns h_in."""
+    h_in[j+1] = E_j h_in[j] + h_loc[j] with E_j = exp(A sum delta_j). Returns h_in.
+
+    For a block of the sequence-parallel scan: `seed` (G, Din, N) is h_in[0]
+    (zeros when None). dry=True leaves the summaries as they are and returns
+    the block's summary instead: the state leaving the walk and its decay
+    exp(A sum delta), each (G, Din, N)."""
     if A.device.type != "cuda":
         raise RuntimeError(f"selective_scan_fwd_combine: no kernel for device {A.device}")
     G, S, Din, N = h_loc.shape
@@ -560,11 +632,13 @@ def selective_scan_fwd_combine(A, h_loc, sdt, L: int):
           and all(t.is_contiguous() and t.dtype == torch.float32 and t.device == A.device for t in (A, h_loc, sdt)))
     if not ok:
         raise ValueError("selective_scan_fwd_combine: A and the summaries as the summaries kernel gives them")
+    leave, decay = _ends("selective_scan_fwd_combine", A, (seed,), dry)
     rc = _lib("selective_scan_fwd").selective_scan_fwd_combine(
-        A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), G, L, Din, N, _stream(A))
+        A.data_ptr(), sdt.data_ptr(), h_loc.data_ptr(), _ptr(seed), _ptr(leave), _ptr(decay), G, L, Din, N,
+        int(not dry), _stream(A))
     _build.check(rc, "selective_scan_fwd_combine")
     selective_scan_fwd_combine.launches += 1
-    return h_loc
+    return (leave, decay) if dry else h_loc
 
 
 def selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in):
@@ -686,13 +760,13 @@ selective_scan_fwd_output.launches = 0
 
 _SIGNATURES = {
     "selective_scan_fwd_summaries": (6, 4, 0),
-    "selective_scan_fwd_combine": (3, 4, 0),
+    "selective_scan_fwd_combine": (6, 5, 0),
     "selective_scan_fwd_output": (8, 4, 0),
     "ss2d_scan_fwd_summaries": (8, 5, 2),
-    "ss2d_scan_fwd_combine": (3, 4, 0),
+    "ss2d_scan_fwd_combine": (6, 5, 0),
     "ss2d_scan_fwd_output": (10, 5, 3),
     "ss2d_scan_bwd_summaries": (11, 5, 3),
-    "ss2d_scan_bwd_combine": (4, 4, 0),
+    "ss2d_scan_bwd_combine": (8, 5, 0),
     "ss2d_scan_bwd_walk": (15, 5, 3),
 }
 

@@ -8,7 +8,10 @@
 - The denoising branch uses the static positive layout of `get_cdn_group`:
   dn query g*M + j reconstructs gt j for each positive group g < G.
 - Gains and normalisers as the reference: class x1 (VFL, scaled by
-  nq / max(num_gts, 1)), bbox x5 / num_gts, RIOU x2 / num_gts.
+  nq / max(num_gts, 1)), bbox x5 / num_gts, RIOU x2 / num_gts. Under
+  `parallel.dist.data_parallel` num_gts is the global batch's: a rank's
+  loss is then its share of the global loss, and the gradient of the
+  global loss is the sum of the ranks' gradients.
 
 The JAX package's ablation switches (`use_sl`, `use_svfl`, `nwd_loss`,
 `use_wiseiou`, `losses/variants.py`) are not ported yet.
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 
 from tamtr_torch.losses.matcher import hungarian_match
 from tamtr_torch.ops.boxes import bbox_iou
+from tamtr_torch.parallel.dist import global_sum
 
 
 @dataclass(frozen=True)
@@ -46,7 +50,7 @@ def _pair_losses(cfg: DETRLossConfig, pred_bboxes, pred_scores, gt_bboxes, gt_cl
     """Class + bbox + RIOU losses for (query, gt) pairs: pred_bboxes
     (B, nq, 4), pred_scores (B, nq, nc), q_idx/gt_idx/valid (B, P)."""
     B, nq, nc = pred_scores.shape
-    num = valid.sum().float()
+    num = global_sum(valid.sum().float())
     denom = num.clamp(min=1.0)
     safe_q = torch.where(valid, q_idx, 0).long()
     safe_g = torch.where(valid, gt_idx, 0).long()

@@ -22,6 +22,7 @@ from tamtr_torch.kernels.deform_scatter import bilinear_gather
 from tamtr_torch.nn.layers import MLP, BatchNorm2d
 from tamtr_torch.nn.ssm import VSSBlock
 from tamtr_torch.ops.boxes import xywh2xyxy, xyxy2xywh
+from tamtr_torch.parallel.dist import batch_rows
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -197,14 +198,16 @@ def cdn_attn_mask(num_dn: int, num_queries: int, group_block: int) -> np.ndarray
 def cdn_noise(shape: Tuple[int, int, int], num_classes: int, generator: torch.Generator,
               device) -> Dict[str, torch.Tensor]:
     """The draws of `get_cdn_group` for (B, 2G, M) queries: class-flip
-    uniforms, replacement classes, box-noise signs (+-1) and magnitudes."""
+    uniforms, replacement classes, box-noise signs (+-1) and magnitudes.
+    Under `parallel.dist.data_parallel` each is drawn for the global batch
+    and this rank keeps its rows (`batch_rows`)."""
     B, G2, M = shape
     kw = dict(generator=generator, device=device)
     return {
-        "flip": torch.rand((B, G2, M), **kw),
-        "new_cls": torch.randint(0, num_classes, (B, G2, M), **kw),
-        "sign": torch.randint(0, 2, (B, G2, M, 4), **kw).float() * 2.0 - 1.0,
-        "part": torch.rand((B, G2, M, 4), **kw),
+        "flip": batch_rows(lambda b: torch.rand((b, G2, M), **kw), B),
+        "new_cls": batch_rows(lambda b: torch.randint(0, num_classes, (b, G2, M), **kw), B),
+        "sign": batch_rows(lambda b: torch.randint(0, 2, (b, G2, M, 4), **kw), B).float() * 2.0 - 1.0,
+        "part": batch_rows(lambda b: torch.rand((b, G2, M, 4), **kw), B),
     }
 
 

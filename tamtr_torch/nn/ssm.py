@@ -9,6 +9,11 @@ everywhere (torch's default, which the reference uses).
 Parameter names and shapes follow the reference checkpoint: `A_logs` is
 (K*D, N) and `Ds` is (K*D,), with K = 4 directions.
 
+Inside `sequence_parallel(group)` every SS2D scan whose token axis divides
+by the group's size runs `parallel.seq_scan.ss2d_scan_sp` over the group
+(the counterpart of `tamtr_tpu/nn/ssm.py:sequence_parallel`); other scans
+stay local, as the JAX package's do.
+
 The one-direction scan of the JAX module is here too: `selective_scan`
 (the counterpart of `tamtr_tpu/nn/ssm.py:selective_scan`: kernel B6 on
 CUDA tensors, the plain version on CPU ones; the tensor's device decides,
@@ -27,8 +32,40 @@ from torch import nn
 
 from tamtr_torch.kernels.selective_scan import selective_scan, selective_scan_ref, ss2d_scan  # noqa: F401
 from tamtr_torch.nn.layers import DropPath
+from tamtr_torch.parallel.seq_scan import GroupBlocks, LocalBlocks, ss2d_scan_sp
 
 K_DIRS = 4
+
+_SP_BLOCKS = None  # the exchange of the innermost `sequence_parallel`
+
+
+class sequence_parallel:
+    """Context manager: route SS2D scans sequence-parallel over `group`, a
+    process group (its ranks hold one block each, `GroupBlocks`) or an
+    exchange of `parallel/seq_scan.py` (`LocalBlocks(n)`); None routes
+    none."""
+
+    def __init__(self, group):
+        self.blocks = group if group is None or isinstance(group, (GroupBlocks, LocalBlocks)) else GroupBlocks(group)
+
+    def __enter__(self):
+        global _SP_BLOCKS
+        self.prev, _SP_BLOCKS = _SP_BLOCKS, self.blocks
+        return self
+
+    def __exit__(self, *exc):
+        global _SP_BLOCKS
+        _SP_BLOCKS = self.prev
+        return False
+
+
+def scan_4dir(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
+    """`ss2d_scan`, or `ss2d_scan_sp` inside `sequence_parallel` when the
+    token axis divides by the group's size."""
+    blocks = _SP_BLOCKS
+    if blocks is not None and blocks.n > 1 and layouts.shape[2] % blocks.n == 0:
+        return ss2d_scan_sp(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, blocks)
+    return ss2d_scan(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
 
 
 class SS2D(nn.Module):
@@ -66,7 +103,7 @@ class SS2D(nn.Module):
         x_dbl = torch.einsum("bjld,fjcd->bfjlc", layouts, Wp).contiguous()  # (B, 2, 2, L, R+2N)
         dts_raw, Bs, Cs = x_dbl.split([R, N, N], dim=-1)  # views the kernel reads in place
         A = -torch.exp(self.A_logs.view(K_DIRS, Di, N))
-        ys = ss2d_scan(
+        ys = scan_4dir(
             layouts, dts_raw, self.dt_projs_weight, self.dt_projs_bias, A, Bs, Cs,
             self.Ds.view(K_DIRS, Di),
         )  # (B, 4, L, Di) natural order

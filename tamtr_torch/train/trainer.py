@@ -17,6 +17,18 @@ NaN guard and EMA (torch port of the semantics of
 - EMA of the parameters and BatchNorm statistics with decay
   0.9999 (1 - exp(-t / 2000)), t the optimizer step count, ticking only on
   optimizer steps.
+
+On several ranks (`groups`, `parallel/dist.py`) a step on n data ranks of
+B/n images each is the one-process step on the global batch of B, as the
+JAX step is under pjit: the forward and the loss run under `data_parallel`
+(global BatchNorm moments, CDN noise and DropPath masks, loss normalisers)
+and `sequence_parallel` over the sp group, and each rank's gradient, its
+share of the global loss's, is summed over the data group in buckets
+before the norm, the guard and the clip, which then decide the same way on
+every rank. `zero=True` (the config's fsdp > 1) shards the AdamW moments
+over all ranks with `ZeroRedundancyOptimizer` (ZeRO-1); the accumulated
+gradient and the EMA stay replicated. `state_dict` consolidates the
+optimizer on rank 0.
 """
 
 from __future__ import annotations
@@ -28,9 +40,12 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tamtr_torch.losses.detr_loss import DETRLossConfig, rtdetr_detection_loss
+from tamtr_torch.nn.ssm import sequence_parallel
+from tamtr_torch.parallel.dist import Groups, all_reduce_grads, data_parallel
 
 
 @dataclass(frozen=True)
@@ -115,27 +130,38 @@ class Trainer:
       steps_per_epoch: minibatches per epoch, for the LR schedule.
       device: "cuda" by default; "cpu" only when asked for.
       seed: seed of the generator that draws the CDN noise and DropPath masks.
+      groups: this rank's data and sp groups (`parallel.dist.make_groups`),
+        or None for one process; every rank starts from the same model.
+      zero: shard the optimizer state over every rank (ZeRO-1).
     """
 
     def __init__(self, model: nn.Module, cfg: TrainConfig = TrainConfig(),
                  loss_cfg: Optional[DETRLossConfig] = None, steps_per_epoch: int = 1000,
-                 device: Optional[Union[str, torch.device]] = None, seed: int = 0):
+                 device: Optional[Union[str, torch.device]] = None, seed: int = 0,
+                 groups: Optional[Groups] = None, zero: bool = False):
         if device is None and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
         self.device = torch.device("cuda" if device is None else device)
         self.cfg, self.steps_per_epoch = cfg, steps_per_epoch
         self.loss_cfg = loss_cfg or DETRLossConfig(nc=model.nc, match_method=cfg.match_method)
         self.model = model.to(self.device).train()
-        groups = param_groups(self.model)
+        kinds = param_groups(self.model)
         named = dict(self.model.named_parameters())
         self.params = list(named.values())
-        by = {g: [named[n] for n in named if groups[n] == g] for g in ("decay", "no_decay", "bias")}
-        self.optimizer = torch.optim.AdamW(
-            [{"params": by["decay"], "weight_decay": cfg.scaled_wd, "group": "decay"},
-             {"params": by["no_decay"], "weight_decay": 0.0, "group": "no_decay"},
-             {"params": by["bias"], "weight_decay": 0.0, "group": "bias"}],
-            lr=0.0, betas=(cfg.momentum, 0.999), eps=1e-8,
-        )
+        by = {g: [named[n] for n in named if kinds[n] == g] for g in ("decay", "no_decay", "bias")}
+        opt_groups = [{"params": by["decay"], "weight_decay": cfg.scaled_wd, "group": "decay"},
+                      {"params": by["no_decay"], "weight_decay": 0.0, "group": "no_decay"},
+                      {"params": by["bias"], "weight_decay": 0.0, "group": "bias"}]
+        hyper = dict(lr=0.0, betas=(cfg.momentum, 0.999), eps=1e-8)
+        self.groups, self.zero = groups, zero
+        if zero:
+            if groups is None:
+                raise ValueError("zero=True shards the optimizer over ranks: pass the groups")
+            from torch.distributed.optim import ZeroRedundancyOptimizer
+
+            self.optimizer = ZeroRedundancyOptimizer(opt_groups, optimizer_class=torch.optim.AdamW, **hyper)
+        else:
+            self.optimizer = torch.optim.AdamW(opt_groups, **hyper)
         self.acc = [torch.zeros_like(p) for p in self.params]
         self.ema = copy.deepcopy(self.model).eval().requires_grad_(False)
         # EMA'd tensors: parameters and BN running statistics (state-dict
@@ -149,9 +175,16 @@ class Trainer:
     def state_dict(self) -> Dict:
         """Everything a resumed run needs to continue bitwise: the model, the
         EMA, the optimizer, the accumulated gradient, the counters and the
-        generator of the CDN noise and DropPath masks."""
+        generator of the CDN noise and DropPath masks. With zero=True every
+        rank calls it and the optimizer's shards meet on rank 0; the other
+        ranks' dicts hold no optimizer."""
+        if self.zero:
+            self.optimizer.consolidate_state_dict(to=0)
+            opt = self.optimizer.state_dict() if dist.get_rank() == 0 else None
+        else:
+            opt = self.optimizer.state_dict()
         return {"model": self.model.state_dict(), "ema": self.ema.state_dict(),
-                "optimizer": self.optimizer.state_dict(), "acc": self.acc, "ni": self.ni,
+                "optimizer": opt, "acc": self.acc, "ni": self.ni,
                 "count": self.count, "last_opt": self.last_opt, "generator": self.generator.get_state()}
 
     def load_state_dict(self, state: Dict) -> None:
@@ -185,12 +218,18 @@ class Trainer:
         self.model.train()
         for p in self.params:
             p.grad = None
-        out = self.model(b["img"], b["txt_feats"].float(), targets, self.generator)
-        loss, items = rtdetr_detection_loss(out, targets, self.loss_cfg)
+        groups = self.groups
+        with data_parallel(groups), sequence_parallel(groups.sp if groups is not None else None):
+            out = self.model(b["img"], b["txt_feats"].float(), targets, self.generator)
+            loss, items = rtdetr_detection_loss(out, targets, self.loss_cfg)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        reported = torch.stack([loss.detach()] + [items[k].detach() for k in ("giou", "class", "bbox")])
+        if groups is not None:  # the global loss's gradient, and the global loss
+            all_reduce_grads(grads, groups.data)
+            dist.all_reduce(reported, group=groups.data)
         gnorm = _global_norm(grads)
-        ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm)) or not cfg.skip_nonfinite
+        ok = bool(torch.isfinite(reported[0]) & torch.isfinite(gnorm)) or not cfg.skip_nonfinite
         if ok:
             torch._foreach_add_(self.acc, grads)
 
@@ -225,7 +264,6 @@ class Trainer:
         for p in self.params:
             p.grad = None
         self.ni += 1
-        metrics = {"loss": float(loss.detach())}
-        metrics.update({k: float(items[k].detach()) for k in ("giou", "class", "bbox")})
+        metrics = dict(zip(("loss", "giou", "class", "bbox"), reported.tolist()))
         metrics.update(grad_norm=float(gnorm), stepped=float(stepped))
         return metrics

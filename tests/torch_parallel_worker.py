@@ -1,0 +1,135 @@
+"""One rank of `tests/test_torch_parallel.py`'s gloo runs (not a test file).
+
+    RANK=r WORLD_SIZE=2 MASTER_ADDR=127.0.0.1 MASTER_PORT=p python tests/torch_parallel_worker.py <case> <out> [arg]
+
+Each case joins the process group over gloo, runs, and writes what the test
+checks to `<out>.<rank>` (torch.save):
+  tiny: a conv + BatchNorm + linear model with a global-mean loss, 3 steps:
+        one process on the batch of 8 (rank 0), 2 data ranks of 4 (plain
+        and ZeRO);
+  nano: one `tamtr-nano.yaml` step on a batch of 4 at 64 px: one process at
+        one torch thread (the reference) and at three (the fp32 noise
+        floor), 2 data ranks of 2 (plain and ZeRO), and data 1 x sp 2;
+  val:  `Engine.val` of the model in <arg>/model.pt on <arg>/data.json.
+"""
+
+import copy
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+import tamtr_torch.train.trainer as trainer_mod
+from tamtr_torch.nn.layers import BatchNorm2d
+from tamtr_torch.parallel.dist import global_sum, init_distributed, make_groups, shard_batch
+from tamtr_torch.train.trainer import Trainer, TrainConfig
+
+
+class TinyDet(nn.Module):
+    """`tests/test_fsdp.py:TinyDet` in torch: conv (no bias before the
+    BatchNorm, whose direction has no true gradient), BatchNorm, ReLU, mean,
+    linear."""
+
+    nc = 2
+
+    def __init__(self):
+        super().__init__()
+        self.conv = nn.Conv2d(3, 8, 3, bias=False)
+        self.bn = BatchNorm2d(8)
+        self.fc = nn.Linear(8, 6)
+
+    def forward(self, img, txt, targets, generator=None):
+        x = torch.relu(self.bn(self.conv(img.permute(0, 3, 1, 2)))).mean((2, 3))
+        return {"out": self.fc(x)}
+
+
+def mse_share(out, targets, cfg):
+    """This rank's share of the global batch's mean of out^2."""
+    v = (out["out"] ** 2).sum() / global_sum(torch.tensor(float(out["out"].numel())))
+    return v, {"giou": v, "class": v, "bbox": v, "match": torch.zeros(1)}
+
+
+def run(trainer, batches, groups=None):
+    losses = []
+    for b in batches:
+        losses.append(trainer.step(b if groups is None else shard_batch(b, groups.data_rank, groups.data_size))["loss"])
+    return losses, {k: v.clone() for k, v in trainer.model.state_dict().items()}, \
+        {k: v.clone() for k, v in trainer.ema.state_dict().items()}
+
+
+def tiny():
+    trainer_mod.rtdetr_detection_loss = mse_share
+    torch.manual_seed(0)
+    model = TinyDet()
+    cfg = TrainConfig(batch_size=8, warmup_iters=2, epochs=2, accumulate=1)
+    rng = np.random.default_rng(7)
+    batches = [{"img": rng.random((8, 8, 8, 3), dtype=np.float32), "txt_feats": np.zeros((8, 4, 8), np.float32),
+                "cls": np.zeros((8, 2), np.int32), "bboxes": np.full((8, 2, 4), 0.5, np.float32),
+                "mask": np.zeros((8, 2), bool)} for _ in range(3)]
+    groups = make_groups(1)
+    out = {"one": run(Trainer(copy.deepcopy(model), cfg, steps_per_epoch=2, device="cpu"), batches)}
+    for name, zero in (("dp", False), ("zero", True)):
+        tr = Trainer(copy.deepcopy(model), cfg, steps_per_epoch=2, device="cpu", groups=groups, zero=zero)
+        out[name] = run(tr, batches, groups)
+    return out
+
+
+def nano_batch(B=4, M=3, nc=5, sz=64, hd=128):
+    rng = np.random.default_rng(7)
+    return {"img": rng.random((B, sz, sz, 3), dtype=np.float32),
+            "txt_feats": rng.standard_normal((B, nc, hd)).astype(np.float32),
+            "cls": rng.integers(0, nc, (B, M)).astype(np.int32),
+            "bboxes": np.clip(rng.random((B, M, 4)), 0.1, 0.9).astype(np.float32),
+            "mask": np.tile(np.arange(M)[None] < 2, (B, 1))}
+
+
+def nano():
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.weights import init_parameters
+
+    model = TAMTRModel.from_cfg("tamtr-nano.yaml", nc=5, max_gt=3)
+    init_parameters(model, 0)
+    batch = [nano_batch()]
+    cfg = TrainConfig(batch_size=4, warmup_iters=10, epochs=2, accumulate=1)
+
+    def trainer(**kw):
+        return Trainer(copy.deepcopy(model), cfg, steps_per_epoch=10, device="cpu", seed=3, **kw)
+
+    out = {}
+    if dist.get_rank() == 0:
+        out["one"] = run(trainer(), batch)
+        torch.set_num_threads(3)
+        out["floor"] = run(trainer(), batch)
+        torch.set_num_threads(1)
+    dp, dpsp = make_groups(1), make_groups(2)
+    out["dp"] = run(trainer(groups=dp), batch, dp)
+    out["zero"] = run(trainer(groups=dp, zero=True), batch, dp)
+    out["dpsp"] = run(trainer(groups=dpsp), batch, dpsp)
+    return out
+
+
+def val(root):
+    from tamtr_torch.engine.model import Engine
+    from tamtr_torch.nn.graph import TAMTRModel
+
+    root = Path(root)
+    spec = json.loads((root / "spec.json").read_text())
+    eng = Engine("tamtr-nano.yaml", device="cpu")
+    model = TAMTRModel.from_cfg("tamtr-nano.yaml", nc=len(spec["names"]))
+    model.load_state_dict(torch.load(root / "model.pt", weights_only=True))
+    eng.model = model.eval()
+    eng.set_classes(spec["names"], np.asarray(spec["txt"], np.float32))
+    return eng.val(**spec["args"])
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(1)
+    case, out_path = sys.argv[1], sys.argv[2]
+    init_distributed("cpu")
+    result = {"tiny": tiny, "nano": nano, "val": lambda: val(sys.argv[3])}[case]()
+    torch.save(result, f"{out_path}.{dist.get_rank()}")
+    dist.destroy_process_group()
