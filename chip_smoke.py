@@ -144,6 +144,25 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    loader wait, val images/s, mAP, peak memory. plots=True: the run
    directory must hold `results.png`, `train_batch0-2.jpg` and
    `confusion_matrix.png`, each readable.
+9-bf16. bf16: the compute path of `TAMTRModel.dtype` = bf16. The kernels
+   B1 and B3 at the three 640 px levels, batch 4, and B2 and B4 at value
+   (4, 33600, 8, 64), Q = 700, on bf16 sequence / value I/O against their
+   plain bf16 versions (y within one bf16 step, the scan's bf16 gradients
+   2e-2 and fp32 ones 2e-3, out 2e-2, dvalue bitwise the plain row-owned
+   version and 3e-2 of the scatter-add form), two calls bitwise equal,
+   the ms at bf16 beside the fp32 kernel's in turns, the bounds at bf16
+   bytes; B6 at the three levels and B7 and B8 at the decoder's shapes at
+   bf16 I/O beside fp32 (no model path runs them); then serve
+   (`TAMTR.predict` at batch 1 and 4 with half=True and
+   with fuse=True too, beside fp32, in turns; the card's bf16 output
+   against its fp32 output and against the CPU's bf16, RMS over rows
+   paired as sets), train (`Trainer.step` computing in bf16 beside fp32 at
+   640 px, batch 4, max_gt 300: warm step ms, peak memory, busy share; the
+   loss finite, every weight fp32) and fit (`Engine.train(bf16=True)` for
+   one epoch of the fit dataset, its checkpoint fp32, then `Engine.val`
+   with half=True), each with its launch counters zeroed before and read
+   after. The kernels line carries the bf16 numbers (and the main path's
+   bf16 launches for B1-B4) under `bf16` in the entries of B1-B4 and B6-B8.
 9a. parallel: in a process of its own, `torch.distributed` over NCCL with
    a world of one rank on the card, deterministic algorithms on: one
    `Trainer.step` of `tamtr.yaml` at 640 px, batch 4, max_gt 300 under the
@@ -1596,6 +1615,414 @@ def fit(dev):
     return {k: train_launches[k] + val_launches[k] for k in counters}, summary
 
 
+
+# ---------------------------------------------------------------------------
+# bf16: the compute path of `TAMTRModel.dtype` = bf16 (`half=True`, `bf16=True`)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def bf16_seq(args):
+    """The scan's sequence tensors (layouts, dts_raw, Bs, Cs) in bf16, the
+    parameters fp32, as SS2D passes them at bf16."""
+    return [t.to(BF16) if i in (0, 1, 5, 6) else t for i, t in enumerate(args)]
+
+
+def bf16_steps(got, want, floor: float) -> float:
+    """The largest |got - want| in bf16 steps (2^-7 of the larger
+    magnitude's power of two) beyond an absolute `floor`."""
+    got, want = got.float(), want.float()
+    unit = torch.exp2(torch.floor(torch.log2(torch.maximum(got.abs(), want.abs()).clamp(min=1e-30))) - 7)
+    return float(((got - want).abs() - floor).clamp(min=0).div(unit).max())
+
+
+def rms_set(got: np.ndarray, want: np.ndarray, spare: int = 2) -> float:
+    """Two eval outputs (B, nq, 4 + nc) as sets of rows (paired by the least
+    max-abs distance, the `spare` worst pairs of an image left out as
+    near-tied top-k picks): the root mean square of the pairs' differences
+    (`tests/test_torch_bf16.py:set_distance`)."""
+    from scipy.optimize import linear_sum_assignment
+
+    errs = []
+    for b in range(got.shape[0]):
+        dist = np.abs(got[b][:, None] - want[b][None]).max(-1)
+        r, c = linear_sum_assignment(dist)
+        keep = np.argsort(dist[r, c])[:len(r) - spare]
+        errs.append((got[b][r[keep]] - want[b][c[keep]]).ravel())
+    e = np.concatenate(errs)
+    return float(np.sqrt(np.mean(e * e)))
+
+
+def in_turns(fns: dict, rounds: int, iters: int) -> dict:
+    """ms of each of `fns` (CUDA events, `iters` calls), the functions in
+    turn for `rounds` rounds; each one's median."""
+    got = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            got[k].append(cuda_ms(fn, iters=iters))
+    return {k: float(np.median(v)) for k, v in got.items()}
+
+
+def bf16_scan_rows(dev):
+    """B1 and B3 at bf16 sequence I/O at the three 640 px levels, batch 4,
+    against their plain bf16 versions (y within one bf16 step beyond 2^-10;
+    the bf16 gradients within 2e-2, the fp32 ones within 2e-3; every
+    gradient in its primal's dtype), two calls bitwise equal; the ms of the
+    launches at bf16 and at fp32 in turns, and the bound at bf16 bytes."""
+    from tamtr_torch.kernels.selective_scan import (
+        SEG_STEPS, ss2d_scan, ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_bwd_walk, ss2d_scan_carriers,
+        ss2d_scan_combine, ss2d_scan_ref,
+    )
+
+    def bwd_launches(a, d):
+        summ = ss2d_scan_carriers(*a[:7], d)
+        h_in, carry = ss2d_scan_combine(a[4], *summ, a[0].shape[2])
+        return ss2d_scan_bwd_walk(*a[:7], d, h_in, carry)
+
+    g = torch.Generator().manual_seed(21)
+    fwd, bwd = [], []
+    for H, W, C in LEVELS_640:
+        args, dy = scan_inputs(g, TRAIN_BATCH, H, W, C, dev)
+        a16, dy16 = bf16_seq(args), dy.to(BF16)
+        B, L, D, R, N = TRAIN_BATCH, H * W, 2 * C, args[2].shape[-1], 16
+        S = -(-L // SEG_STEPS)
+        y, again, want = ss2d_scan(*a16), ss2d_scan(*a16), ss2d_scan_ref(*a16)
+        steps, bitwise = bf16_steps(y, want, 2.0**-10), torch.equal(y, again)
+        e = (y.float() - want.float()).abs().max().item()
+        ok = y.dtype == BF16 and steps <= 1.0 and bitwise and bool(torch.isfinite(y.float()).all())
+        del y, again, want
+        ms = in_turns({"fp32": lambda: ss2d_scan(*args), "bf16": lambda: ss2d_scan(*a16)}, rounds=2, iters=5)
+        plain = cuda_ms(lambda: ss2d_scan_ref(*a16), iters=1, warmup=0)
+        # the function at bf16 bytes: the sequence inputs and y 2 bytes, the
+        # weights 4; the operations as at fp32 (`check_ss2d_scan`)
+        seq_in = 2 * B * L * D + 4 * B * L * (R + 2 * N)
+        b_fn = bound(2 * (seq_in + 4 * B * L * D) + 4 * 4 * D * (R + N + 2), 4 * B * L * D * (2 * R + 8 * N + 3))
+        fwd.append(dict(B=B, L=L, D=D, S=S, ms=ms["bf16"], ms_fp32=ms["fp32"], plain_ms=plain, bound_ms=b_fn[0],
+                        bound_by=b_fn[1], max_abs_err=e, bf16_steps=steps, bitwise_repeat=bitwise))
+        say(f"bf16 ss2d_scan_fwd B={B} L={L} D={D}: {steps} bf16 steps from the plain bf16 scan (max_abs_err {e:.3g}), "
+            f"bitwise repeat {bitwise}; ms bf16 {ms['bf16']:.4f} fp32 {ms['fp32']:.4f} (in turns), plain_ms "
+            f"{plain:.3f}, bound_ms at bf16 bytes {b_fn[0]:.4f} ({b_fn[1]})", flush=True)
+        if not ok:
+            raise AssertionError(f"bf16 ss2d_scan at L={L}: {steps} steps, bitwise {bitwise}")
+        got, again = ss2d_scan_bwd(*a16, dy16), ss2d_scan_bwd(*a16, dy16)
+        want = ss2d_scan_bwd_ref(*a16, dy16, chunk=512)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(x, z) for x, z in zip(got, again))
+        dtypes = all(x.dtype == w.dtype == p.dtype for x, w, p in zip(got, want, a16))
+        close = all(torch.allclose(x.float(), w.float(), atol=2e-2 if x.dtype == BF16 else 2e-3,
+                                   rtol=2e-2 if x.dtype == BF16 else 2e-3) and bool(torch.isfinite(x.float()).all())
+                    for x, w in zip(got, want))
+        e = max((x.float() - w.float()).abs().max().item() for x, w in zip(got, want))
+        del got, again, want
+        ms = in_turns({"fp32": lambda: bwd_launches(args, dy), "bf16": lambda: bwd_launches(a16, dy16)},
+                      rounds=2, iters=3)
+        whole = in_turns({"fp32": lambda: ss2d_scan_bwd(*args, dy), "bf16": lambda: ss2d_scan_bwd(*a16, dy16)},
+                         rounds=1, iters=3)
+        plain = cuda_ms(lambda: ss2d_scan_bwd_ref(*a16, dy16, chunk=512), iters=1, warmup=0)
+        # at bf16 bytes: layouts, x_dbl and dy in, du, d_dts, dB and dC out
+        # 2 bytes; the weights, dz and dA 4 (`check_ss2d_scan_bwd`)
+        seq = seq_in + 4 * B * L * D + 4 * B * L * D + 2 * 4 * B * L * N
+        b_fn = bound(2 * seq + 4 * (4 * D * (R + N + 2) + 4 * B * L * D + 4 * D * N),
+                     4 * B * L * D * (4 * R + 28 * N + 10))
+        bwd.append(dict(B=B, L=L, D=D, S=S, ms=ms["bf16"], ms_fp32=ms["fp32"], ms_with_assembly=whole["bf16"],
+                        ms_with_assembly_fp32=whole["fp32"], plain_ms=plain, bound_ms=b_fn[0], bound_by=b_fn[1],
+                        max_abs_err=e, bitwise_repeat=bitwise))
+        say(f"bf16 ss2d_scan_bwd B={B} L={L} D={D}: max_abs_err {e:.3g} (bf16 gradients 2e-2, fp32 2e-3), "
+            f"cotangent dtypes {dtypes}, bitwise repeat {bitwise}; launches ms bf16 {ms['bf16']:.4f} fp32 "
+            f"{ms['fp32']:.4f}, with the torch assembly bf16 {whole['bf16']:.4f} fp32 {whole['fp32']:.4f} (in "
+            f"turns), plain_ms {plain:.3f}, bound_ms at bf16 bytes {b_fn[0]:.4f} ({b_fn[1]})", flush=True)
+        if not (bitwise and dtypes and close):
+            raise AssertionError(f"bf16 ss2d_scan_bwd at L={L}: close {close}, dtypes {dtypes}, bitwise {bitwise}")
+        del args, dy, a16, dy16
+    return fwd, bwd
+
+
+def bf16_gather_rows(dev):
+    """B2 and B4 on bf16 value (and dout) at value (4, 33600, 8, 64), Q =
+    700: out within 2e-2 of the plain bf16 gather, dvalue bitwise the plain
+    row-owned version at bf16 and within 3e-2 of the scatter-add form, dw
+    fp32 within 1e-4; two calls bitwise equal; ms at bf16 and fp32 in turns
+    and the bounds at bf16 bytes."""
+    from tamtr_torch.kernels.deform_scatter import (
+        bilinear_gather, bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_bwd_rows_ref,
+        bilinear_gather_ref,
+    )
+    from tamtr_torch.nn.decoder import deform_sampling_pairs
+
+    shapes = [(h, w) for h, w, _ in LEVELS_640]
+    B, Q, nl, P = DEFORM_B, DEFORM_Q, 3, 4
+    value, loc, w_att = deform_inputs(torch.Generator().manual_seed(22), B, Q, shapes, dev)
+    idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
+    v16 = value.to(BF16)
+    _, Lv, nh, c = value.shape
+    call = lambda v: bilinear_gather(v, None, w_pairs, idx2, nl * P)  # noqa: E731
+    out, again, want = call(v16), call(v16), bilinear_gather_ref(v16, idx4, w_pairs, idx2, nl * P)
+    e = (out.float() - want.float()).abs().max().item()
+    ok = out.dtype == BF16 and e < 2e-2 and torch.equal(out, again)
+    del out, again, want
+    ms = in_turns({"fp32": lambda: call(value), "bf16": lambda: call(v16)}, rounds=3, iters=20)
+    dev_ms = {k: device_ms(lambda: call(v), iters=20) for k, v in (("fp32", value), ("bf16", v16), ("fp32 ", value))}
+    plain = cuda_ms(lambda: bilinear_gather_ref(v16, idx4, w_pairs, idx2, nl * P), iters=3)
+    lib = cuda_ms(lambda: grid_sample_deform(v16, shapes, loc.to(BF16), w_att.to(BF16)), iters=5)
+    rows = torch.cat([idx2.clamp(max=Lv - 2), idx2.clamp(max=Lv - 2) + 1], 1).long()
+    touched = torch.unique((torch.arange(B, device=dev)[:, None, None] * Lv + rows) * nh
+                           + torch.arange(nh, device=dev)).numel()
+    b_f = bound(touched * c * 2 + idx2.numel() * 4 + w_pairs.numel() * 4 + B * Q * nh * c * 2, idx2.numel() * c * 4)
+    fwd = dict(ms=ms["bf16"], ms_fp32=ms["fp32"], ms_device=dev_ms["bf16"],
+               ms_device_fp32=[dev_ms["fp32"], dev_ms["fp32 "]], plain_ms=plain, library_ms=lib,
+               library="F.grid_sample at bf16", bound_ms=b_f[0], bound_by=b_f[1], max_abs_err=e, bitwise_repeat=ok)
+    say(f"bf16 bilinear_gather_fwd value ({B}, {Lv}, {nh}, {c}) Q={Q}: max_abs_err {e:.3g}, ok {ok}; ms bf16 "
+        f"{ms['bf16']:.4f} fp32 {ms['fp32']:.4f} (in turns), device ms (profiler) fp32 {dev_ms['fp32']:.5f}, bf16 "
+        f"{dev_ms['bf16']:.5f}, fp32 {dev_ms['fp32 ']:.5f}; plain_ms {plain:.4f}, library_ms {lib:.4f}, bound_ms "
+        f"at bf16 bytes {b_f[0]:.5f} ({b_f[1]})", flush=True)
+    if not ok:
+        raise AssertionError(f"bf16 bilinear_gather: max error {e}")
+    dout = torch.randn(B, Q, nh, c, generator=torch.Generator().manual_seed(23)).to(dev)
+    d16 = dout.to(BF16)
+    dv, dw = bilinear_gather_bwd(v16, idx2, w_pairs, d16)
+    dv2, dw2 = bilinear_gather_bwd(v16, idx2, w_pairs, d16)
+    dv_rows, dw_rows = bilinear_gather_bwd_rows_ref(v16, idx2, w_pairs, d16)
+    dv_ref, dw_ref = bilinear_gather_bwd_ref(v16, idx2, w_pairs, d16)
+    torch.cuda.synchronize()
+    e_dv, e_dw = (dv.float() - dv_ref.float()).abs().max().item(), (dw - dw_ref).abs().max().item()
+    ok = (dv.dtype == BF16 and dw.dtype == torch.float32 and torch.equal(dv, dv2) and torch.equal(dw, dw2)
+          and torch.equal(dv, dv_rows) and e_dv < 3e-2 and torch.allclose(dw, dw_ref, atol=1e-4, rtol=1e-4))
+    del dv, dw, dv2, dw2, dv_rows, dw_rows, dv_ref, dw_ref
+    ms = in_turns({"fp32": lambda: bilinear_gather_bwd(value, idx2, w_pairs, dout),
+                   "bf16": lambda: bilinear_gather_bwd(v16, idx2, w_pairs, d16)}, rounds=3, iters=5)
+    plain = cuda_ms(lambda: bilinear_gather_bwd_ref(v16, idx2, w_pairs, d16), iters=2)
+    b_b = bound(touched * c * 2 + d16.numel() * 2 + idx2.numel() * 4 + w_pairs.numel() * 4 + v16.numel() * 2
+                + w_pairs.numel() * 4, B * Q * nh * (idx2.shape[1] // Q) * c * 8)
+    bwd = dict(ms=ms["bf16"], ms_fp32=ms["fp32"], plain_ms=plain, library_ms=None, bound_ms=b_b[0], bound_by=b_b[1],
+               max_abs_err=max(e_dv, e_dw), bitwise_repeat=ok)
+    say(f"bf16 bilinear_gather_bwd: dvalue bitwise the rows version and repeat, within {e_dv:.3g} of the "
+        f"scatter-add form, dw {e_dw:.3g}; ok {ok}; ms bf16 {ms['bf16']:.4f} fp32 {ms['fp32']:.4f} (in turns), "
+        f"plain_ms {plain:.4f}, bound_ms at bf16 bytes {b_b[0]:.5f} ({b_b[1]})", flush=True)
+    if not ok:
+        raise AssertionError(f"bf16 bilinear_gather_bwd: dvalue {e_dv}, dw {e_dw}")
+    return fwd, bwd
+
+
+def bf16_offpath_rows(dev):
+    """B6, B7 and B8 (on no model path) at bf16 I/O: B6 at the three 640 px
+    levels, G = 4, y within one bf16 step beyond 2^-10 of the plain scan on
+    the same values, two calls bitwise equal; B7 and B8 on a bf16 dout at
+    the decoder's shapes (value (4, 33600, 8, 64), Q = 700), bitwise their
+    plain rows versions and over two calls; each one's ms at bf16 and fp32
+    in turns."""
+    from tamtr_torch.kernels.deform_scatter import (
+        scatter_acc, scatter_acc_pairs, scatter_acc_pairs_rows_ref, scatter_acc_rows_ref,
+    )
+    from tamtr_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+
+    g = torch.Generator().manual_seed(25)
+    rows = {"selective_scan_fwd": [], "scatter_acc": None, "scatter_acc_pairs": None}
+    for H, W, C in LEVELS_640:
+        (u, delta, A, Bs, Cs, D), _ = scan1d_inputs(g, H * W, 2 * C, dev)
+        s16 = [t.to(BF16) for t in (u, delta, Bs, Cs)]
+        call16 = lambda: selective_scan(s16[0], s16[1], A, s16[2], s16[3], D)  # noqa: E731
+        y, again = call16(), call16()
+        want = selective_scan_ref(*(t.float() for t in s16[:2]), A, *(t.float() for t in s16[2:]), D).to(BF16)
+        steps, bitwise = bf16_steps(y, want, 2.0**-10), torch.equal(y, again)
+        ms = in_turns({"fp32": lambda: selective_scan(u, delta, A, Bs, Cs, D), "bf16": call16}, rounds=2, iters=3)
+        rows["selective_scan_fwd"].append(dict(L=H * W, Din=2 * C, ms=ms["bf16"], ms_fp32=ms["fp32"],
+                                               bf16_steps=steps, bitwise_repeat=bitwise))
+        if not (y.dtype == BF16 and steps <= 1.0 and bitwise):
+            raise AssertionError(f"bf16 selective_scan at L={H * W}: {steps} steps, bitwise {bitwise}")
+        del u, delta, Bs, Cs, s16, y, again, want
+    _, (idx4, w4, dout), pairs, Lv = decoder_scatter_inputs(26, dev)
+    idx = idx4.to(torch.int32)
+    d16, p16 = dout.to(BF16), pairs[3].to(BF16)
+    checks = {"scatter_acc": (lambda d: scatter_acc(idx, w4, d, Lv), lambda: scatter_acc_rows_ref(idx, w4, d16, Lv),
+                              dout, d16),
+              "scatter_acc_pairs": (lambda d: scatter_acc_pairs(*pairs[:3], d, Lv),
+                                    lambda: scatter_acc_pairs_rows_ref(*pairs[:3], p16, Lv), pairs[3], p16)}
+    for name, (kernel, rows_ref, d32, d_16) in checks.items():
+        out, again, want = kernel(d_16), kernel(d_16), rows_ref()
+        ok = out.dtype == BF16 and torch.equal(out, again) and torch.equal(out, want)
+        del out, again, want
+        ms = in_turns({"fp32": lambda: kernel(d32), "bf16": lambda: kernel(d_16)}, rounds=2, iters=5)
+        rows[name] = dict(ms=ms["bf16"], ms_fp32=ms["fp32"], bitwise_rows_ref=ok)
+        if not ok:
+            raise AssertionError(f"bf16 {name}: not bitwise its rows version or its repeat")
+    say(f"bf16 off-path kernels: {json.dumps(rows)}", flush=True)
+    return rows
+
+
+def bf16_serve(dev):
+    """`TAMTR.predict(images, text)` with half=True, and with fuse=True too,
+    beside fp32: batch 1 and 4 requests in turns; the launches of the bf16
+    requests and, apart, of the fp32 ones, each request's read before and
+    after it; the card's bf16 output against its fp32 output and against the
+    CPU's bf16 output (128 px, batch 2), as RMS over rows paired as sets."""
+    import copy
+
+    from tamtr_torch import TAMTR
+
+    det = TAMTR("tamtr.yaml", nc=10, seed=0)
+    spread_scores(det.model, seed=1)
+    rng = np.random.default_rng(24)
+    text = rng.standard_normal((10, 512)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    frames = [rng.integers(0, 256, (765, 1360, 3), dtype=np.uint8) for _ in range(4)]
+    modes = {"fp32": {}, "half": {"half": True}, "fuse+half": {"half": True, "fuse": True}}
+    for kw in modes.values():  # warm-up: conv algorithms, the twins
+        det.predict(frames[0], text, **kw)
+        det.predict(frames, text, **kw)
+    times = {f"{m}_b{b}": [] for m in modes for b in (1, 4)}
+    counters = zero_counters()
+    counted = {"fp32": dict.fromkeys(counters, 0), "bf16": dict.fromkeys(counters, 0)}
+    forwards = {"fp32": 0, "bf16": 0}
+    for i in range(5):
+        for m, kw in modes.items():
+            for b, images in ((1, frames[i % 4]), (4, frames)):
+                side = "fp32" if m == "fp32" else "bf16"
+                before = {k: f.launches for k, f in counters.items()}
+                t0 = time.perf_counter()
+                det.predict(images, text, **kw)  # ends in host copies: the device has finished
+                times[f"{m}_b{b}"].append((time.perf_counter() - t0) * 1e3)
+                for k, f in counters.items():  # each request's own launches, read before and after it
+                    counted[side][k] += f.launches - before[k]
+                forwards[side] += 1
+    for side, launches in counted.items():
+        want = {k: FORWARD_LAUNCHES.get(k, 0) * forwards[side] for k in counters}
+        if launches != want:
+            raise AssertionError(f"{side} serve launches {launches}, want {want}")
+    launches = counted["bf16"]
+    img = torch.from_numpy(rng.random((4, 640, 640, 3), dtype=np.float32)).to(dev)
+    txt = torch.from_numpy(text[None]).to(dev)
+    model = det.model.eval()
+    with torch.inference_mode():
+        p32 = model(img, txt)["pred"].cpu().numpy()
+        p16 = model.with_dtype(BF16)(img, txt)["pred"].cpu().numpy()
+        small = torch.from_numpy(rng.random((2, 128, 128, 3), dtype=np.float32))
+        c16 = model.with_dtype(BF16)(small.to(dev), txt)["pred"].cpu().numpy()
+        cpu = copy.deepcopy(model).cpu().with_dtype(BF16)
+        h16 = cpu(small, txt.cpu())["pred"].numpy()
+        c32 = model(small.to(dev), txt)["pred"].cpu().numpy()
+    summary = {k: float(np.median(v)) for k, v in times.items()}
+    summary.update(rms_card_bf16_vs_fp32_640_b4=rms_set(p16, p32), rms_card_bf16_vs_cpu_bf16_128_b2=rms_set(c16, h16),
+                   rms_card_bf16_vs_card_fp32_128_b2=rms_set(c16, c32), launches=launches,
+                   fp32_launches=counted["fp32"])
+    say(f"bf16 serve tamtr.yaml 640px (medians of 5, modes in turns): {json.dumps(summary)}", flush=True)
+    if not (np.isfinite(p16).all() and np.isfinite(c16).all()):
+        raise AssertionError("bf16 serve outputs are not finite")
+    return summary, launches
+
+
+def bf16_train(dev):
+    """`Trainer.step` of `tamtr.yaml` computing in bf16 beside fp32: 640 px,
+    batch 4, max_gt 300, accumulate 1; each dtype's warm step ms (median of
+    its timed steps), peak memory and busy share (the step's kernel time by
+    torch.profiler over its wall time); the loss finite and every parameter
+    and EMA tensor fp32 after the bf16 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.train.trainer import Trainer, TrainConfig
+    from tamtr_torch.weights import init_parameters
+
+    batches = [synthetic_batch(300 + i, TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT, TRAIN_VALID) for i in range(5)]
+    out, launches = {}, None
+    for name, dtype in (("fp32", torch.float32), ("bf16", BF16)):
+        model = TAMTRModel.from_cfg("tamtr.yaml", nc=10, max_gt=TRAIN_MAX_GT, dtype=dtype)
+        init_parameters(model, 0)
+        tr = Trainer(model, TrainConfig(batch_size=TRAIN_BATCH, accumulate=1), device=dev, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches[:2]:
+            tr.step(b)
+        counters = zero_counters()
+        times, logs = [], []
+        for b in batches[2:]:
+            t0 = time.perf_counter()
+            logs.append(tr.step(b))
+            times.append((time.perf_counter() - t0) * 1e3)
+        if dtype == BF16:
+            launches = {k: f.launches for k, f in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.step(batches[-1])
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.device_time for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        fp32 = all(t.dtype == torch.float32 for sd in (tr.model.state_dict(), tr.ema.state_dict())
+                   for t in sd.values() if t.is_floating_point())
+        finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in logs)
+        out[name] = dict(step_ms_median=float(np.median(times)), step_ms=times, max_memory_allocated_mib=peak / 2**20,
+                         busy_share=busy / wall, device_ms=busy, losses=[m["loss"] for m in logs],
+                         weights_fp32=fp32)
+        say(f"bf16 phase train {name} tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}: "
+            f"{json.dumps(out[name])}", flush=True)
+        if not (finite and fp32 and all(m["stepped"] == 1.0 for m in logs)):
+            raise AssertionError(f"{name} training step: finite {finite}, weights fp32 {fp32}")
+        del tr, model
+        torch.cuda.empty_cache()
+    want = {k: v * 3 for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"bf16 train launches {launches}, want {want}")
+    return out, launches
+
+
+def bf16_fit(dev, data: str):
+    """`Engine.train(bf16=True)` for one epoch of the fit phase's dataset
+    (val after it at the model's bf16), the checkpoint's weights fp32, then
+    `Engine.val(half=True)` on its `best`; launches counted apart."""
+    from pathlib import Path
+
+    from tamtr_torch.engine.model import Engine
+
+    root = Path("build/fit/runs")
+    args = dict(data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=2, warmup_epochs=4,
+                conf=0.05, plots=False, project=str(root), name="fit_bf16", exist_ok=True)
+    counters = zero_counters()
+    eng = Engine("tamtr.yaml")
+    res = eng.train(epochs=1, bf16=True, **args)
+    train_launches = {k: f.launches for k, f in counters.items()}
+    steps = len(eng.timing["step_ms"])
+    want = {k: TRAIN_LAUNCHES_PER_STEP[k] * steps + FORWARD_LAUNCHES.get(k, 0) * math.ceil(FIT_VAL / TRAIN_BATCH)
+            for k in counters}
+    ckpt = torch.load(root / "fit_bf16" / "weights" / "best.pt", weights_only=False)["trainer"]
+    fp32 = all(t.dtype == torch.float32 for part in ("model", "ema") for t in ckpt[part].values()
+               if t.is_floating_point())
+    counters = zero_counters()
+    best = Engine("tamtr.yaml").load(root / "fit_bf16" / "weights" / "best.pt")
+    val = best.val(half=True, **args)
+    val_launches = {k: f.launches for k, f in counters.items()}
+    val_want = {k: FORWARD_LAUNCHES.get(k, 0) * math.ceil(FIT_VAL / TRAIN_BATCH) for k in counters}
+    summary = dict(steps=steps, step_ms_median=float(np.median(eng.timing["step_ms"][1:] or eng.timing["step_ms"])),
+                   train_mAP50=res["mAP50"], val_half_mAP50=val["mAP50"], val_half_images_per_sec=val["images_per_sec"],
+                   model_dtype=str(eng.model.dtype), checkpoint_fp32=fp32)
+    say(f"bf16 fit tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH}, one epoch on {FIT_TRAIN}+{FIT_VAL} images: "
+        f"{json.dumps(summary)}; launches train {train_launches}, val {val_launches}", flush=True)
+    in_range = all(0.0 <= m[k] <= 1.0 for m in (res, val) for k in ("mAP50", "mAP50-95"))
+    if not (fp32 and in_range and eng.model.dtype == BF16 and best.model.dtype == torch.float32):
+        raise AssertionError(f"bf16 fit: checkpoint fp32 {fp32}, metrics in [0, 1] {in_range}")
+    if train_launches != want or val_launches != val_want:
+        raise AssertionError(f"bf16 fit launches: train {train_launches} (want {want}), val {val_launches} "
+                             f"(want {val_want})")
+    return summary, {k: train_launches[k] + val_launches[k] for k in counters}
+
+
+def bf16_phase(dev, data: str):
+    """The bf16 compute path: the kernels B1-B4 at bf16 I/O, then the main
+    path at bf16 (serve, train, fit), every launch counter zeroed before
+    each and read after; returns the kernels' bf16 rows, the summaries and
+    the main path's bf16 launches."""
+    scan_fwd, scan_bwd = bf16_scan_rows(dev)
+    gather_fwd, gather_bwd = bf16_gather_rows(dev)
+    offpath = bf16_offpath_rows(dev)
+    serve_summary, serve_launches = bf16_serve(dev)
+    train_summary, train_launches = bf16_train(dev)
+    fit_summary, fit_launches = bf16_fit(dev, data)
+    launches = {k: serve_launches[k] + train_launches[k] + fit_launches[k] for k in serve_launches}
+    for k in ("ss2d_scan_fwd", "bilinear_gather_fwd", "ss2d_scan_carriers", "ss2d_scan_bwd_walk", "bilinear_gather_bwd"):
+        if launches[k] == 0:
+            raise AssertionError(f"the bf16 main path launched no {k}")
+    return dict(scan_fwd=scan_fwd, scan_bwd=scan_bwd, gather_fwd=gather_fwd, gather_bwd=gather_bwd, offpath=offpath,
+                serve=serve_summary, train=train_summary, fit=fit_summary, launches=launches)
+
 # the JPEG fixtures of tools/make_jpeg_fixtures_torch.py, with their cv2 digests
 JPEG_FIXTURES = "tests/torch_data/jpeg"
 # predict_files: the fixtures whose forwards are also run on the CPU
@@ -2544,6 +2971,7 @@ def main() -> int:
     gather_step = check_gather_fwd_step(b4_calls)
     del b4_calls
     fit_launches, fit_summary = fit(dev)
+    bf16 = bf16_phase(dev, "build/fit/data.json")
     parallel_summary = parallel("build/fit/data.json")
     cli_launches = cli("build/fit/runs/fit/weights/best.pt")
     info_launches = info("build/fit/runs/fit/weights/best.pt")
@@ -2554,6 +2982,13 @@ def main() -> int:
                     reached_through=reached_through)
 
     fwd1, fwd4 = ([r for r in scan_rows if r["B"] == b] for b in (1, TRAIN_BATCH))
+
+    def bf16_of(rows, launch_key, of):
+        return dict(launches=bf16["launches"][launch_key], ms=sum(r["ms"] for r in rows),
+                    ms_fp32=sum(r["ms_fp32"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                    bound_ms=sum(r["bound_ms"] for r in rows), bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+                    max_abs_err=max(r["max_abs_err"] for r in rows), library_ms=None, of=of, per_level=rows)
+
     levels1d = scan1d_rows[:len(LEVELS_640)]
     kernels = [
         dict(name="ss2d_scan_fwd", route="cuda", source="tamtr_torch/csrc/ss2d_scan_fwd.cu",
@@ -2577,7 +3012,8 @@ def main() -> int:
              batch=1, ms_b4=sum(r["ms"] for r in fwd4), plain_ms_b4=sum(r["plain_ms"] for r in fwd4),
              bound_ms_b4=sum(r["bound_ms"] for r in fwd4),
              bound_of_launches="each launch alone, the segment states it writes or reads included",
-             per_level=scan_rows),
+             per_level=scan_rows,
+             bf16=bf16_of(bf16["scan_fwd"], "ss2d_scan_fwd", "the three 640 px levels, B=4, bf16 sequence I/O")),
         dict(name="bilinear_gather_fwd", route="cuda", source="tamtr_torch/csrc/bilinear_gather_fwd.cu",
              replaces="tamtr_tpu/kernels/deform_scatter.py:195", launches=launches["bilinear_gather_fwd"],
              launches_train=train_launches["bilinear_gather_fwd"], launches_fit=fit_launches["bilinear_gather_fwd"],
@@ -2593,7 +3029,9 @@ def main() -> int:
                    "time per call (torch.profiler)",
              shape="value (1, 33600, 8, 64), Q = 100", train_b4_q700={**gather_train, "shape": "value (4, 33600, "
                                                                     "8, 64), Q = 700, uniform pairs"},
-             **gather_step),
+             **gather_step,
+             bf16=dict(launches=bf16["launches"]["bilinear_gather_fwd"], **bf16["gather_fwd"],
+                       of="value (4, 33600, 8, 64) bf16, Q = 700")),
         dict(name="ss2d_scan_carriers (B3a segment summaries + ss2d_scan_combine)", route="cuda",
              source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:663",
              launches=train_launches["ss2d_scan_carriers"], launches_combine=train_launches["ss2d_scan_combine"],
@@ -2609,7 +3047,9 @@ def main() -> int:
                                                               "ss2d_scan_bwd_walk")},
              sp_blocks_max_abs_err=sp_err["bwd"], sp_blocks_max_abs_err_plain=sp_err["bwd_plain"], sp_blocks_combines="the kernel ss2d_scan_fwd's sp_blocks rows",
              launches_parallel=parallel_summary["launches_train"]["ss2d_scan_carriers"],
-             per_level=bwd_rows),
+             per_level=bwd_rows,
+             bf16=bf16_of(bf16["scan_bwd"], "ss2d_scan_carriers",
+                          "B3a + combine + B3b together, the three 640 px levels, B=4, bf16 sequence I/O")),
         dict(name="ss2d_scan_bwd_walk (B3b segment walk)", route="cuda",
              source="tamtr_torch/csrc/ss2d_scan_bwd.cu", replaces="tamtr_tpu/kernels/selective_scan.py:684",
              launches=train_launches["ss2d_scan_bwd_walk"], launches_fit=fit_launches["ss2d_scan_bwd_walk"],
@@ -2622,14 +3062,19 @@ def main() -> int:
              bound_of="this launch alone, the segment summaries it reads included", library_ms=None,
              bound_b3a_plus_b3b_ms=sum(r["bound_ms"] for r in bwd_rows),
              bound_b3a_plus_b3b_by=max(bwd_rows, key=lambda r: r["bound_ms"])["bound_by"],
-             ms_b3a_plus_b3b=sum(r["ms"] for r in bwd_rows)),
+             ms_b3a_plus_b3b=sum(r["ms"] for r in bwd_rows),
+             bf16=bf16_of(bf16["scan_bwd"], "ss2d_scan_bwd_walk",
+                          "B3a + combine + B3b together, the three 640 px levels, B=4, bf16 sequence I/O")),
         dict(name="bilinear_gather_bwd (pair_buckets + rows pass)", route="cuda",
              source="tamtr_torch/csrc/bilinear_gather_bwd.cu", replaces="tamtr_tpu/kernels/deform_scatter.py:283",
              launches=train_launches["bilinear_gather_bwd"], launches_buckets=train_launches["pair_buckets"],
              launches_fit=fit_launches["bilinear_gather_bwd"], launches_fit_buckets=fit_launches["pair_buckets"],
              launches_autobatch=autobatch_launches["bilinear_gather_bwd"],
              launches_parallel=parallel_summary["launches_train"]["bilinear_gather_bwd"],
-             **gather_bwd),
+             **gather_bwd,
+             bf16=dict(launches=bf16["launches"]["bilinear_gather_bwd"],
+                       launches_buckets=bf16["launches"]["pair_buckets"], **bf16["gather_bwd"],
+                       of="value and dout bf16, (4, 33600, 8, 64), Q = 700")),
         dict(name="auction_assignment", route="cuda", source="tamtr_torch/csrc/auction.cu",
              replaces="tamtr_tpu/kernels/auction.py:33", launches=train_launches["auction_assignment"],
              launches_fit=fit_launches["auction_assignment"],
@@ -2650,17 +3095,24 @@ def main() -> int:
              launches_sp_blocks={k: sp_launches[k] for k in ("selective_scan_fwd_summaries",
                                                               "selective_scan_fwd_combine", "selective_scan_fwd_output")},
              sp_blocks_max_abs_err=sp_err["fwd_1d"], sp_blocks_max_abs_err_plain=sp_err["fwd_1d_plain"],
-             sp_blocks=sp_rows1d),
+             sp_blocks=sp_rows1d,
+             bf16=dict(per_level=bf16["offpath"]["selective_scan_fwd"],
+                       ms=sum(r["ms"] for r in bf16["offpath"]["selective_scan_fwd"]),
+                       ms_fp32=sum(r["ms_fp32"] for r in bf16["offpath"]["selective_scan_fwd"]),
+                       of="the three 640 px levels, G = 4, bf16 u, delta, B, C and y")),
         dict(name="scatter_acc (scatter_acc_buckets + rows pass)", route="cuda",
              source="tamtr_torch/csrc/deform_scatter.cu", replaces="tamtr_tpu/kernels/deform_scatter.py:86",
              **slice3("scatter_acc", "tamtr_torch.kernels.deform_scatter.weighted_gather (backward)"),
-             launches_buckets=ops_launches["scatter_acc_buckets"], **scatter),
+             launches_buckets=ops_launches["scatter_acc_buckets"], **scatter,
+             bf16=dict(**bf16["offpath"]["scatter_acc"], of="bf16 dout and dvalue, the decoder's uniform pairs")),
         dict(name="scatter_acc_pairs (scatter_acc_pairs_buckets + rows pass)", route="cuda",
              source="tamtr_torch/csrc/deform_scatter.cu", replaces="tamtr_tpu/kernels/deform_scatter.py:359",
              **slice3("scatter_acc_pairs", "tamtr_torch.kernels.deform_scatter.scatter_acc_pairs"),
-             launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs),
+             launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs,
+             bf16=dict(**bf16["offpath"]["scatter_acc_pairs"], of="bf16 dout and output, the decoder's uniform pairs")),
     ]
     print(json.dumps({"fit": fit_summary}))
+    print(json.dumps({"bf16": {k: bf16[k] for k in ("serve", "train", "fit", "launches")}}))
     print(json.dumps({"sp_blocks": {"max_abs_err": sp_err, "launches": {k: v for k, v in sp_launches.items() if v}},
                       "parallel": parallel_summary}))
     print(json.dumps({"fuse": fuse_summary, "autobatch": autobatch_summary}))

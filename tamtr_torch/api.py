@@ -227,7 +227,8 @@ class TAMTR:
           text: (K, hd) or (1|B, K, hd) class embeddings of the images in
             memory.
           fuse=True (in `overrides`) runs the fused twin of the model
-            (`nn/fuse.py`) on either path; half=True raises (not ported).
+            (`nn/fuse.py`) on either path, half=True a twin computing in
+            bf16 (fused first when both are set).
         Returns:
           one `Results` per file; or one dict per image in memory: "boxes"
           (n, 4) xyxy in the image's pixels, "scores" (n,), "labels" (n,)

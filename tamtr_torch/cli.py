@@ -19,11 +19,12 @@ its track count and ids; `tracker=botsort` needs `gmc_method=none`.
 `serve` serves a checkpoint over HTTP (`tamtr_torch.serve`). `settings`
 prints the user settings (`utils/settings.py`), after setting the given
 keys or, with `reset`, the defaults. `fuse=True` runs val, predict and
-track on the fused model; `batch=-1` fits train's batch to the card. The
-modes `export`, `benchmark` and `tune` and the segment, pose and classify
-tasks are not ported: they exit with a message naming their ROADMAP entry;
-so do video and stream sources of `predict` and `track`, and `half=True`
-raises.
+track on the fused model and `half=True` in bf16 (both may be set);
+`bf16=True` trains in bf16 with fp32 weights; `batch=-1` fits train's
+batch to the card. The modes `export`, `benchmark` and `tune` and the
+segment, pose and classify tasks are not ported: they exit with a message
+naming their ROADMAP entry; so do video and stream sources of `predict`
+and `track`.
 
 `device=0,1` (a list of card indices, as the reference takes it) shows the
 process those cards alone (CUDA_VISIBLE_DEVICES) and trains on all of them:

@@ -8,8 +8,9 @@ config files use: flat `key: value` scalars, flow lists `[a, b]`, and one
 level of block mapping (`names:` then `  0: name`) or block list (`- name`).
 JSON is valid YAML, so one `data.json` serves both packages. `n_devices`,
 `fsdp` and `sp` act here as in the JAX package (ranks, ZeRO-1, sequence
-parallelism: `tamtr_torch/parallel/`); keys that only the JAX package acts
-on (remat, bf16, export) are kept so that one config file serves both.
+parallelism: `tamtr_torch/parallel/`), and `half` (bf16 eval) and `bf16`
+(bf16 training, fp32 weights) as there; keys that only the JAX package
+acts on (remat, export) are kept so that one config file serves both.
 """
 
 from __future__ import annotations

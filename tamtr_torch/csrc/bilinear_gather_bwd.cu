@@ -1,5 +1,6 @@
-// Deformable-attention bilinear pair gather, backward, fp32: two launches,
-// no float atomics, every dvalue row written once.
+// Deformable-attention bilinear pair gather, backward: two launches, no
+// float atomics, every dvalue row written once; value, dout and dvalue in
+// fp32 or bf16, the sums and dw in fp32.
 //
 // Replaces the TPU kernel
 // `tamtr_tpu/kernels/deform_scatter.py:_scatter_dw_pairs_kernel` (launched by
@@ -40,6 +41,11 @@
 // dvalue is bitwise repeatable; value rows are read once per segment and
 // only where touched; dvalue and dw are written once.
 //
+// bf16 (`tamtr_tpu/kernels/deform_scatter.py:289-297, 322, 439-458`):
+// value and dout are read in bf16 and widened, every term and sum is fp32
+// (the same order as at fp32), and each dvalue row is rounded to bf16 once,
+// at its store, as the TPU kernel's fp32 scratch rounds once; dw is fp32.
+//
 // Bound on the card: by bytes: the touched value rows, dout, idx2 and
 // w_pairs read once, dvalue (the whole (B, Lv, nh, c) block) and dw written
 // once; at 640 px, Q=700 and batch 4 about 0.41 GB, 0.123 ms at 3.35 TB/s.
@@ -71,13 +77,14 @@ extern "C" int pair_buckets(const int* idx2, const float* w_pairs, int* offsets,
 
 // Launch 2, on launch 1's buckets and segments; partials (as items' rows,
 // c) fp32 scratch. dvalue (B, Lv, nh, c) and dw (B, nU2, nh, 2) are written
-// in full.
-extern "C" int bilinear_gather_bwd(const float* value, const int* idx2, const float* dout, const int* offsets,
+// in full. value, dout and dvalue are float (bf16 == 0) or bf16; dw float.
+extern "C" int bilinear_gather_bwd(const void* value, const int* idx2, const void* dout, const int* offsets,
                                    const int* order, const float* pair_w, const int* items, int* done,
-                                   const int* n_items, float* partials, float* dvalue, float* dw, int B, int Lv,
-                                   int nh, int c, int Q, int ppq, void* stream) {
+                                   const int* n_items, float* partials, void* dvalue, float* dw, int B, int Lv,
+                                   int nh, int c, int Q, int ppq, int bf16, void* stream) {
   if (Lv < 2 || B < 1) return (int)cudaErrorInvalidValue;
   RowArgs a{value, idx2, dout, offsets, order, pair_w, reinterpret_cast<const int4*>(items), done, n_items,
             partials, dvalue, dw, B * nh, Lv, Lv, nh, c, c, Q, ppq, 0.f, 0};
-  return (int)launch_rows<B4Rule>(a, (cudaStream_t)stream);
+  return (int)(bf16 ? launch_rows<B4Rule, __nv_bfloat16>(a, (cudaStream_t)stream)
+                    : launch_rows<B4Rule, float>(a, (cudaStream_t)stream));
 }

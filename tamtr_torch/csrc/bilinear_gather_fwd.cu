@@ -1,4 +1,5 @@
-// Deformable-attention bilinear pair gather, forward, fp32.
+// Deformable-attention bilinear pair gather, forward: value and out in fp32
+// or bf16, weights and sums fp32.
 //
 // Replaces the TPU kernel
 // `tamtr_tpu/kernels/deform_scatter.py:_gather_pairs_kernel` (launched by
@@ -36,6 +37,11 @@
 // j = 1, 3, 5, ..., each pair adding fma(wa, row i) then fma(wb, row i + 1);
 // out = S_even + S_odd (float4 path). The float2 path sums every j in turn.
 //
+// bf16 value (`tamtr_tpu/kernels/deform_scatter.py:203-204, 259-263`): the
+// rows are read half-width (four bf16 a lane on the float4 path, two on
+// the float2 path) and widened in registers; the weights and the sums are
+// fp32, in the order above, and out is rounded to bf16 once, at its store.
+//
 // Bound on the card: by bytes, the value rows the sample points touch plus
 // the indices, weights and output; at the serve shape (B = 1, Q = 100,
 // nh = 8, ppq = 24) ~8 MB, ~2.4 us at 3.35 TB/s, under what one launch
@@ -44,6 +50,7 @@
 // design ran each pair as a chain (a scalar index load, then its two row
 // loads), four chains in flight a warp.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,12 +82,39 @@ template <int kVec> struct VecOf;
 template <> struct VecOf<4> { using T = float4; };
 template <> struct VecOf<2> { using T = float2; };
 
-// kVec floats a lane (4: half-warps split the pairs; 2: the whole warp);
-// kP pairs per query at compile time, 0 for a runtime ppq.
-template <int kVec, int kP>
+// a row's kVec elements at p as floats, and back (rounded once for bf16).
+// A bf16 is the high half of its float: the two of a 32-bit word widen by
+// a shift and a mask, in registers.
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ void load_row(float4& r, const float* p) { r = *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void load_row(float2& r, const float* p) { r = *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ void load_row(float4& r, const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  r = make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+}
+__device__ __forceinline__ void load_row(float2& r, const __nv_bfloat16* p) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(p);
+  r = make_float2(bf16_lo(w), bf16_hi(w));
+}
+__device__ __forceinline__ void store_row(float* p, const float4& v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store_row(float* p, const float2& v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void store_row(__nv_bfloat16* p, const float4& v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+__device__ __forceinline__ void store_row(__nv_bfloat16* p, const float2& v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+
+// kVec elements a lane (4: half-warps split the pairs; 2: the whole warp);
+// kP pairs per query at compile time, 0 for a runtime ppq; E the element
+// type of value and out.
+template <int kVec, int kP, typename E>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32) bilinear_gather_fwd_kernel(
-    const float* __restrict__ value, const int* __restrict__ idx2,
-    const float* __restrict__ w_pairs, float* __restrict__ out,
+    const E* __restrict__ value, const int* __restrict__ idx2,
+    const float* __restrict__ w_pairs, E* __restrict__ out,
     int B, int Lv, int nh, int c, int Q, int ppq) {
   using V = typename VecOf<kVec>::T;
   constexpr int kLanesPerRow = 64 / kVec;     // lanes covering c <= 64
@@ -95,7 +129,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) bilinear_gather_fwd_kerne
   const int ch = kVec * (lane % kLanesPerRow);
   const bool active = ch < c;
   const long long row_stride = (long long)nh * c;
-  const float* v_b = value + (long long)b * Lv * row_stride + (long long)h * c + ch;
+  const E* v_b = value + (long long)b * Lv * row_stride + (long long)h * c + ch;
   const int P = kP > 0 ? kP : ppq;
   const long long u0 = bq * P;  // (b * Q + q) * ppq == b * nU2 + q * ppq
 
@@ -131,8 +165,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) bilinear_gather_fwd_kerne
         a[k] = __shfl_sync(0xffffffffu, wa, src);
         bw[k] = __shfl_sync(0xffffffffu, wb, src);
         if (active) {
-          r0[k] = *reinterpret_cast<const V*>(v_b + (long long)ii * row_stride);
-          r1[k] = *reinterpret_cast<const V*>(v_b + (long long)(ii + 1) * row_stride);
+          load_row(r0[k], v_b + (long long)ii * row_stride);
+          load_row(r1[k], v_b + (long long)(ii + 1) * row_stride);
         }
       }
       if (active) {
@@ -150,8 +184,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) bilinear_gather_fwd_kerne
         const float a = __shfl_sync(0xffffffffu, wa, src);
         const float bw = __shfl_sync(0xffffffffu, wb, src);
         if (active && src < n) {
-          const V r0 = *reinterpret_cast<const V*>(v_b + (long long)ii * row_stride);
-          const V r1 = *reinterpret_cast<const V*>(v_b + (long long)(ii + 1) * row_stride);
+          V r0, r1;
+          load_row(r0, v_b + (long long)ii * row_stride);
+          load_row(r1, v_b + (long long)(ii + 1) * row_stride);
           fma_row(acc, a, r0);
           fma_row(acc, bw, r1);
         }
@@ -159,33 +194,42 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) bilinear_gather_fwd_kerne
     }
   }
   acc = add_half(acc);
-  if (active && grp == 0) *reinterpret_cast<V*>(out + warp * c + ch) = acc;
+  if (active && grp == 0) store_row(out + warp * c + ch, acc);
 }
 
-template <int kVec>
-cudaError_t launch(const float* value, const int* idx2, const float* w_pairs, float* out, int B,
+template <int kVec, typename E>
+cudaError_t launch(const E* value, const int* idx2, const float* w_pairs, E* out, int B,
                    int Lv, int nh, int c, int Q, int ppq, cudaStream_t stream) {
   const long long warps = (long long)B * Q * nh;
   const unsigned blocks = (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
   if (ppq == kModelPairs)
-    bilinear_gather_fwd_kernel<kVec, kModelPairs><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+    bilinear_gather_fwd_kernel<kVec, kModelPairs, E><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
         value, idx2, w_pairs, out, B, Lv, nh, c, Q, ppq);
   else
-    bilinear_gather_fwd_kernel<kVec, 0><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+    bilinear_gather_fwd_kernel<kVec, 0, E><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
         value, idx2, w_pairs, out, B, Lv, nh, c, Q, ppq);
   return cudaGetLastError();
 }
 
+template <typename E>
+cudaError_t launch_any(const E* value, const int* idx2, const float* w_pairs, E* out, int B, int Lv, int nh,
+                       int c, int Q, int ppq, cudaStream_t s) {
+  const bool vec4 = c % 4 == 0 && ((uintptr_t)value % 16) == 0 && ((uintptr_t)out % 16) == 0;
+  return vec4 ? launch<4>(value, idx2, w_pairs, out, B, Lv, nh, c, Q, ppq, s)
+              : launch<2>(value, idx2, w_pairs, out, B, Lv, nh, c, Q, ppq, s);
+}
+
 }  // namespace
 
-// c even and <= 64, Lv >= 2, ppq >= 1; w_pairs 8-byte aligned.
+// c even and <= 64, Lv >= 2, ppq >= 1; w_pairs 8-byte aligned; value and
+// out float (bf16 == 0) or bf16.
 extern "C" int bilinear_gather_fwd(
-    const float* value, const int* idx2, const float* w_pairs, float* out,
-    int B, int Lv, int nh, int c, int Q, int ppq, void* stream) {
+    const void* value, const int* idx2, const float* w_pairs, void* out,
+    int B, int Lv, int nh, int c, int Q, int ppq, int bf16, void* stream) {
   if (c % 2 != 0 || c > 64 || Lv < 2 || B < 1 || Q < 1 || nh < 1 || ppq < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool vec4 = c % 4 == 0 && ((uintptr_t)value % 16) == 0 && ((uintptr_t)out % 16) == 0;
-  return (int)(vec4 ? launch<4>(value, idx2, w_pairs, out, B, Lv, nh, c, Q, ppq, s)
-                    : launch<2>(value, idx2, w_pairs, out, B, Lv, nh, c, Q, ppq, s));
+  using H = __nv_bfloat16;
+  return (int)(bf16 ? launch_any((const H*)value, idx2, w_pairs, (H*)out, B, Lv, nh, c, Q, ppq, s)
+                    : launch_any((const float*)value, idx2, w_pairs, (float*)out, B, Lv, nh, c, Q, ppq, s));
 }

@@ -85,29 +85,32 @@ extern "C" int scatter_acc_pairs_buckets(const int* idx2, const float* wa, const
 }
 
 // Launch 2 of either, on its launch 1's buckets and segments: dout
-// (B, Q, nh, cs) -> out (B, rows, nh, cs), channels [0, c), partials (as
-// items' rows, c) fp32 scratch. Every row is written. B8's groups are its
-// G rows of (G, Q, c): B = G, nh = 1.
-static int rows_pass(bool pairs, const float* dout, const int* offsets, const int* order, const float* upd_w,
-                     const int* items, int* done, const int* n_items, float* partials, float* out, int B, int rows,
-                     int nh, int c, int cs, int Q, int ppq, void* stream) {
+// (B, Q, nh, cs) -> out (B, rows, nh, cs), channels [0, c), both float
+// (bf16 == 0) or bf16 (read widened, summed in fp32, each row rounded once
+// at its store), partials (as items' rows, c) fp32 scratch. Every row is
+// written. B8's groups are its G rows of (G, Q, c): B = G, nh = 1.
+static int rows_pass(bool pairs, const void* dout, const int* offsets, const int* order, const float* upd_w,
+                     const int* items, int* done, const int* n_items, float* partials, void* out, int B, int rows,
+                     int nh, int c, int cs, int Q, int ppq, int bf16, void* stream) {
   if (B < 1 || nh < 1) return (int)cudaErrorInvalidValue;
   RowArgs a{nullptr, nullptr, dout, offsets, order, upd_w, reinterpret_cast<const int4*>(items), done, n_items,
             partials, out, nullptr, B * nh, rows, rows + (pairs ? 1 : 0), nh, c, cs, Q, ppq, 0.f, 0};
-  return (int)(pairs ? launch_rows<PairsRule>(a, (cudaStream_t)stream)
-                     : launch_rows<RowsRule>(a, (cudaStream_t)stream));
+  const cudaStream_t s = (cudaStream_t)stream;
+  using H = __nv_bfloat16;
+  if (pairs) return (int)(bf16 ? launch_rows<PairsRule, H>(a, s) : launch_rows<PairsRule, float>(a, s));
+  return (int)(bf16 ? launch_rows<RowsRule, H>(a, s) : launch_rows<RowsRule, float>(a, s));
 }
 
-extern "C" int scatter_acc(const float* dout, const int* offsets, const int* order, const float* upd_w,
-                           const int* items, int* done, const int* n_items, float* partials, float* dvalue, int B,
-                           int L, int nh, int c, int cs, int Q, int p4, void* stream) {
+extern "C" int scatter_acc(const void* dout, const int* offsets, const int* order, const float* upd_w,
+                           const int* items, int* done, const int* n_items, float* partials, void* dvalue, int B,
+                           int L, int nh, int c, int cs, int Q, int p4, int bf16, void* stream) {
   return rows_pass(false, dout, offsets, order, upd_w, items, done, n_items, partials, dvalue, B, L, nh, c, cs, Q, p4,
-                   stream);
+                   bf16, stream);
 }
 
-extern "C" int scatter_acc_pairs(const float* dout, const int* offsets, const int* order, const float* upd_w,
-                                 const int* items, int* done, const int* n_items, float* partials, float* out, int G,
-                                 int L2, int nh, int c, int cs, int Q, int per_q, void* stream) {
+extern "C" int scatter_acc_pairs(const void* dout, const int* offsets, const int* order, const float* upd_w,
+                                 const int* items, int* done, const int* n_items, float* partials, void* out, int G,
+                                 int L2, int nh, int c, int cs, int Q, int per_q, int bf16, void* stream) {
   return rows_pass(true, dout, offsets, order, upd_w, items, done, n_items, partials, out, G, L2, nh, c, cs, Q,
-                   per_q, stream);
+                   per_q, bf16, stream);
 }

@@ -1,4 +1,4 @@
-// Row-owned scatter-accumulate, fp32: the buckets launch and the rows pass
+// Row-owned scatter-accumulate, fp32 sums: the buckets launch and the rows pass
 // that the gather backward (B4, `bilinear_gather_bwd.cu`) and the row and
 // pair scatters (B7, B8, `deform_scatter.cu`) share.
 //
@@ -50,6 +50,10 @@
 //     a row outside [0, rows) is skipped, never written;
 //   - B4 also loads each touched value row once per row or segment and
 //     writes each pair's dw slot for the row (value . dout).
+// Element type E of value, dout and out (the rows pass's template
+// argument): float, or __nv_bfloat16 for B4 at bf16. Rows are read two
+// elements a lane and widened to fp32; every product, sum and partial is
+// fp32, and a row is rounded to E once, at its store. dw stays fp32.
 // Keys: bucket key = s + shift holds the updates whose first row is s, with
 // shift = 1 for skip-rule pairs (a start of -1 still reaches row 0) and 0
 // otherwise; NB = rows + shift buckets, offsets (G, NB + 1). Under the skip
@@ -58,6 +62,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 
@@ -494,10 +499,20 @@ __device__ __forceinline__ int query_of(int u, int ppq, float inv_ppq) {
   return q;
 }
 
+// two consecutive elements as fp32, and back rounded once (E float or bf16)
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void st2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+
 struct RowArgs {
-  const float* value;  // B4: (B, rows, nh, cs)
+  const void* value;   // B4: (B, rows, nh, cs) of E
   const int* idx;      // B4: the starts (B, n, nh), for the last-row swap
-  const float* dout;   // (B, Q, nh, cs), channels [0, c) of each row read
+  const void* dout;    // (B, Q, nh, cs) of E, channels [0, c) of each row read
   const int* offsets;
   const int* order;
   const void* upd_w;
@@ -505,7 +520,7 @@ struct RowArgs {
   int* done;
   const int* n_items;
   float* partials;  // (items, c)
-  float* out;       // (B, rows, nh, cs), channels [0, c) of each row written
+  void* out;        // (B, rows, nh, cs) of E, channels [0, c) of each row written
   float* dw;        // B4: (B, n, nh, 2)
   int G, rows, NB, nh, c, cs, Q, ppq;
   float inv_ppq;
@@ -536,7 +551,7 @@ __device__ __forceinline__ float term_w(const RowArgs& a, long long upd_bh, int 
 // in shared memory. Each warp takes its rows four at a time, eight lanes a
 // row (channels 2 l + 16 k, k < 4, on lane l), the four stepping through
 // their terms together, one term's dout loads in flight ahead.
-template <class R>
+template <class R, typename E>
 __device__ void tile_rows(const RowArgs& a, int tile_block) {
   using W = typename R::W;
   __shared__ int s_off[kTileRows + 2];
@@ -565,7 +580,9 @@ __device__ void tile_rows(const RowArgs& a, int tile_block) {
     }
   __syncthreads();
 
-  const float* dout_bh = a.dout + (long long)b * a.Q * nh * cs + (long long)h * cs;
+  const E* dout_bh = static_cast<const E*>(a.dout) + (long long)b * a.Q * nh * cs + (long long)h * cs;
+  const E* value = static_cast<const E*>(a.value);
+  E* out = static_cast<E*>(a.out);
   const long long upd_bh = (long long)b * n * nh + h;
   const int l8 = lane % 8;
   bool live4[4];
@@ -589,7 +606,7 @@ __device__ void tile_rows(const RowArgs& a, int tile_block) {
     for (int k = 0; k < 4; ++k) {
       acc[k] = make_float2(0.f, 0.f);
       if constexpr (R::dw)
-        v[k] = nt > 0 && live4[k] ? *reinterpret_cast<const float2*>(a.value + base + 16 * k) : make_float2(0.f, 0.f);
+        v[k] = nt > 0 && live4[k] ? ld2(value + base + 16 * k) : make_float2(0.f, 0.f);
     }
     // term i of the row: the first bucket's, then the second's; the next
     // term's dout loads are in flight while this one's are summed
@@ -603,10 +620,9 @@ __device__ void tile_rows(const RowArgs& a, int tile_block) {
         q = staged ? s_q[at - T0] : query_of(u, a.ppq, a.inv_ppq);
         w = term_w<R>(a, upd_bh, u, staged ? s_w[at - T0] : pw_g[at], role, r, slot);
       }
-      const float* d_row = dout_bh + (long long)q * nh * cs + 2 * l8;
+      const E* d_row = dout_bh + (long long)q * nh * cs + 2 * l8;
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        d[k] = i < nt && live4[k] ? *reinterpret_cast<const float2*>(d_row + 16 * k) : make_float2(0.f, 0.f);
+      for (int k = 0; k < 4; ++k) d[k] = i < nt && live4[k] ? ld2(d_row + 16 * k) : make_float2(0.f, 0.f);
     };
     fetch(0);
     for (int i = 0; i < n_max; ++i) {
@@ -637,7 +653,7 @@ __device__ void tile_rows(const RowArgs& a, int tile_block) {
     if (mine) {
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (live4[k]) *reinterpret_cast<float2*>(a.out + base + 16 * k) = acc[k];
+        if (live4[k]) st2(out + base + 16 * k, acc[k]);
     }
   }
 }
@@ -647,7 +663,7 @@ __device__ void tile_rows(const RowArgs& a, int tile_block) {
 // a lane each, their dout rows eight ahead. A row of one segment is written
 // at once; otherwise the segment's partial goes to `partials`, and the warp
 // whose segment arrives last sums the row's partials in segment order.
-template <class R>
+template <class R, typename E>
 __device__ void row_segments(const RowArgs& a) {
   using W = typename R::W;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -664,7 +680,7 @@ __device__ void row_segments(const RowArgs& a) {
     const int nt = n_a + a0 - b0, ns = (nt + kSegTerms - 1) / kSegTerms;
     const int t0 = k * kSegTerms, m = min(kSegTerms, nt - t0);
     const long long upd_bh = (long long)b * n * nh + h;
-    const float* dout_bh = a.dout + (long long)b * a.Q * nh * cs + (long long)h * cs + 2 * lane;
+    const E* dout_bh = static_cast<const E*>(a.dout) + (long long)b * a.Q * nh * cs + (long long)h * cs + 2 * lane;
     int u = 0, slot = 0, q = 0;
     float w = 0.f;
     if (lane < m) {
@@ -675,15 +691,14 @@ __device__ void row_segments(const RowArgs& a) {
     }
     const long long row = (((long long)b * a.rows + r) * nh + h) * cs + 2 * lane;
     float2 v = make_float2(0.f, 0.f);
-    if constexpr (R::dw) v = live ? *reinterpret_cast<const float2*>(a.value + row) : make_float2(0.f, 0.f);
+    if constexpr (R::dw) v = live ? ld2(static_cast<const E*>(a.value) + row) : make_float2(0.f, 0.f);
     float2 acc = make_float2(0.f, 0.f);
     for (int j0 = 0; j0 < m; j0 += 8) {
       float2 d[8];
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int qj = __shfl_sync(kFull, q, (j0 + jj) & 31);
-        d[jj] = j0 + jj < m && live ? *reinterpret_cast<const float2*>(dout_bh + (long long)qj * nh * cs)
-                                    : make_float2(0.f, 0.f);
+        d[jj] = j0 + jj < m && live ? ld2(dout_bh + (long long)qj * nh * cs) : make_float2(0.f, 0.f);
       }
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
@@ -703,7 +718,7 @@ __device__ void row_segments(const RowArgs& a) {
       }
     }
     if (ns == 1) {
-      if (live) *reinterpret_cast<float2*>(a.out + row) = acc;
+      if (live) st2(static_cast<E*>(a.out) + row, acc);
       continue;
     }
     float* part = a.partials + (long long)first * c + 2 * lane;
@@ -721,25 +736,25 @@ __device__ void row_segments(const RowArgs& a) {
         tot.x = __fadd_rn(tot.x, p.x);
         tot.y = __fadd_rn(tot.y, p.y);
       }
-      *reinterpret_cast<float2*>(a.out + row) = tot;
+      st2(static_cast<E*>(a.out) + row, tot);
     }
   }
 }
 
 // Blocks [0, seg_blocks) sum the long rows' segments; the rest are the
 // tiles, which the card starts after them.
-template <class R>
+template <class R, typename E>
 __global__ void __launch_bounds__(kRowWarps * 32, 4) rows_kernel(const RowArgs a) {
   if ((int)blockIdx.x < a.seg_blocks)
-    row_segments<R>(a);
+    row_segments<R, E>(a);
   else
-    tile_rows<R>(a, blockIdx.x - a.seg_blocks);
+    tile_rows<R, E>(a, blockIdx.x - a.seg_blocks);
 }
 
 // Launch 2, on launch 1's buckets and segments: a's pointers and G, rows,
 // NB, nh, c, cs, Q, ppq set (c even, 2 <= c <= 64, cs even and >= c,
-// Q ppq < 2^24).
-template <class R>
+// Q ppq < 2^24); value, dout and out of E.
+template <class R, typename E = float>
 cudaError_t launch_rows(RowArgs a, cudaStream_t stream) {
   if (a.c % 2 != 0 || a.c > 64 || a.c < 2 || a.cs % 2 != 0 || a.cs < a.c || a.rows < 1 || a.G < 1 || a.Q < 1 ||
       a.nh < 1 || a.ppq < 1 || (long long)a.Q * a.ppq >= (1 << 24))
@@ -752,7 +767,7 @@ cudaError_t launch_rows(RowArgs a, cudaStream_t stream) {
   a.seg_blocks = 2 * sms;
   a.inv_ppq = 1.0f / (float)a.ppq;
   if (tiles + a.seg_blocks > INT_MAX) return cudaErrorInvalidValue;
-  rows_kernel<R><<<(unsigned)(tiles + a.seg_blocks), kRowWarps * 32, 0, stream>>>(a);
+  rows_kernel<R, E><<<(unsigned)(tiles + a.seg_blocks), kRowWarps * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

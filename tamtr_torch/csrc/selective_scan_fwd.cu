@@ -1,5 +1,5 @@
-// One-direction S6 selective scan, forward, fp32, dt given, as a
-// segment-parallel scan.
+// One-direction S6 selective scan, forward, dt given, as a segment-parallel
+// scan: sequence I/O in fp32 or bf16, maths and state fp32.
 //
 // Replaces the TPU kernel `tamtr_tpu/kernels/selective_scan.py:_scan_kernel`
 // (launched by `_run_scan`, reached through `selective_scan_pallas`). Same
@@ -7,8 +7,9 @@
 //     h_t = exp(delta_t A[g, d, n]) h_{t-1} + (delta_t u_t) B_t[n]
 //     y_t = sum_n C_t[n] h_t[n] + D[g, d] u_t        (the D term if D given)
 // with u, delta, y (G, L, Din), A (G, Din, N), B, C (G, L, N), D (G, Din)
-// or null, all contiguous fp32 (the wrapper upcasts other types); N is 4,
-// 8, 16 or 32, any G, L, Din >= 1.
+// or null, all contiguous; u, delta, B, C and y one dtype, fp32 or bf16
+// (widened as staged, y rounded once at its store; the wrapper upcasts a
+// mix), A and D fp32; N is 4, 8, 16 or 32, any G, L, Din >= 1.
 //
 // The algebra of kernel B1 (`ss2d_scan_fwd.cu`), with delta read as given
 // (no projection, no softplus): each group's walk is cut into
@@ -105,20 +106,21 @@ __device__ Block1d block_1d(int L, int Din) {
 }
 
 // Stage the segment's u and delta rows ([channel][step], one step a warp)
-// and B (and C with kC) rows ([n][step], 32 / N steps a warp) with cp.async.
-// Channels past Din and steps [T, Tpad) are zeros. Ends synchronised.
-template <int N, bool kC>
-__device__ void stage_1d(const Block1d& k, const float* u, const float* delta, const float* Bs,
-                         const float* Cs, float* s_u, float* s_dt, float* s_B, float* s_C, int L,
-                         int Din) {
+// and B (and C with kC) rows ([n][step], 32 / N steps a warp), fp32 in
+// shared memory: float by cp.async, bf16 (E) widened as it is read (B1's
+// `stage1`). Channels past Din and steps [T, Tpad) are zeros. Ends
+// synchronised.
+template <int N, bool kC, typename E>
+__device__ void stage_1d(const Block1d& k, const E* u, const E* delta, const E* Bs, const E* Cs,
+                         float* s_u, float* s_dt, float* s_B, float* s_C, int L, int Din) {
   const int lane = k.lane, warp = k.warp, T = k.T;
   const int Tpad = (T + kT - 1) / kT * kT;
   const bool col = k.d0 + lane < Din;
   const long long at0 = ((long long)k.g * L + k.s0) * Din + k.d0 + lane;
   for (int s = warp; s < T; s += kWarps) {
     if (col) {
-      cp_async4(&s_u[lane * kP + s], u + at0 + (long long)s * Din);
-      cp_async4(&s_dt[lane * kP + s], delta + at0 + (long long)s * Din);
+      stage1(&s_u[lane * kP + s], u + at0 + (long long)s * Din);
+      stage1(&s_dt[lane * kP + s], delta + at0 + (long long)s * Din);
     } else {
       s_u[lane * kP + s] = 0.f;
       s_dt[lane * kP + s] = 0.f;
@@ -128,8 +130,8 @@ __device__ void stage_1d(const Block1d& k, const float* u, const float* delta, c
   const int nl = lane % N;
   const long long bt0 = ((long long)k.g * L + k.s0) * N + nl;
   for (int s = kSPW * warp + lane / N; s < T; s += kSPW * kWarps) {
-    cp_async4(&s_B[nl * kP + s], Bs + bt0 + (long long)s * N);
-    if (kC) cp_async4(&s_C[nl * kP + s], Cs + bt0 + (long long)s * N);
+    stage1(&s_B[nl * kP + s], Bs + bt0 + (long long)s * N);
+    if (kC) stage1(&s_C[nl * kP + s], Cs + bt0 + (long long)s * N);
   }
   cp_async_commit();
   for (int s = T + warp; s < Tpad; s += kWarps) {
@@ -152,10 +154,10 @@ __device__ void a_log2(const float* A, const Block1d& k, int Din, int N, float* 
     a2[m] = k.live ? A[((long long)k.g * Din + k.d) * N + kL * k.j + m] * kLog2e : 0.f;
 }
 
-template <int N>
+template <int N, typename E>
 __global__ void __launch_bounds__(kThreads, N > 16 ? 3 : 6) scan1d_summaries_kernel(
-    const float* __restrict__ u, const float* __restrict__ delta, const float* __restrict__ A,
-    const float* __restrict__ Bs, float* __restrict__ hloc, float* __restrict__ sdt, int L,
+    const E* __restrict__ u, const E* __restrict__ delta, const float* __restrict__ A,
+    const E* __restrict__ Bs, float* __restrict__ hloc, float* __restrict__ sdt, int L,
     int Din) {
   constexpr int kL = N / kTPC;  // state lanes a thread
   __shared__ __align__(16) float s_u[kDB * kP];
@@ -164,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, N > 16 ? 3 : 6) scan1d_summaries_ker
   const Block1d k = block_1d(L, Din);
   float a2[kL];
   a_log2<kL>(A, k, Din, N, a2);
-  stage_1d<N, false>(k, u, delta, Bs, nullptr, s_u, s_dt, s_B, nullptr, L, Din);
+  stage_1d<N, false, E>(k, u, delta, Bs, nullptr, s_u, s_dt, s_B, nullptr, L, Din);
   const float *dtp = s_dt + k.dl * kP, *up = s_u + k.dl * kP, *B0 = s_B + kL * k.j * kP;
   float h[kL], sum_dt = 0.f;
 #pragma unroll
@@ -232,11 +234,11 @@ __global__ void __launch_bounds__(kCombineThreads) scan1d_combine_kernel(
   if (ends.decay != nullptr) ends.decay[idx] = ex2(a2 * sum_dt);
 }
 
-template <int N>
+template <int N, typename E, typename O>
 __global__ void __launch_bounds__(kThreads, N > 16 ? 3 : 6) scan1d_output_kernel(
-    const float* __restrict__ u, const float* __restrict__ delta, const float* __restrict__ A,
-    const float* __restrict__ Bs, const float* __restrict__ Cs, const float* __restrict__ Dskip,
-    const float* __restrict__ h_in, float* __restrict__ y, int L, int Din) {
+    const E* __restrict__ u, const E* __restrict__ delta, const float* __restrict__ A,
+    const E* __restrict__ Bs, const E* __restrict__ Cs, const float* __restrict__ Dskip,
+    const float* __restrict__ h_in, O* __restrict__ y, int L, int Din) {
   constexpr int kL = N / kTPC;
   __shared__ __align__(16) float s_u[kDB * kP];
   __shared__ __align__(16) float s_dt[kDB * kP];
@@ -254,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, N > 16 ? 3 : 6) scan1d_output_kernel
 #pragma unroll
     for (int m = 0; m < kL; ++m) h[m] = 0.f;
   }
-  stage_1d<N, true>(k, u, delta, Bs, Cs, s_u, s_dt, s_B, s_C, L, Din);
+  stage_1d<N, true, E>(k, u, delta, Bs, Cs, s_u, s_dt, s_B, s_C, L, Din);
   const float *dtp = s_dt + k.dl * kP, *up = s_u + k.dl * kP;
   const float *B0 = s_B + kL * k.j * kP, *C0 = s_C + kL * k.j * kP;
   float* yrow = s_y + k.dl * kP + k.j;  // thread j writes step s4 + j
@@ -286,8 +288,8 @@ __global__ void __launch_bounds__(kThreads, N > 16 ? 3 : 6) scan1d_output_kernel
   __syncthreads();
   // rows of 32 channels, one step per warp
   if (k.d0 + k.lane < Din) {
-    float* yg = y + ((long long)k.g * L + k.s0) * Din + k.d0 + k.lane;
-    for (int s = k.warp; s < k.T; s += kWarps) yg[(long long)s * Din] = s_y[k.lane * kP + s];
+    O* yg = y + ((long long)k.g * L + k.s0) * Din + k.d0 + k.lane;
+    for (int s = k.warp; s < k.T; s += kWarps) store_seq(yg + (long long)s * Din, s_y[k.lane * kP + s]);
   }
 }
 
@@ -297,11 +299,11 @@ bool shapes_ok_1d(int G, int L, int Din) {
 
 dim3 grid_1d(int G, int L, int Din) { return dim3(segments(L), G, (Din + kDB - 1) / kDB); }
 
-template <int N>
-cudaError_t summaries(const float* u, const float* delta, const float* A, const float* Bs,
+template <int N, typename E>
+cudaError_t summaries(const E* u, const E* delta, const float* A, const E* Bs,
                       float* hloc, float* sdt, int G, int L, int Din, cudaStream_t stream) {
-  scan1d_summaries_kernel<N><<<grid_1d(G, L, Din), kThreads, 0, stream>>>(u, delta, A, Bs, hloc,
-                                                                         sdt, L, Din);
+  scan1d_summaries_kernel<N, E><<<grid_1d(G, L, Din), kThreads, 0, stream>>>(u, delta, A, Bs, hloc,
+                                                                            sdt, L, Din);
   return cudaGetLastError();
 }
 
@@ -314,22 +316,23 @@ cudaError_t combine(const float* A, const float* sdt, float* hloc, int G, int L,
   return cudaGetLastError();
 }
 
-template <int N>
-cudaError_t output(const float* u, const float* delta, const float* A, const float* Bs,
-                   const float* Cs, const float* Dskip, const float* h_in, float* y, int G, int L,
+template <int N, typename E, typename O>
+cudaError_t output(const E* u, const E* delta, const float* A, const E* Bs,
+                   const E* Cs, const float* Dskip, const float* h_in, O* y, int G, int L,
                    int Din, cudaStream_t stream) {
-  scan1d_output_kernel<N><<<grid_1d(G, L, Din), kThreads, 0, stream>>>(u, delta, A, Bs, Cs, Dskip,
-                                                                      h_in, y, L, Din);
+  scan1d_output_kernel<N, E, O><<<grid_1d(G, L, Din), kThreads, 0, stream>>>(u, delta, A, Bs, Cs, Dskip,
+                                                                         h_in, y, L, Din);
   return cudaGetLastError();
 }
 
 template <int N>
 cudaError_t occupancy(int* out) {
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], scan1d_summaries_kernel<N>, kThreads, 0);
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], scan1d_summaries_kernel<N, float>, kThreads, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], scan1d_combine_kernel<N>, kCombineThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], scan1d_output_kernel<N>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], scan1d_output_kernel<N, float, float>, kThreads, 0);
   return err;
 }
 
@@ -346,13 +349,18 @@ cudaError_t occupancy(int* out) {
 }  // namespace
 
 // hloc (G, S, Din, N) and sdt (G, S, Din), S = ceil(L / kSeg): per segment,
-// the local end state from h = 0 and the sum of delta.
-extern "C" int selective_scan_fwd_summaries(const float* u, const float* delta, const float* A,
-                                            const float* Bs, float* hloc, float* sdt, int G, int L,
-                                            int Din, int N, void* stream) {
+// the local end state from h = 0 and the sum of delta. u, delta and Bs are
+// float (bf16 == 0) or bf16, as u, delta, Bs, Cs and y of the output.
+extern "C" int selective_scan_fwd_summaries(const void* u, const void* delta, const float* A,
+                                            const void* Bs, float* hloc, float* sdt, int G, int L,
+                                            int Din, int N, int bf16, void* stream) {
   if (!shapes_ok_1d(G, L, Din)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  SCAN1D_DISPATCH(N, summaries, u, delta, A, Bs, hloc, sdt, G, L, Din, s)
+  using H = __nv_bfloat16;
+  if (bf16) {
+    SCAN1D_DISPATCH(N, summaries, (const H*)u, (const H*)delta, A, (const H*)Bs, hloc, sdt, G, L, Din, s)
+  }
+  SCAN1D_DISPATCH(N, summaries, (const float*)u, (const float*)delta, A, (const float*)Bs, hloc, sdt, G, L, Din, s)
 }
 
 // In place (store != 0): hloc -> the state entering each segment, from
@@ -368,14 +376,27 @@ extern "C" int selective_scan_fwd_combine(const float* A, const float* sdt, floa
   SCAN1D_DISPATCH(N, combine, A, sdt, hloc, G, L, Din, ends, s)
 }
 
-// y (G, L, Din) from the state entering each segment; Dskip may be null.
-extern "C" int selective_scan_fwd_output(const float* u, const float* delta, const float* A,
-                                         const float* Bs, const float* Cs, const float* Dskip,
-                                         const float* h_in, float* y, int G, int L, int Din, int N,
-                                         void* stream) {
+// y (G, L, Din) from the state entering each segment, rounded once to the
+// sequence dtype, or in float for bf16 sequences when y_f32 != 0 (the
+// pieces of a state larger than 32 lanes, added in fp32 and rounded once);
+// Dskip may be null.
+extern "C" int selective_scan_fwd_output(const void* u, const void* delta, const float* A,
+                                         const void* Bs, const void* Cs, const float* Dskip,
+                                         const float* h_in, void* y, int G, int L, int Din, int N,
+                                         int bf16, int y_f32, void* stream) {
   if (!shapes_ok_1d(G, L, Din)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  SCAN1D_DISPATCH(N, output, u, delta, A, Bs, Cs, Dskip, h_in, y, G, L, Din, s)
+  using H = __nv_bfloat16;
+  if (bf16 && y_f32) {
+    SCAN1D_DISPATCH(N, output, (const H*)u, (const H*)delta, A, (const H*)Bs, (const H*)Cs, Dskip, h_in, (float*)y,
+                    G, L, Din, s)
+  }
+  if (bf16) {
+    SCAN1D_DISPATCH(N, output, (const H*)u, (const H*)delta, A, (const H*)Bs, (const H*)Cs, Dskip, h_in, (H*)y, G,
+                    L, Din, s)
+  }
+  SCAN1D_DISPATCH(N, output, (const float*)u, (const float*)delta, A, (const float*)Bs, (const float*)Cs, Dskip,
+                  h_in, (float*)y, G, L, Din, s)
 }
 
 // Resident blocks per SM of (summaries, combine, output) at N, from

@@ -1,5 +1,11 @@
-// Fused 4-direction SS2D selective scan, backward, fp32 (VMamba S6), as a
-// segment-parallel scan.
+// Fused 4-direction SS2D selective scan, backward (VMamba S6), as a
+// segment-parallel scan: sequence I/O in fp32 or bf16, maths and state fp32.
+//
+// Dtypes (`tamtr_tpu/kernels/selective_scan.py:732, 814-817, 882-896`):
+// layouts, dts_raw, Bs, Cs and dy are read in their dtype, fp32 or bf16
+// (`ss2d_scan_seg.cuh` widens them as it stages), du is written in it,
+// rounded once; dz, the dB / dC partials and dA stay fp32, and the caller
+// rounds dBs, dCs and d_dts once after its sums.
 //
 // Replaces the two TPU kernels of `tamtr_tpu/kernels/selective_scan.py`
 // behind `_ss2d_bwd_pallas` / `_run_ss2d_bwd_fwddir`:
@@ -92,11 +98,12 @@ __host__ __device__ size_t walk_floats(int R) {
   return head_floats<true>(R) + scratch + 2 * kT * kWarps * 32 + 2 * kT * kDB * 2;
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads, 4) ss2d_walk_kernel(
-    const float* __restrict__ layouts, const float* __restrict__ dts_raw,
-    const float* __restrict__ Bs, const float* __restrict__ Cs, const float* __restrict__ dt_w,
-    const float* __restrict__ dt_b, const float* __restrict__ A, const float* __restrict__ dy,
-    const float* __restrict__ h_in, const float* __restrict__ carry, float* __restrict__ du,
+    const E* __restrict__ layouts, const E* __restrict__ dts_raw,
+    const E* __restrict__ Bs, const E* __restrict__ Cs, const float* __restrict__ dt_w,
+    const float* __restrict__ dt_b, const float* __restrict__ A, const E* __restrict__ dy,
+    const float* __restrict__ h_in, const float* __restrict__ carry, E* __restrict__ du,
     float* __restrict__ dz, float* __restrict__ dBp, float* __restrict__ dCp,
     float* __restrict__ dAp, int L, int D, int R, long long dt_rs, long long b_rs,
     long long c_rs) {
@@ -109,7 +116,7 @@ __global__ void __launch_bounds__(kThreads, 4) ss2d_walk_kernel(
   const int d0 = blockIdx.x * kDB, bk = blockIdx.y, b = bk / 4, k = bk % 4;
   const Lanes th = lanes_of_thread();
   const int tid = threadIdx.x, S = gridDim.z;
-  const Seq q = make_seq(layouts, dts_raw, Bs, Cs, dy, b, k, d0, L, D, R, dt_rs, b_rs, c_rs);
+  const Seq<E> q = make_seq(layouts, dts_raw, Bs, Cs, dy, b, k, d0, L, D, R, dt_rs, b_rs, c_rs);
   const float4 A4 = ld4(&A[((long long)k * D + d0 + th.dl) * kN + th.n0]);
   float a_dn[kNP], a2[kNP];
 #pragma unroll
@@ -149,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, 4) ss2d_walk_kernel(
   // c of du and dz, and value c of dB / dC (dB for c < 16)
   const int nDb = gridDim.x, c = tid % kDB, nn = 4 * (c % kTPC) + (c / kTPC) % 4;
   const long long t_first = q.t_of(q.s0), dir = q.rev ? -1 : 1;
-  float* du_c = du + (long long)bk * L * D + d0 + c + t_first * D;
+  E* du_c = du + (long long)bk * L * D + d0 + c + t_first * D;
   float* dz_c = dz + (long long)bk * L * D + d0 + c + t_first * D;
   float* dBC_c = (c < kN ? dBp : dCp) + ((long long)bk * nDb + blockIdx.x) * L * kN + nn + t_first * kN;
   const bool hi2 = th.lane & 2, hi4 = th.lane & 4, hi8 = th.lane & 8, hi16 = th.lane & 16;
@@ -233,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 4) ss2d_walk_kernel(
       if (i < Tsub) {
         const long long ds = dir * s;
         const float dt = m.dt[c * kP + s], gB = gd[(i * kDB + c) * 2];
-        du_c[ds * D] = gB * dt;
+        store_seq(du_c + ds * D, gB * dt);
         dz_c[ds * D] = (gd[(i * kDB + c) * 2 + 1] + gB * m.u[c * kP + s]) * (1.f - expf(-dt));
         float sum = 0.f;
 #pragma unroll
@@ -252,13 +259,13 @@ static_assert(kT * kDB % kThreads == 0, "the walk writes a sub-chunk in whole ro
 // hloc, rsum (B, 4, S, D, 16) and sdt (B, 4, S, D), S = ceil(L / kSeg): per
 // segment, the local end state from h = 0, r, and the sum of dt.
 extern "C" int ss2d_scan_bwd_summaries(
-    const float* layouts, const float* dts_raw, const float* Bs, const float* Cs,
-    const float* dt_w, const float* dt_b, const float* A, const float* dy, float* hloc,
-    float* rsum, float* sdt, int B, int L, int D, int R, int N, long long dt_rs,
+    const void* layouts, const void* dts_raw, const void* Bs, const void* Cs,
+    const float* dt_w, const float* dt_b, const float* A, const void* dy, float* hloc,
+    float* rsum, float* sdt, int B, int L, int D, int R, int N, int bf16, long long dt_rs,
     long long b_rs, long long c_rs, void* stream) {
   if (!shapes_ok(B, L, D, R, N)) return (int)cudaErrorInvalidValue;
-  return (int)launch_summaries<true>(layouts, dts_raw, Bs, Cs, dt_w, dt_b, A, dy, hloc, rsum, sdt, B, L,
-                                     D, R, dt_rs, b_rs, c_rs, (cudaStream_t)stream);
+  return (int)launch_summaries_of<true>(bf16, layouts, dts_raw, Bs, Cs, dt_w, dt_b, A, dy, hloc, rsum, sdt,
+                                        B, L, D, R, dt_rs, b_rs, c_rs, (cudaStream_t)stream);
 }
 
 // In place (store != 0): hloc -> the state entering each segment, from
@@ -277,21 +284,44 @@ extern "C" int ss2d_scan_bwd_combine(const float* A, const float* sdt, float* hl
 
 // du, dz (B, 4, L, D) natural order; dBp, dCp (B, 4, D/32, L, 16) partial
 // sums over each block's 32 channels; dAp (B, 4, S, D, 16) per segment.
-extern "C" int ss2d_scan_bwd_walk(
-    const float* layouts, const float* dts_raw, const float* Bs, const float* Cs,
-    const float* dt_w, const float* dt_b, const float* A, const float* dy, const float* h_in,
-    const float* carry, float* du, float* dz, float* dBp, float* dCp, float* dAp, int B, int L,
-    int D, int R, int N, long long dt_rs, long long b_rs, long long c_rs, void* stream) {
-  if (!shapes_ok(B, L, D, R, N)) return (int)cudaErrorInvalidValue;
+namespace {
+
+template <typename E>
+cudaError_t launch_walk(const E* layouts, const E* dts_raw, const E* Bs, const E* Cs, const float* dt_w,
+                        const float* dt_b, const float* A, const E* dy, const float* h_in,
+                        const float* carry, E* du, float* dz, float* dBp, float* dCp, float* dAp, int B,
+                        int L, int D, int R, long long dt_rs, long long b_rs, long long c_rs,
+                        cudaStream_t stream) {
   const size_t smem = sizeof(float) * walk_floats(R);
-  cudaError_t err = cudaFuncSetAttribute(ss2d_walk_kernel,
+  cudaError_t err = cudaFuncSetAttribute(ss2d_walk_kernel<E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   dim3 grid(D / kDB, 4 * B, segments(L));
-  ss2d_walk_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  ss2d_walk_kernel<E><<<grid, kThreads, smem, stream>>>(
       layouts, dts_raw, Bs, Cs, dt_w, dt_b, A, dy, h_in, carry, du, dz, dBp, dCp, dAp, L, D, R,
       dt_rs, b_rs, c_rs);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// du (B, 4, L, D) in the sequence dtype (float for bf16 == 0, else bf16),
+// as its primal; dz, the dB / dC partials and dA in fp32.
+extern "C" int ss2d_scan_bwd_walk(
+    const void* layouts, const void* dts_raw, const void* Bs, const void* Cs,
+    const float* dt_w, const float* dt_b, const float* A, const void* dy, const float* h_in,
+    const float* carry, void* du, float* dz, float* dBp, float* dCp, float* dAp, int B, int L,
+    int D, int R, int N, int bf16, long long dt_rs, long long b_rs, long long c_rs, void* stream) {
+  if (!shapes_ok(B, L, D, R, N)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  using H = __nv_bfloat16;
+  if (bf16)
+    return (int)launch_walk((const H*)layouts, (const H*)dts_raw, (const H*)Bs, (const H*)Cs, dt_w, dt_b, A,
+                            (const H*)dy, h_in, carry, (H*)du, dz, dBp, dCp, dAp, B, L, D, R, dt_rs, b_rs,
+                            c_rs, st);
+  return (int)launch_walk((const float*)layouts, (const float*)dts_raw, (const float*)Bs, (const float*)Cs,
+                          dt_w, dt_b, A, (const float*)dy, h_in, carry, (float*)du, dz, dBp, dCp, dAp, B, L,
+                          D, R, dt_rs, b_rs, c_rs, st);
 }
 
 // Resident blocks per SM of (summaries, combine, walk) at R, from
@@ -300,10 +330,10 @@ extern "C" int ss2d_scan_bwd_occupancy(int R, int* out) {
   const size_t s_walk = sizeof(float) * walk_floats(R);
   cudaError_t err = shared_occupancy<true>(R, out);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ss2d_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(ss2d_walk_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)s_walk);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], ss2d_walk_kernel, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], ss2d_walk_kernel<float>, kThreads,
                                                         s_walk);
   return (int)err;
 }

@@ -1,5 +1,5 @@
-// Fused 4-direction SS2D selective scan, forward, fp32 (VMamba S6), as a
-// segment-parallel scan.
+// Fused 4-direction SS2D selective scan, forward (VMamba S6), as a
+// segment-parallel scan: sequence I/O in fp32 or bf16, maths and state fp32.
 //
 // Replaces the TPU kernel `tamtr_tpu/kernels/selective_scan.py:_ss2d_kernel`
 // (launched by `_run_ss2d_scan`, reached through `ss2d_scan`). Same contract
@@ -34,6 +34,10 @@
 // Staging by cp.async in rows along the steps, ragged segments padded with
 // zeros (dt = 0: a no-op step), the dt projection and a precise softplus
 // fused, exp as ex2.approx.ftz. No atomics: bitwise the same from run to run.
+// bf16 sequence I/O (layouts, dts_raw, Bs, Cs read, y written in bf16) runs
+// the same code on the fp32 values staging makes (`ss2d_scan_seg.cuh`),
+// y rounded once at its store: the TPU kernel's contract
+// (`selective_scan.py:455-489`).
 //
 // Bound on the card (`chip_smoke.py:check_ss2d_scan`): the function, inputs
 // read once and y written once, at 640 px level 0 (B=1, L=25600, D=256)
@@ -50,18 +54,19 @@
 
 namespace {
 
+template <typename E, typename O>
 __global__ void __launch_bounds__(kThreads, 6) ss2d_output_kernel(
-    const float* __restrict__ layouts, const float* __restrict__ dts_raw,
-    const float* __restrict__ Bs, const float* __restrict__ Cs, const float* __restrict__ dt_w,
+    const E* __restrict__ layouts, const E* __restrict__ dts_raw,
+    const E* __restrict__ Bs, const E* __restrict__ Cs, const float* __restrict__ dt_w,
     const float* __restrict__ dt_b, const float* __restrict__ A, const float* __restrict__ Ds,
-    const float* __restrict__ h_in, float* __restrict__ y, int L, int D, int R, long long dt_rs,
+    const float* __restrict__ h_in, O* __restrict__ y, int L, int D, int R, long long dt_rs,
     long long b_rs, long long c_rs) {
   extern __shared__ __align__(16) float smem[];
   const SegSmem m = carve_seg<true>(smem, R);  // y is staged in the `dy` rows
   const int d0 = blockIdx.x * kDB, bk = blockIdx.y, b = bk / 4, k = bk % 4;
   const Lanes th = lanes_of_thread();
   const int S = gridDim.z;
-  const Seq q = make_seq(layouts, dts_raw, Bs, Cs, nullptr, b, k, d0, L, D, R, dt_rs, b_rs, c_rs);
+  const Seq<E> q = make_seq(layouts, dts_raw, Bs, Cs, (const E*)nullptr, b, k, d0, L, D, R, dt_rs, b_rs, c_rs);
   const float4 A4 = ld4(&A[((long long)k * D + d0 + th.dl) * kN + th.n0]);
   float a2[kNP];
 #pragma unroll
@@ -105,21 +110,23 @@ __global__ void __launch_bounds__(kThreads, 6) ss2d_output_kernel(
   __syncthreads();
   // rows of 32 channels, one step per warp
   const long long dir = q.rev ? -1 : 1;
-  float* yg = y + (long long)bk * L * D + d0 + th.lane + q.t_of(q.s0) * D;
-  for (int s = th.warp; s < q.T; s += kWarps) yg[dir * s * D] = m.dy[th.lane * kP + s];
+  O* yg = y + (long long)bk * L * D + d0 + th.lane + q.t_of(q.s0) * D;
+  for (int s = th.warp; s < q.T; s += kWarps) store_seq(yg + dir * s * D, m.dy[th.lane * kP + s]);
 }
 
 }  // namespace
 
 // hloc (B, 4, S, D, 16) and sdt (B, 4, S, D), S = ceil(L / kSeg): per
-// segment, the local end state from h = 0 and the sum of dt.
-extern "C" int ss2d_scan_fwd_summaries(const float* layouts, const float* dts_raw, const float* Bs,
+// segment, the local end state from h = 0 and the sum of dt. The sequence
+// tensors are float (bf16 == 0) or bf16, as in every entry point here.
+extern "C" int ss2d_scan_fwd_summaries(const void* layouts, const void* dts_raw, const void* Bs,
                                        const float* dt_w, const float* dt_b, const float* A,
                                        float* hloc, float* sdt, int B, int L, int D, int R, int N,
-                                       long long dt_rs, long long b_rs, void* stream) {
+                                       int bf16, long long dt_rs, long long b_rs, void* stream) {
   if (!shapes_ok(B, L, D, R, N)) return (int)cudaErrorInvalidValue;
-  return (int)launch_summaries<false>(layouts, dts_raw, Bs, nullptr, dt_w, dt_b, A, nullptr, hloc,
-                                      nullptr, sdt, B, L, D, R, dt_rs, b_rs, 0, (cudaStream_t)stream);
+  return (int)launch_summaries_of<false>(bf16, layouts, dts_raw, Bs, nullptr, dt_w, dt_b, A, nullptr,
+                                         hloc, nullptr, sdt, B, L, D, R, dt_rs, b_rs, 0,
+                                         (cudaStream_t)stream);
 }
 
 // In place (store != 0): hloc -> the state entering each segment, from
@@ -134,21 +141,45 @@ extern "C" int ss2d_scan_fwd_combine(const float* A, const float* sdt, float* hl
   return (int)launch_combine<false>(A, sdt, hloc, nullptr, B, L, D, ends, (cudaStream_t)stream);
 }
 
-// y (B, 4, L, D) natural order, from the state entering each segment.
-extern "C" int ss2d_scan_fwd_output(const float* layouts, const float* dts_raw, const float* Bs,
-                                    const float* Cs, const float* dt_w, const float* dt_b,
-                                    const float* A, const float* Ds, const float* h_in, float* y,
-                                    int B, int L, int D, int R, int N, long long dt_rs,
-                                    long long b_rs, long long c_rs, void* stream) {
-  if (!shapes_ok(B, L, D, R, N)) return (int)cudaErrorInvalidValue;
+namespace {
+
+template <typename E, typename O>
+cudaError_t launch_output(const E* layouts, const E* dts_raw, const E* Bs, const E* Cs,
+                          const float* dt_w, const float* dt_b, const float* A, const float* Ds,
+                          const float* h_in, O* y, int B, int L, int D, int R, long long dt_rs,
+                          long long b_rs, long long c_rs, cudaStream_t stream) {
   const size_t smem = sizeof(float) * summaries_floats<true>(R);
-  cudaError_t err = cudaFuncSetAttribute(ss2d_output_kernel,
+  cudaError_t err = cudaFuncSetAttribute(ss2d_output_kernel<E, O>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   dim3 grid(D / kDB, 4 * B, segments(L));
-  ss2d_output_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  ss2d_output_kernel<E, O><<<grid, kThreads, smem, stream>>>(
       layouts, dts_raw, Bs, Cs, dt_w, dt_b, A, Ds, h_in, y, L, D, R, dt_rs, b_rs, c_rs);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// y (B, 4, L, D) natural order from the state entering each segment: in
+// the sequence dtype, or in float for bf16 sequences when y_f32 != 0 (the
+// pieces of a state larger than 16 lanes, added in fp32 and rounded once).
+extern "C" int ss2d_scan_fwd_output(const void* layouts, const void* dts_raw, const void* Bs,
+                                    const void* Cs, const float* dt_w, const float* dt_b,
+                                    const float* A, const float* Ds, const float* h_in, void* y,
+                                    int B, int L, int D, int R, int N, int bf16, int y_f32,
+                                    long long dt_rs, long long b_rs, long long c_rs, void* stream) {
+  if (!shapes_ok(B, L, D, R, N)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  using H = __nv_bfloat16;
+  if (bf16 && y_f32)
+    return (int)launch_output((const H*)layouts, (const H*)dts_raw, (const H*)Bs, (const H*)Cs, dt_w, dt_b,
+                              A, Ds, h_in, (float*)y, B, L, D, R, dt_rs, b_rs, c_rs, st);
+  if (bf16)
+    return (int)launch_output((const H*)layouts, (const H*)dts_raw, (const H*)Bs, (const H*)Cs, dt_w, dt_b,
+                              A, Ds, h_in, (H*)y, B, L, D, R, dt_rs, b_rs, c_rs, st);
+  return (int)launch_output((const float*)layouts, (const float*)dts_raw, (const float*)Bs,
+                            (const float*)Cs, dt_w, dt_b, A, Ds, h_in, (float*)y, B, L, D, R, dt_rs,
+                            b_rs, c_rs, st);
 }
 
 // Resident blocks per SM of (summaries, combine, output) at R, from
@@ -157,9 +188,9 @@ extern "C" int ss2d_scan_fwd_occupancy(int R, int* out) {
   const size_t s_out = sizeof(float) * summaries_floats<true>(R);
   cudaError_t err = shared_occupancy<false>(R, out);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ss2d_output_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(ss2d_output_kernel<float, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)s_out);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], ss2d_output_kernel, kThreads, s_out);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], ss2d_output_kernel<float, float>, kThreads, s_out);
   return (int)err;
 }

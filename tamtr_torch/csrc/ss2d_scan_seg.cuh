@@ -37,9 +37,18 @@
 // n = 4j .. 4j + 3 (j = lane % 4) each: per-channel work (loads of dt and
 // u, their product) is shared by four lanes. exp is ex2.approx.ftz of
 // dt (A log2 e).
+//
+// Sequence dtype E: the kernels are templates on the type of layouts,
+// dts_raw, Bs, Cs and dy (float or __nv_bfloat16; dt_w, dt_b, A and Ds are
+// float). Staging widens each element to fp32 in shared memory (float by
+// cp.async; bf16 by a 2-byte load and a conversion, cp.async moving no less
+// than 4 bytes), so everything after staging, the state included, is fp32
+// and the same code for both. Outputs in E (the forward's y, the walk's du)
+// are rounded once at their store.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -82,18 +91,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// one sequence element into shared memory as fp32 (see the header)
+__device__ __forceinline__ void stage1(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void stage1(float* dst, const __nv_bfloat16* src) { *dst = __bfloat162float(*src); }
+
+// a sequence output element, rounded once to its type
+__device__ __forceinline__ void store_seq(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_seq(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ float at(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Per-block view of one (b, k) sequence and one segment of it.
+// Per-block view of one (b, k) sequence and one segment of it, E the
+// sequence dtype.
+template <typename E>
 struct Seq {
-  const float* u;    // layouts[b, k % 2] + d0, row stride D
-  const float* dtr;  // dts_raw[b, k / 2, k % 2], row stride dt_rs
-  const float* Bm;   // Bs[b, k / 2, k % 2], row stride b_rs
-  const float* Cm;   // Cs[b, k / 2, k % 2], row stride c_rs
-  const float* dy;   // dy[b, k] + d0, row stride D (the backward only)
+  const E* u;    // layouts[b, k % 2] + d0, row stride D
+  const E* dtr;  // dts_raw[b, k / 2, k % 2], row stride dt_rs
+  const E* Bm;   // Bs[b, k / 2, k % 2], row stride b_rs
+  const E* Cm;   // Cs[b, k / 2, k % 2], row stride c_rs
+  const E* dy;   // dy[b, k] + d0, row stride D (the backward only)
   long long dt_rs, b_rs, c_rs;
   int L, D, R;
   int s0, T;  // the segment: steps [s0, s0 + T)
@@ -101,12 +120,13 @@ struct Seq {
   __device__ long long t_of(int s) const { return rev ? L - 1 - s : s; }
 };
 
-__device__ Seq make_seq(const float* layouts, const float* dts_raw, const float* Bs,
-                        const float* Cs, const float* dy, int b, int k, int d0, int L, int D,
-                        int R, long long dt_rs, long long b_rs, long long c_rs) {
+template <typename E>
+__device__ Seq<E> make_seq(const E* layouts, const E* dts_raw, const E* Bs, const E* Cs, const E* dy,
+                           int b, int k, int d0, int L, int D, int R, long long dt_rs, long long b_rs,
+                           long long c_rs) {
   const int f = k / 2, j = k % 2;
   const long long seq = (((long long)b * 2 + f) * 2 + j) * L;
-  Seq q;
+  Seq<E> q;
   q.u = layouts + ((long long)b * 2 + j) * L * D + d0;
   q.dtr = dts_raw + seq * dt_rs;
   q.Bm = Bs + seq * b_rs;
@@ -199,8 +219,8 @@ __device__ void dt_rows(const float* dtr, const SegSmem& m, int R, int T, int Tp
 // so the loops run whole sub-chunks without a guard per step. Waits for
 // group 1, computes dt into shared memory and ends synchronised; group 2
 // may still be in flight.
-template <bool kC, bool kDy>
-__device__ void stage_segment(const Seq& q, int k, int d0, const float* dt_w, const float* dt_b,
+template <bool kC, bool kDy, typename E>
+__device__ void stage_segment(const Seq<E>& q, int k, int d0, const float* dt_w, const float* dt_b,
                               const SegSmem& m) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int R = q.R, T = q.T, P = kP;
@@ -216,26 +236,26 @@ __device__ void stage_segment(const Seq& q, int k, int d0, const float* dt_w, co
   const long long t_w = q.t_of(q.s0 + warp), t_h = q.t_of(q.s0 + 2 * warp + lane / kN);
   const int nl = lane % kN;
   {
-    const float* gu = q.u + t_w * q.D + lane;
-    const float* gr = q.dtr + t_w * q.dt_rs + lane;
-    const float* gb = q.Bm + t_h * q.b_rs + nl;
+    const E* gu = q.u + t_w * q.D + lane;
+    const E* gr = q.dtr + t_w * q.dt_rs + lane;
+    const E* gb = q.Bm + t_h * q.b_rs + nl;
     for (int s = warp; s < T; s += kWarps, gu += dir * kWarps * q.D, gr += dir * kWarps * q.dt_rs) {
-      if (lane < R) cp_async4(&dtr[s * R + lane], gr);
-      if (lane + 32 < R) cp_async4(&dtr[s * R + lane + 32], gr + 32);
-      cp_async4(&m.u[lane * P + s], gu);
+      if (lane < R) stage1(&dtr[s * R + lane], gr);
+      if (lane + 32 < R) stage1(&dtr[s * R + lane + 32], gr + 32);
+      stage1(&m.u[lane * P + s], gu);
     }
     for (int s = 2 * warp + lane / kN; s < T; s += 2 * kWarps, gb += dir * 2 * kWarps * q.b_rs)
-      cp_async4(&m.B[nl * P + s], gb);
+      stage1(&m.B[nl * P + s], gb);
   }
   cp_async_commit();
   if (kDy) {
-    const float* gy = q.dy + t_w * q.D + lane;
-    for (int s = warp; s < T; s += kWarps, gy += dir * kWarps * q.D) cp_async4(&m.dy[lane * P + s], gy);
+    const E* gy = q.dy + t_w * q.D + lane;
+    for (int s = warp; s < T; s += kWarps, gy += dir * kWarps * q.D) stage1(&m.dy[lane * P + s], gy);
   }
   if (kC) {
-    const float* gc = q.Cm + t_h * q.c_rs + nl;
+    const E* gc = q.Cm + t_h * q.c_rs + nl;
     for (int s = 2 * warp + lane / kN; s < T; s += 2 * kWarps, gc += dir * 2 * kWarps * q.c_rs)
-      cp_async4(&m.C[nl * P + s], gc);
+      stage1(&m.C[nl * P + s], gc);
   }
   cp_async_commit();
   for (int s = T + warp; s < Tpad; s += kWarps) {
@@ -274,11 +294,11 @@ __device__ Lanes lanes_of_thread() {
 
 // The segment summaries. hloc (B, 4, S, D, 16) and sdt (B, 4, S, D); with
 // kR also rsum (B, 4, S, D, 16) from C and dy (Cs, dy unread without).
-template <bool kR>
+template <bool kR, typename E>
 __global__ void __launch_bounds__(kThreads, 6) ss2d_summaries_kernel(
-    const float* __restrict__ layouts, const float* __restrict__ dts_raw,
-    const float* __restrict__ Bs, const float* __restrict__ Cs, const float* __restrict__ dt_w,
-    const float* __restrict__ dt_b, const float* __restrict__ A, const float* __restrict__ dy,
+    const E* __restrict__ layouts, const E* __restrict__ dts_raw,
+    const E* __restrict__ Bs, const E* __restrict__ Cs, const float* __restrict__ dt_w,
+    const float* __restrict__ dt_b, const float* __restrict__ A, const E* __restrict__ dy,
     float* __restrict__ hloc, float* __restrict__ rsum, float* __restrict__ sdt, int L, int D,
     int R, long long dt_rs, long long b_rs, long long c_rs) {
   extern __shared__ __align__(16) float smem[];
@@ -286,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 6) ss2d_summaries_kernel(
   const int d0 = blockIdx.x * kDB, bk = blockIdx.y, b = bk / 4, k = bk % 4;
   const Lanes th = lanes_of_thread();
   const int S = gridDim.z;
-  const Seq q = make_seq(layouts, dts_raw, Bs, Cs, dy, b, k, d0, L, D, R, dt_rs, b_rs, c_rs);
+  const Seq<E> q = make_seq(layouts, dts_raw, Bs, Cs, dy, b, k, d0, L, D, R, dt_rs, b_rs, c_rs);
   const float4 A4 = ld4(&A[((long long)k * D + d0 + th.dl) * kN + th.n0]);
   float a2[kNP];
 #pragma unroll
@@ -409,20 +429,36 @@ bool shapes_ok(int B, int L, int D, int R, int N) {
          4 * B <= 65535;
 }
 
-template <bool kR>
-cudaError_t launch_summaries(const float* layouts, const float* dts_raw, const float* Bs,
-                             const float* Cs, const float* dt_w, const float* dt_b, const float* A,
-                             const float* dy, float* hloc, float* rsum, float* sdt, int B, int L,
-                             int D, int R, long long dt_rs, long long b_rs, long long c_rs,
-                             cudaStream_t stream) {
+template <bool kR, typename E>
+cudaError_t launch_summaries(const E* layouts, const E* dts_raw, const E* Bs, const E* Cs,
+                             const float* dt_w, const float* dt_b, const float* A, const E* dy,
+                             float* hloc, float* rsum, float* sdt, int B, int L, int D, int R,
+                             long long dt_rs, long long b_rs, long long c_rs, cudaStream_t stream) {
   const size_t smem = sizeof(float) * summaries_floats<kR>(R);
-  cudaError_t err = cudaFuncSetAttribute(ss2d_summaries_kernel<kR>,
+  cudaError_t err = cudaFuncSetAttribute(ss2d_summaries_kernel<kR, E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(D / kDB, 4 * B, segments(L));
-  ss2d_summaries_kernel<kR><<<grid, kThreads, smem, stream>>>(
+  ss2d_summaries_kernel<kR, E><<<grid, kThreads, smem, stream>>>(
       layouts, dts_raw, Bs, Cs, dt_w, dt_b, A, dy, hloc, rsum, sdt, L, D, R, dt_rs, b_rs, c_rs);
   return cudaGetLastError();
+}
+
+// launch_summaries on sequence tensors of float (bf16 == 0) or bf16 type
+template <bool kR>
+cudaError_t launch_summaries_of(int bf16, const void* layouts, const void* dts_raw, const void* Bs,
+                                const void* Cs, const float* dt_w, const float* dt_b, const float* A,
+                                const void* dy, float* hloc, float* rsum, float* sdt, int B, int L,
+                                int D, int R, long long dt_rs, long long b_rs, long long c_rs,
+                                cudaStream_t stream) {
+  using H = __nv_bfloat16;
+  if (bf16)
+    return launch_summaries<kR>((const H*)layouts, (const H*)dts_raw, (const H*)Bs, (const H*)Cs, dt_w,
+                                dt_b, A, (const H*)dy, hloc, rsum, sdt, B, L, D, R, dt_rs, b_rs, c_rs,
+                                stream);
+  return launch_summaries<kR>((const float*)layouts, (const float*)dts_raw, (const float*)Bs,
+                              (const float*)Cs, dt_w, dt_b, A, (const float*)dy, hloc, rsum, sdt, B, L,
+                              D, R, dt_rs, b_rs, c_rs, stream);
 }
 
 template <bool kCarry>
@@ -438,10 +474,11 @@ cudaError_t launch_combine(const float* A, const float* sdt, float* hloc, float*
 template <bool kR>
 cudaError_t shared_occupancy(int R, int* out) {
   const size_t smem = sizeof(float) * summaries_floats<kR>(R);
-  cudaError_t err = cudaFuncSetAttribute(ss2d_summaries_kernel<kR>,
+  cudaError_t err = cudaFuncSetAttribute(ss2d_summaries_kernel<kR, float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], ss2d_summaries_kernel<kR>, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], ss2d_summaries_kernel<kR, float>, kThreads,
+                                                        smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], ss2d_combine_kernel<kR>, kCombineThreads, 0);
   return err;

@@ -12,8 +12,11 @@ JAX package's `tamtr_tpu/engine/model.py`: `Engine.train`, `val`,
     track(source): a sequence of frames -> the eval forward -> a tracker
 
 val, predict and track run the fused twin of the model under fuse=True
-(`nn/fuse.py`). train(batch=-1) fits the batch to the card's memory
-(`utils/autobatch.py`). With plots=True (the default) train writes
+(`nn/fuse.py`), and a twin computing in bf16 under half=True (fused first
+when both are set); train(bf16=True) trains a model computing in bf16
+with fp32 parameters (`nn/graph.py:TAMTRModel.dtype`), so its EMA and
+checkpoint weights are fp32 too. train(batch=-1) fits the batch to the
+card's memory (`utils/autobatch.py`). With plots=True (the default) train writes
 `train_batch0-2.jpg`, `results.png` and, from val, `confusion_matrix.png`
 into its run directory, and logs to TensorBoard under `tb/` when it is
 installed; the other logger integrations attach as the settings allow
@@ -33,8 +36,8 @@ gathers the per-image statistics, so the metrics are the one-process
 run's.
 
 The engine runs on the card unless `device="cpu"` is given (then the ranks
-meet over gloo). Not ported: half (bf16 eval: it raises),
-classify/segment/pose, video and stream sources, tune and export.
+meet over gloo). Not ported: classify/segment/pose, video and stream
+sources, tune and export.
 """
 
 from __future__ import annotations
@@ -239,7 +242,8 @@ class Engine:
             cfg.batch = autobatch_train(self.model_cfg, nc, cfg.imgsz, cfg.max_gt, device=dev, default=4)
             if groups is not None:  # the card's batch on every data rank
                 cfg.batch = broadcast_from_rank0(cfg.batch) * n_data
-        model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=cfg.max_gt)
+        model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=cfg.max_gt,
+                                    dtype=torch.bfloat16 if cfg.bf16 else None)
         init_parameters(model, cfg.seed)
         width = text_width(model)
         self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings, dim=width)
@@ -625,19 +629,21 @@ class Engine:
 
     def _eval_model(self, model: TAMTRModel, cfg: Config) -> TAMTRModel:
         """The model val, predict and track run (the JAX package's
-        `_resolve_eval_model`): `model` in eval mode, or with cfg.fuse its
-        fused twin (`nn/fuse.fuse_model`), cached and built again whenever
-        `model` or any of its weights changed since (`weights_key`); `model`
-        itself is never changed. half=True raises: bf16 eval is not ported."""
-        if cfg.half:
-            raise NotImplementedError("half=True (bf16 eval) is not ported to tamtr_torch yet: "
-                                      "ROADMAP.md queue A, item 5")
-        if not cfg.fuse:
-            return model.eval()
-        key = weights_key(model)
-        if self._fused is None or self._fused[0] != key:
-            self._fused = (key, fuse_model(model))
-        return self._fused[1]
+        `_resolve_eval_model`), in eval mode: `model`; with cfg.fuse its
+        fused twin (`nn/fuse.fuse_model`); with cfg.half a twin computing in
+        bf16 (`TAMTRModel.with_dtype`, the JAX `model.clone(dtype=bf16)`),
+        after the fuse when both are set (folded in fp32, computed at bf16).
+        A model that already computes in bf16 keeps it. The fused twin is
+        cached and built again whenever `model` or any of its weights changed
+        since (`weights_key`); the bf16 twin shares the weights of the model
+        it is made from. `model`'s weights and dtype are never changed."""
+        dtype = torch.bfloat16 if cfg.half else model.dtype
+        if cfg.fuse:
+            key = weights_key(model)
+            if self._fused is None or self._fused[0] != key:
+                self._fused = (key, fuse_model(model))
+            model = self._fused[1]
+        return (model if model.dtype == dtype else model.with_dtype(dtype)).eval()
 
     # ------------------------------------------------------------- weights
     def load(self, ckpt_path: Union[str, Path], nc: Optional[int] = None,

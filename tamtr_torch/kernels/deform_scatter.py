@@ -47,6 +47,11 @@ Arguments of `bilinear_gather`, as in the JAX package:
   idx2 (B, Q*P*2, nh) pair starts (rows idx2 and idx2 + 1); P = levels x
   points per query and head. Returns (B, Q, nh, c). Gradients flow to value
   and w_pairs; the indices get none.
+
+Dtypes (`tamtr_tpu/kernels/deform_scatter.py:203-204, 289-297, 322-348,
+439-458`): value is float32 or bfloat16, w_pairs float32. The sums are
+fp32 in every version; out and dvalue come back in value's dtype, each
+rounded once, and dw in fp32. B2 and B4 read bf16 rows as they come.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ import math
 
 import torch
 
-from tamtr_torch.kernels import _build
+from tamtr_torch.kernels import _build, at_least_fp32
 from tamtr_torch.kernels.selective_scan import _aligned
 
 # terms of an output row summed as one sequence in B4, B7 and B8
@@ -65,6 +70,8 @@ from tamtr_torch.kernels.selective_scan import _aligned
 SEG_TERMS = 32
 # the rows pass takes at most this many channels a launch
 ROW_CHANNELS = 64
+# the value (and out, dout, dvalue) dtypes kernels B2 and B4 take
+VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -81,14 +88,16 @@ def _shift_last_row(idx2: torch.Tensor, w_pairs: torch.Tensor, Lv: int):
 
 
 def bilinear_gather_ref(value, idx4, w_pairs, idx2, P: int) -> torch.Tensor:
-    """Plain version: gather the 4 corners of every sample point and weight them."""
+    """Plain version: gather the 4 corners of every sample point and weight
+    them, in fp32, the result in value's dtype."""
     B, Lv, nh, c = value.shape
     _, w_pairs, _ = _shift_last_row(idx2, w_pairs, Lv)
     nU = idx4.shape[1]
     w4 = w_pairs.transpose(2, 3).reshape(B, nU, nh)  # (B, nU2, 2, nh) -> corners
     g = torch.gather(value, 1, idx4.long()[..., None].expand(B, nU, nh, c))
     g = g.view(B, nU // (P * 4), P * 4, nh, c)
-    return torch.einsum("bqpnc,bqpn->bqnc", g, w4.view(B, nU // (P * 4), P * 4, nh))
+    w4 = w4.view(B, nU // (P * 4), P * 4, nh)
+    return torch.einsum("bqpnc,bqpn->bqnc", at_least_fp32(g), at_least_fp32(w4)).to(value.dtype)
 
 
 def bilinear_gather_pairs_ref(value, idx2, w_pairs, ppq: int) -> torch.Tensor:
@@ -102,38 +111,40 @@ def bilinear_gather_pairs_ref(value, idx2, w_pairs, ppq: int) -> torch.Tensor:
     nU2 = idx2.shape[1]
     i0, w, _ = _shift_last_row(idx2, w_pairs, Lv)
     idx = i0.long()[..., None].expand(B, nU2, nh, c)
-    rows = w[..., :1] * value.gather(1, idx) + w[..., 1:] * value.gather(1, idx + 1)
-    return rows.view(B, nU2 // ppq, ppq, nh, c).sum(2)
+    rows = w[..., :1] * at_least_fp32(value.gather(1, idx)) + w[..., 1:] * at_least_fp32(value.gather(1, idx + 1))
+    return rows.view(B, nU2 // ppq, ppq, nh, c).sum(2).to(value.dtype)
 
 
 def bilinear_gather_bwd_ref(value, idx2, w_pairs, dout):
     """Plain backward in the pair form the kernel uses: dvalue gets
-    (wa, wb) x dout at rows (idx2, idx2 + 1), dw the two row . dout dots.
+    (wa, wb) x dout at rows (idx2, idx2 + 1), dw the two row . dout dots,
+    all in fp32; dvalue returns in value's dtype, dw in w_pairs'.
 
     value (B, Lv, nh, c); idx2 (B, nU2, nh); w_pairs (B, nU2, nh, 2);
     dout (B, Q, nh, c) -> dvalue (B, Lv, nh, c), dw (B, nU2, nh, 2).
     """
     B, Lv, nh, c = value.shape
     nU2 = idx2.shape[1]
-    i0, w, at_end = _shift_last_row(idx2, w_pairs, Lv)
-    d = dout.repeat_interleave(nU2 // dout.shape[1], 1)  # pair u belongs to query u // ppq
+    v32 = at_least_fp32(value)
+    i0, w, at_end = _shift_last_row(idx2, at_least_fp32(w_pairs), Lv)
+    d = at_least_fp32(dout).repeat_interleave(nU2 // dout.shape[1], 1)  # pair u belongs to query u // ppq
     idx = i0.long()[..., None].expand(B, nU2, nh, c)
-    dw = torch.stack([(value.gather(1, idx) * d).sum(-1), (value.gather(1, idx + 1) * d).sum(-1)], -1)
+    dw = torch.stack([(v32.gather(1, idx) * d).sum(-1), (v32.gather(1, idx + 1) * d).sum(-1)], -1)
     dw = torch.where(at_end[..., None], dw.flip(-1), dw)
-    dvalue = torch.zeros_like(value)
+    dvalue = torch.zeros_like(v32)
     dvalue.scatter_add_(1, idx, w[..., :1] * d).scatter_add_(1, idx + 1, w[..., 1:] * d)
-    return dvalue, dw
+    return dvalue.to(value.dtype), dw.to(w_pairs.dtype)
 
 
 def _pair_dw(value, idx2, dout):
-    """dw (B, nU2, nh, 2) in the caller's slot order: each pair's two
+    """dw (B, nU2, nh, 2) fp32 in the caller's slot order: each pair's two
     shifted rows dotted with its query's dout row, swapped back for shifted
     pairs."""
     B, Lv, nh, c = value.shape
     nU2 = idx2.shape[1]
     at_end = idx2 >= Lv - 1
     idx = torch.where(at_end, Lv - 2, idx2).long()[..., None].expand(B, nU2, nh, c)
-    d = dout.repeat_interleave(nU2 // dout.shape[1], 1)
+    d, value = at_least_fp32(dout).repeat_interleave(nU2 // dout.shape[1], 1), at_least_fp32(value)
     dw = torch.stack([(value.gather(1, idx) * d).sum(-1), (value.gather(1, idx + 1) * d).sum(-1)], -1)
     return torch.where(at_end[..., None], dw.flip(-1), dw)
 
@@ -259,7 +270,8 @@ def scatter_acc_rows_ref(idx, w, dout, L: int) -> torch.Tensor:
     """Plain version of B7's rows pass (see `_rows_pass_ref`): row r sums
     w dout over its updates in update order, in segments of `SEG_TERMS`.
     Same arguments and result as `scatter_acc_ref`."""
-    return _rows_pass_ref(idx, w, None, dout, L)
+    out = _rows_pass_ref(idx, w, None, dout, L)
+    return out.to(torch.bfloat16) if dout.dtype == torch.bfloat16 else out
 
 
 def scatter_acc_pairs_rows_ref(idx2, wa, wb, dout, L2: int) -> torch.Tensor:
@@ -267,7 +279,8 @@ def scatter_acc_pairs_rows_ref(idx2, wa, wb, dout, L2: int) -> torch.Tensor:
     wa dout over the pairs starting on r, then wb dout over those starting
     on r - 1, each in pair order, in segments of `SEG_TERMS`. Same
     arguments and result as `scatter_acc_pairs_ref`."""
-    return _rows_pass_ref(idx2[..., None], wa[..., None], wb[..., None], dout[:, :, None], L2)[:, :, 0]
+    out = _rows_pass_ref(idx2[..., None], wa[..., None], wb[..., None], dout[:, :, None], L2)[:, :, 0]
+    return out.to(torch.bfloat16) if dout.dtype == torch.bfloat16 else out
 
 
 def _check_cuda(name, value, idx2, w_pairs, per: int):
@@ -276,8 +289,8 @@ def _check_cuda(name, value, idx2, w_pairs, per: int):
         raise RuntimeError(f"{name}: no kernel for device {value.device}")
     B, Lv, nh, c = value.shape
     nU2 = idx2.shape[1]
-    if value.dtype != torch.float32 or w_pairs.dtype != torch.float32 or idx2.dtype != torch.int32:
-        raise TypeError(f"{name}: value/w_pairs must be float32 and idx2 int32")
+    if value.dtype not in VALUE_DTYPES or w_pairs.dtype != torch.float32 or idx2.dtype != torch.int32:
+        raise TypeError(f"{name}: value must be one of {VALUE_DTYPES}, w_pairs float32 and idx2 int32")
     if tuple(idx2.shape) != (B, nU2, nh) or tuple(w_pairs.shape) != (B, nU2, nh, 2) or nU2 % per:
         raise ValueError(f"{name}: inconsistent shapes")
     if c % 2 or c > 64 or Lv < 2:
@@ -294,10 +307,10 @@ def _gather_fwd_cuda(value, idx2, w_pairs, P: int) -> torch.Tensor:
     value, w_pairs = _aligned(value), _aligned(w_pairs)  # float4 rows, float2 weight pairs
     B, Lv, nh, c = value.shape
     Q = idx2.shape[1] // ppq
-    out = torch.empty((B, Q, nh, c), dtype=torch.float32, device=value.device)
+    out = torch.empty((B, Q, nh, c), dtype=value.dtype, device=value.device)
     rc = _entry("bilinear_gather_fwd", "bilinear_gather_fwd")(
         value.data_ptr(), idx2.data_ptr(), w_pairs.data_ptr(), out.data_ptr(),
-        B, Lv, nh, c, Q, ppq, _stream(value),
+        B, Lv, nh, c, Q, ppq, int(value.dtype == torch.bfloat16), _stream(value),
     )
     _build.check(rc, "bilinear_gather_fwd")
     bilinear_gather.launches += 1
@@ -363,14 +376,15 @@ def bilinear_gather_bwd(value, idx2, w_pairs, dout):
     two launches (`pair_buckets`, then the rows pass) for CUDA tensors,
     `bilinear_gather_bwd_ref` for CPU ones. The kernel's dvalue is bitwise
     repeatable: each row is summed in a fixed order (see
-    `bilinear_gather_bwd_rows_ref`)."""
+    `bilinear_gather_bwd_rows_ref`). dout and dvalue in value's dtype, dw
+    fp32."""
     if value.device.type == "cpu":
         return bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
     B, Q = dout.shape[:2]
     value, idx2, w_pairs = _check_cuda("bilinear_gather_bwd", value, idx2, w_pairs, Q)
     _, Lv, nh, c = value.shape
-    if tuple(dout.shape) != (B, Q, nh, c) or dout.dtype != torch.float32 or dout.device != value.device:
-        raise ValueError("bilinear_gather_bwd: dout must be float32 (B, Q, nh, c) on value's device")
+    if tuple(dout.shape) != (B, Q, nh, c) or dout.dtype != value.dtype or dout.device != value.device:
+        raise ValueError("bilinear_gather_bwd: dout must be (B, Q, nh, c) on value's device, in value's dtype")
     value, dout = _aligned(value), _aligned(dout.contiguous())
     b = _pair_buckets_cuda(idx2, w_pairs, Lv)
     partials = torch.empty((b.cap, c), dtype=torch.float32, device=value.device)
@@ -378,7 +392,8 @@ def bilinear_gather_bwd(value, idx2, w_pairs, dout):
     dw = torch.empty_like(w_pairs)
     rc = _entry("bilinear_gather_bwd", "bilinear_gather_bwd")(
         value.data_ptr(), idx2.data_ptr(), dout.data_ptr(), *b.ptrs[:6], partials.data_ptr(),
-        dvalue.data_ptr(), dw.data_ptr(), B, Lv, nh, c, Q, idx2.shape[1] // Q, _stream(value),
+        dvalue.data_ptr(), dw.data_ptr(), B, Lv, nh, c, Q, idx2.shape[1] // Q, int(value.dtype == torch.bfloat16),
+        _stream(value),
     )
     _build.check(rc, "bilinear_gather_bwd")
     bilinear_gather_bwd.launches += 1
@@ -396,7 +411,7 @@ class _BilinearGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         value, w_pairs, idx2 = ctx.saved_tensors
-        dvalue, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout)
+        dvalue, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout.to(value.dtype))
         return dvalue, None, dw, None, None
 
 
@@ -420,8 +435,9 @@ def weighted_gather_ref(value, idx, w, p4: int) -> torch.Tensor:
 
 
 def scatter_acc_ref(idx, w, dout, L: int) -> torch.Tensor:
-    """Plain row scatter: dvalue (B, L, nh, c) fp32 with
-    dvalue[b, idx[b, u, h], h] += w[b, u, h] dout[b, u // p4, h]; idx, w
+    """Plain row scatter: dvalue (B, L, nh, c) summed in fp32 with
+    dvalue[b, idx[b, u, h], h] += w[b, u, h] dout[b, u // p4, h], returned
+    in fp32, or in bf16 for a bf16 dout (as the kernel writes it); idx, w
     (B, nU, nh), dout (B, Q, nh, c), p4 = nU / Q. An update outside [0, L)
     is skipped, as the kernel skips it."""
     B, nU, nh = idx.shape
@@ -431,8 +447,9 @@ def scatter_acc_ref(idx, w, dout, L: int) -> torch.Tensor:
     keep = (i >= 0) & (i < L)
     bi = torch.arange(B, device=idx.device)[:, None, None].expand_as(i)
     hi = torch.arange(nh, device=idx.device)[None, None, :].expand_as(i)
-    return dout.new_zeros((B, L, nh, c), dtype=torch.float32).index_put_((bi[keep], i[keep], hi[keep]), upd[keep],
-                                                                        accumulate=True)
+    out = dout.new_zeros((B, L, nh, c), dtype=torch.float32).index_put_((bi[keep], i[keep], hi[keep]), upd[keep],
+                                                                       accumulate=True)
+    return out.to(torch.bfloat16) if dout.dtype == torch.bfloat16 else out
 
 
 def _check_scatter(name, idx, ws, dout=None, rows: int = 1):
@@ -451,8 +468,8 @@ def _check_scatter(name, idx, ws, dout=None, rows: int = 1):
     if any(t.device != idx.device for t in ws):
         raise ValueError(f"{name}: inputs on different devices")
     if dout is not None:
-        if dout.dtype != torch.float32:
-            raise TypeError(f"{name}: dout must be float32")
+        if dout.dtype not in VALUE_DTYPES:
+            raise TypeError(f"{name}: dout must be one of {VALUE_DTYPES}")
         if dout.dim() != idx.dim() + 1 or dout.shape[0] != idx.shape[0] \
                 or tuple(dout.shape[2:-1]) != tuple(idx.shape[2:]) or idx.shape[1] % dout.shape[1]:
             raise ValueError(f"{name}: inconsistent shapes")
@@ -462,19 +479,21 @@ def _check_scatter(name, idx, ws, dout=None, rows: int = 1):
 
 def _scatter_rows_cuda(fn_name: str, b: _Buckets, dout, rows: int, ppq: int, counter) -> torch.Tensor:
     """The rows pass of B7 or B8 on its buckets: dout (B, Q, nh, c) ->
-    (B, rows, nh, c) fp32, every row written. One launch per `ROW_CHANNELS`
-    channels; an odd c is padded to even (the kernel reads rows as float2)."""
+    (B, rows, nh, c) in dout's dtype (fp32 or bf16; the sums fp32, each row
+    rounded once), every row written. One launch per `ROW_CHANNELS`
+    channels; an odd c is padded to even (the kernel reads rows in pairs)."""
     B, Q, nh, c = dout.shape
     cs = c + c % 2
     d = _aligned(dout.contiguous() if cs == c else torch.nn.functional.pad(dout, (0, 1)))
-    out = torch.empty((B, rows, nh, cs), dtype=torch.float32, device=dout.device)
+    out = torch.empty((B, rows, nh, cs), dtype=dout.dtype, device=dout.device)
     partials = torch.empty((b.cap, min(cs, ROW_CHANNELS)), dtype=torch.float32, device=dout.device)
     fn = _entry("deform_scatter", fn_name)
+    size = d.element_size()
     for c0 in range(0, cs, ROW_CHANNELS):
         if c0:
             b.part(4).zero_()  # the previous launch left its rows' arrival counts at their segment counts
-        rc = fn(d.data_ptr() + 4 * c0, *b.ptrs[:6], partials.data_ptr(), out.data_ptr() + 4 * c0, B, rows, nh,
-                min(ROW_CHANNELS, cs - c0), cs, Q, ppq, _stream(dout))
+        rc = fn(d.data_ptr() + size * c0, *b.ptrs[:6], partials.data_ptr(), out.data_ptr() + size * c0, B, rows,
+                nh, min(ROW_CHANNELS, cs - c0), cs, Q, ppq, int(d.dtype == torch.bfloat16), _stream(dout))
         _build.check(rc, fn_name)
         counter.launches += 1
     return out if cs == c else out[..., :c].contiguous()
@@ -523,7 +542,9 @@ class _WeightedGather(torch.autograd.Function):
         value, idx, w = ctx.saved_tensors
         B, L, nh, c = value.shape
         dout32 = dout.float()
-        dvalue = scatter_acc(idx.to(torch.int32), w.float(), dout32, L)
+        # B7 reads a bf16 dout as it comes and writes dvalue in bf16, rounded once
+        dvalue = scatter_acc(idx.to(torch.int32), w.float(), dout.to(value.dtype) if value.dtype == torch.bfloat16
+                             else dout32, L)
         g = torch.gather(value, 1, idx.long()[..., None].expand(B, idx.shape[1], nh, c)).float()
         dw = torch.einsum("bqpnc,bqnc->bqpn", g.view(B, dout.shape[1], ctx.p4, nh, c), dout32)
         return dvalue.to(value.dtype), None, dw.reshape(w.shape).to(w.dtype), None
@@ -545,15 +566,17 @@ def scatter_acc_pairs_ref(idx2, wa, wb, dout, L2: int) -> torch.Tensor:
     idx2 + 1 get wa dout and wb dout of query u // (nU2 / Q); wa, wb
     (G, nU2); dout (G, Q, c) -> (G, L2, c) fp32. A row outside [0, L2) is
     skipped, as the kernel skips it (the JAX package's callers keep the
-    starts in [0, L2 - 1))."""
+    starts in [0, L2 - 1)). Summed in fp32, returned in bf16 for a bf16
+    dout, as the kernel writes it."""
     G, nU2 = idx2.shape
     d = dout.float().repeat_interleave(nU2 // dout.shape[1], 1)
     rows = torch.cat([idx2, idx2 + 1], 1).long()
     upd = torch.cat([wa.float()[..., None] * d, wb.float()[..., None] * d], 1)
     g = torch.arange(G, device=idx2.device)[:, None].expand_as(rows)
     keep = (rows >= 0) & (rows < L2)
-    return dout.new_zeros((G, L2, dout.shape[-1]), dtype=torch.float32).index_put_((g[keep], rows[keep]), upd[keep],
-                                                                                  accumulate=True)
+    out = dout.new_zeros((G, L2, dout.shape[-1]), dtype=torch.float32).index_put_((g[keep], rows[keep]), upd[keep],
+                                                                                 accumulate=True)
+    return out.to(torch.bfloat16) if dout.dtype == torch.bfloat16 else out
 
 
 def _scatter_acc_pairs_buckets_cuda(idx2, wa, wb, L2: int) -> _Buckets:
@@ -600,9 +623,9 @@ scatter_acc_pairs_buckets.launches = 0
 scatter_acc_pairs.launches = 0  # B8's rows pass
 
 # entry point: (pointer arguments, int arguments), then the stream
-_SIGNATURES = {"bilinear_gather_fwd": (4, 6), "pair_buckets": (10, 4), "bilinear_gather_bwd": (12, 6),
-               "scatter_acc_buckets": (10, 4), "scatter_acc": (9, 7),
-               "scatter_acc_pairs_buckets": (11, 3), "scatter_acc_pairs": (9, 7)}
+_SIGNATURES = {"bilinear_gather_fwd": (4, 7), "pair_buckets": (10, 4), "bilinear_gather_bwd": (12, 7),
+               "scatter_acc_buckets": (10, 4), "scatter_acc": (9, 8),
+               "scatter_acc_pairs_buckets": (11, 3), "scatter_acc_pairs": (9, 8)}
 
 
 def _entry(source: str, fn_name: str):

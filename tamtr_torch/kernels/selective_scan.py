@@ -33,7 +33,15 @@ Contract of the fused scan (as `ss2d_scan_xla`): layouts (B, 2, L, D) [row-major
 dts_raw, Bs, Cs (B, 2, 2, L, R|N) indexed [fwd/rev, layout]; dt_w (4, D, R);
 dt_b (4, D); A (4, D, N); Ds (4, D). Direction k = (row-fwd, col-fwd,
 row-rev, col-rev) reads layout k % 2 and slice (k // 2, k % 2). Returns
-y (B, 4, L, D) per direction in natural (unflipped) order. fp32 throughout.
+y (B, 4, L, D) per direction in natural (unflipped) order.
+
+Dtypes (`tamtr_tpu/kernels/selective_scan.py:455-489, 732, 882-896`): the
+sequence I/O (layouts, dts_raw, Bs, Cs, y and dy) is float32 or bfloat16,
+one dtype for all; dt_w, dt_b, A and Ds are float32. The maths and the
+state are fp32 in every version, and y is rounded once to the sequence
+dtype. Every gradient comes back in its primal's dtype: the kernels write
+du in the sequence dtype and dz, dB, dC and dA in fp32, and the torch
+assembly rounds d_dts, dBs and dCs once.
 """
 
 from __future__ import annotations
@@ -42,9 +50,10 @@ import ctypes
 
 import torch
 
-from tamtr_torch.kernels import _build
+from tamtr_torch.kernels import _build, at_least_fp32
 
 SCAN_CHUNK = 128
+SEQ_DTYPES = (torch.float32, torch.bfloat16)  # the sequence I/O the B1 and B3 kernels take
 SEG_CHANNELS = 32  # channels per block of the segment kernels, forward and backward (csrc kDB)
 SEG_STEPS = 48  # steps per segment of the segment-parallel scans (csrc kSeg)
 SS2D_STATES = 16  # the state size B1's and B3's kernels are compiled for (`ss2d_pieces` pads to it)
@@ -109,18 +118,20 @@ def selective_scan_ref(u, delta, A, Bs, Cs, D=None, chunk: int = SCAN_CHUNK, h0=
 
 
 def _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k):
-    """Direction k's u, dt, B, C in walk order (flipped for k >= 2)."""
+    """Direction k's u, dt, B, C in walk order (flipped for k >= 2), at
+    least fp32."""
     f, j = k // 2, k % 2
-    u = layouts[:, j]
-    dt = softplus(torch.einsum("blr,dr->bld", dts_raw[:, f, j], dt_w[k]) + dt_b[k])
-    Bk, Ck = Bs[:, f, j], Cs[:, f, j]
+    u = at_least_fp32(layouts[:, j])
+    dt = softplus(torch.einsum("blr,dr->bld", at_least_fp32(dts_raw[:, f, j]), dt_w[k]) + dt_b[k])
+    Bk, Ck = at_least_fp32(Bs[:, f, j]), at_least_fp32(Cs[:, f, j])
     if f:
         u, dt, Bk, Ck = u.flip(1), dt.flip(1), Bk.flip(1), Ck.flip(1)
     return u, dt, Bk, Ck
 
 
-def ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, chunk: int = SCAN_CHUNK, h0=None):
-    """Plain PyTorch version of the fused scan (see the module docstring).
+def ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype=None, chunk: int = SCAN_CHUNK, h0=None):
+    """Plain PyTorch version of the fused scan (see the module docstring):
+    fp32 maths, y rounded once to `y_dtype` (layouts' dtype when None).
     `h0` (B, 4, D, N), the state entering each direction's walk, or None
     (zeros)."""
     ys = []
@@ -130,8 +141,8 @@ def ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, chunk: int = SCAN
                                h0=None if h0 is None else h0[:, k])
         if k >= 2:
             y = y.flip(1)
-        ys.append(y + layouts[:, k % 2] * Ds[k])
-    return torch.stack(ys, 1)
+        ys.append(y + at_least_fp32(layouts[:, k % 2]) * Ds[k])
+    return torch.stack(ys, 1).to(y_dtype or layouts.dtype)
 
 
 def _scan_bwd_one(u, dt, A, Bs, Cs, dy, chunk: int, h0=None, carry=None):
@@ -182,18 +193,23 @@ def _scan_bwd_one(u, dt, A, Bs, Cs, dy, chunk: int, h0=None, carry=None):
 
 def _assemble_grads(layouts, dts_raw, dt_w, Ds, dy, du_core, dz, dBs, dCs, dA):
     """The eight input gradients from the per-direction kernel outputs:
-    du_core, dz (B, 4, L, D) natural order; dBs, dCs (B, 2, 2, L, N); dA
-    (4, D, N). The D-skip and the dt projection's gradients are torch ops,
-    as the JAX package keeps them outside Pallas (`selective_scan.py:879-896`)."""
+    du_core (B, 4, L, D) natural order, in the sequence dtype; dz, the same,
+    fp32; dBs, dCs (B, 2, 2, L, N) and dA (4, D, N) fp32. The D-skip and
+    the dt projection's gradients are torch ops, as the JAX package keeps
+    them outside Pallas (`selective_scan.py:879-896`); each gradient comes
+    back in its primal's dtype: the sequence dtype (layouts') for the
+    sequence tensors (the D-skip added in it, as JAX adds it), fp32 for the
+    parameters."""
+    seq_dtype = layouts.dtype
     B, _, L, D = layouts.shape
     R = dt_w.shape[-1]
-    du = du_core + dy * Ds[None, :, None, :]
+    du = du_core + dy * Ds[None, :, None, :].to(seq_dtype)
     d_layouts = du[:, :2] + du[:, 2:]
-    d_Ds = (dy.reshape(B, 2, 2, L, D) * layouts[:, None]).sum((0, 3)).view(4, D)
-    d_dts = torch.einsum("bkld,kdr->bklr", dz, dt_w).reshape(B, 2, 2, L, R)
-    d_dtw = torch.einsum("bkld,bklr->kdr", dz, dts_raw.reshape(B, 4, L, R))
+    d_Ds = (at_least_fp32(dy).reshape(B, 2, 2, L, D) * at_least_fp32(layouts)[:, None]).sum((0, 3)).view(4, D)
+    d_dts = torch.einsum("bkld,kdr->bklr", dz, dt_w).reshape(B, 2, 2, L, R).to(seq_dtype)
+    d_dtw = torch.einsum("bkld,bklr->kdr", dz, at_least_fp32(dts_raw).reshape(B, 4, L, R))
     d_dtb = dz.sum((0, 2))
-    return d_layouts, d_dts, d_dtw, d_dtb, dA, dBs, dCs, d_Ds
+    return d_layouts, d_dts, d_dtw, d_dtb, dA, dBs.to(seq_dtype), dCs.to(seq_dtype), d_Ds
 
 
 def leaving_carry(delta, A, Cs, dy, chunk: int = SCAN_CHUNK):
@@ -214,24 +230,27 @@ def leaving_carry(delta, A, Cs, dy, chunk: int = SCAN_CHUNK):
 def ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy, chunk: int = SCAN_CHUNK,
                       h0=None, carry=None):
     """Plain backward of the fused scan: the gradients of its eight inputs
-    given dy (B, 4, L, D), written with torch ops. A block of the
-    sequence-parallel scan gives `h0` and `carry` (B, 4, D, N) per
-    direction (`_scan_bwd_one`)."""
+    given dy (B, 4, L, D), written with torch ops in fp32, each returned in
+    its primal's dtype as the kernels return it (du_core rounded to the
+    sequence dtype before the D-skip). A block of the sequence-parallel
+    scan gives `h0` and `carry` (B, 4, D, N) per direction
+    (`_scan_bwd_one`)."""
     B, _, L, D = layouts.shape
     N = A.shape[-1]
-    du_core, dz = torch.empty_like(dy), torch.empty_like(dy)
-    dBs, dCs = Bs.new_empty((B, 4, L, N)), Cs.new_empty((B, 4, L, N))
+    seq_dtype, dy32 = layouts.dtype, at_least_fp32(dy)
+    du_core, dz = torch.empty_like(dy32), torch.empty_like(dy32)
+    dBs, dCs = dy32.new_empty((B, 4, L, N)), dy32.new_empty((B, 4, L, N))
     dA = torch.empty_like(A)
     for k in range(4):
         u, dt, Bk, Ck = _direction_inputs(layouts, dts_raw, dt_w, dt_b, Bs, Cs, k)
-        dyk = dy[:, k].flip(1) if k >= 2 else dy[:, k]
+        dyk = dy32[:, k].flip(1) if k >= 2 else dy32[:, k]
         outs = _scan_bwd_one(u, dt, A[k].expand(B, D, N), Bk, Ck, dyk, chunk,
                              h0=None if h0 is None else h0[:, k], carry=None if carry is None else carry[:, k])
         du, ddt, dBk, dCk = (t.flip(1) if k >= 2 else t for t in outs[:4])
         dt_nat = dt.flip(1) if k >= 2 else dt
         du_core[:, k], dz[:, k] = du, ddt * (1.0 - torch.exp(-dt_nat))
         dBs[:, k], dCs[:, k], dA[k] = dBk, dCk, outs[4].sum(0)
-    return _assemble_grads(layouts, dts_raw, dt_w, Ds, dy, du_core, dz,
+    return _assemble_grads(layouts, dts_raw, dt_w, Ds, dy.to(seq_dtype), du_core.to(seq_dtype), dz,
                            dBs.view(B, 2, 2, L, N), dCs.view(B, 2, 2, L, N), dA)
 
 
@@ -251,8 +270,12 @@ def _check_cuda(name, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, d_mult: int):
     B, _, L, D = layouts.shape
     R, N = dt_w.shape[-1], A.shape[-1]
     args = (layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
-    if any(t.dtype != torch.float32 or t.device != layouts.device for t in args):
-        raise TypeError(f"{name}: all inputs must be float32 on one CUDA device")
+    if any(t.device != layouts.device for t in args):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if layouts.dtype not in SEQ_DTYPES or any(t.dtype != layouts.dtype for t in (dts_raw, Bs, Cs)) \
+            or any(t.dtype != torch.float32 for t in (dt_w, dt_b, A, Ds)):
+        raise TypeError(f"{name}: layouts, dts_raw, Bs and Cs must share one dtype of {SEQ_DTYPES}, "
+                        "and dt_w, dt_b, A and Ds be float32")
     if tuple(layouts.shape) != (B, 2, L, D) or tuple(dts_raw.shape) != (B, 2, 2, L, R) \
             or tuple(Bs.shape) != (B, 2, 2, L, N) or tuple(Cs.shape) != (B, 2, 2, L, N) \
             or tuple(dt_w.shape) != (4, D, R) or tuple(A.shape) != (4, D, N) \
@@ -275,8 +298,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _new(device, *shape) -> torch.Tensor:
-    return torch.empty(shape, dtype=torch.float32, device=device)
+def _new(device, *shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def _is_bf16(t: torch.Tensor) -> int:
+    """The kernels' flag for bf16 sequence I/O (0: float32)."""
+    return int(t.dtype == torch.bfloat16)
 
 
 def ss2d_scan_fwd_summaries(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs):
@@ -293,8 +321,8 @@ def ss2d_scan_fwd_summaries(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs):
     h_loc, sdt = _new(layouts.device, B, 4, S, D, N), _new(layouts.device, B, 4, S, D)
     rc = _lib("ss2d_scan_fwd").ss2d_scan_fwd_summaries(
         layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), dt_w.data_ptr(), dt_b.data_ptr(),
-        A.data_ptr(), h_loc.data_ptr(), sdt.data_ptr(), B, L, D, R, N, dts_raw.stride(3), Bs.stride(3),
-        _stream(layouts),
+        A.data_ptr(), h_loc.data_ptr(), sdt.data_ptr(), B, L, D, R, N, _is_bf16(layouts), dts_raw.stride(3),
+        Bs.stride(3), _stream(layouts),
     )
     _build.check(rc, "ss2d_scan_fwd_summaries")
     ss2d_scan_fwd_summaries.launches += 1
@@ -347,10 +375,10 @@ def ss2d_scan_fwd_combine(A, h_loc, sdt, L: int, seed=None, dry: bool = False):
     return (leave, decay) if dry else h_loc
 
 
-def ss2d_scan_fwd_output(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, h_in):
+def ss2d_scan_fwd_output(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, h_in, y_dtype=None):
     """Kernel B1's third launch: every segment rebuilt from its entering
-    state `h_in` (`ss2d_scan_fwd_combine`), y (B, 4, L, D) in natural order.
-    CUDA tensors only."""
+    state `h_in` (`ss2d_scan_fwd_combine`), y (B, 4, L, D) in natural order,
+    in `y_dtype`: the sequence dtype (None) or float32. CUDA tensors only."""
     layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds = _check_cuda(
         "ss2d_scan_fwd_output", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, SEG_CHANNELS)
     B, _, L, D = layouts.shape
@@ -359,23 +387,27 @@ def ss2d_scan_fwd_output(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, h_in):
     S = -(-L // SEG_STEPS)
     if tuple(h_in.shape) != (B, 4, S, D, N) or not h_in.is_contiguous() or h_in.device != layouts.device:
         raise ValueError("ss2d_scan_fwd_output: h_in as ss2d_scan_fwd_combine gives it")
-    y = _new(layouts.device, B, 4, L, D)
+    y_dtype = y_dtype or layouts.dtype
+    if y_dtype not in (layouts.dtype, torch.float32):
+        raise TypeError(f"ss2d_scan_fwd_output: y is written in {layouts.dtype} or float32, not {y_dtype}")
+    y = _new(layouts.device, B, 4, L, D, dtype=y_dtype)
     rc = _lib("ss2d_scan_fwd").ss2d_scan_fwd_output(
         layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), dt_w.data_ptr(),
         dt_b.data_ptr(), A.data_ptr(), Ds.data_ptr(), h_in.data_ptr(), y.data_ptr(), B, L, D, R, N,
-        dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
+        _is_bf16(layouts), int(y.dtype != layouts.dtype), dts_raw.stride(3), Bs.stride(3), Cs.stride(3),
+        _stream(layouts),
     )
     _build.check(rc, "ss2d_scan_fwd_output")
     ss2d_scan_fwd_output.launches += 1
     return y
 
 
-def _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
+def _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype=None):
     """Kernel B1: its three launches."""
     L = layouts.shape[2]
     h_loc, sdt = ss2d_scan_fwd_summaries(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs)
     h_in = ss2d_scan_fwd_combine(A.contiguous(), h_loc, sdt, L)
-    y = ss2d_scan_fwd_output(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, h_in)
+    y = ss2d_scan_fwd_output(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, h_in, y_dtype)
     ss2d_scan.launches += 1
     return y
 
@@ -385,10 +417,11 @@ def fwd_occupancy(R: int) -> dict:
     return _occupancy("ss2d_scan_fwd", R, ("summaries", "combine", "output"))
 
 
-def _check_dy(dy, B, L, D):
-    if tuple(dy.shape) != (B, 4, L, D) or not dy.is_contiguous() or dy.dtype != torch.float32 \
+def _check_dy(dy, layouts):
+    B, _, L, D = layouts.shape
+    if tuple(dy.shape) != (B, 4, L, D) or not dy.is_contiguous() or dy.dtype != layouts.dtype \
             or dy.device.type != "cuda":
-        raise ValueError("ss2d_scan backward: dy must be contiguous float32 (B, 4, L, D) on the card")
+        raise ValueError("ss2d_scan backward: dy must be contiguous (B, 4, L, D) on the card, in layouts' dtype")
 
 
 def ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy):
@@ -402,7 +435,7 @@ def ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy):
         "ss2d_scan_carriers", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dt_b, SEG_CHANNELS)
     B, _, L, D = layouts.shape
     R, N = dt_w.shape[-1], A.shape[-1]
-    _check_dy(dy, B, L, D)
+    _check_dy(dy, layouts)
     A = _aligned(A)
     S = -(-L // SEG_STEPS)
     h_loc, r = _new(layouts.device, B, 4, S, D, N), _new(layouts.device, B, 4, S, D, N)
@@ -410,7 +443,7 @@ def ss2d_scan_carriers(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy):
     rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_summaries(
         layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), dt_w.data_ptr(),
         dt_b.data_ptr(), A.data_ptr(), dy.data_ptr(), h_loc.data_ptr(), r.data_ptr(), sdt.data_ptr(),
-        B, L, D, R, N, dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
+        B, L, D, R, N, _is_bf16(layouts), dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
     )
     _build.check(rc, "ss2d_scan_bwd_summaries")
     ss2d_scan_carriers.launches += 1
@@ -444,27 +477,28 @@ def ss2d_scan_combine(A, h_loc, r, sdt, L: int, seed_h=None, seed_c=None, dry: b
 
 def ss2d_scan_bwd_walk(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, dy, h_in, carry):
     """Kernel B3b: every segment walked backwards from its entering state
-    `h_in` and carry `carry` (`ss2d_scan_combine`). Returns du_core, dz
-    (B, 4, L, D) natural order; dB, dC partial sums (B, 4, D/32, L, 16) over
+    `h_in` and carry `carry` (`ss2d_scan_combine`). Returns du_core
+    (B, 4, L, D) natural order in the sequence dtype, dz the same in fp32;
+    dB, dC partial sums (B, 4, D/32, L, 16) over
     each block's 32 channels; dA partial sums (B, 4, S, D, 16) per segment.
     CUDA tensors only, in the layouts `ss2d_scan_bwd` passes."""
     if layouts.device.type != "cuda":
         raise RuntimeError(f"ss2d_scan_bwd_walk: no kernel for device {layouts.device}")
     B, _, L, D = layouts.shape
     R, N = dt_w.shape[-1], A.shape[-1]
-    _check_dy(dy, B, L, D)
+    _check_dy(dy, layouts)
     S = -(-L // SEG_STEPS)
     if tuple(h_in.shape) != (B, 4, S, D, N) or tuple(carry.shape) != (B, 4, S, D, N) or D % SEG_CHANNELS:
         raise ValueError("ss2d_scan_bwd_walk: h_in and carry as ss2d_scan_combine gives them")
     A = _aligned(A.contiguous())
     nDb = D // SEG_CHANNELS
-    du, dz = _new(layouts.device, B, 4, L, D), _new(layouts.device, B, 4, L, D)
+    du, dz = _new(layouts.device, B, 4, L, D, dtype=layouts.dtype), _new(layouts.device, B, 4, L, D)
     dBp, dCp = _new(layouts.device, B, 4, nDb, L, N), _new(layouts.device, B, 4, nDb, L, N)
     dAp = _new(layouts.device, B, 4, S, D, N)
     rc = _lib("ss2d_scan_bwd").ss2d_scan_bwd_walk(
         layouts.data_ptr(), dts_raw.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), dt_w.data_ptr(),
         dt_b.data_ptr(), A.data_ptr(), dy.data_ptr(), h_in.data_ptr(), carry.data_ptr(), du.data_ptr(),
-        dz.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), B, L, D, R, N,
+        dz.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), B, L, D, R, N, _is_bf16(layouts),
         dts_raw.stride(3), Bs.stride(3), Cs.stride(3), _stream(layouts),
     )
     _build.check(rc, "ss2d_scan_bwd_walk")
@@ -494,7 +528,7 @@ def ss2d_scan_bwd(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy):
     if layouts.device.type == "cpu":
         return ss2d_scan_bwd_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, dy)
     args = _check_cuda("ss2d_scan_bwd", layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, SEG_CHANNELS)
-    dy = dy.float().contiguous()
+    dy = dy.to(layouts.dtype).contiguous()
     return bwd_from_summaries(args, dy, ss2d_scan_carriers(*args[:7], dy))
 
 
@@ -515,15 +549,15 @@ def bwd_from_summaries(args, dy, summaries, seed_h=None, seed_c=None):
 
 class _SS2DScan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
+    def forward(ctx, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype=None):
         ctx.save_for_backward(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
         if layouts.device.type == "cpu":
-            return ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
-        return _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
+            return ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype)
+        return _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        return ss2d_scan_bwd(*ctx.saved_tensors, dy)
+        return (*ss2d_scan_bwd(*ctx.saved_tensors, dy), None)
 
 
 def ss2d_pieces(scan, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
@@ -533,9 +567,12 @@ def ss2d_pieces(scan, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
     padded with B = C = 0 and A = -1 (a padded lane stays 0 and adds nothing
     to y), the groups' outputs added, Ds in the first group only (zeros in
     the others); the channels padded with u = 0, dt_w = dt_b = 0, A = -1 and
-    Ds = 0, and y cut back. Autograd sums the gradients of the inputs the
-    groups share; those of A, Bs and Cs are the groups' slices, the padding
-    dropped. One piece, without a copy, where the inputs fit."""
+    Ds = 0, and y cut back. Several groups of bf16 sequences each write y in
+    fp32 (`scan`'s ninth argument, y's dtype), and their sum is rounded to
+    bf16 once, as the unsplit scan rounds. Autograd sums the gradients of
+    the inputs the groups share; those of A, Bs and Cs are the groups'
+    slices, the padding dropped. One piece, without a copy, where the inputs
+    fit."""
     D, N = A.shape[1], A.shape[2]
     if N == SS2D_STATES and D % SEG_CHANNELS == 0:
         return scan(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
@@ -544,14 +581,16 @@ def ss2d_pieces(scan, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
     if pd:
         layouts, dt_b, Ds = pad(layouts, (0, pd)), pad(dt_b, (0, pd)), pad(Ds, (0, pd))
         dt_w, A = pad(dt_w, (0, 0, 0, pd)), pad(A, (0, 0, 0, pd), value=-1.0)
+    y_dtype = torch.float32 if N > SS2D_STATES and layouts.dtype == torch.bfloat16 else layouts.dtype
     y = None
     for n0 in range(0, N, SS2D_STATES):
         pn = SS2D_STATES - min(SS2D_STATES, N - n0)
         A_s, B_s, C_s = (t[..., n0:n0 + SS2D_STATES] for t in (A, Bs, Cs))
         if pn:
             A_s, B_s, C_s = pad(A_s, (0, pn), value=-1.0), pad(B_s, (0, pn)), pad(C_s, (0, pn))
-        part = scan(layouts, dts_raw, dt_w, dt_b, A_s, B_s, C_s, Ds if n0 == 0 else torch.zeros_like(Ds))
+        part = scan(layouts, dts_raw, dt_w, dt_b, A_s, B_s, C_s, Ds if n0 == 0 else torch.zeros_like(Ds), y_dtype)
         y = part if y is None else y + part
+    y = y.to(layouts.dtype)
     return y[..., :D] if pd else y
 
 
@@ -577,8 +616,9 @@ def selective_scan_bwd_ref(u, delta, A, Bs, Cs, D, dy, chunk: int = SCAN_CHUNK, 
 
 
 def _check_scan1d(name, u, delta, A, Bs, Cs=None, D=None):
-    """Validate B6's inputs (fp32, one CUDA device); return them contiguous
-    (Cs and D may be None)."""
+    """Validate B6's inputs (u, delta, Bs and Cs one dtype of `SEQ_DTYPES`,
+    A and D fp32, one CUDA device); return them contiguous (Cs and D may be
+    None)."""
     if u.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {u.device}")
     G, L, Din = u.shape
@@ -586,8 +626,10 @@ def _check_scan1d(name, u, delta, A, Bs, Cs=None, D=None):
     args = [t for t in (u, delta, A, Bs, Cs, D) if t is not None]
     if any(t.device != u.device for t in args):
         raise ValueError(f"{name}: inputs on different devices")
-    if any(t.dtype != torch.float32 for t in args):
-        raise TypeError(f"{name}: the kernels take float32 inputs")
+    seq = [t for t in (u, delta, Bs, Cs) if t is not None]
+    if u.dtype not in SEQ_DTYPES or any(t.dtype != u.dtype for t in seq) \
+            or any(t.dtype != torch.float32 for t in (A, D) if t is not None):
+        raise TypeError(f"{name}: u, delta, Bs and Cs must share one dtype of {SEQ_DTYPES}, A and D be float32")
     if tuple(delta.shape) != (G, L, Din) or tuple(A.shape) != (G, Din, N) \
             or tuple(Bs.shape) != (G, L, N) or (Cs is not None and tuple(Cs.shape) != (G, L, N)) \
             or (D is not None and tuple(D.shape) != (G, Din)):
@@ -610,7 +652,7 @@ def selective_scan_fwd_summaries(u, delta, A, Bs):
     h_loc, sdt = _new(u.device, G, S, Din, N), _new(u.device, G, S, Din)
     rc = _lib("selective_scan_fwd").selective_scan_fwd_summaries(
         u.data_ptr(), delta.data_ptr(), A.data_ptr(), Bs.data_ptr(), h_loc.data_ptr(), sdt.data_ptr(),
-        G, L, Din, N, _stream(u))
+        G, L, Din, N, _is_bf16(u), _stream(u))
     _build.check(rc, "selective_scan_fwd_summaries")
     selective_scan_fwd_summaries.launches += 1
     return h_loc, sdt
@@ -641,20 +683,24 @@ def selective_scan_fwd_combine(A, h_loc, sdt, L: int, seed=None, dry: bool = Fal
     return (leave, decay) if dry else h_loc
 
 
-def selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in):
+def selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in, y_dtype=None):
     """Kernel B6's third launch: every segment rebuilt from its entering
-    state `h_in` (`selective_scan_fwd_combine`), y (G, L, Din). CUDA tensors
-    only; D may be None."""
+    state `h_in` (`selective_scan_fwd_combine`), y (G, L, Din) in `y_dtype`:
+    u's dtype (None) or float32. CUDA tensors only; D may be None."""
     u, delta, A, Bs, Cs, D = _check_scan1d("selective_scan_fwd_output", u, delta, A, Bs, Cs, D)
     G, L, Din = u.shape
     N = A.shape[-1]
     if tuple(h_in.shape) != (G, -(-L // SEG_STEPS), Din, N) or not h_in.is_contiguous() \
             or h_in.device != u.device:
         raise ValueError("selective_scan_fwd_output: h_in as selective_scan_fwd_combine gives it")
-    y = torch.empty_like(u)
+    y_dtype = y_dtype or u.dtype
+    if y_dtype not in (u.dtype, torch.float32):
+        raise TypeError(f"selective_scan_fwd_output: y is written in {u.dtype} or float32, not {y_dtype}")
+    y = torch.empty_like(u, dtype=y_dtype)
     rc = _lib("selective_scan_fwd").selective_scan_fwd_output(
         u.data_ptr(), delta.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
-        D.data_ptr() if D is not None else None, h_in.data_ptr(), y.data_ptr(), G, L, Din, N, _stream(u))
+        D.data_ptr() if D is not None else None, h_in.data_ptr(), y.data_ptr(), G, L, Din, N, _is_bf16(u),
+        int(y.dtype != u.dtype), _stream(u))
     _build.check(rc, "selective_scan_fwd_output")
     selective_scan_fwd_output.launches += 1
     return y
@@ -667,9 +713,12 @@ def scan1d_pieces(scan, u, delta, A, Bs, Cs, D, max_g: int = SCAN1D_MAX_G, max_d
     A = -1: a padded lane stays 0 from h = 0 and adds nothing to y), the
     groups' outputs added in turn, D in the first group only; each group's
     scan cut into launches of at most `max_g` groups and `max_din` channels.
-    One piece, without a copy, where the inputs fit."""
+    Several groups of bf16 sequences each write y in fp32 (`scan`'s keyword
+    y_dtype) and their sum is rounded to bf16 once, as the unsplit scan
+    rounds. One piece, without a copy, where the inputs fit."""
     G, L, Din = u.shape
     N = A.shape[-1]
+    f32 = {"y_dtype": torch.float32} if N > 32 and u.dtype == torch.bfloat16 else {}
     y = None
     for n0 in range(0, N, 32):
         n1 = min(n0 + 32, N)
@@ -683,25 +732,26 @@ def scan1d_pieces(scan, u, delta, A, Bs, Cs, D, max_g: int = SCAN1D_MAX_G, max_d
         for g0 in range(0, G, max_g):
             g = slice(g0, g0 + max_g)
             cols = [scan(u[g, :, d0:d0 + max_din], delta[g, :, d0:d0 + max_din], A_s[g, d0:d0 + max_din], B_s[g],
-                         C_s[g], None if D_s is None else D_s[g, d0:d0 + max_din])
+                         C_s[g], None if D_s is None else D_s[g, d0:d0 + max_din], **f32)
                     for d0 in range(0, Din, max_din)]
             blocks.append(cols[0] if len(cols) == 1 else torch.cat(cols, 2))
         part = blocks[0] if len(blocks) == 1 else torch.cat(blocks, 0)
         y = part if y is None else y + part
-    return y
+    return y.to(u.dtype)
 
 
-def _scan1d_launches(u, delta, A, Bs, Cs, D):
+def _scan1d_launches(u, delta, A, Bs, Cs, D, y_dtype=None):
     """Kernel B6's three launches on one piece that they take."""
     h_loc, sdt = selective_scan_fwd_summaries(u, delta, A, Bs)
     h_in = selective_scan_fwd_combine(A.contiguous(), h_loc, sdt, u.shape[1])
-    return selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in)
+    return selective_scan_fwd_output(u, delta, A, Bs, Cs, D, h_in, y_dtype)
 
 
 def _selective_scan_cuda(u, delta, A, Bs, Cs, D):
-    """Kernel B6 on fp32 inputs of any shape: its three launches on each
-    piece of `scan1d_pieces` (one piece at N in `SCAN1D_STATES`, G and Din
-    within the grid)."""
+    """Kernel B6 on inputs of any shape (u, delta, Bs, Cs one dtype of
+    `SEQ_DTYPES`, A and D fp32): its three launches on each piece of
+    `scan1d_pieces` (one piece at N in `SCAN1D_STATES`, G and Din within the
+    grid)."""
     y = scan1d_pieces(_scan1d_launches, u, delta, A, Bs, Cs, D)
     selective_scan.launches += 1
     return y
@@ -720,6 +770,8 @@ class _SelectiveScan(torch.autograd.Function):
         f32 = [t.float() if t is not None else None for t in (u, delta, A, Bs, Cs, D)]
         if u.device.type == "cpu":
             y = selective_scan_ref(*f32, chunk=chunk)
+        elif all(t.dtype == torch.bfloat16 for t in (u, delta, Bs, Cs)):  # B6 reads bf16 as it comes
+            y = _selective_scan_cuda(u, delta, f32[2], Bs, Cs, f32[5])
         else:
             y = _selective_scan_cuda(*f32)
         return y.to(u.dtype)
@@ -736,7 +788,8 @@ def selective_scan(u, delta, A, Bs, Cs, D=None, chunk: int = SCAN_CHUNK):
     """The one-direction S6 scan, the contract of `selective_scan_pallas`:
     u, delta (G, L, Din); A (G, Din, N); Bs, Cs (G, L, N); D (G, Din) or
     None -> y (G, L, Din) = C.h + D.u in u's dtype, from zero state. The
-    maths and the state are fp32 (other inputs are upcast). Kernel B6 for
+    maths and the state are fp32: B6 reads u, delta, Bs and Cs in bf16 when
+    all four are bf16, and other inputs are upcast. Kernel B6 for
     CUDA tensors, `selective_scan_ref` for CPU ones; differentiable in every
     input through `selective_scan_bwd_ref`, cotangents in each input's
     dtype. `chunk` sets the plain versions' working set, not the result."""
@@ -759,15 +812,15 @@ selective_scan_fwd_combine.launches = 0
 selective_scan_fwd_output.launches = 0
 
 _SIGNATURES = {
-    "selective_scan_fwd_summaries": (6, 4, 0),
+    "selective_scan_fwd_summaries": (6, 5, 0),
     "selective_scan_fwd_combine": (6, 5, 0),
-    "selective_scan_fwd_output": (8, 4, 0),
-    "ss2d_scan_fwd_summaries": (8, 5, 2),
+    "selective_scan_fwd_output": (8, 6, 0),
+    "ss2d_scan_fwd_summaries": (8, 6, 2),
     "ss2d_scan_fwd_combine": (6, 5, 0),
-    "ss2d_scan_fwd_output": (10, 5, 3),
-    "ss2d_scan_bwd_summaries": (11, 5, 3),
+    "ss2d_scan_fwd_output": (10, 7, 3),
+    "ss2d_scan_bwd_summaries": (11, 6, 3),
     "ss2d_scan_bwd_combine": (8, 5, 0),
-    "ss2d_scan_bwd_walk": (15, 5, 3),
+    "ss2d_scan_bwd_walk": (15, 6, 3),
 }
 
 

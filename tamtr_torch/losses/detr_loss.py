@@ -104,6 +104,10 @@ def rtdetr_detection_loss(outputs: Dict, targets: Dict[str, torch.Tensor], cfg: 
     compared with the matching held fixed. Returns (total, items): every
     component, the main three again as giou/class/bbox, and "match", the
     (layers, B, M) assignment of the matched layers (encoder first).
+    Every term is fp32 (at least) whatever the model's compute dtype: the
+    model's boxes and scores come out of its fp32 islands, and the logits
+    are cast up here as well (`tamtr_tpu/losses/detr_loss.py:113`), so the
+    matcher's costs are fp32 too.
     """
     gt_cls, gt_bboxes, gt_mask = targets["cls"], targets["bboxes"], targets["mask"].bool()
     B, M = gt_cls.shape

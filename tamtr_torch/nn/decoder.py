@@ -6,6 +6,15 @@ Attribute names follow the reference checkpoint (`VSSBlocks.{i}`,
 `input_proj.{i}.{0,1}`, `decoder.layers.{i}` with `in_proj_weight`,
 `enc_output.{0,1}`, `dec_score_head.{i}`, `dec_bbox_head.{i}.layers.{j}`,
 `denoising_class_embed`).
+
+Compute dtype: the layers compute in their input's dtype (`nn/layers.py`),
+and the head keeps the JAX package's fp32 islands (`tamtr_tpu/nn/decoder.py`):
+the sampling offsets, attention weights and locations (`:80-81`, `:182-197`),
+the encoder score head (`:590`), the contrastive score logits (`:239-240`),
+the box regression and decode (`:607`, `:634`, `:652`, `:678`), and the
+input projection's BatchNorm in train mode (`:541`). The CDN queries are
+fp32, so in train mode the decoder layers run in fp32 around the
+compute-dtype value projection and gather, as JAX's concat promotes them.
 """
 
 from __future__ import annotations
@@ -18,8 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tamtr_torch.kernels import at_least_fp32
 from tamtr_torch.kernels.deform_scatter import bilinear_gather
-from tamtr_torch.nn.layers import MLP, BatchNorm2d
+from tamtr_torch.nn.layers import MLP, BatchNorm2d, Conv2d, LayerNorm, Linear, at_input_dtype
 from tamtr_torch.nn.ssm import VSSBlock
 from tamtr_torch.ops.boxes import xywh2xyxy, xyxy2xywh
 from tamtr_torch.parallel.dist import batch_rows
@@ -102,18 +112,20 @@ class MSDeformAttn(nn.Module):
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8, n_points: int = 4):
         super().__init__()
         self.nh, self.nl, self.P = n_heads, n_levels, n_points
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
-        self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.value_proj = Linear(d_model, d_model)
+        self.sampling_offsets = Linear(d_model, n_heads * n_levels * n_points * 2)
+        self.attention_weights = Linear(d_model, n_heads * n_levels * n_points)
+        self.output_proj = Linear(d_model, d_model)
 
     def forward(self, query, refer_bbox, value, shapes):
-        """query (B, Q, C); refer_bbox (B, Q, 4) cxcywh in [0, 1]; value (B, Lv, C)."""
+        """query (B, Q, C); refer_bbox (B, Q, 4) cxcywh in [0, 1]; value (B, Lv, C).
+        The sampling offsets and attention weights are fp32 whatever the
+        query's dtype (bf16 would move the sampling points)."""
         B, Q, C = query.shape
         nh, nl, P = self.nh, self.nl, self.P
         v = self.value_proj(value).view(B, -1, nh, C // nh)
-        off = self.sampling_offsets(query).view(B, Q, nh, nl, P, 2)
-        w = self.attention_weights(query).view(B, Q, nh, nl * P).softmax(-1).view(B, Q, nh, nl, P)
+        off = self.sampling_offsets(at_least_fp32(query)).view(B, Q, nh, nl, P, 2)
+        w = self.attention_weights(at_least_fp32(query)).view(B, Q, nh, nl * P).softmax(-1).view(B, Q, nh, nl, P)
         xy = refer_bbox[:, :, None, None, None, :2]
         wh = refer_bbox[:, :, None, None, None, 2:]
         loc = xy + off / P * wh * 0.5
@@ -130,13 +142,13 @@ class MultiHeadSelfAttention(nn.Module):
         self.h = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model)
 
     def forward(self, q, k, v, mask: Optional[torch.Tensor] = None):
         B, Q, C = q.shape
         h, d = self.h, C // self.h
-        wq, wk, wv = self.in_proj_weight.chunk(3)
-        bq, bk, bv = self.in_proj_bias.chunk(3)
+        w, b = at_input_dtype(q, self.in_proj_weight, self.in_proj_bias, owner=self)
+        (wq, wk, wv), (bq, bk, bv) = w.chunk(3), b.chunk(3)
         qp = F.linear(q, wq, bq).view(B, Q, h, d).transpose(1, 2)
         kp = F.linear(k, wk, bk).view(B, -1, h, d).transpose(1, 2)
         vp = F.linear(v, wv, bv).view(B, -1, h, d).transpose(1, 2)
@@ -157,7 +169,9 @@ class ContrastiveHead(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """x (B, Q, C) region embeds; w (B, K, C) text embeds -> (B, Q, K)."""
+        """x (B, Q, C) region embeds; w (B, K, C) text embeds -> (B, Q, K)
+        logits, in fp32 whatever the inputs' dtype."""
+        x, w = at_least_fp32(x), at_least_fp32(w)
         xn = x / x.norm(dim=-1, keepdim=True).clamp(min=1e-12)
         wn = w / w.norm(dim=-1, keepdim=True).clamp(min=1e-12)
         return torch.einsum("bqc,bkc->bqk", xn, wn) * self.logit_scale.exp() + self.bias
@@ -169,14 +183,15 @@ class DeformableDecoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ffn: int, n_levels: int, n_points: int):
         super().__init__()
         self.self_attn = MultiHeadSelfAttention(d_model, n_heads)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, d_ffn)
+        self.linear2 = Linear(d_ffn, d_model)
+        self.norm3 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, embed, refer_bbox, feats, shapes, query_pos, attn_mask=None):
+        query_pos = query_pos.to(embed.dtype)
         q = embed + query_pos
         embed = self.norm1(embed + self.self_attn(q, q, embed, attn_mask))
         embed = self.norm2(embed + self.cross_attn(embed + query_pos, refer_bbox, feats, shapes))
@@ -289,15 +304,15 @@ class ManbaWorldDecoder(nn.Module):
         nl = len(ch)
         self.VSSBlocks = nn.ModuleList(VSSBlock(c, drop_path=vss_drop_path) for c in ch)
         self.input_proj = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(c, hd, 1, bias=False), BatchNorm2d(hd)) for c in ch
+            nn.Sequential(Conv2d(c, hd, 1, bias=False), BatchNorm2d(hd)) for c in ch
         )
         self.decoder = nn.ModuleDict({"layers": nn.ModuleList(
             DeformableDecoderLayer(hd, nh, d_ffn, nl, ndp) for _ in range(ndl)
         )})
         self.denoising_class_embed = nn.Embedding(nc + 1, hd)
         self.query_pos_head = MLP(4, 2 * hd, hd, 2)
-        self.enc_output = nn.Sequential(nn.Linear(hd, hd), nn.LayerNorm(hd, eps=1e-5))
-        self.enc_score_head = nn.Linear(hd, nc)
+        self.enc_output = nn.Sequential(Linear(hd, hd), LayerNorm(hd, eps=1e-5))
+        self.enc_score_head = Linear(hd, nc)
         self.enc_bbox_head = MLP(hd, hd, 4, 3)
         self.dec_score_head = nn.ModuleList(ContrastiveHead() for _ in range(ndl))
         self.dec_bbox_head = nn.ModuleList(MLP(hd, hd, 4, 3) for _ in range(ndl))
@@ -335,14 +350,14 @@ class ManbaWorldDecoder(nn.Module):
         anchors_np, valid_np = generate_anchors(shapes)
         anchors = torch.from_numpy(anchors_np).to(flat.device)
         valid = torch.from_numpy(valid_np.astype(np.float32)).to(flat.device)
-        features = self.enc_output(valid * flat)
-        enc_scores_all = self.enc_score_head(features)  # (B, L, nc)
+        features = self.enc_output(valid.to(flat.dtype) * flat)
+        enc_scores_all = self.enc_score_head(at_least_fp32(features))  # (B, L, nc), fp32
         k_eff = min(self.nq, enc_scores_all.shape[1])
         topk_ind = enc_scores_all.max(-1).values.topk(k_eff, dim=1).indices
         if k_eff < self.nq:  # tiny inputs: tile the selection up to nq queries
             topk_ind = topk_ind.repeat(1, -(-self.nq // k_eff))[:, : self.nq]
         top_feats = torch.gather(features, 1, topk_ind[..., None].expand(-1, -1, self.hd))
-        refer_logit = self.enc_bbox_head(top_feats) + anchors[topk_ind]
+        refer_logit = self.enc_bbox_head(at_least_fp32(top_feats)) + anchors[topk_ind]  # box regression in fp32
         enc_scores = torch.gather(enc_scores_all, 1, topk_ind[..., None].expand(-1, -1, self.nc))
         enc_bboxes = torch.sigmoid(refer_logit)
 
@@ -357,7 +372,7 @@ class ManbaWorldDecoder(nn.Module):
         dec_bboxes, dec_scores, last_refined = [], [], None
         for i, layer in enumerate(self.decoder["layers"]):
             output = layer(output, refer, flat, shapes, self.query_pos_head(refer), attn_mask)
-            bbox_delta = self.dec_bbox_head[i](output)
+            bbox_delta = self.dec_bbox_head[i](at_least_fp32(output))
             refined = torch.sigmoid(bbox_delta + inverse_sigmoid(refer))
             if train:
                 dec_scores.append(self.dec_score_head[i](output, text))

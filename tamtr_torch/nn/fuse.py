@@ -16,7 +16,9 @@ the same function with fewer launches; `model` itself is not changed.
   The JAX package leaves this to XLA, which folds eval BatchNorm into the
   conv under jit; in eager PyTorch each BatchNorm is a launch of its own.
 
-Folding is done in float64 and rounded once to the weights' dtype.
+Folding is done in float64 and rounded once to the weights' dtype (fp32:
+at a bf16 compute dtype the folded weights are cast at use, as every
+layer's are).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import copy
 import torch
 from torch import nn
 
-from tamtr_torch.nn.layers import ConvBN, RepConvN
+from tamtr_torch.nn.layers import Conv2d, ConvBN, RepConvN
 
 
 def _folded(conv: nn.Conv2d, bn: nn.BatchNorm2d):
@@ -39,9 +41,9 @@ def _folded(conv: nn.Conv2d, bn: nn.BatchNorm2d):
 
 def _conv_like(conv: nn.Conv2d, weight: torch.Tensor, bias: torch.Tensor, padding=None) -> nn.Conv2d:
     """A biased Conv2d with `conv`'s geometry (and `padding` if given)."""
-    out = nn.Conv2d(conv.in_channels, conv.out_channels, weight.shape[-2:], conv.stride,
-                    conv.padding if padding is None else padding, conv.dilation, conv.groups, bias=True,
-                    device=conv.weight.device, dtype=conv.weight.dtype)
+    out = Conv2d(conv.in_channels, conv.out_channels, weight.shape[-2:], conv.stride,
+                 conv.padding if padding is None else padding, conv.dilation, conv.groups, bias=True,
+                 device=conv.weight.device, dtype=conv.weight.dtype)
     out.weight.copy_(weight)
     out.bias.copy_(bias)
     return out
@@ -65,8 +67,10 @@ def fuse_repconv(m: RepConvN) -> nn.Conv2d:
 
 def fuse_model(model: nn.Module) -> nn.Module:
     """A fused eval copy of `model`, without gradients: every RepConvN
-    fused, every other conv + BatchNorm pair folded (module docstring). Its
-    tensors are ordinary ones also when called under inference mode."""
+    fused, every other conv + BatchNorm pair folded (module docstring). It
+    computes at the model's own dtype (`TAMTRModel.dtype`; `with_dtype` of
+    the twin for another); the folding is in float64 whatever the dtype.
+    Its tensors are ordinary ones also when called under inference mode."""
     with torch.inference_mode(False), torch.no_grad():
         twin = copy.deepcopy(model).eval()
         _fuse_in_place(twin)

@@ -11,6 +11,7 @@ threads the channel count of every layer through the graph.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 from pathlib import Path
@@ -110,12 +111,22 @@ class TAMTRModel(nn.Module):
     defaults; the CDN noise settings are the head's (`label_noise_ratio`,
     `box_noise_scale`). deploy=True builds every RepConvN fused (the layout
     of JAX's `fuse_repconv_variables`).
+
+    `dtype` is the compute dtype, the JAX `TAMTRModel.dtype`
+    (`tamtr_tpu/nn/graph.py:188, 221-222`): forward casts the image and the
+    text table to it and the layers follow their inputs, with the fp32
+    islands of `nn/layers.py`, `nn/ssm.py` and `nn/decoder.py`. The
+    parameters and buffers stay fp32 at any dtype, as flax's `param_dtype`;
+    the outputs are fp32. dtype=None (the default) computes in the
+    parameters' own dtype, so a model cast with `.double()` computes in fp64.
     """
 
     def __init__(self, cfg: Dict[str, Any], nc: Optional[int] = None, max_gt: int = 128,
                  num_denoising: int = 100, vss_drop_path: float = 0.1,
-                 label_noise_ratio: float = 0.5, box_noise_scale: float = 1.0, deploy: bool = False):
+                 label_noise_ratio: float = 0.5, box_noise_scale: float = 1.0, deploy: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.specs, (self.head_from, head_args), self.save, self.nc = parse_graph(cfg, nc)
         _, hd, nq, ndp, nh, ndl = head_args[:6]
         ch: List[int] = []
@@ -142,12 +153,29 @@ class TAMTRModel(nn.Module):
     def from_cfg(cls, path: str | Path, nc: Optional[int] = None, **kw) -> "TAMTRModel":
         return cls(load_model_cfg(path), nc, **kw)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: the one set, else the parameters'."""
+        return self._dtype or next(self.parameters()).dtype
+
+    @dtype.setter
+    def dtype(self, dtype: Optional[torch.dtype]) -> None:
+        self._dtype = dtype
+
+    def with_dtype(self, dtype: torch.dtype) -> "TAMTRModel":
+        """A twin computing at `dtype` that shares this model's modules,
+        parameters and buffers (the JAX `model.clone(dtype=...)` over the
+        same variables); `self` itself keeps its dtype."""
+        twin = copy.copy(self)
+        twin.dtype = dtype
+        return twin
+
     def forward(self, img: torch.Tensor, text: torch.Tensor,
                 targets: Optional[Dict[str, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None):
         if text.shape[0] != img.shape[0]:
             text = text.expand(img.shape[0], *text.shape[1:])
-        x = img.permute(0, 3, 1, 2)  # convolutions run NCHW
+        x, text = img.permute(0, 3, 1, 2).to(self.dtype), text.to(self.dtype)  # convolutions run NCHW
         y: List[Optional[torch.Tensor]] = []
         for (idx, f, m, _), mod in zip(self.specs, self.model):
             if isinstance(f, tuple):

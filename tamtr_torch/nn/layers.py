@@ -7,6 +7,14 @@ the reference's. BatchNorm eps is 1e-3, the reference's value after
 momentum 0.97, running variance from the biased batch variance), and
 DropPath draws its masks from a generator the caller passes in; under
 `parallel.dist.data_parallel` both act over the global batch.
+
+Compute dtype (flax's `dtype` with fp32 `param_dtype`): the parameters stay
+fp32, and each `Linear` and `Conv2d` computes in its input's dtype with its
+weight cast at use (`at_input_dtype`), so autograd carries every gradient
+back to the fp32 master; without autograd the casts are kept until the
+weights change. `TAMTRModel` casts its inputs to the model's
+dtype; the fp32 islands cast their inputs up. BatchNorm is one: fp32 in
+train mode, the activation's dtype in eval (its statistics stay fp32).
 """
 
 from __future__ import annotations
@@ -17,10 +25,60 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tamtr_torch.kernels import at_least_fp32
 from tamtr_torch.parallel.dist import all_reduce_sum, batch_rows, data_groups
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch convention: running = (1 - 0.03) running + 0.03 batch (flax 0.97)
+
+
+def at_input_dtype(x: torch.Tensor, *params: Optional[torch.Tensor], owner: Optional[nn.Module] = None):
+    """`params` cast to x's dtype for one use (None stays None): a layer
+    computes in its input's dtype, as flax's `dtype=x.dtype` does, and the
+    gradient of the cast returns to the fp32 parameter. At x's dtype the
+    parameters themselves, uncopied.
+
+    Given the module `owner` that holds `params`, and no gradient to carry
+    (grad mode off, or parameters that take none), the casts are kept on
+    `owner` and made again only when a parameter changes (its storage or
+    version counter, as `engine/model.py:weights_key` reads them): an eval
+    forward at bf16 then casts each weight once, not on every call."""
+    if all(p is None or p.dtype == x.dtype for p in params):
+        return list(params)
+    if owner is None or (torch.is_grad_enabled() and any(p is not None and p.requires_grad for p in params)):
+        return [None if p is None else p.to(x.dtype) for p in params]
+    stamp = (x.dtype,) + tuple(None if p is None else (p.data_ptr(), -1 if p.is_inference() else p._version)
+                               for p in params)
+    kept = owner.__dict__.get("_cast_at_use")
+    if kept is None or kept[0] != stamp or any(a is not b for a, b in zip(kept[1], params)):
+        with torch.inference_mode(False), torch.no_grad():  # ordinary tensors, also under inference mode
+            casts = [None if p is None else p.detach().to(x.dtype) for p in params]
+        kept = owner.__dict__["_cast_at_use"] = (stamp, params, casts)
+    return list(kept[2])
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in its input's dtype (`at_input_dtype`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, *at_input_dtype(x, self.weight, self.bias, owner=self))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in its input's dtype (`at_input_dtype`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, *at_input_dtype(x, self.weight, self.bias, owner=self))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm returning its input's dtype: a bf16 input is normalised
+    in fp32 against the fp32 affine and rounded once, as flax's LayerNorm
+    with `dtype=x.dtype` computes (the card's layer_norm takes no bf16 input
+    with fp32 weights)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(at_least_fp32(x)).to(x.dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -36,7 +94,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     mean of each rank's variance plus its mean's squared offset from the
     global one), so the backward sees the global moments too. (flax's
     one-pass E[x^2] - E[x]^2 moved a nano step's loss 7.6e-4 from the
-    one-process step's; the merged centred moments keep it within 1e-5.)"""
+    one-process step's; the merged centred moments keep it within 1e-5.)
+
+    In train mode the moments and the normalisation run in fp32 and the
+    result returns in x's dtype (`tamtr_tpu/nn/layers.py:64-76`); in eval
+    the normalisation takes x's dtype, as F.batch_norm computes a bf16 x
+    against the fp32 statistics in fp32 and rounds once."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
@@ -44,6 +107,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        return self._train_forward(at_least_fp32(x)).to(x.dtype)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         groups = data_groups()
         if groups is not None and groups.data_size > 1:
             return self._global_batch_norm(x, groups)
@@ -105,7 +171,7 @@ class ConvBN(nn.Module):
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
                  g: int = 1, act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
         self.bn = BatchNorm2d(c2)
         self.act = act
 
@@ -122,7 +188,7 @@ class RepConvN(nn.Module):
     def __init__(self, c1: int, c2: int, act: bool = True, deploy: bool = False):
         super().__init__()
         if deploy:
-            self.fused = nn.Conv2d(c1, c2, 3, 1, 1, bias=True)
+            self.fused = Conv2d(c1, c2, 3, 1, 1, bias=True)
         else:
             self.conv1 = ConvBN(c1, c2, 3, 1, p=1, act=False)
             self.conv2 = ConvBN(c1, c2, 1, 1, p=0, act=False)
@@ -192,7 +258,7 @@ class MaxSigmoidAttnBlock(nn.Module):
         super().__init__()
         self.nh, self.hc, self.ec_dim = nh, c2 // nh, ec
         self.ec = ConvBN(c1, ec, 1, act=False) if c1 != ec else None
-        self.gl = nn.Linear(gc, ec)
+        self.gl = Linear(gc, ec)
         self.bias = nn.Parameter(torch.zeros(nh))
         self.proj_conv = ConvBN(c1, c2, 3, 1, act=False)
 
@@ -284,7 +350,7 @@ class MLP(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int):
         super().__init__()
         dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.layers = nn.ModuleList(Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):

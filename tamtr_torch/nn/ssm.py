@@ -9,6 +9,12 @@ everywhere (torch's default, which the reference uses).
 Parameter names and shapes follow the reference checkpoint: `A_logs` is
 (K*D, N) and `Ds` is (K*D,), with K = 4 directions.
 
+Compute dtype (`tamtr_tpu/nn/ssm.py:302-348`): the projections, the
+depthwise conv and the scan's sequence I/O (layouts, dts_raw, Bs, Cs and
+y) run in the input's dtype; A, the dt projection (dt_w, dt_b) and Ds are
+fp32, as are the scan's maths and state; `out_norm` is an fp32 LayerNorm
+whose result returns to the input's dtype.
+
 Inside `sequence_parallel(group)` every SS2D scan whose token axis divides
 by the group's size runs `parallel.seq_scan.ss2d_scan_sp` over the group
 (the counterpart of `tamtr_tpu/nn/ssm.py:sequence_parallel`); other scans
@@ -31,7 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tamtr_torch.kernels.selective_scan import selective_scan, selective_scan_ref, ss2d_scan  # noqa: F401
-from tamtr_torch.nn.layers import DropPath
+from tamtr_torch.kernels import at_least_fp32
+from tamtr_torch.nn.layers import Conv2d, DropPath, LayerNorm, Linear, at_input_dtype
 from tamtr_torch.parallel.seq_scan import GroupBlocks, LocalBlocks, ss2d_scan_sp
 
 K_DIRS = 4
@@ -79,15 +86,15 @@ class SS2D(nn.Module):
         d_inner = int(ssm_ratio * d_model)
         self.d_inner, self.N = d_inner, d_state
         self.R = math.ceil(d_model / 16)
-        self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=False)
-        self.conv2d = nn.Conv2d(d_inner, d_inner, d_conv, padding=d_conv // 2, groups=d_inner)
+        self.in_proj = Linear(d_model, 2 * d_inner, bias=False)
+        self.conv2d = Conv2d(d_inner, d_inner, d_conv, padding=d_conv // 2, groups=d_inner)
         self.x_proj_weight = nn.Parameter(torch.empty(K_DIRS, self.R + 2 * d_state, d_inner))
         self.dt_projs_weight = nn.Parameter(torch.empty(K_DIRS, d_inner, self.R))
         self.dt_projs_bias = nn.Parameter(torch.empty(K_DIRS, d_inner))
         self.A_logs = nn.Parameter(torch.empty(K_DIRS * d_inner, d_state))
         self.Ds = nn.Parameter(torch.empty(K_DIRS * d_inner))
-        self.out_norm = nn.LayerNorm(d_inner, eps=1e-5)
-        self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+        self.out_norm = LayerNorm(d_inner, eps=1e-5)
+        self.out_proj = Linear(d_inner, d_model, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, _ = x.shape
@@ -99,7 +106,7 @@ class SS2D(nn.Module):
         x_col = xm.transpose(1, 2).reshape(B, L, Di)
         layouts = torch.stack([x_row, x_col], 1)  # (B, 2, L, Di)
         # direction k = 2f + j projects layout j with x_proj_weight[k]
-        Wp = self.x_proj_weight.view(2, 2, R + 2 * N, Di)
+        Wp = at_input_dtype(layouts, self.x_proj_weight, owner=self)[0].view(2, 2, R + 2 * N, Di)
         x_dbl = torch.einsum("bjld,fjcd->bfjlc", layouts, Wp).contiguous()  # (B, 2, 2, L, R+2N)
         dts_raw, Bs, Cs = x_dbl.split([R, N, N], dim=-1)  # views the kernel reads in place
         A = -torch.exp(self.A_logs.view(K_DIRS, Di, N))
@@ -109,7 +116,7 @@ class SS2D(nn.Module):
         )  # (B, 4, L, Di) natural order
         y_col = (ys[:, 1] + ys[:, 3]).view(B, W, H, Di).transpose(1, 2).reshape(B, L, Di)
         y = ys[:, 0] + ys[:, 2] + y_col
-        y = self.out_norm(y).view(B, H, W, Di) * z
+        y = self.out_norm(at_least_fp32(y)).to(x.dtype).view(B, H, W, Di) * z
         return self.out_proj(y)
 
 
@@ -118,8 +125,8 @@ class Mlp(nn.Module):
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -133,9 +140,9 @@ class VSSBlock(nn.Module):
     def __init__(self, hidden_dim: int, d_state: int = 16, ssm_ratio: float = 2.0,
                  mlp_ratio: float = 4.0, drop_path: float = 0.0):
         super().__init__()
-        self.norm = nn.LayerNorm(hidden_dim, eps=1e-5)
+        self.norm = LayerNorm(hidden_dim, eps=1e-5)
         self.op = SS2D(hidden_dim, d_state=d_state, ssm_ratio=ssm_ratio)
-        self.norm2 = nn.LayerNorm(hidden_dim, eps=1e-5)
+        self.norm2 = LayerNorm(hidden_dim, eps=1e-5)
         self.mlp = Mlp(hidden_dim, int(hidden_dim * mlp_ratio))
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)

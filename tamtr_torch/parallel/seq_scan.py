@@ -161,17 +161,18 @@ class _Phases:
         leave, decay = ss2d_scan_fwd_combine(args[4], h_loc, sdt, args[0].shape[2], dry=True)
         return (args, h_loc, sdt), torch.stack([decay, leave])
 
-    def output(self, args, kept, seed):
+    def output(self, args, kept, seed, y_dtype):
         if not self.cuda:
-            return ss2d_scan_ref(*args, h0=seed)
+            return ss2d_scan_ref(*args, y_dtype, h0=seed)
         args, h_loc, sdt = kept
         h_in = ss2d_scan_fwd_combine(args[4], h_loc, sdt, args[0].shape[2], seed=seed)
-        return ss2d_scan_fwd_output(*args, h_in)
+        return ss2d_scan_fwd_output(*args, h_in, y_dtype)
 
     def carry_summary(self, args, dy):
         if not self.cuda:
             def last(k, u, dt, Ak, Bk, Ck):
-                return leaving_carry(dt, Ak, Ck, dy[:, k].flip(1) if k >= 2 else dy[:, k])
+                dyk = dy[:, k].float()
+                return leaving_carry(dt, Ak, Ck, dyk.flip(1) if k >= 2 else dyk)
             return None, _direction_summaries(args, last)
         args = _check_cuda("ss2d_scan_sp", *args, SEG_CHANNELS)
         summ = ss2d_scan_carriers(*args[:7], dy)
@@ -193,14 +194,14 @@ def _to_full(blocks, parts: List[torch.Tensor], dim: int) -> torch.Tensor:
 
 class _SS2DScanSP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, blocks, plain, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds):
+    def forward(ctx, blocks, plain, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype=None):
         args = (layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
         ph = _Phases(not plain)
         mine = [_ss2d_block_args(args, r, blocks.n) for r in blocks.blocks]
         first = [ph.summary(a) for a in mine]
         summaries = blocks.gather([s for _, s in first])
         seeds = [_entering(summaries, r, backward=False) for r in blocks.blocks]
-        ys = [ph.output(a, kept, seed) for a, (kept, _), seed in zip(mine, first, seeds)]
+        ys = [ph.output(a, kept, seed, y_dtype) for a, (kept, _), seed in zip(mine, first, seeds)]
         ctx.blocks, ctx.plain, ctx.seeds = blocks, plain, seeds
         ctx.save_for_backward(*args)
         return _to_full(blocks, ys, 2)
@@ -209,7 +210,7 @@ class _SS2DScanSP(torch.autograd.Function):
     def backward(ctx, dy):
         blocks, args = ctx.blocks, ctx.saved_tensors
         ph = _Phases(not ctx.plain)
-        dy = dy.float()
+        dy = dy.to(args[0].dtype)
         mine = [_ss2d_block_args(args, r, blocks.n) for r in blocks.blocks]
         dys = [_block(dy, 2, r, blocks.n).contiguous() for r in blocks.blocks]
         first = [ph.carry_summary(a, d) for a, d in zip(mine, dys)]
@@ -220,14 +221,15 @@ class _SS2DScanSP(torch.autograd.Function):
         d_layouts, d_dts, d_dtw, d_dtb, dA, dBs, dCs, d_Ds = zip(*grads)
         return (None, None, _to_full(blocks, d_layouts, 2), _to_full(blocks, d_dts, 3), blocks.sum(d_dtw),
                 blocks.sum(d_dtb), blocks.sum(dA), _to_full(blocks, dBs, 3), _to_full(blocks, dCs, 3),
-                blocks.sum(d_Ds))
+                blocks.sum(d_Ds), None)
 
 
 def ss2d_scan_sp(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, blocks):
     """Sequence-parallel 4-direction SS2D scan: the contract of
     `kernels.selective_scan.ss2d_scan` (layouts (B, 2, L, D); dts_raw
     (B, 2, 2, L, R); dt_w (4, D, R); dt_b (4, D); A (4, D, N); Bs, Cs
-    (B, 2, 2, L, N); Ds (4, D) -> y (B, 4, L, D), fp32), with the token axis
+    (B, 2, 2, L, N); Ds (4, D) -> y (B, 4, L, D) in the sequence dtype,
+    fp32 or bf16, the seeds and summaries fp32), with the token axis
     cut into `blocks.n` blocks (L must divide by it), each direction's walk
     the two-phase blocked scan. Differentiable; on CUDA tensors at any N
     and D through `ss2d_pieces`, on CPU tensors by the plain versions."""

@@ -17,6 +17,11 @@ NaN guard and EMA (torch port of the semantics of
 - EMA of the parameters and BatchNorm statistics with decay
   0.9999 (1 - exp(-t / 2000)), t the optimizer step count, ticking only on
   optimizer steps.
+- A model computing in bf16 (`TAMTRModel.dtype`) trains its fp32
+  parameters as the masters: each layer casts its weight at use, so the
+  gradients come back fp32, and the clip, AdamW, the EMA and the guard run
+  as at fp32 (the JAX package's flat bf16 pre-cast of the parameters is a
+  TPU workaround, not ported).
 
 On several ranks (`groups`, `parallel/dist.py`) a step on n data ranks of
 B/n images each is the one-process step on the global batch of B, as the

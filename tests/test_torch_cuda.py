@@ -834,3 +834,271 @@ def test_autobatch_train_on_the_card(card):
     b = autobatch_train("tamtr-nano.yaml", nc=3, imgsz=64, max_gt=8, device=card, max_batch=64)
     assert 1 <= b <= 64
     assert torch.equal(torch.random.get_rng_state(), state)
+
+
+# ---------------------------------------------------------------------------
+# bf16 I/O of B1, B3, B2 and B4: each kernel against its plain bf16 version
+# (fp32 maths, rounded once), and bitwise over two calls
+# ---------------------------------------------------------------------------
+
+BF16_SCAN_CASES = [
+    (1, 1, 32, 1),  # L = 1
+    (5, 7, 32, 2),  # L = 35
+    (6, 8, 32, 1),  # L = 48
+    (7, 7, 32, 2),  # L = 49
+    (1, 97, 32, 2),  # L = 97
+    (20, 20, 128, 2),  # L = 400
+    (40, 40, 512, 2),  # L = 1600
+]
+
+
+def _bf16_seq(args):
+    """The scan's sequence tensors (layouts, dts_raw, Bs, Cs) in bf16, the
+    parameters fp32."""
+    return [t.to(torch.bfloat16) if i in (0, 1, 5, 6) else t for i, t in enumerate(args)]
+
+
+def _within_bf16_steps(got, want, steps: float, floor: float):
+    """|got - want| within `steps` bf16 steps (2^-7 of the larger
+    magnitude's power of two) beyond an absolute floor."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+    unit = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    worst = float(((got - want).abs() - floor).clamp(min=0).div(unit).max())
+    assert worst <= steps, worst
+
+
+@pytest.mark.parametrize("H,W,C,B", BF16_SCAN_CASES)
+def test_ss2d_scan_kernels_bf16_match_plain(card, H, W, C, B):
+    """B1 and B3 at bf16 sequence I/O against the plain scan and backward
+    at bf16: y within one bf16 step beyond 2^-10 absolute (both compute in
+    fp32 and round once); every gradient in its primal's dtype, the bf16
+    ones (d_layouts, d_dts, dBs, dCs) within 2e-2 of the plain ones and the
+    fp32 ones within 2e-3; two calls bitwise equal."""
+    from tamtr_torch.kernels.selective_scan import (
+        ss2d_scan, ss2d_scan_bwd, ss2d_scan_bwd_ref, ss2d_scan_carriers, ss2d_scan_ref,
+    )
+
+    args, dy = _scan_bwd_args(card, B, H, W, C, seed=7)
+    args, dy = _bf16_seq(args), dy.to(torch.bfloat16)
+    before = (ss2d_scan.launches, ss2d_scan_carriers.launches)
+    y, y2 = ss2d_scan(*args), ss2d_scan(*args)
+    got, got2 = ss2d_scan_bwd(*args, dy), ss2d_scan_bwd(*args, dy)
+    torch.cuda.synchronize()
+    assert (ss2d_scan.launches - before[0], ss2d_scan_carriers.launches - before[1]) == (2, 2)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip(got, got2))
+    _within_bf16_steps(y, ss2d_scan_ref(*args), 1.0, 2.0**-10)
+    for i, (g, want, primal) in enumerate(zip(got, ss2d_scan_bwd_ref(*args, dy), args)):
+        assert g.dtype == want.dtype == primal.dtype, i
+        tol = 2e-2 if g.dtype == torch.bfloat16 else 2e-3
+        torch.testing.assert_close(g.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("N,D", [(8, 40), (24, 96)])
+def test_ss2d_scan_bf16_any_state_size_and_width(card, N, D):
+    """bf16 sequence I/O through `ss2d_pieces` (padded lanes and channels):
+    y within one bf16 step beyond 2^-10 of the unsplit plain scan at every
+    N (several groups of 16 lanes write y in fp32 and the sum is rounded
+    once, as the unsplit scan rounds); the gradients against the same
+    pieces on the CPU's plain scan and plain backward (`_SS2DScan` there:
+    du rounded to bf16 before the D-skip, as the kernels do), the fp32 ones
+    within 2e-3, the bf16 ones within 2e-2 relative and 4e-2 absolute
+    (autograd adds the groups' bf16 gradients in bf16)."""
+    from tamtr_torch.kernels.selective_scan import _SS2DScan, ss2d_pieces, ss2d_scan, ss2d_scan_ref
+
+    args, dy = _pieces_args(card, N, D)
+    args, dy = _bf16_seq(args), dy.to(torch.bfloat16)
+    ts = [t.detach().clone().requires_grad_(True) for t in args]
+    y = ss2d_scan(*ts)
+    y.backward(dy)
+    refs = [t.detach().cpu().requires_grad_(True) for t in args]
+    ss2d_pieces(_SS2DScan.apply, *refs).backward(dy.cpu())
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    _within_bf16_steps(y.detach(), ss2d_scan_ref(*args), 1.0, 2.0**-10)
+    for t, r in zip(ts, refs):
+        assert t.grad.dtype == t.dtype
+        atol, rtol = (4e-2, 2e-2) if t.dtype == torch.bfloat16 else (2e-3, 2e-3)
+        torch.testing.assert_close(t.grad.float().cpu(), r.grad.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("B,Q,P,c,shapes", [
+    (2, 9, 4, 64, [(6, 7), (3, 4), (2, 3)]),  # ppq = 24, four bf16 a lane
+    (2, 9, 1, 64, [(6, 7), (3, 4), (2, 3)]),  # the general path
+    (2, 9, 4, 34, [(6, 7), (3, 4), (2, 3)]),  # two bf16 a lane
+    (4, 700, 4, 64, [(160, 160), (80, 80), (40, 40)]),  # the 640 px training shape
+])
+def test_bilinear_gather_kernel_bf16_matches_plain(card, B, Q, P, c, shapes):
+    """B2 on bf16 value rows: out bf16, within 2e-2 of the plain gather at
+    bf16 (fp32 sums, rounded once), bitwise over two calls, with a sample
+    point in the global last pixel cell."""
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_ref
+    from tamtr_torch.nn.decoder import deform_sampling_pairs
+
+    g = torch.Generator().manual_seed(2)
+    nh, nl = 8, len(shapes)
+    Lv = sum(h * w for h, w in shapes)
+    value = torch.randn(B, Lv, nh, c, generator=g).to(card, torch.bfloat16)
+    loc = torch.rand(B, Q, nh, nl, P, 2, generator=g) * 1.4 - 0.2
+    H, W = shapes[-1]
+    loc[0, 0, 0, nl - 1, 0] = torch.tensor([1 - 0.2 / W, 1 - 0.2 / H])
+    w_att = torch.rand(B, Q, nh, nl, P, generator=g).to(card)
+    idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc.to(card), w_att)
+    assert int(idx2.max()) == Lv - 1
+    out, again = bilinear_gather(value, idx4, w_pairs, idx2, nl * P), bilinear_gather(value, idx4, w_pairs, idx2, nl * P)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    torch.testing.assert_close(out.float(), bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("c,hot", [(64, False), (64, True), (34, True)])
+def test_bilinear_gather_bwd_kernel_bf16_is_bitwise_the_rows_version(card, c, hot):
+    """B4 on bf16 value and dout: dvalue bf16, bitwise equal over two calls
+    and to `bilinear_gather_bwd_rows_ref` at bf16 (the same fp32 terms and
+    sums, rounded once at the row's store), within 3e-2 of the scatter-add
+    form; dw fp32 within 1e-4 of both."""
+    from tamtr_torch.kernels.deform_scatter import (
+        bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_bwd_rows_ref,
+    )
+    from tamtr_torch.nn.decoder import deform_sampling_pairs
+
+    shapes = [(16, 20), (8, 10), (4, 5)]
+    g = torch.Generator().manual_seed(12)
+    B, Q, nh, nl, P = 2, 60, 4, 3, 4
+    Lv = sum(h * w for h, w in shapes)
+    value = torch.randn(B, Lv, nh, c, generator=g)
+    loc = torch.rand(B, Q, nh, nl, P, 2, generator=g) * 1.2 - 0.1
+    loc[0, 0, 0, 2, 0] = torch.tensor([1 - 0.2 / 5, 1 - 0.2 / 4])  # last pixel cell
+    w_att = torch.rand(B, Q, nh, nl, P, generator=g)
+    dout = torch.randn(B, Q, nh, c, generator=g)
+    _, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
+    if hot:
+        idx2[1, :, 2] = 123
+    value, dout = (t.to(card, torch.bfloat16) for t in (value, dout))
+    w_pairs, idx2 = w_pairs.to(card), idx2.to(card)
+    dv, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout)
+    dv2, dw2 = bilinear_gather_bwd(value, idx2, w_pairs, dout)
+    torch.cuda.synchronize()
+    assert dv.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert torch.equal(dv, dv2) and torch.equal(dw, dw2)
+    dv_rows, dw_rows = bilinear_gather_bwd_rows_ref(value, idx2, w_pairs, dout)
+    assert torch.equal(dv, dv_rows)
+    dv_ref, dw_ref = bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
+    torch.testing.assert_close(dw, dw_rows, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dw, dw_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dv.float(), dv_ref.float(), atol=3e-2, rtol=3e-2)
+
+
+def test_kernels_refuse_other_dtypes(card):
+    """A dtype the kernels do not take raises; nothing falls back."""
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather
+    from tamtr_torch.kernels.selective_scan import ss2d_scan
+
+    args, _ = _scan_bwd_args(card, 1, 5, 7, 32)
+    with pytest.raises(TypeError):
+        ss2d_scan(*[t.half() if i in (0, 1, 5, 6) else t for i, t in enumerate(args)])
+    with pytest.raises(TypeError):
+        ss2d_scan(*_bf16_seq(args)[:1], *args[1:])  # layouts bf16, the rest fp32
+    value = torch.randn(1, 30, 8, 64, device=card, dtype=torch.half)
+    idx2 = torch.zeros(1, 24, 8, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        bilinear_gather(value, idx2.repeat(1, 2, 1), torch.rand(1, 24, 8, 2, device=card), idx2, 12)
+
+
+def test_half_model_runs_through_the_bf16_kernels(card):
+    """A nano model computing in bf16 on the card: its forward launches B1
+    and B2 on bf16 tensors, and a training step B3 and B4 too."""
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_bwd
+    from tamtr_torch.kernels.selective_scan import ss2d_scan, ss2d_scan_bwd_walk
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.train.trainer import Trainer, TrainConfig
+    from tamtr_torch.weights import init_parameters
+
+    model = TAMTRModel.from_cfg("tamtr-nano.yaml", nc=4, max_gt=8, dtype=torch.bfloat16)
+    init_parameters(model, 0)
+    counters = (ss2d_scan, bilinear_gather, ss2d_scan_bwd_walk, bilinear_gather_bwd)
+    before = [f.launches for f in counters]
+    tr = Trainer(model, TrainConfig(batch_size=2), device=card)
+    g = torch.Generator().manual_seed(0)
+    m = tr.step({"img": torch.rand(2, 64, 64, 3, generator=g), "txt_feats": torch.randn(2, 4, 128, generator=g),
+                 "cls": torch.zeros(2, 8, dtype=torch.long), "bboxes": torch.rand(2, 8, 4, generator=g) * 0.3 + 0.2,
+                 "mask": torch.ones(2, 8, dtype=torch.bool)})
+    with torch.no_grad():
+        pred = tr.ema.eval()(torch.rand(1, 64, 64, 3, device=card), torch.randn(1, 4, 128, device=card))["pred"]
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [6, 6, 3, 3]
+    assert math.isfinite(m["loss"]) and pred.dtype == torch.float32 and bool(torch.isfinite(pred).all())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_row_scatters_bf16_are_bitwise_the_rows_versions(card):
+    """B7 and B8 on a bf16 dout: the output bf16, bitwise equal over two
+    calls and to the plain rows transcriptions at bf16 (the same fp32 terms
+    and sums, each row rounded once at its store), within 1e-2 of the
+    plain scatters; `weighted_gather`'s dvalue for a bf16 value comes from
+    B7 at bf16, with a row that 1440 updates hit."""
+    from tamtr_torch.kernels.deform_scatter import (
+        scatter_acc, scatter_acc_pairs, scatter_acc_pairs_ref, scatter_acc_pairs_rows_ref, scatter_acc_ref,
+        scatter_acc_rows_ref, weighted_gather,
+    )
+
+    g = torch.Generator().manual_seed(18)
+    B, L, nh, c, Q, p4 = 2, 500, 8, 64, 30, 48
+    idx = torch.randint(0, L, (B, Q * p4, nh), generator=g, dtype=torch.int32)
+    idx[1, :, 3] = L - 1
+    w = torch.randn(B, Q * p4, nh, generator=g)
+    dout = torch.randn(B, Q, nh, c, generator=g)
+    idx, w, d16 = idx.to(card), w.to(card), dout.to(card, torch.bfloat16)
+    out, again = scatter_acc(idx, w, d16, L), scatter_acc(idx, w, d16, L)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    assert torch.equal(out, scatter_acc_rows_ref(idx, w, d16, L))
+    torch.testing.assert_close(out.float(), scatter_acc_ref(idx, w, d16, L).float(), atol=1e-2, rtol=1e-2)
+    value = torch.randn(B, L, nh, c, generator=g).to(card, torch.bfloat16).requires_grad_()
+    before = scatter_acc.launches
+    (dv,) = torch.autograd.grad(weighted_gather(value, idx, w, p4), value, d16)
+    torch.cuda.synchronize()
+    assert scatter_acc.launches == before + 1 and dv.dtype == torch.bfloat16 and torch.equal(dv, out)
+
+    G, L2, Q, per_q = 16, 700, 40, 24
+    idx2 = torch.randint(0, L2 - 1, (G, Q * per_q), generator=g, dtype=torch.int32)
+    idx2[1, 10:60] = idx2[1, 9]
+    wa, wb = torch.randn(G, Q * per_q, generator=g), torch.randn(G, Q * per_q, generator=g)
+    dout = torch.randn(G, Q, c, generator=g)
+    args = [t.to(card) for t in (idx2, wa, wb)] + [dout.to(card, torch.bfloat16)]
+    out, again = scatter_acc_pairs(*args, L2), scatter_acc_pairs(*args, L2)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    assert torch.equal(out, scatter_acc_pairs_rows_ref(*args, L2))
+    torch.testing.assert_close(out.float(), scatter_acc_pairs_ref(*args, L2).float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("G,L,Din,N", [(4, 97, 40, 16), (2, 400, 256, 8), (1, 1, 32, 32), (2, 97, 40, 48)])
+def test_selective_scan_kernel_bf16_matches_plain(card, G, L, Din, N):
+    """B6 on bf16 u, delta, Bs and Cs (A and D fp32): y bf16 within one bf16
+    step beyond 2^-10 of the plain scan on the same values (fp32 maths,
+    rounded once; past 32 state lanes each group of `scan1d_pieces` writes
+    y in fp32 and the sum is rounded once), two calls bitwise equal, three
+    launches a call and group of 32 lanes."""
+    from tamtr_torch.kernels.selective_scan import (
+        selective_scan, selective_scan_fwd_output, selective_scan_fwd_summaries, selective_scan_ref,
+    )
+
+    g = torch.Generator().manual_seed(19)
+    u = torch.randn(G, L, Din, generator=g)
+    delta = torch.rand(G, L, Din, generator=g) * 0.2
+    A = -torch.exp(torch.rand(G, Din, N, generator=g))
+    Bs, Cs = torch.randn(G, L, N, generator=g), torch.randn(G, L, N, generator=g)
+    D = torch.randn(G, Din, generator=g)
+    seq = [t.to(card, torch.bfloat16) for t in (u, delta, Bs, Cs)]
+    A, D = A.to(card), D.to(card)
+    before = (selective_scan_fwd_summaries.launches, selective_scan_fwd_output.launches)
+    y, again = selective_scan(seq[0], seq[1], A, seq[2], seq[3], D), selective_scan(seq[0], seq[1], A, seq[2], seq[3], D)
+    torch.cuda.synchronize()
+    n = 2 * -(-N // 32)
+    assert (selective_scan_fwd_summaries.launches - before[0], selective_scan_fwd_output.launches - before[1]) == (n, n)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, again)
+    want = selective_scan_ref(seq[0].float(), seq[1].float(), A, seq[2].float(), seq[3].float(), D)
+    _within_bf16_steps(y, want.to(torch.bfloat16), 1.0, 2.0**-10)

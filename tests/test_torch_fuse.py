@@ -4,7 +4,7 @@ randomised BatchNorm statistics (2e-5, `tests/test_fuse.py`'s bound), the
 fused kernels against JAX's `fuse_repconv_variables` (1e-6), the whole nano
 model against JAX's deploy model (1e-3 as a tie-robust set), predict with
 and without fuse (1e-4), a twin that follows the weights through training,
-and half=True refused."""
+and half=True with and without fuse."""
 
 import sys
 from pathlib import Path
@@ -18,6 +18,7 @@ from scipy.optimize import linear_sum_assignment
 
 from tamtr_tpu.nn import layers as JL
 from tamtr_tpu.nn.fuse import fuse_repconv_variables
+from tamtr_torch.config import get_cfg
 from tamtr_torch.engine.model import Engine
 from tamtr_torch.nn import layers as PL
 from tamtr_torch.nn.fuse import fuse_conv_bn, fuse_model
@@ -238,11 +239,22 @@ def test_fused_val_and_track_equal_unfused(port_nano, train_data):
 
 
 def test_half_raises_naming_its_roadmap_entry(port_nano, train_data, tmp_path):
+    """half=True used to raise naming ROADMAP queue A item 5, the bf16 path;
+    that item is ported now, so predict, track and val run with half=True,
+    with and without fuse=True, on a twin computing in bf16 that shares or
+    folds the fp32 weights and leaves the model's own dtype alone (parity
+    with JAX's bf16 model: `tests/test_torch_bf16.py`)."""
     eng = Engine("tamtr-nano.yaml", device="cpu")
     eng.model = port_nano
     eng.set_classes(NAMES, unit_text())
     images = str(Path(train_data).parent / "val" / "images")
-    for call in (lambda: eng.predict(images, half=True), lambda: eng.track(images, half=True),
-                 lambda: eng.val(data=str(train_data), half=True, plots=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 5"):
-            call()
+    for fuse in (False, True):
+        plain = eng.predict(images, conf=0.01)
+        half = eng.predict(images, conf=0.01, half=True, fuse=fuse)
+        twin = eng._eval_model(port_nano, get_cfg(overrides={"half": True, "fuse": fuse}))
+        assert twin.dtype == torch.bfloat16 and port_nano.dtype == torch.float32
+        assert (twin.model is port_nano.model) != fuse  # the unfused twin shares the modules
+        assert len(half) == len(plain) and sum(len(r) for r in half) > 0
+        assert len(eng.track(images, half=True, fuse=fuse)) == len(plain)
+        metrics = eng.val(data=str(train_data), half=True, fuse=fuse, plots=False)
+        assert metrics and all(np.isfinite(v) for v in metrics.values())

@@ -243,16 +243,35 @@ def _assert_same_rows(got, want, atol):
     assert (dist[r, c] < atol).sum() >= len(r) - 1, np.sort(dist[r, c])[-3:]
 
 
+def jax_forward_and_topk(model, params, batch_stats, batch):
+    """The JAX model's train-mode forward on the batch, the BatchNorm
+    statistics after it, and the (B, nq) query indices its top-k selected,
+    in order (read by wrapping `jax.lax.top_k` while the forward traces)."""
+    img = batch["img"].astype(np.float32) / 255.0
+    picked, top_k = [], jax.lax.top_k
+
+    def recording(x, k):
+        res = top_k(x, k)
+        picked.append(res[1])
+        return res
+
+    def fwd(p, bs, i, t, tg):
+        out = model.apply({"params": p, "batch_stats": bs}, i, t, tg, True,
+                          rngs={"cdn": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)},
+                          mutable=["batch_stats"])
+        return out, picked[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.lax, "top_k", recording)
+        (out, mut), topk = jax.jit(fwd)(params, batch_stats, jnp.asarray(img), jnp.asarray(batch["txt_feats"]),
+                                        _targets(batch, "jax"))
+    return out, mut, [torch.from_numpy(np.asarray(topk).astype(np.int64))]
+
+
 @pytest.fixture(scope="module")
 def jax_train_forward(jax_nano, batch):
-    """The JAX model's train-mode forward on the batch, and the BatchNorm
-    statistics after it."""
-    model, params, batch_stats = jax_nano
-    img = batch["img"].astype(np.float32) / 255.0
-    return jax.jit(lambda p, bs, i, t, tg: model.apply(
-        {"params": p, "batch_stats": bs}, i, t, tg, True,
-        rngs={"cdn": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)}, mutable=["batch_stats"],
-    ))(params, batch_stats, jnp.asarray(img), jnp.asarray(batch["txt_feats"]), _targets(batch, "jax"))
+    """`jax_forward_and_topk` of the nano model on the batch."""
+    return jax_forward_and_topk(*jax_nano, batch)
 
 
 def test_train_mode_forward_matches_jax(jax_nano, jax_train_forward, batch):
@@ -265,7 +284,7 @@ def test_train_mode_forward_matches_jax(jax_nano, jax_train_forward, batch):
     exp(logit_scale) = 14.3, carry that times 14: hence 2e-3 on boxes and
     2e-2 on scores (weighted 0.1 in the row sets)."""
     _, params, batch_stats = jax_nano
-    out_j, mut = jax_train_forward
+    out_j, mut, _ = jax_train_forward
     img = batch["img"].astype(np.float32) / 255.0
     port = _port_model(params, batch_stats).train()
     with torch.no_grad():
@@ -321,12 +340,16 @@ def test_modules_in_train_mode_match_jax(jax_nano, idx):
 
 @pytest.fixture(scope="module")
 def jax_step(jax_nano, batch):
-    """One `make_train_step` on the nano model; its gradient is read back
-    from the first Adam moment: m = (1 - b1) * g * clip_coef."""
+    """`run_jax_step` of the nano model."""
+    return run_jax_step(*jax_nano, batch)
+
+
+def run_jax_step(model, params, batch_stats, batch):
+    """One `make_train_step` of `model`; its gradient is read back from the
+    first Adam moment: m = (1 - b1) * g * clip_coef."""
     from tamtr_tpu.losses.detr_loss import DETRLossConfig as JCfg
     from tamtr_tpu.train import trainer as jtrain
 
-    model, params, batch_stats = jax_nano
     cfg = jtrain.TrainConfig(batch_size=B, warmup_iters=10, epochs=2)
     tx = jtrain.make_optimizer(cfg, params, steps_per_epoch=10)
     p_flat = jtrain.flatten_tree(params)
@@ -363,29 +386,82 @@ def _jax_assignment(out_j, batch):
     return torch.from_numpy(np.asarray(q).astype(np.int64)).view(L, B, M)
 
 
-def _port_grads(port, batch, dtype, match, monkeypatch, topk=None):
-    """Parameter gradients of one train-mode forward + loss with `match` as
-    the assignment; records the decoder's top-k query indices, or replays
-    `topk` so that another precision selects the same queries in the same
-    order."""
-    model = copy.deepcopy(port).to(dtype).train()
-    tg = {**_targets(batch, "torch"), "bboxes": torch.from_numpy(batch["bboxes"]).to(dtype)}
-    orig, record = torch.Tensor.topk, []
+def pin_topk(mp, topk, record):
+    """Patch `torch.Tensor.topk` on `mp`: each call's indices are appended
+    to `record`, or, given `topk` (one (B, k) index tensor a call), those
+    are returned in order, so that a forward selects the same queries in the
+    same order as another."""
+    orig = torch.Tensor.topk
 
     def pinned(self, *a, **kw):
         if topk is None:
             res = orig(self, *a, **kw)
             record.append(res.indices)
             return res
-        return torch.return_types.topk((self.gather(1, topk[len(record)]), topk[len(record)]))
+        idx = topk[len(record) % len(topk)]
+        record.append(idx)
+        return torch.return_types.topk((self.gather(1, idx), idx))
 
+    mp.setattr(torch.Tensor, "topk", pinned)
+
+
+def _port_grads(port, batch, dtype, match, monkeypatch, topk=None):
+    """Parameter gradients of one train-mode forward + loss with `match` as
+    the assignment (or the port's own, None); records the decoder's top-k
+    query indices, or replays `topk` so that another precision or package
+    selects the same queries in the same order."""
+    model = copy.deepcopy(port).to(dtype).train()
+    tg = {**_targets(batch, "torch"), "bboxes": torch.from_numpy(batch["bboxes"]).to(dtype)}
+    record = []
     with monkeypatch.context() as mp:
-        mp.setattr(torch.Tensor, "topk", pinned)
+        pin_topk(mp, topk, record)
         out = model(torch.from_numpy(batch["img"]).to(dtype) / 255.0, torch.from_numpy(batch["txt_feats"]).to(dtype), tg)
     loss, items = rtdetr_detection_loss(out, tg, DETRLossConfig(nc=NC), match=match)
     loss.backward()
     grads = {k: p.grad.double().numpy() if p.grad is not None else np.zeros(tuple(p.shape)) for k, p in model.named_parameters()}
-    return loss.item(), items["match"], grads, record
+    return loss.item(), items["match"], grads, record, {k: v.detach() if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+def _matched_layers(out, batch):
+    """(L, B, nq, 4) boxes and (L, B, nq, nc) logits of a train forward's
+    matched layers (encoder first), as numpy, and its dn count."""
+    nd = int(out["num_dn"])
+    return [np.concatenate([np.asarray(out[f"enc_{k}"])[None], np.asarray(out[f"dec_{k}"])[:, :, nd:]], 0)
+            for k in ("bboxes", "scores")]
+
+
+def assert_swaps_within_noise(match, jmatch, out_p, out_j, batch):
+    """The port's own assignment against JAX's: equal, or different only by
+    swaps of near-tied pairs. For a layer and image whose k gts differ, the
+    swap's margin is its cost under JAX's cost matrix above JAX's own
+    assignment, C_j(port) - C_j(jax) (the cost of `losses/matcher.py:
+    match_cost` on JAX's forward), and the two forwards' measured distance
+    is d = max |C_port - C_j| over the image's valid entries: an optimal
+    assignment of C_port lies within 2 k d of JAX's under C_j, so a margin
+    above that is a fault, not rounding. Returns the (layer, image, k,
+    margin, 2 k d) of each swap."""
+    from tamtr_torch.losses.matcher import match_cost
+
+    (bp, sp), (bj, sj) = _matched_layers(out_p, batch), _matched_layers(out_j, batch)
+    gt_b, gt_c = torch.from_numpy(batch["bboxes"]), torch.from_numpy(batch["cls"])
+    swaps = []
+    for layer in range(jmatch.shape[0]):
+        cp, cj = (match_cost(torch.from_numpy(b).float(), torch.from_numpy(s).float(), gt_b, gt_c).numpy()
+                  for b, s in ((bp[layer], sp[layer]), (bj[layer], sj[layer])))
+        for i in range(B):
+            n = int(batch["mask"][i].sum())
+            mine, theirs = match[layer, i, :n].numpy(), jmatch[layer, i, :n].numpy()
+            k = int((mine != theirs).sum())
+            if k == 0:
+                continue
+            cols = np.arange(n)
+            margin = float(cj[i][mine, cols].sum() - cj[i][theirs, cols].sum())
+            d = float(np.abs(cp[i][:, :n] - cj[i][:, :n]).max())
+            swaps.append((layer, i, k, margin, 2 * k * d))
+    print("assignment swaps (layer, image, gts moved, margin under JAX's costs, 2 k d):", swaps)
+    for layer, i, k, margin, allowed in swaps:
+        assert margin <= allowed, (layer, i, k, margin, allowed)
+    return swaps
 
 
 def test_whole_train_step_matches_make_train_step(jax_nano, jax_step, jax_train_forward, batch, monkeypatch):
@@ -393,17 +469,32 @@ def test_whole_train_step_matches_make_train_step(jax_nano, jax_step, jax_train_
     jcfg, metrics, jgrads, jparams, jstats, jema = jax_step
     port = _port_model(params, batch_stats)
 
-    # The assignment and the top-k query order are discrete choices that
-    # rounding can flip, each moving whole terms of the gradient. The port
-    # must reach the JAX matcher's assignment itself; the gradients are then
-    # taken with that assignment, and the port's fp32 rounding floor with an
-    # fp64 pass that also replays the fp32 top-k order.
-    jmatch = _jax_assignment(jax_train_forward[0], batch)
-    loss32, match, g32, topk = _port_grads(port, batch, torch.float32, None, monkeypatch)
-    valid = torch.from_numpy(batch["mask"])[None].expand_as(jmatch)
-    assert torch.equal(match[valid], jmatch[valid])
+    # The top-k query order and the assignment are discrete choices that
+    # rounding can flip, each moving whole terms of the gradient. The
+    # port's matcher equals JAX's bitwise on identical costs
+    # (`test_torch_kernels_bwd.py::test_hungarian_match_equals_jax_on_both_solvers`);
+    # here the two forwards differ by rounding. So the port's own choices
+    # are checked apart: its top-k selects scores within the forwards'
+    # score bound (2e-2, `test_train_mode_forward_matches_jax`) of JAX's,
+    # and, given JAX's query order, its own assignment may differ from
+    # JAX's only by swaps of near-tied pairs (`assert_swaps_within_noise`).
+    # Under some CPUs' fp32 rounding the top-k order itself differs
+    # (near-tied encoder scores), and the assignment of the port's own
+    # forward then misses JAX's at gts such as 14 and 15. The gradients and
+    # the Trainer's step are then taken with JAX's query order and
+    # assignment, and the port's fp32 rounding floor with an fp64 pass that
+    # replays the same.
+    out_j, _, jtopk = jax_train_forward
+    jmatch = _jax_assignment(out_j, batch)
+    own = _port_grads(port, batch, torch.float32, None, monkeypatch)
+    picked = lambda o: np.sort(np.asarray(o["enc_scores"]).max(-1), -1)  # noqa: E731
+    np.testing.assert_allclose(picked(own[4]), picked(out_j), atol=2e-2)
+    print(f"top-k positions that differ from JAX's: {int((own[3][0] != jtopk[0]).sum())} of {jtopk[0].numel()}")
+    _, own_match, _, _, out_pinned = _port_grads(port, batch, torch.float32, None, monkeypatch, topk=jtopk)
+    assert_swaps_within_noise(own_match, jmatch, out_pinned, out_j, batch)
+    loss32, _, g32, _, _ = _port_grads(port, batch, torch.float32, jmatch, monkeypatch, topk=jtopk)
     np.testing.assert_allclose(loss32, float(metrics["loss"]), rtol=1e-4)
-    _, _, g64, _ = _port_grads(port, batch, torch.float64, jmatch, monkeypatch, topk=topk)
+    _, _, g64, _, _ = _port_grads(port, batch, torch.float64, jmatch, monkeypatch, topk=jtopk)
     gsd, _ = from_jax_variables(jgrads, batch_stats, port)
     gj = {k: gsd[k].double().numpy() for k in g32}
     whole = lambda g: np.concatenate([v.ravel() for v in g.values()])  # noqa: E731
@@ -425,10 +516,13 @@ def test_whole_train_step_matches_make_train_step(jax_nano, jax_step, jax_train_
     probe = ("model.41.VSSBlocks.0.op.x_proj_weight", "model.41.decoder.layers.0.cross_attn.value_proj.weight")
     assert all(np.abs(g32[k]).max() > 0 for k in probe)
 
-    # the step itself through the Trainer
+    # the step itself through the Trainer, with JAX's query order and assignment
     before = {k: p.detach().clone().numpy() for k, p in port.named_parameters()}
     tr = ptrain.Trainer(port, _port_cfg(jcfg), steps_per_epoch=10, device="cpu")
-    m = tr.step(batch)
+    monkeypatch.setattr(ptrain, "rtdetr_detection_loss", lambda o, t, c: rtdetr_detection_loss(o, t, c, match=jmatch))
+    with monkeypatch.context() as mp:
+        pin_topk(mp, jtopk, [])
+        m = tr.step(batch)
     assert m["stepped"] == 1.0
     np.testing.assert_allclose(m["loss"], float(metrics["loss"]), rtol=1e-4)
     np.testing.assert_allclose(m["grad_norm"], float(metrics["grad_norm"]), rtol=1e-2)

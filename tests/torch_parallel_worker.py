@@ -10,6 +10,10 @@ checks to `<out>.<rank>` (torch.save):
   nano: one `tamtr-nano.yaml` step on a batch of 4 at 64 px: one process at
         one torch thread (the reference) and at three (the fp32 noise
         floor), 2 data ranks of 2 (plain and ZeRO), and data 1 x sp 2;
+  nano_bf16: the same step of the model computing in bf16: one process at
+        one and at three torch threads, and 2 data ranks of 2;
+  stem_bf16: the gradient of the nano model's first three layers at bf16
+        (`stem_bf16`), one process against 2 data ranks;
   val:  `Engine.val` of the model in <arg>/model.pt on <arg>/data.json.
 """
 
@@ -25,7 +29,9 @@ from torch import nn
 
 import tamtr_torch.train.trainer as trainer_mod
 from tamtr_torch.nn.layers import BatchNorm2d
-from tamtr_torch.parallel.dist import global_sum, init_distributed, make_groups, shard_batch
+from tamtr_torch.parallel.dist import (
+    all_reduce_grads, data_parallel, global_sum, init_distributed, make_groups, shard_batch,
+)
 from tamtr_torch.train.trainer import Trainer, TrainConfig
 
 
@@ -87,11 +93,11 @@ def nano_batch(B=4, M=3, nc=5, sz=64, hd=128):
             "mask": np.tile(np.arange(M)[None] < 2, (B, 1))}
 
 
-def nano():
+def nano(dtype=torch.float32):
     from tamtr_torch.nn.graph import TAMTRModel
     from tamtr_torch.weights import init_parameters
 
-    model = TAMTRModel.from_cfg("tamtr-nano.yaml", nc=5, max_gt=3)
+    model = TAMTRModel.from_cfg("tamtr-nano.yaml", nc=5, max_gt=3, dtype=dtype)
     init_parameters(model, 0)
     batch = [nano_batch()]
     cfg = TrainConfig(batch_size=4, warmup_iters=10, epochs=2, accumulate=1)
@@ -107,8 +113,52 @@ def nano():
         torch.set_num_threads(1)
     dp, dpsp = make_groups(1), make_groups(2)
     out["dp"] = run(trainer(groups=dp), batch, dp)
+    if dtype != torch.float32:
+        return out
     out["zero"] = run(trainer(groups=dp, zero=True), batch, dp)
     out["dpsp"] = run(trainer(groups=dpsp), batch, dpsp)
+    return out
+
+
+def stem_bf16():
+    """The nano model's first three layers (two ConvBN, the ELAN stack:
+    train-mode BatchNorm in each, in fp32 on bf16 activations) on 4 images
+    of 32 px in bf16, loss sum(out * w) for a fixed w: the gradient (summed
+    over the data ranks, as the trainer sums it), the running statistics and
+    the output rows, of one process at one and at three torch threads, of 2
+    data ranks of 2, and of one process on the first 2 images alone."""
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.weights import init_parameters
+
+    model = TAMTRModel.from_cfg("tamtr-nano.yaml", nc=5, max_gt=3, dtype=torch.bfloat16)
+    init_parameters(model, 0)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((4, 3, 32, 32), dtype=np.float32)).to(torch.bfloat16)
+
+    def grads(rows, groups=None):
+        stem = copy.deepcopy(model.model[:3]).train()
+        with data_parallel(groups):
+            out = x[rows]
+            for layer in stem:
+                out = layer(out)
+        w = torch.from_numpy(np.random.default_rng(6).standard_normal((4, *out.shape[1:])).astype(np.float32))
+        (out.float() * w[rows]).sum().backward()
+        g = [p.grad for p in stem.parameters()]
+        if groups is not None:
+            all_reduce_grads(g, groups.data)
+        stats = [b for n, b in stem.named_buffers() if "running" in n]
+        return torch.cat([t.reshape(-1) for t in g]), torch.cat([t.reshape(-1) for t in stats]), out.detach().float()
+
+    out = {}
+    if dist.get_rank() == 0:
+        out["one"] = grads(slice(0, 4))
+        torch.set_num_threads(3)
+        out["floor"] = grads(slice(0, 4))
+        torch.set_num_threads(1)
+        out["half"] = grads(slice(0, 2))
+    dp = make_groups(1)
+    r = dp.data_rank
+    out["dp"] = grads(slice(2 * r, 2 * r + 2), dp)
     return out
 
 
@@ -130,6 +180,7 @@ if __name__ == "__main__":
     torch.set_num_threads(1)
     case, out_path = sys.argv[1], sys.argv[2]
     init_distributed("cpu")
-    result = {"tiny": tiny, "nano": nano, "val": lambda: val(sys.argv[3])}[case]()
+    result = {"tiny": tiny, "nano": nano, "nano_bf16": lambda: nano(torch.bfloat16), "stem_bf16": stem_bf16,
+              "val": lambda: val(sys.argv[3])}[case]()
     torch.save(result, f"{out_path}.{dist.get_rank()}")
     dist.destroy_process_group()
