@@ -163,6 +163,22 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    with half=True), each with its launch counters zeroed before and read
    after. The kernels line carries the bf16 numbers (and the main path's
    bf16 launches for B1-B4) under `bf16` in the entries of B1-B4 and B6-B8.
+9-variants. loss_variants: one full-width TAM-TR `Trainer.step` at 640 px,
+   batch 4, max_gt 300 for each `DETRLossConfig` switch (`use_sl`,
+   `use_svfl`, `nwd_loss`, `use_wiseiou`): finite, B1-B5 launched as
+   `TRAIN_LAUNCHES_PER_STEP`, the loss equal to the CPU's on the same head
+   outputs, targets and assignment (1e-5 relative).
+9-yolo. yolo: `yolo-gelan.yaml` (nc 10, full width, seeded, heads spread):
+   eval at 640 px, batch 1 and 4, of the serve frames, card = CPU (1e-3);
+   fuse=True (1e-4) and half=True beside it; one training step card
+   against CPU (TAL tensors (4, 300, 8400): the assignment's moved anchors
+   counted, at most 1% of the foreground; given the CPU's assignment the
+   loss items and the gradient within 2x the CPU's fp32-vs-fp64 distance);
+   `Trainer.step` timed (ms, peak, busy share); `Engine.train` 2 epochs of
+   the fit dataset, val square and rect; predict of the JPEG fixtures with
+   and without TTA; track of the track phase's frames (bytetrack); serve
+   ms at batch 1 and 4. The launch counters, zeroed before, read after:
+   no kernel runs on the Detect path.
 9a. parallel: in a process of its own, `torch.distributed` over NCCL with
    a world of one rank on the card, deterministic algorithms on: one
    `Trainer.step` of `tamtr.yaml` at 640 px, batch 4, max_gt 300 under the
@@ -185,8 +201,9 @@ other kernel ran (B1 and B3 once a piece in ss2d_pieces).
 The autobatch phase checks instead that its three steps launched each
 kernel `TRAIN_LAUNCHES_PER_STEP` times three.
 Each result line ends with the card's name and power limit in brackets.
-10. One JSON line of per-kernel numbers (`launches_fit`: the fit phase's),
-   then the result line `{"ok": true, "device": {...}}` last.
+10. One JSON line of per-kernel numbers (`launches_fit`: the fit phase's;
+   `launches_yolo`, `launches_loss_variants`: those phases'), then the
+   result line `{"ok": true, "device": {...}}` last.
 """
 
 from __future__ import annotations
@@ -2590,6 +2607,315 @@ def info(best: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The YOLO Detect family (`yolo-gelan.yaml`) and the DETR loss variants
+# ---------------------------------------------------------------------------
+
+YOLO_NC = 10
+YOLO_STEPS = 3  # timed Trainer.steps, after two warm-up steps
+VARIANTS = {"use_sl": dict(use_sl=True), "use_svfl": dict(use_svfl=True), "nwd_loss": dict(nwd_loss=True),
+            "use_wiseiou": dict(use_wiseiou=True)}
+
+
+def spread_detect(model):
+    """A fresh Detect head that assigns and detects: class biases 0 (scores
+    near 0.5, not the prior's 1e-4) and box biases that put each side's DFL
+    mass on bins 1 and 2 (boxes of about 3 cells, not 15)."""
+    head = model.model[-1]
+    with torch.no_grad():
+        for b, c in zip(head.cv2, head.cv3):
+            b[2].bias.copy_((-2.0 * (torch.arange(head.reg_max, dtype=torch.float32) - 1.5).abs()).repeat(4))
+            c[2].bias.zero_()
+
+
+@torch.no_grad()
+def calibrate_detect_head(model, img, txt):
+    """The eval-mode head normalising `img`'s features with their own
+    statistics (`tests/torch_engine_data.py:calibrated_head`): each head
+    BatchNorm takes its input's batch moments, and the first of each branch
+    a scale of sqrt((var + eps) / var), which undoes BatchNorm's eps. At
+    init SiLU shrinks the activations to ~1e-4 at the head (~3e-7 at its
+    deepest level), far under eps (1e-3): the head's outputs would be its
+    biases alone, the same for every image."""
+    feats = []
+    head = model.model[-1]
+    hook = head.register_forward_pre_hook(lambda m, a: feats.append(a[0]))
+    model.eval()(img, txt)
+    hook.remove()
+    for f, branches in zip(feats[0], zip(head.cv2, head.cv3)):
+        for br in branches:
+            x = f
+            for j, cb in enumerate(br[:2]):
+                var, mean = torch.var_mean(cb.conv(x), (0, 2, 3), unbiased=False)
+                cb.bn.running_mean.copy_(mean)
+                cb.bn.running_var.copy_(var)
+                if j == 0:
+                    cb.bn.weight.mul_(torch.where(var > 0, torch.sqrt((var + cb.bn.eps) / var.clamp(min=1e-30)), 1.0))
+                x = cb(x)
+
+
+def yolo_train_parity(dev, batch):
+    """One training step of the full-width yolo-gelan (nc 10, the heads
+    spread) at 640 px, batch 4, max_gt 300, card against CPU from one state
+    dict. TAL's assignment, a discrete function of the predictions, on the
+    card against the CPU's: the anchors whose foreground flag or gt differ
+    are counted and printed, at most 1% of the CPU's foreground. Then with
+    the CPU's assignment given to the card and to a CPU fp64 pass: the
+    largest relative loss-item difference card vs CPU <= 2x the CPU's vs
+    fp64 (or 2e-6, twice the rounding of an fp32 sum over the B * A * nc =
+    336000 terms of the class BCE, should the fp64 pass come closer), and
+    |g_card - g_cpu| <= 2 |g_cpu - g_fp64| over the whole gradient
+    (`check_train_parity`'s rule). Returns the summary."""
+    import copy
+
+    from tamtr_torch.losses.v8_loss import V8LossConfig, v8_detection_loss
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.weights import init_parameters
+
+    base = TAMTRModel.from_cfg("yolo-gelan.yaml", nc=YOLO_NC, max_gt=TRAIN_MAX_GT)
+    init_parameters(base, 0)
+    spread_detect(base)
+    cfg = V8LossConfig(nc=YOLO_NC, imgsz=TRAIN_IMGSZ)
+
+    def grads_on(d, dtype=torch.float32, assign=None):
+        model = copy.deepcopy(base).to(d, dtype).train()
+        t = {"cls": torch.from_numpy(batch["cls"]).to(d), "mask": torch.from_numpy(batch["mask"]).to(d),
+             "bboxes": torch.from_numpy(batch["bboxes"]).to(d, dtype)}
+        out = model(torch.from_numpy(batch["img"]).to(d, dtype) / 255.0, torch.from_numpy(batch["txt_feats"]).to(d))
+        loss, items = v8_detection_loss(out, t, cfg, assign=None if assign is None else
+                                        {k: v.to(d) for k, v in assign.items()})
+        loss.backward()
+        grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).detach().flatten().cpu().double()
+                           for p in model.parameters()])
+        vals = {"loss": float(loss.detach()), **{k: float(items[k].detach()) for k in ("box", "cls", "dfl")}}
+        return vals, {k: v.cpu() for k, v in items["assign"].items()}, grads
+
+    t0 = time.perf_counter()
+    cpu_items, cpu_assign, cpu_g = grads_on(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    _, gpu_assign, gpu_own_g = grads_on(dev)
+    fg, gfg = cpu_assign["fg_mask"], gpu_assign["fg_mask"]
+    moved = int((fg != gfg).sum() + ((cpu_assign["target_gt"] != gpu_assign["target_gt"]) & fg & gfg).sum())
+    fix_items, _, gpu_g = grads_on(dev, assign=cpu_assign)
+    exact_items, _, exact_g = grads_on(torch.device("cpu"), torch.float64, assign=cpu_assign)
+    rel = lambda a, b: max(abs(a[k] - v) / max(abs(v), 1e-12) for k, v in b.items())  # noqa: E731
+    worst_fixed, item_noise = rel(fix_items, cpu_items), rel(cpu_items, exact_items)
+    d_card, d_noise = (gpu_g - cpu_g).norm().item(), (cpu_g - exact_g).norm().item()
+    finite = bool(torch.isfinite(gpu_own_g).all()) and all(math.isfinite(v) for v in fix_items.values())
+    summary = dict(fg_cpu=int(fg.sum()), tal_anchors_moved=moved, items_cpu=cpu_items, items_card=fix_items,
+                   worst_item_rel=worst_fixed, item_noise_rel=item_noise,
+                   grad_rel=d_card / cpu_g.norm().item(), grad_noise_rel=d_noise / cpu_g.norm().item(),
+                   cpu_fwd_bwd_s=cpu_s)
+    say(f"yolo train parity yolo-gelan {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}, TAL tensors "
+        f"({TRAIN_BATCH}, {TRAIN_MAX_GT}, {fg.shape[1]}): {json.dumps(summary)}", flush=True)
+    if not (finite and fg.sum() > 0 and moved <= 0.01 * int(fg.sum()) and worst_fixed <= 2 * max(item_noise, 1e-6)
+            and d_card <= 2 * d_noise):
+        raise AssertionError(f"yolo train parity failed: {summary}")
+    return summary
+
+
+def yolo(dev, data: str):
+    """The YOLO Detect family on the card: `yolo-gelan.yaml` at nc 10, full
+    width, seeded weights with its heads spread, every launch counter zeroed
+    before and read after: no kernel of the port runs on this path.
+      - eval at 640 px, batch 1 and 4, of the serve phase's 1360x765 frames
+        (resized on the card), its head calibrated on them
+        (`calibrate_detect_head`): pred, boxes over the input size, equal to
+        the CPU's on the same weights within 1e-3; `TAMTR.predict(images,
+        text)` timed at batch 1 and 4, and the forward alone;
+      - `fuse=True` against the fp32 unfused forward at batch 4 (1e-4),
+        `half=True` and both (bf16: finite, the distance reported);
+      - one training step card against CPU (`yolo_train_parity`), then
+        `Trainer.step` timed: two warm-up and YOLO_STEPS timed steps, peak
+        memory, busy share (a step's kernel time by torch.profiler over its
+        wall);
+      - `Engine.train` for 2 epochs of the fit dataset with val each epoch,
+        then `Engine.val` square and rect on its `best.pt`;
+      - `TAMTR.predict` of the JPEG fixtures with and without TTA, and
+        `TAMTR.track` of the track phase's frames with `bytetrack`."""
+    import copy
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tamtr_torch import TAMTR
+    from tamtr_torch.config import get_cfg
+    from tamtr_torch.engine.model import Engine, normalized_pred
+    from tamtr_torch.train.trainer import TrainConfig
+
+    counters = zero_counters()
+    rng = np.random.default_rng(4)
+    frames = [rng.integers(0, 256, (765, 1360, 3), dtype=np.uint8) for _ in range(4)]
+    text = rng.standard_normal((YOLO_NC, 512)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    det = TAMTR("yolo-gelan.yaml", nc=YOLO_NC, seed=0)
+    spread_detect(det.model)
+    img, _ = det._to_batch(frames)
+    txt = torch.from_numpy(text[None]).to(dev)
+    calibrate_detect_head(det.model, img, txt)
+    det.set_classes([f"class{i}" for i in range(YOLO_NC)], text)
+    cpu_model = copy.deepcopy(det.model).cpu()
+    hw = img.shape[1:3]
+    out = {}
+    with torch.inference_mode():
+        for b in (1, TRAIN_BATCH):
+            got = normalized_pred(det.model, det.model(img[:b], txt)["pred"], hw).cpu().numpy()
+            want = normalized_pred(cpu_model, cpu_model(img[:b].cpu(), txt.cpu())["pred"], hw).numpy()
+            out[f"eval_b{b}_worst"] = float(np.abs(got - want).max())
+            out[f"eval_b{b}_score_std"] = float(want[..., 4:].std())
+            if not np.isfinite(got).all() or out[f"eval_b{b}_worst"] > 1e-3 or want[..., 4:].std() < 0.05:
+                raise AssertionError(f"yolo eval b{b}: card vs cpu {out}")
+        base = normalized_pred(det.model, det.model(img, txt)["pred"], hw)
+        for name, kw in (("fuse", dict(fuse=True)), ("half", dict(half=True)), ("fuse_half", dict(fuse=True,
+                                                                                                   half=True))):
+            twin = det._engine._eval_model(det.model, get_cfg(overrides=kw))
+            p = normalized_pred(twin, twin(img, txt)["pred"], hw)
+            out[f"{name}_worst"] = float((p - base).abs().max())
+            out[f"{name}_rms"] = float((p - base).square().mean().sqrt())
+            if not torch.isfinite(p).all() or p.dtype != torch.float32:
+                raise AssertionError(f"yolo {name}: pred not finite fp32")
+        if out["fuse_worst"] > 1e-4:
+            raise AssertionError(f"yolo fuse: {out['fuse_worst']} from the unfused forward")
+    times = {"b1": [], "b4": []}
+    for key, images in (("b1", frames[0]), ("b4", frames)):
+        det.predict(images, text)  # warm-up: conv algorithms
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res = det.predict(images, text)  # ends in host copies: the device has finished
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            if not all(np.isfinite(r["boxes"]).all() for r in res):
+                raise AssertionError("yolo serve: boxes not finite")
+    out["serve_ms"] = times
+    out["serve_ms_median"] = {k: float(np.median(v)) for k, v in times.items()}
+    forward = {}
+    with torch.inference_mode():
+        for b in (1, TRAIN_BATCH):  # the eval forward alone, its boxes decoded: the rest of a request is host work
+            ts = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                det.model(img[:b], txt)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            forward[f"b{b}"] = float(np.median(ts))
+    out["forward_ms_median"] = forward
+
+    batches = [synthetic_batch(100 + i, TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT, TRAIN_VALID, nc=YOLO_NC)
+               for i in range(2 + YOLO_STEPS)]
+    out["train_parity"] = yolo_train_parity(dev, batches[0])
+    trainer_det = TAMTR("yolo-gelan.yaml", nc=YOLO_NC, seed=0, max_gt=TRAIN_MAX_GT)
+    spread_detect(trainer_det.model)
+    tr = trainer_det.trainer(TrainConfig(batch_size=TRAIN_BATCH, accumulate=1), seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches[:2]:
+        tr.step(b)
+    steps, logs = [], []
+    for b in batches[2:]:
+        t0 = time.perf_counter()
+        logs.append(tr.step(b))  # ends in host reads of the metrics
+        steps.append((time.perf_counter() - t0) * 1e3)
+    out["step_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(batches[-1])
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.device_time for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out.update(step_ms=steps, step_ms_median=float(np.median(steps)), step_device_ms=busy, step_busy_share=busy / wall,
+               step_items=[{k: m[k] for k in ("loss", "box", "cls", "dfl")} for m in logs])
+    if not all(math.isfinite(m[k]) for m in logs for k in ("loss", "box", "cls", "dfl", "grad_norm")) \
+            or not all(m["stepped"] == 1.0 for m in logs) or not all(m["box"] > 0 for m in logs):
+        raise AssertionError(f"yolo steps: {logs}")
+    del tr, trainer_det
+    torch.cuda.empty_cache()
+
+    root = Path("build/yolo")
+    eng = Engine("yolo-gelan.yaml")
+    fit = eng.train(data=data, epochs=2, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=2,
+                    warmup_epochs=4, val_interval=1, conf=0.05, plots=False, project=str(root), name="fit",
+                    exist_ok=True)
+    best = Engine("yolo-gelan.yaml").load(root / "fit" / "weights" / "best.pt")
+    vals = {rect: best.val(data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, conf=0.05, rect=rect, plots=False)
+            for rect in (False, True)}
+    out["fit"] = dict(step_ms_median=float(np.median(eng.timing["step_ms"][1:])), mAP50=fit["mAP50"],
+                      val={("rect" if r else "square"): {k: v[k] for k in ("mAP50", "mAP50-95", "images_per_sec")}
+                           for r, v in vals.items()})
+    if not all(0.0 <= v[k] <= 1.0 for v in (fit, *vals.values()) for k in ("mAP50", "mAP50-95")):
+        raise AssertionError(f"yolo fit: {out['fit']}")
+
+    n = len(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    for augment in (False, True):
+        t0 = time.perf_counter()
+        res = det.predict(JPEG_FIXTURES, augment=augment)
+        out[f"predict_files_ms_per_image{'_tta' if augment else ''}"] = (time.perf_counter() - t0) * 1e3 / n
+        if len(res) != n or not all(len(r) and np.isfinite(r.boxes.xyxy).all() for r in res):
+            raise AssertionError(f"yolo predict augment={augment}: {[len(r) for r in res]}")
+    tracked = det.track("build/track", tracker="bytetrack")
+    out["track"] = dict(frames=len(tracked), tracks_per_frame=[len(r.track_ids) for r in tracked],
+                        ms_per_frame={k: float(np.median(v)) for k, v in det._engine.timing.items()})
+    if len(tracked) != TRACK_FRAMES or not any(len(r.track_ids) for r in tracked):
+        raise AssertionError(f"yolo track: {out['track']}")
+    launches = check_counts("yolo", counters, 0)
+    say(f"yolo yolo-gelan {TRAIN_IMGSZ}px nc {YOLO_NC}: {json.dumps(out)}; launches {launches}", flush=True)
+    return out, launches
+
+
+def loss_variants(dev):
+    """One full-width TAM-TR `Trainer.step` at 640 px, batch 4, max_gt 300
+    for each DETR loss switch (`use_sl`, `use_svfl`, `nwd_loss`,
+    `use_wiseiou`), the launch counters zeroed before and read after each:
+    B1-B5 as `TRAIN_LAUNCHES_PER_STEP`. Each step is finite, and its loss
+    equals the CPU's loss of the same head outputs and targets (the card's
+    assignment given) within 1e-5 relative; the CPU's own assignment of
+    those outputs is counted against the card's. A step with the default
+    loss runs first, uncounted and untimed (cuDNN picks its algorithms)."""
+    import tamtr_torch.train.trainer as trainer_mod
+    from tamtr_torch import TAMTR
+    from tamtr_torch.losses.detr_loss import DETRLossConfig, rtdetr_detection_loss
+    from tamtr_torch.train.trainer import TrainConfig, Trainer
+
+    det = TAMTR("tamtr.yaml", nc=10, seed=0, max_gt=TRAIN_MAX_GT)
+    batch = synthetic_batch(200, TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT, TRAIN_VALID)
+    seen = []
+
+    def recording(out, targets, cfg, **kw):
+        loss, items = rtdetr_detection_loss(out, targets, cfg, **kw)
+        seen.append(({k: v.detach().cpu() if torch.is_tensor(v) else v for k, v in out.items()},
+                     {k: v.cpu() for k, v in targets.items()}, cfg, float(loss.detach()), items["match"].cpu()))
+        return loss, items
+
+    Trainer(det.model, TrainConfig(batch_size=TRAIN_BATCH, accumulate=1), device=dev, seed=0).step(
+        synthetic_batch(199, TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT, TRAIN_VALID))  # warm-up: conv algorithms
+    trainer_mod.rtdetr_detection_loss = recording
+    out, total = {}, {}
+    try:
+        for name, kw in VARIANTS.items():
+            tr = Trainer(det.model, TrainConfig(batch_size=TRAIN_BATCH, accumulate=1),
+                         loss_cfg=DETRLossConfig(nc=10, **kw), device=dev, seed=0)
+            counters = zero_counters()
+            t0 = time.perf_counter()
+            m = tr.step(batch)
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = check_counts(f"loss_variants {name}", counters, 0, TRAIN_LAUNCHES_PER_STEP)
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+            outs, targets, cfg, card_loss, match = seen[-1]
+            cpu_loss, cpu_items = rtdetr_detection_loss(outs, targets, cfg, match=match)
+            _, own_items = rtdetr_detection_loss(outs, targets, cfg)
+            valid = targets["mask"].bool()[None].expand_as(match)
+            agree = float((own_items["match"] == match)[valid].float().mean())
+            rel = abs(card_loss - float(cpu_loss)) / abs(float(cpu_loss))
+            out[name] = dict(loss=m["loss"], giou=m["giou"], cls=m["class"], bbox=m["bbox"], ms=ms,
+                             cpu_loss=float(cpu_loss), rel=rel, cpu_own_assignment_agrees=agree)
+            if not (all(math.isfinite(m[k]) for k in ("loss", "grad_norm")) and rel <= 1e-5):
+                raise AssertionError(f"loss_variants {name}: {out[name]}")
+            del tr
+    finally:
+        trainer_mod.rtdetr_detection_loss = rtdetr_detection_loss
+    say(f"loss_variants tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}: {json.dumps(out)}; "
+        f"launches {total}", flush=True)
+    return out, total
+
+
 def fwd_bwd(fn, args, dy):
     """y of `fn(*args)` and the gradients of every input given dy."""
     ts = [a.detach().requires_grad_() for a in args]
@@ -2972,6 +3298,8 @@ def main() -> int:
     del b4_calls
     fit_launches, fit_summary = fit(dev)
     bf16 = bf16_phase(dev, "build/fit/data.json")
+    variants_summary, variants_launches = loss_variants(dev)
+    yolo_summary, yolo_launches = yolo(dev, "build/fit/data.json")
     parallel_summary = parallel("build/fit/data.json")
     cli_launches = cli("build/fit/runs/fit/weights/best.pt")
     info_launches = info("build/fit/runs/fit/weights/best.pt")
@@ -3111,7 +3439,13 @@ def main() -> int:
              launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs,
              bf16=dict(**bf16["offpath"]["scatter_acc_pairs"], of="bf16 dout and output, the decoder's uniform pairs")),
     ]
+    # the main-path launches of the Detect family (none) and of the four DETR loss variants' steps
+    for entry, key in zip(kernels, ("ss2d_scan_fwd", "bilinear_gather_fwd", "ss2d_scan_carriers", "ss2d_scan_bwd_walk",
+                                    "bilinear_gather_bwd", "auction_assignment", "selective_scan_fwd", "scatter_acc",
+                                    "scatter_acc_pairs")):
+        entry.update(launches_yolo=yolo_launches[key], launches_loss_variants=variants_launches[key])
     print(json.dumps({"fit": fit_summary}))
+    print(json.dumps({"yolo": yolo_summary, "loss_variants": variants_summary}))
     print(json.dumps({"bf16": {k: bf16[k] for k in ("serve", "train", "fit", "launches")}}))
     print(json.dumps({"sp_blocks": {"max_abs_err": sp_err, "launches": {k: v for k, v in sp_launches.items() if v}},
                       "parallel": parallel_summary}))

@@ -12,6 +12,11 @@ image files, a directory or a glob): the file predict's forward on each
 frame, then a tracker ("bytetrack", or "botsort" with gmc_method="none"),
 one `Results` with `track_ids` per frame.
 
+A YOLO config (`TAMTR("yolo-gelan.yaml")`) builds the Detect model: it
+trains with the v8 loss, takes no text (predict's `text` is a table of its
+classes' rows, which it ignores), and its pixel boxes come back in the
+image's pixels like TAM-TR's.
+
 `predict(source)` with a path, a directory or a list of paths runs
 `Engine.predict` (the JAX package's `tamtr_tpu/engine/model.py:predict`):
 each file read, resized as cv2 resizes, the eval forward (three passes with
@@ -40,11 +45,11 @@ import torch
 import torch.nn.functional as F
 
 from tamtr_torch.config import get_cfg, load_data_yaml
-from tamtr_torch.engine.model import Engine
+from tamtr_torch.engine.model import Engine, normalized_pred
 from tamtr_torch.engine.results import Results
 from tamtr_torch.nn.graph import TAMTRModel
 from tamtr_torch.ops.nms import postprocess_predictions
-from tamtr_torch.train.trainer import Trainer, TrainConfig
+from tamtr_torch.train.trainer import Trainer, TrainConfig, loss_config_for
 from tamtr_torch.weights import from_jax_variables, init_parameters
 
 ImageLike = Union[np.ndarray, torch.Tensor]
@@ -119,7 +124,7 @@ class TAMTR:
         if held is not None:
             dev = next(model.parameters()).device
             img = torch.zeros(1, imgsz, imgsz, 3, device=dev)
-            txt = torch.zeros(1, model.nc, model.model[-1].hd, device=dev)
+            txt = torch.zeros(1, model.nc, model.text_width, device=dev)
             gflops = f", {flops_of(model.eval(), img, txt)['gflops']:.1f} GFLOPs @ {imgsz}px"
         summary = (f"{type(self).__name__}({self.model_cfg}): {len(model.specs) + 1} layers, "
                    f"{n_params / 1e6:.1f}M params{gflops}")
@@ -136,10 +141,13 @@ class TAMTR:
         return self
 
     def trainer(self, cfg: TrainConfig = TrainConfig(), seed: int = 0) -> Trainer:
-        """A `Trainer` over this detector's model and device; `step(batch)`
-        is one training step (see `Trainer.step`). Predict puts the model
-        back in eval mode itself."""
-        return Trainer(self.model, cfg, device=self.device, seed=seed)
+        """A `Trainer` over this detector's model and device, with its
+        head's loss at `imgsz` (`loss_config_for`); `step(batch)` is one
+        training step (see `Trainer.step`). Predict puts the model back in
+        eval mode itself."""
+        model = self.model
+        loss_cfg = loss_config_for(model, imgsz=self.imgsz, match_method=cfg.match_method)
+        return Trainer(model, cfg, loss_cfg=loss_cfg, device=self.device, seed=seed)
 
     def train(self, **overrides) -> Dict[str, float]:
         """Train a model of this config, initialised from the seed, on a
@@ -248,7 +256,7 @@ class TAMTR:
         txt = txt.to(self.device, torch.float32)
         if txt.ndim == 2:
             txt = txt[None]
-        pred = model(img, txt)["pred"]
+        pred = normalized_pred(model, model(img, txt)["pred"], img.shape[1:3])
         boxes, scores, labels, valid, _ = postprocess_predictions(pred, conf, iou, max_det)
         results = []
         for i, (h, w) in enumerate(sizes):

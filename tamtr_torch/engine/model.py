@@ -1,7 +1,7 @@
 """Engine: train, val and predict of the TAM-TR detector (a port of the
 JAX package's `tamtr_tpu/engine/model.py`: `Engine.train`, `val`,
 `_validate`, `predict`, `load` and `set_classes`, for the
-`ManbaWorldDecoder` head).
+`ManbaWorldDecoder` head and the YOLO `Detect` head).
 
     train(data=...): DetectionDataset + Loader -> Trainer.step per batch
       -> every val_interval epochs _validate with the EMA weights
@@ -35,6 +35,12 @@ Val is data-parallel: each rank runs every world-size-th batch and rank 0
 gathers the per-image statistics, so the metrics are the one-process
 run's.
 
+A Detect model (`yolo-gelan.yaml`) trains with the v8 loss (TAL, BCE,
+CIoU, DFL; `train/trainer.py:loss_config_for`, the JAX engine's
+`_loss_callable_for`) on batches without sampled texts (the loader draws
+them only for a head that `uses_text`); its pixel boxes are scaled by the
+input size before the postprocess, and rect val letterboxes for it alone.
+
 The engine runs on the card unless `device="cpu"` is given (then the ranks
 meet over gloo). Not ported: classify/segment/pose, video and stream
 sources, tune and export.
@@ -60,12 +66,12 @@ from tamtr_torch.data.imgproc import resize_linear
 from tamtr_torch.data.loaders import load_inference_source, unsupported_source
 from tamtr_torch.data.text import TextEmbedder, class_text_embeddings
 from tamtr_torch.engine.checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
-from tamtr_torch.nn.graph import TAMTRModel
+from tamtr_torch.nn.graph import TEXT_WIDTH, TAMTRModel
 from tamtr_torch.engine.results import Results
 from tamtr_torch.nn.fuse import fuse_model
 from tamtr_torch.ops.nms import multiclass_nms, postprocess_predictions
 from tamtr_torch.parallel.dist import broadcast_from_rank0, gather_to_rank0, init_distributed, make_groups
-from tamtr_torch.train.trainer import Trainer, TrainConfig
+from tamtr_torch.train.trainer import REPORTED, Trainer, TrainConfig, loss_config_for
 from tamtr_torch.utils.callbacks import Callbacks, add_tensorboard, attach_integrations
 from tamtr_torch.utils.checks import check_imgsz
 from tamtr_torch.utils.coco import predictions_to_coco
@@ -108,9 +114,16 @@ def to_image_pixels(boxes: np.ndarray, input_hw, orig_hw, lb=None) -> np.ndarray
     return pb.clip(0, [ow, oh, ow, oh])
 
 
-def text_width(model: TAMTRModel) -> int:
-    """The width of the text embeddings `model` takes: its head's hidden width."""
-    return model.model[-1].hd
+def normalized_pred(model: TAMTRModel, pred: torch.Tensor, input_hw) -> torch.Tensor:
+    """The eval "pred" with its boxes normalized: a pixel head's (Detect)
+    divided by the (h, w) input size, as the JAX engine's eval step scales
+    them (`tamtr_tpu/engine/model.py:741-752`); a DETR head's as they are."""
+    if model.head_type != "Detect":
+        return pred
+    h, w = input_hw
+    scale = pred.new_ones(pred.shape[-1])
+    scale[:4] = torch.tensor([1.0 / w, 1.0 / h, 1.0 / w, 1.0 / h], dtype=pred.dtype)
+    return pred * scale
 
 
 def weights_key(model: torch.nn.Module) -> tuple:
@@ -223,7 +236,7 @@ class Engine:
         if last.exists():
             self.load(last)
             self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings,
-                                                   dim=text_width(self.model))
+                                                   dim=self.model.text_width)
         return result["metrics"]
 
     def _train(self, cfg: Config, preempted: Dict[str, bool], groups=None) -> Dict[str, float]:
@@ -245,7 +258,7 @@ class Engine:
         model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=cfg.max_gt,
                                     dtype=torch.bfloat16 if cfg.bf16 else None)
         init_parameters(model, cfg.seed)
-        width = text_width(model)
+        width = model.text_width
         self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings, dim=width)
 
         aug = AugConfig(
@@ -256,7 +269,7 @@ class Engine:
         # RandomLoadText: per-image positive/negative text sampling and class remap
         train_ds = DetectionDataset(
             data["train"], imgsz=cfg.imgsz, augment=True, aug=aug, seed=cfg.seed,
-            class_texts=[str(n).split("/") for n in self.names], random_text=True,
+            class_texts=[str(n).split("/") for n in self.names], random_text=model.uses_text,
             cache=cfg.cache, classes=cfg.classes, single_cls=cfg.single_cls,
         )
         loader = Loader(train_ds, cfg.batch // n_data, max_gt=cfg.max_gt, seed=cfg.seed, workers=cfg.workers,
@@ -268,8 +281,10 @@ class Engine:
             warmup_momentum=cfg.warmup_momentum, batch_size=cfg.batch, nbs=cfg.nbs,
             match_method=cfg.match_method,
         )
-        trainer = Trainer(model, tc, steps_per_epoch=len(loader), device=dev, seed=cfg.seed + 1, groups=groups,
-                          zero=int(cfg.fsdp or 1) > 1)
+        loss_cfg = loss_config_for(model, nc, imgsz=cfg.imgsz, box=cfg.box, cls=cfg.cls, dfl=cfg.dfl,
+                                   match_method=cfg.match_method)
+        trainer = Trainer(model, tc, loss_cfg=loss_cfg, steps_per_epoch=len(loader), device=dev, seed=cfg.seed + 1,
+                          groups=groups, zero=int(cfg.fsdp or 1) > 1)
         self.trainer = trainer
         self.model = trainer.ema
 
@@ -335,7 +350,7 @@ class Engine:
                 n_steps += 1
                 fire("on_train_batch_end", self, n_steps)
             ips = n_steps * cfg.batch / max(time.time() - t0, 1e-9)
-            comp = {k: m[k] for k in ("giou", "class", "bbox") if k in m}
+            comp = {k: m[k] for k in REPORTED if k in m}
             if rank0:
                 LOGGER.info(f"epoch {epoch + 1}/{cfg.epochs}: loss={m.get('loss', float('nan')):.3f} "
                             + " ".join(f"{k}={v:.3f}" for k, v in comp.items()) + f" {ips:.1f} img/s")
@@ -401,7 +416,7 @@ class Engine:
         if self.txt_feats is None:  # weights given without classes: the dataset's
             self.names = data["names"]
             self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings,
-                                                   dim=text_width(self.model))
+                                                   dim=self.model.text_width)
         dev = init_distributed(self.device)  # under a launcher: data-parallel val
         if dev is not None and dev != self.device:
             self.device = dev
@@ -455,7 +470,8 @@ class Engine:
                 items = futures.pop(bi).result()
                 imgs = [it[0] for it in items]
                 img = torch.from_numpy(np.stack(imgs)).to(dev)
-                pred = model(img, txt_all.expand(len(imgs), *txt_all.shape[1:]))["pred"]
+                pred = normalized_pred(model, model(img, txt_all.expand(len(imgs), *txt_all.shape[1:]))["pred"],
+                                       img.shape[1:3])
                 boxes, scores, labels, valid, _ = (t.cpu().numpy() for t in postprocess_predictions(
                     pred, conf, cfg.iou, cfg.max_det, legacy_val_mask=True, classes=cfg.classes,
                     single_cls=cfg.single_cls))
@@ -572,7 +588,8 @@ class Engine:
         img = resize_linear(im0, (sz, sz))[..., ::-1].astype(np.float32) / 255.0
         if flip:
             img = img[:, ::-1]
-        pred = model(torch.from_numpy(np.ascontiguousarray(img)[None]).to(txt.device), txt)["pred"]
+        pred = normalized_pred(model, model(torch.from_numpy(np.ascontiguousarray(img)[None]).to(txt.device),
+                                            txt)["pred"], (sz, sz))
         boxes, scores, labels, valid, _ = (t.cpu().numpy() for t in postprocess_predictions(
             pred, conf, iou, max_det, classes=classes, single_cls=single_cls))
         sel = valid[0] & (scores[0] > 0)
@@ -678,14 +695,14 @@ class Engine:
         model.load_state_dict(ema)
         self.model = model.to(self.device).eval()
         if self.txt_feats is None:
-            self.txt_feats = class_text_embeddings(self.names, dim=text_width(model))
+            self.txt_feats = class_text_embeddings(self.names, dim=model.text_width)
         return self
 
     def set_classes(self, classes: List[str], embeddings: Optional[np.ndarray] = None) -> None:
         """Open-vocabulary retarget: new class names, with their embeddings
         or the class-name ones."""
         self.names = list(classes)
-        width = text_width(self.model) if self.model is not None else 512
+        width = self.model.text_width if self.model is not None else TEXT_WIDTH
         self.txt_feats = (np.asarray(embeddings, np.float32) if embeddings is not None
                           else class_text_embeddings(self.names, dim=width))
 

@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from tamtr_torch.losses import variants
 from tamtr_torch.losses.matcher import hungarian_match
 from tamtr_torch.ops.boxes import bbox_iou
 from tamtr_torch.parallel.dist import global_sum
@@ -43,6 +44,12 @@ class DETRLossConfig:
     fl_gamma: float = 1.5
     aux_loss: bool = True
     match_method: str = "auto"
+    # ablation variants, off as the reference ships them
+    use_sl: bool = False
+    use_svfl: bool = False
+    nwd_loss: bool = False
+    iou_ratio: float = 0.5
+    use_wiseiou: bool = False
 
 
 def _pair_losses(cfg: DETRLossConfig, pred_bboxes, pred_scores, gt_bboxes, gt_cls, q_idx, gt_idx,
@@ -60,8 +67,17 @@ def _pair_losses(cfg: DETRLossConfig, pred_bboxes, pred_scores, gt_bboxes, gt_cl
     vf = valid.float()
 
     loss_bbox = cfg.gain_bbox * ((pred_b - gt_b).abs().sum(-1) * vf).sum() / denom
-    riou = torch.nan_to_num(bbox_iou(pred_b, gt_b, xywh=True, RIOU=True).squeeze(-1), nan=0.0)
-    loss_giou = cfg.gain_giou * ((1.0 - riou) * vf).sum() / denom
+    if cfg.use_wiseiou:
+        giou_term, _ = variants.wise_iou(pred_b, gt_b, 1.0, monotonous=False)
+    else:
+        riou = torch.nan_to_num(bbox_iou(pred_b, gt_b, xywh=True, RIOU=True).squeeze(-1), nan=0.0)
+        giou_term = 1.0 - riou
+    if cfg.nwd_loss:
+        nwd = variants.wasserstein_similarity(pred_b, gt_b).squeeze(-1)
+        loss_giou = cfg.gain_giou * (cfg.iou_ratio * (giou_term * vf).sum() / denom
+                                     + (1.0 - cfg.iou_ratio) * ((1.0 - nwd) * vf).sum() / denom)
+    else:
+        loss_giou = cfg.gain_giou * (giou_term * vf).sum() / denom
 
     # classification targets: matched classes at their queries, background nc
     drop_q = torch.where(valid, q_idx, nq).long()  # column nq: dropped
@@ -81,7 +97,18 @@ def _pair_losses(cfg: DETRLossConfig, pred_bboxes, pred_scores, gt_bboxes, gt_cl
     vfl = (bce * w).mean(1).sum()
     bce0 = logits.clamp(min=0) + softplus_neg  # target 0
     fl = (bce0 * (1.0 - (1.0 - p)) ** cfg.fl_gamma * (1.0 - cfg.fl_alpha)).mean(1).sum()
-    loss_cls = torch.where(num > 0, vfl, fl) if cfg.use_vfl else fl
+    if cfg.use_sl or cfg.use_svfl:
+        # the mean positive gt score (-1 with no gts), floored at 0.2
+        positive = global_sum((gt_scores > 0).sum().float()).clamp(min=1)
+        auto_iou = torch.where(num > 0, global_sum(gt_scores.sum()) / positive, -1.0).clamp(min=0.2)
+    if cfg.use_sl:
+        return {"loss_class": cfg.gain_class * variants.slide_loss(logits, gt_full, auto_iou).mean(1).sum(),
+                "loss_bbox": loss_bbox, "loss_giou": loss_giou}
+    if cfg.use_svfl:
+        loss_cls = torch.where(num > 0, variants.slide_varifocal_loss(logits, gt_full, one_hot, auto_iou).mean(1).sum(),
+                               fl)
+    else:
+        loss_cls = torch.where(num > 0, vfl, fl) if cfg.use_vfl else fl
     loss_cls = cfg.gain_class * loss_cls * nq / denom
     return {"loss_class": loss_cls, "loss_bbox": loss_bbox, "loss_giou": loss_giou}
 

@@ -83,7 +83,7 @@ class AutoBackend:
                 self.imgsz = imgsz or meta.get("imgsz", 640)
         self.model = model.to(self.device).eval()
         self.nc = self.model.nc
-        self.text_width = self.model.model[-1].hd
+        self.text_width = self.model.text_width
 
     @torch.inference_mode()
     def __call__(self, img: np.ndarray, txt_feats: np.ndarray) -> np.ndarray:

@@ -4,9 +4,14 @@
 A config is the JSON form of the JAX package's YAML graph:
 `[from, repeats, module, args]` rows for the backbone and head. The model
 holds its layers in `self.model`, so state-dict keys are the reference
-checkpoint's `model.{i}.…`, with the detection head last (`model.41`).
-Unlike flax, torch needs input widths at construction, so `TAMTRModel`
-threads the channel count of every layer through the graph.
+checkpoint's `model.{i}.…`, with the detection head last (`model.41` in
+`tamtr.yaml`, `model.22` in `yolo-gelan.yaml`). Unlike flax, torch needs
+input widths at construction, so `TAMTRModel` threads the channel count of
+every layer through the graph (a tuple of widths after a CBLinear).
+
+Heads: `ManbaWorldDecoder` (TAM-TR) and the YOLO `Detect`. The JAX
+package's other heads (RTDETRDecoder, the Manba variants, Segment, Pose,
+Classify) parse and then raise NotImplementedError: ROADMAP queue A, item 7.
 """
 
 from __future__ import annotations
@@ -22,8 +27,14 @@ from torch import nn
 
 from tamtr_torch.nn import layers as L
 from tamtr_torch.nn.decoder import ManbaWorldDecoder
+from tamtr_torch.nn.yolo_head import Detect
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg" / "models"
+HEADS = ("ManbaWorldDecoder", "RTDETRDecoder", "ManbaDecoder", "DecouplingManbaWorldDecoder",
+         "DecouplingDFLManbaWorldDecoder", "locationManbaDecoder", "DualRTDETRDecoder",
+         "Detect", "Segment", "Pose", "Classify")
+PORTED_HEADS = ("ManbaWorldDecoder", "Detect")
+TEXT_WIDTH = 512  # the text table of a head that takes none (the JAX engine's width)
 
 
 def load_model_cfg(path: str | Path) -> Dict[str, Any]:
@@ -40,7 +51,7 @@ def load_model_cfg(path: str | Path) -> Dict[str, Any]:
 
 
 def parse_graph(cfg: Dict[str, Any], nc: Optional[int] = None):
-    """Lower the graph to (layer_specs, head_spec, save_set, nc).
+    """Lower the graph to (layer_specs, head_spec, save_set, nc, head_type).
 
     Each layer spec is (idx, from, module, args) with hashable args.
     """
@@ -48,15 +59,15 @@ def parse_graph(cfg: Dict[str, Any], nc: Optional[int] = None):
     gw = float(cfg.get("width_multiple", 1.0))
     entries = list(cfg["backbone"]) + list(cfg["head"])
     specs = []
-    head_spec = None
+    head_spec = head_type = None
     save = set()
     for i, (f, _, m, args) in enumerate(entries):  # repeats are 1 in every config
         args = [nc if a == "nc" else a for a in args]
         args = [tuple(a) if isinstance(a, list) else a for a in args]
-        if m == "ManbaWorldDecoder":
+        if m in HEADS:
             if i != len(entries) - 1:
                 raise ValueError("the detection head must be the last layer")
-            head_spec = (tuple(f), tuple(args))
+            head_spec, head_type = (tuple(f), tuple(args)), m
             save.update(j if j >= 0 else i + j for j in f)
             continue
         for j in f if isinstance(f, list) else [f]:
@@ -66,8 +77,8 @@ def parse_graph(cfg: Dict[str, Any], nc: Optional[int] = None):
             args = [math.ceil(args[0] * gw / 8) * 8] + args[1:]
         specs.append((i, tuple(f) if isinstance(f, list) else f, m, tuple(args)))
     if head_spec is None:
-        raise ValueError("the graph must end with a ManbaWorldDecoder head")
-    return tuple(specs), head_spec, tuple(sorted(save)), nc
+        raise ValueError(f"the graph must end with a detection head, one of {HEADS}")
+    return tuple(specs), head_spec, tuple(sorted(save)), nc, head_type
 
 
 def _build_layer(m: str, args, c_in: List[int], gc: int, deploy: bool = False):
@@ -88,16 +99,26 @@ def _build_layer(m: str, args, c_in: List[int], gc: int, deploy: bool = False):
         return L.SPPELAN(c1, c2, c3), c2
     if m == "CPAM":
         return L.CPAM(), c1
+    if m == "ADown":
+        return L.ADown(c1, args[0]), args[0]
     if m == "Concat":
         return L.Concat(), sum(c_in)
     if m == "nn.Upsample":
         return L.Upsample(float(args[1])), c1
+    if m == "Silence":
+        return L.Silence(), c1
+    if m == "CBLinear":
+        k, s = (list(args[1:]) + [1, 1])[:2]
+        return L.CBLinear(c1, args[0], k, s), tuple(args[0])
+    if m == "CBFuse":
+        return L.CBFuse(args[0]), c_in[-1]
     raise ValueError(f"unknown module {m}")
 
 
 class TAMTRModel(nn.Module):
     """TAM-TR detector: CSP-ELAN backbone, BTA-PAN neck guided by text,
-    ManbaWorldDecoder head.
+    ManbaWorldDecoder head; or, from a YOLO config (`yolo-gelan.yaml`), the
+    graph's layers and a Detect head.
 
     forward(img (B, H, W, 3) float in [0, 1], text (B or 1, K, hd),
     targets=None, generator=None): in `.eval()`, or without targets, a dict
@@ -105,6 +126,10 @@ class TAMTRModel(nn.Module):
     In `.train()` with targets {"cls" (B, M), "bboxes" (B, M, 4) cxcywh,
     "mask" (B, M)} padded to `max_gt`, the head's train dict (see
     `ManbaWorldDecoder`); DropPath and CDN noise draw from `generator`.
+    A Detect head takes only the features (no text, targets or generator)
+    and returns its dict (`nn/yolo_head.py:Detect`), whose eval "pred"
+    (B, A, 4 + nc) holds xywh boxes in input pixels; `uses_text` is False
+    and `text_width` the JAX engine's 512, a table the model ignores.
 
     `max_gt`, `num_denoising`, `vss_drop_path` and `deploy` are the JAX
     `TAMTRModel`'s settings (`tamtr_tpu/nn/graph.py:160-171`), with its
@@ -127,27 +152,47 @@ class TAMTRModel(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
-        self.specs, (self.head_from, head_args), self.save, self.nc = parse_graph(cfg, nc)
-        _, hd, nq, ndp, nh, ndl = head_args[:6]
-        ch: List[int] = []
+        self.specs, (self.head_from, self.head_args), self.save, self.nc, head_type = parse_graph(cfg, nc)
+        if head_type not in PORTED_HEADS:
+            raise NotImplementedError(f"the {head_type} head is not ported to tamtr_torch yet: ROADMAP.md "
+                                      "queue A, item 7")
+        gc = self.head_args[1] if head_type == "ManbaWorldDecoder" else TEXT_WIDTH
+        ch: List[Any] = []
         layers = []
         for idx, f, m, args in self.specs:
             froms = f if isinstance(f, tuple) else (f,)
             c_in = [ch[j if j >= 0 else idx + j] if j != -1 else (ch[-1] if ch else 3) for j in froms]
-            mod, c2 = _build_layer(m, args, c_in, gc=hd, deploy=deploy)
+            mod, c2 = _build_layer(m, args, c_in, gc=gc, deploy=deploy)
             layers.append(mod)
             ch.append(c2)
-        layers.append(ManbaWorldDecoder(
-            nc=self.nc, ch=tuple(ch[j] for j in self.head_from), hd=hd, nq=nq, ndp=ndp, nh=nh, ndl=ndl,
-            num_denoising=num_denoising, max_gt=max_gt, label_noise_ratio=label_noise_ratio,
-            box_noise_scale=box_noise_scale, vss_drop_path=vss_drop_path,
-        ))
+        head_ch = tuple(ch[j] for j in self.head_from)
+        if head_type == "Detect":
+            layers.append(Detect(nc=self.nc, ch=head_ch))
+        else:
+            _, hd, nq, ndp, nh, ndl = self.head_args[:6]
+            layers.append(ManbaWorldDecoder(
+                nc=self.nc, ch=head_ch, hd=hd, nq=nq, ndp=ndp, nh=nh, ndl=ndl,
+                num_denoising=num_denoising, max_gt=max_gt, label_noise_ratio=label_noise_ratio,
+                box_noise_scale=box_noise_scale, vss_drop_path=vss_drop_path,
+            ))
         self.model = nn.ModuleList(layers)
 
     @property
     def head_type(self) -> str:
         """The head's class name, as the JAX `TAMTRModel.head_type`."""
         return type(self.model[-1]).__name__
+
+    @property
+    def uses_text(self) -> bool:
+        """True when the head takes the text table (its contrastive scores),
+        as the JAX `TAMTRModel.uses_text` decides it for the ported heads."""
+        return self.head_type == "ManbaWorldDecoder" and (len(self.head_args) <= 6 or bool(self.head_args[6]))
+
+    @property
+    def text_width(self) -> int:
+        """The width of the text table the model takes: the head's hidden
+        width where it uses text, else the JAX engine's 512 (given, ignored)."""
+        return self.model[-1].hd if self.uses_text else TEXT_WIDTH
 
     @classmethod
     def from_cfg(cls, path: str | Path, nc: Optional[int] = None, **kw) -> "TAMTRModel":
@@ -184,4 +229,7 @@ class TAMTRModel(nn.Module):
                 inp = x if f == -1 else y[f]
             x = mod(inp, text) if m == "TIAGELAN" else mod(inp)
             y.append(x if idx in self.save else None)
-        return self.model[-1]([y[j] for j in self.head_from], text, targets, generator)
+        feats = [y[j] for j in self.head_from]
+        if self.head_type == "Detect":
+            return self.model[-1](feats)
+        return self.model[-1](feats, text, targets, generator)

@@ -180,6 +180,13 @@ class ConvBN(nn.Module):
         return F.silu(x) if self.act else x
 
 
+class DWConvBN(ConvBN):
+    """Depthwise ConvBN (`tamtr_tpu/nn/layers.py:82`): groups min(c1, c2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act: bool = True):
+        super().__init__(c1, c2, k, s, g=min(c1, c2), act=act)
+
+
 class RepConvN(nn.Module):
     """RepVGG block: 3x3 and 1x1 branches summed (no identity branch). With
     deploy=True it is the fused form (`tamtr_tpu/nn/layers.py:113-122`): one
@@ -307,6 +314,23 @@ class SPPELAN(nn.Module):
         return self.cv5(torch.cat(y, 1))
 
 
+class ADown(nn.Module):
+    """YOLOv9 downsample (`tamtr_tpu/nn/layers.py:282`): a 2x2 average pool
+    at stride 1 (no padding), then half the channels through a 3x3 stride-2
+    ConvBN and the other half through a padded 3x3 stride-2 max pool and a
+    1x1 ConvBN; c2 / 2 channels each."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.c = c2 // 2
+        self.cv1 = ConvBN(c1 // 2, self.c, 3, 2, p=1)
+        self.cv2 = ConvBN(c1 // 2, self.c, 1, 1, p=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = F.avg_pool2d(x, 2, 1, 0).chunk(2, 1)
+        return torch.cat([self.cv1(x1), self.cv2(F.max_pool2d(x2, 3, 2, 1))], 1)
+
+
 class CPAM(nn.Module):
     """Channel/spatial pyramid attention: maxpool(k3, s2) -> bilinear x2 ->
     crop to the input size -> sigmoid gate, then a per-eighth-of-channels
@@ -342,6 +366,47 @@ class Concat(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         return torch.cat(list(xs), 1)
+
+
+class Silence(nn.Module):
+    """The identity (YOLOv9's placeholder layer)."""
+
+    def forward(self, x):
+        return x
+
+
+class CBLinear(nn.Module):
+    """YOLOv9 auxiliary-branch projection (`tamtr_tpu/nn/layers.py:403`):
+    one biased conv to sum(c2s) channels, split into a tuple of maps."""
+
+    def __init__(self, c1: int, c2s: Sequence[int], k: int = 1, s: int = 1):
+        super().__init__()
+        self.c2s = tuple(int(c) for c in c2s)
+        self.conv = Conv2d(c1, sum(self.c2s), k, s, autopad(k), bias=True)
+
+    def forward(self, x: torch.Tensor):
+        return self.conv(x).split(self.c2s, 1)
+
+
+class CBFuse(nn.Module):
+    """YOLOv9 cross-branch fuse (`tamtr_tpu/nn/layers.py:431`): entry idx[i]
+    of each earlier input (a CBLinear tuple), resized to the last input's
+    size and summed with it. The resize is JAX's `jax.image.resize(...,
+    "nearest")`, which samples at half-pixel centres: torch's
+    "nearest-exact" (the reference's `F.interpolate` "nearest" samples at
+    floor(i * in / out) and picks other rows)."""
+
+    def __init__(self, idx: Sequence[int]):
+        super().__init__()
+        self.idx = tuple(int(i) for i in idx)
+
+    def forward(self, xs) -> torch.Tensor:
+        last = xs[-1]
+        out = last
+        for i, x in enumerate(xs[:-1]):
+            xi = F.interpolate(x[self.idx[i]], size=last.shape[-2:], mode="nearest-exact")
+            out = out + xi.to(last.dtype)
+        return out
 
 
 class MLP(nn.Module):

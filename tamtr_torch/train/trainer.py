@@ -2,6 +2,11 @@
 NaN guard and EMA (torch port of the semantics of
 `tamtr_tpu/train/trainer.py:make_optimizer` and `make_train_step`).
 
+The loss is the head's (`loss_config_for`, the JAX engine's
+`_loss_callable_for`): the DETR loss, with its variant switches, for the
+ManbaWorldDecoder; the v8 loss (TAL, BCE, CIoU, DFL) for a YOLO Detect
+head. The step reports the loss's items as the JAX step does.
+
 - AdamW, betas (momentum, 0.999), weight decay scaled by
   bs * accumulate / nbs, on the reference's three parameter groups: weights
   with decay, norm scales and other 1-D leaves without, and biases, which
@@ -49,6 +54,7 @@ import torch.distributed as dist
 from torch import nn
 
 from tamtr_torch.losses.detr_loss import DETRLossConfig, rtdetr_detection_loss
+from tamtr_torch.losses.v8_loss import V8LossConfig, v8_detection_loss
 from tamtr_torch.nn.ssm import sequence_parallel
 from tamtr_torch.parallel.dist import Groups, all_reduce_grads, data_parallel
 
@@ -120,6 +126,21 @@ def accumulate_at(cfg: TrainConfig, ni: int) -> float:
     return float(max(np.round(f32(1) + frac * (f32(cfg.nbs / cfg.batch_size) - f32(1))), f32(1)))
 
 
+# the step's reported loss items (the JAX step's), of whichever loss ran
+REPORTED = ("giou", "class", "bbox", "box", "cls", "dfl")
+
+
+def loss_config_for(model: nn.Module, nc: Optional[int] = None, imgsz: int = 640, box: float = 7.5,
+                    cls: float = 0.5, dfl: float = 1.5, match_method: str = "auto"):
+    """The loss of `model`'s head, as the JAX engine's `_loss_callable_for`
+    picks it: a Detect head's `V8LossConfig` (gains box, cls, dfl; gts
+    scaled to `imgsz` pixels), any other head's `DETRLossConfig`."""
+    nc = model.nc if nc is None else nc
+    if getattr(model, "head_type", None) == "Detect":
+        return V8LossConfig(nc=nc, box=box, cls=cls, dfl=dfl, imgsz=imgsz)
+    return DETRLossConfig(nc=nc, match_method=match_method)
+
+
 def _global_norm(ts: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
 
@@ -130,8 +151,10 @@ class Trainer:
     Args:
       model: the model; moved to `device` and put in train mode.
       cfg: optimizer, schedule and EMA settings.
-      loss_cfg: the loss; by default `DETRLossConfig(nc=model.nc)` with the
-        config's match method.
+      loss_cfg: the loss: a `DETRLossConfig` (the DETR loss, with its
+        variant switches) or a `V8LossConfig` (the YOLO Detect loss); by
+        default the head's (`loss_config_for`, at 640 px and the config's
+        match method).
       steps_per_epoch: minibatches per epoch, for the LR schedule.
       device: "cuda" by default; "cpu" only when asked for.
       seed: seed of the generator that draws the CDN noise and DropPath masks.
@@ -141,14 +164,14 @@ class Trainer:
     """
 
     def __init__(self, model: nn.Module, cfg: TrainConfig = TrainConfig(),
-                 loss_cfg: Optional[DETRLossConfig] = None, steps_per_epoch: int = 1000,
+                 loss_cfg: Optional[Union[DETRLossConfig, V8LossConfig]] = None, steps_per_epoch: int = 1000,
                  device: Optional[Union[str, torch.device]] = None, seed: int = 0,
                  groups: Optional[Groups] = None, zero: bool = False):
         if device is None and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
         self.device = torch.device("cuda" if device is None else device)
         self.cfg, self.steps_per_epoch = cfg, steps_per_epoch
-        self.loss_cfg = loss_cfg or DETRLossConfig(nc=model.nc, match_method=cfg.match_method)
+        self.loss_cfg = loss_cfg or loss_config_for(model, match_method=cfg.match_method)
         self.model = model.to(self.device).train()
         kinds = param_groups(self.model)
         named = dict(self.model.named_parameters())
@@ -214,8 +237,10 @@ class Trainer:
 
         batch: img (B, H, W, 3) uint8 or float in [0, 1]; txt_feats (B or 1,
         K, hd); cls (B, M) int; bboxes (B, M, 4) normalized cxcywh; mask
-        (B, M) bool. Returns loss, giou, class, bbox, grad_norm (of this
-        minibatch's gradient) and stepped (1.0 when the optimizer stepped).
+        (B, M) bool. Returns loss, the loss's items (giou, class and bbox of
+        the DETR loss; box, cls and dfl of the Detect loss), grad_norm (of
+        this minibatch's gradient) and stepped (1.0 when the optimizer
+        stepped).
         """
         cfg = self.cfg
         b = self._batch(batch)
@@ -226,10 +251,14 @@ class Trainer:
         groups = self.groups
         with data_parallel(groups), sequence_parallel(groups.sp if groups is not None else None):
             out = self.model(b["img"], b["txt_feats"].float(), targets, self.generator)
-            loss, items = rtdetr_detection_loss(out, targets, self.loss_cfg)
+            if isinstance(self.loss_cfg, V8LossConfig):
+                loss, items = v8_detection_loss(out, targets, self.loss_cfg)
+            else:
+                loss, items = rtdetr_detection_loss(out, targets, self.loss_cfg)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        reported = torch.stack([loss.detach()] + [items[k].detach() for k in ("giou", "class", "bbox")])
+        keys = [k for k in REPORTED if k in items]
+        reported = torch.stack([loss.detach()] + [items[k].detach() for k in keys])
         if groups is not None:  # the global loss's gradient, and the global loss
             all_reduce_grads(grads, groups.data)
             dist.all_reduce(reported, group=groups.data)
@@ -269,6 +298,6 @@ class Trainer:
         for p in self.params:
             p.grad = None
         self.ni += 1
-        metrics = dict(zip(("loss", "giou", "class", "bbox"), reported.tolist()))
+        metrics = dict(zip(["loss"] + keys, reported.tolist()))
         metrics.update(grad_norm=float(gnorm), stepped=float(stepped))
         return metrics

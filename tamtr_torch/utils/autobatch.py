@@ -6,7 +6,8 @@ peak(b) = fixed + per_item * b, and the largest batch whose fitted peak is
 `fraction` (0.60) of the card's memory, clamped to [1, max_batch]; the
 default when the memory or a probe is unknown. JAX reads each peak from
 XLA's memory analysis of the compiled step without running it. Here a probe
-runs one real `Trainer.step` (forward, backward, clip, AdamW, EMA) on a
+runs one real `Trainer.step` (forward, the head's own loss, backward, clip,
+AdamW, EMA) on a
 throwaway model of the same config, `max_gt` and `imgsz`, on a synthetic
 batch whose `max_gt` slots all hold a box, and reads
 `torch.cuda.max_memory_allocated()`; then frees it. On the CPU there is no
@@ -74,16 +75,17 @@ def train_step_peak(model_cfg: str, nc: int, imgsz: int, max_gt: int, batch: int
     metrics. The caller's models, generators and cuDNN settings are left as
     they were."""
     from tamtr_torch.nn.graph import TAMTRModel
-    from tamtr_torch.train.trainer import TrainConfig, Trainer
+    from tamtr_torch.train.trainer import TrainConfig, Trainer, loss_config_for
     from tamtr_torch.weights import init_parameters
 
     with torch.random.fork_rng(devices=[device]):
         model = TAMTRModel.from_cfg(model_cfg, nc=nc, max_gt=max_gt)
         init_parameters(model, 0)
-        batch_np = probe_batch(batch, imgsz, max_gt, nc, model.model[-1].hd)
+        batch_np = probe_batch(batch, imgsz, max_gt, nc, model.text_width)
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-        trainer = Trainer(model, TrainConfig(batch_size=batch, accumulate=1), device=device, seed=0)
+        trainer = Trainer(model, TrainConfig(batch_size=batch, accumulate=1),
+                          loss_cfg=loss_config_for(model, imgsz=imgsz), device=device, seed=0)
         metrics = trainer.step(batch_np)  # ends in host reads of the metrics: the step is done
         peak = torch.cuda.max_memory_allocated(device)
         del trainer, model

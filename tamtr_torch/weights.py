@@ -7,7 +7,9 @@ port's state-dict keys are the reference checkpoint's, so each key names one
 flax leaf. Conv kernels go HWIO -> OIHW (depthwise (3, 3, 1, C) ->
 (C, 1, 3, 3)), Linear kernels transpose, the q/k/v projections merge into
 `in_proj_*`, and the SS2D `A_logs` (K, D, N) / `Ds` (K, D) flatten to
-(K*D, N) / (K*D,).
+(K*D, N) / (K*D,). The Detect head's `cv2.{i}.{j}` / `cv3.{i}.{j}` are
+flax's `head/cv2_{i}_{j}` / `head/cv3_{i}_{j}`, and a CBLinear's `conv` is
+flax's `conv` (not `Conv_0`).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from tamtr_torch.nn.decoder import (
 )
 from tamtr_torch.nn.layers import MaxSigmoidAttnBlock
 from tamtr_torch.nn.ssm import SS2D
+from tamtr_torch.nn.yolo_head import Detect
 
 _BN_LEAF = {
     "weight": ("params", "scale"),
@@ -52,6 +55,10 @@ def map_torch_key(key: str, shape: Tuple[int, ...], layer_names: Dict[int, str],
         tok = rest[i]
         nxt = rest[i + 1] if i + 1 < len(rest) else None
         if prefix == "head":
+            if tok in ("cv2", "cv3") and nxt and nxt.isdigit():  # the Detect head's branches
+                out_path.append(f"{tok}_{nxt}_{rest[i + 2]}")
+                i += 3
+                continue
             if tok == "input_proj":
                 j, sub = rest[i + 1], rest[i + 2]
                 if sub == "0":  # conv
@@ -93,7 +100,7 @@ def map_torch_key(key: str, shape: Tuple[int, ...], layer_names: Dict[int, str],
             i += 2
             continue
         if tok == "conv" and nxt == "weight":
-            out_path += ["Conv_0", "kernel"]
+            out_path += ["conv" if layer_names.get(idx) == "CBLinear" else "Conv_0", "kernel"]
             i += 2
             continue
         if tok == "bn" and nxt in _BN_LEAF:
@@ -216,7 +223,9 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
     bias with zero offset and attention weights, zeroed last bbox-MLP layers,
     SS2D `A_logs = log(1..N)`, `Ds = 1` and the inverse-softplus dt bias,
     contrastive bias -10 and logit scale log(1/0.07), and the encoder score
-    bias -log((1 - 0.01) / 0.01) / 80 * nc.
+    bias -log((1 - 0.01) / 0.01) / 80 * nc. A Detect head keeps the generic
+    init but for its class biases, the prior log(5 / nc / (640 / stride)^2)
+    of each level (`tamtr_tpu/nn/yolo_head.py:90-97`); its box biases are 0.
     """
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
@@ -250,6 +259,10 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
             mod.Ds.fill_(1.0)
 
     head = model.model[-1]
+    if isinstance(head, Detect):
+        for i, branch in enumerate(head.cv3):
+            branch[2].bias.fill_(head.bias_prior(i))
+        return
     for mod in head.modules():
         if isinstance(mod, MSDeformAttn):
             for lin in (mod.value_proj, mod.output_proj):

@@ -1102,3 +1102,104 @@ def test_selective_scan_kernel_bf16_matches_plain(card, G, L, Din, N):
     assert y.dtype == torch.bfloat16 and torch.equal(y, again)
     want = selective_scan_ref(seq[0].float(), seq[1].float(), A, seq[2].float(), seq[3].float(), D)
     _within_bf16_steps(y, want.to(torch.bfloat16), 1.0, 2.0**-10)
+
+
+# ---------------------------------------------------------------------------
+# The YOLO Detect family and the DETR loss variants on the card
+# ---------------------------------------------------------------------------
+
+
+def _port_launches():
+    from tamtr_torch.kernels.auction import auction_assignment, auction_match
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_bwd, pair_buckets
+    from tamtr_torch.kernels.selective_scan import (
+        ss2d_scan, ss2d_scan_bwd_walk, ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_fwd_combine,
+        ss2d_scan_fwd_output, ss2d_scan_fwd_summaries,
+    )
+
+    return (ss2d_scan, ss2d_scan_fwd_summaries, ss2d_scan_fwd_combine, ss2d_scan_fwd_output, bilinear_gather,
+            ss2d_scan_carriers, ss2d_scan_combine, ss2d_scan_bwd_walk, pair_buckets, bilinear_gather_bwd,
+            auction_assignment, auction_match)
+
+
+def test_detect_forward_and_step_on_the_card_match_the_cpu(card):
+    """The narrow Detect model (`tests/torch_engine_data.py:yolo_narrow_cfg`,
+    heads spread) at 128 px, batch 2: the eval pred, boxes over the input
+    size, card = CPU within 1e-4; one training forward and v8 loss: TAL's
+    assignment equal on both, and with the CPU's given, the loss within
+    1e-4 and the gradient within 2x the CPU's fp32-vs-fp64 distance. No
+    kernel of the port launches on the Detect path."""
+    import copy
+
+    from torch_engine_data import yolo_narrow_cfg
+
+    from tamtr_torch.engine.model import normalized_pred
+    from tamtr_torch.losses.v8_loss import V8LossConfig, v8_detection_loss
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.weights import init_parameters
+
+    base = TAMTRModel(yolo_narrow_cfg(3), max_gt=6)
+    init_parameters(base, 0)
+    with torch.no_grad():
+        for b, c in zip(base.model[-1].cv2, base.model[-1].cv3):
+            b[2].bias.copy_((-2.0 * (torch.arange(16.0) - 1.5).abs()).repeat(4))
+            c[2].bias.zero_()
+    g = torch.Generator().manual_seed(5)
+    img = torch.rand(2, 128, 128, 3, generator=g)
+    txt = torch.zeros(1, 3, 512)
+    counters = _port_launches()
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        want = normalized_pred(base, base.eval()(img, txt)["pred"], (128, 128))
+        got = normalized_pred(base, copy.deepcopy(base).to(card)(img.to(card), txt.to(card))["pred"], (128, 128))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    tg = {"cls": torch.randint(0, 3, (2, 6), generator=g), "mask": torch.arange(6)[None] < torch.tensor([[6], [4]]),
+          "bboxes": torch.cat([torch.rand(2, 6, 2, generator=g) * 0.6 + 0.2, torch.rand(2, 6, 2, generator=g) * 0.3 + 0.1], -1)}
+
+    def step(d, dtype=torch.float32, assign=None):
+        model = copy.deepcopy(base).to(d, dtype).train()
+        t = {k: v.to(d, dtype) if v.is_floating_point() else v.to(d) for k, v in tg.items()}
+        loss, items = v8_detection_loss(model(img.to(d, dtype), txt.to(d, dtype)), t, V8LossConfig(nc=3, imgsz=128),
+                                        assign=assign if assign is None else {k: v.to(d) for k, v in assign.items()})
+        loss.backward()
+        return loss.item(), {k: v.cpu() for k, v in items["assign"].items()}, torch.cat(
+            [p.grad.flatten().double().cpu() for p in model.parameters()])
+
+    loss_cpu, assign, g_cpu = step("cpu")
+    _, card_assign, _ = step(card)
+    assert assign["fg_mask"].sum() > 0
+    assert torch.equal(card_assign["fg_mask"], assign["fg_mask"]) and torch.equal(card_assign["target_gt"],
+                                                                                  assign["target_gt"])
+    loss_card, _, g_card = step(card, assign=assign)
+    _, _, g64 = step("cpu", torch.float64, assign=assign)
+    assert abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    assert (g_card - g_cpu).norm() <= 2 * (g_cpu - g64).norm()
+    assert [f.launches for f in counters] == before
+
+
+@pytest.mark.parametrize("switch", ["use_sl", "use_svfl", "nwd_loss", "use_wiseiou"])
+def test_loss_variant_step_on_the_card(card, switch):
+    """One nano `Trainer.step` at 64 px with each DETR loss switch: finite,
+    B1-B5 launched as on the default loss's step (3 scans and 3 gathers
+    forward and backward, one assignment)."""
+    import numpy as np
+
+    from tamtr_torch import TAMTR
+    from tamtr_torch.losses.detr_loss import DETRLossConfig
+    from tamtr_torch.train.trainer import TrainConfig, Trainer
+
+    det = TAMTR("tamtr-nano.yaml", nc=4, device=card, imgsz=64, max_gt=8)
+    tr = Trainer(det.model, TrainConfig(batch_size=2, accumulate=1),
+                 loss_cfg=DETRLossConfig(nc=4, **{switch: True}), device=card)
+    rng = np.random.default_rng(3)
+    mask = np.arange(8)[None] < np.array([[5], [3]])
+    batch = {"img": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
+             "txt_feats": rng.standard_normal((1, 4, 128)).astype(np.float32),
+             "cls": rng.integers(0, 4, (2, 8)).astype(np.int32), "mask": mask,
+             "bboxes": (np.concatenate([rng.uniform(0.2, 0.8, (2, 8, 2)), rng.uniform(0.05, 0.3, (2, 8, 2))], -1)
+                        * mask[..., None]).astype(np.float32)}
+    counters = _port_launches()
+    before = [f.launches for f in counters]
+    m = tr.step(batch)
+    assert all(math.isfinite(m[k]) for k in ("loss", "giou", "class", "bbox", "grad_norm"))
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 1, 0]

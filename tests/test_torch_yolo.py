@@ -1,0 +1,701 @@
+"""The YOLO Detect family of the port (`tamtr_torch/nn/yolo_head.py`,
+`losses/tal.py`, `losses/v8_loss.py`, the YOLOv9 layers of `nn/layers.py`,
+`yolo-gelan.yaml`) against the JAX package on the CPU, one torch thread.
+
+Two models: `yolo-gelan.yaml` itself at nc 5 (eval parity, fuse, half,
+info) and its wiring at an eighth of the widths (`torch_engine_data.py:
+yolo_narrow_cfg`, nc 3) for the training step, the engine and two gloo
+ranks. Each is initialised once in JAX under `jax.jit` and bridged into the
+port; the Detect heads are spread (`spread_detect_params`: class biases 0,
+boxes of about 3 cells) so that a fresh model assigns anchors and detects,
+and their BatchNorms take the statistics of one random batch's features
+(`calibrated_head`), so that the head's activations are of order 1 and
+vary with the image.
+
+Bounds: the YOLOv9 layers, the anchor and DFL helpers at 1e-5 / 1e-6; TAL's
+fg_mask and target_gt equal, its targets at 1e-5; the v8 loss and its
+gradient at 1e-5; eval at 1e-3 (boxes over the input size); the training
+step given JAX's assignment at `tests/test_torch_train.py`'s bounds; val
+metrics within 1e-3; the loader's batches at `tests/test_torch_data.py`'s.
+"""
+
+import copy
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from tamtr_torch.engine.model import Engine, normalized_pred
+from tamtr_torch.losses.tal import task_aligned_assigner
+from tamtr_torch.losses.v8_loss import V8LossConfig, v8_detection_loss
+from tamtr_torch.nn import yolo_head as PH
+from tamtr_torch.nn.graph import TAMTRModel as PortModel
+from tamtr_torch.train import trainer as ptrain
+from tamtr_torch.weights import from_jax_variables
+
+from torch_engine_data import (NAMES, NC, calibrated_head, jax_variables, one_thread,  # noqa: F401
+                               spread_detect_params, write_yolo_narrow)
+
+IMG = 64
+
+
+def _bridge(cfg, params, batch_stats, nc):
+    port = PortModel.from_cfg(cfg, nc=nc)
+    sd, report = from_jax_variables(params, batch_stats, port)
+    assert not any(report.values()), report
+    port.load_state_dict(sd, strict=True)
+    return port.eval()
+
+
+@pytest.fixture(scope="module")
+def full():
+    """yolo-gelan.yaml at nc 5: (JAX model, params, batch_stats, port model)."""
+    from tamtr_tpu.nn.graph import TAMTRModel
+
+    jm = TAMTRModel.from_yaml("yolo-gelan.yaml", nc=5)
+    params, bs = jax_variables(jm, IMG, 5)
+    params = spread_detect_params(params)
+    params, bs = calibrated_head(jm, params, bs, IMG, 5)
+    return jm, params, bs, _bridge("yolo-gelan.yaml", params, bs, 5)
+
+
+@pytest.fixture(scope="module")
+def narrow(tmp_path_factory):
+    """The narrow config at nc NC: (config path, JAX model, params,
+    batch_stats, port model), the heads spread; training normalises with
+    each batch's statistics, so the step takes these."""
+    from tamtr_tpu.nn.graph import TAMTRModel
+
+    path = write_yolo_narrow(tmp_path_factory.mktemp("yolo_cfg"))
+    jm = TAMTRModel.from_yaml(path, nc=NC)
+    params, bs = jax_variables(jm, IMG, NC)
+    params = spread_detect_params(params)
+    return path, jm, params, bs, _bridge(path, params, bs, NC)
+
+
+@pytest.fixture(scope="module")
+def narrow_eval(narrow):
+    """`narrow` with its head calibrated for eval (`calibrated_head`)."""
+    path, jm, params, bs, _ = narrow
+    params, bs = calibrated_head(jm, params, bs, IMG)
+    return path, jm, params, bs, _bridge(path, params, bs, NC)
+
+
+# ---------------------------------------------------------------------------
+# Config, layers, helpers
+# ---------------------------------------------------------------------------
+
+
+def test_config_equals_jax_yaml():
+    import yaml
+
+    from tamtr_torch.nn.graph import CFG_DIR, TEXT_WIDTH
+
+    with open("tamtr_tpu/cfg/models/yolo-gelan.yaml") as f:
+        assert json.loads((CFG_DIR / "yolo-gelan.json").read_text()) == yaml.safe_load(f)
+    m = PortModel.from_cfg("yolo-gelan.yaml", nc=5)
+    assert (m.head_type, m.uses_text, m.text_width) == ("Detect", False, TEXT_WIDTH)
+    assert PortModel.from_cfg("tamtr-nano.yaml", nc=5).uses_text
+
+
+def test_unported_heads_name_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        PortModel(_seg_cfg(), nc=3)
+
+
+def _seg_cfg():
+    from torch_engine_data import yolo_narrow_cfg
+
+    cfg = yolo_narrow_cfg(3)
+    cfg["head"][-1] = [[15, 18, 21], 1, "Segment", ["nc"]]
+    return cfg
+
+
+def _layers_cfg():
+    """Silence, ADown twice, two CBLinear (one 3x3 stride 3) and a CBFuse
+    that resizes a 20x20 map down to 10x10 and a 7x7 map up to 10x10 (a
+    non-integer factor), into a Detect head at 80 px."""
+    return {"nc": 3, "backbone": [
+        [-1, 1, "Silence", []],  # 0: 80
+        [-1, 1, "Conv", [16, 3, 2]],  # 1: 40
+        [-1, 1, "ADown", [32]],  # 2: 20
+        [-1, 1, "ADown", [32]],  # 3: 10
+        [2, 1, "CBLinear", [[32, 16]]],  # 4: (32, 16) at 20
+        [2, 1, "CBLinear", [[16, 32], 3, 3]],  # 5: (16, 32) at 7
+        [[4, 5, 3], 1, "CBFuse", [[0, 1]]],  # 6: 32 at 10
+    ], "head": [
+        [-1, 1, "Conv", [32, 3, 2]],  # 7: 5
+        [-1, 1, "ADown", [32]],  # 8: 2
+        [[6, 7, 8], 1, "Detect", ["nc"]],
+    ]}
+
+
+def test_yolov9_layers_in_a_graph_match_jax(tmp_path):
+    """The graph of `_layers_cfg` built in both packages from one JSON file,
+    JAX's weights bridged (a CBLinear's conv is flax's `conv`): the head's
+    raw outputs at 1e-5 and pred over the input size at 1e-5. CBFuse
+    resizes as `jax.image.resize(..., "nearest")`, which is torch's
+    "nearest-exact", not its "nearest" (both resizes of this graph differ
+    between the two)."""
+    from tamtr_tpu.nn.graph import TAMTRModel
+
+    path = tmp_path / "layers.json"
+    path.write_text(json.dumps(_layers_cfg()))
+    jm = TAMTRModel.from_yaml(path, nc=3)
+    params, bs = jax_variables(jm, 80, 3)
+    rng = np.random.default_rng(0)
+    bs = jax.tree.map(lambda x: (x + rng.uniform(0.1, 0.5, x.shape)).astype(np.float32), bs)
+    port = _bridge(path, params, bs, 3)
+    assert [type(m).__name__ for m in port.model[:7]] == ["Silence", "ConvBN", "ADown", "ADown", "CBLinear",
+                                                          "CBLinear", "CBFuse"]
+    img = rng.random((2, 80, 80, 3), dtype=np.float32)
+    want = jax.jit(lambda v, x: jm.apply(v, x, jnp.zeros((2, 3, 512)), None, False))(
+        {"params": params, "batch_stats": bs}, img)
+    with torch.no_grad():
+        got = port(torch.from_numpy(img), torch.zeros(2, 3, 512))
+    for k in ("distri", "scores", "anchors", "strides"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-5, rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got["pred"].numpy() / np.array([80] * 4 + [1] * 3), np.asarray(want["pred"]) /
+                               np.array([80] * 4 + [1] * 3), atol=1e-5, rtol=1e-5)
+    for n_in, n_out in ((20, 10), (7, 10), (8, 4), (3, 7)):
+        x = torch.arange(n_in, dtype=torch.float32)[None, None, :, None].expand(1, 1, n_in, 1)
+        exact = F.interpolate(x, size=(n_out, 1), mode="nearest-exact")[0, 0, :, 0]
+        jx = jax.image.resize(jnp.arange(n_in, dtype=jnp.float32), (n_out,), "nearest")
+        np.testing.assert_array_equal(exact.numpy(), np.asarray(jx))
+        assert not torch.equal(exact, F.interpolate(x, size=(n_out, 1), mode="nearest")[0, 0, :, 0])
+
+
+@pytest.mark.parametrize("c1,c2,k,s", [(16, 16, 3, 1), (8, 16, 3, 2), (16, 8, 1, 1)])
+def test_dwconvbn_matches_jax(c1, c2, k, s):
+    """DWConvBN (groups min(c1, c2)) in eval mode on random weights and
+    statistics at 1e-5."""
+    from tamtr_tpu.nn.layers import DWConvBN as JDW
+
+    from tamtr_torch.nn.layers import DWConvBN
+
+    rng = np.random.default_rng(c1 + c2)
+    x = rng.standard_normal((2, 9, 9, c1)).astype(np.float32)
+    v = jax.device_get(JDW(c2, k, s).init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    inner = v["params"]["ConvBN_0"]
+    st = {"mean": rng.standard_normal(c2).astype(np.float32), "var": rng.uniform(0.5, 2, c2).astype(np.float32)}
+    scale, bias = rng.uniform(0.5, 2, c2).astype(np.float32), rng.standard_normal(c2).astype(np.float32)
+    jv = {"params": {"ConvBN_0": {"Conv_0": inner["Conv_0"], "BatchNorm_0": {"scale": scale, "bias": bias}}},
+          "batch_stats": {"ConvBN_0": {"BatchNorm_0": st}}}
+    want = JDW(c2, k, s).apply(jv, jnp.asarray(x))
+    m = DWConvBN(c1, c2, k, s).eval()
+    assert m.conv.groups == min(c1, c2)
+    with torch.no_grad():
+        m.conv.weight.copy_(torch.from_numpy(np.transpose(np.asarray(inner["Conv_0"]["kernel"]), (3, 2, 0, 1))))
+        m.bn.weight.copy_(torch.from_numpy(scale))
+        m.bn.bias.copy_(torch.from_numpy(bias))
+        m.bn.running_mean.copy_(torch.from_numpy(st["mean"]))
+        m.bn.running_var.copy_(torch.from_numpy(st["var"]))
+        got = m(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_anchor_and_dfl_helpers_match_jax():
+    from tamtr_tpu.nn import yolo_head as JH
+
+    shapes, strides = [(8, 10), (4, 5), (2, 3)], (8, 16, 32)
+    for a, b in zip(PH.make_anchors(shapes, strides), JH.make_anchors(shapes, strides)):
+        np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(2, 12, (30, 2)).astype(np.float32)
+    dist = rng.uniform(0.0, 18.0, (30, 4)).astype(np.float32)  # some beyond the reg_max clip
+    for xywh in (True, False):
+        np.testing.assert_allclose(PH.dist2bbox(torch.from_numpy(dist), torch.from_numpy(pts), xywh).numpy(),
+                                   np.asarray(JH.dist2bbox(jnp.asarray(dist), jnp.asarray(pts), xywh)), atol=1e-6,
+                                   rtol=1e-6)
+    boxes = JH.dist2bbox(jnp.asarray(dist), jnp.asarray(pts), xywh=False)
+    np.testing.assert_allclose(PH.bbox2dist(torch.from_numpy(np.asarray(boxes)), torch.from_numpy(pts), 16).numpy(),
+                               np.asarray(JH.bbox2dist(boxes, jnp.asarray(pts), 16)), atol=1e-6, rtol=1e-6)
+    logits = (rng.standard_normal((2, 30, 64)) * 3).astype(np.float32)
+    np.testing.assert_allclose(PH.dfl_decode(torch.from_numpy(logits)).numpy(),
+                               np.asarray(JH.dfl_decode(jnp.asarray(logits))), atol=1e-6, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# TAL and the v8 loss
+# ---------------------------------------------------------------------------
+
+
+def _assigner_inputs(seed=2, B=2, M=12, nc=NC):
+    """A crowded image (10 overlapping gts near the centre) and a padded one
+    (4 valid gts, the rest junk boxes the mask must hide), anchors of 64 px
+    at strides 8/16/32, predictions near every anchor, in pixels."""
+    rng = np.random.default_rng(seed)
+    pts, strs = PH.make_anchors([(8, 8), (4, 4), (2, 2)], (8, 16, 32))
+    anchors = pts * strs
+    A = len(anchors)
+    c = rng.uniform(-4, 4, (B, A, 2)) + anchors[None]
+    wh = rng.uniform(6, 30, (B, A, 2))
+    pred = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    gc = np.concatenate([rng.uniform(22, 42, (1, M, 2)), rng.uniform(4, 60, (1, M, 2))])
+    gwh = np.concatenate([rng.uniform(10, 30, (1, M, 2)), rng.uniform(8, 40, (1, M, 2))])
+    gts = np.concatenate([gc - gwh / 2, gc + gwh / 2], -1).astype(np.float32)
+    mask = np.arange(M)[None] < np.array([[10], [4]])
+    scores = 1 / (1 + np.exp(-rng.standard_normal((B, A, nc)).astype(np.float32)))
+    return (scores.astype(np.float32), pred, anchors.astype(np.float32), rng.integers(0, nc, (B, M)).astype(np.int32),
+            gts, mask)
+
+
+def test_tal_matches_jax_on_crowded_and_padded_gts():
+    from tamtr_tpu.losses.tal import task_aligned_assigner as jax_tal
+
+    args = _assigner_inputs()
+    want = jax_tal(*(jnp.asarray(a) for a in args))
+    got = task_aligned_assigner(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_array_equal(got["fg_mask"].numpy(), np.asarray(want["fg_mask"]))
+    np.testing.assert_array_equal(got["target_gt"].numpy(), np.asarray(want["target_gt"]))
+    for k in ("target_bboxes", "target_scores"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-5, rtol=1e-5, err_msg=k)
+    fg, tgt = got["fg_mask"].numpy(), got["target_gt"].numpy()
+    assert fg[0].sum() > 10 and fg[1].sum() > 0
+    assert (tgt[1][fg[1]] < 4).all()  # padding never assigned
+    # anchors inside two or more gts that went to one of them: the claims were resolved
+    _, _, anchors, _, gts, mask = args
+    inside = ((anchors[None, None] > gts[:, :, None, :2]) & (anchors[None, None] < gts[:, :, None, 2:])).all(-1)
+    assert ((inside & mask[:, :, None]).sum(1)[0][fg[0]] > 1).any()
+
+
+def _head_outputs(seed, B=2, nc=NC):
+    rng = np.random.default_rng(seed)
+    pts, strs = PH.make_anchors([(8, 8), (4, 4), (2, 2)], (8, 16, 32))
+    A = len(pts)
+    bias = np.tile(-2.0 * np.abs(np.arange(16) - 1.5), 4)
+    return {"distri": (rng.standard_normal((B, A, 64)) + bias).astype(np.float32),
+            "scores": rng.standard_normal((B, A, nc)).astype(np.float32), "anchors": pts, "strides": strs}
+
+
+def _targets(seed, B=2, M=8, nc=NC, counts=(6, 0)):
+    rng = np.random.default_rng(seed)
+    mask = np.arange(M)[None] < np.array(counts)[:, None]
+    bb = np.concatenate([rng.uniform(0.2, 0.8, (B, M, 2)), rng.uniform(0.1, 0.4, (B, M, 2))], -1) * mask[..., None]
+    return {"cls": rng.integers(0, nc, (B, M)).astype(np.int32), "bboxes": bb.astype(np.float32), "mask": mask}
+
+
+def test_v8_loss_and_gradient_match_jax():
+    """The total and box / cls / dfl, and the gradients to distri and
+    scores, at 1e-5, with an image without gts; the assignment given back
+    (`assign=`) gives the same loss."""
+    from tamtr_tpu.losses.v8_loss import V8LossConfig as JCfg
+    from tamtr_tpu.losses.v8_loss import v8_detection_loss as jax_loss
+
+    out, tg = _head_outputs(3), _targets(4)
+
+    def jl(d, s):
+        return jax_loss({"distri": d, "scores": s, "anchors": jnp.asarray(out["anchors"]),
+                         "strides": jnp.asarray(out["strides"])}, {k: jnp.asarray(v) for k, v in tg.items()},
+                        JCfg(nc=NC, imgsz=IMG))
+
+    (want, witems), (gd, gs) = jax.value_and_grad(jl, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(out["distri"]), jnp.asarray(out["scores"]))
+    d, s = (torch.from_numpy(out[k]).requires_grad_() for k in ("distri", "scores"))
+    po = {"distri": d, "scores": s, "anchors": torch.from_numpy(out["anchors"]),
+          "strides": torch.from_numpy(out["strides"])}
+    pt = {k: torch.from_numpy(v) for k, v in tg.items()}
+    got, items = v8_detection_loss(po, pt, V8LossConfig(nc=NC, imgsz=IMG))
+    got.backward()
+    assert items["assign"]["fg_mask"].sum() > 0 and float(witems["box"]) > 0
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    for k in ("box", "cls", "dfl"):
+        np.testing.assert_allclose(items[k].item(), float(witems[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(d.grad.numpy(), np.asarray(gd), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(s.grad.numpy(), np.asarray(gs), atol=1e-5, rtol=1e-5)
+    again, _ = v8_detection_loss(po, pt, V8LossConfig(nc=NC, imgsz=IMG), assign=items["assign"])
+    assert torch.equal(again, got)
+
+
+# ---------------------------------------------------------------------------
+# The model: eval, fuse, half, info
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sz", [64, 128])
+def test_yolo_gelan_eval_matches_jax(full, sz):
+    """yolo-gelan (nc 5) on bridged weights: pred, its boxes over the input
+    size, at 1e-3, and the raw head outputs at 1e-3."""
+    jm, params, bs, port = full
+    img = np.random.default_rng(sz).random((2, sz, sz, 3), dtype=np.float32)
+    want = jax.jit(lambda v, x: jm.apply(v, x, jnp.zeros((2, 5, 512)), None, False))(
+        {"params": params, "batch_stats": bs}, img)
+    with torch.no_grad():
+        got = port(torch.from_numpy(img), torch.zeros(2, 5, 512))
+    A = sum((sz // s) ** 2 for s in (8, 16, 32))
+    assert got["pred"].shape == (2, A, 9) and got["pred"].dtype == torch.float32
+    norm = lambda p: np.asarray(p) / np.array([sz] * 4 + [1] * 5)  # noqa: E731
+    assert norm(want["pred"])[..., 4:].std() > 0.05  # spread scores
+    np.testing.assert_allclose(norm(got["pred"].numpy()), norm(want["pred"]), atol=1e-3, rtol=1e-3)
+    for k in ("distri", "scores"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-3, rtol=1e-3, err_msg=k)
+
+
+def test_fuse_and_half_of_a_detect_model(full):
+    """`Engine._eval_model` of the Detect model: fuse=True folds every
+    ConvBN of the graph and the head (no BatchNorm left) and keeps the
+    head's final convs as they are, equal to the unfused forward at 1e-4;
+    half=True (fused or not) computes in bf16 with fp32 pred, within 2e-2
+    of fp32 (boxes over the input size)."""
+    from tamtr_torch.config import get_cfg
+    from tamtr_torch.nn.layers import BatchNorm2d
+
+    _, _, _, port = full
+    eng = Engine("yolo-gelan.yaml", device="cpu")
+    fused = eng._eval_model(port, get_cfg(overrides=dict(fuse=True)))
+    assert not any(isinstance(m, BatchNorm2d) for m in fused.modules())
+    head, fhead = port.model[-1], fused.model[-1]
+    for a, b in zip(list(head.cv2) + list(head.cv3), list(fhead.cv2) + list(fhead.cv3)):
+        assert torch.equal(a[2].weight, b[2].weight) and torch.equal(a[2].bias, b[2].bias)
+    img = torch.from_numpy(np.random.default_rng(5).random((2, IMG, IMG, 3), dtype=np.float32))
+    txt = torch.zeros(1, 5, 512)
+    with torch.no_grad():
+        want = normalized_pred(port, port(img, txt)["pred"], (IMG, IMG))
+        got = normalized_pred(fused, fused(img, txt)["pred"], (IMG, IMG))
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        for fuse in (False, True):
+            half = eng._eval_model(port, get_cfg(overrides=dict(fuse=fuse, half=True)))
+            assert half.dtype == torch.bfloat16 and next(half.parameters()).dtype == torch.float32
+            p = half(img, txt)["pred"]
+            assert p.dtype == torch.float32
+            torch.testing.assert_close(normalized_pred(half, p, (IMG, IMG)), want, atol=2e-2, rtol=2e-2)
+    assert port.dtype == torch.float32
+
+
+def test_info_equals_jax(full):
+    """`TAMTR.info` of yolo-gelan equals JAX's summary (layers, params), and
+    the variables held equal JAX's count."""
+    from tamtr_tpu.api import TAMTR as JaxTAMTR
+
+    from tamtr_torch.api import TAMTR, variable_count
+
+    _, params, bs, port = full
+    assert variable_count(port) == sum(x.size for x in jax.tree.leaves((params, bs)))
+    assert TAMTR("yolo-gelan.yaml", device="cpu").info(nc=5) == JaxTAMTR("yolo-gelan.yaml").info(nc=5)
+
+
+# ---------------------------------------------------------------------------
+# The training step
+# ---------------------------------------------------------------------------
+
+
+def _step_batch(B=2, M=8):
+    rng = np.random.default_rng(11)
+    tg = _targets(12, B, M, counts=(8, 5))
+    return {"img": rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8),
+            "txt_feats": np.zeros((B, NC, 512), np.float32), **tg}
+
+
+def _jax_assignment(jm, params, bs, batch):
+    """JAX's train-mode forward and, on it, JAX's TAL as its v8 loss runs
+    it: the assignment as numpy."""
+    from tamtr_tpu.losses.tal import task_aligned_assigner as jax_tal
+    from tamtr_tpu.nn.yolo_head import dfl_decode, dist2bbox
+    from tamtr_tpu.ops.boxes import xywh2xyxy
+
+    def assign(p, b, img, cls, bboxes, mask):
+        out, _ = jm.apply({"params": p, "batch_stats": b}, img, jnp.zeros((img.shape[0], NC, 512)),
+                          {"cls": cls, "bboxes": bboxes, "mask": mask}, True, mutable=["batch_stats"])
+        pred = dist2bbox(dfl_decode(out["distri"].astype(jnp.float32)), out["anchors"][None], xywh=False)
+        return jax_tal(jax.nn.sigmoid(out["scores"].astype(jnp.float32)), pred * out["strides"][None],
+                       out["anchors"] * out["strides"], cls, xywh2xyxy(bboxes) * IMG, mask)
+
+    res = jax.jit(assign)(params, bs, batch["img"].astype(np.float32) / 255.0, batch["cls"], batch["bboxes"],
+                          batch["mask"])
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in res.items()}
+
+
+def _run_jax_step(jm, params, bs, batch):
+    from tamtr_tpu.config import get_cfg as jax_get_cfg
+    from tamtr_tpu.engine.model import Engine as JaxEngine
+    from tamtr_tpu.train import trainer as jtrain
+
+    cfg = jtrain.TrainConfig(batch_size=len(batch["img"]), warmup_iters=10, epochs=2)
+    tx = jtrain.make_optimizer(cfg, params, steps_per_epoch=10)
+    p_flat = jtrain.flatten_tree(params)
+    state = jtrain.TrainState(
+        step=jnp.zeros((), jnp.int32), params=p_flat, batch_stats=bs, opt_state=tx.init(params),
+        ema_params=jnp.copy(p_flat), ema_batch_stats=jax.tree.map(jnp.copy, bs), unravel=jtrain.unravel_for(params))
+    loss = JaxEngine._loss_callable_for(jm, jax_get_cfg(overrides=dict(imgsz=IMG)), NC)
+    new, metrics = jax.jit(jtrain.make_train_step(jm, tx, None, cfg, loss_callable=loss))(
+        state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+    gnorm = float(metrics["grad_norm"])
+    coef = min(1.0, cfg.grad_clip / max(gnorm, 1e-6))
+    unravel = jax.jit(state.unravel)
+    to_np = lambda t: {k: to_np(x) if hasattr(x, "items") else np.array(x) for k, x in t.items()}  # noqa: E731
+    tree = lambda flat: to_np(unravel(jnp.asarray(flat)))  # noqa: E731
+    grads = tree(np.asarray(new.opt_state.m) / ((1.0 - cfg.momentum) * coef))
+    return cfg, {k: float(v) for k, v in metrics.items()}, grads, tree(new.params), to_np(new.batch_stats), \
+        tree(new.ema_params)
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def test_train_step_matches_jax_step(narrow, monkeypatch):
+    """One `Trainer.step` of the narrow Detect model against JAX's
+    `make_train_step` with `Engine._loss_callable_for`'s v8 loss.
+
+    TAL's top-k and its claims are discrete: the port's own assignment on
+    its own forward may differ from JAX's only at near-ties (counted and
+    printed; at most 1% of the foreground). The gradients and the step are
+    then taken with JAX's assignment (`assign=`), against
+    `tests/test_torch_train.py`'s bounds: the whole gradient within 2% of
+    JAX's, the port's fp64 pass too, the port's own fp32 floor within 1.5%,
+    each tensor within 7.5%; after the step the loss at 1e-4, the gradient
+    norm at 1e-2, at most 1% of the moved parameter entries off JAX's step
+    by more than 2% of it, the BatchNorm statistics at 1e-4."""
+    _, jm, params, bs, port = narrow
+    batch = _step_batch()
+    jcfg, metrics, jgrads, jparams, jstats, jema = _run_jax_step(jm, params, bs, batch)
+    jassign = _jax_assignment(jm, params, bs, batch)
+    tg = {k: torch.from_numpy(batch[k]) for k in ("cls", "bboxes", "mask")}
+    loss_cfg = V8LossConfig(nc=NC, imgsz=IMG)
+
+    def grads(dtype, assign):
+        model = copy.deepcopy(port).to(dtype).train()
+        out = model(torch.from_numpy(batch["img"]).to(dtype) / 255.0, torch.from_numpy(batch["txt_feats"]).to(dtype))
+        loss, items = v8_detection_loss(out, {**tg, "bboxes": tg["bboxes"].to(dtype)}, loss_cfg, assign=assign)
+        loss.backward()
+        return loss.item(), items, {k: p.grad.double().numpy() for k, p in model.named_parameters()}
+
+    _, own, _ = grads(torch.float32, None)
+    fg, jfg = own["assign"]["fg_mask"], jassign["fg_mask"]
+    moved = int((fg != jfg).sum() + ((own["assign"]["target_gt"] != jassign["target_gt"]) & fg & jfg).sum())
+    print(f"TAL anchors that differ from JAX's: {moved} of {int(jfg.sum())} foreground")
+    assert jfg.sum() > 20 and moved <= 0.01 * int(jfg.sum())
+    loss32, items32, g32 = grads(torch.float32, jassign)
+    _, _, g64 = grads(torch.float64, jassign)
+    np.testing.assert_allclose(loss32, metrics["loss"], rtol=1e-4)
+    for k in ("box", "cls", "dfl"):
+        np.testing.assert_allclose(items32[k].item(), metrics[k], rtol=1e-4, err_msg=k)
+    gsd, _ = from_jax_variables(jgrads, bs, port)
+    gj = {k: gsd[k].double().numpy() for k in g32}
+    whole = lambda g: np.concatenate([v.ravel() for v in g.values()])  # noqa: E731
+    readings = [_rel(whole(g32), whole(gj)), _rel(whole(g64), whole(gj)), _rel(whole(g32), whole(g64))]
+    top = max(np.linalg.norm(g) for g in gj.values())
+    per_tensor = {k: _rel(g, gj[k]) for k, g in g32.items() if np.linalg.norm(gj[k]) > 1e-6 * top}
+    print(f"gradient |port - jax|, |port fp64 - jax|, |port fp32 - fp64| (relative): {readings}; "
+          f"worst tensor {max(per_tensor.items(), key=lambda kv: kv[1])}")
+    assert readings[0] < 2e-2 and readings[1] < 2e-2 and readings[2] < 1.5e-2, readings
+    assert all(e < 7.5e-2 for e in per_tensor.values()), per_tensor
+
+    before = {k: p.detach().clone().numpy() for k, p in port.named_parameters()}
+    model = copy.deepcopy(port)
+    tr = ptrain.Trainer(model, ptrain.TrainConfig(batch_size=jcfg.batch_size, warmup_iters=jcfg.warmup_iters,
+                                                  epochs=jcfg.epochs),
+                        loss_cfg=ptrain.loss_config_for(model, imgsz=IMG), steps_per_epoch=10, device="cpu")
+    assert tr.loss_cfg == loss_cfg
+    monkeypatch.setattr(ptrain, "v8_detection_loss", lambda o, t, c: v8_detection_loss(o, t, c, assign=jassign))
+    m = tr.step(batch)
+    assert m["stepped"] == 1.0 and set(m) == {"loss", "box", "cls", "dfl", "grad_norm", "stepped"}
+    np.testing.assert_allclose(m["loss"], metrics["loss"], rtol=1e-4)
+    np.testing.assert_allclose(m["grad_norm"], metrics["grad_norm"], rtol=1e-2)
+    psd, _ = from_jax_variables(jparams, jstats, model)
+    esd, _ = from_jax_variables(jema, jstats, model)
+    ema = tr.ema.state_dict()
+    flips = moved = 0
+    for k, p in model.named_parameters():
+        g = gsd[k].numpy()
+        live = np.abs(g) > 1e-3 * np.abs(g).max() if np.linalg.norm(g) > 1e-6 * top else np.zeros(g.shape, bool)
+        for mine, theirs in ((p.detach().numpy(), psd[k].numpy()), (ema[k].numpy(), esd[k].numpy())):
+            step = np.abs(theirs - before[k])
+            flips += int((live & (np.abs(mine - theirs) > 1e-6 + 0.02 * step)).sum())
+            moved += int((live & (step > 0)).sum())
+    assert moved > 0 and flips <= 0.01 * moved, (flips, moved)
+    for k, v in model.state_dict().items():
+        if "running_" in k:
+            np.testing.assert_allclose(v.numpy(), psd[k].numpy(), atol=1e-4, rtol=1e-4, err_msg=k)
+
+
+def test_two_gloo_ranks_equal_one_process(tmp_path):
+    """The narrow Detect model's step on 2 data ranks of 2 images against
+    one process on the 4 (the `yolo` case of `tests/torch_parallel_worker.py`):
+    the loss and box / cls / dfl at 1e-5 relative (sum(target_scores) and
+    the batch size are the global batch's), the parameters after the step
+    within twice the one-versus-three-thread floor, as
+    `tests/test_torch_parallel.py` holds the nano step."""
+    from test_torch_parallel import distance, run_ranks
+
+    ranks = run_ranks(tmp_path, "yolo")
+    one, one_model = ranks[0]["one"]
+    floor = distance(ranks[0]["floor"][1], one_model)
+    for r in ranks:
+        got, model = r["dp"]
+        for k, v in one.items():
+            assert abs(got[k] - v) <= 1e-5 * abs(v), (k, got[k], v)
+        d = distance(model, one_model)
+        assert d[0] <= 2 * max(floor[0], 1e-4) and d[1] <= 2 * max(floor[1], 1e-4), (d, floor)
+    assert all(torch.equal(ranks[0]["dp"][1][k], ranks[1]["dp"][1][k]) for k in one_model)
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+SHAPES = [(64, 64), (48, 64), (64, 48), (40, 64), (64, 40), (56, 64)]
+
+
+@pytest.fixture(scope="module")
+def val_split(narrow_eval, tmp_path_factory):
+    """Six PNGs of mixed aspect ratios, labelled with the narrow port
+    model's top-3 square detections, jittered by up to 8%; the 512-wide
+    class table; returns (data.json, txt)."""
+    from tamtr_torch.data.image_io import imwrite
+    from tamtr_torch.data.imgproc import resize_linear
+    from tamtr_torch.ops.nms import postprocess_predictions
+
+    _, _, _, _, port = narrow_eval
+    root = tmp_path_factory.mktemp("yolo_val")
+    (root / "images").mkdir()
+    (root / "labels").mkdir()
+    rng = np.random.default_rng(5)
+    txt = rng.standard_normal((NC, 512)).astype(np.float32)
+    for i, (h, w) in enumerate(SHAPES):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        x = resize_linear(img, (IMG, IMG))[..., ::-1].astype(np.float32) / 255.0
+        with torch.inference_mode():
+            pred = normalized_pred(port, port(torch.from_numpy(x.copy())[None], torch.from_numpy(txt[None]))["pred"],
+                                   (IMG, IMG))
+        boxes, _, labels, valid, _ = (t.numpy() for t in postprocess_predictions(pred, 0.25, 0.7, 300))
+        n = min(3, int(valid[0].sum()))
+        assert n > 0
+        xyxy = (boxes[0][valid[0]][:n] * (1 + rng.uniform(-0.08, 0.08, (n, 4)))).clip(0, 1)
+        imwrite(root / "images" / f"{i}.png", img)
+        (root / "labels" / f"{i}.txt").write_text("\n".join(
+            f"{c} {(a + c2) / 2:.5f} {(b + d) / 2:.5f} {c2 - a:.5f} {d - b:.5f}"
+            for c, (a, b, c2, d) in zip(labels[0][valid[0]][:n], xyxy)))
+    data = root / "data.json"
+    data.write_text(json.dumps({"path": str(root), "train": "images", "val": "images", "nc": NC, "names": NAMES}))
+    return str(data), txt
+
+
+@pytest.mark.parametrize("rect", [False, True])
+def test_val_matches_jax_engine(narrow_eval, val_split, rect, monkeypatch):
+    """`Engine.val` of the Detect model on bridged weights, square and rect
+    (letterboxed batches by aspect ratio, the Detect head's alone): mAP50,
+    mAP50-95, precision and recall equal the JAX `Engine.val`'s within
+    1e-3. JAX's rect val runs on one device only: its device count is
+    given as 1 for that case."""
+    from tamtr_tpu.engine.checkpoint import InferenceState
+    from tamtr_tpu.engine.model import Engine as JaxEngine
+
+    path, jm, params, bs, port = narrow_eval
+    data, txt = val_split
+    args = dict(data=data, imgsz=IMG, batch=2, conf=0.25, workers=1, plots=False, rect=rect)
+    eng = Engine(str(path), device="cpu")
+    eng.model = port
+    eng.set_classes(NAMES, txt)
+    got = eng.val(**args)
+    je = JaxEngine(str(path))
+    je.model = jm
+    je.state = InferenceState(params, bs)
+    je.set_classes(NAMES, txt)
+    if rect:
+        monkeypatch.setattr(jax, "device_count", lambda: 1)
+    want = je.val(**args)
+    assert 0 < want["mAP50"] < 1 and 0 < want["recall"] <= 1
+    for k in ("mAP50", "mAP50-95", "precision", "recall"):
+        assert abs(got[k] - want[k]) <= 1e-3, (k, got[k], want[k])
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_train_loader_batches_equal_jax(narrow, tmp_path, monkeypatch):
+    """`Engine.train` of a Detect model in both packages builds its training
+    dataset without sampled texts (`uses_text` is False; JAX's
+    `random_text=probe_model.uses_text`): the datasets each engine builds
+    (captured at their loaders) give equal batches, two epochs, at
+    `tests/test_torch_data.py`'s bounds (cls, mask equal, no texts, boxes at
+    1e-5, images within 3 levels on at most 1% of the pixels)."""
+    import tamtr_tpu.engine.model as jeng
+    from tamtr_tpu.data.dataset import build_loader
+
+    import tamtr_torch.engine.model as peng
+    from tamtr_torch.data.dataset import Loader
+    from tools.smoke_train_torch import make_dataset
+
+    path = narrow[0]
+    data = str(make_dataset(tmp_path / "ds", 6, 2, IMG))
+    seen = {}
+
+    def capture(name):
+        def f(ds, *a, **kw):
+            seen[name] = (ds, a, kw)
+            raise _Stop
+        return f
+
+    monkeypatch.setattr(jeng, "build_loader", capture("jax"))
+    monkeypatch.setattr(peng, "Loader", capture("port"))
+    args = dict(data=data, imgsz=IMG, batch=3, max_gt=8, epochs=2, workers=0, plots=False, project=str(tmp_path))
+    for name, eng in (("jax", jeng.Engine(str(path))), ("port", Engine(str(path), device="cpu"))):
+        with pytest.raises(_Stop):
+            eng.train(**args)
+    jds, pds = seen["jax"][0], seen["port"][0]
+    assert jds.random_text is False and pds.random_text is False
+    jl = build_loader(jds, 3, max_gt=8, seed=0, workers=0)
+    pl = Loader(pds, 3, max_gt=8, seed=0, workers=0)
+    worst = []
+    for epoch in (0, 1):
+        jl.set_epoch(epoch)
+        pl.set_epoch(epoch)
+        n = 0
+        for jb, pb in zip(jl, pl):
+            n += 1
+            assert "texts" not in jb and "texts" not in pb
+            np.testing.assert_array_equal(pb["cls"].numpy(), jb["cls"])
+            np.testing.assert_array_equal(pb["mask"].numpy(), jb["mask"])
+            np.testing.assert_allclose(pb["bboxes"].numpy(), jb["bboxes"], rtol=0, atol=1e-5)
+            d = np.abs(pb["img"].numpy().astype(np.int64) - jb["img"])
+            worst.append((int(d.max()), float((d > 1).mean())))
+        assert n == 2
+    assert max(w[0] for w in worst) <= 3 and max(w[1] for w in worst) <= 0.01, worst
+
+
+def test_engine_and_cli_run_a_detect_model(narrow, narrow_eval, val_split, tmp_path):
+    """The user's paths with a Detect model, on the CPU: `TAMTR.train` (one
+    epoch: finite v8 items in the log row), `val` square and rect, `predict`
+    with and without TTA and with fuse and half, `track`, `load` of the
+    checkpoint; then the CLI: `python -m tamtr_torch detect train
+    model=yolo-gelan.yaml` for one epoch and `predict` from its `best.pt`."""
+    import csv
+
+    from tamtr_torch import cli
+    from tamtr_torch.api import TAMTR
+    from tools.smoke_train_torch import make_dataset
+
+    path = narrow[0]
+    data = str(make_dataset(tmp_path / "ds", 4, 2, IMG))
+    det = TAMTR(str(path), device="cpu", imgsz=IMG, max_gt=8)
+    det.train(data=data, epochs=1, batch=2, workers=0, warmup_epochs=2, plots=False, conf=0.01,
+              project=str(tmp_path / "runs"), name="y")
+    row = next(csv.DictReader(open(tmp_path / "runs" / "y" / "results.csv")))
+    assert all(np.isfinite(float(row[k])) for k in ("loss", "box", "cls", "dfl")) and "giou" not in row
+    src = str(tmp_path / "ds" / "val" / "images")
+    for rect in (False, True):
+        m = det.val(data=data, batch=2, workers=0, plots=False, conf=0.01, rect=rect)
+        assert 0.0 <= m["mAP50"] <= 1.0
+    for kw in ({}, dict(augment=True), dict(fuse=True), dict(half=True)):
+        res = det.predict(src, conf=0.0, **kw)
+        assert len(res) == 2 and all(len(r) > 0 for r in res), kw
+        for r in res:
+            assert np.isfinite(r.boxes.xyxy).all()  # not clipped to the image, as JAX's
+    tracker = TAMTR(str(path), nc=NC, device="cpu", imgsz=IMG)
+    tracker._lazy_engine().model = narrow_eval[4]  # the calibrated head's confident boxes start tracks
+    tracker.set_classes(NAMES, val_split[1])
+    tracked = tracker.track(src)
+    assert len(tracked) == 2 and len(tracked[0].track_ids) > 0
+    loaded = TAMTR(str(path), device="cpu", imgsz=IMG).load(tmp_path / "runs" / "y" / "weights" / "last.pt")
+    assert loaded._engine.model.head_type == "Detect" and len(loaded.predict(src, conf=0.0)) == 2
+
+    cli.main(["detect", "train", "model=yolo-gelan.yaml", f"data={data}", "imgsz=64", "epochs=1", "batch=2",
+              "workers=0", "plots=False", "device=cpu", "max_gt=8", f"project={tmp_path / 'cli'}", "name=r"])
+    best = tmp_path / "cli" / "r" / "weights" / "best.pt"
+    cli.main(["detect", "predict", f"model={best}", f"source={src}", "device=cpu", "imgsz=64", "conf=0.0"])

@@ -88,3 +88,102 @@ def jax_nano_variables():
                 k = sub["cross_attn"][lin]["kernel"]
                 sub["cross_attn"][lin]["kernel"] = (rng.standard_normal(k.shape) * 0.05).astype(np.float32)
     return model, params, batch_stats
+
+
+def yolo_narrow_cfg(nc: int = NC) -> dict:
+    """`yolo-gelan.yaml`'s wiring at an eighth of its widths, with a Detect
+    head of `nc` classes: the Detect family's small test model (as
+    `tamtr-nano.yaml` is TAM-TR's). JSON, which YAML reads too, so one file
+    serves both packages."""
+    e = lambda c2, c3, c4: [c2, c3, c4, 1]  # noqa: E731
+    return {
+        "nc": nc, "depth_multiple": 1.0, "width_multiple": 1.0,
+        "backbone": [
+            [-1, 1, "Conv", [8, 3, 2]], [-1, 1, "Conv", [16, 3, 2]], [-1, 1, "RepNCSPELAN4", e(32, 16, 8)],
+            [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "RepNCSPELAN4", e(64, 32, 16)], [-1, 1, "Conv", [64, 3, 2]],
+            [-1, 1, "RepNCSPELAN4", e(64, 64, 32)], [-1, 1, "Conv", [64, 3, 2]],
+            [-1, 1, "RepNCSPELAN4", e(64, 64, 32)], [-1, 1, "SPPELAN", [64, 32]],
+        ],
+        "head": [
+            [-1, 1, "nn.Upsample", ["None", 2, "nearest"]], [[-1, 6], 1, "Concat", [1]],
+            [-1, 1, "RepNCSPELAN4", e(64, 64, 32)], [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+            [[-1, 4], 1, "Concat", [1]], [-1, 1, "RepNCSPELAN4", e(32, 32, 16)], [-1, 1, "Conv", [32, 3, 2]],
+            [[-1, 12], 1, "Concat", [1]], [-1, 1, "RepNCSPELAN4", e(64, 64, 32)], [-1, 1, "Conv", [64, 3, 2]],
+            [[-1, 9], 1, "Concat", [1]], [-1, 1, "RepNCSPELAN4", e(64, 64, 32)],
+            [[15, 18, 21], 1, "Detect", ["nc"]],
+        ],
+    }
+
+
+def write_yolo_narrow(root, nc: int = NC):
+    """`yolo_narrow_cfg` written as `yolo-narrow.json` under `root`; returns its path."""
+    path = root / "yolo-narrow.json"
+    path.write_text(json.dumps(yolo_narrow_cfg(nc)))
+    return path
+
+
+def spread_detect_params(params):
+    """Flax params of a Detect model with its heads spread so that a fresh
+    model already assigns and detects: class biases 0 (scores near 0.5, not
+    the prior's 1e-4) and box biases that put each side's DFL mass on bins 1
+    and 2 (boxes of about 3 cells, not 15)."""
+    for name, sub in params["head"].items():
+        if name.startswith("cv3_") and name.endswith("_2"):
+            sub["bias"] = np.zeros_like(sub["bias"])
+        elif name.startswith("cv2_") and name.endswith("_2"):
+            reg = sub["bias"].shape[0] // 4
+            sub["bias"] = np.tile(-2.0 * np.abs(np.arange(reg) - 1.5), 4).astype(np.float32)
+    return params
+
+
+def calibrated_head(model, params, batch_stats, img: int, n_text: int = NC, seed: int = 0):
+    """(params, batch_stats) of a JAX Detect model whose head normalises
+    the eval-mode features of 4 seeded random images with their own
+    statistics. At init (BatchNorm mean 0, variance 1) SiLU's slope of ~0.5
+    shrinks the activations a layer, to ~1e-4 at the head of a GELAN and
+    ~3e-7 at its deepest level, so the head's outputs are its biases alone.
+    Here each head BatchNorm takes the batch statistics of its input, and
+    the first one of each branch a scale of sqrt((var + eps) / var), which
+    undoes BatchNorm's eps (1e-3, far above those variances): the head's
+    activations are then of order 1 and vary with the image. (Calibrating
+    every layer instead leaves channels whose variance over 4 images is
+    near 0, and another image's activations then grow through the graph.)
+    flax moves each running statistic by 3% towards the batch's: from
+    zeros, the batch's is the new one over 0.03."""
+    import jax
+    import jax.numpy as jnp
+
+    from tamtr_tpu.nn.yolo_head import Detect
+
+    x = np.random.default_rng(seed).random((4, img, img, 3), dtype=np.float32)
+    feats = jax.jit(lambda p, b: model.apply({"params": p, "batch_stats": b}, x, jnp.zeros((4, n_text, 512)), None,
+                                             False, features_only=True))(params, batch_stats)
+    zeros = jax.tree.map(np.zeros_like, batch_stats["head"])
+
+    def head_stats(head_params):
+        _, mut = Detect(nc=model.nc).apply({"params": head_params, "batch_stats": zeros}, feats, True,
+                                           mutable=["batch_stats"])
+        return jax.tree.map(lambda n: (np.asarray(n) / np.float32(0.03)).astype(np.float32),
+                            jax.device_get(mut["batch_stats"]))
+
+    first = head_stats(params["head"])
+    head = {k: dict(v) for k, v in params["head"].items()}
+    for name, sub in head.items():
+        if name.endswith("_0"):
+            var = first[name]["BatchNorm_0"]["var"]
+            sub["BatchNorm_0"] = {**sub["BatchNorm_0"], "scale": (np.asarray(sub["BatchNorm_0"]["scale"]) * np.sqrt(
+                (var + 1e-3) / var)).astype(np.float32)}
+    return {**params, "head": head}, {**batch_stats, "head": head_stats(head)}
+
+
+def jax_variables(model, img: int, n_text: int = NC, width: int = 512):
+    """(params, batch_stats) as numpy trees of a JAX `TAMTRModel`,
+    initialised under `jax.jit` from key 0 at `img` px."""
+    import jax
+    import jax.numpy as jnp
+
+    v = jax.device_get(jax.jit(lambda: model.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, img, img, 3)), jnp.zeros((1, n_text, width)), None,
+        False))())
+    to_np = lambda t: {k: to_np(x) if hasattr(x, "items") else np.array(x) for k, x in t.items()}  # noqa: E731
+    return to_np(v["params"]), to_np(v["batch_stats"])

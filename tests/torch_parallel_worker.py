@@ -14,7 +14,10 @@ checks to `<out>.<rank>` (torch.save):
         one and at three torch threads, and 2 data ranks of 2;
   stem_bf16: the gradient of the nano model's first three layers at bf16
         (`stem_bf16`), one process against 2 data ranks;
-  val:  `Engine.val` of the model in <arg>/model.pt on <arg>/data.json.
+  val:  `Engine.val` of the model in <arg>/model.pt on <arg>/data.json;
+  yolo: one step of the narrow Detect model (`torch_engine_data.py:
+        yolo_narrow_cfg`, heads spread) on 4 images of 64 px: one process
+        at one and at three torch threads, 2 data ranks of 2.
 """
 
 import copy
@@ -176,11 +179,46 @@ def val(root):
     return eng.val(**spec["args"])
 
 
+def yolo():
+    from torch_engine_data import yolo_narrow_cfg
+
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.train.trainer import loss_config_for
+    from tamtr_torch.weights import init_parameters
+
+    model = TAMTRModel(yolo_narrow_cfg(3), max_gt=3)
+    init_parameters(model, 0)
+    with torch.no_grad():  # boxes of about 3 cells and scores near 0.5: anchors are assigned from the start
+        for b, c in zip(model.model[-1].cv2, model.model[-1].cv3):
+            b[2].bias.copy_((-2.0 * (torch.arange(16.0) - 1.5).abs()).repeat(4))
+            c[2].bias.zero_()
+    batch = nano_batch(nc=3, hd=512)
+    batch["bboxes"][..., 2:] *= 0.4
+    cfg = TrainConfig(batch_size=4, warmup_iters=10, epochs=2, accumulate=1)
+    items = ("loss", "box", "cls", "dfl")
+
+    def step(**kw):
+        tr = Trainer(copy.deepcopy(model), cfg, loss_cfg=loss_config_for(model, imgsz=64), steps_per_epoch=10,
+                     device="cpu", seed=3, **kw)
+        groups = kw.get("groups")
+        m = tr.step(batch if groups is None else shard_batch(batch, groups.data_rank, groups.data_size))
+        return {k: m[k] for k in items}, {k: v.clone() for k, v in tr.model.state_dict().items()}
+
+    out = {}
+    if dist.get_rank() == 0:
+        out["one"] = step()
+        torch.set_num_threads(3)
+        out["floor"] = step()
+        torch.set_num_threads(1)
+    out["dp"] = step(groups=make_groups(1))
+    return out
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
     case, out_path = sys.argv[1], sys.argv[2]
     init_distributed("cpu")
     result = {"tiny": tiny, "nano": nano, "nano_bf16": lambda: nano(torch.bfloat16), "stem_bf16": stem_bf16,
-              "val": lambda: val(sys.argv[3])}[case]()
+              "val": lambda: val(sys.argv[3]), "yolo": yolo}[case]()
     torch.save(result, f"{out_path}.{dist.get_rank()}")
     dist.destroy_process_group()
