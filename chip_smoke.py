@@ -47,7 +47,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    beside `scatter_add_` of the same updates; B5 (`auction_assignment` and
    `auction_match`) at 160 problems of (100, 300) and 16 of (100, 600),
    beyond a block's shared memory, over-full problems in both (identical
-   assignments).
+   assignments). At RT-DETR's shapes: B2 at value (1, 33600, 8,
+   32), Q = 300 and B2 and B4 at (4, 33600, 8, 32), Q = 900 (head width
+   32: half of a row's lanes idle), with the same checks; B5 at cost (28,
+   300, 300), 7 matched layers x 4 images, the global-memory value path.
 4. ops: the public ops off the model paths, with every launch counter
    zeroed just before and read just after: `nn.ssm.selective_scan` forward
    (one call, three launches) and backward at the three level shapes, `weighted_gather` forward and
@@ -96,8 +99,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    full-width model (nc 10, `spread_scores` weights, unit-norm random text
    rows as its classes) at 640 px, without and with TTA (640, 544 flipped,
    416): launches counted per run; two fixtures predicted on the card and
-   on the CPU, each forward compared as a set at 1e-3 and each image's
-   detections; ms per image at both settings.
+   on the CPU (one of them with TTA too), each forward compared as a set
+   at 1e-3 and each image's detections; ms per image at both settings.
 7c. serve_http: `ModelServer` on 127.0.0.1 over `AutoBackend` of that
    model (called from the server's one model thread); through
    `RemoteModel` batch 1 five times, batch 4 twice and 4 concurrent
@@ -109,9 +112,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    with `bytetrack` and with `botsort` (gmc_method="none", ReID): B1 and
    B2 once per forward, one forward per frame and tracker; the track ids
    equal, and the normalized boxes within 1e-3 of, those of the CPU's
-   forward of each frame fed to the same trackers
-   (`update_result_with_tracks`); ms per frame split into read, model and
-   tracker host time.
+   forward of each of the first TRACK_CPU_FRAMES frames fed to the same
+   trackers (`update_result_with_tracks`); ms per frame split into read,
+   model and tracker host time.
 7e. fuse: the deploy fuse (`nn/fuse.py`, `fuse=True`) on the serve model
    of 7b at 640 px: the fused twin's pred against the unfused model's at
    batch 1 and 4 (1e-4 as a tie-robust set), B1 and B2 launched as often
@@ -133,10 +136,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    counters must equal `TRAIN_LAUNCHES_PER_STEP` times 5.
 9. fit: the dataset path. `Engine.train` on the generated dataset of
    `tools/smoke_train_torch.py` (640 px PNGs, 16 train and 8 val images,
-   max_gt 32) with `tamtr.yaml` (nc 3): 2 epochs at batch 4, 2 loader
-   workers, warmup 4, val and `last` each epoch; then `resume=True` for a
-   third epoch, and `Engine.val` on `best`. Losses finite, metrics in
-   [0, 1], 3 rows in results.csv, the resumed run's epoch, ni, count and
+   max_gt 32) with `tamtr.yaml` (nc 3): FIT_EPOCHS epochs at batch 4, 2
+   loader workers, warmup 4, val and `last` each epoch; then
+   `resume=True` for one epoch more, and `Engine.val` on `best`. Losses
+   finite, metrics in [0, 1], FIT_EPOCHS + 1 rows in results.csv, the
+   resumed run's epoch, ni, count and
    generator those of the checkpoint; the launch counters (zeroed before
    train and before val) equal the per-step and per-forward counts times
    the steps and forwards; the card's val forward on 2 val images equal to
@@ -174,11 +178,32 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    against CPU (TAL tensors (4, 300, 8400): the assignment's moved anchors
    counted, at most 1% of the foreground; given the CPU's assignment the
    loss items and the gradient within 2x the CPU's fp32-vs-fp64 distance);
-   `Trainer.step` timed (ms, peak, busy share); `Engine.train` 2 epochs of
+   `Trainer.step` timed (ms, peak, busy share); `Engine.train` 1 epoch of
    the fit dataset, val square and rect; predict of the JPEG fixtures with
    and without TTA; track of the track phase's frames (bytetrack); serve
    ms at batch 1 and 4. The launch counters, zeroed before, read after:
    no kernel runs on the Detect path.
+9-rtdetr. rtdetr: `rtdetr.yaml` (AIFI, RTDETRDecoder; nc 10, full width,
+   seeded, head spread): eval at 640 px, batch 1 and 4, card = CPU as a set
+   (1e-3), `fuse=True` (1e-4) and `half=True` (RMS) beside it; serve ms at
+   batch 1 and 4; one training step card against CPU at 640 px, batch 4,
+   max_gt 300 (`detr_train_parity` of the whole model and of the head
+   alone on its eval features: the assignments' agreeing share, and given
+   the CPU's assignment and top-k order the gradient within 2x the CPU's
+   fp32-vs-fp64 distance); `Trainer.step` timed (ms, device ms,
+   peak, busy share); `Engine.train` one epoch of the fit dataset and
+   `Engine.val` on its best; predict of the JPEG fixtures with and
+   without TTA; track of the track frames. Each part's launch counters
+   zeroed before and read after: B2 6 a forward and no scan; a step B2 6,
+   pair_buckets 6, B4 6, `auction_assignment` 1.
+9-heads. heads: ManbaDecoder, DecouplingManbaWorldDecoder,
+   DecouplingDFLManbaWorldDecoder, locationManbaDecoder and
+   DualRTDETRDecoder (levels [32, 36, 32, 36]) on `tamtr.yaml`'s wiring,
+   full width, 256 px, batch 2: eval card = CPU (1e-3), one whole step
+   on the card (finite), the head's step card vs CPU on the model's eval
+   features given the CPU's assignment (`detr_train_parity`), the launches
+   counted per head (`HEAD_VARIANTS`: B1 3 a forward but for Dual; B2 3 or
+   6; a Dual step's B4 3).
 9a. parallel: in a process of its own, `torch.distributed` over NCCL with
    a world of one rank on the card, deterministic algorithms on: one
    `Trainer.step` of `tamtr.yaml` at 640 px, batch 4, max_gt 300 under the
@@ -200,10 +225,18 @@ after it that B1 and B2 ran `FORWARD_LAUNCHES` times its forwards, and no
 other kernel ran (B1 and B3 once a piece in ss2d_pieces).
 The autobatch phase checks instead that its three steps launched each
 kernel `TRAIN_LAUNCHES_PER_STEP` times three.
-Each result line ends with the card's name and power limit in brackets.
-10. One JSON line of per-kernel numbers (`launches_fit`: the fit phase's;
-   `launches_yolo`, `launches_loss_variants`: those phases'), then the
-   result line `{"ok": true, "device": {...}}` last.
+The fits after the fit phase's (bf16, yolo, rtdetr, parallel) load their
+batches in the trainer's process (workers=0): the fit phase alone starts
+loader worker processes, and measures their wait.
+Each result line ends with the card's name and power limit in brackets,
+and each phase's wall seconds follow it on a line "phase <name>: <s> s".
+10. One JSON line of each phase's seconds (`phase_s`) and of how each
+   kernel's device ms was taken (`device_ms_by`: torch.profiler, or CUDA
+   events behind a spin kernel where the profiler recorded no kernel).
+   One JSON line of per-kernel numbers (`launches_fit`: the fit phase's;
+   `launches_yolo`, `launches_loss_variants`, `launches_rtdetr`,
+   `launches_heads`: those phases'; B2's, B4's and B5's RT-DETR shape
+   rows), then the result line `{"ok": true, "device": {...}}` last.
 """
 
 from __future__ import annotations
@@ -255,6 +288,7 @@ OPS_LAUNCHES = {"selective_scan_fwd": 3, "selective_scan_fwd_summaries": 3, "sel
                 "scatter_acc_pairs_buckets": 1, "scatter_acc_pairs": 1, "auction_match": 1}
 # the fit phase: the generated dataset of tools/smoke_train_torch.py
 FIT_TRAIN, FIT_VAL, FIT_MAX_GT = 16, 8, 32
+FIT_EPOCHS = 2  # the fit phase's first run (its second epoch's start is in the loader wait); resume adds one
 # the decoder's sampling at 640 px: batch 4, Q = 700 (dn queries included)
 DEFORM_B, DEFORM_Q = 4, 700
 
@@ -329,24 +363,74 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+DEVICE_MS_BY = {"profiler": 0, "events behind a spin": 0}  # how each `device_ms` was taken, counted
+PHASE_S: dict = {}  # each phase's wall seconds, by name, as `timed` took them
+T0 = time.perf_counter()  # the run's start
+
+
 def device_ms(fn, iters: int) -> float:
     """Device ms per call of the CUDA kernels `fn` launches, summed, by
     torch.profiler: the launches' own time, without the host's enqueue
     (which CUDA events over back-to-back calls include once a kernel is
-    shorter than its wrapper's host time)."""
+    shorter than its wrapper's host time). Where three sessions in a row
+    record no kernel, as CUPTI now and then does, the calls are timed by
+    `spin_events_ms` instead."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records no kernel at all
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         total = sum(e.device_time for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
         if total > 0:
+            DEVICE_MS_BY["profiler"] += 1
             return total / 1e3 / iters
-    raise AssertionError("torch.profiler recorded no device time in three sessions")
+    DEVICE_MS_BY["events behind a spin"] += 1
+    return spin_events_ms(fn, iters)
+
+
+def spin_events_ms(fn, iters: int) -> float:
+    """Device ms per call of `fn` by CUDA events, the calls enqueued behind
+    a spin kernel that lasts twice their host time: the card then runs
+    them back to back, so the events time the device's work and not the
+    host's enqueue. A call that waits for the card inside gets the host's
+    time back, as `cuda_ms` has it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * max(host_s, 1e-3) * 2e9))  # cycles at up to 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled_kernel_ms(prof):
+    """The summed device ms of the CUDA kernels a profiler session
+    recorded, or None where it recorded none (CUPTI now and then gives a
+    session nothing): a step's busy time is then not measured."""
+    total = sum(e.device_time for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return total or None
+
+
+def timed(name: str, fn, *args, **kw):
+    """`fn(*args, **kw)`, its wall seconds kept in PHASE_S[name] and printed."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {PHASE_S[name]} s", flush=True)
 
 
 def bound(nbytes: float, flops: float):
@@ -513,19 +597,20 @@ def time_gather_fwd(value, idx2, w_pairs, Q: int, plain, iters: int = 50):
                 bitwise_repeat=bitwise), ok and bitwise
 
 
-def check_bilinear_gather(dev):
+def check_bilinear_gather(dev, Q: int = 100, c: int = 64):
     """Kernel B2 vs its plain version at the 640 px serve shape, value
-    (1, 33600, 8, 64), Q = 100 (1e-5), two calls bitwise equal, and the
-    per-level `F.grid_sample` formulation beside it. At this size `ms`
-    (CUDA events over back-to-back calls) is the wrapper's host time; the
-    kernel's own is `ms_device` (profiler)."""
+    (1, 33600, 8, c), Q queries (1e-5): TAM-TR's c = 64, Q = 100, and
+    RT-DETR's c = 32 (hd 256 over 8 heads), Q = 300; two calls bitwise
+    equal, and the per-level `F.grid_sample` formulation beside it. At this
+    size `ms` (CUDA events over back-to-back calls) is the wrapper's host
+    time; the kernel's own is `ms_device` (profiler)."""
     from tamtr_torch.kernels.deform_scatter import bilinear_gather_ref
     from tamtr_torch.nn.decoder import deform_sampling_pairs
 
     shapes = [(h, w) for h, w, _ in LEVELS_640]
-    B, Q, nl, P = 1, 100, 3, 4
+    B, nl, P = 1, 3, 4
     Lv = sum(h * w for h, w in shapes)
-    value, loc, w_att = deform_inputs(torch.Generator().manual_seed(2), B, Q, shapes, dev)
+    value, loc, w_att = deform_inputs(torch.Generator().manual_seed(2), B, Q, shapes, dev, c=c)
     idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
     if int(idx2.max()) != Lv - 1:
         raise AssertionError("the last-cell sample point did not reach the global last row")
@@ -533,7 +618,7 @@ def check_bilinear_gather(dev):
     lib = grid_sample_deform(value, shapes, loc, w_att)
     e_lib = (bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P) - lib).abs().max().item()
     lib_ms = cuda_ms(lambda: grid_sample_deform(value, shapes, loc, w_att), iters=20)
-    say(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={row['max_abs_err']:.3g} (plain vs grid_sample "
+    say(f"bilinear_gather_fwd B={B} Lv={Lv} c={c} Q={Q}: max_abs_err={row['max_abs_err']:.3g} (plain vs grid_sample "
           f"{e_lib:.3g}), bitwise over two calls {row['bitwise_repeat']}; ms={row['ms']:.4f} (events over "
           f"back-to-back calls) ms_device={row['ms_device']:.5f} (profiler) plain_ms={row['plain_ms']:.4f} "
           f"library_ms={lib_ms:.4f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; one launch costs more)",
@@ -615,7 +700,7 @@ def check_ss2d_scan_bwd(dev, B: int = TRAIN_BATCH, levels=LEVELS_640):
     return rows, err
 
 
-def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
+def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700, c: int = 64):
     """Kernel B4's two launches (`pair_buckets`, then the rows pass) vs the
     plain backward at the 640 px training shape (dn queries included):
     dvalue and dw within 1e-5 of the scatter-add form; the buckets equal
@@ -627,7 +712,9 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     gather within 1e-5 of each tensor's largest entry. The forward kernel B2
     is held against its plain version at this shape first (1e-5, two calls
     bitwise equal), which covers its per-image offsets, and timed and
-    bounded there. Each launch timed and bounded alone."""
+    bounded there. Each launch timed and bounded alone. TAM-TR's head width
+    c = 64 at Q = 700; RT-DETR's c = 32 (half of a warp's 16 lanes of a row
+    idle) at Q = 900 (300 queries and 600 CDN queries at max_gt 300)."""
     from tamtr_torch.kernels.deform_scatter import (
         bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_bwd_rows_ref, bilinear_gather_ref,
         pair_buckets, pair_buckets_ref,
@@ -635,10 +722,10 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     from tamtr_torch.nn.decoder import deform_sampling_pairs, ms_deform_attn_core
 
     shapes = [(h, w) for h, w, _ in LEVELS_640]
-    nh, c, nl, P = 8, 64, 3, 4
+    nh, nl, P = 8, 3, 4
     Lv = sum(h * w for h, w in shapes)
     g = torch.Generator().manual_seed(12)
-    value, loc, w_att = deform_inputs(g, B, Q, shapes, dev)
+    value, loc, w_att = deform_inputs(g, B, Q, shapes, dev, c=c)
     dout = torch.randn(B, Q, nh, c, generator=g).to(dev)
     idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
     if int(idx2.max()) != Lv - 1:
@@ -646,7 +733,7 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     b2, b2_ok = time_gather_fwd(value, idx2, w_pairs, Q, lambda: bilinear_gather_ref(value, idx4, w_pairs, idx2, nl * P),
                                 iters=20)
     b2["library_ms"] = cuda_ms(lambda: grid_sample_deform(value, shapes, loc, w_att), iters=5)
-    say(f"bilinear_gather_fwd B={B} Lv={Lv} Q={Q}: max_abs_err={b2['max_abs_err']:.3g}, bitwise over two calls "
+    say(f"bilinear_gather_fwd B={B} Lv={Lv} c={c} Q={Q}: max_abs_err={b2['max_abs_err']:.3g}, bitwise over two calls "
           f"{b2['bitwise_repeat']}; ms={b2['ms']:.4f} (events) ms_device={b2['ms_device']:.5f} (profiler) "
           f"plain_ms={b2['plain_ms']:.4f} library_ms={b2['library_ms']:.4f} (F.grid_sample) "
           f"bound_ms={b2['bound_ms']:.5f} ({b2['bound_by']})", flush=True)
@@ -698,7 +785,7 @@ def check_bilinear_gather_bwd(dev, B: int = TRAIN_BATCH, Q: int = 700):
     e_lib = (lib_g[0] - g_plain[0]).abs().max().item()
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True), iters=5)
     b_ms, b_by, b_buckets, b_rows = gather_bwd_bounds(value, idx2, w_pairs, dout, buckets)
-    say(f"bilinear_gather_bwd B={B} Lv={Lv} Q={Q}: max_abs_err={e:.3g} (dvalue, dw); buckets equal the plain "
+    say(f"bilinear_gather_bwd B={B} Lv={Lv} c={c} Q={Q}: max_abs_err={e:.3g} (dvalue, dw); buckets equal the plain "
           f"version {same_buckets}; dvalue bitwise over two calls {repeat}, bitwise the plain row-owned version "
           f"{rows_bitwise}; hot row: bitwise over two calls {hot_repeat}, the plain row-owned version {hot_rows}; "
           f"through the core, max error / max entry of d(value, loc, w_att) {[float(f'{c:.3g}') for c in chain]}; "
@@ -834,26 +921,29 @@ def check_gather_bwd_step(calls):
                 max_abs_err_step=err, most_terms_on_a_row_step=most)
 
 
-def matcher_costs(seed: int, n_images: int, M: int, n_valid, dev, nq: int = 100):
-    """The matcher's cost (4 n_images, nq, M) for 4 matched decoder layers
-    over a VisDrone-like batch of n_images (random predictions, M gt slots,
+def matcher_costs(seed: int, n_images: int, M: int, n_valid, dev, nq: int = 100, layers: int = 4):
+    """The matcher's cost (layers n_images, nq, M) for `layers` matched
+    layers (TAM-TR's 4: the encoder and 3 decoder layers; RT-DETR's 7) over
+    a VisDrone-like batch of n_images (random predictions, M gt slots,
     n_valid[i] valid), and its gt mask."""
     from tamtr_torch.losses.matcher import match_cost
 
     batch = synthetic_batch(seed, n_images, 64, M, n_valid)
     g = torch.Generator().manual_seed(seed)
-    n = 4 * n_images
+    n = layers * n_images
     pred_b = torch.cat([torch.rand(n, nq, 2, generator=g), torch.rand(n, nq, 2, generator=g) * 0.1 + 0.005], -1)
     pred_s = torch.randn(n, nq, 10, generator=g) * 2 - 3
-    gt = {k: torch.from_numpy(batch[k]).repeat(4, *([1] * (batch[k].ndim - 1))) for k in ("bboxes", "cls", "mask")}
+    gt = {k: torch.from_numpy(batch[k]).repeat(layers, *([1] * (batch[k].ndim - 1))) for k in ("bboxes", "cls", "mask")}
     C = match_cost(pred_b.to(dev), pred_s.to(dev), gt["bboxes"].to(dev), gt["cls"].to(dev))
     return C, gt["mask"].to(dev)
 
 
-def check_auction(dev):
+def check_auction(dev, layers: int = 4, nq: int = 100):
     """Kernel B5 on the matcher's cost over a VisDrone-like batch (4 matched
     layers x 4 images: cost (16, 100, 300), one over-full and one contested
-    image): `auction_assignment` in one launch identical to the CPU's
+    image; RT-DETR's 7 layers x 4 images of 300 queries: (28, 300, 300),
+    whose value block exceeds a block's opt-in shared memory, the kernel's
+    second path): `auction_assignment` in one launch identical to the CPU's
     (`auction_assignment_ref`, JAX's assignment) and to the plain version on
     the card, with no host sync (`torch.cuda.set_sync_debug_mode("error")`);
     `auction_match` (two launches, batch-wide stop) identical to
@@ -862,8 +952,8 @@ def check_auction(dev):
         _oriented_setup, _rounds_ref, auction_assignment, auction_assignment_ref, auction_match, auction_match_ref,
     )
 
-    n, nq = 4 * TRAIN_BATCH, 100
-    C, mask = matcher_costs(13, TRAIN_BATCH, TRAIN_MAX_GT, TRAIN_VALID, dev)
+    n = layers * TRAIN_BATCH
+    C, mask = matcher_costs(13, TRAIN_BATCH, TRAIN_MAX_GT, TRAIN_VALID, dev, nq=nq, layers=layers)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -893,7 +983,7 @@ def check_auction(dev):
     nbytes = C.numel() * 4 + mask.numel() + got.numel() * 4
     flops = sum(r * nq * TRAIN_MAX_GT * 3 for r in rounds)
     b_ms, b_by = bound(nbytes, flops)
-    say(f"auction_assignment cost (16, 100, 300): valid {TRAIN_VALID} x 4 layers, rounds per image {rounds}, "
+    say(f"auction_assignment cost {tuple(C.shape)}: valid {TRAIN_VALID} x {layers} layers, rounds per image {rounds}, "
           f"assignments identical to the CPU's and the plain version's {same} (differing entries {e:.0f}), "
           f"no host sync (sync debug mode error), assigned per image {(got[:4] >= 0).sum(1).tolist()}, "
           f"ms={ms:.4f} (one launch) plain_ms={plain:.3f} bound_ms={b_ms:.5f} ({b_by}); "
@@ -1267,16 +1357,20 @@ def drive_ops(dev):
 @torch.no_grad()
 def spread_scores(model, seed: int):
     """Give the zero-initialised head layers small random values and the
-    contrastive heads a zero bias, so that boxes and scores vary across
-    queries and the comparison and postprocess see real work."""
+    score heads a zero bias, so that boxes and scores vary across queries
+    and the comparison and postprocess see real work. Any DETR head: every
+    deformable attention of its decoder (both of a decoupled layer), and
+    the 2-D text scores of the locationManbaDecoder."""
+    from tamtr_torch.nn.decoder import MSDeformAttn
+
     g = torch.Generator().manual_seed(seed)
     head = model.model[-1]
     for mlp in [head.enc_bbox_head, *head.dec_bbox_head]:
         mlp.layers[-1].weight.copy_(torch.randn(mlp.layers[-1].weight.shape, generator=g) * 0.05)
-    for layer in head.decoder["layers"]:
-        for lin in (layer.cross_attn.sampling_offsets, layer.cross_attn.attention_weights):
+    for attn in (m for m in head.decoder["layers"].modules() if isinstance(m, MSDeformAttn)):
+        for lin in (attn.sampling_offsets, attn.attention_weights):
             lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
-    for sh in head.dec_score_head:
+    for sh in [*getattr(head, "dec_score_head", []), *getattr(head, "cv4", [])]:
         sh.bias.zero_()
 
 
@@ -1546,9 +1640,10 @@ def serve(dev):
 def fit(dev):
     """The dataset path: `Engine.train` on the generated dataset of
     `tools/smoke_train_torch.py` (640 px, 16 train and 8 val images, max_gt
-    32) with the full-width `tamtr.yaml` (nc 3): 2 epochs at batch 4, 2
-    loader workers, val after each epoch, `last` saved each epoch; then
-    `resume=True` for a third epoch from `last`, and `Engine.val` on `best`.
+    32) with the full-width `tamtr.yaml` (nc 3): FIT_EPOCHS epochs at batch
+    4, 2 loader workers, val after each epoch, `last` saved each epoch;
+    then `resume=True` for one epoch more from `last`, and `Engine.val` on
+    `best`.
     Every launch counter is zeroed before train and before val and read
     after each; the card's val forward on the first 2 val images is held
     against the CPU's with the same EMA weights (`same_set`)."""
@@ -1569,21 +1664,21 @@ def fit(dev):
     counters = zero_counters()
     t0 = time.perf_counter()
     first = Engine("tamtr.yaml")
-    first.train(epochs=2, **args)
+    first.train(epochs=FIT_EPOCHS, **args)
     seen = {}
     resumed = Engine("tamtr.yaml")
     resumed.callbacks.add("on_train_start", lambda e: seen.update(
         ni=e.trainer.ni, count=e.trainer.count, generator=e.trainer.generator.get_state().clone()))
     resumed.callbacks.add("on_train_epoch_start", lambda e, epoch: seen.setdefault("epoch", epoch))
-    res = resumed.train(epochs=3, resume=True, **args)
+    res = resumed.train(epochs=FIT_EPOCHS + 1, resume=True, **args)
     train_s = time.perf_counter() - t0
     train_launches = {k: f.launches for k, f in counters.items()}
     steps = len(first.timing["step_ms"]) + len(resumed.timing["step_ms"])
-    val_forwards = 3 * math.ceil(FIT_VAL / TRAIN_BATCH)
+    val_forwards = (FIT_EPOCHS + 1) * math.ceil(FIT_VAL / TRAIN_BATCH)
     want = {k: TRAIN_LAUNCHES_PER_STEP[k] * steps + FORWARD_LAUNCHES.get(k, 0) * val_forwards for k in counters}
     with open(root / "runs" / "fit" / "results.csv") as f:
         rows = list(csv.DictReader(f))
-    restored = (seen.get("epoch") == 2 and seen.get("ni") == first.trainer.ni and seen.get("count") == first.trainer.count
+    restored = (seen.get("epoch") == FIT_EPOCHS and seen.get("ni") == first.trainer.ni and seen.get("count") == first.trainer.count
                 and torch.equal(seen.get("generator", torch.empty(0)), first.trainer.generator.get_state()))
     from tamtr_torch.data.image_io import imread
 
@@ -1622,7 +1717,8 @@ def fit(dev):
           f"{json.dumps(summary)}; results.csv losses {[round(x, 4) for x in losses]}; resume restored epoch, ni, "
           f"count and generator: {restored}; plots {plots} read back; launches train {train_launches}, "
           f"val {val_launches}", flush=True)
-    if not (len(rows) == 3 and all(math.isfinite(x) for x in losses) and in_range and restored and not unreadable):
+    if not (len(rows) == FIT_EPOCHS + 1 and all(math.isfinite(x) for x in losses) and in_range and restored
+            and not unreadable):
         raise AssertionError(f"fit: rows {len(rows)}, losses {losses}, metrics in [0, 1] {in_range}, "
                              f"resume restored {restored} ({ {k: v for k, v in seen.items() if k != 'generator'} }), "
                              f"plots missing or unreadable {unreadable}")
@@ -1963,12 +2059,12 @@ def bf16_train(dev):
             t0 = time.perf_counter()
             tr.step(batches[-1])
             wall = (time.perf_counter() - t0) * 1e3
-        busy = sum(e.device_time for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy = profiled_kernel_ms(prof)
         fp32 = all(t.dtype == torch.float32 for sd in (tr.model.state_dict(), tr.ema.state_dict())
                    for t in sd.values() if t.is_floating_point())
         finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in logs)
         out[name] = dict(step_ms_median=float(np.median(times)), step_ms=times, max_memory_allocated_mib=peak / 2**20,
-                         busy_share=busy / wall, device_ms=busy, losses=[m["loss"] for m in logs],
+                         busy_share=busy and busy / wall, device_ms=busy, losses=[m["loss"] for m in logs],
                          weights_fp32=fp32)
         say(f"bf16 phase train {name} tamtr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}: "
             f"{json.dumps(out[name])}", flush=True)
@@ -1991,7 +2087,7 @@ def bf16_fit(dev, data: str):
     from tamtr_torch.engine.model import Engine
 
     root = Path("build/fit/runs")
-    args = dict(data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=2, warmup_epochs=4,
+    args = dict(data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=0, warmup_epochs=4,
                 conf=0.05, plots=False, project=str(root), name="fit_bf16", exist_ok=True)
     counters = zero_counters()
     eng = Engine("tamtr.yaml")
@@ -2044,8 +2140,10 @@ def bf16_phase(dev, data: str):
 JPEG_FIXTURES = "tests/torch_data/jpeg"
 # predict_files: the fixtures whose forwards are also run on the CPU
 PARITY_FIXTURES = ("exif6_q90.jpg", "visdrone_1360x765_q85.jpg")
+PARITY_TTA_FIXTURES = PARITY_FIXTURES[1:]  # with TTA: three CPU forwards an image
 # track: the generated sequence (VisDrone's frame size) and the trackers run over it
 TRACK_FRAMES, TRACK_HW = 12, (765, 1360)
+TRACK_CPU_FRAMES = 2  # the sequence's head that the CPU predicts: a frame's tracks depend on no later frame
 TRACKERS = {"bytetrack": {}, "botsort": {"gmc_method": "none", "with_reid": True}}
 
 
@@ -2057,6 +2155,7 @@ def check_counts(phase: str, counters, forwards: int, extra=None):
     want = {k: FORWARD_LAUNCHES.get(k, 0) * forwards + (extra or {}).get(k, 0) for k in counters}
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches}, want {want}")
+    print(f"  {phase}: launches as counted, {time.perf_counter() - T0:.1f} s into the run", flush=True)
     return launches
 
 
@@ -2189,7 +2288,8 @@ def predict_files(dev):
     host JPEG decoder and resized as cv2 resizes. Each launch counter is
     zeroed before and read after: B1 and B2 ran once per forward, nothing
     else. Two fixtures are predicted again on the card and on the CPU
-    (`Engine.predict`, the same weights and classes): each forward's input
+    (`Engine.predict`, the same weights and classes), and one of them with
+    TTA too: each forward's input
     is bitwise the card's, its output equal to the card's as a tie-robust
     set at 1e-3 (`same_set`), and each image's detections too
     (`same_results`)."""
@@ -2214,12 +2314,14 @@ def predict_files(dev):
     cpu = Engine("tamtr.yaml", device="cpu")
     cpu.model = copy.deepcopy(det.model).cpu()
     cpu.set_classes(det._engine.names, det._engine.txt_feats)
-    paths = [f"{JPEG_FIXTURES}/{f}" for f in PARITY_FIXTURES]
     card_calls, cpu_calls = [], []
     t0 = time.perf_counter()
     with recording_forwards(det.model, card_calls), recording_forwards(cpu.model, cpu_calls):
-        pairs = [(g, c, a) for a in (False, True)
-                 for g, c in zip(det.predict(paths, augment=a), cpu.predict(paths, imgsz=det.imgsz, augment=a))]
+        pairs = []
+        for a, names in ((False, PARITY_FIXTURES), (True, PARITY_TTA_FIXTURES)):
+            paths = [f"{JPEG_FIXTURES}/{f}" for f in names]
+            pairs += [(g, c, a) for g, c in zip(det.predict(paths, augment=a),
+                                                 cpu.predict(paths, imgsz=det.imgsz, augment=a))]
     cpu_s = time.perf_counter() - t0
     worst = unmatched = worst_r = unpaired = 0
     for (img, _, pred), (img_c, _, pred_c) in zip(card_calls, cpu_calls, strict=True):
@@ -2330,9 +2432,9 @@ def track(det):
     tracker of TRACKERS, every launch counter zeroed before and read after:
     B1 and B2 once per forward, one forward per frame and tracker, nothing
     else. The CPU's forward of each frame (`Engine.predict`, the same
-    weights and classes) fed to the same trackers
-    (`update_result_with_tracks`) gives the same track ids and boxes within
-    1e-3 (normalized). Ms per frame: read, model and tracker host time."""
+    weights and classes) of the first TRACK_CPU_FRAMES frames, fed to the
+    same trackers (`update_result_with_tracks`), gives the same track ids
+    and boxes within 1e-3 (normalized) on those frames. Ms per frame: read, model and tracker host time."""
     import copy
     import shutil
     from pathlib import Path
@@ -2357,13 +2459,14 @@ def track(det):
     cpu.model = copy.deepcopy(det.model).cpu()
     cpu.set_classes(det._engine.names, det._engine.txt_feats)
     t0 = time.perf_counter()
-    detections = cpu.predict(str(root), imgsz=det.imgsz, conf=0.25, iou=0.7, max_det=300)
+    head = [str(f) for f in sorted(root.glob("*.jpg"))[:TRACK_CPU_FRAMES]]
+    detections = cpu.predict(head, imgsz=det.imgsz, conf=0.25, iou=0.7, max_det=300)
     cpu_s = time.perf_counter() - t0
     worst, ids = 0.0, {}
     for name, kw in TRACKERS.items():
         Track.reset_id()
         tracker = make_tracker(name, **kw)
-        for g, r in zip(card[name], detections, strict=True):
+        for g, r in zip(card[name][:TRACK_CPU_FRAMES], detections, strict=True):
             want = copy.deepcopy(r)
             update_result_with_tracks(want, tracker, frame=imread(r.path))
             if g.path != want.path or not np.array_equal(g.track_ids, want.track_ids):
@@ -2382,7 +2485,8 @@ def track(det):
     summary = dict(frames=TRACK_FRAMES, ms_per_frame={k: {**v, "total": sum(v.values())} for k, v in timing.items()},
                    encode_ms_per_frame=float(np.median(encode_ms)), ids={k: len(v) for k, v in ids.items()},
                    tracks_per_frame={k: [len(r.track_ids) for r in v] for k, v in card.items()},
-                   boxes_worst=worst, detection_score_quantiles=quantiles, cpu_predict_s=cpu_s)
+                   boxes_worst=worst, cpu_frames=TRACK_CPU_FRAMES, detection_score_quantiles=quantiles,
+                   cpu_predict_s=cpu_s)
     say(f"track tamtr.yaml {det.imgsz}px on {TRACK_FRAMES} generated {TRACK_HW[1]}x{TRACK_HW[0]} JPEG frames: "
           f"{json.dumps(summary)}; launches {launches}", flush=True)
     return summary, launches
@@ -2433,13 +2537,14 @@ def cli(best: str):
 
 # the fuse phase: serve requests timed in rounds of unfused, fused, fused,
 # unfused, this many requests a turn
-FUSE_ROUNDS, FUSE_REQUESTS = 3, 4
+FUSE_ROUNDS, FUSE_REQUESTS = 2, 4
 
 
 def profiled_ops(model, img, txt):
     """One eval forward under torch.profiler: the count of the aten
     convolution and batch_norm ops, the CUDA kernels those ops launched, all
-    CUDA kernels of the forward and their summed device time."""
+    CUDA kernels of the forward and their summed device time (None where
+    CUPTI gave the session no kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -2460,7 +2565,7 @@ def profiled_ops(model, img, txt):
         out[f"{op}_kernels"] = sum(kernels(e) for e in top)
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     out["kernels"] = len(device)
-    out["device_ms"] = sum(e.device_time for e in device) / 1e3
+    out["device_ms"] = sum(e.device_time for e in device) / 1e3 or None  # None: the session recorded no kernel
     return out
 
 
@@ -2729,7 +2834,7 @@ def yolo(dev, data: str):
         `Trainer.step` timed: two warm-up and YOLO_STEPS timed steps, peak
         memory, busy share (a step's kernel time by torch.profiler over its
         wall);
-      - `Engine.train` for 2 epochs of the fit dataset with val each epoch,
+      - `Engine.train` for 1 epoch of the fit dataset with val after it,
         then `Engine.val` square and rect on its `best.pt`;
       - `TAMTR.predict` of the JPEG fixtures with and without TTA, and
         `TAMTR.track` of the track phase's frames with `bytetrack`."""
@@ -2820,9 +2925,9 @@ def yolo(dev, data: str):
         t0 = time.perf_counter()
         tr.step(batches[-1])
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.device_time for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    out.update(step_ms=steps, step_ms_median=float(np.median(steps)), step_device_ms=busy, step_busy_share=busy / wall,
-               step_items=[{k: m[k] for k in ("loss", "box", "cls", "dfl")} for m in logs])
+    busy = profiled_kernel_ms(prof)
+    out.update(step_ms=steps, step_ms_median=float(np.median(steps)), step_device_ms=busy,
+               step_busy_share=busy and busy / wall, step_items=[{k: m[k] for k in ("loss", "box", "cls", "dfl")} for m in logs])
     if not all(math.isfinite(m[k]) for m in logs for k in ("loss", "box", "cls", "dfl", "grad_norm")) \
             or not all(m["stepped"] == 1.0 for m in logs) or not all(m["box"] > 0 for m in logs):
         raise AssertionError(f"yolo steps: {logs}")
@@ -2831,7 +2936,7 @@ def yolo(dev, data: str):
 
     root = Path("build/yolo")
     eng = Engine("yolo-gelan.yaml")
-    fit = eng.train(data=data, epochs=2, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=2,
+    fit = eng.train(data=data, epochs=1, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=0,
                     warmup_epochs=4, val_interval=1, conf=0.05, plots=False, project=str(root), name="fit",
                     exist_ok=True)
     best = Engine("yolo-gelan.yaml").load(root / "fit" / "weights" / "best.pt")
@@ -3124,8 +3229,8 @@ def parallel_phase(data: str) -> dict:
     each bitwise the ungrouped step (and the ungrouped step bitwise its own
     repeat): an all-reduce over one rank is the identity. Then each kind of
     step (ungrouped, grouped, ZeRO, and ungrouped with the deterministic
-    algorithms off) is timed in turn, two rounds, a fresh trainer's first
-    step apart from the median of its next four. Then
+    algorithms off) is timed in turn, a fresh trainer's first step apart
+    from the median of its next two. Then
     `Engine.train` (fsdp=2) for one epoch of the fit dataset and
     `Engine.val` under the group, every launch counter zeroed before each
     and read after."""
@@ -3155,7 +3260,7 @@ def parallel_phase(data: str) -> dict:
             tr = Trainer(copy.deepcopy(model), cfg, device=dev, seed=1, **kw)
             return tr.step(batch), trainer_state(tr)
 
-        def step_ms(warm: int = 4, deterministic: bool = True, **kw):
+        def step_ms(warm: int = 2, deterministic: bool = True, **kw):
             """ms of each `Trainer.step` of one fresh trainer: its first,
             then `warm` more on the same batch (each synchronised)."""
             torch.backends.cudnn.deterministic = deterministic
@@ -3178,15 +3283,14 @@ def parallel_phase(data: str) -> dict:
         step_launches = {k: f.launches for k, f in counters.items()}
         # the world-1 cost of the data group and of ZeRO, and of the
         # deterministic algorithms (the fit phase runs the default ones):
-        # each kind in turn, two rounds, the first step apart from the warm ones
+        # each kind in turn, the first step apart from the warm ones
         kinds = (("ungrouped", {}), ("data_group", dict(groups=groups)), ("zero", dict(groups=groups, zero=True)),
                  ("ungrouped_nondeterministic", dict(deterministic=False)))
         timing = {k: {"first_ms": [], "warm_ms_median": []} for k, _ in kinds}
-        for _ in range(2):
-            for kind, kw in kinds:
-                ms = step_ms(**kw)
-                timing[kind]["first_ms"].append(ms[0])
-                timing[kind]["warm_ms_median"].append(float(np.median(ms[1:])))
+        for kind, kw in kinds:
+            ms = step_ms(**kw)
+            timing[kind]["first_ms"].append(ms[0])
+            timing[kind]["warm_ms_median"].append(float(np.median(ms[1:])))
 
         def same(a, b):
             return a[0] == b[0] and a[1].keys() == b[1].keys() and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
@@ -3195,7 +3299,7 @@ def parallel_phase(data: str) -> dict:
         counters = zero_counters()
         t0 = time.perf_counter()
         eng = Engine("tamtr.yaml")
-        res = eng.train(data=data, epochs=1, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=2,
+        res = eng.train(data=data, epochs=1, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=0,
                         warmup_epochs=4, fsdp=2, conf=0.05, plots=False, project="build/parallel/runs", name="dp",
                         exist_ok=True)
         train_s = time.perf_counter() - t0
@@ -3237,6 +3341,372 @@ def parallel(data: str) -> dict:
 
 
 
+
+# ---------------------------------------------------------------------------
+# The DETR head family: rtdetr.yaml (AIFI, RTDETRDecoder) and the variant heads
+# ---------------------------------------------------------------------------
+
+RTDETR_NC = 10
+RTDETR_STEPS = 3  # timed Trainer.steps, after two warm-up steps
+# launches per forward of rtdetr.yaml: the gather once per decoder layer (6),
+# no scan (no VSS mixers); per training step also the gather's backward
+# (buckets, rows) per layer and the assignment of the 7 matched layers x 4
+# images in one launch
+RTDETR_FORWARD = {"bilinear_gather_fwd": 6}
+RTDETR_STEP = {"bilinear_gather_fwd": 6, "pair_buckets": 6, "bilinear_gather_bwd": 6, "auction_assignment": 1}
+SCAN_FWD = {k: 3 for k in ("ss2d_scan_fwd", "ss2d_scan_fwd_summaries", "ss2d_scan_fwd_combine", "ss2d_scan_fwd_output")}
+SCAN_BWD = {k: 3 for k in ("ss2d_scan_carriers", "ss2d_scan_combine", "ss2d_scan_bwd_walk")}
+# the variant heads on tamtr.yaml's wiring: (levels, extra head args, launches
+# per forward, the gather's backward launches per step); B1 once per VSS level,
+# B2 once per deformable attention (two a decoupled layer, the Dual core on
+# each half); in a Dual step only the first half's outputs carry loss
+HEAD_VARIANTS = {
+    "ManbaDecoder": ([32, 36, 40], [], {**SCAN_FWD, "bilinear_gather_fwd": 3}, 3),
+    "DecouplingManbaWorldDecoder": ([32, 36, 40], [True], {**SCAN_FWD, "bilinear_gather_fwd": 6}, 6),
+    "DecouplingDFLManbaWorldDecoder": ([32, 36, 40], [True], {**SCAN_FWD, "bilinear_gather_fwd": 6}, 6),
+    "locationManbaDecoder": ([32, 36, 40], [], {**SCAN_FWD, "bilinear_gather_fwd": 3}, 3),
+    "DualRTDETRDecoder": ([32, 36, 32, 36], [], {"bilinear_gather_fwd": 6}, 3),
+}
+HEADS_IMGSZ, HEADS_BATCH, HEADS_MAX_GT = 256, 2, 32
+
+
+def launches_of(*parts):
+    """The launch counts of `parts`, (per-unit counts, units) pairs, summed."""
+    out = {}
+    for per, n in parts:
+        for k, v in per.items():
+            out[k] = out.get(k, 0) + v * n
+    return out
+
+
+def expect_launches(phase: str, counters, want: dict):
+    """Every launch counter read after `phase`: `want`'s counts, and 0 for
+    every other kernel."""
+    launches = {k: f.launches for k, f in counters.items()}
+    full = {k: want.get(k, 0) for k in counters}
+    if launches != full:
+        raise AssertionError(f"{phase}: launches {launches}, want {full}")
+    print(f"  {phase}: launches as counted, {time.perf_counter() - T0:.1f} s into the run", flush=True)
+    return launches
+
+
+def step_launches(forward: dict, bwd_gathers: int, auction: int = 1) -> dict:
+    """A training step's launches: the forward's, the scan's backward where
+    the forward scans, the gather's backward (buckets and rows) for
+    `bwd_gathers` deformable attentions, and `auction` assignments."""
+    out = dict(forward, pair_buckets=bwd_gathers, bilinear_gather_bwd=bwd_gathers, auction_assignment=auction)
+    if forward.get("ss2d_scan_fwd"):
+        out.update(SCAN_BWD)
+    return out
+
+
+def detr_train_parity(label: str, base, batch, nc: int, dev, feats=None):
+    """One DETR training forward and backward of `base` (CDN noise and
+    DropPath off), card against CPU from one state dict, as
+    `check_train_parity` holds TAM-TR's: as each device runs it, the share
+    of valid (layer, gt) assignments that agree, reported; with the CPU's
+    assignment and top-k order given to the card and to a CPU fp64 pass,
+    the largest relative loss-item difference card vs CPU <= 2x the CPU's
+    vs fp64, and |g_card - g_cpu| <= 2 |g_cpu - g_fp64| over the whole
+    gradient, or 1e-5 and 1e-3 of |g_cpu| where that floor lies below them;
+    every output and gradient finite. Given `feats` (the model's eval
+    features of the batch, on the CPU), `base` is the head alone, run in
+    train mode on them. Two card runs: one with its own assignment (one
+    `auction_assignment`), one with the CPU's.
+
+    The minimums: a head's step alone is well conditioned, and without VSS
+    mixers (the Dual core) its fp32-vs-fp64 distance was 3.3e-6 of the
+    gradient's norm, while card against CPU the heads' steps lay 9.4e-5 to
+    1.6e-3 apart (measured on one H100), the cross-device rounding of cuBLAS
+    against the CPU's GEMMs moving a few sampling points across a pixel
+    edge. The whole model's step at a batch of 2-4 is the opposite,
+    chaotic in fp32 (train-mode BatchNorm through 40 layers): one CPU
+    thread against eight moved a 256 px head variant's gradient by 8-70%
+    (measured on the CPU), and rtdetr.yaml's fp32 gradient at 640 px, batch 4 lay
+    3.5x its norm from the fp64 one (measured on one H100)."""
+    import copy
+
+    from tamtr_torch.losses.detr_loss import DETRLossConfig, rtdetr_detection_loss
+
+    def grads_on(d, dtype=torch.float32, match=None, topk=None):
+        model = copy.deepcopy(base).to(d, dtype).train()
+        t = {"cls": torch.from_numpy(batch["cls"]).to(d), "mask": torch.from_numpy(batch["mask"]).to(d),
+             "bboxes": torch.from_numpy(batch["bboxes"]).to(d, dtype)}
+        record = []
+        txt = torch.from_numpy(batch["txt_feats"]).to(d, dtype)
+        with pinned_topk(record, topk):
+            if feats is None:
+                out = model(torch.from_numpy(batch["img"]).to(d, dtype) / 255.0, txt, t)
+            else:
+                out = model([f.to(d, dtype) for f in feats], txt.expand(len(batch["img"]), -1, -1), t)
+        loss, items = rtdetr_detection_loss(out, t, DETRLossConfig(nc=nc), match=match)
+        loss.backward()
+        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).detach().flatten().cpu().double()
+                       for p in model.parameters()])
+        vals = {"loss": float(loss.detach()), **{k: float(v.detach()) for k, v in items.items() if v.ndim == 0}}
+        return vals, items["match"].cpu(), g, record
+
+    t0 = time.perf_counter()
+    cpu_items, cpu_match, cpu_g, cpu_topk = grads_on(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    _, gpu_match, gpu_own_g, _ = grads_on(dev)
+    fix_items, _, gpu_g, _ = grads_on(dev, match=cpu_match, topk=cpu_topk)
+    exact_items, _, exact_g, _ = grads_on(torch.device("cpu"), torch.float64, match=cpu_match, topk=cpu_topk)
+    rel = lambda a, b: max(abs(a[k] - v) / max(abs(v), 1e-12) for k, v in b.items())  # noqa: E731
+    worst_fixed, item_noise = rel(fix_items, cpu_items), rel(cpu_items, exact_items)
+    valid = torch.from_numpy(batch["mask"])[None].expand_as(cpu_match)
+    agree = float((gpu_match == cpu_match)[valid].float().mean())
+    norm = cpu_g.norm().item()
+    d_card, d_noise = (gpu_g - cpu_g).norm().item(), (cpu_g - exact_g).norm().item()
+    finite = bool(torch.isfinite(gpu_own_g).all() & torch.isfinite(gpu_g).all()) and all(
+        math.isfinite(v) for v in fix_items.values())
+    summary = dict(assignments_agree=agree, loss_cpu=cpu_items["loss"], loss_card=fix_items["loss"],
+                   worst_item_rel=worst_fixed, item_noise_rel=item_noise, grad_rel=d_card / norm,
+                   grad_noise_rel=d_noise / norm, topk_calls=len(cpu_topk), cpu_fwd_bwd_s=cpu_s)
+    if not (finite and worst_fixed <= max(2 * item_noise, 1e-5) and d_card <= max(2 * d_noise, 1e-3 * norm)):
+        raise AssertionError(f"{label} train parity failed: finite {finite}, {summary}")
+    return summary
+
+
+def profiled_step(tr, batch):
+    """One `Trainer.step` under torch.profiler: (wall ms, the kernels' device ms or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(batch)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = profiled_kernel_ms(prof)
+    return wall, busy
+
+
+def rtdetr(dev, data: str):
+    """`rtdetr.yaml` (AIFI, RTDETRDecoder) on the card at full width, nc 10,
+    seeded weights with the head spread (`spread_scores`), each part with
+    its launch counters zeroed before and read after:
+      - eval at 640 px, batch 1 and 4, of the serve frames (resized on the
+        card): card = CPU as a set (`same_set`, 1e-3); fuse=True against the
+        unfused forward (1e-4, as a set), half=True (bf16) beside fp32 (RMS
+        over paired rows); B2 6 a forward, no scan;
+      - serve: `TAMTR.predict(images, text)` at batch 1 and 4, ms;
+      - one training step card vs CPU at 640 px, batch 4, max_gt 300,
+        TRAIN_VALID (`detr_train_parity`: the whole model, whose fp32
+        gradient lies a few times its norm from the fp64 one at this batch
+        (chaotic), and the head alone on the model's eval features, whose
+        floor is ~1%), then `Trainer.step` timed: two
+        warm-up steps, RTDETR_STEPS timed, one profiled (device ms, busy
+        share), peak memory; B2, pair_buckets and B4 6 a step,
+        `auction_assignment` 1;
+      - `Engine.train` for 1 epoch of the fit dataset (val after it), then
+        `Engine.val` on its `best.pt`;
+      - `TAMTR.predict` of the JPEG fixtures with and without TTA, and
+        `TAMTR.track` of the track phase's frames (bytetrack)."""
+    import copy
+    from pathlib import Path
+
+    from tamtr_torch import TAMTR
+    from tamtr_torch.config import get_cfg
+    from tamtr_torch.engine.model import Engine
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.train.trainer import TrainConfig
+    from tamtr_torch.weights import init_parameters
+
+    total, out = {}, {}
+
+    def part(name, want):
+        nonlocal total
+        got = expect_launches(f"rtdetr {name}", counters, want)
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+
+    counters = zero_counters()
+    rng = np.random.default_rng(4)
+    frames = [rng.integers(0, 256, TRACK_HW + (3,), dtype=np.uint8) for _ in range(4)]
+    text = rng.standard_normal((RTDETR_NC, 512)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    det = TAMTR("rtdetr.yaml", nc=RTDETR_NC, seed=0)
+    spread_scores(det.model, seed=1)
+    det.set_classes([f"class{i}" for i in range(RTDETR_NC)], text)
+    img, _ = det._to_batch(frames)
+    txt = torch.from_numpy(text[None]).to(dev)
+    cpu_model = copy.deepcopy(det.model).cpu()
+    with torch.inference_mode():
+        want_all = cpu_model(img.cpu(), txt.cpu())["pred"].numpy()  # one CPU forward: each image's rows its own
+        for b in (1, TRAIN_BATCH):
+            got = det.model(img[:b], txt)["pred"].cpu().numpy()
+            want = want_all[:b]
+            if not np.isfinite(got).all() or want[..., 4:].std() < 0.05:
+                raise AssertionError(f"rtdetr eval b{b}: not finite or no score spread")
+            out[f"eval_b{b}_worst"], out[f"eval_b{b}_unmatched"] = same_set(got, want)
+        base = det.model(img, txt)["pred"]
+        fused = det._engine._eval_model(det.model, get_cfg(overrides=dict(fuse=True)))
+        out["fuse_worst"], out["fuse_unmatched"] = same_set(fused(img, txt)["pred"].cpu().numpy(),
+                                                            base.cpu().numpy(), tol=1e-4)
+        half = det._engine._eval_model(det.model, get_cfg(overrides=dict(half=True)))
+        p = half(img, txt)["pred"]
+        if not torch.isfinite(p).all() or p.dtype != torch.float32:
+            raise AssertionError("rtdetr half: pred not finite fp32")
+        out["half_rms"] = rms_set(p.cpu().numpy(), base.cpu().numpy())
+    part("eval", launches_of((RTDETR_FORWARD, 5)))
+
+    counters = zero_counters()
+    times = {"b1": [], "b4": []}
+    for key, images in (("b1", frames[0]), ("b4", frames)):
+        det.predict(images, text)  # warm-up: conv algorithms
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res = det.predict(images, text)  # ends in host copies: the device has finished
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            if not all(np.isfinite(r["boxes"]).all() for r in res):
+                raise AssertionError("rtdetr serve: boxes not finite")
+    out["serve_ms"] = times
+    out["serve_ms_median"] = {k: float(np.median(v)) for k, v in times.items()}
+    part("serve", launches_of((RTDETR_FORWARD, 12)))
+
+    counters = zero_counters()
+    batches = [synthetic_batch(100 + i, TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT, TRAIN_VALID, nc=RTDETR_NC)
+               for i in range(3 + RTDETR_STEPS)]
+    base_model = TAMTRModel.from_cfg("rtdetr.yaml", nc=RTDETR_NC, max_gt=TRAIN_MAX_GT, vss_drop_path=0.0,
+                                     label_noise_ratio=0.0, box_noise_scale=0.0)
+    init_parameters(base_model, 0)
+    spread_scores(base_model, seed=1)
+    out["train_parity"] = detr_train_parity("rtdetr", base_model, batches[0], RTDETR_NC, dev)
+    feats = []
+    hook = base_model.model[-1].register_forward_pre_hook(lambda m, a: feats.append(a[0]))
+    with torch.no_grad():
+        base_model.eval()(torch.from_numpy(batches[0]["img"]).float() / 255.0,
+                          torch.from_numpy(batches[0]["txt_feats"]))
+    hook.remove()
+    out["head_train_parity"] = detr_train_parity("rtdetr head", base_model.model[-1], batches[0], RTDETR_NC, dev,
+                                                 feats=[f.clone() for f in feats[0]])
+    say(f"rtdetr train parity rtdetr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}: whole model "
+        f"{json.dumps(out['train_parity'])}; the head alone on the eval features "
+        f"{json.dumps(out['head_train_parity'])}", flush=True)
+    del base_model, feats
+    part("train parity", launches_of((RTDETR_STEP, 4), ({"auction_assignment": -1}, 2)))
+
+    counters = zero_counters()
+    trainer_det = TAMTR("rtdetr.yaml", nc=RTDETR_NC, seed=0, max_gt=TRAIN_MAX_GT)
+    spread_scores(trainer_det.model, seed=1)
+    tr = trainer_det.trainer(TrainConfig(batch_size=TRAIN_BATCH, accumulate=1), seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches[1:3]:
+        tr.step(b)
+    steps, logs = [], []
+    for b in batches[3:]:
+        t0 = time.perf_counter()
+        logs.append(tr.step(b))  # ends in host reads of the metrics
+        steps.append((time.perf_counter() - t0) * 1e3)
+    out["step_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    wall, busy = profiled_step(tr, batches[-1])
+    out.update(step_ms=steps, step_ms_median=float(np.median(steps)), step_device_ms=busy,
+               step_busy_share=busy and busy / wall, step_items=[{k: m[k] for k in ("loss", "giou", "class", "bbox")}
+                                                        for m in logs])
+    if not all(math.isfinite(m[k]) for m in logs for k in ("loss", "giou", "class", "bbox", "grad_norm")) \
+            or not all(m["stepped"] == 1.0 for m in logs):
+        raise AssertionError(f"rtdetr steps: {logs}")
+    del tr, trainer_det
+    torch.cuda.empty_cache()
+    part("steps", launches_of((RTDETR_STEP, 3 + RTDETR_STEPS)))
+
+    counters = zero_counters()
+    root = Path("build/rtdetr")
+    eng = Engine("rtdetr.yaml")
+    fit_res = eng.train(data=data, epochs=1, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT, workers=0,
+                        warmup_epochs=4, val_interval=1, conf=0.05, plots=False, project=str(root), name="fit",
+                        exist_ok=True)
+    val = Engine("rtdetr.yaml").load(root / "fit" / "weights" / "best.pt").val(
+        data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, conf=0.05, plots=False)
+    out["fit"] = dict(step_ms_median=float(np.median(eng.timing["step_ms"][1:])), mAP50=val["mAP50"], mAP50_95=val["mAP50-95"], val_images_per_sec=val["images_per_sec"])
+    if not all(0.0 <= m[k] <= 1.0 for m in (fit_res, val) for k in ("mAP50", "mAP50-95")):
+        raise AssertionError(f"rtdetr fit: {out['fit']}")
+    val_forwards = math.ceil(FIT_VAL / TRAIN_BATCH)
+    part("fit", launches_of((RTDETR_STEP, FIT_TRAIN // TRAIN_BATCH), (RTDETR_FORWARD, 2 * val_forwards)))
+
+    counters = zero_counters()
+    n = len(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    for augment in (False, True):
+        t0 = time.perf_counter()
+        res = det.predict(JPEG_FIXTURES, augment=augment)
+        out[f"predict_files_ms_per_image{'_tta' if augment else ''}"] = (time.perf_counter() - t0) * 1e3 / n
+        if len(res) != n or not all(np.isfinite(r.boxes.xyxy).all() for r in res):
+            raise AssertionError(f"rtdetr predict augment={augment}: {[len(r) for r in res]}")
+    tracked = det.track("build/track", tracker="bytetrack")
+    out["track"] = dict(frames=len(tracked), tracks_per_frame=[len(r.track_ids) for r in tracked],
+                        ms_per_frame={k: float(np.median(v)) for k, v in det._engine.timing.items()})
+    if len(tracked) != TRACK_FRAMES or not any(len(r.track_ids) for r in tracked):
+        raise AssertionError(f"rtdetr track: {out['track']}")
+    part("predict and track", launches_of((RTDETR_FORWARD, 4 * n + TRACK_FRAMES)))
+    say(f"rtdetr rtdetr.yaml {TRAIN_IMGSZ}px nc {RTDETR_NC}: {json.dumps(out)}; launches {total}", flush=True)
+    return out, total
+
+
+def heads(dev):
+    """The variant heads on `tamtr.yaml`'s wiring, each at full width with
+    its head row swapped (`HEAD_VARIANTS`; Dual on the levels [32, 36, 32,
+    36]), nc 10, seeded weights with the head spread, at 256 px, batch 2:
+    eval card = CPU as a set (1e-3; each of Dual's two predictions); one
+    training step of the whole model on the card (its own assignment),
+    finite; and the head's training step card vs CPU given the CPU's
+    assignment and top-k order (`detr_train_parity` of the head alone on
+    the model's eval features: the whole step's fp32 rounding is chaotic
+    at this batch and size, see there). The launch counters are zeroed
+    before each head and read after: the forward's per `HEAD_VARIANTS`,
+    and per step the scan's and the gather's backward."""
+    import copy
+
+    from tamtr_torch.losses.detr_loss import DETRLossConfig, rtdetr_detection_loss
+    from tamtr_torch.nn.graph import TAMTRModel, load_model_cfg
+    from tamtr_torch.weights import init_parameters
+
+    out, total = {}, {}
+    for head, (froms, extra, fwd, bwd_gathers) in HEAD_VARIANTS.items():
+        counters = zero_counters()
+        cfg = load_model_cfg("tamtr.yaml")
+        row = cfg["head"][-1]
+        cfg["head"][-1] = [froms, 1, head, row[3][:6] + extra]
+        model = TAMTRModel(cfg, nc=10, max_gt=HEADS_MAX_GT, vss_drop_path=0.0, label_noise_ratio=0.0,
+                           box_noise_scale=0.0)
+        init_parameters(model, 0)
+        spread_scores(model, seed=1)
+        batch = synthetic_batch(200, HEADS_BATCH, HEADS_IMGSZ, HEADS_MAX_GT, (HEADS_MAX_GT - 4, 9),
+                                hd=model.text_width)
+        img = torch.from_numpy(batch["img"]).float() / 255.0
+        txt = torch.from_numpy(batch["txt_feats"])
+        tg = {"cls": torch.from_numpy(batch["cls"]).to(dev), "mask": torch.from_numpy(batch["mask"]).to(dev),
+              "bboxes": torch.from_numpy(batch["bboxes"]).to(dev)}
+        card = copy.deepcopy(model).to(dev).eval()
+        feats = []
+        hook = model.model[-1].register_forward_pre_hook(lambda m, a: feats.append(a[0]))
+        with torch.inference_mode():
+            got, want = card(img.to(dev), txt.to(dev))["pred"], model.eval()(img, txt)["pred"]
+        hook.remove()
+        pairs = list(zip(got, want)) if isinstance(got, list) else [(got, want)]
+        res = {"eval": [same_set(g.cpu().numpy(), w.numpy()) for g, w in pairs]}
+        if not all(torch.isfinite(g).all() for g, _ in pairs):
+            raise AssertionError(f"heads {head}: eval not finite")
+        card.train()
+        loss = rtdetr_detection_loss(card(img.to(dev), txt.to(dev), tg), tg, DETRLossConfig(nc=10))[0]
+        loss.backward()
+        finite = math.isfinite(float(loss)) and all(torch.isfinite(p.grad).all() for p in card.parameters()
+                                                    if p.grad is not None)
+        res["step_loss"] = float(loss)
+        if not finite:
+            raise AssertionError(f"heads {head}: the step's loss or gradient is not finite")
+        del card
+        with torch.no_grad():
+            feats = [f.clone() for f in feats[0]]
+        res["head_train"] = detr_train_parity(head, model.model[-1], batch, 10, dev, feats=feats)
+        fwd_bwd = step_launches(fwd, bwd_gathers)
+        got_l = expect_launches(f"heads {head}", counters, launches_of((fwd, 1), (fwd_bwd, 3),
+                                                                       ({"auction_assignment": -1}, 1)))
+        total = {k: total.get(k, 0) + v for k, v in got_l.items()}
+        res["launches"] = {k: v for k, v in got_l.items() if v}
+        out[head] = res
+        say(f"heads {head} tamtr.yaml wiring {HEADS_IMGSZ}px b{HEADS_BATCH}: {json.dumps(res)}", flush=True)
+    return out, total
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -3262,47 +3732,57 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    log = _build.build_all()  # a fresh checkout has no build/: this compiles every source
+    log = timed("build", _build.build_all)  # a fresh checkout has no build/: this compiles every source
     print(f"build: {log['seconds']:.1f} s", flush=True)
     for line in log["ptxas"]:
         print(f"  {line}")
 
-    scan_rows, scan_err = check_ss2d_scan(dev)
-    gather = check_bilinear_gather(dev)
-    bwd_rows, bwd_err = check_ss2d_scan_bwd(dev)
-    gather_bwd, gather_train = check_bilinear_gather_bwd(dev)
-    auction = check_auction(dev)
-    auction_any = check_auction_any_size(dev)
-    scan1d_rows, scan1d_err = check_selective_scan(dev)
+    scan_rows, scan_err = timed("ss2d_scan", check_ss2d_scan, dev)
+    gather = timed("bilinear_gather", check_bilinear_gather, dev)
+    bwd_rows, bwd_err = timed("ss2d_scan_bwd", check_ss2d_scan_bwd, dev)
+    gather_bwd, gather_train = timed("bilinear_gather_bwd", check_bilinear_gather_bwd, dev)
+    auction = timed("auction", check_auction, dev)
+    auction_any = timed("auction_any_size", check_auction_any_size, dev)
+    # RT-DETR's shapes: head width c = 32 (hd 256 over 8 heads), Q = 300 at
+    # eval and 900 in training; the assignment of 7 matched layers x 4
+    # images of 300 queries
+    gather_c32 = timed("bilinear_gather_c32", check_bilinear_gather, dev, Q=300, c=32)
+    gather_bwd_c32, gather_c32_train = timed("bilinear_gather_bwd_c32", check_bilinear_gather_bwd, dev, Q=900, c=32)
+    auction_rtdetr = timed("auction_28_300_300", check_auction, dev, layers=7, nq=300)
+    scan1d_rows, scan1d_err = timed("selective_scan", check_selective_scan, dev)
     value, gather_args, pairs, Lv = decoder_scatter_inputs(17, dev)
     _, gather_clustered, pairs_clustered, _ = decoder_scatter_inputs(18, dev, clustered=True)
-    scatter = check_scatter_acc(dev, value, dict(uniform=gather_args, clustered=gather_clustered), Lv)
-    scatter_pairs = check_scatter_acc_pairs(dev, dict(uniform=pairs, clustered=pairs_clustered), Lv)
+    scatter = timed("scatter_acc", check_scatter_acc, dev, value,
+                    dict(uniform=gather_args, clustered=gather_clustered), Lv)
+    scatter_pairs = timed("scatter_acc_pairs", check_scatter_acc_pairs, dev,
+                          dict(uniform=pairs, clustered=pairs_clustered), Lv)
     del value, gather_args, pairs, gather_clustered, pairs_clustered
-    ops_launches = drive_ops(dev)
-    sp_rows, sp_rows1d, sp_err, sp_launches = sp_blocks(dev)
-    pieces = check_ss2d_pieces(dev)
-    jpeg_ms_per_mp, jpeg_encode_ms_per_mp = check_jpeg()
-    check_parity(dev)
-    check_train_parity(dev)
-    launches = serve(dev)
-    predict_summary, det, predict_launches = predict_files(dev)
-    http_summary, http_launches = serve_http(det)
-    track_summary, track_launches = track(det)
+    ops_launches = timed("drive_ops", drive_ops, dev)
+    sp_rows, sp_rows1d, sp_err, sp_launches = timed("sp_blocks", sp_blocks, dev)
+    pieces = timed("ss2d_pieces", check_ss2d_pieces, dev)
+    jpeg_ms_per_mp, jpeg_encode_ms_per_mp = timed("jpeg", check_jpeg)
+    timed("parity", check_parity, dev)
+    timed("train_parity", check_train_parity, dev)
+    launches = timed("serve", serve, dev)
+    predict_summary, det, predict_launches = timed("predict_files", predict_files, dev)
+    http_summary, http_launches = timed("serve_http", serve_http, det)
+    track_summary, track_launches = timed("track", track, det)
     del det
-    fuse_summary, fuse_launches = fuse(dev)
-    autobatch_summary, autobatch_launches = autobatch_phase(dev)
-    train_launches, _, _, b4_calls = train(dev)
-    gather_bwd.update(check_gather_bwd_step(b4_calls))
-    gather_step = check_gather_fwd_step(b4_calls)
+    fuse_summary, fuse_launches = timed("fuse", fuse, dev)
+    autobatch_summary, autobatch_launches = timed("autobatch", autobatch_phase, dev)
+    train_launches, _, _, b4_calls = timed("train", train, dev)
+    gather_bwd.update(timed("gather_bwd_step", check_gather_bwd_step, b4_calls))
+    gather_step = timed("gather_fwd_step", check_gather_fwd_step, b4_calls)
     del b4_calls
-    fit_launches, fit_summary = fit(dev)
-    bf16 = bf16_phase(dev, "build/fit/data.json")
-    variants_summary, variants_launches = loss_variants(dev)
-    yolo_summary, yolo_launches = yolo(dev, "build/fit/data.json")
-    parallel_summary = parallel("build/fit/data.json")
-    cli_launches = cli("build/fit/runs/fit/weights/best.pt")
-    info_launches = info("build/fit/runs/fit/weights/best.pt")
+    fit_launches, fit_summary = timed("fit", fit, dev)
+    bf16 = timed("bf16_phase", bf16_phase, dev, "build/fit/data.json")
+    variants_summary, variants_launches = timed("loss_variants", loss_variants, dev)
+    yolo_summary, yolo_launches = timed("yolo", yolo, dev, "build/fit/data.json")
+    rtdetr_summary, rtdetr_launches = timed("rtdetr", rtdetr, dev, "build/fit/data.json")
+    heads_summary, heads_launches = timed("heads", heads, dev)
+    parallel_summary = timed("parallel", parallel, "build/fit/data.json")
+    cli_launches = timed("cli", cli, "build/fit/runs/fit/weights/best.pt")
+    info_launches = timed("info", info, "build/fit/runs/fit/weights/best.pt")
 
     def slice3(name, reached_through):
         return dict(launches=ops_launches[name], launches_serve=launches[name],
@@ -3439,13 +3919,27 @@ def main() -> int:
              launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs,
              bf16=dict(**bf16["offpath"]["scatter_acc_pairs"], of="bf16 dout and output, the decoder's uniform pairs")),
     ]
-    # the main-path launches of the Detect family (none) and of the four DETR loss variants' steps
+    # the main-path launches of the Detect family (none), of the four DETR loss variants' steps, of
+    # rtdetr.yaml and of the variant heads
     for entry, key in zip(kernels, ("ss2d_scan_fwd", "bilinear_gather_fwd", "ss2d_scan_carriers", "ss2d_scan_bwd_walk",
                                     "bilinear_gather_bwd", "auction_assignment", "selective_scan_fwd", "scatter_acc",
                                     "scatter_acc_pairs")):
-        entry.update(launches_yolo=yolo_launches[key], launches_loss_variants=variants_launches[key])
+        entry.update(launches_yolo=yolo_launches[key], launches_loss_variants=variants_launches[key],
+                     launches_rtdetr=rtdetr_launches[key], launches_heads=heads_launches[key])
+    kernels[1].update(c32_q300={**gather_c32, "shape": "value (1, 33600, 8, 32), Q = 300 (rtdetr eval)"},
+                      c32_train_b4_q900={**gather_c32_train, "shape": "value (4, 33600, 8, 32), Q = 900 (rtdetr "
+                                                                       "training, uniform pairs)"})
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], gather_c32["max_abs_err"],
+                                    gather_c32_train["max_abs_err"])
+    kernels[4].update(c32_b4_q900={**gather_bwd_c32, "shape": "value (4, 33600, 8, 32), Q = 900 (rtdetr training)"},
+                      launches_rtdetr_buckets=rtdetr_launches["pair_buckets"],
+                      launches_heads_buckets=heads_launches["pair_buckets"])
+    kernels[4]["max_abs_err"] = max(kernels[4]["max_abs_err"], gather_bwd_c32["max_abs_err"])
+    kernels[5].update(cost_28_300_300={**auction_rtdetr, "shape": "(28, 300, 300): 7 matched layers x 4 images, "
+                                                                   "the global-memory value path"})
     print(json.dumps({"fit": fit_summary}))
     print(json.dumps({"yolo": yolo_summary, "loss_variants": variants_summary}))
+    print(json.dumps({"rtdetr": rtdetr_summary, "heads": heads_summary}))
     print(json.dumps({"bf16": {k: bf16[k] for k in ("serve", "train", "fit", "launches")}}))
     print(json.dumps({"sp_blocks": {"max_abs_err": sp_err, "launches": {k: v for k, v in sp_launches.items() if v}},
                       "parallel": parallel_summary}))
@@ -3453,6 +3947,7 @@ def main() -> int:
     print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary, "track": track_summary,
                       "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp,
                       "jpeg_host_encode_ms_per_megapixel": jpeg_encode_ms_per_mp}))
+    print(json.dumps({"phase_s": PHASE_S, "device_ms_by": DEVICE_MS_BY}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

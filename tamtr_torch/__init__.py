@@ -5,7 +5,7 @@ package imports torch and numpy only: no JAX, no `tamtr_tpu`, no yaml, no
 cv2. Its hand-written CUDA kernels (`csrc/`) build with nvcc on first use.
 """
 
-from tamtr_torch.api import TAMTR
+from tamtr_torch.api import RTDETR, TAMTR
 
 __version__ = "0.1.0"
-__all__ = ["TAMTR", "__version__"]
+__all__ = ["RTDETR", "TAMTR", "__version__"]

@@ -268,3 +268,14 @@ class TAMTR:
                 "labels": labels[i][sel].cpu().numpy(),
             })
         return results
+
+
+class RTDETR(TAMTR):
+    """The text-free RT-DETR detector (`tamtr_tpu/api.py:129-133`):
+    `TAMTR("rtdetr.yaml")`, AIFI on the deepest level and the RTDETRDecoder
+    head, with TAMTR's entry points. It scores with Linear heads and takes
+    no text: predict's `text` is a (K, 512) table of its classes' rows,
+    which it ignores."""
+
+    def __init__(self, model: Union[str, Path] = "rtdetr.yaml", **kw):
+        super().__init__(model, **kw)

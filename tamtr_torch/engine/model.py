@@ -1,7 +1,8 @@
 """Engine: train, val and predict of the TAM-TR detector (a port of the
 JAX package's `tamtr_tpu/engine/model.py`: `Engine.train`, `val`,
-`_validate`, `predict`, `load` and `set_classes`, for the
-`ManbaWorldDecoder` head and the YOLO `Detect` head).
+`_validate`, `predict`, `load` and `set_classes`, for the DETR heads and
+the YOLO `Detect` head; a DualRTDETRDecoder, whose eval gives two
+predictions, only through the model and `Trainer.step`: `refuse_dual`).
 
     train(data=...): DetectionDataset + Loader -> Trainer.step per batch
       -> every val_interval epochs _validate with the EMA weights
@@ -124,6 +125,17 @@ def normalized_pred(model: TAMTRModel, pred: torch.Tensor, input_hw) -> torch.Te
     scale = pred.new_ones(pred.shape[-1])
     scale[:4] = torch.tensor([1.0 / w, 1.0 / h, 1.0 / w, 1.0 / h], dtype=pred.dtype)
     return pred * scale
+
+
+def refuse_dual(model: TAMTRModel) -> None:
+    """The engine takes one prediction per image; a DualRTDETRDecoder gives
+    two (its eval "pred" is a list). The JAX engine reads it as one array
+    and fails (`tamtr_tpu/engine/model.py:599, 743`), so the port runs a
+    Dual model through its forward and `Trainer.step` only."""
+    if model.head_type == "DualRTDETRDecoder":
+        raise NotImplementedError("a DualRTDETRDecoder model gives two predictions per image: the engine's train, "
+                                  "val, predict and track take one (as the JAX engine's); call the model or "
+                                  "Trainer.step")
 
 
 def weights_key(model: torch.nn.Module) -> tuple:
@@ -257,6 +269,7 @@ class Engine:
                 cfg.batch = broadcast_from_rank0(cfg.batch) * n_data
         model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=cfg.max_gt,
                                     dtype=torch.bfloat16 if cfg.bf16 else None)
+        refuse_dual(model)
         init_parameters(model, cfg.seed)
         width = model.text_width
         self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings, dim=width)
@@ -654,6 +667,7 @@ class Engine:
         cached and built again whenever `model` or any of its weights changed
         since (`weights_key`); the bf16 twin shares the weights of the model
         it is made from. `model`'s weights and dtype are never changed."""
+        refuse_dual(model)
         dtype = torch.bfloat16 if cfg.half else model.dtype
         if cfg.fuse:
             key = weights_key(model)

@@ -9,9 +9,12 @@ checkpoint's `model.{i}.…`, with the detection head last (`model.41` in
 input widths at construction, so `TAMTRModel` threads the channel count of
 every layer through the graph (a tuple of widths after a CBLinear).
 
-Heads: `ManbaWorldDecoder` (TAM-TR) and the YOLO `Detect`. The JAX
-package's other heads (RTDETRDecoder, the Manba variants, Segment, Pose,
-Classify) parse and then raise NotImplementedError: ROADMAP queue A, item 7.
+Heads: the DETR family, built as in the JAX package
+(`tamtr_tpu/nn/graph.py:281-329`): `ManbaWorldDecoder` (TAM-TR) and, by its
+switches, RTDETRDecoder, ManbaDecoder and the two Decoupling heads; the
+locationManbaDecoder and the DualRTDETRDecoder; and the YOLO `Detect`.
+Segment, Pose and Classify parse and then raise NotImplementedError:
+ROADMAP queue A, item 7.
 """
 
 from __future__ import annotations
@@ -26,15 +29,23 @@ import torch
 from torch import nn
 
 from tamtr_torch.nn import layers as L
-from tamtr_torch.nn.decoder import ManbaWorldDecoder
+from tamtr_torch.nn.decoder import DualRTDETRDecoder, LocationManbaDecoder, ManbaWorldDecoder
 from tamtr_torch.nn.yolo_head import Detect
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg" / "models"
 HEADS = ("ManbaWorldDecoder", "RTDETRDecoder", "ManbaDecoder", "DecouplingManbaWorldDecoder",
          "DecouplingDFLManbaWorldDecoder", "locationManbaDecoder", "DualRTDETRDecoder",
          "Detect", "Segment", "Pose", "Classify")
-PORTED_HEADS = ("ManbaWorldDecoder", "Detect")
+PORTED_HEADS = HEADS[:-3]  # all but Segment, Pose and Classify
 TEXT_WIDTH = 512  # the text table of a head that takes none (the JAX engine's width)
+# ManbaWorldDecoder's switches (use_text, use_vss, variant) for each head
+# built from it (`tamtr_tpu/nn/graph.py:296-310`); use_text None: the config's
+# seventh head argument, True when absent
+HEAD_SWITCHES = {
+    "ManbaWorldDecoder": (None, True, "base"), "RTDETRDecoder": (False, False, "base"),
+    "ManbaDecoder": (False, True, "base"), "DecouplingManbaWorldDecoder": (None, True, "decouple"),
+    "DecouplingDFLManbaWorldDecoder": (None, True, "dfl"),
+}
 
 
 def load_model_cfg(path: str | Path) -> Dict[str, Any]:
@@ -99,6 +110,9 @@ def _build_layer(m: str, args, c_in: List[int], gc: int, deploy: bool = False):
         return L.SPPELAN(c1, c2, c3), c2
     if m == "CPAM":
         return L.CPAM(), c1
+    if m == "AIFI":
+        cm, nh = (list(args) + [2048, 8])[:2]
+        return L.AIFI(c1, cm, nh), c1
     if m == "ADown":
         return L.ADown(c1, args[0]), args[0]
     if m == "Concat":
@@ -117,15 +131,19 @@ def _build_layer(m: str, args, c_in: List[int], gc: int, deploy: bool = False):
 
 class TAMTRModel(nn.Module):
     """TAM-TR detector: CSP-ELAN backbone, BTA-PAN neck guided by text,
-    ManbaWorldDecoder head; or, from a YOLO config (`yolo-gelan.yaml`), the
-    graph's layers and a Detect head.
+    ManbaWorldDecoder head; from another config the graph's layers and its
+    head: RT-DETR (`rtdetr.yaml`: AIFI, RTDETRDecoder), any DETR variant
+    head (`HEAD_SWITCHES`, locationManbaDecoder, DualRTDETRDecoder), or a
+    YOLO Detect head (`yolo-gelan.yaml`). `head_type` is the config's head
+    name, as the JAX `TAMTRModel.head_type`.
 
     forward(img (B, H, W, 3) float in [0, 1], text (B or 1, K, hd),
     targets=None, generator=None): in `.eval()`, or without targets, a dict
     with "pred" (B, nq, 4 + nc): normalized cxcywh boxes and sigmoid scores.
     In `.train()` with targets {"cls" (B, M), "bboxes" (B, M, 4) cxcywh,
     "mask" (B, M)} padded to `max_gt`, the head's train dict (see
-    `ManbaWorldDecoder`); DropPath and CDN noise draw from `generator`.
+    `ManbaWorldDecoder`); DropPath and CDN noise draw from `generator`. A
+    Dual head's eval "pred" is a list of two, one a half of its levels.
     A Detect head takes only the features (no text, targets or generator)
     and returns its dict (`nn/yolo_head.py:Detect`), whose eval "pred"
     (B, A, 4 + nc) holds xywh boxes in input pixels; `uses_text` is False
@@ -152,17 +170,17 @@ class TAMTRModel(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
-        self.specs, (self.head_from, self.head_args), self.save, self.nc, head_type = parse_graph(cfg, nc)
+        self.specs, (self.head_from, self.head_args), self.save, self.nc, self.head_type = parse_graph(cfg, nc)
+        head_type = self.head_type
         if head_type not in PORTED_HEADS:
             raise NotImplementedError(f"the {head_type} head is not ported to tamtr_torch yet: ROADMAP.md "
                                       "queue A, item 7")
-        gc = self.head_args[1] if head_type == "ManbaWorldDecoder" else TEXT_WIDTH
         ch: List[Any] = []
         layers = []
         for idx, f, m, args in self.specs:
             froms = f if isinstance(f, tuple) else (f,)
             c_in = [ch[j if j >= 0 else idx + j] if j != -1 else (ch[-1] if ch else 3) for j in froms]
-            mod, c2 = _build_layer(m, args, c_in, gc=gc, deploy=deploy)
+            mod, c2 = _build_layer(m, args, c_in, gc=self.text_width, deploy=deploy)
             layers.append(mod)
             ch.append(c2)
         head_ch = tuple(ch[j] for j in self.head_from)
@@ -170,29 +188,36 @@ class TAMTRModel(nn.Module):
             layers.append(Detect(nc=self.nc, ch=head_ch))
         else:
             _, hd, nq, ndp, nh, ndl = self.head_args[:6]
-            layers.append(ManbaWorldDecoder(
-                nc=self.nc, ch=head_ch, hd=hd, nq=nq, ndp=ndp, nh=nh, ndl=ndl,
-                num_denoising=num_denoising, max_gt=max_gt, label_noise_ratio=label_noise_ratio,
-                box_noise_scale=box_noise_scale, vss_drop_path=vss_drop_path,
-            ))
+            kw = dict(nc=self.nc, hd=hd, nq=nq, ndp=ndp, nh=nh, ndl=ndl, num_denoising=num_denoising,
+                      max_gt=max_gt, box_noise_scale=box_noise_scale)
+            if head_type == "locationManbaDecoder":
+                head = LocationManbaDecoder(ch=head_ch, vss_drop_path=vss_drop_path, **kw)
+            elif head_type == "DualRTDETRDecoder":  # one core shared by the two halves of the levels
+                head = DualRTDETRDecoder(ch=head_ch[:len(head_ch) // 2], label_noise_ratio=label_noise_ratio, **kw)
+            else:
+                _, use_vss, variant = HEAD_SWITCHES[head_type]
+                head = ManbaWorldDecoder(ch=head_ch, label_noise_ratio=label_noise_ratio, vss_drop_path=vss_drop_path,
+                                         use_text=self.uses_text, use_vss=use_vss, variant=variant, **kw)
+            layers.append(head)
         self.model = nn.ModuleList(layers)
 
     @property
-    def head_type(self) -> str:
-        """The head's class name, as the JAX `TAMTRModel.head_type`."""
-        return type(self.model[-1]).__name__
-
-    @property
     def uses_text(self) -> bool:
-        """True when the head takes the text table (its contrastive scores),
-        as the JAX `TAMTRModel.uses_text` decides it for the ported heads."""
-        return self.head_type == "ManbaWorldDecoder" and (len(self.head_args) <= 6 or bool(self.head_args[6]))
+        """True when the head scores against the text table (contrastive
+        scores), as the JAX `TAMTRModel.uses_text` decides: ManbaWorldDecoder
+        and the two Decoupling heads, unless their seventh head argument is
+        false. Never RTDETRDecoder, ManbaDecoder, Dual, Location or Detect."""
+        switches = HEAD_SWITCHES.get(self.head_type)
+        return switches is not None and switches[0] is None and (
+            len(self.head_args) <= 6 or bool(self.head_args[6]))
 
     @property
     def text_width(self) -> int:
         """The width of the text table the model takes: the head's hidden
-        width where it uses text, else the JAX engine's 512 (given, ignored)."""
-        return self.model[-1].hd if self.uses_text else TEXT_WIDTH
+        width where it uses text; else the JAX engine's 512, which the
+        locationManbaDecoder's 2-D text scores project to (its embed_dim)
+        and any other head ignores."""
+        return self.head_args[1] if self.uses_text else TEXT_WIDTH
 
     @classmethod
     def from_cfg(cls, path: str | Path, nc: Optional[int] = None, **kw) -> "TAMTRModel":

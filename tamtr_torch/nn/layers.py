@@ -19,8 +19,10 @@ train mode, the activation's dtype in eval (its statistics stay fp32).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -423,3 +425,80 @@ class MLP(nn.Module):
             if i < len(self.layers) - 1:
                 x = F.relu(x)
         return x
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """MHA with nn.MultiheadAttention's parameter names (`in_proj_weight`,
+    `in_proj_bias`, `out_proj`); q, k and v take separate inputs, and an
+    optional bool mask (Q, K) blocks the pairs where it is True."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        self.h = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = Linear(d_model, d_model)
+
+    def forward(self, q, k, v, mask: Optional[torch.Tensor] = None):
+        B, Q, C = q.shape
+        h, d = self.h, C // self.h
+        w, b = at_input_dtype(q, self.in_proj_weight, self.in_proj_bias, owner=self)
+        (wq, wk, wv), (bq, bk, bv) = w.chunk(3), b.chunk(3)
+        qp = F.linear(q, wq, bq).view(B, Q, h, d).transpose(1, 2)
+        kp = F.linear(k, wk, bk).view(B, -1, h, d).transpose(1, 2)
+        vp = F.linear(v, wv, bv).view(B, -1, h, d).transpose(1, 2)
+        logits = qp @ kp.transpose(-1, -2) / math.sqrt(d)
+        if mask is not None:
+            logits = logits.masked_fill(mask, float("-inf"))
+        att = logits.softmax(-1)
+        return self.out_proj((att @ vp).transpose(1, 2).reshape(B, Q, C))
+
+
+def sincos_2d(w: int, h: int, dim: int, temperature: float = 10000.0) -> np.ndarray:
+    """AIFI's 2-D sin-cos embedding, (w * h, dim) fp32 (`tamtr_tpu/nn/
+    layers.py:AIFI.sincos_2d`). The meshgrid is (w, h) 'ij', so row
+    wi * h + hi holds the position (wi, hi), as the reference builds it
+    (`transformer.py:89-104`)."""
+    if dim % 4:
+        raise ValueError("AIFI's embed dim must be divisible by 4")
+    gw, gh = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32), indexing="ij")
+    pos_dim = dim // 4
+    omega = 1.0 / (temperature ** (np.arange(pos_dim, dtype=np.float32) / pos_dim))
+    out_w = gw.reshape(-1)[:, None] * omega[None]
+    out_h = gh.reshape(-1)[:, None] * omega[None]
+    return np.concatenate([np.sin(out_w), np.cos(out_w), np.sin(out_h), np.cos(out_h)], 1).astype(np.float32)
+
+
+class AIFI(nn.Module):
+    """Intra-scale feature interaction (RT-DETR's encoder on the deepest
+    map, `tamtr_tpu/nn/layers.py:319-369`): one post-norm transformer
+    encoder layer over the map's tokens with a 2-D sin-cos embedding; q =
+    k = tokens + pos, v = tokens; FFN fc1 -> GELU -> fc2.
+
+    The tokens flatten h-major (row hi * W + wi) while `sincos_2d` orders
+    its rows w-major, so the embedding is transposed against the tokens,
+    also on square maps: the reference adds it so, and so do JAX and this
+    port. The GELU is flax's `nn.gelu`, the tanh approximation, as JAX
+    computes it (the reference's `nn.GELU` is exact). The attention is
+    plain matrix products and a softmax, in fp32 at any compute dtype: the
+    JAX layer's Dense layers promote a bf16 input against their fp32
+    kernels, so its output, and what follows it, is fp32.
+
+    x (B, C, H, W) -> (B, C, H, W)."""
+
+    def __init__(self, c1: int, cm: int = 2048, num_heads: int = 8):
+        super().__init__()
+        self.ma = MultiHeadSelfAttention(c1, num_heads)
+        self.fc1 = Linear(c1, cm)
+        self.fc2 = Linear(cm, c1)
+        self.norm1 = LayerNorm(c1, eps=1e-5)
+        self.norm2 = LayerNorm(c1, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        tokens = x.flatten(2).transpose(1, 2)
+        pos = torch.from_numpy(sincos_2d(W, H, C)).to(x.device, x.dtype)
+        q, tokens = at_least_fp32(tokens + pos), at_least_fp32(tokens)
+        tokens = self.norm1(tokens + self.ma(q, q, tokens))
+        tokens = self.norm2(tokens + self.fc2(F.gelu(self.fc1(tokens), approximate="tanh")))
+        return tokens.transpose(1, 2).reshape(B, C, H, W)

@@ -8,8 +8,12 @@ flax leaf. Conv kernels go HWIO -> OIHW (depthwise (3, 3, 1, C) ->
 (C, 1, 3, 3)), Linear kernels transpose, the q/k/v projections merge into
 `in_proj_*`, and the SS2D `A_logs` (K, D, N) / `Ds` (K, D) flatten to
 (K*D, N) / (K*D,). The Detect head's `cv2.{i}.{j}` / `cv3.{i}.{j}` are
-flax's `head/cv2_{i}_{j}` / `head/cv3_{i}_{j}`, and a CBLinear's `conv` is
-flax's `conv` (not `Conv_0`).
+flax's `head/cv2_{i}_{j}` / `head/cv3_{i}_{j}` (the locationManbaDecoder's
+`cv3.{i}.{j}` too, and its `cv4.{i}` flax's `head/cv4_{i}`), and a
+CBLinear's `conv` is flax's `conv` (not `Conv_0`). AIFI's `ma.in_proj_*`
+merge the layer's own `q_proj`, `k_proj` and `v_proj`, as the decoder's
+`self_attn`, `self_attn1` and `self_attn2` merge theirs; the Dual head's
+one core is flax's `head`.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 from torch import nn
 
 from tamtr_torch.nn.decoder import (
-    ContrastiveHead, MSDeformAttn, MultiHeadSelfAttention, sampling_offset_bias,
+    ContrastiveHead, ContrastiveHead2D, MSDeformAttn, MultiHeadSelfAttention, sampling_offset_bias,
 )
 from tamtr_torch.nn.layers import MaxSigmoidAttnBlock
 from tamtr_torch.nn.ssm import SS2D
@@ -73,8 +77,12 @@ def map_torch_key(key: str, shape: Tuple[int, ...], layer_names: Dict[int, str],
                 out_path.append(f"layer{rest[i + 2]}")
                 i += 3
                 continue
-            if tok == "self_attn" and nxt in ("in_proj_weight", "in_proj_bias"):
-                return "params", out_path + ["self_attn"], "qkv"
+            if tok in ("self_attn", "self_attn1", "self_attn2") and nxt in ("in_proj_weight", "in_proj_bias"):
+                return "params", out_path + [tok], "qkv"
+            if tok == "cv4" and nxt and nxt.isdigit():  # Location's 2-D text score heads
+                out_path.append(f"cv4_{nxt}")
+                i += 2
+                continue
             if tok in ("dec_score_head", "dec_bbox_head") and nxt and nxt.isdigit():
                 out_path.append(f"{tok}{nxt}")
                 i += 2
@@ -91,6 +99,11 @@ def map_torch_key(key: str, shape: Tuple[int, ...], layer_names: Dict[int, str],
                 return "params", out_path + ["denoising_class_embed"], None
             if tok in ("A_logs", "Ds"):
                 return "params", out_path + [tok], "flatten"
+        if tok == "ma":  # AIFI's attention: flax's q/k/v_proj and out_proj sit on the layer itself
+            if nxt in ("in_proj_weight", "in_proj_bias"):
+                return "params", out_path, "qkv"
+            i += 1
+            continue
         if tok in ("cv2", "cv3") and nxt in ("0", "1") and prefix != "head":
             out_path.append(f"{tok}_csp" if nxt == "0" else f"{tok}_conv")
             i += 2
@@ -222,8 +235,11 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
     xavier-uniform projections in the head, the rotated-grid sampling-offset
     bias with zero offset and attention weights, zeroed last bbox-MLP layers,
     SS2D `A_logs = log(1..N)`, `Ds = 1` and the inverse-softplus dt bias,
-    contrastive bias -10 and logit scale log(1/0.07), and the encoder score
-    bias -log((1 - 0.01) / 0.01) / 80 * nc. A Detect head keeps the generic
+    contrastive bias -10 and logit scale log(1/0.07) (the 1-D and 2-D
+    heads), and the encoder score bias -log((1 - 0.01) / 0.01) / 80 * nc.
+    The Linear score heads of the text-free heads keep the generic init, as
+    flax's Dense (fan-in normal kernel, zero bias); so do Location's cv3
+    stacks and AIFI. A Detect head keeps the generic
     init but for its class biases, the prior log(5 / nc / (640 / stride)^2)
     of each level (`tamtr_tpu/nn/yolo_head.py:90-97`); its box biases are 0.
     """
@@ -247,7 +263,7 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
             mod.in_proj_bias.zero_()
         elif isinstance(mod, MaxSigmoidAttnBlock):
             mod.bias.zero_()
-        elif isinstance(mod, ContrastiveHead):
+        elif isinstance(mod, (ContrastiveHead, ContrastiveHead2D)):
             mod.bias.fill_(-10.0)
             mod.logit_scale.fill_(math.log(1 / 0.07))
         elif isinstance(mod, SS2D):
@@ -275,7 +291,8 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
         _xavier_uniform(conv.weight, conv.in_channels, conv.out_channels, g)
     dense = head.enc_output[0]
     _xavier_uniform(dense.weight, dense.in_features, dense.out_features, g)
-    head.enc_score_head.bias.fill_(-math.log((1 - 0.01) / 0.01) / 80 * head.nc)
+    if hasattr(head, "enc_score_head"):  # not Location's, which selects on its conv class maps
+        head.enc_score_head.bias.fill_(-math.log((1 - 0.01) / 0.01) / 80 * head.nc)
     for mlp in [head.enc_bbox_head, *head.dec_bbox_head]:
         mlp.layers[-1].weight.zero_()
         mlp.layers[-1].bias.zero_()

@@ -1203,3 +1203,105 @@ def test_loss_variant_step_on_the_card(card, switch):
     m = tr.step(batch)
     assert all(math.isfinite(m[k]) for k in ("loss", "giou", "class", "bbox", "grad_norm"))
     assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 1, 0]
+
+
+RTDETR_LEVELS = [(160, 160), (80, 80), (40, 40)]  # rtdetr.yaml's levels at 640 px (strides 4, 8, 16)
+
+
+def _rtdetr_pairs(card, seed, B=4, Q=900, c=32, nh=8, P=4):
+    """RT-DETR's sampling at 640 px: head width c = 32 (hd 256 over 8
+    heads), Q = 900 (300 queries and 600 CDN queries at max_gt 300), with a
+    point in the global last pixel cell, one at x0 < 0 and one on a level
+    boundary."""
+    from tamtr_torch.nn.decoder import deform_sampling_pairs
+
+    g = torch.Generator().manual_seed(seed)
+    nl, shapes = 3, RTDETR_LEVELS
+    Lv = sum(h * w for h, w in shapes)
+    value = torch.randn(B, Lv, nh, c, generator=g)
+    loc = torch.rand(B, Q, nh, nl, P, 2, generator=g) * 1.1 - 0.05
+    loc[0, 0, 0, 2, 0] = torch.tensor([1 - 0.2 / 40, 1 - 0.2 / 40])  # last pixel cell
+    loc[0, 1, 1, 0, 2] = torch.tensor([0.2 / 160, 0.5])  # x0 < 0
+    loc[1, 2, 0, 0, 3] = torch.tensor([1 - 0.3 / 160, 1 - 0.3 / 160])  # level boundary
+    w_att = torch.rand(B, Q, nh, nl, P, generator=g)
+    w_att = w_att / w_att.sum((-1, -2), keepdim=True)
+    dout = torch.randn(B, Q, nh, c, generator=g)
+    value, loc, w_att, dout = (t.to(card) for t in (value, loc, w_att, dout))
+    idx4, w_pairs, idx2 = deform_sampling_pairs(shapes, loc, w_att)
+    assert int(idx2.max()) == Lv - 1
+    return value, idx4, w_pairs, idx2, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilinear_gather_kernel_at_rtdetr_width(card, dtype):
+    """B2 at c = 32, where half of the 16 lanes a row is given hold no data,
+    at (4, Q = 900) on the 640 px levels: against the plain gather at 1e-5
+    (fp32) or 2e-2 (bf16 value rows, fp32 sums rounded once), bitwise over
+    two calls."""
+    from tamtr_torch.kernels.deform_scatter import bilinear_gather, bilinear_gather_ref
+
+    value, idx4, w_pairs, idx2, _ = _rtdetr_pairs(card, 21)
+    value = value.to(dtype)
+    before = bilinear_gather.launches
+    out, again = bilinear_gather(value, idx4, w_pairs, idx2, 12), bilinear_gather(value, idx4, w_pairs, idx2, 12)
+    torch.cuda.synchronize()
+    assert bilinear_gather.launches == before + 2 and out.dtype == dtype and out.shape == (4, 900, 8, 32)
+    assert torch.equal(out, again)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), bilinear_gather_ref(value, idx4, w_pairs, idx2, 12).float(), atol=tol,
+                               rtol=tol)
+
+
+def test_bilinear_gather_bwd_kernel_at_rtdetr_width(card):
+    """B4 at c = 32, (4, Q = 900) on the 640 px levels: the buckets equal
+    `pair_buckets_ref`; dvalue bitwise over two calls and bitwise
+    `bilinear_gather_bwd_rows_ref`; dvalue and dw within 1e-5 of the plain
+    backward."""
+    from tamtr_torch.kernels.deform_scatter import (
+        bilinear_gather_bwd, bilinear_gather_bwd_ref, bilinear_gather_bwd_rows_ref, pair_buckets, pair_buckets_ref,
+    )
+
+    value, _, w_pairs, idx2, dout = _rtdetr_pairs(card, 22)
+    Lv = value.shape[1]
+    assert all(torch.equal(a, b) for a, b in zip(pair_buckets(idx2, w_pairs, Lv), pair_buckets_ref(idx2, w_pairs, Lv)))
+    before = bilinear_gather_bwd.launches
+    dv, dw = bilinear_gather_bwd(value, idx2, w_pairs, dout)
+    dv2, dw2 = bilinear_gather_bwd(value, idx2, w_pairs, dout)
+    torch.cuda.synchronize()
+    assert bilinear_gather_bwd.launches == before + 2
+    assert torch.equal(dv, dv2) and torch.equal(dw, dw2)
+    assert torch.equal(dv, bilinear_gather_bwd_rows_ref(value, idx2, w_pairs, dout)[0])
+    dv_ref, dw_ref = bilinear_gather_bwd_ref(value, idx2, w_pairs, dout)
+    torch.testing.assert_close(dv, dv_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dw, dw_ref, atol=1e-5, rtol=1e-5)
+
+
+def test_auction_at_the_rtdetr_cost(card):
+    """B5 at RT-DETR's training cost, (28, 300, 300): 7 matched layers x 4
+    images of 300 queries against 300 gt slots with 250, 80, 30 and 60
+    valid (the value block, 300 x 301 fp32, exceeds a block's opt-in shared
+    memory: the kernel's global-memory path). The matcher's cost of random
+    predictions; `auction_assignment` (one launch) identical to the CPU's
+    and `auction_match` identical to the plain auction."""
+    from tamtr_torch.kernels.auction import auction_assignment, auction_assignment_ref, auction_match, auction_match_ref
+    from tamtr_torch.losses.matcher import match_cost
+
+    g = torch.Generator().manual_seed(23)
+    layers, B, nq, M, nc = 7, 4, 300, 300, 10
+    n = layers * B
+    n_valid = torch.tensor([250, 80, 30, 60]).repeat(layers)
+    mask = torch.arange(M)[None] < n_valid[:, None]
+    gt_b = torch.cat([torch.rand(n, M, 2, generator=g) * 0.94 + 0.03, torch.rand(n, M, 2, generator=g) * 0.075 + 0.005],
+                     -1) * mask[..., None]
+    gt_c = torch.randint(0, nc, (n, M), generator=g)
+    pred_b = torch.cat([torch.rand(n, nq, 2, generator=g), torch.rand(n, nq, 2, generator=g) * 0.1 + 0.005], -1)
+    pred_s = torch.randn(n, nq, nc, generator=g) * 2 - 3
+    cost = match_cost(pred_b.to(card), pred_s.to(card), gt_b.to(card), gt_c.to(card))
+    m = mask.to(card)
+    assert cost.shape == (n, nq, M)
+    before = auction_assignment.launches
+    got = auction_assignment(cost, m)
+    torch.cuda.synchronize()
+    assert auction_assignment.launches == before + 1
+    assert torch.equal(got.cpu(), auction_assignment_ref(cost.cpu(), mask))
+    assert torch.equal(auction_match(cost, m), auction_match_ref(cost, m))

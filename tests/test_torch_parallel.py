@@ -3,8 +3,9 @@
 on n data ranks of B/n images equals the one-process step on the batch of
 B, as the JAX step does under pjit; ZeRO equals plain data parallelism;
 data x sp equals one process; the loader's shards are JAX's; data-parallel
-val gives the one-process metrics; a resumed run at world 2 with ZeRO is
-bitwise the uninterrupted one.
+val gives the one-process metrics, square and rect (the narrow Detect
+model); a resumed run at world 2 with ZeRO is bitwise the uninterrupted
+one.
 
 Bounds:
 - the conv + BatchNorm model of `tests/test_fsdp.py` (`TinyDet`), 3 steps:
@@ -174,6 +175,52 @@ def test_data_parallel_val_equals_one_process(val_case, tmp_path):
     root, want = val_case
     assert want["mAP50"] > 0
     for got in run_ranks(tmp_path, "val", root):
+        for k in ("mAP50", "mAP50-95", "precision", "recall", "fitness"):
+            assert got[k] == want[k], (k, got[k], want[k])
+
+
+@pytest.fixture(scope="module")
+def rect_case(tmp_path_factory):
+    """The narrow Detect model (`yolo_narrow_cfg`, seeded, its head spread
+    and calibrated for eval), a 6-image split of mixed aspect ratios
+    labelled by it, and its rect val in one process."""
+    from torch_engine_data import calibrate_detect_model, spread_detect_model, write_rect_val_split, write_yolo_narrow
+
+    from tamtr_torch.engine.model import Engine
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.weights import init_parameters
+
+    root = tmp_path_factory.mktemp("rect")
+    cfg = write_yolo_narrow(root)
+    model = TAMTRModel.from_cfg(cfg, nc=NC)
+    init_parameters(model, 0)
+    spread_detect_model(model)
+    calibrate_detect_model(model, torch.from_numpy(np.random.default_rng(0).random((4, IMG, IMG, 3), dtype=np.float32)))
+    txt = np.random.default_rng(3).standard_normal((NC, 512)).astype(np.float32)
+    data = write_rect_val_split(root, model.eval(), txt)
+    torch.save(model.state_dict(), root / "model.pt")
+    args = dict(data=str(data), imgsz=IMG, batch=2, conf=0.25, workers=1, plots=False, rect=True)
+    (root / "spec.json").write_text(json.dumps({"cfg": str(cfg), "names": NAMES, "txt": txt.tolist(), "args": args}))
+    eng = Engine(str(cfg), device="cpu")
+    eng.model = model
+    eng.set_classes(NAMES, txt)
+    return root, eng.val(**args)
+
+
+def test_rect_val_on_two_ranks_equals_one_process(rect_case, tmp_path):
+    """Rect val (letterboxed batches binned by aspect ratio) of the narrow
+    Detect model: 3 batches over 2 ranks (rank 0 runs two, the batches of
+    other shapes than rank 1's); every rank returns the one-process
+    metrics, exactly. The JAX engine runs rect val on one device only
+    (`tamtr_tpu/engine/model.py:793`); the port keeps it at any world size."""
+    from tamtr_torch.data.dataset import DetectionDataset
+
+    root, want = rect_case
+    assert 0 < want["mAP50"] < 1
+    ds = DetectionDataset(str(root / "images"), imgsz=IMG, augment=False)
+    ds.set_rectangle(2)
+    assert len({tuple(ds.get_val(i)[0].shape[:2]) for i in range(len(ds))}) >= 2  # batches of two shapes at least
+    for got in run_ranks(tmp_path, "rect", root):
         for k in ("mAP50", "mAP50-95", "precision", "recall", "fitness"):
             assert got[k] == want[k], (k, got[k], want[k])
 

@@ -1,8 +1,10 @@
 """What the port's engine tests share (`tests/test_torch_engine.py`,
 `tests/test_torch_engine_train.py`, `tests/test_torch_predict.py`,
-`tests/test_torch_cli.py`): the nano shapes, one torch thread, the class
-text table, a 64 px PNG val split labelled by a model, and the JAX nano
-model's variables with spread head weights. Not a conftest: that one
+`tests/test_torch_cli.py` and the parallel, yolo, rtdetr and heads files):
+the nano shapes, one torch thread, the class text table, a 64 px PNG val
+split (square, or of mixed aspect ratios) labelled by a model, the JAX nano
+model's variables with spread head weights, and the narrow Detect model's
+config and head spreading. Not a conftest: that one
 imports JAX, and the train tests need none (`jax_nano_variables` imports
 it when called)."""
 
@@ -29,16 +31,34 @@ def one_thread():
     torch.set_num_threads(prev)
 
 
+def assert_same_row_set(got, want, atol=1e-3):
+    """Eval outputs (B, nq, 4 + nc) equal as sets of rows, as
+    `tests/test_torch_model.py` compares them (top-k may swap near-tied
+    queries): rows paired by a min-cost assignment, all but two an image
+    within `atol`, and those two of equal best score (boundary ties)."""
+    from scipy.optimize import linear_sum_assignment
+
+    for b in range(got.shape[0]):
+        dist = np.abs(got[b][:, None] - want[b][None]).max(-1)
+        r, c = linear_sum_assignment(dist)
+        ok = dist[r, c] < atol
+        assert ok.sum() >= len(ok) - 2, np.sort(dist[r, c])[-3:]
+        if not ok.all():
+            np.testing.assert_allclose(np.sort(got[b][r[~ok], 4:].max(-1)), np.sort(want[b][c[~ok], 4:].max(-1)),
+                                       atol=5e-3)
+
+
 def unit_text() -> np.ndarray:
     """(NC, HD) unit rows from a numpy seed: the class text embeddings."""
     t = np.random.default_rng(1).standard_normal((NC, HD)).astype(np.float32)
     return t / np.linalg.norm(t, axis=-1, keepdims=True)
 
 
-def write_val_split(root, model, txt):
+def write_val_split(root, model, txt, names=NAMES, jitter=0.08):
     """6 val PNGs of 64 px (the val resize is the identity) under `root`,
-    labelled with `model`'s top-3 detections, boxes jittered by up to 8%;
-    returns the `data.json` path."""
+    labelled with `model`'s top-3 detections, box corners jittered by up to
+    `jitter` (relative), for the classes `names`; returns the `data.json`
+    path."""
     from tamtr_torch.data.image_io import imwrite
     from tamtr_torch.ops.nms import postprocess_predictions
 
@@ -51,14 +71,35 @@ def write_val_split(root, model, txt):
     boxes, scores, labels, valid, _ = (t.numpy() for t in postprocess_predictions(pred, 0.25, 0.7, 300))
     for i, img in enumerate(imgs):
         imwrite(root / "images" / f"{i}.png", img)
-        xyxy = boxes[i][valid[i]][:3] * (1 + rng.uniform(-0.08, 0.08, (min(3, valid[i].sum()), 4)))
+        xyxy = boxes[i][valid[i]][:3] * (1 + rng.uniform(-jitter, jitter, (min(3, valid[i].sum()), 4)))
         xyxy = xyxy.clip(0, 1)
         lines = [f"{c} {(a + c2) / 2:.5f} {(b + d) / 2:.5f} {c2 - a:.5f} {d - b:.5f}"
                  for c, (a, b, c2, d) in zip(labels[i][valid[i]][:3], xyxy)]
         (root / "labels" / f"{i}.txt").write_text("\n".join(lines))
     data = root / "data.json"
-    data.write_text(json.dumps({"path": str(root), "train": "images", "val": "images", "nc": NC, "names": NAMES}))
+    data.write_text(json.dumps({"path": str(root), "train": "images", "val": "images", "nc": len(names),
+                                "names": list(names)}))
     return data
+
+
+def spread_head_params(tree, rng):
+    """Flax params of a DETR head (or a tree holding such layers) with the
+    zero-initialised layers given small random values from `rng` (the last
+    box-MLP layers, sampling offsets, attention weights) and the score
+    biases 0, so that every part of the head moves the output."""
+    for name, sub in tree.items():
+        if not hasattr(sub, "items"):
+            continue
+        if name in ("sampling_offsets", "attention_weights"):
+            sub["kernel"] = (rng.standard_normal(sub["kernel"].shape) * 0.05).astype(np.float32)
+        elif name.startswith(("dec_bbox_head", "enc_bbox_head")):
+            k = sub["layers2"]["kernel"]
+            sub["layers2"]["kernel"] = (rng.standard_normal(k.shape) * 0.05).astype(np.float32)
+        elif name.startswith(("dec_score_head", "cv4_")):
+            sub["bias"] = np.zeros_like(sub["bias"])
+        else:
+            spread_head_params(sub, rng)
+    return tree
 
 
 def jax_nano_variables():
@@ -187,3 +228,73 @@ def jax_variables(model, img: int, n_text: int = NC, width: int = 512):
         False))())
     to_np = lambda t: {k: to_np(x) if hasattr(x, "items") else np.array(x) for k, x in t.items()}  # noqa: E731
     return to_np(v["params"]), to_np(v["batch_stats"])
+
+
+def spread_detect_model(model):
+    """A port Detect model's heads spread as `spread_detect_params` spreads
+    the flax ones: class biases 0, each side's DFL mass on bins 1 and 2."""
+    head = model.model[-1]
+    with torch.no_grad():
+        for b, c in zip(head.cv2, head.cv3):
+            b[2].bias.copy_((-2.0 * (torch.arange(head.reg_max, dtype=torch.float32) - 1.5).abs()).repeat(4))
+            c[2].bias.zero_()
+    return model
+
+
+@torch.no_grad()
+def calibrate_detect_model(model, img):
+    """A port Detect model's eval head normalising the features of `img`
+    (B, H, W, 3) with their own statistics, as `calibrated_head` does for
+    the flax one: each head BatchNorm takes its input's batch moments, and
+    the first of each branch a scale of sqrt((var + eps) / var)."""
+    feats = []
+    head = model.model[-1]
+    hook = head.register_forward_pre_hook(lambda m, a: feats.append(a[0]))
+    model.eval()(img, torch.zeros(img.shape[0], model.nc, model.text_width))
+    hook.remove()
+    for f, branches in zip(feats[0], zip(head.cv2, head.cv3)):
+        for br in branches:
+            x = f
+            for j, cb in enumerate(br[:2]):
+                var, mean = torch.var_mean(cb.conv(x), (0, 2, 3), unbiased=False)
+                cb.bn.running_mean.copy_(mean)
+                cb.bn.running_var.copy_(var)
+                if j == 0:
+                    cb.bn.weight.mul_(torch.where(var > 0, torch.sqrt((var + cb.bn.eps) / var.clamp(min=1e-30)), 1.0))
+                x = cb(x)
+    return model
+
+
+RECT_SHAPES = [(64, 64), (48, 64), (64, 48), (40, 64), (64, 40), (56, 64)]
+
+
+def write_rect_val_split(root, model, txt, names=NAMES):
+    """6 val PNGs of mixed aspect ratios (`RECT_SHAPES`) under `root`,
+    labelled with a Detect `model`'s top-3 detections of each image
+    stretched square, corners jittered by up to 8%; returns the `data.json`
+    path."""
+    from tamtr_torch.data.image_io import imwrite
+    from tamtr_torch.data.imgproc import resize_linear
+    from tamtr_torch.engine.model import normalized_pred
+    from tamtr_torch.ops.nms import postprocess_predictions
+
+    (root / "images").mkdir()
+    (root / "labels").mkdir()
+    rng = np.random.default_rng(5)
+    for i, (h, w) in enumerate(RECT_SHAPES):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        x = resize_linear(img, (IMG, IMG))[..., ::-1].astype(np.float32) / 255.0
+        with torch.inference_mode():
+            pred = normalized_pred(model, model(torch.from_numpy(x.copy())[None], torch.from_numpy(txt[None]))["pred"],
+                                   (IMG, IMG))
+        boxes, _, labels, valid, _ = (t.numpy() for t in postprocess_predictions(pred, 0.25, 0.7, 300))
+        n = min(3, int(valid[0].sum()))
+        xyxy = (boxes[0][valid[0]][:n] * (1 + rng.uniform(-0.08, 0.08, (n, 4)))).clip(0, 1)
+        imwrite(root / "images" / f"{i}.png", img)
+        (root / "labels" / f"{i}.txt").write_text("\n".join(
+            f"{c} {(a + c2) / 2:.5f} {(b + d) / 2:.5f} {c2 - a:.5f} {d - b:.5f}"
+            for c, (a, b, c2, d) in zip(labels[0][valid[0]][:n], xyxy)))
+    data = root / "data.json"
+    data.write_text(json.dumps({"path": str(root), "train": "images", "val": "images", "nc": len(names),
+                                "names": list(names)}))
+    return data

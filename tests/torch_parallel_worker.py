@@ -14,7 +14,9 @@ checks to `<out>.<rank>` (torch.save):
         one and at three torch threads, and 2 data ranks of 2;
   stem_bf16: the gradient of the nano model's first three layers at bf16
         (`stem_bf16`), one process against 2 data ranks;
-  val:  `Engine.val` of the model in <arg>/model.pt on <arg>/data.json;
+  val:  `Engine.val` of the model in <arg>/model.pt on <arg>/data.json
+        (the nano model, or the config <arg>/spec.json names);
+  rect: the same, for the rect val of the narrow Detect model;
   yolo: one step of the narrow Detect model (`torch_engine_data.py:
         yolo_narrow_cfg`, heads spread) on 4 images of 64 px: one process
         at one and at three torch threads, 2 data ranks of 2.
@@ -171,8 +173,9 @@ def val(root):
 
     root = Path(root)
     spec = json.loads((root / "spec.json").read_text())
-    eng = Engine("tamtr-nano.yaml", device="cpu")
-    model = TAMTRModel.from_cfg("tamtr-nano.yaml", nc=len(spec["names"]))
+    cfg = spec.get("cfg", "tamtr-nano.yaml")
+    eng = Engine(cfg, device="cpu")
+    model = TAMTRModel.from_cfg(cfg, nc=len(spec["names"]))
     model.load_state_dict(torch.load(root / "model.pt", weights_only=True))
     eng.model = model.eval()
     eng.set_classes(spec["names"], np.asarray(spec["txt"], np.float32))
@@ -219,6 +222,6 @@ if __name__ == "__main__":
     case, out_path = sys.argv[1], sys.argv[2]
     init_distributed("cpu")
     result = {"tiny": tiny, "nano": nano, "nano_bf16": lambda: nano(torch.bfloat16), "stem_bf16": stem_bf16,
-              "val": lambda: val(sys.argv[3]), "yolo": yolo}[case]()
+              "val": lambda: val(sys.argv[3]), "rect": lambda: val(sys.argv[3]), "yolo": yolo}[case]()
     torch.save(result, f"{out_path}.{dist.get_rank()}")
     dist.destroy_process_group()
