@@ -2965,6 +2965,311 @@ def yolo(dev, data: str):
     return out, launches
 
 
+SEG_POSE = {"segment": "yolo-seg-gelan.yaml", "pose": "yolo-pose-gelan.yaml"}
+SEG_POSE_PARITY = (320, 2)  # the train parity's px and batch: the CPU's fp32 and fp64 passes at 640 b4 cost ~4x
+SEG_POSE_STEPS = 3  # timed Trainer.steps at 640 px, batch 4, after two warm-up steps
+
+
+@torch.no_grad()
+def calibrate_task_head(model, img, txt):
+    """`calibrate_detect_head` for any YOLO head (Detect, Segment, Pose;
+    `tests/torch_engine_data.py:calibrate_yolo_head`): every head BatchNorm,
+    the mask coefficients', keypoints' and Proto's too, takes its input's
+    batch moments (the head run once in train mode from zeroed statistics,
+    which then hold BN_MOMENTUM of the batch's), and the first of each
+    branch and the Proto's first a scale of sqrt((var + eps) / var)."""
+    from tamtr_torch.nn.layers import BN_MOMENTUM
+
+    feats = []
+    head = model.model[-1]
+    hook = head.register_forward_pre_hook(lambda m, a: feats.append(a[0]))
+    model.eval()(img, txt)
+    hook.remove()
+    bns = [m for m in head.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    firsts = [br[0].bn for name in ("cv2", "cv3", "cv4") for br in getattr(head, name, [])]
+    if hasattr(head, "proto"):
+        firsts.append(head.proto.cv1.bn)
+
+    def take_stats():
+        for bn in bns:
+            bn.running_mean.zero_()
+            bn.running_var.zero_()
+        head.train()(feats[0])
+        head.eval()
+        for bn in bns:
+            bn.running_mean.div_(BN_MOMENTUM)
+            bn.running_var.div_(BN_MOMENTUM)
+
+    take_stats()
+    for bn in firsts:
+        var = bn.running_var
+        bn.weight.mul_(torch.where(var > 0, torch.sqrt((var + bn.eps) / var.clamp(min=1e-30)), 1.0))
+    take_stats()
+
+
+def task_batch(task: str, seed: int, B: int, imgsz: int, M: int, n_valid):
+    """`synthetic_batch` with the task's labels: each valid gt's mask, an
+    ellipse polygon of 12 points in its box filled at imgsz / 4 as `collate`
+    fills it (segment), or 17 keypoints in its box, about a fifth invisible,
+    in pixels (pose)."""
+    from tamtr_torch.data.imgproc import fill_poly
+
+    batch = synthetic_batch(seed, B, imgsz, M, n_valid, nc=YOLO_NC)
+    rng = np.random.default_rng(seed + 1)
+    box = batch["bboxes"]
+    if task == "segment":
+        hm = imgsz // 4
+        masks = np.zeros((B, M, hm, hm), np.float32)
+        a = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+        for b, j in zip(*np.nonzero(batch["mask"])):
+            cx, cy, w, h = box[b, j] * hm
+            fill_poly(masks[b, j], np.stack([cx + w / 2 * np.cos(a), cy + h / 2 * np.sin(a)], 1).astype(np.int32), 1.0)
+        batch["masks"] = masks
+    else:
+        xy = (box[:, :, None, :2] + box[:, :, None, 2:] * rng.uniform(-0.5, 0.5, (B, M, 17, 2))) * imgsz
+        vis = np.where(rng.random((B, M, 17, 1)) < 0.2, 0.0, 2.0)
+        batch["keypoints"] = (np.concatenate([xy, vis], -1) * batch["mask"][..., None, None]).astype(np.float32)
+    return batch
+
+
+def task_dataset(data: str, task: str, root) -> str:
+    """The fit dataset (`tools/smoke_train_torch.py` layout under `data`'s
+    directory) copied under `root` with each box label turned to the task's
+    row: a 12-point ellipse polygon in the box (segment), or the box and 17
+    keypoints in it, about a fifth invisible (pose). Returns the data.json."""
+    import shutil
+    from pathlib import Path
+
+    src, root = Path(data).parent, Path(root)
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(7)
+    a = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+    for split in ("train", "val"):
+        shutil.copytree(src / split / "images", root / split / "images")
+        (root / split / "labels").mkdir(parents=True)
+        for lf in sorted((src / split / "labels").glob("*.txt")):
+            rows = []
+            for line in lf.read_text().splitlines():
+                c, cx, cy, w, h = line.split()
+                cx, cy, w, h = float(cx), float(cy), float(w), float(h)
+                if task == "segment":
+                    pts = np.stack([cx + w / 2 * np.cos(a), cy + h / 2 * np.sin(a)], 1).clip(0, 1)
+                    rows.append(" ".join([c] + [f"{v:.5f}" for v in pts.ravel()]))
+                else:
+                    xy = np.stack([cx + w * rng.uniform(-0.45, 0.45, 17), cy + h * rng.uniform(-0.45, 0.45, 17)], 1)
+                    kp = np.concatenate([xy.clip(0, 1), np.where(rng.random((17, 1)) < 0.2, 0.0, 2.0)], 1)
+                    rows.append(" ".join([c, f"{cx:.5f} {cy:.5f} {w:.5f} {h:.5f}"] + [f"{v:.5f}" for v in kp.ravel()]))
+            (root / split / "labels" / lf.name).write_text("\n".join(rows))
+    meta = json.loads(Path(data).read_text())
+    out = root / "data.json"
+    out.write_text(json.dumps({**meta, "path": str(root)}))
+    return str(out)
+
+
+def task_train_parity(dev, task: str, batch):
+    """One training step of the full-width segment or pose model (nc 10,
+    heads spread) card against CPU from one state dict, by
+    `yolo_train_parity`'s rule: TAL's anchors moved <= 1% of the CPU's
+    foreground; given the CPU's assignment, the loss items within 2x the
+    CPU's fp32-vs-fp64 distance (or 2e-6), the whole gradient within 2x the
+    same distance. Returns the summary."""
+    import copy
+
+    from tamtr_torch.losses import v8_pose_loss, v8_seg_loss
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.train.trainer import head_loss, loss_config_for
+    from tamtr_torch.weights import init_parameters
+
+    imgsz = batch["img"].shape[1]
+    base = TAMTRModel.from_cfg(SEG_POSE[task], nc=YOLO_NC, max_gt=TRAIN_MAX_GT)
+    init_parameters(base, 0)
+    spread_detect(base)
+    cfg = loss_config_for(base, imgsz=imgsz)
+    keys = ("loss", "box", "cls", "dfl") + (("seg",) if task == "segment" else ("pose", "kobj"))
+    extra = "masks" if task == "segment" else "keypoints"
+
+    def grads_on(d, dtype=torch.float32, assign=None):
+        model = copy.deepcopy(base).to(d, dtype).train()
+        t = {"cls": torch.from_numpy(batch["cls"]).to(d), "mask": torch.from_numpy(batch["mask"]).to(d),
+             "bboxes": torch.from_numpy(batch["bboxes"]).to(d, dtype),
+             extra: torch.from_numpy(batch[extra]).to(d, dtype)}
+        out = model(torch.from_numpy(batch["img"]).to(d, dtype) / 255.0, torch.from_numpy(batch["txt_feats"]).to(d))
+        if assign is None:
+            loss, items = head_loss(out, t, cfg)
+        else:
+            fn = v8_seg_loss.v8_segmentation_loss if task == "segment" else v8_pose_loss.v8_pose_loss
+            loss, items = fn(out, t, cfg, assign={k: v.to(d) for k, v in assign.items()})
+        loss.backward()
+        grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).detach().flatten().cpu().double()
+                           for p in model.parameters()])
+        vals = {"loss": float(loss.detach()), **{k: float(items[k].detach()) for k in keys[1:]}}
+        return vals, {k: v.cpu() for k, v in items["assign"].items()}, grads
+
+    t0 = time.perf_counter()
+    cpu_items, cpu_assign, cpu_g = grads_on(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    _, gpu_assign, gpu_own_g = grads_on(dev)
+    fg, gfg = cpu_assign["fg_mask"], gpu_assign["fg_mask"]
+    moved = int((fg != gfg).sum() + ((cpu_assign["target_gt"] != gpu_assign["target_gt"]) & fg & gfg).sum())
+    fix_items, _, gpu_g = grads_on(dev, assign=cpu_assign)
+    exact_items, _, exact_g = grads_on(torch.device("cpu"), torch.float64, assign=cpu_assign)
+    rel = lambda a, b: max(abs(a[k] - v) / max(abs(v), 1e-12) for k, v in b.items())  # noqa: E731
+    worst_fixed, item_noise = rel(fix_items, cpu_items), rel(cpu_items, exact_items)
+    d_card, d_noise = (gpu_g - cpu_g).norm().item(), (cpu_g - exact_g).norm().item()
+    finite = bool(torch.isfinite(gpu_own_g).all()) and all(math.isfinite(v) for v in fix_items.values())
+    summary = dict(px=imgsz, batch=len(batch["img"]), fg_cpu=int(fg.sum()), tal_anchors_moved=moved,
+                   items_cpu=cpu_items, items_card=fix_items, worst_item_rel=worst_fixed, item_noise_rel=item_noise,
+                   grad_rel=d_card / cpu_g.norm().item(), grad_noise_rel=d_noise / cpu_g.norm().item(),
+                   cpu_fwd_bwd_s=cpu_s)
+    if not (finite and fg.sum() > 0 and moved <= 0.01 * int(fg.sum()) and worst_fixed <= 2 * max(item_noise, 1e-6)
+            and d_card <= 2 * d_noise and fix_items[keys[-1]] > 0):
+        raise AssertionError(f"seg_pose {task} train parity failed: {summary}")
+    return summary
+
+
+def seg_pose(dev, data: str):
+    """The YOLO segment and pose families on the card: `yolo-seg-gelan.yaml`
+    and `yolo-pose-gelan.yaml` at nc 10, full width, seeded weights with the
+    heads spread, every launch counter zeroed before and read after: no
+    kernel of the port runs on these paths. For each:
+      - eval at 640 px, batch 1 and 4, of the serve phase's 1360x765 frames
+        (resized on the card), the head calibrated on them
+        (`calibrate_task_head`): pred (boxes over the input size), and the
+        mask coefficients and protos or the keypoints (over the input
+        size), card against the CPU on one state dict within 1e-3;
+        `TAMTR.predict(images, text)` timed at batch 1 and 4 (host clock),
+        beside the forward alone; `TAMTR.predict` of the JPEG fixtures
+        (a segment model's `Results` with masks);
+      - one training step card against CPU at SEG_POSE_PARITY px and batch
+        (`task_train_parity`), then `Trainer.step` at 640 px, batch 4,
+        max_gt 300, two warm-up and SEG_POSE_STEPS timed steps: device ms,
+        busy share, peak memory;
+      - `Engine.train` for 1 epoch of the fit dataset relabelled for the
+        task (`task_dataset`, workers 0) with val after it (mask_mAP50-95
+        or pose_mAP50-95), then `best.pt` reloaded."""
+    import copy
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tamtr_torch import TAMTR
+    from tamtr_torch.engine.model import Engine, normalized_pred
+    from tamtr_torch.train.trainer import TrainConfig
+
+    counters = zero_counters()
+    rng = np.random.default_rng(4)
+    frames = [rng.integers(0, 256, (765, 1360, 3), dtype=np.uint8) for _ in range(4)]
+    text = rng.standard_normal((YOLO_NC, 512)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    out = {}
+    for task, cfg_name in SEG_POSE.items():
+        res = {}
+        det = TAMTR(cfg_name, nc=YOLO_NC, seed=0)
+        spread_detect(det.model)
+        img, _ = det._to_batch(frames)
+        txt = torch.from_numpy(text[None]).to(dev)
+        calibrate_task_head(det.model, img, txt)
+        det.set_classes([f"class{i}" for i in range(YOLO_NC)], text)
+        cpu_model = copy.deepcopy(det.model).cpu()
+        hw = img.shape[1:3]
+        extras = ("mask_coefs", "protos") if task == "segment" else ("keypoints",)
+        with torch.inference_mode():
+            for b in (1, TRAIN_BATCH):
+                g, w = det.model(img[:b], txt), cpu_model(img[:b].cpu(), txt.cpu())
+                worst = {"pred": float((normalized_pred(det.model, g["pred"], hw).cpu()
+                                        - normalized_pred(cpu_model, w["pred"], hw)).abs().max())}
+                for k in extras:
+                    scale = torch.tensor([hw[1], hw[0], 1.0]) if k == "keypoints" else 1.0
+                    worst[k] = float(((g[k].cpu() - w[k]) / scale).abs().max())
+                    if not torch.isfinite(g[k]).all() or w[k].std() < 0.05:
+                        raise AssertionError(f"seg_pose {task} eval b{b}: {k} not finite or not spread")
+                res[f"eval_b{b}_worst"] = worst
+                if not torch.isfinite(g["pred"]).all() or max(worst.values()) > 1e-3:
+                    raise AssertionError(f"seg_pose {task} eval b{b}: card vs cpu {worst}")
+        times = {"b1": [], "b4": []}
+        for key, images in (("b1", frames[0]), ("b4", frames)):
+            det.predict(images, text)  # warm-up: conv algorithms
+            for _ in range(5):
+                t0 = time.perf_counter()
+                r = det.predict(images, text)  # ends in host copies: the device has finished
+                times[key].append((time.perf_counter() - t0) * 1e3)
+                if not all(np.isfinite(x["boxes"]).all() for x in r):
+                    raise AssertionError(f"seg_pose {task} serve: boxes not finite")
+        res["serve_ms_median"] = {k: float(np.median(v)) for k, v in times.items()}
+        forward = {}
+        with torch.inference_mode():
+            for b in (1, TRAIN_BATCH):
+                ts = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    det.model(img[:b], txt)
+                    torch.cuda.synchronize()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                forward[f"b{b}"] = float(np.median(ts))
+        res["forward_ms_median"] = forward
+        n = len(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+        t0 = time.perf_counter()
+        files = det.predict(JPEG_FIXTURES)
+        res["predict_files_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / n
+        masks_ok = all((r.masks is not None and r.masks.shape == (len(r), TRAIN_IMGSZ // 4, TRAIN_IMGSZ // 4)
+                        and np.isfinite(r.masks).all()) if task == "segment" else r.masks is None for r in files)
+        if len(files) != n or not all(len(r) and np.isfinite(r.boxes.xyxy).all() for r in files) or not masks_ok:
+            raise AssertionError(f"seg_pose {task} predict files: {[len(r) for r in files]}, masks {masks_ok}")
+        del det, cpu_model, img
+
+        px, pb = SEG_POSE_PARITY
+        res["train_parity"] = task_train_parity(dev, task, task_batch(task, 300, pb, px, TRAIN_MAX_GT,
+                                                                      TRAIN_VALID[:pb]))
+        batch = task_batch(task, 301, TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT, TRAIN_VALID)
+        trainer_det = TAMTR(cfg_name, nc=YOLO_NC, seed=0, max_gt=TRAIN_MAX_GT)
+        spread_detect(trainer_det.model)
+        tr = trainer_det.trainer(TrainConfig(batch_size=TRAIN_BATCH, accumulate=1), seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            tr.step(batch)
+        steps, logs = [], []
+        for _ in range(SEG_POSE_STEPS):
+            t0 = time.perf_counter()
+            logs.append(tr.step(batch))  # ends in host reads of the metrics
+            steps.append((time.perf_counter() - t0) * 1e3)
+        res["step_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.step(batch)
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = profiled_kernel_ms(prof)
+        item_keys = [k for k in ("loss", "box", "cls", "dfl", "seg", "pose", "kobj") if k in logs[0]]
+        res.update(step_ms_median=float(np.median(steps)), step_device_ms=busy, step_busy_share=busy and busy / wall,
+                   step_items=[{k: m[k] for k in item_keys} for m in logs])
+        if not all(math.isfinite(m[k]) for m in logs for k in item_keys + ["grad_norm"]) \
+                or not all(m["stepped"] == 1.0 for m in logs) or not all(m["box"] > 0 for m in logs):
+            raise AssertionError(f"seg_pose {task} steps: {logs}")
+        del tr, trainer_det, batch
+        torch.cuda.empty_cache()
+
+        root = Path("build/seg_pose") / task
+        task_data = task_dataset(data, task, root / "data")
+        eng = Engine(cfg_name)
+        fit = eng.train(data=task_data, epochs=1, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, max_gt=FIT_MAX_GT,
+                        workers=0, warmup_epochs=4, val_interval=1, conf=0.05, plots=False, project=str(root),
+                        name="fit", exist_ok=True)
+        best = Engine(cfg_name).load(root / "fit" / "weights" / "best.pt")
+        name = "mask" if task == "segment" else "pose"
+        res["fit"] = dict(step_ms_median=float(np.median(eng.timing["step_ms"][1:])),
+                          **{k: fit[k] for k in ("mAP50", "mAP50-95", f"{name}_mAP50", f"{name}_mAP50-95")})
+        if best.model.head_type != ("Segment" if task == "segment" else "Pose") or not all(
+                0.0 <= fit[k] <= 1.0 for k in ("mAP50-95", f"{name}_mAP50-95")):
+            raise AssertionError(f"seg_pose {task} fit: {res['fit']}")
+        del eng, best
+        torch.cuda.empty_cache()
+        out[task] = res
+        say(f"seg_pose {cfg_name} {TRAIN_IMGSZ}px nc {YOLO_NC}: {json.dumps(res)}", flush=True)
+    launches = check_counts("seg_pose", counters, 0)
+    return out, launches
+
+
 def loss_variants(dev):
     """One full-width TAM-TR `Trainer.step` at 640 px, batch 4, max_gt 300
     for each DETR loss switch (`use_sl`, `use_svfl`, `nwd_loss`,
@@ -3778,6 +4083,7 @@ def main() -> int:
     bf16 = timed("bf16_phase", bf16_phase, dev, "build/fit/data.json")
     variants_summary, variants_launches = timed("loss_variants", loss_variants, dev)
     yolo_summary, yolo_launches = timed("yolo", yolo, dev, "build/fit/data.json")
+    seg_pose_summary, seg_pose_launches = timed("seg_pose", seg_pose, dev, "build/fit/data.json")
     rtdetr_summary, rtdetr_launches = timed("rtdetr", rtdetr, dev, "build/fit/data.json")
     heads_summary, heads_launches = timed("heads", heads, dev)
     parallel_summary = timed("parallel", parallel, "build/fit/data.json")
@@ -3919,12 +4225,13 @@ def main() -> int:
              launches_buckets=ops_launches["scatter_acc_pairs_buckets"], **scatter_pairs,
              bf16=dict(**bf16["offpath"]["scatter_acc_pairs"], of="bf16 dout and output, the decoder's uniform pairs")),
     ]
-    # the main-path launches of the Detect family (none), of the four DETR loss variants' steps, of
+    # the main-path launches of the Detect, Segment and Pose families (none), of the four DETR loss variants' steps, of
     # rtdetr.yaml and of the variant heads
     for entry, key in zip(kernels, ("ss2d_scan_fwd", "bilinear_gather_fwd", "ss2d_scan_carriers", "ss2d_scan_bwd_walk",
                                     "bilinear_gather_bwd", "auction_assignment", "selective_scan_fwd", "scatter_acc",
                                     "scatter_acc_pairs")):
-        entry.update(launches_yolo=yolo_launches[key], launches_loss_variants=variants_launches[key],
+        entry.update(launches_yolo=yolo_launches[key], launches_seg_pose=seg_pose_launches[key],
+                     launches_loss_variants=variants_launches[key],
                      launches_rtdetr=rtdetr_launches[key], launches_heads=heads_launches[key])
     kernels[1].update(c32_q300={**gather_c32, "shape": "value (1, 33600, 8, 32), Q = 300 (rtdetr eval)"},
                       c32_train_b4_q900={**gather_c32_train, "shape": "value (4, 33600, 8, 32), Q = 900 (rtdetr "
@@ -3939,6 +4246,7 @@ def main() -> int:
                                                                    "the global-memory value path"})
     print(json.dumps({"fit": fit_summary}))
     print(json.dumps({"yolo": yolo_summary, "loss_variants": variants_summary}))
+    print(json.dumps({"seg_pose": seg_pose_summary}))
     print(json.dumps({"rtdetr": rtdetr_summary, "heads": heads_summary}))
     print(json.dumps({"bf16": {k: bf16[k] for k in ("serve", "train", "fit", "launches")}}))
     print(json.dumps({"sp_blocks": {"max_abs_err": sp_err, "launches": {k: v for k, v in sp_launches.items() if v}},

@@ -6,6 +6,8 @@ package's `tamtr_tpu/cli.py`, the reference's `yolo` entry point,
     python -m tamtr_torch detect val model=runs/detect/train/weights/best.pt data=visdrone.yaml
     python -m tamtr_torch detect predict model=runs/detect/train/weights/best.pt source=images/ save=True
     python -m tamtr_torch detect track model=runs/detect/train/weights/best.pt source=frames/ tracker=bytetrack
+    python -m tamtr_torch segment train data=coco-seg.yaml epochs=100
+    python -m tamtr_torch pose val model=runs/detect/train/weights/best.pt data=coco-pose.yaml
     python -m tamtr_torch serve model=runs/detect/train/weights/best.pt port=8000
     python -m tamtr_torch settings [reset] [key=value ...]
 
@@ -21,10 +23,12 @@ prints the user settings (`utils/settings.py`), after setting the given
 keys or, with `reset`, the defaults. `fuse=True` runs val, predict and
 track on the fused model and `half=True` in bf16 (both may be set);
 `bf16=True` trains in bf16 with fp32 weights; `batch=-1` fits train's
-batch to the card. The modes `export`, `benchmark` and `tune` and the
-segment, pose and classify tasks are not ported: they exit with a message
-naming their ROADMAP entry; so do video and stream sources of `predict`
-and `track`.
+batch to the card. `segment` and `pose` run a segment or pose model
+(`yolo-seg-gelan.yaml`, `yolo-pose-gelan.yaml` by default): val prints the
+mask or keypoint mAP beside the box metrics. The modes `export`,
+`benchmark` and `tune` and the classify task are not ported: they exit
+with a message naming their ROADMAP entry; so do video and stream sources
+of `predict` and `track`.
 
 `device=0,1` (a list of card indices, as the reference takes it) shows the
 process those cards alone (CUDA_VISIBLE_DEVICES) and trains on all of them:
@@ -59,9 +63,7 @@ NOT_PORTED = {
     "export": "queue A, item 7 (engine/exporter.py and the AutoBackend export formats)",
     "benchmark": "queue A, item 7 (benchmarks.py)",
     "tune": "queue A, item 7 (engine/tuner.py)",
-    "segment": "queue A, item 7 (the other heads)",
-    "pose": "queue A, item 7 (the other heads)",
-    "classify": "queue A, item 7 (the other heads)",
+    "classify": "queue A, item 7 (the Classify head and ClassificationDataset)",
 }
 
 

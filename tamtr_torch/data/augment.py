@@ -1,5 +1,5 @@
 """Host-side augmentations in numpy, without cv2 (a port of the JAX
-package's `tamtr_tpu/data/augment.py`, detect task).
+package's `tamtr_tpu/data/augment.py`).
 
 The numpy code is a line-for-line copy of the JAX package's, and every
 random draw comes in the same order from the same `np.random.Generator`, so
@@ -8,10 +8,17 @@ numpy versions of `tamtr_torch/data/imgproc.py`: resize and HSV give cv2's
 bytes, the affine warp lies within one level of cv2's. Images are (H, W, 3)
 uint8 BGR, as cv2 reads them; `collate` turns them to RGB.
 
-Segments and keypoints (the segment and pose heads) are not carried, so
-`copy_paste`, a no-op for box-only labels in the JAX package too, returns
-its sample. `albumentations_transform` is a no-op when the package is not
-installed, as in the JAX package; the card's machine does not have it.
+Polygon segments (a list of (n, 2) pixel polygons, one per box) and
+keypoints ((N, nk, 3) pixels) ride through every geometric transform with
+the boxes, as in the JAX package: `copy_paste` pastes mirrored instances
+by their polygons (`imgproc.fill_poly` for cv2's filled contour), a no-op
+for box-only labels; `random_perspective` warps polygon points (the box is
+the warped polygon's extent) and keypoints (invisible outside the canvas);
+`random_flip` mirrors keypoint x and keeps each keypoint's index, as the
+JAX package does (the reference reorders them with `flip_idx`).
+`albumentations_transform` is a no-op when the package is not installed,
+as in the JAX package; the card's machine does not have it; it skips
+samples with segments or keypoints, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -27,25 +34,38 @@ from tamtr_torch.data import imgproc
 
 @dataclass
 class Sample:
-    """One image + labels in pixel space; `texts` are the per-sample class
-    texts of RandomLoadText."""
+    """One image + labels in pixel space.
+
+    `segments` (optional): list of (n, 2) pixel polygons, one per box.
+    `keypoints` (optional): (N, nk, 3) pixel keypoints (x, y, visibility).
+    `texts` (optional): the per-sample class texts of RandomLoadText.
+    """
 
     img: np.ndarray  # (H, W, 3) uint8, BGR
     boxes: np.ndarray  # (N, 4) xyxy pixels
     cls: np.ndarray  # (N,) int32
+    segments: Optional[list] = None
+    keypoints: Optional[np.ndarray] = None
     texts: Optional[List[str]] = None
 
 
 def stretch_resize(sample: Sample, size: int) -> Sample:
     """scaleFill stretch to (size, size): the TAM-TR load path."""
     h, w = sample.img.shape[:2]
+    segs, kpts = sample.segments, sample.keypoints
     if (h, w) != (size, size):
         img = imgproc.resize_linear(sample.img, (size, size))
         sx, sy = size / w, size / h
         boxes = sample.boxes * np.array([sx, sy, sx, sy], dtype=np.float32)
+        if segs is not None:
+            segs = [p * np.array([sx, sy], np.float32) for p in segs]
+        if kpts is not None:
+            kpts = kpts.copy()
+            kpts[..., 0] *= sx
+            kpts[..., 1] *= sy
     else:
         img, boxes = sample.img, sample.boxes
-    return Sample(img, boxes.astype(np.float32), sample.cls)
+    return Sample(img, boxes.astype(np.float32), sample.cls, segs, kpts)
 
 
 def letterbox(
@@ -67,24 +87,49 @@ def letterbox(
     return Sample(out, boxes.astype(np.float32), sample.cls), (r, r), (left, top)
 
 
-def _mosaic_labels(all_boxes, all_cls, s: int) -> Tuple[np.ndarray, np.ndarray]:
+def _mosaic_labels(all_boxes, all_cls, all_segs, all_kpts, any_segs: bool, any_kpts: bool, s: int):
+    """The tiles' labels clipped to the 2s x 2s canvas, the empty boxes
+    dropped with their polygons and keypoints: (boxes, cls, segments,
+    keypoints)."""
     if all_boxes:
         boxes = np.concatenate(all_boxes, 0).clip(0, 2 * s)
         cls = np.concatenate(all_cls, 0)
         keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
-        return boxes[keep], cls[keep]
-    return np.zeros((0, 4), np.float32), np.zeros((0,), np.int32)
+        segs = [p for p, k in zip(all_segs, keep) if k] if any_segs else None
+        kpts = (np.concatenate(all_kpts, 0)[keep] if all_kpts else None) if any_kpts else None
+        return boxes[keep], cls[keep], segs, kpts
+    return (np.zeros((0, 4), np.float32), np.zeros((0,), np.int32), [] if any_segs else None,
+            np.zeros((0, 17, 3), np.float32) if any_kpts else None)
+
+
+def _tile_labels(smp: Sample, shift: np.ndarray, any_segs: bool, any_kpts: bool, all_boxes, all_cls, all_segs,
+                 all_kpts) -> None:
+    """One tile's labels moved by shift = (padw, padh); a tile without
+    polygons in a mosaic with some gives each box an empty one."""
+    if len(smp.boxes):
+        all_boxes.append(smp.boxes + np.concatenate([shift, shift]))
+        all_cls.append(smp.cls)
+        if any_segs:
+            segs = smp.segments or [np.zeros((0, 2), np.float32) for _ in range(len(smp.boxes))]
+            all_segs += [p + shift for p in segs]
+        if any_kpts and smp.keypoints is not None:
+            k = smp.keypoints.copy()
+            k[..., :2] += shift
+            all_kpts.append(k)
 
 
 def mosaic4(
     samples: Sequence[Sample], size: int, rng: np.random.Generator, color: int = 114
 ) -> Sample:
-    """4-image mosaic on a 2s x 2s canvas."""
+    """4-image mosaic on a 2s x 2s canvas; segments and keypoints ride along
+    with the same (padw, padh) shift."""
     s = size
     yc = int(rng.uniform(s * 0.5, s * 1.5))
     xc = int(rng.uniform(s * 0.5, s * 1.5))
     canvas = np.full((2 * s, 2 * s, 3), color, dtype=np.uint8)
-    all_boxes, all_cls = [], []
+    any_segs = any(smp.segments is not None for smp in samples[:4])
+    any_kpts = any(smp.keypoints is not None for smp in samples[:4])
+    all_boxes, all_cls, all_segs, all_kpts = [], [], [], []
     for i, smp in enumerate(samples[:4]):
         img = smp.img
         h, w = img.shape[:2]
@@ -102,11 +147,10 @@ def mosaic4(
             x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
         canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
         padw, padh = x1a - x1b, y1a - y1b
-        if len(smp.boxes):
-            all_boxes.append(smp.boxes + np.array([padw, padh, padw, padh], dtype=np.float32))
-            all_cls.append(smp.cls)
-    boxes, cls = _mosaic_labels(all_boxes, all_cls, s)
-    return Sample(canvas, boxes, cls)
+        _tile_labels(smp, np.array([padw, padh], dtype=np.float32), any_segs, any_kpts, all_boxes, all_cls,
+                     all_segs, all_kpts)
+    boxes, cls, segs, kpts = _mosaic_labels(all_boxes, all_cls, all_segs, all_kpts, any_segs, any_kpts, s)
+    return Sample(canvas, boxes, cls, segs, kpts)
 
 
 def mosaic9(
@@ -117,7 +161,9 @@ def mosaic9(
     2s x 2s crop (the output contract of `mosaic4`)."""
     s = size
     canvas = np.full((3 * s, 3 * s, 3), color, dtype=np.uint8)
-    all_boxes, all_cls = [], []
+    any_segs = any(smp.segments is not None for smp in samples[:9])
+    any_kpts = any(smp.keypoints is not None for smp in samples[:9])
+    all_boxes, all_cls, all_segs, all_kpts = [], [], [], []
     hp = wp = h0 = w0 = 0
     off = -(-s // 2)  # central-crop offset (reference border = -s//2)
     for i, smp in enumerate(samples[:9]):
@@ -146,13 +192,11 @@ def mosaic9(
         x1, y1, x2, y2 = (min(max(x, 0), 3 * s) for x in c)
         canvas[y1:y2, x1:x2] = img[y1 - padh : y2 - padh, x1 - padw : x2 - padw]
         hp, wp = h, w
-        shift = np.array([padw - off, padh - off], dtype=np.float32)
-        if len(smp.boxes):
-            all_boxes.append(smp.boxes + np.concatenate([shift, shift]))
-            all_cls.append(smp.cls)
+        _tile_labels(smp, np.array([padw - off, padh - off], dtype=np.float32), any_segs, any_kpts, all_boxes,
+                     all_cls, all_segs, all_kpts)
     canvas = canvas[off : off + 2 * s, off : off + 2 * s]
-    boxes, cls = _mosaic_labels(all_boxes, all_cls, s)
-    return Sample(canvas, boxes.astype(np.float32), cls)
+    boxes, cls, segs, kpts = _mosaic_labels(all_boxes, all_cls, all_segs, all_kpts, any_segs, any_kpts, s)
+    return Sample(canvas, boxes.astype(np.float32), cls, segs, kpts)
 
 
 def random_perspective(
@@ -197,20 +241,51 @@ def random_perspective(
             img = imgproc.warp_affine(img, M[:2], (width, height), border=114)
 
     boxes, cls = sample.boxes, sample.cls
+    segs, kpts = sample.segments, sample.keypoints
     n = len(boxes)
     if n:
-        xy = np.ones((n * 4, 3))
-        xy[:, :2] = boxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
-        xy = xy @ M.T
-        xy = (xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]).reshape(n, 8)
-        x = xy[:, [0, 2, 4, 6]]
-        y = xy[:, [1, 3, 5, 7]]
-        new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], 1).astype(np.float32)
+        def warp_pts(pts):  # (k, 2) -> (k, 2)
+            z = np.ones((len(pts), 3))
+            z[:, :2] = pts
+            z = z @ M.T
+            return (z[:, :2] / z[:, 2:3] if perspective else z[:, :2]).astype(np.float32)
+
+        if segs is not None and len(segs) == n and any(len(p) for p in segs):
+            # warp the polygons' points; a box is its warped polygon's extent
+            segs = [warp_pts(p) if len(p) else p for p in segs]
+            new = np.zeros((n, 4), np.float32)
+            for i, p in enumerate(segs):
+                if len(p):
+                    new[i] = [p[:, 0].min(), p[:, 1].min(), p[:, 0].max(), p[:, 1].max()]
+        else:
+            xy = np.ones((n * 4, 3))
+            xy[:, :2] = boxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
+            xy = xy @ M.T
+            xy = (xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]).reshape(n, 8)
+            x = xy[:, [0, 2, 4, 6]]
+            y = xy[:, [1, 3, 5, 7]]
+            new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], 1).astype(np.float32)
         new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
         new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
-        keep = _box_candidates(boxes.T * s, new.T, area_thr=0.1)
+        if kpts is not None and len(kpts) == n:
+            # warp (x, y); a keypoint outside the output canvas turns invisible
+            flat = kpts[..., :2].reshape(-1, 2)
+            warped = warp_pts(flat).reshape(kpts.shape[0], kpts.shape[1], 2)
+            vis = kpts[..., 2:].copy() if kpts.shape[-1] > 2 else np.ones(kpts.shape[:2] + (1,), np.float32)
+            out = (
+                (warped[..., 0] < 0) | (warped[..., 0] > width)
+                | (warped[..., 1] < 0) | (warped[..., 1] > height)
+            )
+            vis[out[..., None].repeat(vis.shape[-1], -1)] = 0.0
+            kpts = np.concatenate([warped, vis], -1).astype(np.float32)
+        # candidate filter: area_thr 0.01 with segments
+        keep = _box_candidates(boxes.T * s, new.T, area_thr=0.01 if segs is not None else 0.1)
         boxes, cls = new[keep], cls[keep]
-    return Sample(img, boxes, cls, sample.texts)
+        if segs is not None and len(segs) == n:
+            segs = [p for p, k in zip(segs, keep) if k]
+        if kpts is not None:
+            kpts = kpts[keep]
+    return Sample(img, boxes, cls, segs, kpts, sample.texts)
 
 
 def _box_candidates(box1, box2, wh_thr=2, ar_thr=100, area_thr=0.1, eps=1e-16):
@@ -232,10 +307,45 @@ def bbox_ioa(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarra
 
 
 def copy_paste(sample: Sample, rng: np.random.Generator, p: float = 0.5) -> Sample:
-    """Copy-Paste (arXiv:2012.07177) pastes mirrored instances by their
-    polygon segments; box-only labels have none, so this returns the sample
-    and draws nothing, as the JAX package's does for them."""
-    return sample
+    """Copy-Paste (arXiv:2012.07177): paste horizontally mirrored copies of
+    instances at their mirrored places when the mirrored box overlaps every
+    existing box by < 30% IoA. It needs polygon segments: for box-only
+    labels it returns the sample and draws nothing, as the JAX package's
+    does. The k = round(p * candidates) instances come from one
+    `rng.choice` draw, the JAX package's; each is drawn filled into a mask
+    (`imgproc.fill_poly`, cv2's one filled contour) whose mirror selects
+    the pixels of the mirrored image."""
+    if not p or sample.segments is None or len(sample.segments) == 0:
+        return sample
+    img = sample.img.copy()
+    h, w = img.shape[:2]
+    boxes = sample.boxes
+    flip_boxes = boxes.copy()
+    flip_boxes[:, 0] = w - boxes[:, 2]
+    flip_boxes[:, 2] = w - boxes[:, 0]
+    ioa = bbox_ioa(flip_boxes, boxes)  # (N, N)
+    indexes = np.nonzero((ioa < 0.30).all(1))[0]
+    k = round(p * len(indexes))
+    if k == 0:
+        return sample
+    sel = rng.choice(indexes, size=k, replace=False)
+    im_new = np.zeros((h, w), np.uint8)
+    for j in sel:
+        imgproc.fill_poly(im_new, sample.segments[int(j)].astype(np.int32), 1)
+    result = img[:, ::-1]  # mirrored image
+    i = im_new[:, ::-1].astype(bool)  # original-position masks -> mirrored
+    img[i] = result[i]
+    new_boxes = np.concatenate([boxes, flip_boxes[sel]], 0)
+    new_cls = np.concatenate([sample.cls, sample.cls[sel]], 0)
+    flip_segs = [
+        np.stack([w - sample.segments[int(j)][:, 0], sample.segments[int(j)][:, 1]], -1)
+        for j in sel
+    ]
+    new_segs = list(sample.segments) + flip_segs
+    kpts = sample.keypoints
+    if kpts is not None:
+        kpts = np.concatenate([kpts, kpts[sel]], 0)
+    return Sample(img, new_boxes.astype(np.float32), new_cls, new_segs, kpts, sample.texts)
 
 
 def random_load_text(
@@ -299,7 +409,7 @@ def random_hsv(
         hsv = imgproc.bgr2hsv(sample.img)
         hsv = np.stack([lut[k][hsv[..., k]] for k in range(3)], -1)
         img = imgproc.hsv2bgr(hsv)
-        return Sample(img, sample.boxes, sample.cls, sample.texts)
+        return Sample(img, sample.boxes, sample.cls, sample.segments, sample.keypoints, sample.texts)
     return sample
 
 
@@ -330,8 +440,11 @@ def albumentations_transform(
 ) -> Sample:
     """Optional albumentations pixel augmentations (Blur, MedianBlur, ToGray,
     CLAHE at p = 0.01). `compose` is `_get_albumentations()`; without it,
-    or with no boxes, the sample is returned and nothing is drawn."""
-    if compose is None or len(sample.cls) == 0 or rng.random() >= p:
+    with no boxes, or with segments or keypoints (which the transform would
+    not move, as the JAX package skips them), the sample is returned and
+    nothing is drawn."""
+    if compose is None or len(sample.cls) == 0 or sample.segments is not None or sample.keypoints is not None \
+            or rng.random() >= p:
         return sample
     h, w = sample.img.shape[:2]
     b = sample.boxes.astype(np.float32)
@@ -351,33 +464,55 @@ def albumentations_transform(
         1,
     )
     return Sample(np.ascontiguousarray(new["image"]), xyxy,
-                  np.asarray(new["class_labels"], sample.cls.dtype), sample.texts)
+                  np.asarray(new["class_labels"], sample.cls.dtype), None, None, sample.texts)
 
 
 def random_flip(
     sample: Sample, rng: np.random.Generator, fliplr: float = 0.5, flipud: float = 0.0
 ) -> Sample:
-    """Horizontal / vertical flips."""
+    """Horizontal / vertical flips of the image, boxes, polygons and
+    keypoints; a keypoint keeps its index (the JAX package's behaviour)."""
     img, boxes = sample.img, sample.boxes.copy()
+    segs = None if sample.segments is None else [p.copy() for p in sample.segments]
+    kpts = None if sample.keypoints is None else sample.keypoints.copy()
     h, w = img.shape[:2]
     if flipud and rng.random() < flipud:
         img = img[::-1]
         boxes[:, [1, 3]] = h - boxes[:, [3, 1]]
+        if segs is not None:
+            segs = [np.stack([p[:, 0], h - p[:, 1]], -1) for p in segs]
+        if kpts is not None:
+            kpts[..., 1] = h - kpts[..., 1]
     if fliplr and rng.random() < fliplr:
         img = img[:, ::-1]
         boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
-    return Sample(np.ascontiguousarray(img), boxes, sample.cls, sample.texts)
+        if segs is not None:
+            segs = [np.stack([w - p[:, 0], p[:, 1]], -1) for p in segs]
+        if kpts is not None:
+            kpts[..., 0] = w - kpts[..., 0]
+    return Sample(np.ascontiguousarray(img), boxes, sample.cls, segs, kpts, sample.texts)
 
 
 def mixup(sample1: Sample, sample2: Sample, rng: np.random.Generator) -> Sample:
-    """Beta(32, 32) image blend, labels concatenated."""
+    """Beta(32, 32) image blend, labels concatenated (a sample without
+    polygons gives its boxes empty ones when the other has some)."""
     r = rng.beta(32.0, 32.0)
     img = (sample1.img.astype(np.float32) * r + sample2.img.astype(np.float32) * (1 - r)).astype(
         np.uint8
     )
+    segs = None
+    if sample1.segments is not None or sample2.segments is not None:
+        s1 = sample1.segments or [np.zeros((0, 2), np.float32) for _ in sample1.cls]
+        s2 = sample2.segments or [np.zeros((0, 2), np.float32) for _ in sample2.cls]
+        segs = list(s1) + list(s2)
+    kpts = None
+    if sample1.keypoints is not None and sample2.keypoints is not None:
+        kpts = np.concatenate([sample1.keypoints, sample2.keypoints], 0)
     return Sample(
         img,
         np.concatenate([sample1.boxes, sample2.boxes], 0),
         np.concatenate([sample1.cls, sample2.cls], 0),
+        segs,
+        kpts,
         sample1.texts,
     )

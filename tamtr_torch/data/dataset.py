@@ -1,14 +1,19 @@
 """YOLO-format detection dataset and fixed-shape batch loader (a port of
-the JAX package's `tamtr_tpu/data/dataset.py`, detect task).
+the JAX package's `tamtr_tpu/data/dataset.py`: the detect, segment and pose
+tasks).
 
-- YOLO label txts (cls cx cy w h, normalized) next to the images
-  (`images/` -> `labels/`), parsed once and cached in an npz keyed by a hash
-  of the file list.
+- YOLO label txts next to the images (`images/` -> `labels/`), parsed once
+  and cached in an npz keyed by a hash of the file list: `cls cx cy w h`
+  rows; in a segment dataset also polygon rows `cls x1 y1 ... xn yn`
+  (the box is the polygon's extent; a box row's polygon is its corners);
+  in a pose dataset rows of 5 + nk * kdim values (`kpt_shape`).
 - The TAM-TR train path stretches every image square and applies
   mosaic(p), perspective, HSV and flips; val stretches (or letterboxes, in
   rect mode).
 - `collate` pads the ground truth to `max_gt` slots with a validity mask,
-  the batch dict `Trainer.step` takes.
+  the batch dict `Trainer.step` takes; a segment batch adds each kept gt's
+  mask filled at imgsz / mask_ratio (`imgproc.fill_poly`, cv2's
+  `fillPoly`), a pose batch its keypoints.
 - `Loader` runs `torch.utils.data.DataLoader` over a map-style set of batch
   keys: batch `bi` of epoch `e` draws from `np.random.default_rng((seed, e,
   bi))`, so the batches are the JAX package's and do not depend on the
@@ -77,6 +82,8 @@ class DetectionDataset:
         aug: Optional[AugConfig] = None,
         cache_labels: bool = True,
         seed: int = 0,
+        task: str = "detect",
+        kpt_shape: Tuple[int, int] = (17, 3),
         class_texts: Optional[Sequence[Sequence[str]]] = None,
         random_text: bool = False,
         cache: "bool | str" = False,
@@ -86,6 +93,8 @@ class DetectionDataset:
         self.imgsz = imgsz
         self.augment = augment
         self.aug = aug or AugConfig()
+        self.task = task  # "detect" | "segment" | "pose"
+        self.kpt_shape = tuple(kpt_shape)
         # per-class synonym lists (names split on "/"); RandomLoadText in training
         self.class_texts = [list(t) for t in class_texts] if class_texts else None
         self.random_text = random_text and self.class_texts is not None
@@ -106,9 +115,10 @@ class DetectionDataset:
             self.cache = ""
 
     def _update_labels(self, classes: Optional[Sequence[int]], single_cls: bool) -> None:
-        """With `classes`, keep only the gt rows of those classes (no remap);
-        with `single_cls`, every gt is class 0. Applied after the label cache
-        loads, so the cache stays unfiltered."""
+        """With `classes`, keep only the gt rows of those classes (no remap),
+        with their polygons and keypoints; with `single_cls`, every gt is
+        class 0. Applied after the label cache loads, so the cache stays
+        unfiltered."""
         if classes is None and not single_cls:
             return
         include = np.asarray(list(classes), np.int32) if classes is not None else None
@@ -117,6 +127,10 @@ class DetectionDataset:
                 j = np.isin(lab["cls"], include)
                 lab["cls"] = lab["cls"][j]
                 lab["xywhn"] = lab["xywhn"][j]
+                if "segments" in lab:
+                    lab["segments"] = [seg for seg, keep in zip(lab["segments"], j) if keep]
+                if "kpts" in lab:
+                    lab["kpts"] = lab["kpts"][j]
             if single_cls:
                 lab["cls"] = np.zeros_like(lab["cls"])
 
@@ -171,23 +185,53 @@ class DetectionDataset:
                 pass
         return labels
 
-    @staticmethod
-    def _parse_label_file(lf: str) -> Dict[str, np.ndarray]:
-        """One YOLO label txt, `cls cx cy w h` rows, normalized."""
+    def _parse_label_file(self, lf: str) -> Dict[str, np.ndarray]:
+        """One YOLO label txt, all values normalized: detect `cls cx cy w h`;
+        segment `cls x1 y1 ... xn yn` (the box is the polygon's extent; a
+        box row's polygon is the box's corners); pose `cls cx cy w h (px py
+        v) * nk`, a box row's keypoints zeros."""
+        rows = []
         try:
             text = Path(lf).read_text()
         except OSError:
             text = ""
-        cls, xywhn = [], []
         for line in text.splitlines():
-            r = np.array(line.split(), np.float32)
-            if len(r) >= 5:
+            vals = line.split()
+            if vals:
+                rows.append(np.array(vals, np.float32))
+        cls, xywhn, segments, kpts = [], [], [], []
+        nk, kdim = self.kpt_shape
+        for r in rows:
+            if self.task == "segment" and len(r) > 5 and (len(r) - 1) % 2 == 0:
+                poly = r[1:].reshape(-1, 2)
+                x1, y1 = poly.min(0)
+                x2, y2 = poly.max(0)
+                xywhn.append([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1])
+                segments.append(poly)
+                cls.append(r[0])
+            elif self.task == "pose" and len(r) == 5 + nk * kdim:
+                xywhn.append(r[1:5])
+                kpts.append(r[5:].reshape(nk, kdim))
+                cls.append(r[0])
+            elif len(r) >= 5:
                 xywhn.append(r[1:5])
                 cls.append(r[0])
-        return {
+                if self.task == "segment":  # a box row in a segment dataset: its corners
+                    cx, cy, w, h = r[1:5]
+                    segments.append(np.array(
+                        [[cx - w / 2, cy - h / 2], [cx + w / 2, cy - h / 2],
+                         [cx + w / 2, cy + h / 2], [cx - w / 2, cy + h / 2]], np.float32))
+                elif self.task == "pose":
+                    kpts.append(np.zeros((nk, kdim), np.float32))
+        out = {
             "cls": np.asarray(cls, np.int32).reshape(-1),
             "xywhn": np.asarray(xywhn, np.float32).reshape(-1, 4).clip(0, 1),
         }
+        if self.task == "segment":
+            out["segments"] = segments
+        if self.task == "pose":
+            out["kpts"] = np.stack(kpts) if kpts else np.zeros((0, nk, kdim), np.float32)
+        return out
 
     def __len__(self) -> int:
         return len(self.im_files)
@@ -232,7 +276,15 @@ class DetectionDataset:
             boxes[:, 1] = cy - bh / 2
             boxes[:, 2] = cx + bw / 2
             boxes[:, 3] = cy + bh / 2
-        return A.Sample(img, boxes, lab["cls"].copy())
+        segs = None
+        if "segments" in lab:
+            segs = [p * np.array([w, h], np.float32) for p in lab["segments"]]
+        kpts = None
+        if "kpts" in lab:
+            kpts = lab["kpts"].copy()
+            kpts[..., 0] *= w
+            kpts[..., 1] *= h
+        return A.Sample(img, boxes, lab["cls"].copy(), segs, kpts)
 
     def close_mosaic(self) -> None:
         """Disable mosaic for the final epochs."""
@@ -339,14 +391,23 @@ class DetectionDataset:
         new_cls, keep, texts = A.random_load_text(
             smp.cls, self.class_texts, rng, max_samples=max_s, padding=True
         )
-        return A.Sample(smp.img, smp.boxes[keep], new_cls, texts)
+        segs = None
+        if smp.segments is not None:
+            segs = [p for p, k in zip(smp.segments, keep) if k]
+        kpts = smp.keypoints[keep] if smp.keypoints is not None else None
+        return A.Sample(smp.img, smp.boxes[keep], new_cls, segs, kpts, texts)
 
 
-def collate(samples: Sequence[A.Sample], max_gt: int, imgsz: int) -> Dict[str, np.ndarray]:
+def collate(samples: Sequence[A.Sample], max_gt: int, imgsz: int, task: str = "detect",
+            kpt_shape: Tuple[int, int] = (17, 3), mask_ratio: int = 4) -> Dict[str, np.ndarray]:
     """Fixed-shape batch dict: img (B, H, W, 3) uint8 RGB, cls (B, max_gt),
     bboxes (B, max_gt, 4) normalized cxcywh, mask (B, max_gt), and texts
     (B lists of strings) when the samples carry them. With more gts than
-    slots, the largest boxes are kept."""
+    slots, the largest boxes are kept. The segment task adds "masks" (B,
+    max_gt, imgsz // mask_ratio, imgsz // mask_ratio) float32, each kept
+    gt's polygon / mask_ratio (truncated to int) filled with 1 as
+    cv2.fillPoly fills it; the pose task adds "keypoints" (B, max_gt, nk,
+    kdim) in pixels."""
     B = len(samples)
     img = np.empty((B,) + samples[0].img.shape, np.uint8)
     for b, s in enumerate(samples):
@@ -354,6 +415,11 @@ def collate(samples: Sequence[A.Sample], max_gt: int, imgsz: int) -> Dict[str, n
     cls = np.zeros((B, max_gt), np.int32)
     boxes = np.zeros((B, max_gt, 4), np.float32)
     mask = np.zeros((B, max_gt), bool)
+    hm = imgsz // mask_ratio
+    if task == "segment":
+        seg_masks = np.zeros((B, max_gt, hm, hm), np.float32)
+    if task == "pose":
+        keypoints = np.zeros((B, max_gt) + tuple(kpt_shape), np.float32)
     for b, s in enumerate(samples):
         n = min(len(s.cls), max_gt)
         if n:
@@ -370,7 +436,16 @@ def collate(samples: Sequence[A.Sample], max_gt: int, imgsz: int) -> Dict[str, n
             boxes[b, :n] = np.stack([cx, cy, bw, bh], -1)
             cls[b, :n] = s.cls[order]
             mask[b, :n] = True
+            if task == "segment" and s.segments is not None:
+                for j, oi in enumerate(order):
+                    imgproc.fill_poly(seg_masks[b, j], (s.segments[int(oi)] / mask_ratio).astype(np.int32), 1.0)
+            if task == "pose" and s.keypoints is not None:
+                keypoints[b, :n] = s.keypoints[order]
     out = {"img": img, "cls": cls, "bboxes": boxes, "mask": mask}
+    if task == "segment":
+        out["masks"] = seg_masks
+    if task == "pose":
+        out["keypoints"] = keypoints
     if any(s.texts is not None for s in samples):
         out["texts"] = [s.texts or [] for s in samples]
     return out
@@ -388,7 +463,8 @@ class _Batches(torch.utils.data.Dataset):
         epoch, bi, idxs, mosaic_on = key
         self.ds._mosaic_on = mosaic_on
         rng = np.random.default_rng((self.seed, epoch, bi))
-        return collate([self.ds.get(int(i), rng) for i in idxs], self.max_gt, self.ds.imgsz)
+        return collate([self.ds.get(int(i), rng) for i in idxs], self.max_gt, self.ds.imgsz, task=self.ds.task,
+                       kpt_shape=self.ds.kpt_shape)
 
 
 class _EpochKeys(torch.utils.data.Sampler):

@@ -17,6 +17,14 @@ has no cv2, so each call is rewritten here to give cv2's uint8 results:
   rows truncated in blocks of 32 pixels, the tail rounded); bitwise cv2's
   on all 2^24 colours and all 180 x 2^16 HSV triples.
 - `rotation_matrix` = `cv2.getRotationMatrix2D`.
+- `resize_linear_f32` = `cv2.resize` INTER_LINEAR of a float32 (H, W) map:
+  cv2's float coefficients (no fixed point), each tap product and sum
+  rounded to float32.
+- `fill_poly` = `cv2.fillPoly(img, [poly], value)` with 8-connected edges
+  and shift 0: OpenCV's edge list (`CollectPolyEdges`,
+  `FillEdgeCollection`: 16-bit fixed-point x steps, the polygon's outline
+  drawn by its 8-connected line iterator, spans [x1, x2] between pairs of
+  active edges). Bitwise cv2's on the tests' polygons.
 """
 
 from __future__ import annotations
@@ -176,3 +184,160 @@ def hsv2bgr(hsv: np.ndarray) -> np.ndarray:
     vec = np.arange(out.shape[-2]) < out.shape[-2] // 32 * 32
     out = np.where(vec[:, None], np.trunc(out), np.rint(out))
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def resize_linear_f32(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of a float32 (H, W) map to dsize = (w, h), as
+    `cv2.resize(img, dsize)` computes it for float input: half-pixel
+    centres, float32 weights (the horizontal tap clamped at the edges, the
+    vertical weights not), the horizontal pass then the vertical one."""
+    nw, nh = dsize
+    h, w = img.shape[:2]
+
+    def taps(dsz: int, ssz: int, clamp: bool):
+        f = ((np.arange(dsz) + 0.5) * (1.0 / (dsz / ssz)) - 0.5).astype(_F32)
+        s = np.floor(f).astype(np.int64)
+        f = f - s.astype(_F32)
+        if clamp:
+            f = np.where(s < 0, _F32(0), f)
+            s = np.maximum(s, 0)
+            hi = s >= ssz - 1
+            f = np.where(hi, _F32(0), f)
+            s = np.where(hi, ssz - 1, s)
+        return np.clip(s, 0, ssz - 1), np.clip(s + 1, 0, ssz - 1), _F32(1) - f, f
+
+    x0, x1, ax0, ax1 = taps(nw, w, True)
+    y0, y1, ay0, ay1 = taps(nh, h, False)
+    src = np.asarray(img, _F32)
+    hx = src[:, x0] * ax0 + src[:, x1] * ax1
+    return (hx[y0] * ay0[:, None] + hx[y1] * ay1[:, None]).astype(_F32)
+
+
+_XY_SHIFT = 16
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C's integer division (truncated towards zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """OpenCV's `clipLine` to the (w, h) image: (inside, x1, y1, x2, y2)."""
+    right, bottom = w - 1, h - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _line8(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, value) -> None:
+    """OpenCV's 8-connected `Line` (its `LineIterator`, left to right), clipped."""
+    h, w = img.shape[:2]
+    if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
+        ok, x1, y1, x2, y2 = _clip_line(w, h, x1, y1, x2, y2)
+        if not ok:
+            return
+    dx, dy = x2 - x1, y2 - y1
+    if dx < 0:  # left to right
+        dx, dy, x1, y1 = -dx, -dy, x2, y2
+    sx, sy = 1, 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy, sx, sy = dy, dx, sy, sx
+    err, plus, minus = dx - (dy + dy), dx + dx, -(dy + dy)
+    # each step moves by `sx` along the major axis, and by `sy` along the
+    # minor one when err was negative
+    x, y = x1, y1
+    for _ in range(dx + 1):
+        img[y, x] = value
+        step = err < 0
+        err += minus + (plus if step else 0)
+        if vert:
+            y += sx
+            x += sy if step else 0
+        else:
+            x += sx
+            y += sy if step else 0
+
+
+def fill_poly(img: np.ndarray, poly: np.ndarray, value) -> np.ndarray:
+    """`cv2.fillPoly(img, [poly], value)` for an int (n, 2) polygon of (x, y)
+    pixels, 8-connected, shift 0: writes `img` in place and returns it."""
+    h, w = img.shape[:2]
+    pts = [(int(x), int(y)) for x, y in np.asarray(poly).reshape(-1, 2)]
+    edges = []  # [y0, y1, x, dx] in 16.16 fixed point
+    if pts:
+        px, py = pts[-1]
+        px <<= _XY_SHIFT
+    for qx, qy in pts:
+        qx <<= _XY_SHIFT
+        t0x, t1x = (px + (_XY_ONE >> 1)) >> _XY_SHIFT, (qx + (_XY_ONE >> 1)) >> _XY_SHIFT
+        _line8(img, t0x, py, t1x, qy, value)
+        p0x, p0y, p1x, p1y = px, py, qx, qy
+        if not (0 <= t0x < w and 0 <= t1x < w and 0 <= py < h and 0 <= qy < h):
+            # the clipped end points make a more accurate edge
+            _, c0x, c0y, c1x, c1y = _clip_line(w, h, t0x, py, t1x, qy)
+            p0x, p1x = c0x << _XY_SHIFT, c1x << _XY_SHIFT
+            if c0y != c1y:
+                p0y, p1y = c0y, c1y
+        if py != qy:
+            dx = _tdiv(p1x - p0x, p1y - p0y)
+            if py < qy:
+                edges.append([py, qy, p0x + (py - p0y) * dx, dx])
+            else:
+                edges.append([qy, py, p1x + (qy - p1y) * dx, dx])
+        px, py = qx, qy
+    if len(edges) < 2:
+        return img
+    ends = [e[2] + (e[1] - e[0]) * e[3] for e in edges]
+    y_min, y_max = min(e[0] for e in edges), max(e[1] for e in edges)
+    x_min, x_max = min(min(e[2] for e in edges), min(ends)), max(max(e[2] for e in edges), max(ends))
+    if y_max < 0 or y_min >= h or x_max < 0 or x_min >= (w << _XY_SHIFT):
+        return img
+    edges.sort(key=lambda e: (e[0], e[2], e[3]))
+    active: list = []  # sorted by x
+    i, n = 0, len(edges)
+    for y in range(edges[0][0], min(y_max, h)):
+        active = [e for e in active if e[1] != y]
+        j = 0
+        while i < n and edges[i][0] == y:  # a new edge goes before the first active edge of x >= its x,
+            e = edges[i]  # after the edges inserted before it
+            while j < len(active) and active[j][2] < e[2]:
+                j += 1
+            active.insert(j, e)
+            i, j = i + 1, j + 1
+        for a, b in zip(active[0::2], active[1::2]):
+            if y >= 0:
+                lo, hi = (b[2], a[2]) if a[2] > b[2] else (a[2], b[2])
+                x1, x2 = (lo + _XY_ONE - 1) >> _XY_SHIFT, hi >> _XY_SHIFT  # ceil, floor
+                if x1 < w and x2 >= 0:
+                    img[y, max(x1, 0):min(x2, w - 1) + 1] = value
+            a[2] += a[3]
+            b[2] += b[3]
+        active.sort(key=lambda e: e[2])
+    return img

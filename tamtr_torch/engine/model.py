@@ -41,10 +41,21 @@ CIoU, DFL; `train/trainer.py:loss_config_for`, the JAX engine's
 `_loss_callable_for`) on batches without sampled texts (the loader draws
 them only for a head that `uses_text`); its pixel boxes are scaled by the
 input size before the postprocess, and rect val letterboxes for it alone.
+A Segment model (`yolo-seg-gelan.yaml`) is the segment task and a Pose
+model (`yolo-pose-gelan.yaml`) the pose task, as the JAX engine picks them
+by head (`TASKS`): the dataset reads polygon or keypoint labels, the batch
+carries gt masks or keypoints into the v8 segmentation or pose loss, and
+val adds mask_mAP50 / mask_mAP50-95 (masks of the kept rows, sigmoid of
+coefficients x protos > 0.5, against each gt polygon filled at the image's
+size and resized to the protos' size) or pose_mAP50 / pose_mAP50-95
+(keypoints matched by OKS) beside the box metrics. Predict gives a segment
+model's `Results` its masks (not with TTA), as the JAX engine does; a pose
+model's carry boxes only (the JAX engine hands its keypoints to `Results`
+as masks, a fault the port does not copy).
 
 The engine runs on the card unless `device="cpu"` is given (then the ranks
-meet over gloo). Not ported: classify/segment/pose, video and stream
-sources, tune and export.
+meet over gloo). Not ported: classify, video and stream sources, tune and
+export.
 """
 
 from __future__ import annotations
@@ -63,11 +74,12 @@ import torch.distributed as dist
 from tamtr_torch.config import Config, get_cfg, load_data_yaml
 from tamtr_torch.data.dataset import AugConfig, DetectionDataset, Loader
 from tamtr_torch.data.image_io import imread
-from tamtr_torch.data.imgproc import resize_linear
+from tamtr_torch.data.imgproc import fill_poly, resize_linear, resize_linear_f32
 from tamtr_torch.data.loaders import load_inference_source, unsupported_source
 from tamtr_torch.data.text import TextEmbedder, class_text_embeddings
 from tamtr_torch.engine.checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
-from tamtr_torch.nn.graph import TEXT_WIDTH, TAMTRModel
+from tamtr_torch.losses.v8_pose_loss import keypoint_sigmas
+from tamtr_torch.nn.graph import TEXT_WIDTH, YOLO_HEADS, TAMTRModel
 from tamtr_torch.engine.results import Results
 from tamtr_torch.nn.fuse import fuse_model
 from tamtr_torch.ops.nms import multiclass_nms, postprocess_predictions
@@ -78,7 +90,7 @@ from tamtr_torch.utils.checks import check_imgsz
 from tamtr_torch.utils.coco import predictions_to_coco
 from tamtr_torch.utils.files import increment_path
 from tamtr_torch.utils.log import LOGGER
-from tamtr_torch.utils.metrics import ConfusionMatrix, DetMetrics, match_predictions
+from tamtr_torch.utils.metrics import ConfusionMatrix, DetMetrics, mask_iou_np, match_predictions, oks_np
 from tamtr_torch.utils.plotting import plot_images, plot_results
 from tamtr_torch.utils.settings import SettingsManager
 from tamtr_torch.weights import init_parameters
@@ -115,16 +127,73 @@ def to_image_pixels(boxes: np.ndarray, input_hw, orig_hw, lb=None) -> np.ndarray
     return pb.clip(0, [ow, oh, ow, oh])
 
 
+# the task of each head that is not the detect task (`tamtr_tpu/engine/model.py:173, 777`)
+TASKS = {"Segment": "segment", "Pose": "pose"}
+
+
+def task_of(model: TAMTRModel) -> str:
+    """"segment", "pose" or "detect", by the model's head."""
+    return TASKS.get(model.head_type, "detect")
+
+
 def normalized_pred(model: TAMTRModel, pred: torch.Tensor, input_hw) -> torch.Tensor:
-    """The eval "pred" with its boxes normalized: a pixel head's (Detect)
-    divided by the (h, w) input size, as the JAX engine's eval step scales
-    them (`tamtr_tpu/engine/model.py:741-752`); a DETR head's as they are."""
-    if model.head_type != "Detect":
+    """The eval "pred" with its boxes normalized: a pixel head's (Detect,
+    Segment, Pose) divided by the (h, w) input size, as the JAX engine's
+    eval step scales them (`tamtr_tpu/engine/model.py:741-752`); a DETR
+    head's as they are."""
+    if model.head_type not in YOLO_HEADS:
         return pred
     h, w = input_hw
     scale = pred.new_ones(pred.shape[-1])
     scale[:4] = torch.tensor([1.0 / w, 1.0 / h, 1.0 / w, 1.0 / h], dtype=pred.dtype)
     return pred * scale
+
+
+def kept_extras(model: TAMTRModel, out: Dict[str, torch.Tensor], kept: torch.Tensor) -> Optional[torch.Tensor]:
+    """What the JAX engine's eval step adds for the postprocess's kept rows
+    `kept` (B, max_det) (`tamtr_tpu/engine/model.py:757-768`): a Segment
+    model's mask probabilities (B, max_det, Hm, Wm), the sigmoid of the
+    rows' coefficients times the protos in fp32; a Pose model's keypoints
+    (B, max_det, nk, kdim) in input pixels; else None."""
+    idx = kept.long()
+    if model.head_type == "Segment":
+        coefs = out["mask_coefs"].float().gather(1, idx[..., None].expand(-1, -1, out["mask_coefs"].shape[-1]))
+        return torch.sigmoid(torch.einsum("bkn,bnhw->bkhw", coefs, out["protos"].float()))
+    if model.head_type == "Pose":
+        k = out["keypoints"]
+        return k.gather(1, idx[:, :, None, None].expand(-1, -1, *k.shape[2:]))
+    return None
+
+
+def gt_mask_tp(pm: np.ndarray, raw, pb: np.ndarray, pc: np.ndarray) -> np.ndarray:
+    """The mask TP table of one image: predicted masks `pm` (n, Hm, Wm)
+    bool against each gt polygon of `raw` filled at the image's size
+    (`imgproc.fill_poly`), resized to (Hm, Wm) as float32 and thresholded at
+    0.5 (`tamtr_tpu/engine/model.py:891-909`)."""
+    hm, wm = pm.shape[-2:] if len(pm) else (2, 2)
+    gm = np.stack([resize_linear_f32(fill_poly(np.zeros(raw.img.shape[:2], np.float32),
+                                                   np.asarray(seg).astype(np.int32), 1.0), (wm, hm)) > 0.5
+                   for seg in raw.segments]) if raw.segments else np.zeros((0, hm, wm), bool)
+    if not (len(gm) and len(pm)):
+        return np.zeros((len(pc), 10), bool)
+    return match_predictions(pb, pc, raw.boxes, raw.cls.astype(np.float32), iou=mask_iou_np(gm, pm))
+
+
+def gt_pose_tp(pk: np.ndarray, raw, pb: np.ndarray, pc: np.ndarray, orig_hw, imgsz: int) -> np.ndarray:
+    """The keypoint TP table of one image: predicted keypoints `pk` (n, nk,
+    3) at imgsz scale, stretched to the image's (h, w), matched by OKS
+    (`OKS_SIGMA`, the gt boxes' areas at least 1) against its gt keypoints
+    (`tamtr_tpu/engine/model.py:870-890`)."""
+    oh, ow = orig_hw
+    pk = pk.copy()
+    pk[..., 0] *= ow / imgsz
+    pk[..., 1] *= oh / imgsz
+    gk = raw.keypoints if raw.keypoints is not None else np.zeros((0, 17, 3), np.float32)
+    areas = np.clip((raw.boxes[:, 2] - raw.boxes[:, 0]) * (raw.boxes[:, 3] - raw.boxes[:, 1]), 1, None)
+    if not (len(gk) and len(pk)):
+        return np.zeros((len(pc), 10), bool)
+    oks = oks_np(gk, pk, areas, keypoint_sigmas(gk.shape[1]))
+    return match_predictions(pb, pc, raw.boxes, raw.cls.astype(np.float32), iou=oks)
 
 
 def refuse_dual(model: TAMTRModel) -> None:
@@ -279,9 +348,10 @@ class Engine:
             translate=cfg.translate, scale=cfg.scale, shear=cfg.shear, perspective=cfg.perspective,
             hsv_h=cfg.hsv_h, hsv_s=cfg.hsv_s, hsv_v=cfg.hsv_v, fliplr=cfg.fliplr, flipud=cfg.flipud,
         )
-        # RandomLoadText: per-image positive/negative text sampling and class remap
+        # RandomLoadText: per-image positive/negative text sampling and class remap;
+        # the task's labels (kpt_shape stays the dataset's default, as the JAX engine's)
         train_ds = DetectionDataset(
-            data["train"], imgsz=cfg.imgsz, augment=True, aug=aug, seed=cfg.seed,
+            data["train"], imgsz=cfg.imgsz, augment=True, aug=aug, seed=cfg.seed, task=task_of(model),
             class_texts=[str(n).split("/") for n in self.names], random_text=model.uses_text,
             cache=cfg.cache, classes=cfg.classes, single_cls=cfg.single_cls,
         )
@@ -295,7 +365,7 @@ class Engine:
             match_method=cfg.match_method,
         )
         loss_cfg = loss_config_for(model, nc, imgsz=cfg.imgsz, box=cfg.box, cls=cfg.cls, dfl=cfg.dfl,
-                                   match_method=cfg.match_method)
+                                   match_method=cfg.match_method, pose=cfg.pose, kobj=cfg.kobj)
         trainer = Trainer(model, tc, loss_cfg=loss_cfg, steps_per_epoch=len(loader), device=dev, seed=cfg.seed + 1,
                           groups=groups, zero=int(cfg.fsdp or 1) > 1)
         self.trainer = trainer
@@ -357,6 +427,7 @@ class Engine:
                     # per-image sampled texts (RandomLoadText) when present, else the class table
                     "txt_feats": text_embedder(batch["texts"]) if "texts" in batch else txt,
                     "cls": batch["cls"], "bboxes": batch["bboxes"], "mask": batch["mask"],
+                    **{k: batch[k] for k in ("masks", "keypoints") if k in batch},
                 })  # ends in host reads of the metrics: the device has finished
                 self.timing["wait_ms"].append((ts - tw) * 1e3)
                 self.timing["step_ms"].append((time.perf_counter() - ts) * 1e3)
@@ -440,7 +511,9 @@ class Engine:
     def _validate(self, model: TAMTRModel, data: Dict[str, Any], cfg: Config) -> Dict[str, float]:
         """mAP of `model` on the val split, under the reference val protocol:
         conf 0.4 unless set, the conf mask applied after the score sort
-        (`legacy_val_mask`), predictions mapped to each image's own pixels.
+        (`legacy_val_mask`), predictions mapped to each image's own pixels;
+        a Segment model's mask mAP and a Pose model's keypoint mAP beside
+        the box metrics (`gt_mask_tp`, `gt_pose_tp`).
 
         In a process group every rank holds `model` and runs every
         world-size-th batch; rank 0 takes the per-image statistics in the
@@ -451,12 +524,14 @@ class Engine:
         if rank0:
             self.callbacks.fire("on_val_start", self)
         split_dir = data.get(cfg.split) or data.get("val")
-        ds = DetectionDataset(split_dir, imgsz=cfg.imgsz, augment=False,
+        task = task_of(model)
+        ds = DetectionDataset(split_dir, imgsz=cfg.imgsz, augment=False, task=task,
                               classes=cfg.classes, single_cls=cfg.single_cls)
         conf = cfg.conf if cfg.conf is not None else 0.4
         model = self._eval_model(model, cfg)
         dev = next(model.parameters()).device
         metrics = DetMetrics()
+        extra_metrics = DetMetrics() if task != "detect" else None  # mask or keypoint matches
         confusion = ConfusionMatrix(len(self.names) or model.nc, conf=conf) if cfg.plots else None
         bs = max(cfg.batch, 1)
         txt_all = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=dev)
@@ -474,7 +549,9 @@ class Engine:
         def fetch(idxs):
             return [ds.get_val(i) for i in idxs]
 
-        per_image = []  # (image index, boxes, scores, labels, gt boxes, gt classes) in image order
+        # per image, in image order: (index, boxes, scores, labels, gt boxes, gt classes, the mask or
+        # keypoint TP table or None, the native-size masks for save_json or None)
+        per_image = []
         with ThreadPoolExecutor(max_workers=max(cfg.workers, 1)) as pool:  # 4 batches ahead
             futures = {bi: pool.submit(fetch, mine[bi]) for bi in range(min(4, len(mine)))}
             for bi, idxs in enumerate(mine):
@@ -483,34 +560,55 @@ class Engine:
                 items = futures.pop(bi).result()
                 imgs = [it[0] for it in items]
                 img = torch.from_numpy(np.stack(imgs)).to(dev)
-                pred = normalized_pred(model, model(img, txt_all.expand(len(imgs), *txt_all.shape[1:]))["pred"],
-                                       img.shape[1:3])
-                boxes, scores, labels, valid, _ = (t.cpu().numpy() for t in postprocess_predictions(
-                    pred, conf, cfg.iou, cfg.max_det, legacy_val_mask=True, classes=cfg.classes,
-                    single_cls=cfg.single_cls))
+                out = model(img, txt_all.expand(len(imgs), *txt_all.shape[1:]))
+                pred = normalized_pred(model, out["pred"], img.shape[1:3])
+                post = postprocess_predictions(pred, conf, cfg.iou, cfg.max_det, legacy_val_mask=True,
+                                               classes=cfg.classes, single_cls=cfg.single_cls)
+                extra = kept_extras(model, out, post[4])
+                boxes, scores, labels, valid, _ = (t.cpu().numpy() for t in post)
                 for k, i in enumerate(idxs):
                     _, raw, (oh, ow), lb = items[k]
                     sel = valid[k] & (scores[k] > 0)
                     pb = to_image_pixels(boxes[k][sel], imgs[k].shape[:2], (oh, ow), lb)
-                    per_image.append((i, pb, scores[k][sel], labels[k][sel], raw.boxes, raw.cls))
+                    pc = labels[k][sel].astype(np.float32)
+                    tp_x = rle = None
+                    if extra is not None:  # the kept rows' masks or keypoints, those selected alone to the host
+                        ext = extra[k][torch.from_numpy(sel).to(extra.device)].cpu().numpy()
+                    if task == "segment":
+                        pm = ext > 0.5
+                        tp_x = gt_mask_tp(pm, raw, pb, pc)
+                        if coco_records is not None:  # masks at the image's size
+                            rle = np.stack([resize_linear(m.astype(np.uint8), (ow, oh)) > 0.5 for m in pm]) \
+                                if len(pm) else np.zeros((0, oh, ow), bool)
+                    elif task == "pose":
+                        tp_x = gt_pose_tp(ext, raw, pb, pc, (oh, ow), cfg.imgsz)
+                    per_image.append((i, pb, scores[k][sel], labels[k][sel], raw.boxes, raw.cls, tp_x, rle))
         if world > 1:  # every rank's images, on rank 0, in the one-process order
             gathered = gather_to_rank0(per_image)
             per_image = sorted((r for part in gathered for r in part), key=lambda r: r[0]) if rank0 else []
-        for i, pb, ps, lab, gt_boxes, gt_cls in per_image:
+        for i, pb, ps, lab, gt_boxes, gt_cls, tp_x, rle in per_image:
             pc = lab.astype(np.float32)
             tp = match_predictions(pb, pc, gt_boxes, gt_cls.astype(np.float32))
             metrics.update(tp, ps, pc, gt_cls.astype(np.float32))
+            if extra_metrics is not None:
+                extra_metrics.update(tp_x, ps, pc, gt_cls.astype(np.float32))
             if confusion is not None:
                 confusion.process_batch(pb, ps, pc.astype(np.int64), gt_boxes, gt_cls)
             if coco_records is not None:
                 stem = Path(ds.im_files[i]).stem
-                coco_records.append({"image_id": int(stem) if stem.isnumeric() else i, "boxes": pb,
-                                     "scores": ps, "labels": lab})
+                rec = {"image_id": int(stem) if stem.isnumeric() else i, "boxes": pb, "scores": ps, "labels": lab}
+                if rle is not None:
+                    rec["masks"] = rle
+                coco_records.append(rec)
         if not rank0:
             return broadcast_from_rank0(None)
         if coco_records is not None:
             predictions_to_coco(coco_records, Path(cfg.project or "runs") / "predictions.json")
         res = metrics.compute()
+        if extra_metrics is not None:
+            xres, name = extra_metrics.compute(), "mask" if task == "segment" else "pose"
+            res[f"{name}_mAP50"] = xres["mAP50"]
+            res[f"{name}_mAP50-95"] = xres["mAP50-95"]
         if confusion is not None:
             out_dir = self._last_run_dir or Path(cfg.project or "runs")
             out_dir.mkdir(parents=True, exist_ok=True)
@@ -569,8 +667,8 @@ class Engine:
             oh, ow = im0.shape[:2]
             all_b, all_s, all_l = [], [], []
             for sz, flip in passes:
-                b, s, lab = self._detect(model, im0, sz, txt, conf, cfg.iou, cfg.max_det, flip=flip,
-                                         classes=cfg.classes, single_cls=cfg.single_cls)
+                b, s, lab, extra = self._detect(model, im0, sz, txt, conf, cfg.iou, cfg.max_det, flip=flip,
+                                                classes=cfg.classes, single_cls=cfg.single_cls)
                 if flip:  # un-flip normalized xyxy
                     b = np.stack([1 - b[:, 2], b[:, 1], 1 - b[:, 0], b[:, 3]], -1)
                 all_b.append(b)
@@ -584,8 +682,10 @@ class Engine:
                     torch.from_numpy(np.pad(lab, (0, pad))), cfg.iou, cfg.max_det))
                 idx = keep[valid_k]
                 b, s, lab = b[idx[idx < len(b)]], s[idx[idx < len(s)]], lab[idx[idx < len(lab)]]
+            # a segment model's masks (not merged across TTA passes, as the JAX engine's)
+            masks = extra if model.head_type == "Segment" and not cfg.augment else None
             r = Results(path, b * np.array([ow, oh, ow, oh], np.float32), s, lab, self.names,
-                        orig_shape=(oh, ow))
+                        orig_shape=(oh, ow), masks=masks)
             if cfg.save:  # annotated image output (reference save=True)
                 r.save(Path(cfg.project or "runs/detect") / (cfg.name or "predict") / Path(path).name)
             results.append(r)
@@ -597,16 +697,20 @@ class Engine:
         """One BGR image stretched to (sz, sz) as cv2.resize does, turned to
         RGB in [0, 1] (and mirrored with `flip`), through the eval forward
         and `postprocess_predictions`: normalized xyxy boxes, scores and
-        labels of the kept detections."""
+        labels of the kept detections, and their `kept_extras` (a Segment
+        model's mask probabilities, a Pose model's keypoints) or None."""
         img = resize_linear(im0, (sz, sz))[..., ::-1].astype(np.float32) / 255.0
         if flip:
             img = img[:, ::-1]
-        pred = normalized_pred(model, model(torch.from_numpy(np.ascontiguousarray(img)[None]).to(txt.device),
-                                            txt)["pred"], (sz, sz))
-        boxes, scores, labels, valid, _ = (t.cpu().numpy() for t in postprocess_predictions(
-            pred, conf, iou, max_det, classes=classes, single_cls=single_cls))
+        out = model(torch.from_numpy(np.ascontiguousarray(img)[None]).to(txt.device), txt)
+        post = postprocess_predictions(normalized_pred(model, out["pred"], (sz, sz)), conf, iou, max_det,
+                                       classes=classes, single_cls=single_cls)
+        extra = kept_extras(model, out, post[4])
+        boxes, scores, labels, valid, _ = (t.cpu().numpy() for t in post)
         sel = valid[0] & (scores[0] > 0)
-        return boxes[0][sel], scores[0][sel], labels[0][sel]
+        if extra is not None:  # the selected rows alone to the host
+            extra = extra[0][torch.from_numpy(sel).to(extra.device)].cpu().numpy()
+        return boxes[0][sel], scores[0][sel], labels[0][sel], extra
 
     # ------------------------------------------------------------------ track
     @torch.inference_mode()
@@ -645,7 +749,7 @@ class Engine:
         for name, frame in frames:
             t1 = time.perf_counter()
             oh, ow = frame.shape[:2]
-            b, s, lab = self._detect(model, frame, cfg.imgsz, txt, conf, cfg.iou, cfg.max_det)
+            b, s, lab, _ = self._detect(model, frame, cfg.imgsz, txt, conf, cfg.iou, cfg.max_det)
             r = Results(name, b * np.array([ow, oh, ow, oh], np.float32), s, lab, self.names, orig_shape=(oh, ow),
                         orig_img=frame)
             t2 = time.perf_counter()

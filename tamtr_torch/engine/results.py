@@ -8,8 +8,9 @@ result as a mapping; `Engine.track` sets `track_ids`. The text outputs are
 byte-equal to the JAX package's for the same detections. `save` writes the
 plot at the path it is given, in the format its suffix names
 (`data/image_io.py:imwrite`: JPEG and BMP byte-equal to `cv2.imencode`,
-PNG), as the JAX package's writes through cv2. Masks (the segment head)
-and `AnnotatedVideoWriter` (frames of video sources) are not ported.
+PNG), as the JAX package's writes through cv2. A segment model's `masks`
+(N, Hm, Wm) sigmoid probabilities at the protos' size are laid over the
+plot. `AnnotatedVideoWriter` (frames of video sources) is not ported.
 """
 
 from __future__ import annotations
@@ -41,14 +42,17 @@ class Boxes:
 
 class Results:
     """One image's detections; `plot` draws on `orig_img` (the BGR frame of
-    a source that is not a file) or reads the image again from `path`."""
+    a source that is not a file) or reads the image again from `path`.
+    `masks`: a segment model's (N, Hm, Wm) mask probabilities, or None."""
 
     def __init__(self, path: str, boxes: np.ndarray, scores: np.ndarray, labels: np.ndarray,
-                 names: Sequence[str], orig_shape: Optional[tuple] = None, orig_img: Optional[np.ndarray] = None):
+                 names: Sequence[str], orig_shape: Optional[tuple] = None, masks: Optional[np.ndarray] = None,
+                 orig_img: Optional[np.ndarray] = None):
         self.path = path
         self.names = list(names)
         self.boxes = Boxes(boxes, scores, labels)
         self.orig_shape = orig_shape
+        self.masks = masks
         self.orig_img = orig_img
         self.track_ids: Optional[np.ndarray] = None  # one id per box, set by `Engine.track`
 
@@ -67,13 +71,25 @@ class Results:
     def __contains__(self, key: str) -> bool:
         return key in ("path", "boxes", "scores", "labels", "names")
 
-    def plot(self, line_width: Optional[int] = None) -> np.ndarray:
-        """The BGR image with the detections drawn (`utils/plotting.py`)."""
+    def plot(self, line_width: Optional[int] = None, mask_alpha: float = 0.4) -> np.ndarray:
+        """The BGR image with the detections drawn (`utils/plotting.py`),
+        over each mask resized to the image (float32 bilinear, as cv2) and
+        thresholded at 0.5, blended in its class's palette colour at
+        `mask_alpha`."""
         from tamtr_torch.data.image_io import imread
-        from tamtr_torch.utils.plotting import annotate_image
+        from tamtr_torch.data.imgproc import resize_linear_f32
+        from tamtr_torch.utils.plotting import _palette, annotate_image
 
         b = self.boxes
         img = self.orig_img.copy() if self.orig_img is not None else imread(self.path)
+        if self.masks is not None and len(self.masks):
+            colors = _palette(max(len(self.names), 1))
+            overlay = img.astype(np.float32)
+            for m, lab in zip(self.masks, b.cls):
+                mm = resize_linear_f32(m.astype(np.float32), (img.shape[1], img.shape[0])) > 0.5
+                c = np.array(colors[int(lab) % len(colors)], np.float32)
+                overlay[mm] = overlay[mm] * (1 - mask_alpha) + c * mask_alpha
+            img = overlay.astype(np.uint8)
         return annotate_image(img, b.xyxy, b.conf, b.cls, self.names, line_width)
 
     def save(self, path: str | Path) -> Path:

@@ -12,9 +12,9 @@ every layer through the graph (a tuple of widths after a CBLinear).
 Heads: the DETR family, built as in the JAX package
 (`tamtr_tpu/nn/graph.py:281-329`): `ManbaWorldDecoder` (TAM-TR) and, by its
 switches, RTDETRDecoder, ManbaDecoder and the two Decoupling heads; the
-locationManbaDecoder and the DualRTDETRDecoder; and the YOLO `Detect`.
-Segment, Pose and Classify parse and then raise NotImplementedError:
-ROADMAP queue A, item 7.
+locationManbaDecoder and the DualRTDETRDecoder; and the YOLO `Detect`,
+`Segment` and `Pose` (`nn/yolo_head.py`). Classify parses and then raises
+NotImplementedError: ROADMAP queue A, item 7.
 """
 
 from __future__ import annotations
@@ -30,13 +30,14 @@ from torch import nn
 
 from tamtr_torch.nn import layers as L
 from tamtr_torch.nn.decoder import DualRTDETRDecoder, LocationManbaDecoder, ManbaWorldDecoder
-from tamtr_torch.nn.yolo_head import Detect
+from tamtr_torch.nn.yolo_head import Detect, Pose, Segment
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg" / "models"
 HEADS = ("ManbaWorldDecoder", "RTDETRDecoder", "ManbaDecoder", "DecouplingManbaWorldDecoder",
          "DecouplingDFLManbaWorldDecoder", "locationManbaDecoder", "DualRTDETRDecoder",
          "Detect", "Segment", "Pose", "Classify")
-PORTED_HEADS = HEADS[:-3]  # all but Segment, Pose and Classify
+PORTED_HEADS = HEADS[:-1]  # all but Classify
+YOLO_HEADS = ("Detect", "Segment", "Pose")  # the pixel heads: features in, no text, targets or generator
 TEXT_WIDTH = 512  # the text table of a head that takes none (the JAX engine's width)
 # ManbaWorldDecoder's switches (use_text, use_vss, variant) for each head
 # built from it (`tamtr_tpu/nn/graph.py:296-310`); use_text None: the config's
@@ -134,8 +135,9 @@ class TAMTRModel(nn.Module):
     ManbaWorldDecoder head; from another config the graph's layers and its
     head: RT-DETR (`rtdetr.yaml`: AIFI, RTDETRDecoder), any DETR variant
     head (`HEAD_SWITCHES`, locationManbaDecoder, DualRTDETRDecoder), or a
-    YOLO Detect head (`yolo-gelan.yaml`). `head_type` is the config's head
-    name, as the JAX `TAMTRModel.head_type`.
+    YOLO Detect, Segment or Pose head (`yolo-gelan.yaml`,
+    `yolo-seg-gelan.yaml`, `yolo-pose-gelan.yaml`). `head_type` is the
+    config's head name, as the JAX `TAMTRModel.head_type`.
 
     forward(img (B, H, W, 3) float in [0, 1], text (B or 1, K, hd),
     targets=None, generator=None): in `.eval()`, or without targets, a dict
@@ -144,10 +146,12 @@ class TAMTRModel(nn.Module):
     "mask" (B, M)} padded to `max_gt`, the head's train dict (see
     `ManbaWorldDecoder`); DropPath and CDN noise draw from `generator`. A
     Dual head's eval "pred" is a list of two, one a half of its levels.
-    A Detect head takes only the features (no text, targets or generator)
-    and returns its dict (`nn/yolo_head.py:Detect`), whose eval "pred"
-    (B, A, 4 + nc) holds xywh boxes in input pixels; `uses_text` is False
-    and `text_width` the JAX engine's 512, a table the model ignores.
+    A YOLO head (`YOLO_HEADS`) takes only the features (no text, targets or
+    generator) and returns its dict (`nn/yolo_head.py`), whose eval "pred"
+    (B, A, 4 + nc) holds xywh boxes in input pixels (and Segment's
+    mask_coefs and NCHW protos, Pose's kpt_raw and, in eval, keypoints);
+    `uses_text` is False and `text_width` the JAX engine's 512, a table the
+    model ignores.
 
     `max_gt`, `num_denoising`, `vss_drop_path` and `deploy` are the JAX
     `TAMTRModel`'s settings (`tamtr_tpu/nn/graph.py:160-171`), with its
@@ -186,6 +190,11 @@ class TAMTRModel(nn.Module):
         head_ch = tuple(ch[j] for j in self.head_from)
         if head_type == "Detect":
             layers.append(Detect(nc=self.nc, ch=head_ch))
+        elif head_type == "Segment":
+            layers.append(Segment(nc=self.nc, ch=head_ch))
+        elif head_type == "Pose":  # kpt_shape: the row's second argument (`tamtr_tpu/nn/graph.py:262`)
+            kpt = tuple(self.head_args[1]) if len(self.head_args) > 1 else (17, 3)
+            layers.append(Pose(nc=self.nc, ch=head_ch, kpt_shape=kpt))
         else:
             _, hd, nq, ndp, nh, ndl = self.head_args[:6]
             kw = dict(nc=self.nc, hd=hd, nq=nq, ndp=ndp, nh=nh, ndl=ndl, num_denoising=num_denoising,
@@ -206,7 +215,7 @@ class TAMTRModel(nn.Module):
         """True when the head scores against the text table (contrastive
         scores), as the JAX `TAMTRModel.uses_text` decides: ManbaWorldDecoder
         and the two Decoupling heads, unless their seventh head argument is
-        false. Never RTDETRDecoder, ManbaDecoder, Dual, Location or Detect."""
+        false. Never RTDETRDecoder, ManbaDecoder, Dual, Location or a YOLO head."""
         switches = HEAD_SWITCHES.get(self.head_type)
         return switches is not None and switches[0] is None and (
             len(self.head_args) <= 6 or bool(self.head_args[6]))
@@ -255,6 +264,6 @@ class TAMTRModel(nn.Module):
             x = mod(inp, text) if m == "TIAGELAN" else mod(inp)
             y.append(x if idx in self.save else None)
         feats = [y[j] for j in self.head_from]
-        if self.head_type == "Detect":
+        if self.head_type in YOLO_HEADS:
             return self.model[-1](feats)
         return self.model[-1](feats, text, targets, generator)

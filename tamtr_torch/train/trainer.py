@@ -5,7 +5,8 @@ NaN guard and EMA (torch port of the semantics of
 The loss is the head's (`loss_config_for`, the JAX engine's
 `_loss_callable_for`): the DETR loss, with its variant switches, for the
 ManbaWorldDecoder; the v8 loss (TAL, BCE, CIoU, DFL) for a YOLO Detect
-head. The step reports the loss's items as the JAX step does.
+head, with its mask term for a Segment head and its keypoint terms for a
+Pose head. The step reports the loss's items as the JAX step does.
 
 - AdamW, betas (momentum, 0.999), weight decay scaled by
   bs * accumulate / nbs, on the reference's three parameter groups: weights
@@ -55,6 +56,8 @@ from torch import nn
 
 from tamtr_torch.losses.detr_loss import DETRLossConfig, rtdetr_detection_loss
 from tamtr_torch.losses.v8_loss import V8LossConfig, v8_detection_loss
+from tamtr_torch.losses.v8_pose_loss import V8PoseLossConfig, v8_pose_loss
+from tamtr_torch.losses.v8_seg_loss import V8SegLossConfig, v8_segmentation_loss
 from tamtr_torch.nn.ssm import sequence_parallel
 from tamtr_torch.parallel.dist import Groups, all_reduce_grads, data_parallel
 
@@ -127,18 +130,41 @@ def accumulate_at(cfg: TrainConfig, ni: int) -> float:
 
 
 # the step's reported loss items (the JAX step's), of whichever loss ran
-REPORTED = ("giou", "class", "bbox", "box", "cls", "dfl")
+REPORTED = ("giou", "class", "bbox", "box", "cls", "dfl", "seg", "pose", "kobj")
+# the batch keys that ride into the loss's targets when present: Segment's
+# gt masks, Pose's gt keypoints
+EXTRA_TARGETS = ("masks", "keypoints")
 
 
 def loss_config_for(model: nn.Module, nc: Optional[int] = None, imgsz: int = 640, box: float = 7.5,
-                    cls: float = 0.5, dfl: float = 1.5, match_method: str = "auto"):
+                    cls: float = 0.5, dfl: float = 1.5, match_method: str = "auto", pose: float = 12.0,
+                    kobj: float = 1.0):
     """The loss of `model`'s head, as the JAX engine's `_loss_callable_for`
     picks it: a Detect head's `V8LossConfig` (gains box, cls, dfl; gts
-    scaled to `imgsz` pixels), any other head's `DETRLossConfig`."""
+    scaled to `imgsz` pixels), a Segment head's `V8SegLossConfig`, a Pose
+    head's `V8PoseLossConfig` (its gains pose and kobj; the head's
+    kpt_shape), any other head's `DETRLossConfig`."""
     nc = model.nc if nc is None else nc
-    if getattr(model, "head_type", None) == "Detect":
-        return V8LossConfig(nc=nc, box=box, cls=cls, dfl=dfl, imgsz=imgsz)
+    head_type = getattr(model, "head_type", None)
+    v8 = dict(nc=nc, box=box, cls=cls, dfl=dfl, imgsz=imgsz)
+    if head_type == "Detect":
+        return V8LossConfig(**v8)
+    if head_type == "Segment":
+        return V8SegLossConfig(**v8)
+    if head_type == "Pose":
+        return V8PoseLossConfig(**v8, kpt_shape=model.model[-1].kpt_shape, pose=pose, kobj=kobj)
     return DETRLossConfig(nc=nc, match_method=match_method)
+
+
+def head_loss(out: Dict, targets: Dict[str, torch.Tensor], loss_cfg):
+    """(total, items) of the loss `loss_cfg` names, on the head's train dict."""
+    if isinstance(loss_cfg, V8SegLossConfig):
+        return v8_segmentation_loss(out, targets, loss_cfg)
+    if isinstance(loss_cfg, V8PoseLossConfig):
+        return v8_pose_loss(out, targets, loss_cfg)
+    if isinstance(loss_cfg, V8LossConfig):
+        return v8_detection_loss(out, targets, loss_cfg)
+    return rtdetr_detection_loss(out, targets, loss_cfg)
 
 
 def _global_norm(ts: List[torch.Tensor]) -> torch.Tensor:
@@ -152,7 +178,8 @@ class Trainer:
       model: the model; moved to `device` and put in train mode.
       cfg: optimizer, schedule and EMA settings.
       loss_cfg: the loss: a `DETRLossConfig` (the DETR loss, with its
-        variant switches) or a `V8LossConfig` (the YOLO Detect loss); by
+        variant switches) or a `V8LossConfig` (the YOLO Detect loss; its
+        `V8SegLossConfig` and `V8PoseLossConfig` the Segment and Pose ones); by
         default the head's (`loss_config_for`, at 640 px and the config's
         match method).
       steps_per_epoch: minibatches per epoch, for the LR schedule.
@@ -237,24 +264,24 @@ class Trainer:
 
         batch: img (B, H, W, 3) uint8 or float in [0, 1]; txt_feats (B or 1,
         K, hd); cls (B, M) int; bboxes (B, M, 4) normalized cxcywh; mask
-        (B, M) bool. Returns loss, the loss's items (giou, class and bbox of
-        the DETR loss; box, cls and dfl of the Detect loss), grad_norm (of
+        (B, M) bool; a Segment model's masks (B, M, Hm, Wm), a Pose model's
+        keypoints (B, M, nk, 3) in pixels. Returns loss, the loss's items
+        (giou, class and bbox of the DETR loss; box, cls and dfl of the
+        Detect loss, and seg, or pose and kobj), grad_norm (of
         this minibatch's gradient) and stepped (1.0 when the optimizer
         stepped).
         """
         cfg = self.cfg
         b = self._batch(batch)
-        targets = {"cls": b["cls"], "bboxes": b["bboxes"].float(), "mask": b["mask"]}
+        targets = {"cls": b["cls"], "bboxes": b["bboxes"].float(), "mask": b["mask"],
+                   **{k: b[k].float() for k in EXTRA_TARGETS if k in b}}
         self.model.train()
         for p in self.params:
             p.grad = None
         groups = self.groups
         with data_parallel(groups), sequence_parallel(groups.sp if groups is not None else None):
             out = self.model(b["img"], b["txt_feats"].float(), targets, self.generator)
-            if isinstance(self.loss_cfg, V8LossConfig):
-                loss, items = v8_detection_loss(out, targets, self.loss_cfg)
-            else:
-                loss, items = rtdetr_detection_loss(out, targets, self.loss_cfg)
+            loss, items = head_loss(out, targets, self.loss_cfg)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         keys = [k for k in REPORTED if k in items]

@@ -55,17 +55,29 @@ def autobatch(peak_bytes: Callable[[int], Optional[int]], limit: Optional[int], 
     return fit
 
 
-def probe_batch(batch: int, imgsz: int, max_gt: int, nc: int, hd: int, seed: int = 0):
+def probe_batch(batch: int, imgsz: int, max_gt: int, nc: int, hd: int, seed: int = 0,
+                head_type: Optional[str] = None):
     """A seeded synthetic training batch: uint8 images, every one of the
-    max_gt slots a box, unit-norm class text rows."""
+    max_gt slots a box, unit-norm class text rows; for a Segment head each
+    box's mask (its rectangle at imgsz / 4), for a Pose head 17 visible
+    keypoints in each box."""
     rng = np.random.default_rng(seed)
     boxes = np.concatenate([rng.uniform(0.05, 0.95, (batch, max_gt, 2)),
                             rng.uniform(0.01, 0.1, (batch, max_gt, 2))], -1).astype(np.float32)
     txt = rng.standard_normal((1, max(nc, 1), hd)).astype(np.float32)
-    return {"img": rng.integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8),
-            "txt_feats": txt / np.linalg.norm(txt, axis=-1, keepdims=True),
-            "cls": rng.integers(0, max(nc, 1), (batch, max_gt)).astype(np.int32),
-            "bboxes": boxes, "mask": np.ones((batch, max_gt), bool)}
+    out = {"img": rng.integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8),
+           "txt_feats": txt / np.linalg.norm(txt, axis=-1, keepdims=True),
+           "cls": rng.integers(0, max(nc, 1), (batch, max_gt)).astype(np.int32),
+           "bboxes": boxes, "mask": np.ones((batch, max_gt), bool)}
+    lo, hi = boxes[..., :2] - boxes[..., 2:] / 2, boxes[..., :2] + boxes[..., 2:] / 2  # (B, M, 2) normalized
+    if head_type == "Segment":
+        g = (np.arange(imgsz // 4) + 0.5) / (imgsz // 4)
+        inside = [(g >= lo[..., k, None]) & (g < hi[..., k, None]) for k in (0, 1)]  # (B, M, Hm) each
+        out["masks"] = (inside[1][..., :, None] & inside[0][..., None, :]).astype(np.float32)
+    elif head_type == "Pose":
+        xy = lo[:, :, None] + rng.random((batch, max_gt, 17, 2)) * (hi - lo)[:, :, None]
+        out["keypoints"] = np.concatenate([xy * imgsz, np.full((batch, max_gt, 17, 1), 2.0)], -1).astype(np.float32)
+    return out
 
 
 def train_step_peak(model_cfg: str, nc: int, imgsz: int, max_gt: int, batch: int,
@@ -81,7 +93,7 @@ def train_step_peak(model_cfg: str, nc: int, imgsz: int, max_gt: int, batch: int
     with torch.random.fork_rng(devices=[device]):
         model = TAMTRModel.from_cfg(model_cfg, nc=nc, max_gt=max_gt)
         init_parameters(model, 0)
-        batch_np = probe_batch(batch, imgsz, max_gt, nc, model.text_width)
+        batch_np = probe_batch(batch, imgsz, max_gt, nc, model.text_width, head_type=model.head_type)
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         trainer = Trainer(model, TrainConfig(batch_size=batch, accumulate=1),

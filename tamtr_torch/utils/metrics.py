@@ -5,9 +5,10 @@ ports the reference's `utils/metrics.py:999-1387` and
 
 The per-image TP table is built as the reference builds it: greedy IoU
 matching at 10 thresholds 0.5:0.05:0.95, each gt used at most once per
-threshold, highest-IoU pairs first. Fitness = 0.1 * mAP50 + 0.9 * mAP50-95.
-The mask and keypoint IoUs and `ConfusionMatrix.plot` (matplotlib) are not
-ported: no ported head needs them.
+threshold, highest-IoU pairs first, on box IoU or a given (M, N) matrix
+(`mask_iou_np` for masks, `oks_np` for keypoints). Fitness = 0.1 * mAP50 +
+0.9 * mAP50-95. `ConfusionMatrix.plot` draws with `utils/plotting.py`
+(the JAX package's uses matplotlib).
 """
 
 from __future__ import annotations
@@ -30,14 +31,43 @@ def box_iou_np(a: np.ndarray, b: np.ndarray, eps: float = 1e-7) -> np.ndarray:
     return inter / (area_a[:, None] + area_b[None, :] - inter + eps)
 
 
+def mask_iou_np(gt_masks: np.ndarray, pred_masks: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """(M, h, w) x (N, h, w) binary masks -> (M, N) IoU (reference `mask_iou`)."""
+    g = gt_masks.reshape(len(gt_masks), -1).astype(np.float32)
+    p = pred_masks.reshape(len(pred_masks), -1).astype(np.float32)
+    inter = g @ p.T
+    union = g.sum(1)[:, None] + p.sum(1)[None] - inter
+    return inter / (union + eps)
+
+
+def oks_np(
+    gt_kpts: np.ndarray,
+    pred_kpts: np.ndarray,
+    gt_areas: np.ndarray,
+    sigmas: np.ndarray,
+    eps: float = 1e-7,
+) -> np.ndarray:
+    """Object-keypoint-similarity matrix (reference `kpt_iou`):
+    gt (M, nk, 3), pred (N, nk, >=2), areas (M,) -> (M, N)."""
+    d2 = ((gt_kpts[:, None, :, :2] - pred_kpts[None, :, :, :2]) ** 2).sum(-1)  # (M,N,nk)
+    vis = (gt_kpts[:, None, :, 2] > 0).astype(np.float32)
+    e = d2 / (2.0 * (gt_areas[:, None, None] + eps) * (sigmas[None, None] ** 2) * 2.0)
+    oks = (np.exp(-e) * vis).sum(-1) / np.maximum(vis.sum(-1), eps)
+    return oks
+
+
 def match_predictions(
     pred_boxes: np.ndarray,
     pred_cls: np.ndarray,
     gt_boxes: np.ndarray,
     gt_cls: np.ndarray,
     iouv: np.ndarray = IOUV,
+    iou: np.ndarray = None,
 ) -> np.ndarray:
     """Per-image TP table (Npred, len(iouv)) bool (reference `validator.py:208-247`).
+
+    Pass a precomputed (Ngt, Npred) `iou` matrix (e.g. mask IoU) to match on
+    something other than boxes.
 
     Replicates the reference FORK's dedup order exactly: sort candidate
     (gt, pred) pairs by IoU desc, dedup by prediction, then dedup by gt
@@ -49,7 +79,8 @@ def match_predictions(
     correct = np.zeros((len(pred_cls), len(iouv)), dtype=bool)
     if len(gt_cls) == 0 or len(pred_cls) == 0:
         return correct
-    iou = box_iou_np(gt_boxes, pred_boxes)
+    if iou is None:
+        iou = box_iou_np(gt_boxes, pred_boxes)
     correct_class = gt_cls[:, None] == pred_cls[None, :]
     iou = iou * correct_class
     for i, thr in enumerate(iouv):

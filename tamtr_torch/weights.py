@@ -10,7 +10,12 @@ flax leaf. Conv kernels go HWIO -> OIHW (depthwise (3, 3, 1, C) ->
 (K*D, N) / (K*D,). The Detect head's `cv2.{i}.{j}` / `cv3.{i}.{j}` are
 flax's `head/cv2_{i}_{j}` / `head/cv3_{i}_{j}` (the locationManbaDecoder's
 `cv3.{i}.{j}` too, and its `cv4.{i}` flax's `head/cv4_{i}`), and a
-CBLinear's `conv` is flax's `conv` (not `Conv_0`). AIFI's `ma.in_proj_*`
+CBLinear's `conv` is flax's `conv` (not `Conv_0`). The Segment and Pose
+heads nest their Detect in flax's `head/detect` scope: `cv2.{i}.{j}` and
+`cv3.{i}.{j}` are `head/detect/cv2_{i}_{j}`, their own `cv4.{i}.{j}` are
+`head/cv4_{i}_{j}` and `proto.*` `head/proto/*`; the Proto's transposed
+conv kernel (kH, kW, in, out) becomes torch's (in, out, kH, kW) flipped in
+both spatial axes. AIFI's `ma.in_proj_*`
 merge the layer's own `q_proj`, `k_proj` and `v_proj`, as the decoder's
 `self_attn`, `self_attn1` and `self_attn2` merge theirs; the Dual head's
 one core is flax's `head`.
@@ -43,10 +48,13 @@ _VERBATIM_LEAVES = {"x_proj_weight", "dt_projs_weight", "dt_projs_bias"}
 
 
 def map_torch_key(key: str, shape: Tuple[int, ...], layer_names: Dict[int, str],
-                  head_index: int) -> Optional[Tuple[str, List[str], Optional[str]]]:
+                  head_index: int, head_type: Optional[str] = None) -> Optional[Tuple[str, List[str], Optional[str]]]:
     """One reference state-dict key -> (collection, flax path, special), or
     None for keys with no flax twin. `special` names the structured cases:
-    "qkv" (in_proj merge) and "flatten" (A_logs/Ds)."""
+    "qkv" (in_proj merge), "flatten" (A_logs/Ds) and "conv_transpose" (the
+    Proto's upsample kernel). `head_type` "Segment" or "Pose" routes the
+    head's Detect branches into flax's `detect` scope."""
+    nested = head_type in ("Segment", "Pose")
     parts = key.split(".")
     if parts[0] != "model" or not parts[1].isdigit() or parts[-1] == "num_batches_tracked":
         return None
@@ -60,9 +68,16 @@ def map_torch_key(key: str, shape: Tuple[int, ...], layer_names: Dict[int, str],
         nxt = rest[i + 1] if i + 1 < len(rest) else None
         if prefix == "head":
             if tok in ("cv2", "cv3") and nxt and nxt.isdigit():  # the Detect head's branches
-                out_path.append(f"{tok}_{nxt}_{rest[i + 2]}")
+                out_path += (["detect"] if nested else []) + [f"{tok}_{nxt}_{rest[i + 2]}"]
                 i += 3
                 continue
+            if nested and tok == "cv4":  # Segment's mask coefficients, Pose's keypoints
+                out_path.append(f"cv4_{nxt}_{rest[i + 2]}")
+                i += 3
+                continue
+            if tok == "upsample" and nxt in ("weight", "bias"):  # Proto's transposed conv
+                leaf = "kernel" if nxt == "weight" else "bias"
+                return "params", out_path + ["upsample", leaf], "conv_transpose" if leaf == "kernel" else None
             if tok == "input_proj":
                 j, sub = rest[i + 1], rest[i + 2]
                 if sub == "0":  # conv
@@ -148,6 +163,7 @@ def from_jax_variables(params: Dict, batch_stats: Dict, model: nn.Module):
     """
     layer_names = {idx: m.replace(".", "_") for idx, _, m, _ in model.specs}
     head_index = model.specs[-1][0] + 1
+    head_type = getattr(model, "head_type", None)
     trees = {
         "params": _flatten_tree(params),
         "batch_stats": _flatten_tree(batch_stats),
@@ -168,7 +184,7 @@ def from_jax_variables(params: Dict, batch_stats: Dict, model: nn.Module):
         if key.endswith("num_batches_tracked"):
             sd[key] = torch.zeros_like(tmpl)  # torch-side counter, no flax twin
             continue
-        route = map_torch_key(key, tuple(tmpl.shape), layer_names, head_index)
+        route = map_torch_key(key, tuple(tmpl.shape), layer_names, head_index, head_type)
         if route is None:
             missing.append(key)
             continue
@@ -180,6 +196,9 @@ def from_jax_variables(params: Dict, batch_stats: Dict, model: nn.Module):
             val = None if any(p is None for p in pieces) else np.concatenate(
                 [p.T if p.ndim == 2 else p for p in pieces], 0
             )
+        elif special == "conv_transpose":  # (kH, kW, in, out) -> (in, out, kH, kW), flipped
+            val = get("params", path)
+            val = None if val is None else np.ascontiguousarray(np.transpose(val, (2, 3, 0, 1))[:, :, ::-1, ::-1])
         elif special == "flatten":
             val = get("params", path)
             val = None if val is None else val.reshape((-1,) + val.shape[2:])
@@ -242,6 +261,10 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
     stacks and AIFI. A Detect head keeps the generic
     init but for its class biases, the prior log(5 / nc / (640 / stride)^2)
     of each level (`tamtr_tpu/nn/yolo_head.py:90-97`); its box biases are 0.
+    So do the Segment and Pose heads, whose Detect takes the same prior,
+    their `cv4` convs and the Proto; its transposed conv's weight is
+    N(0, 1/fan_in) with fan_in = in * kH * kW, its bias 0, as flax's
+    `ConvTranspose` default.
     """
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
@@ -250,6 +273,10 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
             _normal_fan_in(w, w[0].numel(), g)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, nn.ConvTranspose2d):
+            w = mod.weight
+            _normal_fan_in(w, w.shape[0] * w.shape[2] * w.shape[3], g)
+            mod.bias.zero_()
         elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

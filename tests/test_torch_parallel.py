@@ -92,6 +92,26 @@ def distance(got: dict, want: dict):
     return frac([k for k in floats if "running" not in k]), frac([k for k in floats if "running" in k])
 
 
+def test_segment_step_on_two_ranks_equals_one_process(tmp_path):
+    """The narrow Segment model's step (the `segment` case of
+    `tests/torch_parallel_worker.py`) on 2 data ranks of 2 images against
+    one process on the 4: the loss and box / cls / dfl at 1e-5 relative
+    (sum(target_scores) and the batch size are the global batch's), seg
+    within twice its one-versus-three-thread distance (at least 1e-5
+    relative), and both ranks' parameters equal."""
+    ranks = run_ranks(tmp_path, "segment")
+    one, _ = ranks[0]["one"]
+    floor = abs(ranks[0]["floor"][0]["seg"] - one["seg"])
+    print(f"seg: one process {one['seg']}, three threads off by {floor}, ranks {[r['dp'][0]['seg'] for r in ranks]}")
+    assert one["seg"] > 0
+    for r in ranks:
+        got, _ = r["dp"]
+        for k, v in one.items():
+            bound = max(2 * floor, 1e-5 * abs(v)) if k == "seg" else 1e-5 * abs(v)
+            assert abs(got[k] - v) <= bound, (k, got[k], v)
+    assert all(torch.equal(ranks[0]["dp"][1][k], ranks[1]["dp"][1][k]) for k in ranks[0]["dp"][1])
+
+
 def test_nano_step_on_two_ranks_equals_one_process(tmp_path):
     """DP (2 ranks x 2 images), ZeRO and data 1 x sp 2 against the
     one-process step on the 4 images."""

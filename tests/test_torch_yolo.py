@@ -104,14 +104,14 @@ def test_config_equals_jax_yaml():
 
 def test_unported_heads_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        PortModel(_seg_cfg(), nc=3)
+        PortModel(_classify_cfg(), nc=3)
 
 
-def _seg_cfg():
+def _classify_cfg():
     from torch_engine_data import yolo_narrow_cfg
 
     cfg = yolo_narrow_cfg(3)
-    cfg["head"][-1] = [[15, 18, 21], 1, "Segment", ["nc"]]
+    cfg["head"][-1] = [[21], 1, "Classify", ["nc"]]
     return cfg
 
 

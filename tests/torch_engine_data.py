@@ -298,3 +298,387 @@ def write_rect_val_split(root, model, txt, names=NAMES):
     data.write_text(json.dumps({"path": str(root), "train": "images", "val": "images", "nc": len(names),
                                 "names": list(names)}))
     return data
+
+
+def flax_variables_of(port):
+    """(params, batch_stats) as nested numpy dicts for the JAX `TAMTRModel`
+    of the same config, from a port model's state dict: the inverse of
+    `tamtr_torch/weights.py:from_jax_variables` for the layers of the YOLO
+    models (no merged q/k/v, no SS2D leaves). A JAX model takes the port's
+    seeded weights this way without the compile of its own init."""
+    from tamtr_torch.weights import map_torch_key
+
+    layer_names = {idx: m.replace(".", "_") for idx, _, m, _ in port.specs}
+    head_index = port.specs[-1][0] + 1
+    trees = {"params": {}, "batch_stats": {}}
+    for key, t in port.state_dict().items():
+        route = map_torch_key(key, tuple(t.shape), layer_names, head_index, port.head_type)
+        if route is None:
+            continue
+        col, path, special = route
+        assert special in (None, "conv_transpose"), key
+        val = t.detach().float().numpy()
+        if special == "conv_transpose":  # (in, out, kH, kW) flipped -> (kH, kW, in, out)
+            val = val[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        elif val.ndim == 4:  # OIHW -> HWIO
+            val = val.transpose(2, 3, 1, 0)
+        elif val.ndim == 2 and path[-1] == "kernel":
+            val = val.T
+        node = trees[col]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(val, np.float32)
+    return trees["params"], trees["batch_stats"]
+
+
+def relabel_for_task(data, task: str, seed: int = 0):
+    """Rewrite the box labels of a generated dataset (`tools/smoke_train_torch.py:
+    make_dataset`, under `data`'s directory) for the segment or pose task:
+    each box becomes a polygon of 6 to 12 points on an ellipse inside it
+    (segment), or keeps its box and gets 17 keypoints inside it, about a
+    fifth of them invisible (pose). Returns `data`."""
+    from pathlib import Path
+
+    rng = np.random.default_rng(seed)
+    for lf in sorted(Path(data).parent.glob("*/labels/*.txt")):
+        rows = []
+        for line in lf.read_text().splitlines():
+            c, cx, cy, w, h = line.split()
+            cx, cy, w, h = float(cx), float(cy), float(w), float(h)
+            if task == "segment":
+                a = np.sort(rng.uniform(0, 2 * np.pi, int(rng.integers(6, 13))))
+                pts = np.stack([cx + w / 2 * np.cos(a), cy + h / 2 * np.sin(a)], 1).clip(0, 1)
+                rows.append(" ".join([c] + [f"{v:.5f}" for v in pts.ravel()]))
+            else:
+                xy = np.stack([cx + w * rng.uniform(-0.45, 0.45, 17), cy + h * rng.uniform(-0.45, 0.45, 17)], 1)
+                vis = np.where(rng.random(17) < 0.2, 0.0, 2.0)
+                kp = np.concatenate([xy.clip(0, 1), vis[:, None]], 1)
+                rows.append(" ".join([c, f"{cx:.5f}", f"{cy:.5f}", f"{w:.5f}", f"{h:.5f}"]
+                                     + [f"{v:.5f}" for v in kp.ravel()]))
+        lf.write_text("\n".join(rows))
+    return data
+
+
+def yolo_task_cfg(head: str, nc: int = NC) -> dict:
+    """`yolo_narrow_cfg` with its head row swapped to `head` ("Segment", or
+    "Pose" with the default kpt_shape (17, 3) in the row)."""
+    cfg = yolo_narrow_cfg(nc)
+    cfg["head"][-1] = [[15, 18, 21], 1, head, ["nc"] + ([[17, 3]] if head == "Pose" else [])]
+    return cfg
+
+
+@torch.no_grad()
+def calibrate_yolo_head(model, img):
+    """A port YOLO model (Detect, Segment or Pose) whose head normalises the
+    eval features of `img` (B, H, W, 3) with their own statistics, as
+    `calibrate_detect_model` does for Detect: every head BatchNorm takes its
+    input's batch moments (the head run once in train mode from zeroed
+    statistics, which then hold 0.03 of the batch's), and the first one of
+    each branch and the Proto's first a scale of sqrt((var + eps) / var)."""
+    from tamtr_torch.nn.layers import BN_MOMENTUM
+
+    head = model.model[-1]
+    feats = []
+    hook = head.register_forward_pre_hook(lambda m, a: feats.append(a[0]))
+    model.eval()(img, torch.zeros(img.shape[0], model.nc, model.text_width))
+    hook.remove()
+    bns = [m for m in head.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    firsts = [br[0].bn for name in ("cv2", "cv3", "cv4") for br in getattr(head, name, [])]
+    if hasattr(head, "proto"):
+        firsts.append(head.proto.cv1.bn)
+
+    def take_stats():
+        for bn in bns:
+            bn.running_mean.zero_()
+            bn.running_var.zero_()
+        head.train()(feats[0])
+        head.eval()
+        for bn in bns:
+            bn.running_mean.div_(BN_MOMENTUM)
+            bn.running_var.div_(BN_MOMENTUM)
+
+    take_stats()
+    for bn in firsts:
+        var = bn.running_var
+        bn.weight.mul_(torch.where(var > 0, torch.sqrt((var + bn.eps) / var.clamp(min=1e-30)), 1.0))
+    take_stats()
+    return model
+
+
+# ---------------------------------------------------------------------------
+# The DETR head variants (`tests/test_torch_heads*.py`): each head on
+# `tamtr-nano.yaml`'s wiring with its row swapped, as
+# `tests/test_head_variants.py` builds them
+# ---------------------------------------------------------------------------
+
+HEAD_NC, HEAD_B, HEAD_M, HEAD_NQ, HEAD_ND = 5, 2, 6, 20, 12
+HEADS = ["RTDETRDecoder", "ManbaDecoder", "DecouplingManbaWorldDecoder", "DecouplingDFLManbaWorldDecoder",
+         "locationManbaDecoder", "DualRTDETRDecoder"]
+HEAD_TEXT_WIDTH = {"DecouplingManbaWorldDecoder": HD, "DecouplingDFLManbaWorldDecoder": HD}
+
+
+def session_cached(tmp_path_factory, name: str, make):
+    """`make()` (a picklable tree of numpy arrays) computed once per test
+    session: the first caller computes it under a file lock and writes it
+    beside the session's temporary directories, where every xdist worker
+    of the session reads it; the others wait on the lock, then read. A JAX
+    init that several test files need is then compiled once per run."""
+    import fcntl
+    import os
+    import pickle
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # shared by the session's workers
+    path = root / f"shared-{name}.pkl"
+    with open(root / f"shared-{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                return pickle.loads(path.read_bytes())
+            value = make()
+            tmp = path.with_suffix(".tmp")
+            tmp.write_bytes(pickle.dumps(value))
+            tmp.rename(path)
+            return value
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def variant_cfg(head: str) -> dict:
+    """`tamtr-nano.yaml` with its head row swapped (JSON, which YAML reads)."""
+    from tamtr_torch.nn.graph import load_model_cfg
+
+    cfg = load_model_cfg("tamtr-nano.yaml")
+    froms = [32, 36, 32, 36] if head == "DualRTDETRDecoder" else [32, 36, 40]
+    extra = [True] if head in HEAD_TEXT_WIDTH else []
+    cfg["head"][-1] = [froms, 1, head, ["nc", HD, HEAD_NQ, 4, 8, 3] + extra]
+    return cfg
+
+
+def jax_head(head: str, ch):
+    """The JAX head module `tamtr_tpu/nn/graph.py` builds for `head` (the
+    Dual head's shared core), DropPath off."""
+    from tamtr_tpu.nn.decoder import LocationManbaDecoder, ManbaWorldDecoder
+
+    kw = dict(nc=HEAD_NC, hd=HD, nq=HEAD_NQ, ndp=4, nh=8, ndl=3, max_gt=HEAD_M, num_denoising=HEAD_ND,
+              vss_drop_path=0.0)
+    if head == "locationManbaDecoder":
+        return LocationManbaDecoder(ch=ch, **kw)
+    if head == "DualRTDETRDecoder":
+        return ManbaWorldDecoder(ch=ch[:len(ch) // 2], use_text=False, use_vss=False, **kw)
+    variant = {"DecouplingManbaWorldDecoder": "decouple", "DecouplingDFLManbaWorldDecoder": "dfl"}.get(head, "base")
+    return ManbaWorldDecoder(ch=ch, use_text=head in HEAD_TEXT_WIDTH, use_vss=head != "RTDETRDecoder",
+                             variant=variant, **kw)
+
+
+def apply_head(head: str, module, variables, feats, text, targets, train: bool):
+    """The head's output, as `tamtr_tpu/nn/graph.py` calls it (the Dual core
+    on each half of the levels); train also returns the new statistics."""
+    import jax
+
+    kw = dict(rngs={"cdn": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)}, mutable=["batch_stats"]) \
+        if train else {}
+    if head != "DualRTDETRDecoder":
+        return module.apply(variables, feats, text, targets, train, **kw)
+    half = len(feats) // 2
+    o1, o2 = (module.apply(variables, part, text, targets, train, **kw) for part in (feats[:half], feats[half:]))
+    if not train:
+        return {"pred": [o1["pred"], o2["pred"]]}
+    return {"dual": (o1[0], o2[0]), **o1[0]}, o1[1]
+
+
+def head_inputs(seed: int, width: int = HD):
+    """Seeded images (HEAD_B, IMG, IMG, 3) and a unit text table (1, HEAD_NC, width)."""
+    rng = np.random.default_rng(seed)
+    img = rng.random((HEAD_B, IMG, IMG, 3), dtype=np.float32)
+    txt = rng.standard_normal((1, HEAD_NC, width)).astype(np.float32)
+    return img, txt / np.linalg.norm(txt, axis=-1, keepdims=True)
+
+
+def head_targets(seed: int):
+    """Padded targets of HEAD_M slots, 5 and 2 gts."""
+    rng = np.random.default_rng(seed)
+    mask = np.arange(HEAD_M)[None] < np.array([[5], [2]])
+    box = np.concatenate([rng.uniform(0.2, 0.8, (HEAD_B, HEAD_M, 2)), rng.uniform(0.05, 0.4, (HEAD_B, HEAD_M, 2))],
+                         -1)
+    return {"cls": rng.integers(0, HEAD_NC, (HEAD_B, HEAD_M)).astype(np.int32),
+            "bboxes": (box * mask[..., None]).astype(np.float32), "mask": mask}
+
+
+@pytest.fixture(scope="module")
+def heads_base(tmp_path_factory):
+    """The JAX nano model's (params, batch_stats), initialised under
+    `jax.jit`, and its features of the seeded eval images (the heads' train
+    inputs): computed once per test session (`session_cached`)."""
+    def make():
+        import jax
+        import jax.numpy as jnp
+
+        from tamtr_tpu.nn.graph import TAMTRModel
+
+        jm = TAMTRModel.from_yaml("tamtr-nano.yaml", nc=HEAD_NC)
+        params, bs = jax_variables(jm, IMG, HEAD_NC, HD)
+        img, _ = head_inputs(0)
+        feats = jax.jit(lambda p, s, i: jm.apply({"params": p, "batch_stats": s}, i, jnp.zeros((HEAD_B, HEAD_NC, HD)),
+                                                 None, False, features_only=True))(params, bs, img)
+        return params, bs, [np.asarray(f) for f in feats]
+
+    return session_cached(tmp_path_factory, "heads-base", make)
+
+
+_VARIANTS = {}
+
+
+def head_variant(head, base, tmp_path_factory):
+    """(JAX model, params, batch_stats, head module, port model) of `head`
+    on the nano wiring, built once per module; the head's JAX init once per
+    test session (`session_cached`)."""
+    if head in _VARIANTS:
+        return _VARIANTS[head]
+    import jax
+    import jax.numpy as jnp
+
+    from tamtr_tpu.nn.graph import TAMTRModel
+
+    from tamtr_torch.nn.graph import TAMTRModel as PortModel
+    from tamtr_torch.weights import from_jax_variables
+
+    params, bs, feats = base
+    path = tmp_path_factory.mktemp("heads") / f"{head}.json"
+    path.write_text(json.dumps(variant_cfg(head)))
+    jm = TAMTRModel.from_yaml(path, nc=HEAD_NC, max_gt=HEAD_M, num_denoising=HEAD_ND, vss_drop_path=0.0)
+    levels = [feats[[32, 36, 40].index(j)] for j in jm.head_from]
+    module = jax_head(head, tuple(f.shape[-1] for f in levels))
+    width = HEAD_TEXT_WIDTH.get(head, 512)
+    to_np = lambda t: {k: to_np(x) if hasattr(x, "items") else np.array(x) for k, x in t.items()}  # noqa: E731
+    hv = session_cached(tmp_path_factory, f"head-{head}", lambda: to_np(jax.device_get(jax.jit(lambda: module.init(
+        {"params": jax.random.PRNGKey(3)}, [jnp.asarray(f) for f in levels[:len(module.ch)]],
+        jnp.zeros((1, HEAD_NC, width)), None, False))())))
+    rng = np.random.default_rng(4)
+    params = {**params, "head": spread_head_params(hv["params"], rng)}
+    bs = {**bs, "head": hv.get("batch_stats", {})}
+    for name in params:  # the TIAGELANs' text attention at this head's text width (never run)
+        if name.endswith("TIAGELAN"):
+            gl = params[name]["attn"]["gl"]
+            params[name] = {**params[name], "attn": {**params[name]["attn"], "gl": {
+                "kernel": (rng.standard_normal((width, gl["kernel"].shape[1])) * 0.05).astype(np.float32),
+                "bias": gl["bias"]}}}
+    port = PortModel(variant_cfg(head), nc=HEAD_NC, max_gt=HEAD_M, num_denoising=HEAD_ND, vss_drop_path=0.0,
+                     label_noise_ratio=0.0, box_noise_scale=0.0)
+    sd, report = from_jax_variables(params, bs, port)
+    assert not any(report.values()), report
+    port.load_state_dict(sd, strict=True)
+    _VARIANTS[head] = (jm, params, bs, module, port.eval())
+    return _VARIANTS[head]
+
+
+def check_variant_eval(head, base, tmp_path_factory):
+    """The head's model's eval against JAX's: pred as a set of rows at 1e-3
+    (`assert_same_row_set`), of each half for the Dual head."""
+    import jax
+
+    jm, params, bs, _, port = head_variant(head, base, tmp_path_factory)
+    assert port.head_type == head and port.uses_text == jm.uses_text
+    assert port.text_width == HEAD_TEXT_WIDTH.get(head, 512)
+    img, txt = head_inputs(1, port.text_width)
+    want = jax.jit(lambda i, t: jm.apply({"params": params, "batch_stats": bs}, i, t, None, False)["pred"])(img, txt)
+    with torch.no_grad():
+        got = port(torch.from_numpy(img), torch.from_numpy(txt))["pred"]
+    pairs = zip(got, want) if head == "DualRTDETRDecoder" else [(got, want)]
+    for g, w in pairs:
+        assert g.shape == (HEAD_B, HEAD_NQ, 4 + HEAD_NC)
+        assert_same_row_set(g.numpy(), np.asarray(w))
+
+
+@pytest.fixture(scope="module")
+def no_cdn_noise():
+    """The JAX package's CDN queries without noise (the port's head models
+    are built with none): the two frameworks' random streams differ."""
+    import tamtr_tpu.nn.decoder as jdec
+
+    orig = jdec.get_cdn_group
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jdec, "get_cdn_group", lambda *a, **k: orig(*a[:7], 0.0, 0.0))
+    yield
+    mp.undo()
+
+
+def check_variant_train_step(head, base, tmp_path_factory, monkeypatch):
+    """The head's training forward and gradient on the nano features, with
+    JAX's top-k query order and assignment given to the port
+    (`tests/test_torch_heads_step.py`'s bounds)."""
+    import copy
+
+    import jax
+    import jax.numpy as jnp
+
+    from tamtr_tpu.losses.detr_loss import DETRLossConfig as JCfg
+    from tamtr_tpu.losses.detr_loss import rtdetr_detection_loss as jax_loss
+    from tamtr_tpu.losses.matcher import hungarian_match
+    from test_torch_train import _rel_err, _to_np, pin_topk
+
+    from tamtr_torch.losses.detr_loss import DETRLossConfig, rtdetr_detection_loss
+    from tamtr_torch.weights import from_jax_variables
+
+    B, M = HEAD_B, HEAD_M
+    _, params, bs, module, port = head_variant(head, base, tmp_path_factory)
+    feats = [base[2][[32, 36, 40].index(j)] for j in port.head_from]
+    tg = head_targets(2)
+    width = port.text_width
+    txt = head_inputs(3, width)[1].repeat(B, 0)
+    jt = {k: jnp.asarray(v) for k, v in tg.items()}
+    picked, top_k = [], jax.lax.top_k
+
+    def recording(x, k):
+        res = top_k(x, k)
+        picked.append(res[1])
+        return res
+
+    def jl(p):  # the loss of JAX's own assignment, the outputs and the top-k indices
+        out, _ = apply_head(head, module, {"params": p, "batch_stats": bs["head"]}, [jnp.asarray(f) for f in feats],
+                            jnp.asarray(txt), jt, True)
+        return jax_loss(out, jt, JCfg(nc=HEAD_NC))[0], (out, list(picked))
+
+    with monkeypatch.context() as mp:
+        mp.setattr(jax.lax, "top_k", recording)
+        (want_loss, (out_j, jtopk)), jgrads = jax.jit(jax.value_and_grad(jl, has_aux=True))(params["head"])
+    nd = int(out_j["num_dn"])
+    bj, sj = (jnp.concatenate([jnp.asarray(out_j[f"enc_{k}"])[None], jnp.asarray(out_j[f"dec_{k}"])[:, :, nd:]], 0)
+              for k in ("bboxes", "scores"))
+    L = bj.shape[0]
+    tile = lambda x: jnp.tile(jnp.asarray(x), (L,) + (1,) * (x.ndim - 1))  # noqa: E731
+    jmatch = hungarian_match(bj.reshape(L * B, *bj.shape[2:]), sj.reshape(L * B, *sj.shape[2:]),
+                             *(tile(tg[k]) for k in ("bboxes", "cls", "mask")))
+    jmatch = torch.from_numpy(np.asarray(jmatch).astype(np.int64)).view(L, B, M)
+
+    hm = copy.deepcopy(port.model[-1]).train()  # the module-scoped model stays in eval, its statistics unmoved
+    pt = {k: torch.from_numpy(v) for k, v in tg.items()}
+    with monkeypatch.context() as mp:
+        pin_topk(mp, [torch.from_numpy(np.asarray(t).astype(np.int64)) for t in jtopk], [])
+        out_p = hm([torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats], torch.from_numpy(txt), pt,
+                   torch.Generator().manual_seed(0))
+    loss, _ = rtdetr_detection_loss(out_p, pt, DETRLossConfig(nc=HEAD_NC), match=jmatch)
+    hm.zero_grad()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-4)
+    nd = out_p["num_dn"]
+    assert nd == int(out_j["num_dn"]) == 2 * (HEAD_ND // M) * M
+    for k in ("dec_bboxes", "dec_scores"):
+        got, want = out_p[k].detach().numpy(), np.asarray(out_j[k])
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-3, err_msg=k)
+    hidx = len(port.specs)
+    gsd, _ = from_jax_variables({**params, "head": _to_np(jax.device_get(jgrads))}, bs, port)
+    g32 = {k: p.grad.double().numpy() if p.grad is not None else np.zeros(tuple(p.shape))
+           for k, p in ((f"model.{hidx}.{n}", p) for n, p in hm.named_parameters())}
+    gj = {k: gsd[k].double().numpy() for k in g32}
+    whole = lambda g: np.concatenate([v.ravel() for v in g.values()])  # noqa: E731
+    rel = float(_rel_err(whole(g32), whole(gj)))
+    top = max(np.linalg.norm(g) for g in gj.values())
+    per_tensor = {k: float(_rel_err(g, gj[k])) for k, g in g32.items() if np.linalg.norm(gj[k]) > 1e-6 * top}
+    print(f"{head}: head gradient |port - jax| {rel}; worst tensor {max(per_tensor.items(), key=lambda kv: kv[1])}")
+    assert rel < 2e-2, rel
+    for k, e in per_tensor.items():
+        assert e < 7.5e-2, (k, e)
+    assert sum(np.abs(g).max() > 0 for g in g32.values()) > 0.5 * len(g32)

@@ -19,7 +19,9 @@ checks to `<out>.<rank>` (torch.save):
   rect: the same, for the rect val of the narrow Detect model;
   yolo: one step of the narrow Detect model (`torch_engine_data.py:
         yolo_narrow_cfg`, heads spread) on 4 images of 64 px: one process
-        at one and at three torch threads, 2 data ranks of 2.
+        at one and at three torch threads, 2 data ranks of 2;
+  segment: the same step of the narrow model with a Segment head, each
+        gt's mask its box's rectangle.
 """
 
 import copy
@@ -182,14 +184,16 @@ def val(root):
     return eng.val(**spec["args"])
 
 
-def yolo():
+def yolo(head: str = "Detect"):
     from torch_engine_data import yolo_narrow_cfg
 
     from tamtr_torch.nn.graph import TAMTRModel
     from tamtr_torch.train.trainer import loss_config_for
     from tamtr_torch.weights import init_parameters
 
-    model = TAMTRModel(yolo_narrow_cfg(3), max_gt=3)
+    cfg_json = yolo_narrow_cfg(3)
+    cfg_json["head"][-1] = [[15, 18, 21], 1, head, ["nc"]]
+    model = TAMTRModel(cfg_json, max_gt=3)
     init_parameters(model, 0)
     with torch.no_grad():  # boxes of about 3 cells and scores near 0.5: anchors are assigned from the start
         for b, c in zip(model.model[-1].cv2, model.model[-1].cv3):
@@ -197,8 +201,15 @@ def yolo():
             c[2].bias.zero_()
     batch = nano_batch(nc=3, hd=512)
     batch["bboxes"][..., 2:] *= 0.4
-    cfg = TrainConfig(batch_size=4, warmup_iters=10, epochs=2, accumulate=1)
     items = ("loss", "box", "cls", "dfl")
+    if head == "Segment":  # each gt's mask: its box's rectangle at the protos' size
+        boxes = batch["bboxes"]
+        g = (np.arange(16) + 0.5) / 16
+        lo, hi = boxes[..., :2] - boxes[..., 2:] / 2, boxes[..., :2] + boxes[..., 2:] / 2
+        ins = [(g >= lo[..., k, None]) & (g < hi[..., k, None]) for k in (0, 1)]
+        batch["masks"] = (ins[1][..., :, None] & ins[0][..., None, :]).astype(np.float32)
+        items += ("seg",)
+    cfg = TrainConfig(batch_size=4, warmup_iters=10, epochs=2, accumulate=1)
 
     def step(**kw):
         tr = Trainer(copy.deepcopy(model), cfg, loss_cfg=loss_config_for(model, imgsz=64), steps_per_epoch=10,
@@ -222,6 +233,7 @@ if __name__ == "__main__":
     case, out_path = sys.argv[1], sys.argv[2]
     init_distributed("cpu")
     result = {"tiny": tiny, "nano": nano, "nano_bf16": lambda: nano(torch.bfloat16), "stem_bf16": stem_bf16,
-              "val": lambda: val(sys.argv[3]), "rect": lambda: val(sys.argv[3]), "yolo": yolo}[case]()
+              "val": lambda: val(sys.argv[3]), "rect": lambda: val(sys.argv[3]), "yolo": yolo,
+              "segment": lambda: yolo("Segment")}[case]()
     torch.save(result, f"{out_path}.{dist.get_rank()}")
     dist.destroy_process_group()
