@@ -186,7 +186,7 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
 9-rtdetr. rtdetr: `rtdetr.yaml` (AIFI, RTDETRDecoder; nc 10, full width,
    seeded, head spread): eval at 640 px, batch 1 and 4, card = CPU as a set
    (1e-3), `fuse=True` (1e-4) and `half=True` (RMS) beside it; serve ms at
-   batch 1 and 4; one training step card against CPU at 640 px, batch 4,
+   batch 1 and 4; one training step card against CPU at 320 px, batch 2,
    max_gt 300 (`detr_train_parity` of the whole model and of the head
    alone on its eval features: the assignments' agreeing share, and given
    the CPU's assignment and top-k order the gradient within 2x the CPU's
@@ -199,11 +199,29 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
 9-heads. heads: ManbaDecoder, DecouplingManbaWorldDecoder,
    DecouplingDFLManbaWorldDecoder, locationManbaDecoder and
    DualRTDETRDecoder (levels [32, 36, 32, 36]) on `tamtr.yaml`'s wiring,
-   full width, 256 px, batch 2: eval card = CPU (1e-3), one whole step
+   full width, 160 px, batch 2: eval card = CPU (1e-3), one whole step
    on the card (finite), the head's step card vs CPU on the model's eval
    features given the CPU's assignment (`detr_train_parity`), the launches
    counted per head (`HEAD_VARIANTS`: B1 3 a forward but for Dual; B2 3 or
    6; a Dual step's B4 3).
+9-classify. classify: `classify-gelan.yaml` (nc 10, full width, seeded,
+   every BatchNorm calibrated): eval at 224 px, batch 1 and 16, card = CPU
+   (1e-3 on logits and probabilities); `YOLO.predict` of the JPEG
+   fixtures; one cross-entropy step card vs CPU at 224 px, batch 8 (the
+   loss and the whole gradient within 2x the CPU's fp32-vs-fp64 distance);
+   a timed step at batch 16 (ms, device ms, busy share, peak); one epoch of
+   `YOLO.train` on a generated 3-class ImageFolder and val, `best.pt`
+   reloaded. No kernel runs on the path.
+9-sam. sam: seeded mobile_sam and sam_b at 1024 px, their zero tensors and
+   norms spread, on the 1360x765 fixture, card vs CPU: the embedding
+   (1e-3), 4 boxes, 4 multimask points and generate's batch of 64 grid
+   points (logits 1e-3, scores 1e-4), `generate` on that 8x8 grid with
+   conf -10, stability -1 and NMS IoU 1 (all 192 masks: the same count,
+   sorted scores 1e-4, IoU >= 0.99 each), timed on the card; sam_l and sam_h one encode and one prompt batch on
+   the card, timed, peak memory; FastSAM (`yolo-seg-gelan.yaml`) predict
+   card vs CPU and its box and point prompts equal but for threshold ties;
+   `auto_annotate` of the fixtures with a seeded yolo-gelan and mobile_sam,
+   every label line a segment. No kernel runs on these paths.
 9a. parallel: in a process of its own, `torch.distributed` over NCCL with
    a world of one rank on the card, deterministic algorithms on: one
    `Trainer.step` of `tamtr.yaml` at 640 px, batch 4, max_gt 300 under the
@@ -235,7 +253,8 @@ and each phase's wall seconds follow it on a line "phase <name>: <s> s".
    events behind a spin kernel where the profiler recorded no kernel).
    One JSON line of per-kernel numbers (`launches_fit`: the fit phase's;
    `launches_yolo`, `launches_loss_variants`, `launches_rtdetr`,
-   `launches_heads`: those phases'; B2's, B4's and B5's RT-DETR shape
+   `launches_heads`, `launches_seg_pose`, `launches_classify`,
+   `launches_sam`: those phases'; B2's, B4's and B5's RT-DETR shape
    rows), then the result line `{"ok": true, "device": {...}}` last.
 """
 
@@ -3270,6 +3289,470 @@ def seg_pose(dev, data: str):
     return out, launches
 
 
+CLS_NC, CLS_IMGSZ = 10, 224
+CLS_PARITY_BATCH = 8  # the train parity's batch: the CPU's fp32 and fp64 passes over classify-gelan at 224 px
+CLS_STEP_BATCH, CLS_STEPS = 16, 3  # the timed step: two warm-up steps, then CLS_STEPS timed and one profiled
+
+
+def calibrate_bn(model, img):
+    """Every BatchNorm of `model` holding its input's batch moments over
+    `img` in one train-mode forward (`tests/torch_engine_data.py:
+    calibrate_bn`): in eval the model then computes that forward, its
+    activations of order 1 at every layer (at init SiLU shrinks them to
+    ~1e-4 at a GELAN's last map, and the logits would be the Dense biases)."""
+    from tamtr_torch.nn.layers import BN_MOMENTUM
+
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        for bn in bns:
+            bn.running_mean.zero_()
+            bn.running_var.zero_()
+        model.train()(img, torch.zeros(img.shape[0], 1, 512, device=img.device))
+        for bn in bns:
+            bn.running_mean.div_(BN_MOMENTUM)
+            bn.running_var.div_(BN_MOMENTUM)
+    return model.eval()
+
+
+def classify_train_parity(dev, base, batch):
+    """One cross-entropy training step of `base` (a Classify model) card
+    against CPU from one state dict, by `yolo_train_parity`'s rule: the loss
+    within 2x the CPU's fp32-vs-fp64 distance (or 1e-6), the whole gradient
+    within 2x the same distance. Returns the summary."""
+    import copy
+
+    from tamtr_torch.train.trainer import ce_loss
+
+    def grads_on(d, dtype=torch.float32):
+        model = copy.deepcopy(base).to(d, dtype).train()
+        out = model(torch.from_numpy(batch["img"]).to(d, dtype), torch.zeros(1, 1, 512, device=d, dtype=dtype))
+        loss, items = ce_loss(out, {"cls": torch.from_numpy(batch["cls"]).to(d)})
+        loss.backward()
+        grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).detach().flatten().cpu().double()
+                           for p in model.parameters()])
+        return {"loss": float(loss.detach()), "top1": float(items["top1"])}, grads
+
+    t0 = time.perf_counter()
+    cpu_items, cpu_g = grads_on(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    card_items, card_g = grads_on(dev)
+    exact_items, exact_g = grads_on(torch.device("cpu"), torch.float64)
+    rel = lambda a, b: abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-12)  # noqa: E731
+    worst, noise = rel(card_items, cpu_items), rel(cpu_items, exact_items)
+    d_card, d_noise = (card_g - cpu_g).norm().item(), (cpu_g - exact_g).norm().item()
+    summary = dict(px=batch["img"].shape[1], batch=len(batch["img"]), loss_cpu=cpu_items["loss"],
+                   loss_card=card_items["loss"], loss_rel=worst, loss_noise_rel=noise,
+                   grad_rel=d_card / cpu_g.norm().item(), grad_noise_rel=d_noise / cpu_g.norm().item(),
+                   cpu_fwd_bwd_s=cpu_s)
+    if not (bool(torch.isfinite(card_g).all()) and math.isfinite(card_items["loss"])
+            and worst <= 2 * max(noise, 1e-6) and d_card <= 2 * d_noise):
+        raise AssertionError(f"classify train parity failed: {summary}")
+    return summary
+
+
+def image_folder(root, classes=("red", "green", "blue"), n=(8, 4), seed: int = 0) -> str:
+    """An ImageFolder `root/{train,val}/<class>/*.png` written by the port's
+    PNG encoder: n[0] and n[1] images a class of 200-300 px sides, noise
+    with the class's colour channel raised; returns root."""
+    from pathlib import Path
+
+    from tamtr_torch.data.image_io import imwrite
+
+    rng = np.random.default_rng(seed)
+    for split, k in zip(("train", "val"), n):
+        for ci, c in enumerate(classes):
+            d = Path(root) / split / c
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(k):
+                img = rng.integers(0, 80, (int(rng.integers(200, 300)), int(rng.integers(200, 300)), 3),
+                                   dtype=np.uint8)
+                img[..., 2 - ci] += 150  # BGR: the class's colour
+                imwrite(d / f"{i}.png", img)
+    return str(root)
+
+
+def classify_phase(dev):
+    """`classify-gelan.yaml` at full width (nc 10, seeded weights, every
+    BatchNorm calibrated on 16 random images: `calibrate_bn`) on the card,
+    every launch counter zeroed before and read after (no kernel of the
+    port runs on this path):
+      - eval at 224 px, batch 1 and 16: logits and probabilities card
+        against the CPU on one state dict within 1e-3; `Engine.predict`
+        (`YOLO.predict`) of the JPEG fixtures: one dict an image, its
+        probabilities a distribution; the b1 forward's ms beside a
+        one-file request's (host clock);
+      - one cross-entropy step card vs CPU at 224 px, batch
+        CLS_PARITY_BATCH (`classify_train_parity`), then `Trainer.step` at
+        224 px, batch 16: two warm-up steps, CLS_STEPS timed, one profiled
+        (wall, device ms, busy share), peak memory;
+      - `YOLO.train` for one epoch (workers 0) on a generated ImageFolder
+        of 3 classes and val after it: top-1 and top-5 printed; `best.pt`
+        reloaded gives the trained model's probabilities."""
+    import copy
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tamtr_torch import YOLO
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.train.trainer import TrainConfig
+    from tamtr_torch.weights import init_parameters
+
+    counters = zero_counters()
+    out = {}
+    rng = np.random.default_rng(7)
+    img = torch.from_numpy(rng.random((CLS_STEP_BATCH, CLS_IMGSZ, CLS_IMGSZ, 3), dtype=np.float32)).to(dev)
+    model = TAMTRModel.from_cfg("classify-gelan.yaml", nc=CLS_NC)
+    init_parameters(model, 0)
+    model = calibrate_bn(model.to(dev), img)
+    cpu_model = copy.deepcopy(model).cpu()
+    x = torch.from_numpy(rng.random((CLS_STEP_BATCH, CLS_IMGSZ, CLS_IMGSZ, 3), dtype=np.float32))
+    txt = torch.zeros(1, 1, 512)
+    with torch.inference_mode():
+        for b in (1, CLS_STEP_BATCH):
+            g, w = model(x[:b].to(dev), txt.to(dev)), cpu_model(x[:b], txt)
+            worst = {k: float((g[k].cpu() - w[k]).abs().max()) for k in ("logits", "pred")}
+            out[f"eval_b{b}_worst"] = worst
+            out[f"eval_b{b}_logit_std"] = float(w["logits"].std())
+            if not torch.isfinite(g["logits"]).all() or max(worst.values()) > 1e-3 or w["logits"].std() < 0.1:
+                raise AssertionError(f"classify eval b{b}: card vs cpu {worst}, logit std {float(w['logits'].std())}")
+        ts = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x[:1].to(dev), txt.to(dev))
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out["forward_b1_ms_median"] = float(np.median(ts[1:]))
+    det = YOLO("classify-gelan.yaml", nc=CLS_NC, imgsz=CLS_IMGSZ, device=dev)
+    det._lazy_engine().model = model
+    det._engine.names = [f"class{i}" for i in range(CLS_NC)]
+    n = len(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    t0 = time.perf_counter()
+    res = det.predict(JPEG_FIXTURES)
+    out["predict_files_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / n
+    one = f"{JPEG_FIXTURES}/{PARITY_FIXTURES[1]}"
+    ts = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        det.predict(one)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    out["request_b1_ms_median"] = float(np.median(ts[1:]))
+    if len(res) != n or not all(r["probs"].shape == (CLS_NC,) and abs(float(r["probs"].sum()) - 1) < 1e-4
+                                and len(r["top5"]) == 5 for r in res):
+        raise AssertionError(f"classify predict files: {[r['probs'].shape for r in res]}")
+    del det, cpu_model
+
+    batch = {"img": rng.random((CLS_PARITY_BATCH, CLS_IMGSZ, CLS_IMGSZ, 3), dtype=np.float32),
+             "cls": rng.integers(0, CLS_NC, (CLS_PARITY_BATCH, 1)).astype(np.int32)}
+    out["train_parity"] = classify_train_parity(dev, copy.deepcopy(model).cpu(), batch)
+    step_batch = {"img": rng.integers(0, 256, (CLS_STEP_BATCH, CLS_IMGSZ, CLS_IMGSZ, 3), dtype=np.uint8),
+                  "txt_feats": np.zeros((1, 1, 512), np.float32),
+                  "cls": rng.integers(0, CLS_NC, (CLS_STEP_BATCH, 1)).astype(np.int32),
+                  "bboxes": np.zeros((CLS_STEP_BATCH, 1, 4), np.float32), "mask": np.zeros((CLS_STEP_BATCH, 1), bool)}
+    trainer_det = YOLO("classify-gelan.yaml", nc=CLS_NC, seed=0, max_gt=1, imgsz=CLS_IMGSZ, device=dev)
+    tr = trainer_det.trainer(TrainConfig(batch_size=CLS_STEP_BATCH, accumulate=1), seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        tr.step(step_batch)
+    steps, logs = [], []
+    for _ in range(CLS_STEPS):
+        t0 = time.perf_counter()
+        logs.append(tr.step(step_batch))  # ends in host reads of the metrics
+        steps.append((time.perf_counter() - t0) * 1e3)
+    out["step_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(step_batch)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = profiled_kernel_ms(prof)
+    out.update(step_ms=steps, step_ms_median=float(np.median(steps)), step_wall_profiled_ms=wall,
+               step_device_ms=busy, step_busy_share=busy and busy / wall,
+               step_items=[{k: m[k] for k in ("loss", "cls", "top1")} for m in logs])
+    if not all(math.isfinite(m[k]) for m in logs for k in ("loss", "grad_norm")) \
+            or not all(m["stepped"] == 1.0 for m in logs):
+        raise AssertionError(f"classify steps: {logs}")
+    del tr, trainer_det, model
+    torch.cuda.empty_cache()
+
+    root = Path("build/classify")
+    data = image_folder(root / "data")
+    fitter = YOLO("classify-gelan.yaml", imgsz=CLS_IMGSZ, device=dev)
+    t0 = time.perf_counter()
+    fit = fitter.train(data=data, epochs=1, batch=8, imgsz=CLS_IMGSZ, workers=0, warmup_epochs=0, lr0=1e-3,
+                       plots=False, project=str(root), name="fit", exist_ok=True)
+    fit_s = time.perf_counter() - t0
+    val = fitter.val(data=data, batch=8)
+    best = YOLO("classify-gelan.yaml", imgsz=CLS_IMGSZ, device=dev).load(root / "fit" / "weights" / "best.pt")
+    src = f"{data}/val/red"
+    diff = max(float(np.abs(a["probs"] - b["probs"]).max()) for a, b in zip(best.predict(src), fitter.predict(src)))
+    out["fit"] = dict(fit, seconds=fit_s, val=val, best_reload_probs_worst=diff,
+                      step_ms_median=float(np.median(fitter._engine.timing["step_ms"])))
+    if best.model.head_type != "Classify" or val != fit or diff > 1e-5 or not 0.0 <= fit["top1"] <= 1.0:
+        raise AssertionError(f"classify fit: {out['fit']}")
+    del fitter, best
+    torch.cuda.empty_cache()
+    say(f"classify classify-gelan.yaml {CLS_IMGSZ}px nc {CLS_NC}: {json.dumps(out)}", flush=True)
+    return out, check_counts("classify", counters, 0)
+
+
+SAM_POINTS_STRIDE = 8  # generate's point grid: 8 x 8 prompts, one batch of 64 (the CPU side's cost)
+SAM_GENERATE = dict(points_stride=SAM_POINTS_STRIDE, conf_thres=-10.0, stability_score_thresh=-1.0)
+SAM_PARITY_PX = {"mobile_sam": 1024, "sam_b": 1024}  # the card-vs-CPU size of each model
+SAM_FIXTURE = f"{JPEG_FIXTURES}/{PARITY_FIXTURES[1]}"  # the 1360x765 fixture
+# Seeded weights give every low-res mask a box of the whole letterboxed input (0.984-0.992 of its area on
+# the card, mobile_sam and sam_b, spread or not), so NMS at any IoU below 1 keeps one mask of the 192 (64
+# points x 3). The parity's NMS drops only boxes of IoU above 1: every mask goes through the filters, the
+# boxes, the sort and the upscale into the comparison.
+SAM_NMS_IOU = 1.0
+SAM_MIN_MASKS = 4  # generate must keep at least this many masks
+
+
+@torch.no_grad()
+def spread_sam(sam, seed: int = 0, scale: float = 0.2):
+    """A SAM with its zero-initialised tensors (pos_embed, rel_pos_*,
+    attention_biases, the biases) and its norms' and BatchNorms' scales,
+    biases and statistics given seeded random values, so that every
+    parameter moves the output and segment-everything keeps many masks
+    (the CPU tests' `tests/torch_engine_data.py:spread_sam`)."""
+    g = torch.Generator().manual_seed(seed)
+    for name, t in sam.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if name.endswith("running_var"):
+            t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+        elif name.endswith(("bias", "running_mean", "pos_embed", "rel_pos_h", "rel_pos_w", "attention_biases")):
+            t.copy_(torch.randn(t.shape, generator=g) * scale)
+        elif t.ndim == 1 and name.endswith("weight"):  # LayerNorm and BatchNorm scales
+            t.copy_(1.0 + torch.randn(t.shape, generator=g) * scale)
+    return sam
+
+
+def sam_parity(dev, name: str, img):
+    """A seeded SAM (`build_sam(name)`, or at SAM_PARITY_PX[name] through
+    `_build_sam`), spread (`spread_sam`), card against CPU on one state
+    dict: the image embedding within 1e-3, `prompt_inference` with 4 boxes
+    and with 4 points (multimask), and with generate's own batch of 64 grid
+    points before its filters: the low-res logits within 1e-3 and the
+    scores within 1e-4; `generate` (SAM_GENERATE: every mask kept up to
+    the NMS, SAM_NMS_IOU): at least SAM_MIN_MASKS masks, the same number on
+    both, their sorted scores within 1e-4, each card mask of IoU >= 0.99
+    with the CPU's (in order, or with its best CPU match where near-equal
+    scores ordered them apart).
+    The card's set_image and generate timed. Returns (summary, the card's
+    predictor)."""
+    import copy
+
+    from tamtr_torch.models.sam import amg
+    from tamtr_torch.models.sam.build import _build_sam, build_sam
+    from tamtr_torch.models.sam.predict import SAMPredictor
+
+    px = SAM_PARITY_PX[name]
+    sam = spread_sam(build_sam(name) if px == 1024 else _build_sam(768, 12, 12, [2, 5, 8, 11], img_size=px))
+    cpu = SAMPredictor(copy.deepcopy(sam), iou=SAM_NMS_IOU, device="cpu")
+    card = SAMPredictor(sam, iou=SAM_NMS_IOU, device=dev)
+    res = {"px": px}
+    t0 = time.perf_counter()
+    cpu.set_image(img)
+    t1 = time.perf_counter()
+    card.set_image(img)  # the first: cuDNN and cuBLAS pick their algorithms
+    ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        card.set_image(img)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t2) * 1e3)
+    res.update(cpu_set_image_s=t1 - t0, set_image_ms_median=float(np.median(ts)),
+               embedding_worst=float((card.features.cpu() - cpu.features).abs().max()),
+               embedding_std=float(cpu.features.std()))
+    h, w = img.shape[:2]
+    rng = np.random.default_rng(8)
+    xy = rng.uniform(0, [w * 0.6, h * 0.6], (4, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(80, 300, (4, 2))], 1)
+    points = rng.uniform(0, [w, h], (4, 2))
+    grid = amg.build_all_layer_point_grids(SAM_POINTS_STRIDE, 0, 1)[0] * np.float32(px)  # generate's first batch
+    for key, kw in (("boxes", dict(bboxes=boxes)), ("points", dict(points=points, multimask_output=True)),
+                    ("grid", dict(points=grid, multimask_output=True))):
+        card.segment_all = cpu.segment_all = key == "grid"  # grid points are in the input's pixels, as generate's
+        (gl, gs), (wl, ws) = card.prompt_inference(**kw), cpu.prompt_inference(**kw)
+        res[f"{key}_logits_worst"], res[f"{key}_scores_worst"] = float(np.abs(gl - wl).max()), float(
+            np.abs(gs - ws).max())
+        if gl.shape != wl.shape or not np.isfinite(gl).all() or res[f"{key}_logits_worst"] > 1e-3 \
+                or res[f"{key}_scores_worst"] > 1e-4:
+            raise AssertionError(f"sam {name} {key}: {res}")
+    t0 = time.perf_counter()
+    cm, cs, cb = cpu.generate(**SAM_GENERATE)
+    res["cpu_generate_s"] = time.perf_counter() - t0
+    card.generate(**SAM_GENERATE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gm, gs, gb = card.generate(**SAM_GENERATE)
+    res["generate_ms"] = (time.perf_counter() - t0) * 1e3
+    card.segment_all = cpu.segment_all = False
+    iou = lambda a, b: float((a & b).sum() / max((a | b).sum(), 1))  # noqa: E731
+    ious = [iou(a, b) for a, b in zip(gm, cm)]
+    if len(gm) == len(cm) and min(ious, default=1.0) < 0.99:  # near-equal scores may order them apart
+        ious = [max(iou(a, b) for b in cm) for a in gm]
+    res.update(masks_card=len(gm), masks_cpu=len(cm), worst_mask_iou=min(ious, default=1.0),
+               generate_scores_worst=float(np.abs(np.sort(gs) - np.sort(cs)).max()) if len(gs) == len(cs) else None)
+    if len(gm) != len(cm) or len(gm) < SAM_MIN_MASKS or min(ious) < 0.99 or gm.shape[1:] != (px, px) \
+            or res["generate_scores_worst"] > 1e-4:
+        raise AssertionError(f"sam {name} generate: {res}")
+    if res["embedding_worst"] > 1e-3:
+        raise AssertionError(f"sam {name} embedding: {res}")
+    return res, card
+
+
+def fastsam_check(dev, img_path: str):
+    """`FastSAM()` (`yolo-seg-gelan.yaml`, nc 10, seeded, heads spread and
+    calibrated on the fixture) predicts the fixture on the card and on the
+    CPU from one state dict: the same rows (labels equal, boxes within 1e-3
+    of the image's size); then `FastSAM.prompt` by box and by points
+    (one negative) on each `Results`: the masks equal but for pixels where
+    the CPU's mask probability at the image's size lies within 1e-4 of
+    0.5 (ties of the threshold)."""
+    import copy
+
+    from tamtr_torch import FastSAM
+    from tamtr_torch.data.image_io import imread
+    from tamtr_torch.data.imgproc import resize_linear_f32
+
+    rng = np.random.default_rng(9)
+    text = rng.standard_normal((YOLO_NC, 512)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    im0 = imread(img_path)
+    fs = FastSAM(nc=YOLO_NC, seed=0, device=dev)
+    spread_detect(fs.model)
+    x, _ = fs._to_batch([im0])
+    calibrate_task_head(fs.model, x, torch.from_numpy(text[None]).to(dev))
+    fs.set_classes([f"class{i}" for i in range(YOLO_NC)], text)
+    cpu = FastSAM(nc=YOLO_NC, device="cpu")
+    cpu._lazy_engine().model = copy.deepcopy(fs.model).cpu()
+    cpu.set_classes([f"class{i}" for i in range(YOLO_NC)], text)
+    (g,), (w,) = fs.predict(img_path, conf=0.25, max_det=20), cpu.predict(img_path, conf=0.25, max_det=20)
+    oh, ow = im0.shape[:2]
+    box_worst = float(np.abs(g.boxes.xyxy - w.boxes.xyxy).max() / max(oh, ow)) if len(g) == len(w) else None
+    if len(g) != len(w) or not len(g) or not np.array_equal(g.boxes.cls, w.boxes.cls) or box_worst > 1e-3:
+        raise AssertionError(f"fastsam rows: card {len(g)}, cpu {len(w)}, boxes {box_worst}")
+    res = {"rows": len(g), "box_worst": box_worst, "mask_prob_worst": float(np.abs(g.masks - w.masks).max())}
+    b = g.boxes.xyxy[0]
+    prompts = {"box": dict(bboxes=b + [-5, -5, 5, 5]),
+               "points": dict(points=[[(b[0] + b[2]) / 2, (b[1] + b[3]) / 2], [5, 5]], labels=[1, 0])}
+    for key, kw in prompts.items():
+        gm, wm = FastSAM.prompt(g, **kw), FastSAM.prompt(w, **kw)
+        full = np.stack([resize_linear_f32(m.astype(np.float32), (ow, oh)) for m in w.masks])
+        ties = (np.abs(full - 0.5) <= 1e-4).any(0)
+        res[f"{key}_pixels"], res[f"{key}_differ"] = int(gm.sum()), int((gm != wm).sum())
+        if gm.shape != (oh, ow) or ((gm != wm) & ~ties).any():
+            raise AssertionError(f"fastsam {key}: {res}")
+    if not res["box_pixels"] + res["points_pixels"]:
+        raise AssertionError(f"fastsam: both prompts selected empty masks: {res}")
+    return res
+
+
+class _FewDetections:
+    """A detector's predict capped at `max_det` boxes an image (a seeded
+    detector finds hundreds at a low conf)."""
+
+    def __init__(self, det, max_det: int):
+        self.det, self.max_det = det, max_det
+
+    def predict(self, source, conf: float = 0.25):
+        return self.det.predict(source, conf=conf, max_det=self.max_det)
+
+
+def annotate_check(dev, sam_predictor, root):
+    """`auto_annotate` of the JPEG fixtures with a seeded `yolo-gelan.yaml`
+    detector at conf 1e-6, 3 boxes an image, and the card's mobile_sam:
+    every written line parses as a segment label
+    (`DetectionDataset._parse_label_file`, task segment: one polygon a
+    line, in [0, 1])."""
+    import types
+    from pathlib import Path
+
+    from tamtr_torch import YOLO
+    from tamtr_torch.data.annotator import auto_annotate
+    from tamtr_torch.data.dataset import DetectionDataset
+
+    det = YOLO("yolo-gelan.yaml", nc=YOLO_NC, seed=0, device=dev)
+    det.set_classes([f"class{i}" for i in range(YOLO_NC)])
+    t0 = time.perf_counter()
+    out = auto_annotate(JPEG_FIXTURES, _FewDetections(det, 3), sam_model=sam_predictor, conf=1e-6,
+                        output_dir=Path(root) / "labels")
+    seconds = time.perf_counter() - t0
+    parser = types.SimpleNamespace(task="segment", kpt_shape=(17, 3))
+    files = sorted(out.glob("*.txt"))
+    lines = segments = 0
+    for f in files:
+        n = len(f.read_text().splitlines())
+        lab = DetectionDataset._parse_label_file(parser, str(f))
+        lines, segments = lines + n, segments + len(lab["segments"])
+        if len(lab["segments"]) != n or not all(((s >= 0) & (s <= 1)).all() for s in lab["segments"]):
+            raise AssertionError(f"auto_annotate {f.name}: {n} lines, {len(lab['segments'])} segments")
+    if not files:
+        raise AssertionError("auto_annotate wrote no label")
+    return dict(files=len(files), lines=lines, segments=segments, seconds=seconds)
+
+
+def sam_phase(dev):
+    """Segment Anything on the card with seeded weights (TF32 off, as the
+    whole run), every launch counter zeroed before and read after (no
+    kernel of the port runs on these paths): `sam_parity` of mobile_sam
+    and sam_b at 1024 px on the 1360x765 fixture; sam_l and sam_h: one
+    encode and one prompt batch of 4 boxes on the card alone, timed, peak
+    memory, finite, shapes those of the JAX package's (64x64x256
+    embedding, 256x256 logits); `fastsam_check`; `annotate_check` with
+    mobile_sam."""
+    from tamtr_torch.api import variable_count
+    from tamtr_torch.data.image_io import imread
+    from tamtr_torch.models.sam.build import build_sam
+    from tamtr_torch.models.sam.predict import SAMPredictor
+
+    counters = zero_counters()
+    img = imread(SAM_FIXTURE)
+    out = {}
+    mobile = None
+    for name in SAM_PARITY_PX:
+        out[name], pred = sam_parity(dev, name, img)
+        if name == "mobile_sam":
+            mobile = pred
+        else:
+            del pred
+        say(f"sam {name}: {json.dumps(out[name])}", flush=True)
+    for name in ("sam_l", "sam_h"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pred = SAMPredictor(build_sam(name), device=dev)
+        pred.set_image(img)  # cuDNN and cuBLAS pick their algorithms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.set_image(img)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        boxes = np.array([[100, 100, 500, 400], [600, 200, 900, 700], [0, 0, 1359, 764], [300, 300, 350, 340]])
+        t0 = time.perf_counter()
+        lowres, scores = pred.prompt_inference(bboxes=boxes)
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        res = dict(set_image_ms=enc_ms, prompt_ms=dec_ms, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                   embedding_shape=list(pred.features.shape), logits_shape=list(lowres.shape),
+                   params_m=variable_count(pred.sam) / 1e6)
+        if res["embedding_shape"] != [1, 64, 64, 256] or res["logits_shape"] != [4, 256, 256] \
+                or not (np.isfinite(lowres).all() and np.isfinite(scores).all()
+                        and bool(torch.isfinite(pred.features).all())):
+            raise AssertionError(f"sam {name}: {res}")
+        out[name] = res
+        say(f"sam {name}: {json.dumps(res)}", flush=True)
+        del pred
+    torch.cuda.empty_cache()
+    out["fastsam"] = fastsam_check(dev, SAM_FIXTURE)
+    say(f"sam fastsam: {json.dumps(out['fastsam'])}", flush=True)
+    out["auto_annotate"] = annotate_check(dev, mobile, "build/annotate")
+    say(f"sam auto_annotate: {json.dumps(out['auto_annotate'])}", flush=True)
+    return out, check_counts("sam", counters, 0)
+
+
 def loss_variants(dev):
     """One full-width TAM-TR `Trainer.step` at 640 px, batch 4, max_gt 300
     for each DETR loss switch (`use_sl`, `use_svfl`, `nwd_loss`,
@@ -3653,6 +4136,7 @@ def parallel(data: str) -> dict:
 
 RTDETR_NC = 10
 RTDETR_STEPS = 3  # timed Trainer.steps, after two warm-up steps
+RTDETR_PARITY = (320, 2)  # the train parity's px and batch: its CPU fp32 and fp64 passes at 640 b4 took ~80 s
 # launches per forward of rtdetr.yaml: the gather once per decoder layer (6),
 # no scan (no VSS mixers); per training step also the gather's backward
 # (buckets, rows) per layer and the assignment of the 7 matched layers x 4
@@ -3672,7 +4156,7 @@ HEAD_VARIANTS = {
     "locationManbaDecoder": ([32, 36, 40], [], {**SCAN_FWD, "bilinear_gather_fwd": 3}, 3),
     "DualRTDETRDecoder": ([32, 36, 32, 36], [], {"bilinear_gather_fwd": 6}, 3),
 }
-HEADS_IMGSZ, HEADS_BATCH, HEADS_MAX_GT = 256, 2, 32
+HEADS_IMGSZ, HEADS_BATCH, HEADS_MAX_GT = 160, 2, 32  # at 256 px a head took ~40 s, mostly the CPU side
 
 
 def launches_of(*parts):
@@ -3794,11 +4278,12 @@ def rtdetr(dev, data: str):
         unfused forward (1e-4, as a set), half=True (bf16) beside fp32 (RMS
         over paired rows); B2 6 a forward, no scan;
       - serve: `TAMTR.predict(images, text)` at batch 1 and 4, ms;
-      - one training step card vs CPU at 640 px, batch 4, max_gt 300,
-        TRAIN_VALID (`detr_train_parity`: the whole model, whose fp32
-        gradient lies a few times its norm from the fp64 one at this batch
-        (chaotic), and the head alone on the model's eval features, whose
-        floor is ~1%), then `Trainer.step` timed: two
+      - one training step card vs CPU at RTDETR_PARITY px and batch,
+        max_gt 300, TRAIN_VALID's first images (`detr_train_parity`: the
+        whole model, whose fp32 gradient lies a few times its norm from the
+        fp64 one at this batch (chaotic), and the head alone on the model's
+        eval features, whose floor is ~1%), then `Trainer.step` timed at
+        640 px, batch 4: two
         warm-up steps, RTDETR_STEPS timed, one profiled (device ms, busy
         share), peak memory; B2, pair_buckets and B4 6 a step,
         `auction_assignment` 1;
@@ -3874,16 +4359,17 @@ def rtdetr(dev, data: str):
                                      label_noise_ratio=0.0, box_noise_scale=0.0)
     init_parameters(base_model, 0)
     spread_scores(base_model, seed=1)
-    out["train_parity"] = detr_train_parity("rtdetr", base_model, batches[0], RTDETR_NC, dev)
+    px, pb = RTDETR_PARITY
+    pbatch = synthetic_batch(100, pb, px, TRAIN_MAX_GT, TRAIN_VALID[:pb], nc=RTDETR_NC)
+    out["train_parity"] = detr_train_parity("rtdetr", base_model, pbatch, RTDETR_NC, dev)
     feats = []
     hook = base_model.model[-1].register_forward_pre_hook(lambda m, a: feats.append(a[0]))
     with torch.no_grad():
-        base_model.eval()(torch.from_numpy(batches[0]["img"]).float() / 255.0,
-                          torch.from_numpy(batches[0]["txt_feats"]))
+        base_model.eval()(torch.from_numpy(pbatch["img"]).float() / 255.0, torch.from_numpy(pbatch["txt_feats"]))
     hook.remove()
-    out["head_train_parity"] = detr_train_parity("rtdetr head", base_model.model[-1], batches[0], RTDETR_NC, dev,
+    out["head_train_parity"] = detr_train_parity("rtdetr head", base_model.model[-1], pbatch, RTDETR_NC, dev,
                                                  feats=[f.clone() for f in feats[0]])
-    say(f"rtdetr train parity rtdetr.yaml {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}: whole model "
+    say(f"rtdetr train parity rtdetr.yaml {px}px b{pb} max_gt {TRAIN_MAX_GT}: whole model "
         f"{json.dumps(out['train_parity'])}; the head alone on the eval features "
         f"{json.dumps(out['head_train_parity'])}", flush=True)
     del base_model, feats
@@ -3949,7 +4435,7 @@ def rtdetr(dev, data: str):
 def heads(dev):
     """The variant heads on `tamtr.yaml`'s wiring, each at full width with
     its head row swapped (`HEAD_VARIANTS`; Dual on the levels [32, 36, 32,
-    36]), nc 10, seeded weights with the head spread, at 256 px, batch 2:
+    36]), nc 10, seeded weights with the head spread, at HEADS_IMGSZ px, batch 2:
     eval card = CPU as a set (1e-3; each of Dual's two predictions); one
     training step of the whole model on the card (its own assignment),
     finite; and the head's training step card vs CPU given the CPU's
@@ -4084,6 +4570,8 @@ def main() -> int:
     variants_summary, variants_launches = timed("loss_variants", loss_variants, dev)
     yolo_summary, yolo_launches = timed("yolo", yolo, dev, "build/fit/data.json")
     seg_pose_summary, seg_pose_launches = timed("seg_pose", seg_pose, dev, "build/fit/data.json")
+    classify_summary, classify_launches = timed("classify", classify_phase, dev)
+    sam_summary, sam_launches = timed("sam", sam_phase, dev)
     rtdetr_summary, rtdetr_launches = timed("rtdetr", rtdetr, dev, "build/fit/data.json")
     heads_summary, heads_launches = timed("heads", heads, dev)
     parallel_summary = timed("parallel", parallel, "build/fit/data.json")
@@ -4231,6 +4719,7 @@ def main() -> int:
                                     "bilinear_gather_bwd", "auction_assignment", "selective_scan_fwd", "scatter_acc",
                                     "scatter_acc_pairs")):
         entry.update(launches_yolo=yolo_launches[key], launches_seg_pose=seg_pose_launches[key],
+                     launches_classify=classify_launches[key], launches_sam=sam_launches[key],
                      launches_loss_variants=variants_launches[key],
                      launches_rtdetr=rtdetr_launches[key], launches_heads=heads_launches[key])
     kernels[1].update(c32_q300={**gather_c32, "shape": "value (1, 33600, 8, 32), Q = 300 (rtdetr eval)"},
@@ -4247,6 +4736,7 @@ def main() -> int:
     print(json.dumps({"fit": fit_summary}))
     print(json.dumps({"yolo": yolo_summary, "loss_variants": variants_summary}))
     print(json.dumps({"seg_pose": seg_pose_summary}))
+    print(json.dumps({"classify": classify_summary, "sam": sam_summary}))
     print(json.dumps({"rtdetr": rtdetr_summary, "heads": heads_summary}))
     print(json.dumps({"bf16": {k: bf16[k] for k in ("serve", "train", "fit", "launches")}}))
     print(json.dumps({"sp_blocks": {"max_abs_err": sp_err, "launches": {k: v for k, v in sp_launches.items() if v}},

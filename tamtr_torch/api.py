@@ -1,6 +1,15 @@
-"""User entry point: `TAMTR(...).predict(source)` or `.predict(images,
+"""User entry points: `TAMTR(...).predict(source)` or `.predict(images,
 text)`, `TAMTR(...).trainer()`, and `TAMTR(...).train(data=...)` /
-`.val(data=...)`.
+`.val(data=...)`; the facades the JAX package exports beside it
+(`tamtr_tpu/api.py`): `RTDETRWorld` (= TAMTR), `YOLO` (the task from the
+config's name), `RTDETR`, `NAS` (predict and val of a trained
+checkpoint), `SAM` (promptable and automatic segmentation,
+`models/sam/`) and `FastSAM` (a YOLO segment model with `prompt`,
+`models/fastsam.py`).
+
+A Classify config (`YOLO("classify-gelan.yaml")`) trains on an ImageFolder
+root (`train(data=root)`), validates top-1 / top-5 and predicts one dict
+an image (path, probs, top5, top5_conf, names) from files or arrays.
 
 `info()` gives the model's summary: layers, parameters and, once a model
 is held, GFLOPs. `fuse=True` to `predict`, `track` or `val` runs the fused
@@ -242,6 +251,10 @@ class TAMTR:
           (n, 4) xyxy in the image's pixels, "scores" (n,), "labels" (n,)
           int32.
         """
+        if text is None and self.model.head_type == "Classify":  # class probabilities, of arrays too
+            eng = self._lazy_engine()
+            eng.model = self.model
+            return eng.predict(images, **{"imgsz": self.imgsz, **overrides})
         if text is None:
             if not isinstance(images, (str, Path, list, tuple)) or (
                     isinstance(images, (list, tuple)) and not all(isinstance(x, (str, Path)) for x in images)):
@@ -279,3 +292,127 @@ class RTDETR(TAMTR):
 
     def __init__(self, model: Union[str, Path] = "rtdetr.yaml", **kw):
         super().__init__(model, **kw)
+
+
+class YOLO(TAMTR):
+    """The YOLO facade (`tamtr_tpu/api.py:107-126`): a `TAMTR` whose task
+    comes from the config's name unless given: "seg" -> segment, "pose" ->
+    pose, "classify" or "cls" -> classify, else detect (`yolo-gelan.yaml`,
+    `yolo-seg-gelan.yaml`, `yolo-pose-gelan.yaml`, `classify-gelan.yaml`).
+    The engine picks the head's task from the model itself; `task` is
+    informative."""
+
+    def __init__(self, model: Union[str, Path] = "yolo-gelan.yaml", task: Optional[str] = None, **kw):
+        stem = str(model).lower()
+        if task is None:
+            task = ("segment" if "seg" in stem else "pose" if "pose" in stem
+                    else "classify" if "classify" in stem or "cls" in stem else "detect")
+        self.task = task
+        super().__init__(model, **kw)
+
+
+# the reference's import name for the text-guided detector
+RTDETRWorld = TAMTR
+
+
+class FastSAM(YOLO):
+    """FastSAM (`tamtr_tpu/api.py:180-201`): a YOLO segment model
+    (`yolo-seg-gelan.yaml`) whose predict gives every instance's mask, and
+    `prompt(result, ...)` to select masks by box, point or text
+    (`models/fastsam.py:FastSAMPrompt`)."""
+
+    def __init__(self, model: Union[str, Path] = "yolo-seg-gelan.yaml", **kw):
+        super().__init__(model, task="segment", **kw)
+
+    @staticmethod
+    def prompt(result: Results, bboxes=None, points=None, labels=None, texts=None, embed_fn=None) -> np.ndarray:
+        """The mask of a box prompt, of point prompts, of a text prompt (in
+        that order of precedence), or every mask, at the image's size."""
+        from tamtr_torch.models.fastsam import FastSAMPrompt
+
+        p = FastSAMPrompt(result)
+        if bboxes is not None:
+            return p.box_prompt(bboxes)
+        if points is not None:
+            return p.point_prompt(points, labels)
+        if texts is not None:
+            return p.text_prompt(texts, embed_fn=embed_fn)
+        return p.everything()
+
+
+class NAS:
+    """Predict and val of a trained detection checkpoint
+    (`tamtr_tpu/api.py:204-245`; the reference wraps YOLO-NAS weights
+    this way): no config, and no training."""
+
+    def __init__(self, model: Union[str, Path] = "yolo_nas.pt", device: Optional[Union[str, torch.device]] = None):
+        if Path(model).suffix in (".yaml", ".yml", ".json"):
+            raise ValueError("NAS models only support pre-trained weights, not model configs")
+        self.weights, self.device = str(model), device
+        self._engine: Optional[Engine] = None
+
+    def _lazy_engine(self) -> Engine:
+        if self._engine is None:
+            self._engine = Engine("yolo-gelan.yaml", device=self.device).load(self.weights)
+        return self._engine
+
+    def predict(self, source=None, **kwargs):
+        return self._lazy_engine().predict(source, **kwargs)
+
+    def __call__(self, source=None, **kwargs):
+        return self.predict(source, **kwargs)
+
+    def val(self, **kwargs):
+        return self._lazy_engine().val(**kwargs)
+
+    def train(self, **kwargs):
+        raise NotImplementedError("NAS models only support predict/val (reference parity).")
+
+    def info(self) -> str:
+        return f"NAS({self.weights}): nc={len(self._lazy_engine().names)}"
+
+
+class SAM:
+    """Segment Anything (`tamtr_tpu/api.py:137-177`): "mobile_sam" (the
+    default), "sam_b", "sam_l" or "sam_h" with seeded weights, a path to
+    an `.npz` of the JAX package's SAM variables whose name ends in one of
+    them (`build_sam`), or a `SamModel`.
+
+        sam = SAM("mobile_sam")
+        sam("img.jpg", bboxes=[x1, y1, x2, y2])   # a mask per box
+        sam("img.jpg", points=[[x, y]], labels=[1])
+        sam("img.jpg")                            # segment everything
+
+    Runs on the card unless device="cpu"."""
+
+    def __init__(self, model="mobile_sam", device: Optional[Union[str, torch.device]] = None):
+        self.model_name, self.device = model, device
+        self._predictor = None
+
+    @property
+    def predictor(self):
+        if self._predictor is None:
+            from tamtr_torch.models.sam.predict import SAMPredictor
+
+            self._predictor = SAMPredictor(self.model_name, device=self.device)
+        return self._predictor
+
+    def __call__(self, source=None, **kwargs) -> List[Results]:
+        return self.predict(source, **kwargs)
+
+    def predict(self, source=None, bboxes=None, points=None, labels=None, **kwargs) -> List[Results]:
+        """Promptable segmentation with prompts, else automatic."""
+        return self.predictor(source, bboxes=bboxes, points=points, labels=labels, **kwargs)
+
+    def info(self) -> str:
+        """"SAM(<name>): <x>M params, imgsz=<s>", every variable counted
+        (`variable_count`: the TinyViT's BatchNorm statistics too, as JAX
+        counts them)."""
+        p = self.predictor
+        return f"SAM({self.model_name}): {variable_count(p.sam) / 1e6:.1f}M params, imgsz={p.imgsz}"
+
+    @property
+    def task_map(self):
+        from tamtr_torch.models.sam.predict import SAMPredictor
+
+        return {"segment": {"predictor": SAMPredictor}}

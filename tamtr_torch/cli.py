@@ -8,6 +8,7 @@ package's `tamtr_tpu/cli.py`, the reference's `yolo` entry point,
     python -m tamtr_torch detect track model=runs/detect/train/weights/best.pt source=frames/ tracker=bytetrack
     python -m tamtr_torch segment train data=coco-seg.yaml epochs=100
     python -m tamtr_torch pose val model=runs/detect/train/weights/best.pt data=coco-pose.yaml
+    python -m tamtr_torch classify train data=imagefolder/ epochs=10 imgsz=224
     python -m tamtr_torch serve model=runs/detect/train/weights/best.pt port=8000
     python -m tamtr_torch settings [reset] [key=value ...]
 
@@ -25,10 +26,12 @@ track on the fused model and `half=True` in bf16 (both may be set);
 `bf16=True` trains in bf16 with fp32 weights; `batch=-1` fits train's
 batch to the card. `segment` and `pose` run a segment or pose model
 (`yolo-seg-gelan.yaml`, `yolo-pose-gelan.yaml` by default): val prints the
-mask or keypoint mAP beside the box metrics. The modes `export`,
-`benchmark` and `tune` and the classify task are not ported: they exit
-with a message naming their ROADMAP entry; so do video and stream sources
-of `predict` and `track`.
+mask or keypoint mAP beside the box metrics. `classify` runs a classifier
+(`classify-gelan.yaml`) on an ImageFolder root (`data=` holding `train/`
+and `val/` or `test/`): val prints top-1 and top-5, predict one line an
+image with its top class and probability. The modes `export`, `benchmark`
+and `tune` are not ported: they exit with a message naming their ROADMAP
+entry; so do video and stream sources of `predict` and `track`.
 
 `device=0,1` (a list of card indices, as the reference takes it) shows the
 process those cards alone (CUDA_VISIBLE_DEVICES) and trains on all of them:
@@ -63,7 +66,6 @@ NOT_PORTED = {
     "export": "queue A, item 7 (engine/exporter.py and the AutoBackend export formats)",
     "benchmark": "queue A, item 7 (benchmarks.py)",
     "tune": "queue A, item 7 (engine/tuner.py)",
-    "classify": "queue A, item 7 (the Classify head and ClassificationDataset)",
 }
 
 
@@ -195,6 +197,9 @@ def main(argv: List[str] | None = None) -> None:
         save = ov.pop("save", False)
         out = Path(ov.get("project") or "runs") / "predict"
         for r in model.predict(source, **ov):
+            if isinstance(r, dict):  # a classifier's probabilities
+                print(f"{r['path']}: {r['names'][0]} {r['top5_conf'][0]:.4f}", flush=True)
+                continue
             print(f"{r.path}: {len(r)} detections", flush=True)
             if save:
                 r.save(out / Path(r.path).name)

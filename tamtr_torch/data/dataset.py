@@ -19,8 +19,14 @@ tasks).
   bi))`, so the batches are the JAX package's and do not depend on the
   worker count.
 
-Images are read by `data/image_io.py` (PNG, JPEG, BMP, `.npy`).
-`ClassificationDataset` is not ported.
+Classification (`ClassificationDataset`, `ClassificationLoader`; the JAX
+package's `tamtr_tpu/data/dataset.py:593-720`): an ImageFolder
+`root/<class>/*`, a random-resized crop and a flip in training, a
+short-side resize and a centre crop in eval, both resized as cv2 resizes
+(`imgproc.resize_linear`), and batches in this process.
+
+Images are read by `data/image_io.py` (PNG, JPEG, BMP, `.npy`); a TIFF or
+WebP file raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -516,3 +522,101 @@ class Loader:
     def __iter__(self):
         return iter(self._dl)
 
+
+
+class ClassificationDataset:
+    """Folder-per-class image classification dataset: `root/<class>/*`,
+    the classes sorted by name, each class's images sorted (at any depth).
+
+    `get(i, rng)` returns (img (S, S, 3) float32 RGB in [0, 1], class
+    index). With augment=True and a generator: a random-resized crop (area
+    scale in `scale`, aspect ratio in [3/4, 4/3], drawn from `rng` as
+    uniform, uniform, integers, integers) resized to S, then a left-right
+    flip with probability `fliplr` (`rng.random()`). Otherwise the short
+    side resized to S (rounded), then the centre crop."""
+
+    IMG_EXTS = IMG_EXTS
+
+    def __init__(self, root: str | Path, imgsz: int = 224, augment: bool = False,
+                 scale: Tuple[float, float] = (0.5, 1.0), fliplr: float = 0.5, seed: int = 0) -> None:
+        self.root = Path(root)
+        self.imgsz, self.augment, self.scale, self.fliplr, self.seed = imgsz, augment, scale, fliplr, seed
+        self.names = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        if not self.names:
+            raise FileNotFoundError(f"no class folders under {root}")
+        self.samples: List[Tuple[str, int]] = [
+            (str(f), ci) for ci, c in enumerate(self.names) for f in sorted((self.root / c).rglob("*"))
+            if f.suffix.lower() in self.IMG_EXTS]
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def get(self, i: int, rng: Optional[np.random.Generator] = None) -> Tuple[np.ndarray, int]:
+        path, label = self.samples[i]
+        img = _imread(path)
+        if img is None:
+            raise FileNotFoundError(path)
+        h, w = img.shape[:2]
+        s = self.imgsz
+        if self.augment and rng is not None:
+            area = rng.uniform(*self.scale) * h * w
+            ar = rng.uniform(3 / 4, 4 / 3)
+            cw = min(int(round(np.sqrt(area * ar))), w)
+            ch = min(int(round(np.sqrt(area / ar))), h)
+            x0 = rng.integers(0, w - cw + 1)
+            y0 = rng.integers(0, h - ch + 1)
+            img = imgproc.resize_linear(img[y0:y0 + ch, x0:x0 + cw], (s, s))
+            if rng.random() < self.fliplr:
+                img = img[:, ::-1]
+        else:
+            img = center_crop_resized(img, s)
+        return np.ascontiguousarray(img[..., ::-1], np.float32) / 255.0, label
+
+
+def center_crop_resized(img: np.ndarray, s: int) -> np.ndarray:
+    """The short side of a uint8 image resized to s (the long side rounded,
+    at least s) as cv2 resizes, then its centre (s, s) crop: the eval and
+    predict transform of a classifier."""
+    h, w = img.shape[:2]
+    r = s / min(h, w)
+    img = imgproc.resize_linear(img, (max(s, round(w * r)), max(s, round(h * r))))
+    hh, ww = img.shape[:2]
+    y0, x0 = (hh - s) // 2, (ww - s) // 2
+    return img[y0:y0 + s, x0:x0 + s]
+
+
+class ClassificationLoader:
+    """Batches of a `ClassificationDataset` built in this process: each
+    epoch's order shuffled by `default_rng(seed + epoch)`, process
+    `process_index` of `process_count` taking every process_count-th
+    image of it from its index on, the augmentations drawn from
+    `default_rng(seed * 9973 + epoch)`, the last partial batch dropped
+    (with drop_last). Every process yields `len(self)` batches, so a
+    training step's collectives pair up when the shards are uneven (the
+    JAX loader counts its own shard, and its first shards then take one
+    batch more). A batch is {"img" (B, S, S, 3) float32, "cls" (B, 1)
+    int32}."""
+
+    def __init__(self, dataset: ClassificationDataset, batch_size: int, shuffle: bool = True, seed: int = 0,
+                 drop_last: bool = True, process_index: int = 0, process_count: int = 1) -> None:
+        self.ds, self.bs, self.shuffle, self.seed, self.drop_last = dataset, batch_size, shuffle, seed, drop_last
+        self.pi, self.pc = process_index, process_count
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def __len__(self) -> int:
+        n = len(self.ds) // self.pc
+        return n // self.bs if self.drop_last else (n + self.bs - 1) // self.bs
+
+    def __iter__(self):
+        idxs = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idxs)
+        idxs = idxs[self.pi::self.pc]
+        rng = np.random.default_rng(self.seed * 9973 + self._epoch)
+        for s in range(0, len(self) * self.bs, self.bs):
+            chunk = idxs[s:s + self.bs]
+            imgs, labels = zip(*(self.ds.get(int(i), rng) for i in chunk))
+            yield {"img": np.stack(imgs), "cls": np.asarray(labels, np.int32)[:, None]}

@@ -17,20 +17,31 @@ has no cv2, so each call is rewritten here to give cv2's uint8 results:
   rows truncated in blocks of 32 pixels, the tail rounded); bitwise cv2's
   on all 2^24 colours and all 180 x 2^16 HSV triples.
 - `rotation_matrix` = `cv2.getRotationMatrix2D`.
-- `resize_linear_f32` = `cv2.resize` INTER_LINEAR of a float32 (H, W) map:
-  cv2's float coefficients (no fixed point), each tap product and sum
-  rounded to float32.
+- `resize_linear_f32` = `cv2.resize` INTER_LINEAR of a float32 (H, W) map
+  or (H, W, C) image: cv2's float coefficients (no fixed point), each tap
+  product and sum rounded to float32. cv2 itself runs float resizes
+  through IPP, which rounds up to one ulp apart from this (OpenCV's own
+  float path).
 - `fill_poly` = `cv2.fillPoly(img, [poly], value)` with 8-connected edges
   and shift 0: OpenCV's edge list (`CollectPolyEdges`,
   `FillEdgeCollection`: 16-bit fixed-point x steps, the polygon's outline
   drawn by its 8-connected line iterator, spans [x1, x2] between pairs of
   active edges). Bitwise cv2's on the tests' polygons.
+- `find_external_contours` = `cv2.findContours(mask, cv2.RETR_EXTERNAL,
+  cv2.CHAIN_APPROX_SIMPLE)[0]`: Suzuki-Abe border following as OpenCV
+  does it (a zero frame around the image; the raster scan with its last
+  marked border pixel `lnbd`, which skips components inside another's
+  hole; each border traced counterclockwise from its first pixel, the
+  right-bound pixels marked; a point kept where the chain code turns; the
+  list in reverse order of discovery), and `contour_area` =
+  `cv2.contourArea` (the shoelace sum in double). Bitwise cv2's on the
+  tests' masks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -187,7 +198,7 @@ def hsv2bgr(hsv: np.ndarray) -> np.ndarray:
 
 
 def resize_linear_f32(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
-    """Bilinear resize of a float32 (H, W) map to dsize = (w, h), as
+    """Bilinear resize of a float32 (H, W) map or (H, W, C) image to dsize = (w, h), as
     `cv2.resize(img, dsize)` computes it for float input: half-pixel
     centres, float32 weights (the horizontal tap clamped at the edges, the
     vertical weights not), the horizontal pass then the vertical one."""
@@ -209,8 +220,10 @@ def resize_linear_f32(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
     x0, x1, ax0, ax1 = taps(nw, w, True)
     y0, y1, ay0, ay1 = taps(nh, h, False)
     src = np.asarray(img, _F32)
-    hx = src[:, x0] * ax0 + src[:, x1] * ax1
-    return (hx[y0] * ay0[:, None] + hx[y1] * ay1[:, None]).astype(_F32)
+    col = (1, -1) + (1,) * (src.ndim - 2)
+    row = (-1,) + (1,) * (src.ndim - 1)
+    hx = src[:, x0] * ax0.reshape(col) + src[:, x1] * ax1.reshape(col)
+    return (hx[y0] * ay0.reshape(row) + hx[y1] * ay1.reshape(row)).astype(_F32)
 
 
 _XY_SHIFT = 16
@@ -341,3 +354,96 @@ def fill_poly(img: np.ndarray, poly: np.ndarray, value) -> np.ndarray:
             b[2] += b[3]
         active.sort(key=lambda e: e[2])
     return img
+
+
+# chain code k -> (dx, dy), and the flat offset of each direction (twice over)
+_CODE_DELTAS = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1), (1, 1))
+_RIGHT_BOUND = -126  # OpenCV's `nbd | -128` as a signed char, nbd = 2
+
+
+def _follow_border(img: np.ndarray, i0: int, W: int) -> np.ndarray:
+    """The border of the component whose outer border starts at flat index
+    i0 of the framed image (`icvFetchContour`, CHAIN_APPROX_SIMPLE):
+    counterclockwise, its pixels marked 2 or right-bound; (n, 2) int32
+    points in the unframed image's (x, y)."""
+    deltas = (1, -W + 1, -W, -W - 1, -1, W - 1, W, W + 1) * 2
+    pt = [i0 % W - 1, i0 // W - 1]
+    s = s_end = 4
+    while True:  # clockwise to the first nonzero neighbour
+        s = (s - 1) & 7
+        i1 = i0 + deltas[s]
+        if img[i1] != 0 or s == s_end:
+            break
+    if s == s_end:  # a single pixel
+        img[i0] = _RIGHT_BOUND
+        return np.asarray([pt], np.int32)
+    pts = []
+    i3, prev_s = i0, s ^ 4
+    while True:
+        s_end = s
+        while s < 15:  # counterclockwise from the pixel we came from
+            s += 1
+            i4 = i3 + deltas[s]
+            if img[i4] != 0:
+                break
+        s &= 7
+        if 1 <= s <= s_end:  # the search passed the right neighbour, a zero
+            img[i3] = _RIGHT_BOUND
+        elif img[i3] == 1:
+            img[i3] = 2
+        if s != prev_s:
+            pts.append(list(pt))
+            prev_s = s
+        pt[0] += _CODE_DELTAS[s][0]
+        pt[1] += _CODE_DELTAS[s][1]
+        if i4 == i0 and i3 == i1:
+            break
+        i3 = i4
+        s = (s + 4) & 7
+    return np.asarray(pts, np.int32)
+
+
+def find_external_contours(mask: np.ndarray) -> List[np.ndarray]:
+    """The outer borders of the nonzero components of a 2-D mask that lie
+    in no other component's hole, as (n, 2) int32 (x, y) point arrays:
+    `cv2.findContours(mask, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)`'s
+    contours (each (n, 1, 2) there), in its order."""
+    m = np.asarray(mask) != 0
+    h, w = m.shape
+    W = w + 2
+    framed = np.zeros((h + 2, W), np.int16)  # OpenCV's signed chars: 0, 1, 2 and right-bound marks
+    framed[1:-1, 1:-1] = m
+    img = framed.ravel()
+    found = []
+    for y in range(1, h + 1):
+        base = y * W
+        x, prev, lnbd = 1, 0, base  # lnbd: the last marked border pixel the scan passed on this row
+        while x <= w:
+            step = np.flatnonzero(img[base + x:base + w + 1] != prev)
+            if not len(step):
+                break
+            x += int(step[0])
+            p = int(img[base + x])
+            is_hole = False
+            if not (prev == 0 and p == 1):  # not an outer border's start
+                if p != 0 or prev < 1:
+                    prev, lnbd, x = p, base + x if p not in (0, 1) else lnbd, x + 1
+                    continue
+                if prev not in (0, 1):
+                    lnbd = base + x - 1
+                is_hole = True
+            if is_hole or img[lnbd] > 0:  # a hole, or a component inside another: not external
+                prev, lnbd, x = p, base + x if p not in (0, 1) else lnbd, x + 1
+                continue
+            found.append(_follow_border(img, base + x, W))
+            prev, x = int(img[base + x]), x + 1
+    return found[::-1]
+
+
+def contour_area(contour: np.ndarray) -> float:
+    """`cv2.contourArea(contour)`: the absolute shoelace area, in double."""
+    c = np.asarray(contour, np.float64).reshape(-1, 2)
+    if len(c) < 3:
+        return 0.0
+    x, y = c[:, 0], c[:, 1]
+    return abs(float(np.sum(np.roll(x, 1) * y - np.roll(y, 1) * x)) * 0.5)

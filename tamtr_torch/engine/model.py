@@ -53,9 +53,15 @@ model's `Results` its masks (not with TTA), as the JAX engine does; a pose
 model's carry boxes only (the JAX engine hands its keypoints to `Results`
 as masks, a fault the port does not copy).
 
+A Classify model (`classify-gelan.yaml`) is the classify task, as the JAX
+engine's `_train_classify`, `_validate_classify` and `_predict_classify`
+(`tamtr_tpu/engine/model.py:424-625`): an ImageFolder directory
+(`train/`, and `val/` or `test/`), imgsz 640 meaning 224, the softmax
+cross-entropy step, top-1 / top-5 val (fitness top-1), and predict giving
+one dict a image: path, probs, top5, top5_conf, names.
+
 The engine runs on the card unless `device="cpu"` is given (then the ranks
-meet over gloo). Not ported: classify, video and stream sources, tune and
-export.
+meet over gloo). Not ported: video and stream sources, tune and export.
 """
 
 from __future__ import annotations
@@ -65,21 +71,22 @@ import signal
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from tamtr_torch.config import Config, get_cfg, load_data_yaml
-from tamtr_torch.data.dataset import AugConfig, DetectionDataset, Loader
+from tamtr_torch.data.dataset import (AugConfig, ClassificationDataset, ClassificationLoader, DetectionDataset,
+                                      Loader, center_crop_resized)
 from tamtr_torch.data.image_io import imread
 from tamtr_torch.data.imgproc import fill_poly, resize_linear, resize_linear_f32
 from tamtr_torch.data.loaders import load_inference_source, unsupported_source
 from tamtr_torch.data.text import TextEmbedder, class_text_embeddings
 from tamtr_torch.engine.checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
 from tamtr_torch.losses.v8_pose_loss import keypoint_sigmas
-from tamtr_torch.nn.graph import TEXT_WIDTH, YOLO_HEADS, TAMTRModel
+from tamtr_torch.nn.graph import TEXT_WIDTH, YOLO_HEADS, TAMTRModel, head_type_of
 from tamtr_torch.engine.results import Results
 from tamtr_torch.nn.fuse import fuse_model
 from tamtr_torch.ops.nms import multiclass_nms, postprocess_predictions
@@ -134,6 +141,18 @@ TASKS = {"Segment": "segment", "Pose": "pose"}
 def task_of(model: TAMTRModel) -> str:
     """"segment", "pose" or "detect", by the model's head."""
     return TASKS.get(model.head_type, "detect")
+
+
+def classify_imgsz(imgsz: int) -> int:
+    """A classifier's input size: imgsz, with the detectors' default 640
+    meaning 224 (`tamtr_tpu/engine/model.py:433`)."""
+    return imgsz if imgsz != 640 else 224
+
+
+def classify_split(root: Path, fallback: Optional[Path] = None) -> Optional[Path]:
+    """The val split of an ImageFolder root: `val/`, else `test/`, else
+    `fallback`."""
+    return next((root / s for s in ("val", "test") if (root / s).is_dir()), fallback)
 
 
 def normalized_pred(model: TAMTRModel, pred: torch.Tensor, input_hw) -> torch.Tensor:
@@ -215,6 +234,19 @@ def weights_key(model: torch.nn.Module) -> tuple:
     return (id(model),) + tuple((t.data_ptr(), -1 if t.is_inference() else t._version)
                                 for m in model.modules() for d in (m._parameters, m._buffers)
                                 for t in d.values() if t is not None)
+
+
+class _TrainTask(NamedTuple):
+    """What `Engine._train`'s epoch loop takes from one task."""
+
+    train_ds: Any  # its `close_mosaic`, where it has one, runs for the last close_mosaic epochs
+    loader: Any
+    to_step: Callable[[Dict[str, Any]], Dict[str, Any]]  # a loader batch -> `Trainer.step`'s batch
+    validate: Optional[Callable[[TAMTRModel], Dict[str, float]]]  # the EMA's val metrics; None: no val split
+    fitness: str  # the val metric that picks best.pt and stops early
+    reported: Tuple[str, ...]  # the step's metrics in the results.csv row
+    project: str  # the runs' directory when no project= is given
+    plot_batches: bool  # plots=True draws the first three batches with their boxes
 
 
 class Engine:
@@ -321,43 +353,19 @@ class Engine:
         return result["metrics"]
 
     def _train(self, cfg: Config, preempted: Dict[str, bool], groups=None) -> Dict[str, float]:
+        """The epoch loop of every task on the parts of `_detect_task` or
+        `_classify_task`: `Trainer.step` on each loader batch, every
+        val_interval epochs val of the EMA, a results.csv row, `last.pt`
+        every save_interval epochs and `best.pt` by the task's fitness,
+        early stopping, the preemption save; resume=True goes on from
+        `last.pt`."""
         dev = self.device
         rank0 = groups is None or dist.get_rank() == 0
         n_data = groups.data_size if groups is not None else 1
         fire = self.callbacks.fire if rank0 else (lambda *a, **k: None)
-        data = load_data_yaml(cfg.data)
-        nc = data["nc"]
-        self.names = data["names"]
-        cfg.imgsz = check_imgsz(cfg.imgsz, stride=32)
-        if cfg.batch == -1:
-            # fit the batch to the card: two probe training steps (`autobatch_train`)
-            from tamtr_torch.utils.autobatch import autobatch_train
-
-            cfg.batch = autobatch_train(self.model_cfg, nc, cfg.imgsz, cfg.max_gt, device=dev, default=4)
-            if groups is not None:  # the card's batch on every data rank
-                cfg.batch = broadcast_from_rank0(cfg.batch) * n_data
-        model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=cfg.max_gt,
-                                    dtype=torch.bfloat16 if cfg.bf16 else None)
-        refuse_dual(model)
-        init_parameters(model, cfg.seed)
-        width = model.text_width
-        self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings, dim=width)
-
-        aug = AugConfig(
-            mosaic=cfg.mosaic, mixup=cfg.mixup, copy_paste=cfg.copy_paste, degrees=cfg.degrees,
-            translate=cfg.translate, scale=cfg.scale, shear=cfg.shear, perspective=cfg.perspective,
-            hsv_h=cfg.hsv_h, hsv_s=cfg.hsv_s, hsv_v=cfg.hsv_v, fliplr=cfg.fliplr, flipud=cfg.flipud,
-        )
-        # RandomLoadText: per-image positive/negative text sampling and class remap;
-        # the task's labels (kpt_shape stays the dataset's default, as the JAX engine's)
-        train_ds = DetectionDataset(
-            data["train"], imgsz=cfg.imgsz, augment=True, aug=aug, seed=cfg.seed, task=task_of(model),
-            class_texts=[str(n).split("/") for n in self.names], random_text=model.uses_text,
-            cache=cfg.cache, classes=cfg.classes, single_cls=cfg.single_cls,
-        )
-        loader = Loader(train_ds, cfg.batch // n_data, max_gt=cfg.max_gt, seed=cfg.seed, workers=cfg.workers,
-                        pin_memory=dev.type == "cuda", process_index=groups.data_rank if groups else 0,
-                        process_count=n_data)
+        make = self._classify_task if head_type_of(self.model_cfg) == "Classify" else self._detect_task
+        model, task = make(cfg, groups, n_data)
+        nc, loader = model.nc, task.loader
         tc = TrainConfig(
             lr0=cfg.lr0, lrf=cfg.lrf, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
             warmup_iters=int(cfg.warmup_epochs), warmup_bias_lr=cfg.warmup_bias_lr, epochs=cfg.epochs,
@@ -366,12 +374,12 @@ class Engine:
         )
         loss_cfg = loss_config_for(model, nc, imgsz=cfg.imgsz, box=cfg.box, cls=cfg.cls, dfl=cfg.dfl,
                                    match_method=cfg.match_method, pose=cfg.pose, kobj=cfg.kobj)
-        trainer = Trainer(model, tc, loss_cfg=loss_cfg, steps_per_epoch=len(loader), device=dev, seed=cfg.seed + 1,
-                          groups=groups, zero=int(cfg.fsdp or 1) > 1)
+        trainer = Trainer(model, tc, loss_cfg=loss_cfg, steps_per_epoch=max(len(loader), 1), device=dev,
+                          seed=cfg.seed + 1, groups=groups, zero=int(cfg.fsdp or 1) > 1)
         self.trainer = trainer
         self.model = trainer.ema
 
-        run_dir = Path(cfg.project or "runs/detect") / (cfg.name or "train")
+        run_dir = Path(cfg.project or task.project) / (cfg.name or "train")
         if rank0:
             if not cfg.resume and not cfg.exist_ok:
                 run_dir = increment_path(run_dir)
@@ -392,8 +400,6 @@ class Engine:
             start_epoch = int(meta.get("epoch", -1)) + 1
             LOGGER.info(f"resumed from epoch {start_epoch}")
         stopper = EarlyStopping(cfg.patience)
-        txt = np.tile(self.txt_feats[None], (cfg.batch // n_data, 1, 1)).astype(np.float32)
-        text_embedder = TextEmbedder(npz_path=cfg.text_embeddings, dim=width)
         best_fitness = 0.0
         meta = {"nc": nc, "names": self.names, "model_cfg": str(self.model_cfg), "imgsz": cfg.imgsz,
                 "max_gt": cfg.max_gt}
@@ -408,8 +414,8 @@ class Engine:
         for epoch in range(start_epoch, cfg.epochs):
             self._cur_epoch = epoch
             fire("on_train_epoch_start", self, epoch)
-            if cfg.close_mosaic and epoch == cfg.epochs - cfg.close_mosaic:
-                train_ds.close_mosaic()
+            if cfg.close_mosaic and epoch == cfg.epochs - cfg.close_mosaic and hasattr(task.train_ds, "close_mosaic"):
+                task.train_ds.close_mosaic()
             loader.set_epoch(epoch)
             t0 = time.time()
             n_steps = 0
@@ -420,31 +426,25 @@ class Engine:
                 ts = time.perf_counter()
                 if batch is None:
                     break
-                if cfg.plots and rank0 and epoch == start_epoch and n_steps < 3:
+                if cfg.plots and task.plot_batches and rank0 and epoch == start_epoch and n_steps < 3:
                     self._plot_batch(batch, run_dir / f"train_batch{n_steps}.jpg")
-                m = trainer.step({
-                    "img": batch["img"],
-                    # per-image sampled texts (RandomLoadText) when present, else the class table
-                    "txt_feats": text_embedder(batch["texts"]) if "texts" in batch else txt,
-                    "cls": batch["cls"], "bboxes": batch["bboxes"], "mask": batch["mask"],
-                    **{k: batch[k] for k in ("masks", "keypoints") if k in batch},
-                })  # ends in host reads of the metrics: the device has finished
+                m = trainer.step(task.to_step(batch))  # ends in host reads of the metrics: the device has finished
                 self.timing["wait_ms"].append((ts - tw) * 1e3)
                 self.timing["step_ms"].append((time.perf_counter() - ts) * 1e3)
                 n_steps += 1
                 fire("on_train_batch_end", self, n_steps)
             ips = n_steps * cfg.batch / max(time.time() - t0, 1e-9)
-            comp = {k: m[k] for k in REPORTED if k in m}
+            comp = {k: m[k] for k in task.reported if k in m}
             if rank0:
                 LOGGER.info(f"epoch {epoch + 1}/{cfg.epochs}: loss={m.get('loss', float('nan')):.3f} "
                             + " ".join(f"{k}={v:.3f}" for k, v in comp.items()) + f" {ips:.1f} img/s")
             row = {"epoch": epoch + 1, "loss": m.get("loss", float("nan")), **comp, "img_per_sec": ips}
             run_val = (epoch + 1) % max(cfg.val_interval, 1) == 0 or epoch == cfg.epochs - 1
             fitness = None
-            if cfg.val and data.get("val") and run_val:
-                metrics_out = self._validate(trainer.ema, data, cfg)
+            if cfg.val and task.validate is not None and run_val:
+                metrics_out = task.validate(trainer.ema)
                 row.update(metrics_out)
-                fitness = metrics_out.get("fitness", 0.0)
+                fitness = metrics_out.get(task.fitness, 0.0)
             if cfg.save:
                 run_save = (epoch + 1) % max(cfg.save_interval, 1) == 0 or epoch == cfg.epochs - 1
                 if run_save:
@@ -478,6 +478,94 @@ class Engine:
         fire("teardown", self)
         return metrics_out
 
+    def _fit_batch(self, cfg: Config, nc: int, groups, n_data: int) -> None:
+        """batch=-1: the batch fitted to the card by two probe training
+        steps (`autobatch_train`), the card's batch on every data rank."""
+        if cfg.batch == -1:
+            from tamtr_torch.utils.autobatch import autobatch_train
+
+            cfg.batch = autobatch_train(self.model_cfg, nc, cfg.imgsz, cfg.max_gt, device=self.device, default=4)
+            if groups is not None:
+                cfg.batch = broadcast_from_rank0(cfg.batch) * n_data
+
+    def _detect_task(self, cfg: Config, groups, n_data: int):
+        """The seeded model and the `_TrainTask` of a detection, segment or
+        pose run on a dataset file."""
+        data = load_data_yaml(cfg.data)
+        nc = data["nc"]
+        self.names = data["names"]
+        cfg.imgsz = check_imgsz(cfg.imgsz, stride=32)
+        self._fit_batch(cfg, nc, groups, n_data)
+        model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=cfg.max_gt,
+                                    dtype=torch.bfloat16 if cfg.bf16 else None)
+        refuse_dual(model)
+        init_parameters(model, cfg.seed)
+        width = model.text_width
+        self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings, dim=width)
+
+        aug = AugConfig(
+            mosaic=cfg.mosaic, mixup=cfg.mixup, copy_paste=cfg.copy_paste, degrees=cfg.degrees,
+            translate=cfg.translate, scale=cfg.scale, shear=cfg.shear, perspective=cfg.perspective,
+            hsv_h=cfg.hsv_h, hsv_s=cfg.hsv_s, hsv_v=cfg.hsv_v, fliplr=cfg.fliplr, flipud=cfg.flipud,
+        )
+        # RandomLoadText: per-image positive/negative text sampling and class remap;
+        # the task's labels (kpt_shape stays the dataset's default, as the JAX engine's)
+        train_ds = DetectionDataset(
+            data["train"], imgsz=cfg.imgsz, augment=True, aug=aug, seed=cfg.seed, task=task_of(model),
+            class_texts=[str(n).split("/") for n in self.names], random_text=model.uses_text,
+            cache=cfg.cache, classes=cfg.classes, single_cls=cfg.single_cls,
+        )
+        loader = Loader(train_ds, cfg.batch // n_data, max_gt=cfg.max_gt, seed=cfg.seed, workers=cfg.workers,
+                        pin_memory=self.device.type == "cuda", process_index=groups.data_rank if groups else 0,
+                        process_count=n_data)
+        txt = np.tile(self.txt_feats[None], (cfg.batch // n_data, 1, 1)).astype(np.float32)
+        text_embedder = TextEmbedder(npz_path=cfg.text_embeddings, dim=width)
+
+        def to_step(batch):
+            return {
+                "img": batch["img"],
+                # per-image sampled texts (RandomLoadText) when present, else the class table
+                "txt_feats": text_embedder(batch["texts"]) if "texts" in batch else txt,
+                "cls": batch["cls"], "bboxes": batch["bboxes"], "mask": batch["mask"],
+                **{k: batch[k] for k in ("masks", "keypoints") if k in batch},
+            }
+
+        validate = (lambda ema: self._validate(ema, data, cfg)) if data.get("val") else None
+        return model, _TrainTask(train_ds, loader, to_step, validate, fitness="fitness", reported=REPORTED,
+                                 project="runs/detect", plot_batches=True)
+
+    def _classify_task(self, cfg: Config, groups, n_data: int):
+        """The seeded model and the `_TrainTask` of a classification run
+        (the JAX engine's `_train_classify`): `ClassificationDataset(data/
+        train)` at `classify_imgsz`, nc and names from its class folders,
+        max_gt 1, no text; the `ClassificationLoader`'s batches through the
+        cross-entropy step, the row without the step's metrics (as JAX's),
+        top-1 / top-5 val of `val/` (or `test/`) with fitness top-1, the
+        runs under runs/classify. On several ranks each takes its shard of
+        the images and every rank validates the whole split."""
+        root = Path(cfg.data)
+        cfg.imgsz, cfg.max_gt = classify_imgsz(cfg.imgsz), 1
+        train_ds = ClassificationDataset(root / "train", imgsz=cfg.imgsz, augment=True, seed=cfg.seed)
+        val_dir = classify_split(root)
+        nc = len(train_ds.names)
+        self.names = train_ds.names
+        self.txt_feats = np.zeros((1, TEXT_WIDTH), np.float32)
+        self._fit_batch(cfg, nc, groups, n_data)
+        model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=1, dtype=torch.bfloat16 if cfg.bf16 else None)
+        init_parameters(model, cfg.seed)
+        loader = ClassificationLoader(train_ds, cfg.batch // n_data, seed=cfg.seed,
+                                      process_index=groups.data_rank if groups else 0, process_count=n_data)
+        txt = np.zeros((1, 1, TEXT_WIDTH), np.float32)
+
+        def to_step(batch):
+            b = len(batch["cls"])
+            return {"img": batch["img"], "txt_feats": txt, "cls": batch["cls"],
+                    "bboxes": np.zeros((b, 1, 4), np.float32), "mask": np.zeros((b, 1), bool)}
+
+        validate = (lambda ema: self._validate_classify(ema, val_dir, cfg, cfg.imgsz)) if val_dir else None
+        return model, _TrainTask(train_ds, loader, to_step, validate, fitness="top1", reported=(),
+                                 project="runs/classify", plot_batches=False)
+
     def _plot_batch(self, batch: Dict[str, Any], path: Path) -> None:
         """The training batch's mosaic with its labels (`plot_images`); a
         failure is logged and training goes on."""
@@ -489,14 +577,69 @@ class Engine:
         except (OSError, ValueError) as e:
             LOGGER.warning(f"{path.name} not written: {e}")
 
+    # --------------------------------------------------------------- classify
+    @torch.inference_mode()
+    def _validate_classify(self, model: TAMTRModel, val_dir: Path, cfg: Config, imgsz: int) -> Dict[str, float]:
+        """Top-1 and top-5 accuracy of `model` on an ImageFolder split (the
+        JAX engine's `_validate_classify`): the eval transform, batches of
+        cfg.batch (the last one as it is: padding it, as the JAX engine's
+        static shapes need, changes no prediction), a hit when the label is
+        first, or among the first min(5, nc), of `argsort(-logits)`."""
+        ds = ClassificationDataset(val_dir, imgsz=imgsz, augment=False)
+        model = self._eval_model(model, cfg)
+        dev = next(model.parameters()).device
+        txt = torch.zeros(1, 1, TEXT_WIDTH, device=dev)
+        bs = max(cfg.batch, 1)
+        top1 = top5 = total = 0
+        for s in range(0, len(ds), bs):
+            imgs, labels = zip(*(ds.get(i) for i in range(s, min(s + bs, len(ds)))))
+            logits = model(torch.from_numpy(np.stack(imgs)).to(dev), txt)["logits"].float().cpu().numpy()
+            k = min(5, logits.shape[-1])
+            for row, lab in zip(logits, labels):
+                order = np.argsort(-row)
+                top1 += int(order[0] == lab)
+                top5 += int(lab in order[:k])
+                total += 1
+        res = {"top1": top1 / max(total, 1), "top5": top5 / max(total, 1)}
+        LOGGER.info(f"classify val: top1={res['top1']:.4f} top5={res['top5']:.4f} ({total} imgs)")
+        return res
+
+    @torch.inference_mode()
+    def _predict_classify(self, source: Any, cfg: Config) -> List[Dict[str, Any]]:
+        """Class probabilities of each image of `source` (arrays, files, a
+        directory or a glob; the JAX engine's `_predict_classify`): the BGR
+        image's short side resized to `classify_imgsz` and centre-cropped
+        (`center_crop_resized`), RGB in [0, 1], the eval forward's softmax.
+        One dict an image: path, probs (nc,), top5 (the first five of
+        argsort(-probs)), top5_conf and their names."""
+        imgsz = classify_imgsz(cfg.imgsz)
+        model = self._eval_model(self.model, cfg)
+        dev = next(model.parameters()).device
+        txt = torch.zeros(1, 1, TEXT_WIDTH, device=dev)
+        out = []
+        for name, frame in load_inference_source(source):
+            img = center_crop_resized(frame, imgsz)[..., ::-1].astype(np.float32) / 255.0
+            probs = model(torch.from_numpy(np.ascontiguousarray(img)[None]).to(dev), txt)["pred"][0]
+            probs = probs.float().cpu().numpy()
+            top5 = np.argsort(-probs)[:5]
+            out.append({"path": name, "probs": probs, "top5": top5, "top5_conf": probs[top5],
+                        "names": [self.names[i] if i < len(self.names) else str(i) for i in top5]})
+        return out
+
     # -------------------------------------------------------------------- val
     def val(self, **overrides: Any) -> Dict[str, float]:
+        """Detection metrics of the engine's model on `data=` (a dataset
+        file); a Classify model's top-1 and top-5 on an ImageFolder root's
+        val/ (or test/, or the root itself)."""
         cfg = get_cfg(self.cfg, overrides=overrides)
         if not cfg.data:
             raise ValueError("val requires data=...")
-        data = load_data_yaml(cfg.data)
         if self.model is None:
             raise RuntimeError("no weights loaded; train first or load a checkpoint")
+        if self.model.head_type == "Classify":
+            return self._validate_classify(self.model, classify_split(Path(cfg.data), Path(cfg.data)), cfg,
+                                           classify_imgsz(cfg.imgsz))
+        data = load_data_yaml(cfg.data)
         if self.txt_feats is None:  # weights given without classes: the dataset's
             self.names = data["names"]
             self.txt_feats = class_text_embeddings(self.names, npz_path=cfg.text_embeddings,
@@ -635,9 +778,12 @@ class Engine:
         a class-offset NMS over the `max_det` x 3 padded rows merges them.
         Boxes are in the image's own pixels. Writes nothing unless
         save=True: then each plot goes under `project/name` with the
-        source's own name and format."""
+        source's own name and format. A Classify model gives one dict an
+        image instead (`_predict_classify`), of arrays too."""
         cfg = get_cfg(self.cfg, overrides=overrides)
         cfg.save = bool(overrides.get("save", False))
+        if self.model is not None and self.model.head_type == "Classify":
+            return self._predict_classify(source, cfg)
         if self.model is None or self.txt_feats is None:
             raise RuntimeError("no weights or classes: train, load or set a model and set_classes first")
         why = unsupported_source(source)
@@ -812,8 +958,9 @@ class Engine:
         model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=meta.get("max_gt", 128))
         model.load_state_dict(ema)
         self.model = model.to(self.device).eval()
-        if self.txt_feats is None:
-            self.txt_feats = class_text_embeddings(self.names, dim=model.text_width)
+        if self.txt_feats is None:  # a classifier takes no text: its table is zeros, as in its training
+            self.txt_feats = np.zeros((1, TEXT_WIDTH), np.float32) if model.head_type == "Classify" else \
+                class_text_embeddings(self.names, dim=model.text_width)
         return self
 
     def set_classes(self, classes: List[str], embeddings: Optional[np.ndarray] = None) -> None:

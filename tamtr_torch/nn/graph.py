@@ -12,9 +12,8 @@ every layer through the graph (a tuple of widths after a CBLinear).
 Heads: the DETR family, built as in the JAX package
 (`tamtr_tpu/nn/graph.py:281-329`): `ManbaWorldDecoder` (TAM-TR) and, by its
 switches, RTDETRDecoder, ManbaDecoder and the two Decoupling heads; the
-locationManbaDecoder and the DualRTDETRDecoder; and the YOLO `Detect`,
-`Segment` and `Pose` (`nn/yolo_head.py`). Classify parses and then raises
-NotImplementedError: ROADMAP queue A, item 7.
+locationManbaDecoder and the DualRTDETRDecoder; the YOLO `Detect`,
+`Segment` and `Pose`, and `Classify` (`nn/yolo_head.py`).
 """
 
 from __future__ import annotations
@@ -30,14 +29,15 @@ from torch import nn
 
 from tamtr_torch.nn import layers as L
 from tamtr_torch.nn.decoder import DualRTDETRDecoder, LocationManbaDecoder, ManbaWorldDecoder
-from tamtr_torch.nn.yolo_head import Detect, Pose, Segment
+from tamtr_torch.nn.yolo_head import Classify, Detect, Pose, Segment
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg" / "models"
 HEADS = ("ManbaWorldDecoder", "RTDETRDecoder", "ManbaDecoder", "DecouplingManbaWorldDecoder",
          "DecouplingDFLManbaWorldDecoder", "locationManbaDecoder", "DualRTDETRDecoder",
          "Detect", "Segment", "Pose", "Classify")
-PORTED_HEADS = HEADS[:-1]  # all but Classify
+PORTED_HEADS = HEADS
 YOLO_HEADS = ("Detect", "Segment", "Pose")  # the pixel heads: features in, no text, targets or generator
+FEATURE_HEADS = YOLO_HEADS + ("Classify",)  # the heads that take the features alone
 TEXT_WIDTH = 512  # the text table of a head that takes none (the JAX engine's width)
 # ManbaWorldDecoder's switches (use_text, use_vss, variant) for each head
 # built from it (`tamtr_tpu/nn/graph.py:296-310`); use_text None: the config's
@@ -91,6 +91,11 @@ def parse_graph(cfg: Dict[str, Any], nc: Optional[int] = None):
     if head_spec is None:
         raise ValueError(f"the graph must end with a detection head, one of {HEADS}")
     return tuple(specs), head_spec, tuple(sorted(save)), nc, head_type
+
+
+def head_type_of(path: str | Path) -> str:
+    """The head name of a model config (its last row's module)."""
+    return parse_graph(load_model_cfg(path))[4]
 
 
 def _build_layer(m: str, args, c_in: List[int], gc: int, deploy: bool = False):
@@ -150,6 +155,8 @@ class TAMTRModel(nn.Module):
     generator) and returns its dict (`nn/yolo_head.py`), whose eval "pred"
     (B, A, 4 + nc) holds xywh boxes in input pixels (and Segment's
     mask_coefs and NCHW protos, Pose's kpt_raw and, in eval, keypoints);
+    a Classify head (`classify-gelan.yaml`) takes the last map alone and
+    returns {"logits", "pred": softmax} in train and eval. For these
     `uses_text` is False and `text_width` the JAX engine's 512, a table the
     model ignores.
 
@@ -176,9 +183,6 @@ class TAMTRModel(nn.Module):
         self.dtype = dtype
         self.specs, (self.head_from, self.head_args), self.save, self.nc, self.head_type = parse_graph(cfg, nc)
         head_type = self.head_type
-        if head_type not in PORTED_HEADS:
-            raise NotImplementedError(f"the {head_type} head is not ported to tamtr_torch yet: ROADMAP.md "
-                                      "queue A, item 7")
         ch: List[Any] = []
         layers = []
         for idx, f, m, args in self.specs:
@@ -192,6 +196,8 @@ class TAMTRModel(nn.Module):
             layers.append(Detect(nc=self.nc, ch=head_ch))
         elif head_type == "Segment":
             layers.append(Segment(nc=self.nc, ch=head_ch))
+        elif head_type == "Classify":
+            layers.append(Classify(nc=self.nc, ch=head_ch))
         elif head_type == "Pose":  # kpt_shape: the row's second argument (`tamtr_tpu/nn/graph.py:262`)
             kpt = tuple(self.head_args[1]) if len(self.head_args) > 1 else (17, 3)
             layers.append(Pose(nc=self.nc, ch=head_ch, kpt_shape=kpt))
@@ -264,6 +270,6 @@ class TAMTRModel(nn.Module):
             x = mod(inp, text) if m == "TIAGELAN" else mod(inp)
             y.append(x if idx in self.save else None)
         feats = [y[j] for j in self.head_from]
-        if self.head_type in YOLO_HEADS:
+        if self.head_type in FEATURE_HEADS:
             return self.model[-1](feats)
         return self.model[-1](feats, text, targets, generator)

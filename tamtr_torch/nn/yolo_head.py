@@ -1,15 +1,16 @@
-"""The anchor-free YOLO heads with their DFL box distribution (torch port
-of `tamtr_tpu/nn/yolo_head.py:25-211`: `make_anchors`, `dist2bbox`,
-`bbox2dist`, `dfl_decode`, `Detect`, `Proto`, `Segment`, `Pose`).
+"""The anchor-free YOLO heads with their DFL box distribution, and the
+classification head (torch port of `tamtr_tpu/nn/yolo_head.py:25-211`:
+`make_anchors`, `dist2bbox`, `bbox2dist`, `dfl_decode`, `Detect`,
+`Classify`, `Proto`, `Segment`, `Pose`).
 
 Attribute names are the reference's (`cv2.{i}.{j}`, `cv3.{i}.{j}`, and
 Segment's and Pose's `cv4.{i}.{j}` and `proto.{cv1,upsample,cv2,cv3}`),
 so state-dict keys are its `model.22.cv2.0.0.conv.weight`, ...: the
 reference's Segment and Pose inherit Detect, as they do here. The
 reference's `dfl` conv holds fixed weights (0..reg_max-1) and no flax
-twin: `dfl_decode` computes the same integral without it.
-
-Classify is not ported yet (ROADMAP queue A, item 7).
+twin: `dfl_decode` computes the same integral without it. `Classify` keeps
+the reference's `conv` and `linear` (`model.9.conv.conv.weight`,
+`model.9.linear.weight`).
 """
 
 from __future__ import annotations
@@ -103,6 +104,29 @@ class Detect(nn.Module):
             boxes = dist2bbox(dfl_decode(out["distri"], self.reg_max), anchors[None]) * strides[None]
             out["pred"] = torch.cat([boxes, torch.sigmoid(at_least_fp32(out["scores"]))], -1)
         return out
+
+
+class Classify(nn.Module):
+    """Image classification head (the reference's `Classify`,
+    `tamtr_tpu/nn/yolo_head.py:121-134`): the last feature map through a
+    1x1 ConvBN to `c_hidden` channels, the global mean, then `linear` to nc
+    logits in fp32 at least, as flax promotes the fp32-cast mean against
+    its fp32 Dense (the reference's dropout is 0 at inference and absent in
+    JAX).
+
+    forward(feats, a list of NCHW maps or one map) -> {"logits" (B, nc),
+    "pred" (B, nc) softmax}, in train and eval alike."""
+
+    def __init__(self, nc: int = 1000, ch: Sequence[int] = (), c_hidden: int = 1280):
+        super().__init__()
+        self.nc = nc
+        self.conv = ConvBN(ch[-1], c_hidden, 1, 1)
+        self.linear = nn.Linear(c_hidden, nc)
+
+    def forward(self, feats) -> Dict[str, torch.Tensor]:
+        x = feats[-1] if isinstance(feats, (list, tuple)) else feats
+        logits = self.linear(at_least_fp32(self.conv(x).mean((2, 3))))
+        return {"logits": logits, "pred": logits.softmax(-1)}
 
 
 class Proto(nn.Module):

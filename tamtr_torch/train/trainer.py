@@ -6,7 +6,8 @@ The loss is the head's (`loss_config_for`, the JAX engine's
 `_loss_callable_for`): the DETR loss, with its variant switches, for the
 ManbaWorldDecoder; the v8 loss (TAL, BCE, CIoU, DFL) for a YOLO Detect
 head, with its mask term for a Segment head and its keypoint terms for a
-Pose head. The step reports the loss's items as the JAX step does.
+Pose head; the softmax cross-entropy for a Classify head (`ce_loss`, the
+JAX engine's). The step reports the loss's items as the JAX step does.
 
 - AdamW, betas (momentum, 0.999), weight decay scaled by
   bs * accumulate / nbs, on the reference's three parameter groups: weights
@@ -52,6 +53,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from tamtr_torch.losses.detr_loss import DETRLossConfig, rtdetr_detection_loss
@@ -59,7 +61,7 @@ from tamtr_torch.losses.v8_loss import V8LossConfig, v8_detection_loss
 from tamtr_torch.losses.v8_pose_loss import V8PoseLossConfig, v8_pose_loss
 from tamtr_torch.losses.v8_seg_loss import V8SegLossConfig, v8_segmentation_loss
 from tamtr_torch.nn.ssm import sequence_parallel
-from tamtr_torch.parallel.dist import Groups, all_reduce_grads, data_parallel
+from tamtr_torch.parallel.dist import Groups, all_reduce_grads, data_parallel, global_sum
 
 
 @dataclass(frozen=True)
@@ -130,7 +132,31 @@ def accumulate_at(cfg: TrainConfig, ni: int) -> float:
 
 
 # the step's reported loss items (the JAX step's), of whichever loss ran
-REPORTED = ("giou", "class", "bbox", "box", "cls", "dfl", "seg", "pose", "kobj")
+REPORTED = ("giou", "class", "bbox", "box", "cls", "dfl", "seg", "pose", "kobj", "top1")
+
+
+@dataclass(frozen=True)
+class CELossConfig:
+    """The classification loss: the mean softmax cross-entropy of a
+    Classify head's logits against `targets["cls"][:, 0]`."""
+
+    nc: int = 1000
+
+
+def ce_loss(out: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor]):
+    """(loss, {"cls", "top1"}) of a Classify head's train dict, as the JAX
+    engine's `ce_loss` (`tamtr_tpu/engine/model.py:475-482`): the mean
+    softmax cross-entropy over the batch and the share of top-1 hits, in
+    fp32 at least. Under `data_parallel` both are this rank's share of the
+    global batch's mean (divided by the global batch size), so their sum
+    over the data ranks is the one-process value."""
+    logits = out["logits"]
+    logits = logits.float() if logits.dtype == torch.bfloat16 else logits
+    labels = targets["cls"][:, 0].long()
+    n = global_sum(torch.tensor(float(len(labels)), device=logits.device, dtype=logits.dtype))
+    loss = F.cross_entropy(logits, labels, reduction="sum") / n
+    top1 = (logits.detach().argmax(-1) == labels).sum().to(logits.dtype) / n
+    return loss, {"cls": loss.detach(), "top1": top1}
 # the batch keys that ride into the loss's targets when present: Segment's
 # gt masks, Pose's gt keypoints
 EXTRA_TARGETS = ("masks", "keypoints")
@@ -143,10 +169,13 @@ def loss_config_for(model: nn.Module, nc: Optional[int] = None, imgsz: int = 640
     picks it: a Detect head's `V8LossConfig` (gains box, cls, dfl; gts
     scaled to `imgsz` pixels), a Segment head's `V8SegLossConfig`, a Pose
     head's `V8PoseLossConfig` (its gains pose and kobj; the head's
-    kpt_shape), any other head's `DETRLossConfig`."""
+    kpt_shape), a Classify head's `CELossConfig`, any other head's
+    `DETRLossConfig`."""
     nc = model.nc if nc is None else nc
     head_type = getattr(model, "head_type", None)
     v8 = dict(nc=nc, box=box, cls=cls, dfl=dfl, imgsz=imgsz)
+    if head_type == "Classify":
+        return CELossConfig(nc=nc)
     if head_type == "Detect":
         return V8LossConfig(**v8)
     if head_type == "Segment":
@@ -158,6 +187,8 @@ def loss_config_for(model: nn.Module, nc: Optional[int] = None, imgsz: int = 640
 
 def head_loss(out: Dict, targets: Dict[str, torch.Tensor], loss_cfg):
     """(total, items) of the loss `loss_cfg` names, on the head's train dict."""
+    if isinstance(loss_cfg, CELossConfig):
+        return ce_loss(out, targets)
     if isinstance(loss_cfg, V8SegLossConfig):
         return v8_segmentation_loss(out, targets, loss_cfg)
     if isinstance(loss_cfg, V8PoseLossConfig):
@@ -178,8 +209,9 @@ class Trainer:
       model: the model; moved to `device` and put in train mode.
       cfg: optimizer, schedule and EMA settings.
       loss_cfg: the loss: a `DETRLossConfig` (the DETR loss, with its
-        variant switches) or a `V8LossConfig` (the YOLO Detect loss; its
-        `V8SegLossConfig` and `V8PoseLossConfig` the Segment and Pose ones); by
+        variant switches), a `V8LossConfig` (the YOLO Detect loss; its
+        `V8SegLossConfig` and `V8PoseLossConfig` the Segment and Pose ones)
+        or a `CELossConfig` (a Classify head's cross-entropy); by
         default the head's (`loss_config_for`, at 640 px and the config's
         match method).
       steps_per_epoch: minibatches per epoch, for the LR schedule.
@@ -265,9 +297,11 @@ class Trainer:
         batch: img (B, H, W, 3) uint8 or float in [0, 1]; txt_feats (B or 1,
         K, hd); cls (B, M) int; bboxes (B, M, 4) normalized cxcywh; mask
         (B, M) bool; a Segment model's masks (B, M, Hm, Wm), a Pose model's
-        keypoints (B, M, nk, 3) in pixels. Returns loss, the loss's items
+        keypoints (B, M, nk, 3) in pixels; a Classify model's labels are
+        cls[:, 0]. Returns loss, the loss's items
         (giou, class and bbox of the DETR loss; box, cls and dfl of the
-        Detect loss, and seg, or pose and kobj), grad_norm (of
+        Detect loss, and seg, or pose and kobj; cls and top1 of the
+        cross-entropy), grad_norm (of
         this minibatch's gradient) and stepped (1.0 when the optimizer
         stepped).
         """

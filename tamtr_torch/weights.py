@@ -15,15 +15,23 @@ heads nest their Detect in flax's `head/detect` scope: `cv2.{i}.{j}` and
 `cv3.{i}.{j}` are `head/detect/cv2_{i}_{j}`, their own `cv4.{i}.{j}` are
 `head/cv4_{i}_{j}` and `proto.*` `head/proto/*`; the Proto's transposed
 conv kernel (kH, kW, in, out) becomes torch's (in, out, kH, kW) flipped in
-both spatial axes. AIFI's `ma.in_proj_*`
+both spatial axes. The Classify head's `conv` and `linear` are flax's
+`head/ConvBN_0` and `head/Dense_0`. AIFI's `ma.in_proj_*`
 merge the layer's own `q_proj`, `k_proj` and `v_proj`, as the decoder's
 `self_attn`, `self_attn1` and `self_attn2` merge theirs; the Dual head's
 one core is flax's `head`.
+
+`from_jax_sam_variables` bridges the JAX package's SAM (three flax trees:
+image encoder, prompt encoder, mask decoder, and TinyViT's BatchNorm
+statistics) onto the port's `models/sam` modules, whose keys are the
+reference checkpoint's (`sam_flax_route`); `init_sam_parameters` is the
+port's seeded SAM init with flax's default initialisers.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -35,7 +43,7 @@ from tamtr_torch.nn.decoder import (
 )
 from tamtr_torch.nn.layers import MaxSigmoidAttnBlock
 from tamtr_torch.nn.ssm import SS2D
-from tamtr_torch.nn.yolo_head import Detect
+from tamtr_torch.nn.yolo_head import Classify, Detect
 
 _BN_LEAF = {
     "weight": ("params", "scale"),
@@ -53,7 +61,8 @@ def map_torch_key(key: str, shape: Tuple[int, ...], layer_names: Dict[int, str],
     None for keys with no flax twin. `special` names the structured cases:
     "qkv" (in_proj merge), "flatten" (A_logs/Ds) and "conv_transpose" (the
     Proto's upsample kernel). `head_type` "Segment" or "Pose" routes the
-    head's Detect branches into flax's `detect` scope."""
+    head's Detect branches into flax's `detect` scope; "Classify" names its
+    `conv` and `linear` flax's `ConvBN_0` and `Dense_0`."""
     nested = head_type in ("Segment", "Pose")
     parts = key.split(".")
     if parts[0] != "model" or not parts[1].isdigit() or parts[-1] == "num_batches_tracked":
@@ -67,6 +76,10 @@ def map_torch_key(key: str, shape: Tuple[int, ...], layer_names: Dict[int, str],
         tok = rest[i]
         nxt = rest[i + 1] if i + 1 < len(rest) else None
         if prefix == "head":
+            if head_type == "Classify" and i == 0 and tok in ("conv", "linear"):  # flax's compact names
+                out_path.append("ConvBN_0" if tok == "conv" else "Dense_0")
+                i += 1
+                continue
             if tok in ("cv2", "cv3") and nxt and nxt.isdigit():  # the Detect head's branches
                 out_path += (["detect"] if nested else []) + [f"{tok}_{nxt}_{rest[i + 2]}"]
                 i += 3
@@ -264,7 +277,8 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
     So do the Segment and Pose heads, whose Detect takes the same prior,
     their `cv4` convs and the Proto; its transposed conv's weight is
     N(0, 1/fan_in) with fan_in = in * kH * kW, its bias 0, as flax's
-    `ConvTranspose` default.
+    `ConvTranspose` default. A Classify head keeps the generic init, as
+    flax's ConvBN and Dense defaults.
     """
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
@@ -302,6 +316,8 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
             mod.Ds.fill_(1.0)
 
     head = model.model[-1]
+    if isinstance(head, Classify):
+        return
     if isinstance(head, Detect):
         for i, branch in enumerate(head.cv3):
             branch[2].bias.fill_(head.bias_prior(i))
@@ -323,3 +339,135 @@ def init_parameters(model: nn.Module, seed: int = 0) -> None:
     for mlp in [head.enc_bbox_head, *head.dec_bbox_head]:
         mlp.layers[-1].weight.zero_()
         mlp.layers[-1].bias.zero_()
+
+
+# ---------------------------------------------------------------------------
+# Segment Anything
+# ---------------------------------------------------------------------------
+
+# module path of the port (the reference's) -> flax scope, per SAM module
+_SAM_SCOPES = [
+    (r"^patch_embed\.proj$", "patch_embed"), (r"^patch_embed\.seq\.0", "patch_embed_conv1"),
+    (r"^patch_embed\.seq\.2", "patch_embed_conv2"), (r"^blocks\.(\d+)", r"blocks_\1"),
+    (r"^neck\.0$", "neck_conv1"), (r"^neck\.1$", "neck_ln1.LayerNorm_0"), (r"^neck\.2$", "neck_conv2"),
+    (r"^neck\.3$", "neck_ln2.LayerNorm_0"), (r"^layers\.(\d+)\.blocks\.(\d+)", r"layer\1_block\2"),
+    (r"^layers\.(\d+)\.downsample", r"layer\1_downsample"), (r"\.mlp\.(norm|fc1|fc2)$", r".mlp_\1"),
+    (r"^mask_downscaling\.0$", "mask_down1"), (r"^mask_downscaling\.1$", "mask_ln1.LayerNorm_0"),
+    (r"^mask_downscaling\.3$", "mask_down2"), (r"^mask_downscaling\.4$", "mask_ln2.LayerNorm_0"),
+    (r"^mask_downscaling\.6$", "mask_proj"), (r"^transformer\.layers\.(\d+)", r"transformer.layers_\1"),
+    (r"^output_upscaling\.0$", "upscale_conv1"), (r"^output_upscaling\.1$", "upscale_ln.LayerNorm_0"),
+    (r"^output_upscaling\.3$", "upscale_conv2"),
+    (r"^output_hypernetworks_mlps\.(\d+)\.layers\.(\d+)$", r"hyper_mlps_\1.layers_\2"),
+    (r"^iou_prediction_head\.layers\.(\d+)$", r"iou_prediction_head.layers_\1"),
+]
+def sam_flax_route(sam: nn.Module) -> Dict[str, Tuple[str, str, List[str], Optional[str]]]:
+    """Each state-dict key of a port `SamModel` -> (flax module, collection,
+    flax path, kind). kind "conv_transpose": torch's (in, out, kH, kW)
+    kernel is flax's (kH, kW, in, out) flipped in both spatial axes;
+    "conv": OIHW <-> HWIO; "linear": transposed; ("row", k): row k of the
+    flax (4, C) `point_embeddings`; None: as it is. `num_batches_tracked`
+    has no flax twin and no entry."""
+    routes = {}
+    keys = set(sam.state_dict())
+    for mpath, mod in sam.named_modules():
+        if not mpath:
+            continue
+        top, _, local = mpath.partition(".")
+        for name, t in list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False)):
+            key = f"{mpath}.{name}"
+            if key not in keys or name == "num_batches_tracked":
+                continue
+            if isinstance(mod, nn.Embedding):
+                m = re.match(r"^point_embeddings\.(\d+)$", local)
+                routes[key] = (top, "params", ["point_embeddings"] if m else [local], ("row", int(m[1])) if m else None)
+                continue
+            scope = local
+            for pat, rep in _SAM_SCOPES:
+                scope = re.sub(pat, rep, scope)
+            path = scope.split(".") if scope else []
+            if isinstance(mod, nn.BatchNorm2d):
+                col, leaf = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                             "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}[name]
+                routes[key] = (top, col, path + [leaf], None)
+            elif isinstance(mod, nn.LayerNorm):
+                routes[key] = (top, "params", path + ["scale" if name == "weight" else "bias"], None)
+            elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                kind = None if name == "bias" else "conv_transpose" if isinstance(mod, nn.ConvTranspose2d) \
+                    else "conv" if isinstance(mod, nn.Conv2d) else "linear"
+                routes[key] = (top, "params", path + ["kernel" if name == "weight" else "bias"], kind)
+            else:  # a tensor of its own: pos_embed, rel_pos_*, attention_biases, the gaussian matrix
+                routes[key] = (top, "params", path + [name], None)
+    return routes
+
+
+def from_jax_sam_variables(variables: Dict, sam: nn.Module):
+    """The JAX package's SAM variables ({"image_encoder": {"params", and
+    for TinyViT "batch_stats"}, "prompt_encoder": {"params"},
+    "mask_decoder": {"params"}}, nested dicts of arrays) -> (state dict of
+    the port's `sam`, report of missing keys, shape mismatches and unused
+    flax leaves; all empty for a complete bridge)."""
+    trees = {(m, col): _flatten_tree(v.get(col, {})) for m, v in variables.items()
+             for col in ("params", "batch_stats")}
+    used = set()
+    sd: Dict[str, torch.Tensor] = {}
+    missing, mismatched = [], []
+    templates = sam.state_dict()
+    for key, (top, col, path, kind) in sam_flax_route(sam).items():
+        leaf = trees.get((top, col), {}).get(tuple(path))
+        if leaf is None:
+            missing.append(key)
+            continue
+        used.add((top, col, tuple(path)))
+        val = np.asarray(leaf, np.float32)
+        if isinstance(kind, tuple):  # one row of point_embeddings
+            val = val[kind[1]:kind[1] + 1]
+        elif kind == "conv_transpose":  # (kH, kW, in, out) -> (in, out, kH, kW), flipped
+            val = np.transpose(val, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+        elif kind == "conv":
+            val = np.transpose(val, (3, 2, 0, 1))
+        elif kind == "linear":
+            val = val.T
+        if tuple(val.shape) != tuple(templates[key].shape):
+            mismatched.append(f"{key}: port{tuple(templates[key].shape)} vs jax{tuple(val.shape)}")
+        else:
+            sd[key] = torch.from_numpy(np.array(val, np.float32))
+    unused = sorted(f"{m}/{col}/{'/'.join(p)}" for (m, col), tree in trees.items() for p in tree
+                    if (m, col, p) not in used)
+    return sd, {"missing": missing, "shape_mismatch": mismatched, "unused_jax": unused}
+
+
+@torch.no_grad()
+def init_sam_parameters(sam: nn.Module, seed: int = 0) -> None:
+    """Seeded weights of a port `SamModel` from one CPU generator, with the
+    JAX modules' flax initialisers: Linear and conv kernels (the transposed
+    convs too) N(0, 1/fan_in), biases 0; LayerNorm and BatchNorm scale 1
+    (an MBConv's last BatchNorm 0), bias 0, statistics 0 / 1; `pos_embed`,
+    `rel_pos_*` and TinyViT's `attention_biases` 0; the tokens, the point,
+    not-a-point and no-mask embeddings and the gaussian matrix N(0, 1)."""
+    from tamtr_torch.models.sam.modules import ConvBN2d, PositionEmbeddingRandom
+
+    g = torch.Generator().manual_seed(seed)
+    for mod in sam.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            _normal_fan_in(mod.weight, mod.weight[0].numel(), g)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.ConvTranspose2d):
+            w = mod.weight
+            _normal_fan_in(w, w.shape[0] * w.shape[2] * w.shape[3], g)
+            mod.bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if isinstance(mod, nn.BatchNorm2d):
+                mod.reset_running_stats()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, 1.0, generator=g)
+        elif isinstance(mod, PositionEmbeddingRandom):
+            mod.positional_encoding_gaussian_matrix.normal_(0.0, 1.0, generator=g)
+        if isinstance(mod, ConvBN2d):
+            mod.bn.weight.fill_(mod.bn_weight_init)
+        for name in ("pos_embed", "rel_pos_h", "rel_pos_w", "attention_biases"):
+            t = getattr(mod, name, None)
+            if isinstance(t, nn.Parameter):
+                t.zero_()

@@ -56,6 +56,8 @@ def test_import_without_jax_yaml_or_cv2():
         "import tamtr_torch.nn.fuse, tamtr_torch.utils.profiler, tamtr_torch.utils.settings, tamtr_torch.utils.crash\n"
         "import tamtr_torch.utils.autobatch, tamtr_torch.utils.downloads, tamtr_torch.utils.errors\n"
         "import tamtr_torch.parallel.dist, tamtr_torch.parallel.seq_scan, tamtr_torch.parallel.launch\n"
+        "import tamtr_torch.models.sam.predict, tamtr_torch.models.fastsam, tamtr_torch.data.annotator\n"
+        "from tamtr_torch import TAMTR, RTDETRWorld, YOLO, RTDETR, SAM, FastSAM, NAS\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL',\n"
         "                                                        'matplotlib', 'tensorboard')\n"
         "          and sys.modules[m] is not None]\n"

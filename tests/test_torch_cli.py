@@ -47,8 +47,8 @@ def test_parse_args_matches_jax(argv):
 
 @pytest.mark.parametrize("argv,entry", [
     (["track", "source=v.mp4"], "need a video decoder"), (["export", "format=onnx"], "queue A, item 7"),
-    (["benchmark"], "queue A, item 7"), (["tune"], "queue A, item 7"), (["classify", "val"], "queue A, item 7"),
-    (["classify", "train"], "queue A, item 7"), (["serve"], "model=<checkpoint>"),
+    (["benchmark"], "queue A, item 7"), (["tune"], "queue A, item 7"), (["detect", "export"], "queue A, item 7"),
+    (["segment", "tune"], "queue A, item 7"), (["serve"], "model=<checkpoint>"),
 ])
 def test_unported_modes_exit_with_their_roadmap_entry(argv, entry):
     with pytest.raises(SystemExit) as e:

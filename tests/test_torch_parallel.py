@@ -112,6 +112,23 @@ def test_segment_step_on_two_ranks_equals_one_process(tmp_path):
     assert all(torch.equal(ranks[0]["dp"][1][k], ranks[1]["dp"][1][k]) for k in ranks[0]["dp"][1])
 
 
+def test_classify_step_on_two_ranks_equals_one_process(tmp_path):
+    """The narrow Classify model's cross-entropy step (the `classify` case
+    of `tests/torch_parallel_worker.py`) on 2 data ranks of 2 images
+    against one process on the 4: the loss, cls and top1 at 1e-5 relative
+    (the mean over the global batch, its BatchNorm moments global), the
+    parameters and statistics after the step at 1e-4, both ranks' equal."""
+    ranks = run_ranks(tmp_path, "classify")
+    one, one_model = ranks[0]["one"]
+    assert one["loss"] > 0
+    for r in ranks:
+        got, model = r["dp"]
+        for k, v in one.items():
+            assert abs(got[k] - v) <= 1e-5 * abs(v), (k, got[k], v)
+        close(model, one_model)
+    assert all(torch.equal(ranks[0]["dp"][1][k], ranks[1]["dp"][1][k]) for k in ranks[0]["dp"][1])
+
+
 def test_nano_step_on_two_ranks_equals_one_process(tmp_path):
     """DP (2 ranks x 2 images), ZeRO and data 1 x sp 2 against the
     one-process step on the 4 images."""

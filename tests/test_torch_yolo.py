@@ -103,8 +103,25 @@ def test_config_equals_jax_yaml():
 
 
 def test_unported_heads_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        PortModel(_classify_cfg(), nc=3)
+    """Every head of the JAX package is ported now: `classify-gelan.yaml`
+    builds (its Classify head on the backbone's last map), and the narrow
+    config with a Classify head too; `TAMTR.info()` of the classify config
+    equals the JAX package's summary, its count that of JAX's variables
+    (`jax.eval_shape` of the init)."""
+    from tamtr_tpu.api import TAMTR as JTAMTR
+    from tamtr_tpu.nn.graph import TAMTRModel
+
+    from tamtr_torch.api import TAMTR, variable_count
+    from tamtr_torch.nn.graph import HEADS, PORTED_HEADS
+
+    assert PORTED_HEADS == HEADS
+    assert PortModel(_classify_cfg(), nc=3).head_type == "Classify"
+    port = PortModel.from_cfg("classify-gelan.yaml", nc=80)
+    jm = TAMTRModel.from_yaml("classify-gelan.yaml", nc=80)
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 64, 64, 3)),
+                                            jnp.zeros((1, 1, 512)), None, False))
+    assert variable_count(port) == sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(shapes))
+    assert TAMTR("classify-gelan.yaml", device="cpu").info(imgsz=64) == JTAMTR("classify-gelan.yaml").info(imgsz=64)
 
 
 def _classify_cfg():

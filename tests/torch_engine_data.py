@@ -682,3 +682,105 @@ def check_variant_train_step(head, base, tmp_path_factory, monkeypatch):
     for k, e in per_tensor.items():
         assert e < 7.5e-2, (k, e)
     assert sum(np.abs(g).max() > 0 for g in g32.values()) > 0.5 * len(g32)
+
+
+# ---------------------------------------------------------------------------
+# Segment Anything (`tests/test_torch_sam.py`, `tests/test_torch_sam_predict.py`)
+# ---------------------------------------------------------------------------
+
+
+def sam_flax_variables_of(sam):
+    """The JAX package's SAM variables ({"image_encoder": {"params",
+    "batch_stats"}, "prompt_encoder": ..., "mask_decoder": ...}, nested
+    numpy dicts) of a port `SamModel`: the inverse of
+    `tamtr_torch/weights.py:from_jax_sam_variables`. A JAX SAM takes the
+    port's weights this way, with no JAX init."""
+    from tamtr_torch.weights import sam_flax_route
+
+    def to_flax(val, kind):  # the bridge's layout changes, undone
+        if kind == "conv_transpose":  # (in, out, kH, kW) flipped -> (kH, kW, in, out)
+            return val[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        if kind == "conv":  # OIHW -> HWIO
+            return val.transpose(2, 3, 1, 0)
+        return val.T if kind == "linear" else val
+
+    trees, rows = {}, {}
+    sd = sam.state_dict()
+    for key, (top, col, path, kind) in sam_flax_route(sam).items():
+        val = sd[key].detach().float().numpy()
+        if isinstance(kind, tuple):  # a row of point_embeddings
+            rows.setdefault((top, col, tuple(path)), {})[kind[1]] = val[0]
+            continue
+        node = trees.setdefault(top, {}).setdefault(col, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(to_flax(val, kind), np.float32)
+    for (top, col, path), r in rows.items():
+        trees[top][col][path[-1]] = np.stack([r[k] for k in sorted(r)]).astype(np.float32)
+    return trees
+
+
+@torch.no_grad()
+def spread_sam(sam, seed: int = 0, scale: float = 0.2):
+    """A port SAM with its zero-initialised tensors (pos_embed, rel_pos_*,
+    attention_biases, the biases) and its norms' and BatchNorms' scales,
+    biases and statistics given seeded random values, so that every
+    parameter moves the output."""
+    g = torch.Generator().manual_seed(seed)
+    for name, t in sam.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if name.endswith("running_var"):
+            t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+        elif name.endswith(("bias", "running_mean", "pos_embed", "rel_pos_h", "rel_pos_w", "attention_biases")):
+            t.copy_(torch.randn(t.shape, generator=g) * scale)
+        elif t.ndim == 1 and name.endswith("weight"):  # LayerNorm and BatchNorm scales
+            t.copy_(1.0 + torch.randn(t.shape, generator=g) * scale)
+    return sam
+
+
+def classify_narrow_cfg(nc: int = NC) -> dict:
+    """`classify-gelan.yaml`'s wiring (the GELAN backbone, then Classify on
+    the last map) at `yolo_narrow_cfg`'s eighth widths: the classify
+    family's small test model."""
+    return {"nc": nc, "depth_multiple": 1.0, "width_multiple": 1.0,
+            "backbone": yolo_narrow_cfg(nc)["backbone"][:9], "head": [[[-1], 1, "Classify", ["nc"]]]}
+
+
+@torch.no_grad()
+def calibrate_bn(model, img):
+    """A port model whose every BatchNorm holds the batch moments of its
+    input over `img` (B, H, W, 3) in a train-mode forward: in eval the
+    model then computes that forward on `img`, its activations of order 1
+    at every layer (at init SiLU shrinks them ~2x a layer, to ~1e-4 at a
+    GELAN's last map, and the logits would be its biases)."""
+    from tamtr_torch.nn.layers import BN_MOMENTUM
+
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for bn in bns:
+        bn.running_mean.zero_()
+        bn.running_var.zero_()
+    model.train()(img, torch.zeros(img.shape[0], 1, 512))
+    for bn in bns:
+        bn.running_mean.div_(BN_MOMENTUM)
+        bn.running_var.div_(BN_MOMENTUM)
+    return model.eval()
+
+
+def write_image_folder(root, classes=("green", "red", "blue"), n=(6, 3), seed: int = 0):
+    """An ImageFolder `root/{train,val}/<class>/` of n[0] and n[1] images a
+    class (PNG and JPEG, written by the port's encoders), of mixed sizes,
+    the class's colour channel high: returns root."""
+    from tamtr_torch.data.image_io import imwrite
+
+    rng = np.random.default_rng(seed)
+    for split, k in zip(("train", "val"), n):
+        for ci, c in enumerate(classes):
+            d = root / split / c
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(k):
+                h, w = (int(v) for v in rng.integers(36, 72, 2))
+                img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+                img[..., ci % 3] += 150
+                imwrite(d / f"{i}.{'jpg' if i % 3 == 2 else 'png'}", img)
+    return root

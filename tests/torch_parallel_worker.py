@@ -21,7 +21,10 @@ checks to `<out>.<rank>` (torch.save):
         yolo_narrow_cfg`, heads spread) on 4 images of 64 px: one process
         at one and at three torch threads, 2 data ranks of 2;
   segment: the same step of the narrow model with a Segment head, each
-        gt's mask its box's rectangle.
+        gt's mask its box's rectangle;
+  classify: one cross-entropy step of the narrow Classify model
+        (`torch_engine_data.py:classify_narrow_cfg`) on 4 images of 64 px:
+        one process on the 4, 2 data ranks of 2.
 """
 
 import copy
@@ -228,12 +231,39 @@ def yolo(head: str = "Detect"):
     return out
 
 
+def classify():
+    from torch_engine_data import classify_narrow_cfg
+
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.train.trainer import loss_config_for
+    from tamtr_torch.weights import init_parameters
+
+    model = TAMTRModel(classify_narrow_cfg(3), max_gt=1)
+    init_parameters(model, 0)
+    rng = np.random.default_rng(0)
+    batch = {"img": rng.random((4, 64, 64, 3), dtype=np.float32), "txt_feats": np.zeros((4, 1, 512), np.float32),
+             "cls": np.array([[0], [2], [1], [2]], np.int32), "bboxes": np.zeros((4, 1, 4), np.float32),
+             "mask": np.zeros((4, 1), bool)}
+    cfg = TrainConfig(batch_size=4, warmup_iters=10, epochs=2, accumulate=1)
+
+    def step(**kw):
+        tr = Trainer(copy.deepcopy(model), cfg, loss_cfg=loss_config_for(model), steps_per_epoch=10, device="cpu",
+                     seed=3, **kw)
+        groups = kw.get("groups")
+        m = tr.step(batch if groups is None else shard_batch(batch, groups.data_rank, groups.data_size))
+        return {k: m[k] for k in ("loss", "cls", "top1")}, {k: v.clone() for k, v in tr.model.state_dict().items()}
+
+    out = {"one": step()} if dist.get_rank() == 0 else {}
+    out["dp"] = step(groups=make_groups(1))
+    return out
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
     case, out_path = sys.argv[1], sys.argv[2]
     init_distributed("cpu")
     result = {"tiny": tiny, "nano": nano, "nano_bf16": lambda: nano(torch.bfloat16), "stem_bf16": stem_bf16,
               "val": lambda: val(sys.argv[3]), "rect": lambda: val(sys.argv[3]), "yolo": yolo,
-              "segment": lambda: yolo("Segment")}[case]()
+              "segment": lambda: yolo("Segment"), "classify": classify}[case]()
     torch.save(result, f"{out_path}.{dist.get_rank()}")
     dist.destroy_process_group()
