@@ -175,7 +175,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
 9-yolo. yolo: `yolo-gelan.yaml` (nc 10, full width, seeded, heads spread):
    eval at 640 px, batch 1 and 4, of the serve frames, card = CPU (1e-3);
    fuse=True (1e-4) and half=True beside it; one training step card
-   against CPU (TAL tensors (4, 300, 8400): the assignment's moved anchors
+   against CPU at 320 px, batch 2 (TAL tensors
+   (2, 300, 2100): the assignment's moved anchors
    counted, at most 1% of the foreground; given the CPU's assignment the
    loss items and the gradient within 2x the CPU's fp32-vs-fp64 distance);
    `Trainer.step` timed (ms, peak, busy share); `Engine.train` 1 epoch of
@@ -238,6 +239,29 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
 9c. info: `TAMTR("tamtr.yaml").load(<fit's best.pt>).info()` on the card:
    its layers, params and GFLOPs at 640 px those of the same model on the
    CPU, the operation counts (`utils/profiler.py:flops_of`) equal exactly.
+9d. export: the exporter (`engine/exporter.py`) and `AutoBackend`'s load
+   side on the card (`export_phase`): `benchmark()` of the serve model
+   (`serve_model`, tamtr.yaml, 640 px, b1) in the port's three formats
+   (`torch`, `npz`, `torch_export`), each row `parity_ok`; that model and
+   `yolo-gelan.yaml` (full width, nc 10, heads spread, BatchNorms calibrated)
+   exported fp32 and half=True and loaded back, on two seeded inputs unlike
+   the zeros traced: fp32 artifacts within 1e-5 of the live forward, half
+   ones within 1e-5 of the live forward of the weights as they load (bf16-
+   or float16-rounded; the half program against `program_of(model,
+   half=True)`, JAX's half computation), each half artifact at most 0.55 of
+   its fp32 one's size; the tamtr.yaml `.pt2` loaded in a fresh process,
+   whose one forward launches B1 and B2 (through the `tamtr::` ops) as the
+   live forward does (`launches_export` in the kernels line); b1 request ms
+   of the live model and the `.pt2` in turns; `profile_model` at 320 and
+   640 px; `Engine.tune(iterations=2, epochs=1)` on the fit dataset at 320
+   px in this process and isolated (two finite rows each); `ensemble_predict` of two
+   seeded models over 4 fixtures (each merged row a model's own).
+The parallel phase's process runs beside the heads phase, and the cli
+phase's beside info (for the script's time): neither of the
+two in this process times anything, and each process counts its own
+launches; the parallel phase's step times are then taken beside another
+process's work on the card. In the export phase the fresh process and
+the isolated tune trials run beside the yolo-gelan checks.
 Every phase from 4b on zeroes the launch counters before it runs and checks
 after it that B1 and B2 ran `FORWARD_LAUNCHES` times its forwards, and no
 other kernel ran (B1 and B3 once a piece in ss2d_pieces).
@@ -251,7 +275,9 @@ and each phase's wall seconds follow it on a line "phase <name>: <s> s".
 10. One JSON line of each phase's seconds (`phase_s`) and of how each
    kernel's device ms was taken (`device_ms_by`: torch.profiler, or CUDA
    events behind a spin kernel where the profiler recorded no kernel).
-   One JSON line of per-kernel numbers (`launches_fit`: the fit phase's;
+   One JSON line of the export phase's summary. One JSON line of per-kernel
+   numbers (`launches_fit`: the fit phase's; `launches_export`: the
+   exported program's forward in a fresh process;
    `launches_yolo`, `launches_loss_variants`, `launches_rtdetr`,
    `launches_heads`, `launches_seg_pose`, `launches_classify`,
    `launches_sam`: those phases'; B2's, B4's and B5's RT-DETR shape
@@ -266,6 +292,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -307,7 +334,7 @@ OPS_LAUNCHES = {"selective_scan_fwd": 3, "selective_scan_fwd_summaries": 3, "sel
                 "scatter_acc_pairs_buckets": 1, "scatter_acc_pairs": 1, "auction_match": 1}
 # the fit phase: the generated dataset of tools/smoke_train_torch.py
 FIT_TRAIN, FIT_VAL, FIT_MAX_GT = 16, 8, 32
-FIT_EPOCHS = 2  # the fit phase's first run (its second epoch's start is in the loader wait); resume adds one
+FIT_EPOCHS = 1  # the fit phase's first run (one epoch: the script's time); resume adds one
 # the decoder's sampling at 640 px: batch 4, Q = 700 (dn queries included)
 DEFORM_B, DEFORM_Q = 4, 700
 
@@ -2778,16 +2805,17 @@ def calibrate_detect_head(model, img, txt):
                 x = cb(x)
 
 
-def yolo_train_parity(dev, batch):
+def yolo_train_parity(dev, batch, imgsz: int):
     """One training step of the full-width yolo-gelan (nc 10, the heads
-    spread) at 640 px, batch 4, max_gt 300, card against CPU from one state
-    dict. TAL's assignment, a discrete function of the predictions, on the
+    spread) on `batch` at `imgsz` px, max_gt 300, card against CPU from one
+    state dict. TAL's assignment, a discrete function of the predictions, on the
     card against the CPU's: the anchors whose foreground flag or gt differ
     are counted and printed, at most 1% of the CPU's foreground. Then with
     the CPU's assignment given to the card and to a CPU fp64 pass: the
     largest relative loss-item difference card vs CPU <= 2x the CPU's vs
     fp64 (or 2e-6, twice the rounding of an fp32 sum over the B * A * nc =
-    336000 terms of the class BCE, should the fp64 pass come closer), and
+    336000 terms of the class BCE at 640 px b4, should the fp64 pass come
+    closer), and
     |g_card - g_cpu| <= 2 |g_cpu - g_fp64| over the whole gradient
     (`check_train_parity`'s rule). Returns the summary."""
     import copy
@@ -2799,7 +2827,7 @@ def yolo_train_parity(dev, batch):
     base = TAMTRModel.from_cfg("yolo-gelan.yaml", nc=YOLO_NC, max_gt=TRAIN_MAX_GT)
     init_parameters(base, 0)
     spread_detect(base)
-    cfg = V8LossConfig(nc=YOLO_NC, imgsz=TRAIN_IMGSZ)
+    cfg = V8LossConfig(nc=YOLO_NC, imgsz=imgsz)
 
     def grads_on(d, dtype=torch.float32, assign=None):
         model = copy.deepcopy(base).to(d, dtype).train()
@@ -2830,8 +2858,9 @@ def yolo_train_parity(dev, batch):
                    worst_item_rel=worst_fixed, item_noise_rel=item_noise,
                    grad_rel=d_card / cpu_g.norm().item(), grad_noise_rel=d_noise / cpu_g.norm().item(),
                    cpu_fwd_bwd_s=cpu_s)
-    say(f"yolo train parity yolo-gelan {TRAIN_IMGSZ}px b{TRAIN_BATCH} max_gt {TRAIN_MAX_GT}, TAL tensors "
-        f"({TRAIN_BATCH}, {TRAIN_MAX_GT}, {fg.shape[1]}): {json.dumps(summary)}", flush=True)
+    B = batch["img"].shape[0]
+    say(f"yolo train parity yolo-gelan {imgsz}px b{B} max_gt {TRAIN_MAX_GT}, TAL tensors "
+        f"({B}, {TRAIN_MAX_GT}, {fg.shape[1]}): {json.dumps(summary)}", flush=True)
     if not (finite and fg.sum() > 0 and moved <= 0.01 * int(fg.sum()) and worst_fixed <= 2 * max(item_noise, 1e-6)
             and d_card <= 2 * d_noise):
         raise AssertionError(f"yolo train parity failed: {summary}")
@@ -2926,7 +2955,9 @@ def yolo(dev, data: str):
 
     batches = [synthetic_batch(100 + i, TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_MAX_GT, TRAIN_VALID, nc=YOLO_NC)
                for i in range(2 + YOLO_STEPS)]
-    out["train_parity"] = yolo_train_parity(dev, batches[0])
+    px, pb = SEG_POSE_PARITY  # the seg_pose parity's size: the CPU's fp32 and fp64 passes at 640 b4 cost ~4x
+    out["train_parity"] = yolo_train_parity(dev, synthetic_batch(100, pb, px, TRAIN_MAX_GT, TRAIN_VALID[:pb],
+                                                                 nc=YOLO_NC), px)
     trainer_det = TAMTR("yolo-gelan.yaml", nc=YOLO_NC, seed=0, max_gt=TRAIN_MAX_GT)
     spread_detect(trainer_det.model)
     tr = trainer_det.trainer(TrainConfig(batch_size=TRAIN_BATCH, accumulate=1), seed=0)
@@ -4498,6 +4529,253 @@ def heads(dev):
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# Export and load back (`engine/exporter.py`, `nn/autobackend.py`), benchmark,
+# profile, tune and ensemble
+# ---------------------------------------------------------------------------
+
+EXPORT_FORMATS = ("torch", "npz", "torch_export")
+EXPORT_ROUNDS, EXPORT_REQUESTS = 2, 5  # b1 requests of the live model and of the artifact, timed in turns
+# the tune trials at 320 px: the loop under test, not the step (a 640 px isolated trial took 34 s, mostly its
+# process's start and first steps)
+TUNE_ARGS = dict(iterations=2, epochs=1, batch=TRAIN_BATCH, imgsz=320, max_gt=FIT_MAX_GT, workers=0, warmup_epochs=1)
+ENSEMBLE_FIXTURES = ("s420_q75.jpg", "gray_q85.jpg", "exif6_q90.jpg", "visdrone_1360x765_q85.jpg")
+HALF_SHARE_MAX = 0.55  # a half artifact's size over its fp32 one's, at most
+
+
+def export_inputs(model, seed: int):
+    """Two b1 inputs at 640 px unlike the zeros the programs are traced on:
+    seeded images, and unit text rows (the model's classes' first)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        img = rng.random((1, TRAIN_IMGSZ, TRAIN_IMGSZ, 3), dtype=np.float32)
+        txt = rng.standard_normal((1, model.nc, model.text_width)).astype(np.float32)
+        out.append((img, txt / np.linalg.norm(txt, axis=-1, keepdims=True)))
+    return out
+
+
+@torch.no_grad()
+def rounded(model, dtype):
+    """A copy of `model` with its float weights rounded to `dtype` and back:
+    what the "torch" (bf16) and "npz" (float16) half artifacts load as."""
+    import copy
+
+    twin = copy.deepcopy(model)
+    for t in twin.state_dict().values():
+        if t.is_floating_point():
+            t.copy_(t.to(dtype).float())
+    return twin.eval()
+
+
+def pt2_in_fresh_process(path, inputs, dev):
+    """A `.pt2` loaded by `AutoBackend` in a new Python process, which shares
+    nothing with this one's model: the launch counters zeroed just before
+    its first forward and read just after, then its pred on both inputs."""
+    import tempfile
+    from types import SimpleNamespace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/in.npz", **{f"{k}{i}": a for i, inp in enumerate(inputs) for k, a in zip("it", inp)})
+        code = ("import json, sys\nimport numpy as np, torch\n"
+                "torch.backends.cuda.matmul.allow_tf32 = False\ntorch.backends.cudnn.allow_tf32 = False\n"
+                "from chip_smoke import zero_counters\nfrom tamtr_torch.nn.autobackend import AutoBackend\n"
+                "ab = AutoBackend(sys.argv[1], device=sys.argv[4])\ninp = np.load(sys.argv[2])\n"
+                "counters = zero_counters()\npred0 = ab(inp['i0'], inp['t0'])\n"
+                "launches = {k: f.launches for k, f in counters.items()}\n"
+                "np.savez(sys.argv[3], pred0=pred0, pred1=ab(inp['i1'], inp['t1']))\n"
+                "print(json.dumps(launches))\n")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code, str(path), f"{tmp}/in.npz", f"{tmp}/out.npz", dev.type],
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"export: the fresh process exit {res.returncode}\n{res.stderr[-4000:]}")
+        with np.load(f"{tmp}/out.npz") as out:
+            preds = [out["pred0"], out["pred1"]]
+    launches = json.loads(res.stdout.strip().splitlines()[-1])
+    counted = expect_launches("export: the tamtr.yaml .pt2, one forward in a fresh process",
+                              {k: SimpleNamespace(launches=v) for k, v in launches.items()}, FORWARD_LAUNCHES)
+    return preds, counted, wall
+
+
+def export_model_checks(name: str, model, dev, root, meta: dict, per_fwd: dict, fp32_paths=None):
+    """`model` exported in the three port formats, fp32 and half=True, on
+    the card (fp32 artifacts given in `fp32_paths` are not made again), and
+    each loaded back through `AutoBackend`: on both inputs the fp32
+    artifacts within 1e-5 of the live eval forward, the half ones within
+    1e-5 of the live forward of the same weights as they load (the weights
+    rounded to bf16, or float16 for npz; for the program JAX's half
+    computation, `program_of(model, half=True)`, whose distance from the
+    plain rounded forward is reported). Every launch counter is zeroed
+    before each load and forward and read after: B1 and B2 as the live
+    forward's (`per_fwd` a forward). Returns each artifact's export s,
+    size, max error and bitwise equality, the loaded backends, the inputs
+    and the live forwards' preds."""
+    from tamtr_torch.engine.exporter import export_model, program_of
+    from tamtr_torch.nn.autobackend import AutoBackend
+
+    inputs = export_inputs(model, seed=len(name))
+    live = {}
+    with torch.inference_mode():
+        for key, mod in (("fp32", program_of(model)), ("torch", program_of(rounded(model, torch.bfloat16))),
+                         ("npz", program_of(rounded(model, torch.float16))),
+                         ("torch_export", program_of(model, half=True))):
+            counters = zero_counters()
+            live[key] = [mod(torch.from_numpy(i).to(dev), torch.from_numpy(t).to(dev)).cpu().numpy() for i, t in inputs]
+            expect_launches(f"export {name}: live forward ({key})", counters, launches_of((per_fwd, 2)))
+    rows, backends = {}, {}
+    for fmt in EXPORT_FORMATS:
+        for half in (False, True):
+            t0 = time.perf_counter()
+            path = (fp32_paths or {}).get(fmt) if not half else None
+            path = path or export_model(model, TRAIN_IMGSZ, model.nc, root / f"{fmt}{int(half)}", fmt, half=half,
+                                        meta=meta)
+            export_s = time.perf_counter() - t0
+            counters = zero_counters()
+            ab = AutoBackend(path, model_cfg=meta["model_cfg"], nc=model.nc, device=dev)
+            got = [ab(i, t) for i, t in inputs]  # numpy out: the forwards have ended
+            expect_launches(f"export {name}: {fmt} half={half} loaded, two forwards", counters,
+                            launches_of((per_fwd, 2)))
+            want = live["fp32" if not half else fmt]
+            err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+            row = dict(export_s=round(export_s, 2), bytes=path.stat().st_size, max_abs_err=err,
+                       bitwise=all(np.array_equal(g, w) for g, w in zip(got, want)))
+            if half and fmt == "torch_export":  # JAX's half semantics against the plain rounded-weights forward
+                row["from_rounded_fp32"] = max(float(np.abs(g - w).max()) for g, w in zip(got, live["torch"]))
+            if err > 1e-5 or not all(np.isfinite(g).all() for g in got):
+                raise AssertionError(f"export {name}: {fmt} half={half} off the live forward by {err}")
+            rows[f"{fmt}{'_half' if half else ''}"] = row
+            backends[fmt, half] = ab
+    for fmt in EXPORT_FORMATS:
+        share = rows[f"{fmt}_half"]["bytes"] / rows[fmt]["bytes"]
+        rows[f"{fmt}_half"]["size_share"] = round(share, 4)
+        if share > HALF_SHARE_MAX:
+            raise AssertionError(f"export {name}: the {fmt} half artifact is {share:.3f} of its fp32 one")
+    say(f"export {name}: {json.dumps(rows)}")
+    return rows, backends, inputs, live
+
+
+def export_phase(dev, data: str):
+    """Export and load back, the benchmark and profile, tune and ensemble:
+      - `benchmark()` of the serve phase's `tamtr.yaml` model (`serve_model`,
+        640 px, b1) in the three port formats: every row `parity_ok`; its
+        artifacts are the fp32 ones of the next step;
+      - `export_model_checks` on that model and on `yolo-gelan.yaml` at full
+        width (nc 10, heads spread, every BatchNorm calibrated on 4 frames);
+      - the tamtr.yaml `.pt2` loaded in a fresh process
+        (`pt2_in_fresh_process`): its first forward launches B1 and B2 as
+        the live forward, through `expect_launches`, and its pred on both
+        inputs is the live forward's within 1e-5;
+      - b1 request ms (`AutoBackend.__call__`, numpy in and out) of the live
+        model and of the loaded `.pt2`, in turns;
+      - `profile_model` at 320 and 640 px;
+      - `Engine.tune(iterations=2, epochs=1)` of tamtr.yaml on the fit
+        dataset at 320 px, in this process and with isolate=True: two
+        finite rows in each `tune_results.csv`, each trial trained to its
+        end (its results.csv);
+      - `ensemble_predict` of two seeded models over 4 JPEG fixtures: every
+        merged row is a row of one model's own results.
+    Launches are counted per part; the part that runs no forward of
+    tamtr.yaml (yolo) launches none. Returns the summary and the launches of
+    the fresh process's forward."""
+    import csv
+    import shutil
+    from pathlib import Path
+
+    from tamtr_torch import TAMTR
+    from tamtr_torch.engine.ensemble import ensemble_predict
+    from tamtr_torch.engine.model import Engine
+    from tamtr_torch.nn.autobackend import AutoBackend
+    from tamtr_torch.utils.benchmarks import benchmark, profile_model
+
+    root = Path("build/export")
+    shutil.rmtree(root, ignore_errors=True)
+    det = serve_model()
+    eng = det._lazy_engine()
+    model = det.model.eval()
+    meta = {"nc": model.nc, "names": eng.names, "model_cfg": str(eng.model_cfg), "imgsz": TRAIN_IMGSZ,
+            "max_gt": 128}
+    t0 = time.perf_counter()
+    bench = benchmark(eng, imgsz=TRAIN_IMGSZ, formats=list(EXPORT_FORMATS), out_dir=str(root / "bench"), n_iter=2)
+    bench_s = time.perf_counter() - t0
+    say(f"export: benchmark() of tamtr.yaml at 640 px b1, {bench_s:.1f} s: {json.dumps(bench)}")
+    if not all(r.get("parity_ok") for r in bench):
+        raise AssertionError(f"export: benchmark rows without parity: {bench}")
+    fp32_paths = {r["format"]: Path(r["path"]) for r in bench if "path" in r}
+    tam_rows, tam_ab, inputs, live = export_model_checks("tamtr.yaml", model, dev, root / "tamtr", meta,
+                                                         FORWARD_LAUNCHES, fp32_paths)
+
+    live_ab = AutoBackend(model, device=dev)
+    img, txt = inputs[0]
+    ms = in_turns({"live": lambda: live_ab(img, txt), "pt2": lambda: tam_ab["torch_export", False](img, txt),
+                   "pt2_half": lambda: tam_ab["torch_export", True](img, txt)}, EXPORT_ROUNDS, EXPORT_REQUESTS)
+    say(f"export: b1 request ms (AutoBackend, numpy in and out, in turns): {json.dumps(ms)}")
+    del tam_ab, live_ab
+
+    def tune_run(isolate: bool) -> dict:
+        project = root / f"tune{int(isolate)}"
+        t0 = time.perf_counter()
+        best = Engine("tamtr.yaml", device=dev).tune(isolate=isolate, data=data, project=str(project), **TUNE_ARGS)
+        with open(project / "tune" / "tune_results.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        fits = [float(r["fitness"]) for r in rows]
+        if len(rows) != 2 or not np.isfinite(fits).all() or len(list(project.glob("train*/results.csv"))) != 2:
+            raise AssertionError(f"export: tune isolate={isolate} wrote {rows}")
+        return dict(s=round(time.perf_counter() - t0, 1), fitness=fits, best_lr0=best["lr0"])
+
+    # the work of other processes (the .pt2 in a fresh process, the isolated tune trials) runs beside the
+    # yolo checks, which time nothing that counts and launch no kernel of this process
+    with ThreadPoolExecutor(2) as pool:
+        fresh = pool.submit(pt2_in_fresh_process, fp32_paths["torch_export"], inputs, dev)
+        isolated = pool.submit(tune_run, True)
+        yolo_det = TAMTR("yolo-gelan.yaml", nc=YOLO_NC, seed=0, device=dev)
+        spread_detect(yolo_det.model)
+        rng = np.random.default_rng(4)
+        frames = [rng.integers(0, 256, (765, 1360, 3), dtype=np.uint8) for _ in range(4)]
+        yimg, _ = yolo_det._to_batch(frames)
+        calibrate_bn(yolo_det.model, yimg)  # no head rescale: its weights stay in float16's range (npz half)
+        ymeta = {"nc": YOLO_NC, "names": [f"class{i}" for i in range(YOLO_NC)], "model_cfg": "yolo-gelan.yaml",
+                 "imgsz": TRAIN_IMGSZ, "max_gt": 128}
+        yolo_rows, _, _, _ = export_model_checks("yolo-gelan.yaml", yolo_det.model.eval(), dev, root / "yolo", ymeta,
+                                                 {})
+        del yolo_det
+        preds, fresh_launches, fresh_s = fresh.result()
+        tune = {"isolate=True": isolated.result()}
+    fresh_err = max(float(np.abs(p - w).max()) for p, w in zip(preds, live["fp32"]))
+    say(f"export: the .pt2 in a fresh process: {fresh_s:.1f} s wall, max error {fresh_err}, launches "
+        f"{fresh_launches}")
+    if fresh_err > 1e-5:
+        raise AssertionError(f"export: the .pt2 in a fresh process off the live forward by {fresh_err}")
+
+    counters = zero_counters()
+    profile = profile_model(eng, imgsz_list=[320, TRAIN_IMGSZ])
+    # a size: flops_of's forward, the warm-up, 8 timed
+    expect_launches("export: profile_model", counters, launches_of((FORWARD_LAUNCHES, 2 * (2 + 8))))
+    say(f"export: profile_model: {json.dumps(profile)}")
+    tune["isolate=False"] = tune_run(False)
+    say(f"export: Engine.tune(iterations=2, epochs=1) on {data}: {json.dumps(tune)}")
+
+    other = serve_model(seed=5)
+    sources = [f"{JPEG_FIXTURES}/{f}" for f in ENSEMBLE_FIXTURES]
+    counters = zero_counters()
+    merged = ensemble_predict([det, other], sources, iou=0.5, conf=0.05)
+    singles = [m.predict(sources, conf=0.05) for m in (det, other)]
+    expect_launches("export: ensemble_predict", counters, launches_of((FORWARD_LAUNCHES, 4 * len(sources))))
+    rows_of = lambda r: np.concatenate([r.boxes.xyxy, r.boxes.conf[:, None], r.boxes.cls[:, None]], 1)  # noqa: E731
+    n_rows = 0
+    for i, r in enumerate(merged):
+        own = np.concatenate([rows_of(s[i]) for s in singles])
+        if not all((own == row).all(-1).any() for row in rows_of(r)):
+            raise AssertionError(f"export: ensemble row of {r.path} is no model's row")
+        n_rows += len(r)
+    say(f"export: ensemble_predict of 2 models over {len(sources)} fixtures: {n_rows} merged rows, of "
+        f"{sum(len(r) for s in singles for r in s)}, each a model's own")
+    return dict(benchmark=bench, tamtr=tam_rows, yolo=yolo_rows, b1_request_ms=ms, fresh_process_s=round(fresh_s, 1),
+                fresh_process_max_abs_err=fresh_err, profile=profile, tune=tune, ensemble_rows=n_rows), fresh_launches
+
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -4573,10 +4851,16 @@ def main() -> int:
     classify_summary, classify_launches = timed("classify", classify_phase, dev)
     sam_summary, sam_launches = timed("sam", sam_phase, dev)
     rtdetr_summary, rtdetr_launches = timed("rtdetr", rtdetr, dev, "build/fit/data.json")
-    heads_summary, heads_launches = timed("heads", heads, dev)
-    parallel_summary = timed("parallel", parallel, "build/fit/data.json")
-    cli_launches = timed("cli", cli, "build/fit/runs/fit/weights/best.pt")
-    info_launches = timed("info", info, "build/fit/runs/fit/weights/best.pt")
+    # the phases that run in processes of their own (parallel, cli) go beside one of this process's that
+    # times nothing (heads, info): their launches are counted in their own processes
+    with ThreadPoolExecutor(1) as pool:
+        par = pool.submit(timed, "parallel", parallel, "build/fit/data.json")
+        heads_summary, heads_launches = timed("heads", heads, dev)
+        parallel_summary = par.result()
+        cli_run = pool.submit(timed, "cli", cli, "build/fit/runs/fit/weights/best.pt")
+        info_launches = timed("info", info, "build/fit/runs/fit/weights/best.pt")
+        cli_launches = cli_run.result()
+    export_summary, export_launches = timed("export", export_phase, dev, "build/fit/data.json")
 
     def slice3(name, reached_through):
         return dict(launches=ops_launches[name], launches_serve=launches[name],
@@ -4606,6 +4890,9 @@ def main() -> int:
              launches_serve_http=http_launches["ss2d_scan_fwd"], launches_cli=cli_launches["ss2d_scan_fwd"],
              launches_track=track_launches["ss2d_scan_fwd"], launches_fuse=fuse_launches["ss2d_scan_fwd"],
              launches_info=info_launches["ss2d_scan_fwd"], launches_autobatch=autobatch_launches["ss2d_scan_fwd"],
+             launches_export={k: export_launches[k] for k in ("ss2d_scan_fwd", "ss2d_scan_fwd_summaries",
+                                                             "ss2d_scan_fwd_combine", "ss2d_scan_fwd_output")},
+             launches_export_of="one forward of the exported tamtr.yaml .pt2 in a fresh process (tamtr::ss2d_scan_fwd)",
              ss2d_pieces=pieces,
              launches_sp_blocks={k: sp_launches[k] for k in ("ss2d_scan_fwd_summaries", "ss2d_scan_fwd_combine",
                                                               "ss2d_scan_fwd_output")},
@@ -4624,6 +4911,9 @@ def main() -> int:
              launches_cli=cli_launches["bilinear_gather_fwd"], launches_track=track_launches["bilinear_gather_fwd"],
              launches_fuse=fuse_launches["bilinear_gather_fwd"], launches_info=info_launches["bilinear_gather_fwd"],
              launches_autobatch=autobatch_launches["bilinear_gather_fwd"],
+             launches_export=export_launches["bilinear_gather_fwd"],
+             launches_export_of="one forward of the exported tamtr.yaml .pt2 in a fresh process "
+                                "(tamtr::bilinear_gather_fwd)",
              launches_parallel=parallel_summary["launches_train"]["bilinear_gather_fwd"],
              **{**gather, "max_abs_err": max(gather["max_abs_err"], gather_train["max_abs_err"],
                                              gather_step["max_abs_err_step"])},
@@ -4745,6 +5035,7 @@ def main() -> int:
     print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary, "track": track_summary,
                       "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp,
                       "jpeg_host_encode_ms_per_megapixel": jpeg_encode_ms_per_mp}))
+    print(json.dumps({"export": export_summary}))
     print(json.dumps({"phase_s": PHASE_S, "device_ms_by": DEVICE_MS_BY}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,9 @@ an image (path, probs, top5, top5_conf, names) from files or arrays.
 `info()` gives the model's summary: layers, parameters and, once a model
 is held, GFLOPs. `fuse=True` to `predict`, `track` or `val` runs the fused
 twin of the model (`nn/fuse.py`); `train(batch=-1)` fits the batch to the
-card's memory.
+card's memory. `export(fmt)` writes the model as "torch", "npz" or
+"torch_export" (`engine/exporter.py`), and `tune(iterations, data=...)`
+evolves the training hyperparameters (`engine/tuner.py`).
 
 `track(source)` runs `Engine.track` over a sequence of frames (arrays,
 image files, a directory or a glob): the file predict's forward on each
@@ -183,6 +185,21 @@ class TAMTR:
         self._lazy_engine().load(ckpt_path, nc=nc, names=names)
         self.nc = self._engine.model.nc
         return self
+
+    def export(self, fmt: str = "torch", **kwargs) -> Path:
+        """Export this detector's model (trained, loaded, or seeded from the
+        config): `Engine.export` in the formats of `engine/exporter.py`
+        ("torch", "npz", "torch_export"), on this detector's device."""
+        self.model  # noqa: B018  (the seeded model of a config, made on first use)
+        return self._lazy_engine().export(fmt, **kwargs)
+
+    def tune(self, iterations: int = 10, use_ray: bool = False, **kwargs) -> Dict[str, float]:
+        """Hyperparameter search over short trainings of this config
+        (`Engine.tune`): mutation evolution by default (isolate=True, a
+        subprocess a trial), Ray Tune with ASHA with use_ray=True; `train`'s
+        defaults of this detector (seed, imgsz, max_gt) unless given."""
+        args = {"seed": self.seed, "imgsz": self.imgsz, "max_gt": self.max_gt, **kwargs}
+        return self._lazy_engine().tune(iterations, use_ray=use_ray, **args)
 
     def set_classes(self, classes: List[str], embeddings: Optional[np.ndarray] = None) -> None:
         """Open-vocabulary retarget for `val`: new class names, with their

@@ -10,6 +10,9 @@ package's `tamtr_tpu/cli.py`, the reference's `yolo` entry point,
     python -m tamtr_torch pose val model=runs/detect/train/weights/best.pt data=coco-pose.yaml
     python -m tamtr_torch classify train data=imagefolder/ epochs=10 imgsz=224
     python -m tamtr_torch serve model=runs/detect/train/weights/best.pt port=8000
+    python -m tamtr_torch export model=runs/detect/train/weights/best.pt format=torch_export
+    python -m tamtr_torch benchmark model=runs/detect/train/weights/best.pt
+    python -m tamtr_torch tune model=tamtr.yaml data=visdrone.yaml iterations=10 epochs=10
     python -m tamtr_torch settings [reset] [key=value ...]
 
 A positional task and mode, and `key=value` overrides. The model is a model
@@ -29,9 +32,13 @@ batch to the card. `segment` and `pose` run a segment or pose model
 mask or keypoint mAP beside the box metrics. `classify` runs a classifier
 (`classify-gelan.yaml`) on an ImageFolder root (`data=` holding `train/`
 and `val/` or `test/`): val prints top-1 and top-5, predict one line an
-image with its top class and probability. The modes `export`, `benchmark`
-and `tune` are not ported: they exit with a message naming their ROADMAP
-entry; so do video and stream sources of `predict` and `track`.
+image with its top class and probability. `export format=<torch | npz |
+torch_export>` prints the artifact's path (format=savedmodel by default, as
+the JAX CLI's, which needs tensorflow and raises; keys out_dir, imgsz,
+half); `benchmark` prints one row per format (`utils/benchmarks.py`);
+`tune iterations=N data=...` prints the best hyperparameters
+(`Engine.tune`; isolate=True, use_ray=True). Video and stream sources of
+`predict` and `track` exit with a message naming their ROADMAP entry.
 
 `device=0,1` (a list of card indices, as the reference takes it) shows the
 process those cards alone (CUDA_VISIBLE_DEVICES) and trains on all of them:
@@ -60,12 +67,6 @@ TASK_MODELS = {
     "segment": "yolo-seg-gelan.yaml",
     "pose": "yolo-pose-gelan.yaml",
     "classify": "classify-gelan.yaml",
-}
-# what is not ported, and where ROADMAP.md queues it
-NOT_PORTED = {
-    "export": "queue A, item 7 (engine/exporter.py and the AutoBackend export formats)",
-    "benchmark": "queue A, item 7 (benchmarks.py)",
-    "tune": "queue A, item 7 (engine/tuner.py)",
 }
 
 
@@ -121,10 +122,6 @@ def select_devices(device: Any) -> tuple:
     return "cuda", ids
 
 
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to tamtr_torch yet: ROADMAP.md {NOT_PORTED[what]}")
-
-
 def settings_command(args: List[str]) -> None:
     """`settings [reset] [key=value ...]` (the JAX CLI's, the reference's
     `handle_yolo_settings`): reset, or set and save the keys, then print
@@ -151,9 +148,6 @@ def main(argv: List[str] | None = None) -> None:
         settings_command(argv[1:])
         return
     task, mode, ov = parse_args(argv)
-    for what in (mode, task):
-        if what in NOT_PORTED:
-            raise _not_ported(what)
     source = ov.get("source")
     if mode in ("predict", "track") and source is not None:
         from tamtr_torch.data.loaders import unsupported_source
@@ -209,6 +203,18 @@ def main(argv: List[str] | None = None) -> None:
             raise SystemExit("track requires source=<directory, glob or images>")
         for r in model.track(source, tracker=ov.pop("tracker", "bytetrack"), **ov):
             print(f"{r.path}: {len(r.track_ids)} tracks {sorted(set(r.track_ids.tolist()))}", flush=True)
+    elif mode == "export":
+        ov.pop("seed", None)
+        print(model.export(ov.pop("format", "savedmodel"), **ov))
+    elif mode == "benchmark":
+        from tamtr_torch.utils.benchmarks import benchmark
+
+        ov.pop("seed", None)
+        model.model  # noqa: B018  (the seeded model of a config)
+        for row in benchmark(model._lazy_engine(), **ov):
+            print(row, flush=True)
+    elif mode == "tune":
+        print(model.tune(int(ov.pop("iterations", 10)), **ov))
 
 
 if __name__ == "__main__":

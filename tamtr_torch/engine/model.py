@@ -60,8 +60,13 @@ engine's `_train_classify`, `_validate_classify` and `_predict_classify`
 cross-entropy step, top-1 / top-5 val (fitness top-1), and predict giving
 one dict a image: path, probs, top5, top5_conf, names.
 
+`export` writes the model in one of the exporter's formats
+(`engine/exporter.py`); `tune` evolves the training hyperparameters over
+short trainings (`engine/tuner.py`), in this process or one subprocess a
+trial.
+
 The engine runs on the card unless `device="cpu"` is given (then the ranks
-meet over gloo). Not ported: video and stream sources, tune and export.
+meet over gloo). Not ported: video and stream sources.
 """
 
 from __future__ import annotations
@@ -925,6 +930,83 @@ class Engine:
                 self._fused = (key, fuse_model(model))
             model = self._fused[1]
         return (model if model.dtype == dtype else model.with_dtype(dtype)).eval()
+
+    # ------------------------------------------------------------- export
+    def export(self, fmt: str = "torch", out_dir: str = "runs/export", imgsz: int = 640, half: bool = False,
+               int8: bool = False) -> Path:
+        """Export the engine's model (after `train` the EMA, after `load` the
+        checkpoint's) with its meta (`engine/exporter.py`; the JAX
+        `Engine.export`): n_text = len(names) or nc. The JAX `calib` of
+        tflite int8 has no format here to go to."""
+        from tamtr_torch.engine.exporter import export_model
+
+        if self.model is None:
+            raise RuntimeError("no weights loaded; train first or load a checkpoint")
+        head = self.model.model[-1]
+        meta = {"nc": self.model.nc, "names": self.names, "model_cfg": str(self.model_cfg), "imgsz": imgsz,
+                "max_gt": getattr(head, "max_gt", 128)}
+        return export_model(self.model, imgsz, len(self.names) or self.model.nc, out_dir, fmt, half=half, int8=int8,
+                            meta=meta)
+
+    # ------------------------------------------------------------------ tune
+    def tune(self, iterations: int = 10, isolate: bool = False, use_ray: bool = False,
+             **overrides: Any) -> Dict[str, float]:
+        """Hyperparameter evolution (the JAX `Engine.tune`, the reference's
+        `Model.tune`): `engine/tuner.py:Tuner` mutates the hyperparameters
+        and runs a short `train` of this config on `overrides` per
+        iteration, keeping the fitness-best; rows in
+        `<project or runs>/tune/tune_results.csv`. isolate=True runs each
+        trial in a Python subprocess (a trial that crashes hard, killed for
+        memory or wedging the card, scores fitness 0 and the loop goes on);
+        use_ray=True goes to Ray Tune with ASHA (`run_ray_tune`), which
+        needs ray[tune]. Every trial trains on this engine's device."""
+        from tamtr_torch.engine.tuner import SPACE, Tuner, run_ray_tune
+
+        base_cfg = get_cfg(overrides=overrides)
+        if use_ray:
+            return run_ray_tune(
+                lambda hyp: Engine(self.model_cfg, device=self.device).train(
+                    **{**overrides, **hyp, "save": False, "plots": False}),
+                max_samples=iterations, max_t=base_cfg.epochs,
+                storage_path=str(Path(base_cfg.project or "runs") / "tune"))
+        tuner = Tuner(save_dir=Path(base_cfg.project or "runs") / "tune", seed=base_cfg.seed)
+
+        def train_fn(hyp: Dict[str, float]) -> Dict[str, float]:
+            ov = {**overrides, **hyp, "save": False, "plots": False}
+            if not isolate:
+                return Engine(self.model_cfg, device=self.device).train(**ov)
+            return self._isolated_trial(ov)
+
+        base_hyp = {k: getattr(base_cfg, k) for k in SPACE}
+        return tuner(train_fn, base_hyp=base_hyp, iterations=iterations)
+
+    def _isolated_trial(self, overrides: Dict[str, Any]) -> Dict[str, float]:
+        """One tune trial, `Engine(model_cfg).train(**overrides)` in a Python
+        subprocess on this engine's device; its numeric metrics, or fitness
+        0 when the process dies without writing them."""
+        import json
+        import os
+        import subprocess
+        import sys
+        import tempfile
+
+        code = ("import json, sys\nfrom pathlib import Path\n"
+                "cfg = json.loads(sys.argv[1])\n"
+                "from tamtr_torch.engine.model import Engine\n"
+                "m = Engine(cfg['model_cfg'], device=cfg['device']).train(**cfg['overrides'])\n"
+                "Path(cfg['out']).write_text(json.dumps({k: float(v) for k, v in m.items() "
+                "if isinstance(v, (int, float))}))\n")
+        root = str(Path(__file__).resolve().parents[2])
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "metrics.json"
+            payload = json.dumps({"model_cfg": str(self.model_cfg), "device": str(self.device),
+                                  "overrides": overrides, "out": str(out)}, default=str)
+            r = subprocess.run([sys.executable, "-c", code, payload], capture_output=True, text=True, env=env)
+            if out.exists():
+                return json.loads(out.read_text())
+        LOGGER.warning(f"isolated tune trial crashed (rc={r.returncode}); fitness=0\n{r.stderr[-500:]}")
+        return {"fitness": 0.0}
 
     # ------------------------------------------------------------- weights
     def load(self, ckpt_path: Union[str, Path], nc: Optional[int] = None,

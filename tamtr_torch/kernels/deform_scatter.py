@@ -400,13 +400,32 @@ def bilinear_gather_bwd(value, idx2, w_pairs, dout):
     return dvalue, dw
 
 
+@torch.library.custom_op("tamtr::bilinear_gather_fwd", mutates_args=(), device_types="cpu")
+def bilinear_gather_fwd_op(value: torch.Tensor, idx4: torch.Tensor, w_pairs: torch.Tensor, idx2: torch.Tensor,
+                           P: int) -> torch.Tensor:
+    """The pair gather's forward as a torch op, so that a program captured
+    by `torch.export` holds it as one node and launches kernel B2 where it
+    runs: the plain version on the CPU, `_gather_fwd_cuda` (counted there)
+    on the card, no kernel on another device."""
+    return bilinear_gather_ref(value, idx4, w_pairs, idx2, P)
+
+
+@bilinear_gather_fwd_op.register_kernel("cuda")
+def _(value, idx4, w_pairs, idx2, P):
+    return _gather_fwd_cuda(value, idx2, w_pairs, P)
+
+
+@bilinear_gather_fwd_op.register_fake
+def _(value, idx4, w_pairs, idx2, P):
+    B, _, nh, c = value.shape
+    return value.new_empty((B, idx2.shape[1] // (2 * P), nh, c))
+
+
 class _BilinearGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, value, idx4, w_pairs, idx2, P):
         ctx.save_for_backward(value, w_pairs, idx2)
-        if value.device.type == "cpu":
-            return bilinear_gather_ref(value, idx4, w_pairs, idx2, P)
-        return _gather_fwd_cuda(value, idx2, w_pairs, P)
+        return bilinear_gather_fwd_op(value, idx4, w_pairs, idx2, P)
 
     @staticmethod
     def backward(ctx, dout):

@@ -47,6 +47,7 @@ assembly rounds d_dts, dBs and dCs once.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -547,13 +548,33 @@ def bwd_from_summaries(args, dy, summaries, seed_h=None, seed_c=None):
                            dAp.sum((0, 2)))
 
 
+@torch.library.custom_op("tamtr::ss2d_scan_fwd", mutates_args=(), device_types="cpu")
+def ss2d_scan_fwd_op(layouts: torch.Tensor, dts_raw: torch.Tensor, dt_w: torch.Tensor, dt_b: torch.Tensor,
+                     A: torch.Tensor, Bs: torch.Tensor, Cs: torch.Tensor, Ds: torch.Tensor,
+                     y_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The fused scan's forward as a torch op, so that a program captured by
+    `torch.export` holds it as one node and launches kernel B1 where it
+    runs: the plain version on the CPU, `_scan_fwd_cuda` (the three
+    launches, counted there) on the card, no kernel on another device."""
+    return ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype)
+
+
+@ss2d_scan_fwd_op.register_kernel("cuda")
+def _(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype=None):
+    return _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype)
+
+
+@ss2d_scan_fwd_op.register_fake
+def _(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype=None):
+    B, _, L, D = layouts.shape
+    return layouts.new_empty((B, 4, L, D), dtype=y_dtype or layouts.dtype)
+
+
 class _SS2DScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype=None):
         ctx.save_for_backward(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds)
-        if layouts.device.type == "cpu":
-            return ss2d_scan_ref(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype)
-        return _scan_fwd_cuda(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype)
+        return ss2d_scan_fwd_op(layouts, dts_raw, dt_w, dt_b, A, Bs, Cs, Ds, y_dtype)
 
     @staticmethod
     def backward(ctx, dy):

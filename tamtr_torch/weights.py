@@ -19,7 +19,8 @@ both spatial axes. The Classify head's `conv` and `linear` are flax's
 `head/ConvBN_0` and `head/Dense_0`. AIFI's `ma.in_proj_*`
 merge the layer's own `q_proj`, `k_proj` and `v_proj`, as the decoder's
 `self_attn`, `self_attn1` and `self_attn2` merge theirs; the Dual head's
-one core is flax's `head`.
+one core is flax's `head`. `to_jax_variables` is the inverse: a port
+model's state dict as the JAX package's flax variables (its npz export).
 
 `from_jax_sam_variables` bridges the JAX package's SAM (three flax trees:
 image encoder, prompt encoder, mask decoder, and TinyViT's BatchNorm
@@ -42,7 +43,7 @@ from tamtr_torch.nn.decoder import (
     ContrastiveHead, ContrastiveHead2D, MSDeformAttn, MultiHeadSelfAttention, sampling_offset_bias,
 )
 from tamtr_torch.nn.layers import MaxSigmoidAttnBlock
-from tamtr_torch.nn.ssm import SS2D
+from tamtr_torch.nn.ssm import K_DIRS, SS2D
 from tamtr_torch.nn.yolo_head import Classify, Detect
 
 _BN_LEAF = {
@@ -234,6 +235,50 @@ def from_jax_variables(params: Dict, batch_stats: Dict, model: nn.Module):
         f"{col}/{'/'.join(p)}" for col, tree in trees.items() for p in tree if (col, p) not in used
     )
     return sd, {"missing": missing, "shape_mismatch": mismatched, "unused_jax": unused}
+
+
+def to_jax_variables(model: nn.Module) -> Dict[str, Dict]:
+    """A port model's state dict -> the flax variables of the JAX
+    `TAMTRModel` of the same config, {"params": ..., "batch_stats": ...} as
+    nested dicts of float32 numpy arrays: the inverse of
+    `from_jax_variables`, route for route (the q/k/v split of `in_proj_*`,
+    `A_logs` / `Ds` unflattened to (K, D, N) / (K, D), the Proto's
+    transposed kernel flipped back, OIHW -> HWIO, Linear kernels
+    transposed). `num_batches_tracked` has no flax twin and is left out."""
+    layer_names = {idx: m.replace(".", "_") for idx, _, m, _ in model.specs}
+    head_index = model.specs[-1][0] + 1
+    head_type = getattr(model, "head_type", None)
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+
+    def put(col: str, path: List[str], val: np.ndarray) -> None:
+        node = trees[col]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.array(val, np.float32, order="C")  # a C-ordered copy; 0-d stays 0-d
+
+    for key, t in model.state_dict().items():
+        route = map_torch_key(key, tuple(t.shape), layer_names, head_index, head_type)
+        if route is None:
+            continue
+        col, path, special = route
+        val = t.detach().cpu().float().numpy()
+        if special == "qkv":
+            kind = "kernel" if key.endswith("weight") else "bias"
+            for name, piece in zip(("q_proj", "k_proj", "v_proj"), np.split(val, 3, 0)):
+                put("params", path + [name, kind], piece.T if piece.ndim == 2 else piece)
+        elif special == "conv_transpose":  # (in, out, kH, kW) flipped -> (kH, kW, in, out)
+            put(col, path, val[:, :, ::-1, ::-1].transpose(2, 3, 0, 1))
+        elif special == "flatten":  # (K*D, N) / (K*D,) -> (K, D, N) / (K, D)
+            put(col, path, val.reshape((K_DIRS, -1) + val.shape[1:]))
+        else:
+            leaf = path[-1]
+            if not (leaf in _VERBATIM_LEAVES or path[-2:] == ["attn", "bias"] or leaf == "denoising_class_embed"):
+                if val.ndim == 4:  # OIHW -> HWIO
+                    val = val.transpose(2, 3, 1, 0)
+                elif val.ndim == 2 and leaf == "kernel":
+                    val = val.T
+            put(col, path, val)
+    return trees
 
 
 # ---------------------------------------------------------------------------

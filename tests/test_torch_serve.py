@@ -159,7 +159,9 @@ def test_concurrent_requests_answer_as_sequential_ones(nano):
 def test_autobackend_checkpoint_and_serve_checkpoint(nano, tmp_path):
     """`AutoBackend` over a checkpoint (the EMA model, nc, names, model
     config and imgsz of its meta) gives the model's forward bitwise;
-    `serve_checkpoint` warms up and serves it; export formats raise."""
+    `serve_checkpoint` warms up and serves it; the artifacts of other
+    runtimes raise naming what would load them, and an npz archive without
+    nc raises asking for it."""
     from tamtr_torch.engine.checkpoint import save_checkpoint
     from tamtr_torch.train.trainer import Trainer, TrainConfig
 
@@ -185,6 +187,7 @@ def test_autobackend_checkpoint_and_serve_checkpoint(nano, tmp_path):
     unstarted = ModelServer(_stub_model)
     assert unstarted.run(_stub_model, img, txt[:, :1]).shape == (2, 5, 5)
     unstarted.stop()  # a server never started stops at once
-    for bad in ("model.tflite", "model.npz", "model.stablehlo"):
-        with pytest.raises(NotImplementedError, match="exporter"):
+    for bad, error, match in (("model.tflite", RuntimeError, "tensorflow"), ("model.npz", ValueError, "pass nc"),
+                              ("model.stablehlo", RuntimeError, "jax")):
+        with pytest.raises(error, match=match):
             AutoBackend(str(tmp_path / bad), device="cpu")

@@ -302,33 +302,14 @@ def write_rect_val_split(root, model, txt, names=NAMES):
 
 def flax_variables_of(port):
     """(params, batch_stats) as nested numpy dicts for the JAX `TAMTRModel`
-    of the same config, from a port model's state dict: the inverse of
-    `tamtr_torch/weights.py:from_jax_variables` for the layers of the YOLO
-    models (no merged q/k/v, no SS2D leaves). A JAX model takes the port's
-    seeded weights this way without the compile of its own init."""
-    from tamtr_torch.weights import map_torch_key
+    of the same config, from a port model's state dict
+    (`tamtr_torch/weights.py:to_jax_variables`, the inverse of
+    `from_jax_variables`). A JAX model takes the port's seeded weights this
+    way without the compile of its own init."""
+    from tamtr_torch.weights import to_jax_variables
 
-    layer_names = {idx: m.replace(".", "_") for idx, _, m, _ in port.specs}
-    head_index = port.specs[-1][0] + 1
-    trees = {"params": {}, "batch_stats": {}}
-    for key, t in port.state_dict().items():
-        route = map_torch_key(key, tuple(t.shape), layer_names, head_index, port.head_type)
-        if route is None:
-            continue
-        col, path, special = route
-        assert special in (None, "conv_transpose"), key
-        val = t.detach().float().numpy()
-        if special == "conv_transpose":  # (in, out, kH, kW) flipped -> (kH, kW, in, out)
-            val = val[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
-        elif val.ndim == 4:  # OIHW -> HWIO
-            val = val.transpose(2, 3, 1, 0)
-        elif val.ndim == 2 and path[-1] == "kernel":
-            val = val.T
-        node = trees[col]
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(val, np.float32)
-    return trees["params"], trees["batch_stats"]
+    v = to_jax_variables(port)
+    return v["params"], v["batch_stats"]
 
 
 def relabel_for_task(data, task: str, seed: int = 0):
@@ -784,3 +765,29 @@ def write_image_folder(root, classes=("green", "red", "blue"), n=(6, 3), seed: i
                 img[..., ci % 3] += 150
                 imwrite(d / f"{i}.{'jpg' if i % 3 == 2 else 'png'}", img)
     return root
+
+
+@torch.no_grad()
+def spread_tamtr(model, seed: int = 7):
+    """A seeded TAM-TR model (eval mode) whose outputs depend on its
+    weights: every BatchNorm holding its input's moments over 4 seeded
+    images (the BatchNorms alone in train mode for that forward), the
+    contrastive heads' biases 0."""
+    from tamtr_torch.nn.decoder import ContrastiveHead, ContrastiveHead2D
+    from tamtr_torch.nn.layers import BN_MOMENTUM
+
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for bn in bns:
+        bn.running_mean.zero_()
+        bn.running_var.zero_()
+        bn.train()
+    x = torch.from_numpy(np.random.default_rng(seed).random((4, IMG, IMG, 3), dtype=np.float32))
+    model(x, torch.zeros(4, model.nc, model.text_width))
+    for bn in bns:
+        bn.running_mean.div_(BN_MOMENTUM)
+        bn.running_var.div_(BN_MOMENTUM)
+        bn.eval()
+    for mod in model.modules():
+        if isinstance(mod, (ContrastiveHead, ContrastiveHead2D)):
+            mod.bias.zero_()
+    return model
