@@ -81,7 +81,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    the host C++ decoder to the sha256 digest cv2 gave (the machine has no
    cv2), and its decode encoded by the host C++ encoder
    (`csrc/jpeg_encode.cpp`) to the sha256 of `cv2.imencode`'s bytes; host
-   decode and encode ms per megapixel.
+   decode and encode ms per megapixel. The WebP and TIFF fixtures
+   (`tests/torch_data/webp`, `tests/torch_data/tiff`, written by
+   `tools/make_image_fixtures_torch.py`) decoded by `imread`
+   (`csrc/webp_decode.cpp`, `csrc/tiff_decode.cpp`) to their cv2 digests,
+   `image_shape` from their headers; host decode ms per megapixel.
 5. parity: the full-width `tamtr.yaml` model (nc=10) at 128 px, batch 2,
    on the card and on the CPU with the same state dict, compared as a
    tie-robust set at 1e-3. The whole run keeps TF32 off (full fp32).
@@ -114,7 +118,20 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    equal, and the normalized boxes within 1e-3 of, those of the CPU's
    forward of each of the first TRACK_CPU_FRAMES frames fed to the same
    trackers (`update_result_with_tracks`); ms per frame split into read,
-   model and tracker host time.
+   model and tracker host time. Then a panned sequence (`pan_sequence`:
+   TRACK_PAN_FRAMES frames of TRACK_HW cut from a smooth textured canvas
+   moved by TRACK_PAN per frame, small boxes moving on it):
+   `TAMTR.track(<directory>, tracker="botsort", with_reid=True)` with its
+   default camera-motion compensation (sparseOptFlow) on the card, B1 and
+   B2 once per forward; the card's detections of the first
+   TRACK_CPU_FRAMES frames through a CPU BOTSORT (GMC on the CPU) give the
+   same ids and boxes within 1e-3; each GMC method (`trackers/gmc.py`:
+   sparseOptFlow, orb, sift, ecc) on the card over every frame, its map
+   within 0.5 px of the pan at the frame's centre, and on the card and the
+   CPU over the middle quarter of the first two frames, the card's map
+   within the CPU tests' tolerances of the CPU's; GMC ms per frame on the
+   card and on the CPU (all frames on the card, frames 2 and 3 on the CPU),
+   per method.
 7e. fuse: the deploy fuse (`nn/fuse.py`, `fuse=True`) on the serve model
    of 7b at 640 px: the fused twin's pred against the unfused model's at
    batch 1 and 4 (1e-4 as a tie-robust set), B1 and B2 launched as often
@@ -2191,6 +2208,12 @@ PARITY_TTA_FIXTURES = PARITY_FIXTURES[1:]  # with TTA: three CPU forwards an ima
 TRACK_FRAMES, TRACK_HW = 12, (765, 1360)
 TRACK_CPU_FRAMES = 2  # the sequence's head that the CPU predicts: a frame's tracks depend on no later frame
 TRACKERS = {"bytetrack": {}, "botsort": {"gmc_method": "none", "with_reid": True}}
+# track, the panned sequence: frames and the background's shift (x, y) in pixels per frame
+TRACK_PAN_FRAMES, TRACK_PAN = 8, (4, 2)
+# GMC card against CPU: (translation px, linear part), as tests/test_torch_gmc.py holds the port to JAX
+GMC_TOL = {"sparseOptFlow": (0.05, 1e-3), "orb": (0.25, 5e-3), "sift": (0.25, 5e-3), "ecc": (0.05, 1e-3)}
+# the WebP and TIFF fixtures of tools/make_image_fixtures_torch.py, with their cv2 digests
+IMAGE_FIXTURES = ("tests/torch_data/webp", "tests/torch_data/tiff")
 
 
 def check_counts(phase: str, counters, forwards: int, extra=None):
@@ -2278,11 +2301,48 @@ def check_jpeg():
         mp = img.shape[0] * img.shape[1] / 1e6
         decode_ms[name] = (t1 - t0) / 3 * 1e3 / mp
         encode_ms[name] = (t2 - t1) / 3 * 1e3 / mp
+    formats_ms = check_image_formats()
     check_counts("jpeg", counters, 0)
     say(f"jpeg: {len(expected)} fixtures equal their cv2 sha256 digests, decoded and encoded; host ms per "
           f"megapixel (host time on the card's machine): decode {json.dumps({k: round(v, 3) for k, v in decode_ms.items()})}"
           f"; encode {json.dumps({k: round(v, 3) for k, v in encode_ms.items()})}", flush=True)
-    return decode_ms, encode_ms
+    return decode_ms, encode_ms, formats_ms
+
+
+def check_image_formats():
+    """Every committed WebP and TIFF fixture decoded by `imread` (the host
+    C++ decoders `csrc/webp_decode.cpp` and `csrc/tiff_decode.cpp`) to the
+    sha256 digest of cv2's decode, `image_shape` equal to its shape; the
+    host decode ms per megapixel of each (the best of 3)."""
+    import hashlib
+    from pathlib import Path
+
+    from tamtr_torch.data.image_io import image_shape, imread
+
+    ms, sums = {}, {}
+    for folder in IMAGE_FIXTURES:
+        root = Path(folder)
+        for name, want in json.loads((root / "expected.json").read_text()).items():
+            img = imread(root / name)  # the first read builds the decoder
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                img = imread(root / name)
+                times.append(time.perf_counter() - t0)
+            if list(img.shape) != want["shape"] or tuple(image_shape(root / name)) != img.shape[:2] \
+                    or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]:
+                raise AssertionError(f"image formats: {folder}/{name} does not decode to its cv2 digest")
+            mp = img.shape[0] * img.shape[1] / 1e6
+            ms[name] = min(times) * 1e3 / mp
+            kind = "webp_" + name.split("_")[0].split(".")[0] if name.endswith(".webp") else "tiff"
+            t, m = sums.get(kind, (0.0, 0.0))
+            sums[kind] = (t + min(times) * 1e3, m + mp)
+    overall = {k: t / m for k, (t, m) in sums.items()}
+    say(f"image formats: {len(ms)} WebP and TIFF fixtures equal their cv2 sha256 digests; host decode ms per "
+        f"megapixel (host time on the card's machine), over all the fixtures of a kind: "
+        f"{json.dumps({k: round(v, 3) for k, v in overall.items()})}; per file: "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}", flush=True)
+    return {"overall": overall, "per_file": ms}
 
 
 def serve_model(seed: int = 1):
@@ -2535,6 +2595,121 @@ def track(det):
                    cpu_predict_s=cpu_s)
     say(f"track tamtr.yaml {det.imgsz}px on {TRACK_FRAMES} generated {TRACK_HW[1]}x{TRACK_HW[0]} JPEG frames: "
           f"{json.dumps(summary)}; launches {launches}", flush=True)
+    summary["pan"], pan_launches = track_pan(det)
+    return summary, launches, pan_launches
+
+
+def pan_sequence(root, seed: int = 37):
+    """TRACK_PAN_FRAMES frames of TRACK_HW under `root` (JPEG, the host
+    encoder): a smooth textured canvas (noise at 1/16 of the size, resized
+    as cv2 resizes) cut at an offset that moves by TRACK_PAN per frame, and
+    6 small boxes of their own colours moving across it. Returns the frames
+    as read back by the host decoder."""
+    from tamtr_torch.data.image_io import imread, imwrite
+    from tamtr_torch.data.imgproc import resize_linear
+
+    H, W = TRACK_HW
+    dx, dy = TRACK_PAN
+    rng = np.random.default_rng(seed)
+    ch, cw = H + dy * TRACK_PAN_FRAMES + 40, W + dx * TRACK_PAN_FRAMES + 40
+    canvas = resize_linear(rng.integers(0, 256, (ch // 16 + 1, cw // 16 + 1, 3), dtype=np.uint8), (cw, ch))
+    start = rng.uniform([100, 100], [W - 200, H - 150], (6, 2))
+    vel = rng.uniform(-12, 12, (6, 2))
+    size = rng.uniform([30, 25], [80, 60], (6, 2))
+    colours = rng.integers(0, 256, (6, 3))
+    frames = []
+    for f in range(TRACK_PAN_FRAMES):
+        frame = canvas[20 + dy * f:20 + dy * f + H, 20 + dx * f:20 + dx * f + W].copy()
+        for (x, y), (w, h), c in zip((start + vel * f).astype(int), size.astype(int), colours):
+            frame[max(y, 0):max(y + h, 0), max(x, 0):max(x + w, 0)] = c
+        imwrite(root / f"{f:04d}.jpg", frame)
+        frames.append(imread(root / f"{f:04d}.jpg"))
+    return frames
+
+
+def track_pan(det):
+    """The panned sequence (`pan_sequence`) through `TAMTR.track` with
+    BoT-SORT and its default GMC (sparseOptFlow) on the card: B1 and B2
+    once per forward; the card's detections of the first TRACK_CPU_FRAMES
+    frames through a CPU BOTSORT give the same ids and boxes within 1e-3
+    (normalized). Then each GMC method on the card (every frame: the map
+    within 0.5 px of the pan at the frame's centre; ms per frame, the
+    median after the first), and on the card and the CPU over the middle
+    quarter of the first two frames: the card's map within GMC_TOL of the
+    CPU's. The CPU's ms per frame, the median of frames 2 and 3 (SIFT
+    takes seconds a frame there), stand beside the card's."""
+    import copy
+    import shutil
+    from pathlib import Path
+
+    from tamtr_torch.trackers.byte_tracker import Track
+    from tamtr_torch.trackers.gmc import GMC
+    from tamtr_torch.trackers.track import make_tracker, update_result_with_tracks
+
+    root = Path("build/track_pan")
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    frames = pan_sequence(root)
+    counters = zero_counters()
+    Track.reset_id()
+    card = det.track(str(root), tracker="botsort", with_reid=True)
+    timing = {k: float(np.median(v)) for k, v in det._engine.timing.items()}
+    launches = check_counts("track_pan", counters, TRACK_PAN_FRAMES)
+    if det._engine._tracker.gmc.method != "sparseOptFlow" or det._engine._tracker.gmc.device.type != "cuda":
+        raise AssertionError("track_pan: BOTSORT's default GMC did not run sparseOptFlow on the card")
+    head = [str(f) for f in sorted(root.glob("*.jpg"))[:TRACK_CPU_FRAMES]]
+    detections = det._engine.predict(head, imgsz=det.imgsz, conf=0.25, iou=0.7, max_det=300)
+    Track.reset_id()
+    tracker = make_tracker("botsort", device="cpu", with_reid=True)
+    worst = 0.0
+    scale = np.array([TRACK_HW[1], TRACK_HW[0]] * 2, np.float32)
+    for g, r, frame in zip(card[:TRACK_CPU_FRAMES], detections, frames, strict=False):
+        want = copy.deepcopy(r)
+        update_result_with_tracks(want, tracker, frame=frame)
+        if not np.array_equal(g.track_ids, want.track_ids):
+            raise AssertionError(f"track_pan: {g.path}: ids {g.track_ids} on the card, {want.track_ids} with the "
+                                 "CPU's GMC")
+        if len(g.track_ids):
+            worst = max(worst, float(np.abs(g.boxes.xyxy / scale - want.boxes.xyxy / scale).max()))
+    if worst > 1e-3:
+        raise AssertionError(f"track_pan: boxes off the CPU tracker's by {worst}")
+    centre = np.array([TRACK_HW[1] / 2, TRACK_HW[0] / 2, 1.0])
+    truth = np.array([-TRACK_PAN[0], -TRACK_PAN[1]], np.float64)
+    gmc_ms, gmc_cpu_ms, gmc_err, gmc_vs_cpu = {}, {}, {}, {}
+    for method, (t_tol, lin_tol) in GMC_TOL.items():
+        on_card, on_cpu = GMC(method, 2, device="cuda"), GMC(method, 2, device="cpu")
+        maps, ms = [], []
+        for frame in frames:
+            t0 = time.perf_counter()
+            maps.append(on_card.apply(frame))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        # card against CPU on the middle quarter of the first two frames (the CPU's SIFT takes seconds a frame)
+        crop = [np.ascontiguousarray(f[TRACK_HW[0] // 4:3 * TRACK_HW[0] // 4, TRACK_HW[1] // 4:3 * TRACK_HW[1] // 4])
+                for f in frames[:2]]
+        on_card_crop = GMC(method, 2, device="cuda")
+        card_crop, cpu_map = ([g.apply(f) for f in crop][1] for g in (on_card_crop, on_cpu))
+        err = max(float(np.abs(M.astype(np.float64) @ centre - centre[:2] - truth).max()) for M in maps[1:])
+        dt = float(np.abs(card_crop[:, 2] - cpu_map[:, 2]).max())
+        dlin = float(np.abs(card_crop[:, :2] - cpu_map[:, :2]).max())
+        if err > 0.5 or dt > t_tol or dlin > lin_tol:
+            raise AssertionError(f"track_pan: GMC {method}: {err} px from the pan, card against CPU {dt} px "
+                                 f"and {dlin}")
+        gmc_ms[method] = float(np.median(ms[1:]))
+        cpu_ms, full_cpu = [], GMC(method, 2, device="cpu")
+        for frame in frames[:3]:
+            t0 = time.perf_counter()
+            full_cpu.apply(frame)
+            cpu_ms.append((time.perf_counter() - t0) * 1e3)
+        gmc_cpu_ms[method] = float(np.median(cpu_ms[1:]))
+        gmc_err[method] = err
+        gmc_vs_cpu[method] = [dt, dlin]
+    check_counts("track_pan gmc", counters, TRACK_PAN_FRAMES + len(head))
+    summary = dict(frames=TRACK_PAN_FRAMES, pan_px=TRACK_PAN, ms_per_frame={**timing, "total": sum(timing.values())},
+                   tracks_per_frame=[len(r.track_ids) for r in card], boxes_worst_vs_cpu_gmc=worst,
+                   gmc_ms_per_frame_card=gmc_ms, gmc_ms_per_frame_cpu=gmc_cpu_ms, gmc_px_from_pan=gmc_err,
+                   gmc_card_vs_cpu=gmc_vs_cpu)
+    say(f"track_pan botsort (sparseOptFlow) tamtr.yaml {det.imgsz}px on {TRACK_PAN_FRAMES} panned "
+        f"{TRACK_HW[1]}x{TRACK_HW[0]} JPEG frames: {json.dumps(summary)}; launches {launches}", flush=True)
     return summary, launches
 
 
@@ -4829,13 +5004,13 @@ def main() -> int:
     ops_launches = timed("drive_ops", drive_ops, dev)
     sp_rows, sp_rows1d, sp_err, sp_launches = timed("sp_blocks", sp_blocks, dev)
     pieces = timed("ss2d_pieces", check_ss2d_pieces, dev)
-    jpeg_ms_per_mp, jpeg_encode_ms_per_mp = timed("jpeg", check_jpeg)
+    jpeg_ms_per_mp, jpeg_encode_ms_per_mp, formats_ms_per_mp = timed("jpeg", check_jpeg)
     timed("parity", check_parity, dev)
     timed("train_parity", check_train_parity, dev)
     launches = timed("serve", serve, dev)
     predict_summary, det, predict_launches = timed("predict_files", predict_files, dev)
     http_summary, http_launches = timed("serve_http", serve_http, det)
-    track_summary, track_launches = timed("track", track, det)
+    track_summary, track_launches, track_pan_launches = timed("track", track, det)
     del det
     fuse_summary, fuse_launches = timed("fuse", fuse, dev)
     autobatch_summary, autobatch_launches = timed("autobatch", autobatch_phase, dev)
@@ -4888,7 +5063,8 @@ def main() -> int:
              bound_by=max(fwd1, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
              launches_predict_files=predict_launches["ss2d_scan_fwd"],
              launches_serve_http=http_launches["ss2d_scan_fwd"], launches_cli=cli_launches["ss2d_scan_fwd"],
-             launches_track=track_launches["ss2d_scan_fwd"], launches_fuse=fuse_launches["ss2d_scan_fwd"],
+             launches_track=track_launches["ss2d_scan_fwd"], launches_track_pan=track_pan_launches["ss2d_scan_fwd"],
+             launches_fuse=fuse_launches["ss2d_scan_fwd"],
              launches_info=info_launches["ss2d_scan_fwd"], launches_autobatch=autobatch_launches["ss2d_scan_fwd"],
              launches_export={k: export_launches[k] for k in ("ss2d_scan_fwd", "ss2d_scan_fwd_summaries",
                                                              "ss2d_scan_fwd_combine", "ss2d_scan_fwd_output")},
@@ -4909,6 +5085,7 @@ def main() -> int:
              launches_predict_files=predict_launches["bilinear_gather_fwd"],
              launches_serve_http=http_launches["bilinear_gather_fwd"],
              launches_cli=cli_launches["bilinear_gather_fwd"], launches_track=track_launches["bilinear_gather_fwd"],
+             launches_track_pan=track_pan_launches["bilinear_gather_fwd"],
              launches_fuse=fuse_launches["bilinear_gather_fwd"], launches_info=info_launches["bilinear_gather_fwd"],
              launches_autobatch=autobatch_launches["bilinear_gather_fwd"],
              launches_export=export_launches["bilinear_gather_fwd"],
@@ -5034,7 +5211,8 @@ def main() -> int:
     print(json.dumps({"fuse": fuse_summary, "autobatch": autobatch_summary}))
     print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary, "track": track_summary,
                       "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp,
-                      "jpeg_host_encode_ms_per_megapixel": jpeg_encode_ms_per_mp}))
+                      "jpeg_host_encode_ms_per_megapixel": jpeg_encode_ms_per_mp,
+                      "webp_tiff_host_decode_ms_per_megapixel": formats_ms_per_mp}))
     print(json.dumps({"export": export_summary}))
     print(json.dumps({"phase_s": PHASE_S, "device_ms_by": DEVICE_MS_BY}))
     print(json.dumps({"kernels": kernels}))

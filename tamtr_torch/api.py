@@ -20,7 +20,7 @@ evolves the training hyperparameters (`engine/tuner.py`).
 
 `track(source)` runs `Engine.track` over a sequence of frames (arrays,
 image files, a directory or a glob): the file predict's forward on each
-frame, then a tracker ("bytetrack", or "botsort" with gmc_method="none"),
+frame, then a tracker ("bytetrack", or "botsort" with camera-motion compensation),
 one `Results` with `track_ids` per frame.
 
 A YOLO config (`TAMTR("yolo-gelan.yaml")`) builds the Detect model: it
@@ -211,9 +211,10 @@ class TAMTR:
         """Multi-object tracking over a sequence of frames: an (H, W, 3) BGR
         uint8 array, a list of sources, a directory, a glob or an image file
         (`Engine.track`), for this detector's classes, at `imgsz`. `tracker`
-        is "bytetrack" (the default) or "botsort", which needs
-        gmc_method="none" (the camera-motion methods need cv2); the
-        tracker's keys (gmc_method, with_reid, track_buffer, match_thresh,
+        is "bytetrack" (the default) or "botsort" (camera-motion
+        compensation by gmc_method: "sparseOptFlow", the default, "orb",
+        "sift", "ecc" or "none"); the tracker's keys (gmc_method,
+        with_reid, track_buffer, match_thresh,
         proximity_thresh, appearance_thresh) go in `overrides`. persist=True
         goes on with the tracker of the previous call. One `Results` per
         frame, its boxes the tracked ones and `track_ids` their ids."""

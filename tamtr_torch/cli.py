@@ -21,7 +21,8 @@ runs on the card unless `device=cpu` is given. `predict` prints one line
 per image; with save=True it writes each plot under `project/predict`
 (default `runs/predict`) with the image's name and format. `track` prints
 one line per frame of an image sequence (a directory, a glob or images):
-its track count and ids; `tracker=botsort` needs `gmc_method=none`.
+its track count and ids; `tracker=botsort` takes `gmc_method=` (sparseOptFlow
+by default, orb, sift, ecc or none).
 `serve` serves a checkpoint over HTTP (`tamtr_torch.serve`). `settings`
 prints the user settings (`utils/settings.py`), after setting the given
 keys or, with `reset`, the defaults. `fuse=True` runs val, predict and

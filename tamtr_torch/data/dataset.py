@@ -25,8 +25,8 @@ package's `tamtr_tpu/data/dataset.py:593-720`): an ImageFolder
 short-side resize and a centre crop in eval, both resized as cv2 resizes
 (`imgproc.resize_linear`), and batches in this process.
 
-Images are read by `data/image_io.py` (PNG, JPEG, BMP, `.npy`); a TIFF or
-WebP file raises NotImplementedError.
+Images are read by `data/image_io.py` (PNG, JPEG, BMP, TIFF, WebP, `.npy`)
+as cv2 reads them.
 """
 
 from __future__ import annotations

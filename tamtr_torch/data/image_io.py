@@ -1,5 +1,5 @@
-"""Image files without cv2 or PIL: PNG, JPEG (baseline and progressive), BMP
-and `.npy` in; JPEG, PNG and BMP out.
+"""Image files without cv2 or PIL: PNG, JPEG (baseline and progressive), BMP,
+TIFF, WebP and `.npy` in; JPEG, PNG and BMP out.
 
 `imread` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns for the
 files it reads: (H, W, 3) uint8 in BGR order (a gray image repeated into
@@ -29,15 +29,26 @@ orientation tag without decoding.
 BMP: what OpenCV's BMP reader takes from a BITMAPINFOHEADER or later:
 1, 4 and 8-bit palette, 16-bit 555 and 565, 24-bit, 32-bit (alpha
 dropped), RLE4 and RLE8, bottom-up and top-down rows, each transcribed from
-OpenCV (`grfmt_bmp.cpp`) and held bitwise to it. WebP and TIFF raise
-NotImplementedError.
+OpenCV (`grfmt_bmp.cpp`) and held bitwise to it.
+
+TIFF (`decode_tiff`): the first page as libtiff's RGBA interface gives it
+to cv2: strips or tiles, chunky or planar, either byte order, no
+compression, LZW, Deflate or PackBits (`csrc/tiff_decode.cpp` for LZW and
+PackBits, `zlib` for Deflate) with the horizontal predictor, gray,
+bilevel, RGB(A) and palette at 1-16 bits, 16 bits cut to 8 as libtiff
+cuts them, the Orientation tag applied. WebP (`decode_webp`): the lossy
+VP8 and lossless VP8L decoders of `csrc/webp_decode.cpp`, bitwise
+libwebp's `WebPDecodeBGR`. Both built like the JPEG decoder; other TIFF
+compressions, CMYK, YCbCr and float samples, and animated WebP, raise
+NotImplementedError naming the file and the mode.
 
 Out: `imencode(ext, img)` / `imwrite(path, img)` choose the format by the
 suffix, as cv2 does. `.jpg`, `.jpeg` and `.jpe` go to `encode_jpeg`
 (`csrc/jpeg_encode.cpp`), whose bytes equal `cv2.imencode`'s at any
 quality; `.bmp` to `encode_bmp`, byte-equal to cv2's; `.png` to
 `encode_png`, filter-0 rows that cv2 reads back bitwise (its
-bytes are not cv2's).
+bytes are not cv2's). Writing TIFF and WebP is not ported: `imencode`
+raises NotImplementedError for their suffixes.
 """
 
 from __future__ import annotations
@@ -420,6 +431,236 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return np.ascontiguousarray(img[::-1] if h > 0 else img)
 
 
+# ---------------------------------------------------------------------- TIFF
+
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 16: "Q"}
+_TIFF_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 16: 8}
+_TIFF_CODECS = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate", 32773: "PackBits"}
+
+
+def _tiff_ifd(data: bytes, name: str) -> Tuple[str, Dict[int, Tuple[int, ...]]]:
+    """The byte order and the first IFD's integer tags of a TIFF file."""
+    if data[:4] not in (b"II*\0", b"MM\0*"):
+        if data[:2] in (b"II", b"MM") and data[2:4] in (b"+\0", b"\0+"):
+            raise NotImplementedError(f"{name}: BigTIFF is not decoded")
+        raise ValueError(f"{name}: not a TIFF file")
+    bo = "<" if data[:2] == b"II" else ">"
+    (at,) = struct.unpack_from(bo + "I", data, 4)
+    (n,) = struct.unpack_from(bo + "H", data, at)
+    tags: Dict[int, Tuple[int, ...]] = {}
+    for i in range(n):
+        tag, typ, count, value = struct.unpack_from(bo + "HHI4s", data, at + 2 + 12 * i)
+        if typ not in _TIFF_TYPES:
+            continue
+        size = _TIFF_SIZES[typ] * count
+        raw = value if size <= 4 else data[struct.unpack(bo + "I", value)[0]:][:size]
+        tags[tag] = struct.unpack(bo + _TIFF_TYPES[typ] * count, raw[:size])
+    return bo, tags
+
+
+def tiff_shape(path: str | Path) -> Tuple[int, int]:
+    """(h, w) of a TIFF file's first page as `imread` returns it, from its IFD."""
+    with open(path, "rb") as f:
+        data = f.read(1 << 16)
+    try:
+        _, tags = _tiff_ifd(data, str(path))
+    except struct.error:  # the IFD lies past the first 64 KiB
+        _, tags = _tiff_ifd(Path(path).read_bytes(), str(path))
+    return _oriented((tags[257][0], tags[256][0]), tags.get(274, (1,))[0])
+
+
+def _tiff_chunk(data: bytes, comp: int, size: int, name: str) -> bytes:
+    """One strip's or tile's bytes, decompressed to at most `size`."""
+    if comp == 1:
+        return data[:size]
+    if comp in (8, 32946):
+        return zlib.decompressobj().decompress(data, size)
+    from tamtr_torch.kernels import _build
+
+    fn = getattr(_build.load("tiff_decode"), "tiff_lzw_decode" if comp == 5 else "tiff_packbits_decode")
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long]
+    fn.restype = ctypes.c_long
+    out = np.zeros(size, np.uint8)
+    n = fn(data, len(data), out.ctypes.data, size)
+    if n < 0:
+        raise ValueError(f"{name}: corrupt {_TIFF_CODECS[comp]} data")
+    return out.tobytes()
+
+
+def decode_tiff(data: bytes, name: str = "<bytes>") -> Optional[np.ndarray]:
+    """(H, W, 3) uint8 BGR of a TIFF file's first page, as cv2.imread reads
+    it through libtiff's RGBA interface: strips or tiles, chunky or planar
+    samples, either byte order; no compression, LZW, Deflate (8 and 32946)
+    or PackBits, with or without the horizontal predictor; gray (MinIsBlack
+    or MinIsWhite) at 1, 2, 4, 8 or 16 bits, RGB at 8 or 16 bits, a palette
+    of 1-8 bits (16-bit entries cut to their high byte unless all are under
+    256). 16-bit RGB becomes (v + 128) // 257, 16-bit gray its high byte;
+    an unassociated alpha premultiplies the colour ((c a + 127) // 255),
+    any other alpha is dropped. The Orientation tag is applied as
+    cv2.imdecode applies it (`apply_orientation`). Other compressions, photometric
+    interpretations (CMYK, YCbCr, ...) and sample formats (float, signed)
+    raise NotImplementedError naming the file and the mode."""
+    bo, t = _tiff_ifd(data, name)
+    w, h = t[256][0], t[257][0]
+    spp = t.get(277, (1,))[0]
+    bits = t.get(258, (1,))
+    comp = t.get(259, (1,))[0]
+    photo = t.get(262, (None,))[0]
+    planar = t.get(284, (1,))[0]
+    pred = t.get(317, (1,))[0]
+    orient = t.get(274, (1,))[0]
+    if comp not in _TIFF_CODECS:
+        raise NotImplementedError(f"{name}: TIFF compression {comp} is not decoded "
+                                  f"(none, LZW, Deflate and PackBits only)")
+    if photo not in (0, 1, 2, 3):
+        raise NotImplementedError(f"{name}: TIFF photometric interpretation {photo} is not decoded "
+                                  f"(gray, RGB and palette only)")
+    if any(f != 1 for f in t.get(339, (1,))):
+        raise NotImplementedError(f"{name}: TIFF sample format {t[339][0]} is not decoded (unsigned integers only)")
+    bps = bits[0]
+    if any(b != bps for b in bits) or bps not in (1, 2, 4, 8, 16) or (bps == 16 and photo == 3) \
+            or (bps < 8 and photo == 2):
+        raise NotImplementedError(f"{name}: TIFF with {bits} bits per sample is not decoded")
+    if pred not in (1, 2):
+        raise NotImplementedError(f"{name}: TIFF predictor {pred} is not decoded")
+    tiled = 322 in t
+    cw, ch = (t[322][0], t[323][0]) if tiled else (w, min(t.get(278, (h,))[0], h))
+    offsets, counts = (t[324], t[325]) if tiled else (t[273], t[279])
+    nplanes = spp if planar == 2 else 1
+    cs = 1 if planar == 2 else spp  # samples in a chunk's pixel
+    row_bytes = (cw * cs * bps + 7) // 8
+    dt = np.dtype(bo + "u2") if bps == 16 else np.dtype(np.uint8)
+    across, down = -(-w // cw), -(-h // ch)
+    img = np.zeros((h, w, spp), np.uint16 if bps == 16 else np.uint8)
+    for k, (off, cnt) in enumerate(zip(offsets, counts)):
+        plane, rest = divmod(k, across * down)
+        if plane >= nplanes:
+            break
+        cy, cx = divmod(rest, across) if tiled else (rest, 0)
+        y0, x0 = cy * ch, cx * cw
+        rows = ch if tiled else min(ch, h - y0)
+        raw = _tiff_chunk(data[off:off + cnt], comp, row_bytes * rows, name)
+        raw = raw.ljust(row_bytes * rows, b"\0")
+        if bps < 8:
+            px = np.unpackbits(np.frombuffer(raw, np.uint8).reshape(rows, row_bytes), axis=1)
+            px = px.reshape(rows, -1, bps)
+            px = (px * (1 << np.arange(bps - 1, -1, -1, dtype=np.uint8))).sum(2, dtype=np.uint8)
+            px = px[:, :cw * cs].reshape(rows, cw, cs)
+        else:
+            px = np.frombuffer(raw, dt).reshape(rows, cw, cs).astype(img.dtype)
+        if pred == 2:
+            px = np.cumsum(px, axis=1, dtype=img.dtype)
+        hh, ww = min(rows, h - y0), min(cw, w - x0)
+        sl = slice(plane, plane + 1) if planar == 2 else slice(0, spp)
+        img[y0:y0 + hh, x0:x0 + ww, sl] = px[:hh, :ww]
+    extra = t.get(338, ())
+    if photo in (0, 1):
+        g = img[..., 0].astype(np.int32)
+        if bps == 16:
+            g = g >> 8
+        elif bps < 8:
+            g = g * 255 // ((1 << bps) - 1)
+        if photo == 0:
+            g = 255 - g
+        rgb = np.repeat(g.astype(np.uint8)[..., None], 3, 2)
+    elif photo == 3:
+        cmap = np.asarray(t[320], np.int64).reshape(3, 1 << bps).T
+        if (cmap >= 256).any():
+            cmap = cmap >> 8
+        rgb = cmap.astype(np.uint8)[img[..., 0]]
+    else:
+        c = img[..., :3].astype(np.int32)
+        a = img[..., 3].astype(np.int32) if spp > 3 else None
+        if bps == 16:
+            c = (c + 128) // 257
+            a = None if a is None else (a + 128) // 257
+        if a is not None and extra and extra[0] == 2:
+            c = (c * a[..., None] + 127) // 255
+        rgb = c.astype(np.uint8)
+    return np.ascontiguousarray(apply_orientation(rgb[..., ::-1], orient))
+
+
+# ---------------------------------------------------------------------- WebP
+
+def _webp_chunks(data: bytes, name: str):
+    """(fourcc, payload) of each chunk of a RIFF WebP file."""
+    if data[:4] != b"RIFF" or data[8:12] != b"WEBP":
+        raise ValueError(f"{name}: not a WebP file")
+    end = min(len(data), 8 + struct.unpack_from("<I", data, 4)[0])
+    at = 12
+    while at + 8 <= end:
+        tag, size = data[at:at + 4], struct.unpack_from("<I", data, at + 4)[0]
+        yield tag, data[at + 8:at + 8 + size]
+        at += 8 + size + (size & 1)
+
+
+def _webp_image(data: bytes, name: str) -> Tuple[bytes, bytes, int]:
+    """The fourcc and payload of a still WebP's image chunk (VP8 or VP8L),
+    and the EXIF orientation cv2 applies (1 without one); an animation
+    raises NotImplementedError."""
+    image, exif_flag, orientation = None, False, 1
+    for tag, body in _webp_chunks(data, name):
+        if tag == b"VP8X":
+            if body[0] & 0x02:
+                raise NotImplementedError(f"{name}: animated WebP is not decoded")
+            exif_flag = bool(body[0] & 0x08)
+        elif tag in (b"ANIM", b"ANMF"):
+            raise NotImplementedError(f"{name}: animated WebP is not decoded")
+        elif tag in (b"VP8 ", b"VP8L") and image is None:
+            image = (tag, body)
+        elif tag == b"EXIF" and exif_flag and body[:4] in (b"II*\0", b"MM\0*"):
+            # cv2 reads a bare TIFF header here (not one behind "Exif\0\0")
+            orientation = exif_orientation(bytes(6) + body)
+    if image is None:
+        raise ValueError(f"{name}: WebP file without an image chunk")
+    return image[0], image[1], orientation
+
+
+def _webp_size(tag: bytes, body: bytes, name: str) -> Tuple[int, int]:
+    """(h, w) from a VP8 frame header or a VP8L header."""
+    if tag == b"VP8 ":
+        if len(body) < 10 or body[3:6] != b"\x9d\x01\x2a":
+            raise ValueError(f"{name}: bad VP8 frame header")
+        return (struct.unpack_from("<H", body, 8)[0] & 0x3FFF, struct.unpack_from("<H", body, 6)[0] & 0x3FFF)
+    if len(body) < 5 or body[0] != 0x2F:
+        raise ValueError(f"{name}: bad VP8L header")
+    (bits,) = struct.unpack_from("<I", body, 1)
+    return ((bits >> 14) & 0x3FFF) + 1, (bits & 0x3FFF) + 1
+
+
+def webp_shape(path: str | Path) -> Tuple[int, int]:
+    """(h, w) of a WebP file as `imread` returns it, from its image chunk's
+    header and its EXIF orientation."""
+    with open(path, "rb") as f:
+        data = f.read(1 << 16)
+    tag, body, orientation = _webp_image(Path(path).read_bytes() if len(data) == 1 << 16 else data, str(path))
+    return _oriented(_webp_size(tag, body, str(path)), orientation)
+
+
+def decode_webp(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 BGR of a still WebP file, bitwise what cv2.imread
+    gives (libwebp's `WebPDecodeBGR`): lossy VP8 (fancy upsampling) or
+    lossless VP8L, simple or extended (VP8X) container; an ALPH chunk, and
+    a lossless image's alpha, are dropped as IMREAD_COLOR drops them; the
+    ICC profile is not applied (nor by cv2); an EXIF orientation is, where
+    cv2 applies it (the VP8X EXIF flag set, the chunk a bare TIFF header).
+    `csrc/webp_decode.cpp` decodes the image chunk. An animation raises
+    NotImplementedError."""
+    from tamtr_torch.kernels import _build
+
+    tag, body, orientation = _webp_image(data, name)
+    h, w = _webp_size(tag, body, name)
+    lib = _build.load("webp_decode")
+    fn = lib.webp_vp8_decode if tag == b"VP8 " else lib.webp_vp8l_decode
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = np.empty((h, w, 3), np.uint8)
+    rc = fn(body, len(body), w, h, out.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"{name}: corrupt {tag.decode().strip()} data (code {rc})")
+    return apply_orientation(out, orientation)
+
+
 def imread(filename: str | Path) -> Optional[np.ndarray]:
     """(H, W, 3) uint8 BGR, as `cv2.imread(filename, cv2.IMREAD_COLOR)`;
     None when the file is missing or empty."""
@@ -437,20 +678,27 @@ def imread(filename: str | Path) -> Optional[np.ndarray]:
         return decode_jpeg(data, str(path))
     if data[:2] == b"BM":
         return decode_bmp(data, str(path))
+    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        return decode_tiff(data, str(path))
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp(data, str(path))
     if data[:8] != PNG_SIGNATURE:
-        raise NotImplementedError(f"{path}: only PNG, JPEG, BMP and .npy are decoded "
-                                  f"(not WebP, TIFF or other formats)")
+        raise NotImplementedError(f"{path}: only PNG, JPEG, BMP, TIFF, WebP and .npy are decoded")
     return decode_png(data)
 
 
 def image_shape(path: str | Path) -> Tuple[int, int]:
     """(h, w) of an image file as `imread` returns it, from its headers
-    where the format has them (PNG, JPEG), else by decoding."""
+    where the format has them (PNG, JPEG, TIFF, WebP), else by decoding."""
     suffix = Path(path).suffix.lower()
     if suffix == ".png":
         return png_shape(path)
     if suffix in (".jpg", ".jpeg"):
         return jpeg_shape(path)
+    if suffix in (".tif", ".tiff"):
+        return tiff_shape(path)
+    if suffix == ".webp":
+        return webp_shape(path)
     img = imread(path)
     if img is None:
         raise FileNotFoundError(f"cannot read image {path}")

@@ -6,7 +6,9 @@ has no cv2, so each call is rewritten here to give cv2's uint8 results:
 - `resize_linear` = `cv2.resize(..., interpolation=cv2.INTER_LINEAR)`:
   half-pixel centres, no antialias, cv2's fixed point (11-bit coefficients,
   its vector rounding of the vertical pass, unclamped vertical weights at
-  the edges). Bitwise cv2's on every shape the tests try.
+  the edges). Bitwise cv2's on every shape the tests try. Torch ops, on
+  a tensor's device or, for a numpy image, on the CPU (as is
+  `resize_linear_f32`).
 - `warp_affine` / `warp_perspective` = `cv2.warpAffine` /
   `cv2.warpPerspective` with INTER_LINEAR and a constant border: the inverse
   map sampled bilinearly in float32, as OpenCV 5's warp kernels do; within
@@ -44,6 +46,7 @@ import math
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 _F32 = np.float32
 
@@ -65,18 +68,22 @@ def _linear_taps(dsize: int, ssize: int, clamp: bool):
     return np.clip(s, 0, ssize - 1), np.clip(s + 1, 0, ssize - 1), a0, a1
 
 
-def resize_linear(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
-    """Bilinear resize of a uint8 (H, W) or (H, W, C) image to dsize = (w, h)."""
+def resize_linear(img, dsize: Tuple[int, int]):
+    """Bilinear resize of a uint8 (H, W) or (H, W, C) image to dsize = (w, h):
+    a numpy array on the host, or a tensor on its own device, given back as
+    the same kind."""
+    if isinstance(img, np.ndarray):
+        return resize_linear(torch.from_numpy(np.require(img, requirements="CW")), dsize).numpy()
     nw, nh = dsize
     h, w = img.shape[:2]
-    x0, x1, ax0, ax1 = _linear_taps(nw, w, clamp=True)
-    y0, y1, ay0, ay1 = _linear_taps(nh, h, clamp=False)
+    x0, x1, ax0, ax1 = (torch.from_numpy(a).to(img.device) for a in _linear_taps(nw, w, clamp=True))
+    y0, y1, ay0, ay1 = (torch.from_numpy(a).to(img.device) for a in _linear_taps(nh, h, clamp=False))
     col = (1, -1) + (1,) * (img.ndim - 2)
     row = (-1,) + (1,) * (img.ndim - 1)
-    src = img.astype(np.int32)
+    src = img.to(torch.int32)
     hx = (src[:, x0] * ax0.reshape(col) + src[:, x1] * ax1.reshape(col)) >> 4
     out = (((ay0.reshape(row) * hx[y0]) >> 16) + ((ay1.reshape(row) * hx[y1]) >> 16) + 2) >> 2
-    return np.clip(out, 0, 255).astype(np.uint8)
+    return out.clamp(0, 255).to(torch.uint8)
 
 
 def _sample_bilinear(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border: int) -> np.ndarray:
@@ -197,33 +204,39 @@ def hsv2bgr(hsv: np.ndarray) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def resize_linear_f32(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+def _linear_taps_f32(dsz: int, ssz: int, clamp: bool):
+    """Source taps and float32 weights of one axis (cv2 `resize` INTER_LINEAR
+    of float input): (s0, s1, w0, w1)."""
+    f = ((np.arange(dsz) + 0.5) * (1.0 / (dsz / ssz)) - 0.5).astype(_F32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(_F32)
+    if clamp:
+        f = np.where(s < 0, _F32(0), f)
+        s = np.maximum(s, 0)
+        hi = s >= ssz - 1
+        f = np.where(hi, _F32(0), f)
+        s = np.where(hi, ssz - 1, s)
+    return np.clip(s, 0, ssz - 1), np.clip(s + 1, 0, ssz - 1), _F32(1) - f, f
+
+
+def resize_linear_f32(img, dsize: Tuple[int, int]):
     """Bilinear resize of a float32 (H, W) map or (H, W, C) image to dsize = (w, h), as
     `cv2.resize(img, dsize)` computes it for float input: half-pixel
     centres, float32 weights (the horizontal tap clamped at the edges, the
-    vertical weights not), the horizontal pass then the vertical one."""
+    vertical weights not), the horizontal pass then the vertical one. A
+    numpy array on the host, or a tensor on its own device, given back as
+    the same kind."""
+    if isinstance(img, np.ndarray):
+        return resize_linear_f32(torch.from_numpy(np.require(img, _F32, "CW")), dsize).numpy()
     nw, nh = dsize
     h, w = img.shape[:2]
-
-    def taps(dsz: int, ssz: int, clamp: bool):
-        f = ((np.arange(dsz) + 0.5) * (1.0 / (dsz / ssz)) - 0.5).astype(_F32)
-        s = np.floor(f).astype(np.int64)
-        f = f - s.astype(_F32)
-        if clamp:
-            f = np.where(s < 0, _F32(0), f)
-            s = np.maximum(s, 0)
-            hi = s >= ssz - 1
-            f = np.where(hi, _F32(0), f)
-            s = np.where(hi, ssz - 1, s)
-        return np.clip(s, 0, ssz - 1), np.clip(s + 1, 0, ssz - 1), _F32(1) - f, f
-
-    x0, x1, ax0, ax1 = taps(nw, w, True)
-    y0, y1, ay0, ay1 = taps(nh, h, False)
-    src = np.asarray(img, _F32)
+    x0, x1, ax0, ax1 = (torch.from_numpy(np.asarray(a)).to(img.device) for a in _linear_taps_f32(nw, w, True))
+    y0, y1, ay0, ay1 = (torch.from_numpy(np.asarray(a)).to(img.device) for a in _linear_taps_f32(nh, h, False))
+    src = img.to(torch.float32)
     col = (1, -1) + (1,) * (src.ndim - 2)
     row = (-1,) + (1,) * (src.ndim - 1)
     hx = src[:, x0] * ax0.reshape(col) + src[:, x1] * ax1.reshape(col)
-    return (hx[y0] * ay0.reshape(row) + hx[y1] * ay1.reshape(row)).astype(_F32)
+    return hx[y0] * ay0.reshape(row) + hx[y1] * ay1.reshape(row)
 
 
 _XY_SHIFT = 16
@@ -447,3 +460,160 @@ def contour_area(contour: np.ndarray) -> float:
         return 0.0
     x, y = c[:, 0], c[:, 1]
     return abs(float(np.sum(np.roll(x, 1) * y - np.roll(y, 1) * x)) * 0.5)
+
+
+# ---------------------------------------------------------------- on tensors
+# The pieces of cv2 that camera-motion compensation (`trackers/gmc.py`)
+# calls, as torch ops on the tensor's own device. Where cv2's arithmetic is
+# integer the result is bitwise cv2's; the float ones follow cv2's order of
+# operations in float32.
+
+
+def reflect101_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
+    """The source indices of positions -lo .. n - 1 + hi of an axis of
+    length n under BORDER_REFLECT_101 (cv2's `borderInterpolate`, also for
+    a border longer than the axis)."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    i = i.remainder(period)
+    return torch.where(i >= n, period - i, i)
+
+
+def cvt_bgr2gray(img: torch.Tensor) -> torch.Tensor:
+    """`cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)` of a uint8 (H, W, 3) tensor:
+    cv2's 15-bit fixed-point weights (3735, 19235, 9798), rounded."""
+    c = img.to(torch.int32)
+    return ((c[..., 0] * 3735 + c[..., 1] * 19235 + c[..., 2] * 9798 + (1 << 14)) >> 15).to(torch.uint8)
+
+
+def gaussian_kernel_u8(ksize: int, sigma: float) -> List[int]:
+    """cv2's bit-exact 8-bit Gaussian kernel (`getGaussianKernelBitExact`
+    with 8 fraction bits): the sampled Gaussian scaled by 256 and rounded
+    from the edge inwards with the error carried, the centre taking what
+    is left of 256."""
+    x = [i - (ksize - 1) / 2 for i in range(ksize)]
+    g = [math.exp(-t * t / (2 * sigma * sigma)) for t in x]
+    total = sum(g)
+    k = [0] * ksize
+    err = 0.0
+    for i in range(ksize // 2):
+        v = g[i] / total * 256 + err
+        k[i] = k[ksize - 1 - i] = int(np.rint(v))
+        err = v - k[i]
+    k[ksize // 2] = 256 - 2 * sum(k[:ksize // 2])
+    return k
+
+
+def gaussian_blur_u8(img: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
+    """`cv2.GaussianBlur(img, (ksize, ksize), sigma)` of a uint8 (H, W)
+    tensor, BORDER_REFLECT_101: cv2's fixed-point path (the 8-bit kernel of
+    `gaussian_kernel_u8` on both axes, the sum rounded at 16 bits)."""
+    k = gaussian_kernel_u8(ksize, sigma)
+    r = ksize // 2
+    h, w = img.shape
+    src = img.to(torch.int32)
+    p = src[:, reflect101_index(w, r, r, img.device)]
+    hx = sum(k[i] * p[:, i:i + w] for i in range(ksize))
+    p = hx[reflect101_index(h, r, r, img.device)]
+    v = sum(k[i] * p[i:i + h] for i in range(ksize))
+    return ((v + (1 << 15)) >> 16).to(torch.uint8)
+
+
+def resize_nearest(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
+    """`cv2.resize(img, dsize, interpolation=cv2.INTER_NEAREST)` of an
+    (H, W) tensor: source index floor(x * src / dst)."""
+    nw, nh = dsize
+    h, w = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(nw) * (w / nw)).astype(np.int64), w - 1)
+    ys = np.minimum(np.floor(np.arange(nh) * (h / nh)).astype(np.int64), h - 1)
+    return img[torch.from_numpy(ys).to(img.device)][:, torch.from_numpy(xs).to(img.device)]
+
+
+def pyr_down_u8(img: torch.Tensor) -> torch.Tensor:
+    """`cv2.pyrDown` of a uint8 (H, W) tensor: the 5-tap (1, 4, 6, 4, 1)
+    filter on both axes, BORDER_REFLECT_101, every second pixel, the sum
+    rounded at 8 bits; ((H + 1) // 2, (W + 1) // 2)."""
+    h, w = img.shape
+    oh, ow = (h + 1) // 2, (w + 1) // 2
+    k = (1, 4, 6, 4, 1)
+    p = img.to(torch.int32)[:, reflect101_index(w, 2, 2, img.device)]
+    hx = sum(k[i] * p[:, i:i + 2 * ow - 1:2] for i in range(5))
+    p = hx[reflect101_index(h, 2, 2, img.device)]
+    v = sum(k[i] * p[i:i + 2 * oh - 1:2] for i in range(5))
+    return ((v + 128) >> 8).to(torch.uint8)
+
+
+def scharr_i16(img: torch.Tensor) -> torch.Tensor:
+    """The derivatives `cv2.calcOpticalFlowPyrLK` takes of a uint8 (H, W)
+    tensor (its `calcSharrDeriv`): (H, W, 2) int16, x then y, each the
+    3-tap difference of the (3, 10, 3) smoothing across, BORDER_REFLECT_101."""
+    h, w = img.shape
+    s = img.to(torch.int32)[reflect101_index(h, 1, 1, img.device)]
+    t0 = (s[:-2] + s[2:]) * 3 + s[1:-1] * 10
+    t1 = s[2:] - s[:-2]
+    xs = reflect101_index(w, 1, 1, img.device)
+    t0, t1 = t0[:, xs], t1[:, xs]
+    dx = t0[:, 2:] - t0[:, :-2]
+    dy = (t1[:, 2:] + t1[:, :-2]) * 3 + t1[:, 1:-1] * 10
+    return torch.stack([dx, dy], -1).to(torch.int16)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of float32 tensors rounded once, as a fused multiply-add
+    (the product of two float32 is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def sobel_f32(img: torch.Tensor, dx: int, dy: int, scale: float) -> torch.Tensor:
+    """`cv2.Sobel(img, cv2.CV_32F, dx, dy, ksize=3, scale=scale)` of a
+    uint8 (H, W) tensor, BORDER_REFLECT_101, one of dx, dy 1: the
+    difference tap (-1, 0, 1) and the smoothing tap (1, 2, 1) with `scale`
+    folded into it, in float32 with cv2's fused multiply-adds on x86 with
+    AVX-512 (bitwise cv2's there)."""
+    h, w = img.shape
+    dev = img.device
+    s = torch.tensor(scale, dtype=torch.float32, device=dev)
+    s2 = s * 2
+    p = img.to(torch.float32)[:, reflect101_index(w, 1, 1, dev)]
+    if dx:
+        r = (p[:, 2:] - p[:, :-2])[reflect101_index(h, 1, 1, dev)]
+        return fma_f32(r[:-2] + r[2:], s, r[1:-1] * s2)
+    r = fma_f32(p[:, 2:], s, fma_f32(p[:, 1:-1], s2, p[:, :-2] * s))
+    # cv2's row pass runs 32 columns at a time with FMA, the rest without
+    tail = (w // 32) * 32
+    r[:, tail:] = (p[:, tail:-2] * s + p[:, tail + 1:-1] * s2) + p[:, tail + 2:] * s
+    r = r[reflect101_index(h, 1, 1, dev)]
+    return r[2:] - r[:-2]
+
+
+def warp_affine_f32(img: torch.Tensor, M: torch.Tensor, dsize: Tuple[int, int], nearest: bool = False) -> torch.Tensor:
+    """`cv2.warpAffine(img, M, dsize, flags=cv2.INTER_LINEAR |
+    cv2.WARP_INVERSE_MAP)` of an (H, W) tensor (INTER_NEAREST with
+    `nearest`): each output pixel (x, y) samples the input at
+    M @ (x, y, 1), computed in float32, taps off the image reading 0
+    (BORDER_CONSTANT)."""
+    w, h = dsize
+    ih, iw = img.shape
+    dev = img.device
+    M = M.to(dev, torch.float32)
+    x = torch.arange(w, device=dev, dtype=torch.float32)[None]
+    y = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    sx = M[0, 0] * x + (M[0, 1] * y + M[0, 2])
+    sy = M[1, 0] * x + (M[1, 1] * y + M[1, 2])
+    pad = torch.zeros((ih + 4, iw + 4), dtype=img.dtype, device=dev)
+    pad[2:-2, 2:-2] = img
+    if nearest:
+        ix = torch.round(sx).clamp(-2, iw + 1).to(torch.int64) + 2
+        iy = torch.round(sy).clamp(-2, ih + 1).to(torch.int64) + 2
+        return pad[iy, ix]
+    fx, fy = torch.floor(sx), torch.floor(sy)
+    ax, ay = sx - fx, sy - fy
+    # a corner pair off the image reads the two-pixel zero frame
+    ix = fx.clamp(-2, iw).to(torch.int64) + 2
+    iy = fy.clamp(-2, ih).to(torch.int64) + 2
+    p00, p01, p10, p11 = pad[iy, ix], pad[iy, ix + 1], pad[iy + 1, ix], pad[iy + 1, ix + 1]
+    v0 = p00 + ax * (p01 - p00)
+    v1 = p10 + ax * (p11 - p10)
+    return v0 + ay * (v1 - v0)

@@ -874,7 +874,8 @@ class Engine:
         raise). Each frame is stretched to (imgsz, imgsz) as cv2.resize does,
         turned to RGB in [0, 1] and run through the eval forward at `conf`
         (0.25 by default); its detections, in the frame's pixels, go through
-        the tracker ("bytetrack", or "botsort" with gmc_method="none"), and
+        the tracker ("bytetrack", or "botsort", whose motion compensation
+        runs on the engine's device), and
         each `Results` holds the tracked boxes and their `track_ids`. The
         tracker's own keys (gmc_method, with_reid, proximity_thresh,
         appearance_thresh, track_buffer, match_thresh) ride `overrides`.
@@ -889,7 +890,7 @@ class Engine:
         if self.model is None or self.txt_feats is None:
             raise RuntimeError("no weights or classes: train, load or set a model and set_classes first")
         if not persist or self._tracker is None:
-            self._tracker = make_tracker(tracker, **tracker_args)
+            self._tracker = make_tracker(tracker, device=self.device, **tracker_args)
         model = self._eval_model(self.model, cfg)
         conf = cfg.conf if cfg.conf is not None else 0.25
         txt = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=next(model.parameters()).device)

@@ -2,49 +2,27 @@
 appearance (ReID), a port of the JAX package's
 `tamtr_tpu/trackers/bot_sort.py` (numpy).
 
-Before association, a global affine map between consecutive frames moves
-the tracks' boxes, and with `with_reid=True` appearance embeddings gate and
-augment the first association: the stage-1 cost becomes
-``min(fused IoU distance, embedding distance / 2)`` after the reference's
-proximity and appearance gates (`bot_sort.py:178-192`). The embedder is
-`patch_appearance_encoder`, a colour layout of each box.
-
-GMC: only ``gmc_method="none"`` (the identity map) is ported. The other
-methods, 'sparseOptFlow' (the default, as in the JAX package), 'orb',
-'sift' and 'ecc', are built on cv2's feature trackers, which the port does
-not have: they raise NotImplementedError. So the port's BOTSORT needs
-``gmc_method="none"``.
+Before association, a global affine map between consecutive frames
+(`trackers/gmc.py:GMC`: 'sparseOptFlow', the default, 'orb', 'sift',
+'ecc' or 'none') moves the tracks' boxes, and with `with_reid=True`
+appearance embeddings gate and augment the first association: the stage-1
+cost becomes ``min(fused IoU distance, embedding distance / 2)`` after the
+reference's proximity and appearance gates (`bot_sort.py:178-192`). The
+embedder is `encoder(frame, boxes) -> (N, D)`, by default
+`patch_appearance_encoder`, a colour layout of each box. GMC's dense work
+runs on `device` (the card unless device='cpu' is given).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional, Union
 
 import numpy as np
+import torch
 
 from tamtr_torch.data.imgproc import resize_linear
 from tamtr_torch.trackers.byte_tracker import BYTETracker, Track, iou_distance, xyxy2xyah
-
-
-class GMC:
-    """Global motion compensation between consecutive frames: `apply`
-    returns the 2x3 affine map from the previous frame to this one (the
-    identity with method "none")."""
-
-    METHODS = ("sparseOptFlow", "orb", "sift", "ecc", "none")
-
-    def __init__(self, method: str = "sparseOptFlow"):
-        if method in (None, "None"):
-            method = "none"
-        if method not in self.METHODS:
-            raise ValueError(f"unknown GMC method {method!r}; one of {self.METHODS}")
-        if method != "none":
-            raise NotImplementedError(f"GMC method {method!r} needs cv2's feature trackers, which tamtr_torch does "
-                                      "not have: use gmc_method='none' (ROADMAP.md queue A, item 3)")
-        self.method = method
-
-    def apply(self, frame_bgr: np.ndarray) -> np.ndarray:
-        return np.eye(2, 3, dtype=np.float32)
+from tamtr_torch.trackers.gmc import GMC
 
 
 def patch_appearance_encoder(frame_bgr: np.ndarray, boxes: np.ndarray, grid: int = 8) -> np.ndarray:
@@ -78,16 +56,19 @@ def embedding_distance(tracks: List[Track], feats: np.ndarray) -> np.ndarray:
 
 
 class BOTSORT(BYTETracker):
-    """BYTETracker with GMC (`gmc_method="none"` only: the default raises) and, with
-    `with_reid=True`, appearance in the first association."""
+    """BYTETracker with GMC (`gmc_method`, shrinking frames by
+    `gmc_downscale`, on `device`) and, with `with_reid=True`, appearance
+    from `encoder` in the first association."""
 
-    def __init__(self, *args, gmc_method: str = "sparseOptFlow", with_reid: bool = False,
-                 proximity_thresh: float = 0.5, appearance_thresh: float = 0.25, **kwargs):
+    def __init__(self, *args, gmc_method: str = "sparseOptFlow", gmc_downscale: int = 2, with_reid: bool = False,
+                 proximity_thresh: float = 0.5, appearance_thresh: float = 0.25, encoder: Optional[Callable] = None,
+                 device: Union[str, torch.device, None] = None, **kwargs):
         super().__init__(*args, **kwargs)
-        self.gmc = GMC(gmc_method)
+        self.gmc = GMC(gmc_method, gmc_downscale, device=device)
         self.with_reid = bool(with_reid)
         self.proximity_thresh = proximity_thresh
         self.appearance_thresh = appearance_thresh
+        self.encoder = encoder or patch_appearance_encoder
         self._frame_feats: Optional[np.ndarray] = None
 
     @staticmethod
@@ -122,7 +103,7 @@ class BOTSORT(BYTETracker):
             H = self.gmc.apply(frame_bgr)
             for t in self.tracked + self.lost:
                 self._apply_affine(t, H)
-            self._frame_feats = patch_appearance_encoder(frame_bgr, boxes) if self.with_reid and len(boxes) else None
+            self._frame_feats = self.encoder(frame_bgr, boxes) if self.with_reid and len(boxes) else None
         else:
             self._frame_feats = None
         return super().update(boxes, scores, classes)

@@ -6,9 +6,10 @@ callback, `Engine.track` does it in its loop).
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
+import torch
 
 from tamtr_torch.trackers.bot_sort import BOTSORT
 from tamtr_torch.trackers.byte_tracker import BYTETracker
@@ -16,12 +17,15 @@ from tamtr_torch.trackers.byte_tracker import BYTETracker
 TRACKER_MAP = {"bytetrack": BYTETracker, "botsort": BOTSORT}
 
 
-def make_tracker(name: str = "bytetrack", **kwargs: Any):
+def make_tracker(name: str = "bytetrack", device: Union[str, torch.device, None] = None, **kwargs: Any):
     """A tracker by name ("bytetrack" or "botsort"; the reference's
-    "bytetrack.yaml" also)."""
+    "bytetrack.yaml" also). `device` is where BOTSORT's motion compensation
+    runs (the card when None); BYTETracker has no device work."""
     stem = str(name).replace(".yaml", "").replace(".yml", "").lower()
     if stem not in TRACKER_MAP:
         raise ValueError(f"unknown tracker {name}; available: {list(TRACKER_MAP)}")
+    if stem == "botsort":
+        kwargs["device"] = device
     return TRACKER_MAP[stem](**kwargs)
 
 

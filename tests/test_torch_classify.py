@@ -165,7 +165,8 @@ def test_ce_step_matches_make_train_step(cls):
 def test_classification_dataset_and_loader_match_jax(folder):
     """`ClassificationDataset.get` with and without augmentation and the
     loader's batches of two epochs, on two process shards, bitwise JAX's;
-    the class names and samples equal. A TIFF in a class folder raises."""
+    the class names and samples equal. A class folder of TIFF and WebP
+    images gives JAX's samples too."""
     from tamtr_tpu.data.dataset import ClassificationDataset as JDataset
     from tamtr_tpu.data.dataset import ClassificationLoader as JLoader
 
@@ -192,11 +193,18 @@ def test_classification_dataset_and_loader_match_jax(folder):
             for g, w in zip(got, want):
                 for k in ("img", "cls"):
                     np.testing.assert_array_equal(g[k], w[k])
-    bad = folder.parent / "tif" / "a"
-    bad.mkdir(parents=True)
-    (bad / "x.tif").write_bytes(b"II*\x00" + bytes(16))
-    with pytest.raises(NotImplementedError, match="TIFF"):
-        ClassificationDataset(bad.parent).get(0)
+    import cv2
+
+    other = folder.parent / "tif_webp" / "a"
+    other.mkdir(parents=True)
+    rng = np.random.default_rng(5)
+    for name in ("x.tif", "y.webp", "z.tiff"):
+        cv2.imwrite(str(other / name), rng.integers(0, 256, (40, 52, 3), np.uint8))
+    jd, pd = JDataset(other.parent, imgsz=32, augment=False), \
+        ClassificationDataset(other.parent, imgsz=32, augment=False)
+    assert pd.samples == jd.samples and len(pd) == 3
+    for i in range(3):
+        np.testing.assert_array_equal(pd.get(i, np.random.default_rng(i))[0], jd.get(i, np.random.default_rng(i))[0])
 
 
 class _IndexDataset:

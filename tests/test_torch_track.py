@@ -10,11 +10,15 @@ its own colour on noise) for the appearance branch. Both packages' id
 counters are reset before each run. Track ids are equal and boxes, scores
 and classes agree at 1e-5 for `bytetrack` and for `botsort` (GMC "none",
 with and without ReID); the Kalman filter, the assignment, the embedder
-and the embedding distance equal JAX's.
+and the embedding distance equal JAX's. Over a panned 320x240 sequence
+`botsort` with its default camera-motion compensation (sparseOptFlow,
+`trackers/gmc.py`) and ReID gives JAX's ids and boxes within 1e-4 of the
+frame size.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from tamtr_torch.trackers import bot_sort as pbot, byte_tracker as pbyte, kalman as pkal
 from tamtr_torch.trackers.track import make_tracker, update_result_with_tracks
@@ -151,18 +155,80 @@ def test_parts_match_jax():
 
 
 def test_gmc_methods_and_names():
-    """GMC "none" is the identity; the cv2 methods (the default
-    'sparseOptFlow' among them) raise naming the ROADMAP entry; trackers by
-    name."""
+    """GMC "none" is the identity and needs no device; the other methods
+    need a device (a machine without a card raises, saying to pass
+    device='cpu'); an unknown method raises ValueError; trackers by name,
+    `make_tracker` passing `device` to BOTSORT."""
     assert np.array_equal(pbot.GMC("none").apply(np.zeros((4, 4, 3), np.uint8)), np.eye(2, 3, dtype=np.float32))
     for method in ("sparseOptFlow", "orb", "sift", "ecc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 3"):
-            pbot.GMC(method)
-    with pytest.raises(NotImplementedError, match="gmc_method='none'"):
-        make_tracker("botsort")
+        assert pbot.GMC(method, device="cpu").method == method
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                pbot.GMC(method)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_tracker("botsort")
+    t = make_tracker("botsort", device="cpu")
+    assert t.gmc.method == "sparseOptFlow" and t.gmc.downscale == 2 and t.gmc.device == torch.device("cpu")
+    assert make_tracker("botsort", device="cpu", gmc_downscale=3).gmc.downscale == 3
+    assert isinstance(make_tracker("bytetrack", device="cpu"), pbyte.BYTETracker)
     with pytest.raises(ValueError):
         pbot.GMC("optical")
     assert isinstance(make_tracker("bytetrack.yaml"), pbyte.BYTETracker)
     assert isinstance(make_tracker("BoTSORT", gmc_method=None), pbot.BOTSORT)
     with pytest.raises(ValueError, match="unknown tracker"):
         make_tracker("deepsort")
+
+
+def panned_scene(frames: int = 8, h: int = 240, w: int = 320, pan=(3, 2)):
+    """(boxes, scores, classes, frame) per frame: a textured background
+    panned by `pan` pixels a frame (a seeded canvas cropped), 5 objects
+    drawn on it at their own velocities plus the pan, boxes jittered."""
+    rng = np.random.default_rng(7)
+    canvas = np.repeat(np.repeat(rng.integers(0, 256, (64, 64, 3), np.uint8), 8, 0), 8, 1)
+    canvas = np.clip(canvas.astype(np.int16) + rng.integers(-20, 20, canvas.shape), 0, 255).astype(np.uint8)
+    n = 5
+    start = rng.uniform([20, 20], [w - 80, h - 70], (n, 2))
+    vel = rng.uniform(-3, 3, (n, 2))
+    size = rng.uniform([25, 20], [50, 40], (n, 2))
+    colours = rng.integers(0, 256, (n, 3))
+    out = []
+    for f in range(frames):
+        ox, oy = 40 + pan[0] * f, 30 + pan[1] * f
+        frame = canvas[oy:oy + h, ox:ox + w].copy()
+        xy = start + (vel - pan) * f
+        boxes = []
+        for i in range(n):
+            x1, y1 = np.clip(xy[i].astype(int), 0, [w, h])
+            x2, y2 = np.clip((xy[i] + size[i]).astype(int), 0, [w, h])
+            frame[y1:y2, x1:x2] = colours[i]
+            boxes.append(np.concatenate([xy[i], xy[i] + size[i]]) + rng.normal(0, 1.0, 4))
+        out.append((np.array(boxes, np.float32), rng.uniform(0.6, 0.95, n).astype(np.float32),
+                    np.zeros(n, np.float32), frame))
+    return out
+
+
+def test_botsort_sparse_flow_matches_jax():
+    """BoT-SORT with its default GMC (sparseOptFlow) and ReID over a panned
+    sequence: the port's ids equal JAX's and its boxes agree within 1e-4
+    of the frame size."""
+    from tamtr_tpu.trackers.track import make_tracker as jax_make_tracker
+
+    torch.set_num_threads(1)
+    reset_ids()
+    port = make_tracker("botsort", device="cpu", with_reid=True)
+    jax_t = jax_make_tracker("botsort", with_reid=True)
+    assert port.gmc.method == jax_t.gmc.method == "sparseOptFlow"
+    maps, apply = [], port.gmc.apply
+    port.gmc.apply = lambda f: maps.append(apply(f)) or maps[-1]
+    for i, (boxes, scores, classes, frame) in enumerate(panned_scene()):
+        got = port.update(boxes, scores, classes, frame_bgr=frame)
+        want = jax_t.update(boxes, scores, classes, frame_bgr=frame)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got[:, 4], want[:, 4])
+        scale = np.array([320, 240, 320, 240], np.float32)
+        np.testing.assert_allclose(got[:, :4] / scale, want[:, :4] / scale, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(got[:, 5:], want[:, 5:], rtol=0, atol=1e-5)
+        if i:  # the background's pan, seen through the moving objects
+            assert np.abs(maps[-1][:, 2] - (-3, -2)).max() < 0.5, maps[-1]
+    assert len(got) == 5

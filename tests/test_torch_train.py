@@ -73,15 +73,24 @@ def no_cdn_noise():
 
 
 @pytest.fixture(scope="module")
-def jax_nano(no_cdn_noise):
+def jax_nano(no_cdn_noise, tmp_path_factory):
+    """The JAX nano model and its perturbed variables; the init is compiled
+    once per test session (`session_cached`) for this file and the bf16
+    step files."""
     from tamtr_tpu.nn.graph import TAMTRModel
 
+    from torch_engine_data import session_cached
+
     model = TAMTRModel.from_yaml("tamtr-nano.yaml", nc=NC, max_gt=M, vss_drop_path=0.0)
-    v = jax.device_get(jax.jit(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, IMG, IMG, 3)), jnp.zeros((1, NC, HD)), None, False
-    ))())
-    params = _perturb(_to_np(v["params"]), np.random.default_rng(0))
-    return model, params, _to_np(v["batch_stats"])
+
+    def make():
+        v = jax.device_get(jax.jit(lambda: model.init(
+            {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, IMG, IMG, 3)), jnp.zeros((1, NC, HD)), None, False
+        ))())
+        return _perturb(_to_np(v["params"]), np.random.default_rng(0)), _to_np(v["batch_stats"])
+
+    params, batch_stats = session_cached(tmp_path_factory, "train-nano", make)
+    return model, params, batch_stats
 
 
 def _port_model(params, batch_stats):
@@ -339,9 +348,12 @@ def test_modules_in_train_mode_match_jax(jax_nano, idx):
 
 
 @pytest.fixture(scope="module")
-def jax_step(jax_nano, batch):
-    """`run_jax_step` of the nano model."""
-    return run_jax_step(*jax_nano, batch)
+def jax_step(jax_nano, batch, tmp_path_factory):
+    """`run_jax_step` of the nano model, once per test session (this file
+    and `test_torch_bf16_step_whole.py` read it)."""
+    from torch_engine_data import session_cached
+
+    return session_cached(tmp_path_factory, "train-nano-step", lambda: jax.device_get(run_jax_step(*jax_nano, batch)))
 
 
 def run_jax_step(model, params, batch_stats, batch):
