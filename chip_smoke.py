@@ -85,7 +85,13 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    (`tests/torch_data/webp`, `tests/torch_data/tiff`, written by
    `tools/make_image_fixtures_torch.py`) decoded by `imread`
    (`csrc/webp_decode.cpp`, `csrc/tiff_decode.cpp`) to their cv2 digests,
-   `image_shape` from their headers; host decode ms per megapixel.
+   `image_shape` from their headers; host decode ms per megapixel. The
+   writers: each decode, the 1360x765 JPEG fixture's and a plot drawn over
+   it (`tests/torch_data/encode/expected.json`) encoded by `encode_tiff`
+   (`csrc/tiff_encode.cpp`) to the sha256 of `cv2.imencode(".tif")`'s
+   bytes and by `encode_webp` (`csrc/webp_encode.cpp`) to a lossless WebP
+   that `decode_webp` gives back exactly, in at most 1.5x cv2's bytes; host
+   encode ms per megapixel of each writer.
 5. parity: the full-width `tamtr.yaml` model (nc=10) at 128 px, batch 2,
    on the card and on the CPU with the same state dict, compared as a
    tie-robust set at 1e-3. The whole run keeps TF32 off (full fp32).
@@ -250,9 +256,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    before each: B1-B5 must have launched. Several cards are not reached
    here: NCCL across cards is not measured.
 9b. cli: `python -m tamtr_torch predict model=<fit's best.pt>
-   source=<fixtures> save=True` in a subprocess, which prints its launch
-   counters: exit 0, one line and one plot per image, written under the
-   image's own name (JPEG).
+   source=<fixtures> save=True` in a subprocess (the JPEG fixtures and a
+   lossless WebP, then a TIFF fixture as the source of a second predict in
+   the same process), which prints its launch counters: exit 0, one line
+   and one plot per image, written under the image's own name in its
+   format (JPEG, lossless WebP, LZW TIFF), each read back.
 9c. info: `TAMTR("tamtr.yaml").load(<fit's best.pt>).info()` on the card:
    its layers, params and GFLOPs at 640 px those of the same model on the
    CPU, the operation counts (`utils/profiler.py:flops_of`) equal exactly.
@@ -2214,6 +2222,12 @@ TRACK_PAN_FRAMES, TRACK_PAN = 8, (4, 2)
 GMC_TOL = {"sparseOptFlow": (0.05, 1e-3), "orb": (0.25, 5e-3), "sift": (0.25, 5e-3), "ecc": (0.05, 1e-3)}
 # the WebP and TIFF fixtures of tools/make_image_fixtures_torch.py, with their cv2 digests
 IMAGE_FIXTURES = ("tests/torch_data/webp", "tests/torch_data/tiff")
+# the writers' oracles of tools/make_image_fixtures_torch.py: cv2's TIFF sha256 and lossless WebP size of
+# each WebP and TIFF fixture's decode, of the 1360x765 JPEG fixture's and of a plot drawn over it
+ENCODE_FIXTURES = "tests/torch_data/encode/expected.json"
+WEBP_SIZE_RATIO = 1.5  # the port's lossless WebP at most this many times cv2's bytes
+# the WebP and TIFF fixtures the cli phase predicts with save=True beside the JPEG ones
+CLI_WEBP, CLI_TIFF = "lossless.webp", "lzw_bgr.tif"
 
 
 def check_counts(phase: str, counters, forwards: int, extra=None):
@@ -2342,7 +2356,65 @@ def check_image_formats():
         f"megapixel (host time on the card's machine), over all the fixtures of a kind: "
         f"{json.dumps({k: round(v, 3) for k, v in overall.items()})}; per file: "
         f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}", flush=True)
-    return {"overall": overall, "per_file": ms}
+    return {"overall": overall, "per_file": ms, "encode": check_image_writers()}
+
+
+def check_image_writers():
+    """Each entry of `ENCODE_FIXTURES` (the decode of every WebP and TIFF
+    fixture, of the 1360x765 JPEG fixture, and the plot `annotate_image`
+    draws over it from the boxes stored with the entry) encoded by the host
+    C++ writers: `encode_tiff` (`csrc/tiff_encode.cpp`) to the sha256 of
+    `cv2.imencode(".tif")`'s bytes, `encode_webp` (`csrc/webp_encode.cpp`)
+    to a lossless WebP that `decode_webp` gives back exactly, in at most
+    `WEBP_SIZE_RATIO` x cv2's bytes. Host encode ms per megapixel of each
+    writer (the best of 2 runs), over all the entries and per entry."""
+    import hashlib
+    from pathlib import Path
+
+    from tamtr_torch.data.image_io import decode_webp, encode_tiff, encode_webp, imread
+    from tamtr_torch.utils.plotting import annotate_image
+
+    expected = json.loads(Path(ENCODE_FIXTURES).read_text())
+    root = Path(ENCODE_FIXTURES).parent.parent
+    tiny = np.zeros((1, 1, 3), np.uint8)
+    encode_tiff(tiny), encode_webp(tiny)  # builds both writers
+    per, ratio, sums = {}, {}, {"tiff": [0.0, 0.0], "webp": [0.0, 0.0]}
+    for key, want in expected.items():
+        img = imread(root / want["source"])
+        if "plot" in want:
+            p = want["plot"]
+            img = annotate_image(img, np.asarray(p["boxes"], np.float32), np.asarray(p["scores"], np.float32),
+                                 np.asarray(p["labels"]), p["names"])
+        if hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]:
+            raise AssertionError(f"image writers: the input of {key} is not the one its oracle was made from")
+        times = {"tiff": [], "webp": []}
+        for _ in range(2):
+            t0 = time.perf_counter()
+            tif = encode_tiff(img)
+            t1 = time.perf_counter()
+            webp = encode_webp(img)
+            times["tiff"].append(t1 - t0)
+            times["webp"].append(time.perf_counter() - t1)
+        if hashlib.sha256(tif).hexdigest() != want["tiff_sha256"]:
+            raise AssertionError(f"image writers: encode_tiff of {key} is not cv2.imencode's bytes")
+        if not np.array_equal(decode_webp(webp), img):
+            raise AssertionError(f"image writers: encode_webp of {key} does not decode back to it")
+        ratio[key] = len(webp) / want["webp_bytes"]
+        if ratio[key] > WEBP_SIZE_RATIO:
+            raise AssertionError(f"image writers: encode_webp of {key} is {ratio[key]:.3f}x cv2's bytes")
+        mp = img.shape[0] * img.shape[1] / 1e6
+        per[key] = {k: min(v) * 1e3 / mp for k, v in times.items()}
+        for k, v in times.items():
+            sums[k][0] += min(v) * 1e3
+            sums[k][1] += mp
+    overall = {k: t / m for k, (t, m) in sums.items()}
+    big = {k: {w: round(v, 3) for w, v in per[k].items()} for k in per if k.startswith("jpeg/")}
+    say(f"image writers: {len(per)} images: encode_tiff equals cv2's sha256 on each, encode_webp decodes back "
+        f"exactly at {min(ratio.values()):.3f}-{max(ratio.values()):.3f}x cv2's bytes (limit {WEBP_SIZE_RATIO}); "
+        f"host encode ms per megapixel (host time on the card's machine), over all: "
+        f"{json.dumps({k: round(v, 3) for k, v in overall.items()})}; the 1360x765 images: {json.dumps(big)}",
+        flush=True)
+    return {"overall": overall, "per_image": per, "webp_size_ratio": ratio}
 
 
 def serve_model(seed: int = 1):
@@ -2714,28 +2786,38 @@ def track_pan(det):
 
 
 def cli(best: str):
-    """`python -m tamtr_torch predict model=<best.pt> source=<fixtures>
-    save=True` in a subprocess on the card, which then prints its launch
-    counters: exit 0, one line and one plot per image under the image's own
-    name (JPEG: each file a JPEG that decodes), B1 and B2 once per
-    forward and nothing else."""
+    """`python -m tamtr_torch predict model=<best.pt> source=<dir>
+    save=True` in a subprocess on the card, over a copy of the JPEG
+    fixtures and one lossless WebP fixture, then, in the same process, with
+    `source=` a TIFF fixture (a directory's predict takes no .tif, as the
+    JAX engine's); the process then prints its launch counters: exit 0,
+    one line and one plot per image under the image's own name (each plot
+    read back by `imread`: JPEG, the lossless WebP through `decode_webp`,
+    the LZW TIFF through `decode_tiff`), B1 and B2 once per forward and
+    nothing else."""
     import shutil
     from pathlib import Path
 
     from tamtr_torch.data.image_io import imread
 
-    out = Path("build/cli")
+    out, src = Path("build/cli"), Path("build/cli_src")
     shutil.rmtree(out, ignore_errors=True)
-    names = sorted(json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()))
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(JPEG_FIXTURES, src, ignore=shutil.ignore_patterns("*.json"))
+    shutil.copy(f"{IMAGE_FIXTURES[0]}/{CLI_WEBP}", src / CLI_WEBP)
+    tif = Path(IMAGE_FIXTURES[1]) / CLI_TIFF
+    names = sorted([*json.loads(open(f"{JPEG_FIXTURES}/expected.json").read()), CLI_WEBP, CLI_TIFF])
     n = len(names)
-    argv = ["tamtr_torch", "predict", f"model={best}", f"source={JPEG_FIXTURES}", "save=True", f"project={out}"]
+    argvs = [["tamtr_torch", "predict", f"model={best}", f"source={s}", "save=True", f"project={out}"]
+             for s in (src, tif)]
     code = ("import json, runpy, sys\n"
             "torch = __import__('torch'); torch.backends.cuda.matmul.allow_tf32 = False\n"
             "torch.backends.cudnn.allow_tf32 = False\n"
-            f"sys.argv = {argv!r}\n"
             "from chip_smoke import zero_counters\n"
             "counters = zero_counters()\n"
-            "runpy.run_module('tamtr_torch', run_name='__main__')\n"
+            f"for argv in {argvs!r}:\n"
+            "    sys.argv = argv\n"
+            "    runpy.run_module('tamtr_torch', run_name='__main__')\n"
             "print(json.dumps({k: f.launches for k, f in counters.items()}))\n")
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600)
@@ -2747,13 +2829,17 @@ def cli(best: str):
     plots = sorted(p.name for p in (out / "predict").iterdir())
     if plots != names or any(imread(out / "predict" / f) is None for f in plots):
         raise AssertionError(f"cli: wrote {plots}, want readable plots named {names}")
+    for f in (CLI_WEBP, CLI_TIFF):
+        data = (out / "predict" / f).read_bytes()
+        if (f.endswith(".webp") and data[12:16] != b"VP8L") or (f.endswith(".tif") and data[:4] != b"II*\0"):
+            raise AssertionError(f"cli: the plot of {f} is not a lossless WebP / little-endian TIFF")
     launches = json.loads(lines[-1])
     want = {k: FORWARD_LAUNCHES.get(k, 0) * n for k in launches}
     if len(preds) != n or launches != want:
         raise AssertionError(f"cli: {len(preds)} lines for {n} images; launches {launches}, want {want}")
-    say(f"cli: python -m tamtr_torch predict on {n} fixtures: exit 0, {len(preds)} lines, {len(plots)} plots, "
-          f"{wall:.1f} s wall (process start, model load, kernels loaded from build/); launches {launches}",
-          flush=True)
+    say(f"cli: python -m tamtr_torch predict on {n} fixtures ({CLI_WEBP} and {CLI_TIFF} among them): exit 0, "
+        f"{len(preds)} lines, {len(plots)} plots, {wall:.1f} s wall (process start, model load twice, kernels "
+        f"loaded from build/); launches {launches}", flush=True)
     return launches
 
 # the fuse phase: serve requests timed in rounds of unfused, fused, fused,
@@ -5212,7 +5298,9 @@ def main() -> int:
     print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary, "track": track_summary,
                       "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp,
                       "jpeg_host_encode_ms_per_megapixel": jpeg_encode_ms_per_mp,
-                      "webp_tiff_host_decode_ms_per_megapixel": formats_ms_per_mp}))
+                      "webp_tiff_host_decode_ms_per_megapixel": {k: v for k, v in formats_ms_per_mp.items()
+                                                                 if k != "encode"},
+                      "tiff_webp_host_encode": formats_ms_per_mp["encode"]}))
     print(json.dumps({"export": export_summary}))
     print(json.dumps({"phase_s": PHASE_S, "device_ms_by": DEVICE_MS_BY}))
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """Image files without cv2 or PIL: PNG, JPEG (baseline and progressive), BMP,
-TIFF, WebP and `.npy` in; JPEG, PNG and BMP out.
+TIFF, WebP and `.npy` in; JPEG, PNG, BMP, TIFF and lossless WebP out.
 
 `imread` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns for the
 files it reads: (H, W, 3) uint8 in BGR order (a gray image repeated into
@@ -47,8 +47,12 @@ suffix, as cv2 does. `.jpg`, `.jpeg` and `.jpe` go to `encode_jpeg`
 (`csrc/jpeg_encode.cpp`), whose bytes equal `cv2.imencode`'s at any
 quality; `.bmp` to `encode_bmp`, byte-equal to cv2's; `.png` to
 `encode_png`, filter-0 rows that cv2 reads back bitwise (its
-bytes are not cv2's). Writing TIFF and WebP is not ported: `imencode`
-raises NotImplementedError for their suffixes.
+bytes are not cv2's); `.tif` and `.tiff` to `encode_tiff` (LZW strips coded
+by `csrc/tiff_encode.cpp`), byte-equal to cv2's; `.webp` to `encode_webp`
+(`csrc/webp_encode.cpp`), lossless VP8L as cv2 writes by default, which
+cv2 and `decode_webp` read back exactly (its bytes are not cv2's). cv2's
+lossy WebP (a quality of 100 or below) is not ported and raises
+NotImplementedError naming the file.
 """
 
 from __future__ import annotations
@@ -774,23 +778,131 @@ def encode_bmp(img: np.ndarray) -> bytes:
     return bytes(out) + rows[::-1].tobytes()
 
 
-def imencode(ext: str, img: np.ndarray, quality: int = 95) -> bytes:
+def _tiff_lzw(data: bytes) -> bytes:
+    """One strip coded by `csrc/tiff_encode.cpp` (libtiff's LZW stream)."""
+    from tamtr_torch.kernels import _build
+
+    fn = _build.load("tiff_encode").tiff_lzw_encode
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long]
+    fn.restype = ctypes.c_long
+    out = np.empty(len(data) * 3 // 2 + 16, np.uint8)  # 12-bit codes of single bytes, Clear and EOI
+    n = fn(data, len(data), out.ctypes.data, out.size)
+    if n > out.size:
+        raise RuntimeError(f"LZW strip of {n} bytes overran its {out.size}-byte buffer")
+    return out[:n].tobytes()
+
+
+def encode_tiff(img: np.ndarray) -> bytes:
+    """(H, W) gray or (H, W, 3) BGR uint8 as a TIFF: the bytes of
+    `cv2.imencode(".tif", img)` (libtiff through OpenCV's writer). One
+    little-endian page of RGB (or MinIsBlack gray) samples, LZW with the
+    horizontal predictor, strips of `max(1, min(H, 8192 // (W * C)))`
+    rows each coded on its own by `csrc/tiff_encode.cpp`; the strips from
+    byte 8, then the IFD (12 tags, word-aligned) and the values that do not
+    fit in it, in libtiff's order: BitsPerSample, StripByteCounts,
+    StripOffsets, SampleFormat. The byte counts are SHORT where libtiff
+    writes them so (several strips of under 6553 raw bytes each), else
+    LONG."""
+    img = _image_u8(img, "encode_tiff")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else 3
+    rows = (img if c == 1 else img[..., ::-1]).reshape(h, w * c)  # BGR -> RGB
+    diff = rows.copy()
+    diff[:, c:] -= rows[:, :-c]  # Predictor 2: each sample less its left neighbour's, mod 256
+    rps = max(1, min(h, 8192 // (w * c)))
+    strips = [_tiff_lzw(diff[y:y + rps].tobytes()) for y in range(0, h, rps)]
+    data = b"".join(strips)
+    ifd_at = 8 + len(data) + (len(data) & 1)  # word-aligned
+    SHORT, LONG = 3, 4
+    # libtiff writes the byte counts of several strips as SHORT when an LZW
+    # strip of `rps` rows could not pass 0xFFFF bytes even at 10x its raw size
+    counts_type = SHORT if len(strips) > 1 and rps * w * c < 0xFFFF // 10 else LONG
+
+    def dim(v: int) -> Tuple[int, list]:
+        return (SHORT, [v]) if v <= 0xFFFF else (LONG, [v])
+
+    tags = {256: dim(w), 257: dim(h), 258: (SHORT, [8] * c), 259: (SHORT, [5]), 262: (SHORT, [1 if c == 1 else 2]),
+            273: (LONG, np.cumsum([8] + [len(s) for s in strips[:-1]]).tolist()), 277: (SHORT, [c]), 278: dim(rps),
+            279: (counts_type, [len(s) for s in strips]), 284: (SHORT, [1]), 317: (SHORT, [2]), 339: (SHORT, [1] * c)}
+    body = {t: struct.pack("<" + ("H" if typ == SHORT else "I") * len(v), *v) for t, (typ, v) in tags.items()}
+    extra, where = b"", {}
+    for t in (258, 279, 273, 339):  # the values that do not fit in the IFD, in libtiff's order
+        if len(body[t]) > 4:
+            where[t] = ifd_at + 2 + 12 * len(tags) + 4 + len(extra)
+            extra += body[t]
+    ifd = struct.pack("<H", len(tags))
+    for t, (typ, v) in tags.items():
+        value = struct.pack("<I", where[t]) if t in where else body[t].ljust(4, b"\0")
+        ifd += struct.pack("<HHI", t, typ, len(v)) + value
+    return b"II*\0" + struct.pack("<I", ifd_at) + data + b"\0" * (len(data) & 1) + ifd + struct.pack("<I", 0) + extra
+
+
+WEBP_MAX_SIDE = 16383  # libwebp's WEBP_MAX_DIMENSION: cv2's writer fails above it
+
+
+def encode_webp(img: np.ndarray, name: str = "<bytes>") -> bytes:
+    """(H, W) gray or (H, W, 3) BGR uint8 as a lossless WebP, what
+    `cv2.imencode(".webp", img)` writes with no parameters: a simple RIFF
+    container holding one VP8L image (a gray image written as BGR), which
+    `cv2.imdecode` and `decode_webp` give back exactly. `csrc/webp_encode.cpp`
+    codes it (subtract-green, per-tile predictors, cross-colour, colour
+    indexing, LZ77, colour cache; see its header). Its bytes are not
+    libwebp's: libwebp's encoder is thousands of lines of heuristics, and
+    its files are somewhat smaller. A side above 16383 raises ValueError
+    naming `name`, where cv2 fails."""
+    from tamtr_torch.kernels import _build
+
+    img = _image_u8(img, "encode_webp")
+    h, w = img.shape[:2]
+    if h > WEBP_MAX_SIDE or w > WEBP_MAX_SIDE:
+        raise ValueError(f"{name}: {h}x{w} is larger than WebP's {WEBP_MAX_SIDE} pixels a side")
+    bgr = np.ascontiguousarray(np.repeat(img[..., None], 3, 2) if img.ndim == 2 else img)
+    fn = _build.load("webp_encode").webp_vp8l_encode
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_long]
+    fn.restype = ctypes.c_long
+    out = np.empty(bgr.size * 5 // 4 + 4096, np.uint8)
+    n = fn(bgr.ctypes.data, w, h, out.ctypes.data, out.size)
+    if n > out.size:
+        out = np.empty(n, np.uint8)
+        n = fn(bgr.ctypes.data, w, h, out.ctypes.data, out.size)
+    if n < 0:
+        raise ValueError(f"{name}: cannot encode a {h}x{w} image as WebP")
+    body = out[:n].tobytes() + b"\0" * (n & 1)
+    chunk = b"VP8L" + struct.pack("<I", n) + body
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+def imencode(ext: str, img: np.ndarray, quality: int = 95, webp_quality: Optional[float] = None,
+             name: Optional[str] = None) -> bytes:
     """The bytes of `img` ((H, W) gray or (H, W, 3) BGR uint8) in the format
-    of `ext` (".jpg", ".jpeg", ".jpe", ".png" or ".bmp", as cv2 tells it),
-    `quality` for JPEG; another suffix raises NotImplementedError naming it."""
+    of `ext`, as cv2 tells it: ".jpg", ".jpeg" or ".jpe" (`quality`),
+    ".png", ".bmp", ".tif" or ".tiff", ".webp" (lossless: `webp_quality`
+    None or above 100, as cv2's default; cv2's lossy VP8 at 100 or below is
+    not ported and raises NotImplementedError). `name` names the file in
+    errors; another suffix raises NotImplementedError naming it."""
     ext = ext.lower() if ext.startswith(".") else "." + ext.lower()
+    name = "imencode" if name is None else name
     if ext in (".jpg", ".jpeg", ".jpe"):
         return encode_jpeg(img, quality)
     if ext == ".png":
         return encode_png(img)
     if ext == ".bmp":
         return encode_bmp(img)
-    raise NotImplementedError(f"writing {ext!r} images is not ported (JPEG, PNG and BMP only)")
+    if ext in (".tif", ".tiff"):
+        return encode_tiff(img)
+    if ext == ".webp":
+        if webp_quality is not None and webp_quality <= 100:
+            raise NotImplementedError(f"{name}: lossy WebP (quality {webp_quality}) is not written; "
+                                      "lossless only (webp_quality None or above 100)")
+        return encode_webp(img, name)
+    raise NotImplementedError(f"{name}: writing {ext!r} images is not ported "
+                              "(JPEG, PNG, BMP, TIFF and WebP only)")
 
 
-def imwrite(filename: str | Path, img: np.ndarray, quality: int = 95) -> bool:
+def imwrite(filename: str | Path, img: np.ndarray, quality: int = 95, webp_quality: Optional[float] = None) -> bool:
     """Write `img` at `filename` in the format its suffix names (`imencode`),
     through Python's file API, so any path works (the JAX package's
     `utils/patches.py:imwrite`); True once written."""
-    Path(filename).write_bytes(imencode(Path(filename).suffix, img, quality))
+    data = imencode(Path(filename).suffix, img, quality, webp_quality, name=str(filename))
+    Path(filename).write_bytes(data)
     return True

@@ -94,8 +94,8 @@ class Results:
 
     def save(self, path: str | Path) -> Path:
         """Write the plot at `path`, in the format of its suffix (.jpg,
-        .jpeg, .jpe, .png or .bmp; another raises NotImplementedError);
-        returns the path written."""
+        .jpeg, .jpe, .png, .bmp, .tif, .tiff or lossless .webp; another
+        raises NotImplementedError); returns the path written."""
         from tamtr_torch.data.image_io import imwrite
 
         out = Path(path)

@@ -5,7 +5,7 @@ Each `tamtr_torch/csrc/<name>.cu` exposes a plain C entry point and becomes
 first use. A `csrc/<name>.cpp` is host code (the PNG unfilter), compiled
 the same way by the host C++ compiler, so it also builds on machines
 without nvcc. One compiler process runs per source, all started together. A library
-newer than its source and than every header in `csrc/` (`*.cuh`) is reused. Nothing here runs at import time: the CPU
+newer than its source and than every header in `csrc/` (`*.cuh`, `*.h`) is reused. Nothing here runs at import time: the CPU
 tests import every module of the port on machines without nvcc.
 """
 
@@ -86,11 +86,11 @@ def _compile_all(stale: List[Path]) -> Dict[str, object]:
 
 def _is_fresh(src: Path) -> bool:
     """The library of `src` exists and is no older than `src` or any header
-    beside it (a source may include any of them)."""
+    (`*.cuh`, `*.h`) beside it (a source may include any of them)."""
     lib = BUILD_DIR / f"lib{src.stem}.so"
     if not lib.exists():
         return False
-    inputs = [src, *src.parent.glob("*.cuh")]
+    inputs = [src, *src.parent.glob("*.cuh"), *src.parent.glob("*.h")]
     return lib.stat().st_mtime >= max(f.stat().st_mtime for f in inputs)
 
 

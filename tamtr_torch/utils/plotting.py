@@ -173,7 +173,8 @@ def annotate_image(
 def save_annotated(results: List[Dict], save_dir: str | Path) -> None:
     """Each result ("path", "boxes", "scores", "labels", "names") annotated
     over its image, written under `save_dir` with the source's name, in the
-    format its suffix names (`data/image_io.py:imwrite`)."""
+    format its suffix names (`data/image_io.py:imwrite`: JPEG, PNG, BMP,
+    TIFF or lossless WebP)."""
     from tamtr_torch.data.image_io import imread, imwrite
 
     save_dir = Path(save_dir)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Write the WebP and TIFF fixtures of the port's readers
-(`tests/torch_data/webp/`, `tests/torch_data/tiff/`).
+(`tests/torch_data/webp/`, `tests/torch_data/tiff/`) and the oracles of its
+writers (`tests/torch_data/encode/expected.json`).
 
 Needs cv2, so it runs where cv2 is installed (not on the card's machine):
 
@@ -20,6 +21,14 @@ Orientation tag. `expected.json` in each folder holds each file's shape
 and the sha256 of `cv2.imdecode(..., cv2.IMREAD_COLOR)`: the oracles the
 card's machine, which has no cv2, checks `tamtr_torch.data.image_io.imread`
 against (`chip_smoke.py`). Rerunning writes the same bytes.
+
+`encode/expected.json` holds, for the decode of each WebP and TIFF fixture,
+of the 1360x765 JPEG fixture and of a plot drawn over that JPEG by
+`tamtr_torch.utils.plotting.annotate_image` (the boxes stored with it),
+the sha256 of `cv2.imencode(".tif", img)` and the byte size of
+`cv2.imencode(".webp", img)` (lossless): what `chip_smoke.py` holds the
+port's `encode_tiff` (byte-equal) and `encode_webp` (at most 1.5x the size)
+to on the card's machine.
 """
 
 from __future__ import annotations
@@ -34,7 +43,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-OUT = Path(__file__).resolve().parent.parent / "tests" / "torch_data"
+REPO = Path(__file__).resolve().parent.parent
+OUT = REPO / "tests" / "torch_data"
 
 
 def scene(h: int, w: int, seed: int, c: int = 3) -> np.ndarray:
@@ -309,6 +319,55 @@ def expected(files: Dict[str, bytes]) -> Dict[str, dict]:
     return out
 
 
+# the plot drawn over the 1360x765 JPEG fixture for `encode/expected.json`
+PLOT_SOURCE = "jpeg/visdrone_1360x765_q85.jpg"
+
+
+def plot_spec() -> dict:
+    """12 boxes spread over a 1360x765 frame, with scores, labels and class
+    names, drawn by `annotate_image` (`plot_image`)."""
+    rng = np.random.default_rng(51)
+    xy = rng.uniform([20, 40], [1200, 680], (12, 2))
+    wh = rng.uniform([30, 20], [160, 90], (12, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + wh, [1359, 764])], 1).round(1)
+    return {"boxes": boxes.tolist(), "scores": rng.uniform(0.3, 0.99, 12).round(3).tolist(),
+            "labels": rng.integers(0, 10, 12).tolist(), "names": [f"class{i}" for i in range(10)]}
+
+
+def plot_image(img: np.ndarray, spec: dict) -> np.ndarray:
+    import sys
+
+    sys.path.insert(0, str(REPO))
+    from tamtr_torch.utils.plotting import annotate_image
+
+    return annotate_image(img, np.asarray(spec["boxes"], np.float32), np.asarray(spec["scores"], np.float32),
+                          np.asarray(spec["labels"]), spec["names"])
+
+
+def encode_expected(root: Path) -> Dict[str, dict]:
+    """The `encode/expected.json` entries: key, the source under `root`
+    (and the plot drawn over it), the input's shape and sha256, cv2's TIFF
+    sha256 and lossless WebP size."""
+    import cv2
+
+    out = {}
+    sources = [f"{sub}/{name}" for sub in ("webp", "tiff")
+               for name in sorted(json.loads((root / sub / "expected.json").read_text()))]
+    for key in sources + [PLOT_SOURCE, PLOT_SOURCE + "+plot"]:
+        src = key.split("+")[0]
+        img = cv2.imread(str(root / src), cv2.IMREAD_COLOR)
+        entry = {"source": src}
+        if key.endswith("+plot"):
+            entry["plot"] = plot_spec()
+            img = plot_image(img, entry["plot"])
+        ok_t, tif = cv2.imencode(".tif", img)
+        ok_w, webp = cv2.imencode(".webp", img)
+        assert ok_t and ok_w, key
+        out[key] = {**entry, "shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest(),
+                    "tiff_sha256": hashlib.sha256(tif.tobytes()).hexdigest(), "webp_bytes": int(webp.size)}
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=OUT)
@@ -321,6 +380,12 @@ def main(argv=None) -> None:
             (d / name).write_bytes(data)
         (d / "expected.json").write_text(json.dumps(expected(files), indent=1) + "\n")
         print(f"{d}: {len(files)} files, {sum(map(len, files.values()))} bytes")
+    d = args.out / "encode"
+    d.mkdir(parents=True, exist_ok=True)
+    entries = encode_expected(args.out)
+    (d / "expected.json").write_text("{\n" + ",\n".join(f"{json.dumps(k)}: {json.dumps(v)}" for k, v in entries.items())
+                                     + "\n}\n")
+    print(f"{d}: the cv2 encodes of {len(entries)} images")
 
 
 if __name__ == "__main__":
