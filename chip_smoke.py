@@ -138,6 +138,23 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    within the CPU tests' tolerances of the CPU's; GMC ms per frame on the
    card and on the CPU (all frames on the card, frames 2 and 3 on the CPU),
    per method.
+7d-video. video: every committed video fixture (`tests/torch_data/video`,
+   written by cv2.VideoWriter: `mp4v` in MP4 / MOV / M4V, `XVID` and
+   `DIVX` in AVI, `MJPG` in AVI and MOV, one 94x70) read by
+   `data/video_io.py:VideoReader` on this machine, without cv2: packets,
+   fps, frame count and size, and each frame's BGR (and, for MPEG-4, luma)
+   sha256, equal to cv2's as `expected.json` records them (MJPEG: to
+   `cv2.imdecode` of each packet). The track phase's 12 frames written as
+   an `.mp4` by the port's writer (`VideoWriter`, MPEG-4 Part 2; 1360x764,
+   the odd last row dropped as cv2.VideoWriter drops it) and read back: the
+   decoder's frames equal the encoder's reconstruction; host ms per frame
+   of encoding and decoding and bytes per frame.
+   `TAMTR.track(<that .mp4>, save=True)` (bytetrack) on the card: B1 and
+   B2 once per forward, one forward per frame; its ids and normalized boxes
+   (within 1e-6) equal those of tracking the decoded frames passed as
+   arrays; the annotated `.mp4` reads back with 12 frames of 1360x764.
+   `TAMTR.predict(<the .mp4>, vid_stride=2)`: frames #0, #2, ..., one
+   forward each.
 7e. fuse: the deploy fuse (`nn/fuse.py`, `fuse=True`) on the serve model
    of 7b at 640 px: the fused twin's pred against the unfused model's at
    batch 1 and 4 (1e-4 as a tie-robust set), B1 and B2 launched as often
@@ -301,7 +318,9 @@ and each phase's wall seconds follow it on a line "phase <name>: <s> s".
    kernel's device ms was taken (`device_ms_by`: torch.profiler, or CUDA
    events behind a spin kernel where the profiler recorded no kernel).
    One JSON line of the export phase's summary. One JSON line of per-kernel
-   numbers (`launches_fit`: the fit phase's; `launches_export`: the
+   numbers (`launches_fit`: the fit phase's; `launches_video` and
+   `launches_video_predict`: the video phase's track and predict;
+   `launches_export`: the
    exported program's forward in a fresh process;
    `launches_yolo`, `launches_loss_variants`, `launches_rtdetr`,
    `launches_heads`, `launches_seg_pose`, `launches_classify`,
@@ -2209,6 +2228,7 @@ def bf16_phase(dev, data: str):
 
 # the JPEG fixtures of tools/make_jpeg_fixtures_torch.py, with their cv2 digests
 JPEG_FIXTURES = "tests/torch_data/jpeg"
+VIDEO_FIXTURES = "tests/torch_data/video"
 # predict_files: the fixtures whose forwards are also run on the CPU
 PARITY_FIXTURES = ("exif6_q90.jpg", "visdrone_1360x765_q85.jpg")
 PARITY_TTA_FIXTURES = PARITY_FIXTURES[1:]  # with TTA: three CPU forwards an image
@@ -2669,6 +2689,113 @@ def track(det):
           f"{json.dumps(summary)}; launches {launches}", flush=True)
     summary["pan"], pan_launches = track_pan(det)
     return summary, launches, pan_launches
+
+
+def video_phase(det):
+    """The video phase (7d-video): the fixtures decoded to cv2's digests,
+    the track phase's frames through the port's writer and reader, then
+    track and predict on that `.mp4` on the card. Returns the summary and
+    the launches of track (save=True) and of predict."""
+    import hashlib
+    import shutil
+    from pathlib import Path
+
+    from tamtr_torch.data.image_io import imread
+    from tamtr_torch.data.video_io import VideoReader, VideoWriter
+    from tamtr_torch.trackers.byte_tracker import Track
+
+    sha = lambda b: hashlib.sha256(bytes(b)).hexdigest()  # noqa: E731
+    root = Path(VIDEO_FIXTURES)
+    expected = json.loads((root / "expected.json").read_text())
+    counters = zero_counters()
+    fixtures = {}
+    for name, want in expected.items():
+        if not isinstance(want, dict) or "fps" not in want:
+            continue
+        t0 = time.perf_counter()
+        with VideoReader(root / name) as r:
+            packets = list(r.packets())
+            if [{"size": len(p), "sha256": sha(p)} for p in packets] != want["packets"] or r.fps != want["fps"] \
+                    or r.frame_count != want["frame_count"] or list(r.size) != want["size"]:
+                raise AssertionError(f"video: {name}: packets, fps, count or size differ from cv2's")
+            if r.codec == "mjpeg":
+                got = [sha(f.tobytes()) for f in r]
+                if got != want["imdecode_sha256"]:
+                    raise AssertionError(f"video: {name}: frames differ from cv2.imdecode of their packets")
+            else:
+                dec, luma, bgr = r.decoder(), [], []
+                for p in packets:
+                    if dec.decode(p):
+                        luma.append(sha(dec.planes()[0].tobytes()))
+                        bgr.append(sha(dec.bgr().tobytes()))
+                if luma != want["luma_sha256"] or bgr != want["bgr_sha256"]:
+                    raise AssertionError(f"video: {name}: frames differ from cv2's decode")
+        fixtures[name] = round((time.perf_counter() - t0) * 1e3, 3)
+    check_counts("video fixtures", counters, 0)
+    out = Path("build/video")
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    frames = [imread(f) for f in sorted(Path("build/track").glob("*.jpg"))]
+    H, W = TRACK_HW
+    H2, W2 = H & ~1, W & ~1  # an odd last row or column is not encoded, as by cv2.VideoWriter
+    path = out / "track.mp4"
+    enc_ms, recon = [], []
+    with VideoWriter(path, 30.0, (W, H)) as w:
+        for f in frames:
+            t0 = time.perf_counter()
+            w.write(f)
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+            recon.append(w.reconstruction())
+    dec_ms, decoded = [], []
+    with VideoReader(path) as r:
+        it = iter(r)
+        while True:
+            t0 = time.perf_counter()
+            f = next(it, None)
+            if f is None:
+                break
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            decoded.append(f)
+        if (r.frame_count, r.size, r.fps) != (TRACK_FRAMES, (W2, H2), 30.0):
+            raise AssertionError(f"video: {path} reads as {r.frame_count} frames of {r.size} at {r.fps} fps")
+    if len(decoded) != TRACK_FRAMES or any(not np.array_equal(a, b) for a, b in zip(decoded, recon)):
+        raise AssertionError("video: the decoded frames differ from the encoder's reconstruction")
+    psnr = float(10 * np.log10(255.0 ** 2 / np.mean((np.stack(decoded).astype(np.float64)
+                                                     - np.stack(frames)[:, :H2, :W2].astype(np.float64)) ** 2)))
+    counters = zero_counters()
+    Track.reset_id()
+    t0 = time.perf_counter()
+    got = det.track(str(path), save=True, project=str(out), name="track")
+    track_s = time.perf_counter() - t0
+    track_launches = check_counts("video track", counters, TRACK_FRAMES)
+    Track.reset_id()
+    want = det.track(decoded)
+    worst, scale = 0.0, np.array([W2, H2, W2, H2], np.float32)
+    for g, a in zip(got, want, strict=True):
+        if not np.array_equal(g.track_ids, a.track_ids):
+            raise AssertionError(f"video: {g.path}: ids {g.track_ids}, {a.track_ids} from the decoded arrays")
+        if len(g.track_ids):
+            worst = max(worst, float(np.abs(g.boxes.xyxy / scale - a.boxes.xyxy / scale).max()))
+    if worst > 1e-6 or not any(len(g.track_ids) for g in got):
+        raise AssertionError(f"video: tracks off those of the decoded arrays by {worst} (normalized), or no track")
+    with VideoReader(out / "track" / "track.mp4") as r:
+        if (r.frame_count, r.size) != (TRACK_FRAMES, (W2, H2)):
+            raise AssertionError(f"video: the annotated .mp4 reads as {r.frame_count} frames of {r.size}")
+    counters = zero_counters()
+    pred = det.predict(str(path), vid_stride=2)
+    predict_launches = check_counts("video predict", counters, (TRACK_FRAMES + 1) // 2)
+    if [r.path for r in pred] != [f"{path}#{i}" for i in range(0, TRACK_FRAMES, 2)]:
+        raise AssertionError(f"video: predict with vid_stride 2 gave {[r.path for r in pred]}")
+    summary = dict(fixtures_ms=fixtures, frames=TRACK_FRAMES, size=[W, H], encoded_size=[W2, H2],
+                   host_encode_ms_per_frame=float(np.median(enc_ms)),
+                   host_decode_ms_per_frame=float(np.median(dec_ms)),
+                   bytes_per_frame=path.stat().st_size / TRACK_FRAMES, psnr_db=psnr,
+                   track_s=track_s, track_ids=len({int(i) for r in got for i in r.track_ids}),
+                   boxes_worst_normalized=worst, predict_frames=len(pred))
+    say(f"video: {len(fixtures)} fixtures equal cv2's digests; tamtr.yaml {det.imgsz}px track and predict on "
+        f"the port's {W2}x{H2} .mp4: {json.dumps(summary)}; launches track {track_launches}, "
+        f"predict {predict_launches}", flush=True)
+    return summary, track_launches, predict_launches
 
 
 def pan_sequence(root, seed: int = 37):
@@ -5097,6 +5224,7 @@ def main() -> int:
     predict_summary, det, predict_launches = timed("predict_files", predict_files, dev)
     http_summary, http_launches = timed("serve_http", serve_http, det)
     track_summary, track_launches, track_pan_launches = timed("track", track, det)
+    video_summary, video_launches, video_predict_launches = timed("video", video_phase, det)
     del det
     fuse_summary, fuse_launches = timed("fuse", fuse, dev)
     autobatch_summary, autobatch_launches = timed("autobatch", autobatch_phase, dev)
@@ -5150,6 +5278,8 @@ def main() -> int:
              launches_predict_files=predict_launches["ss2d_scan_fwd"],
              launches_serve_http=http_launches["ss2d_scan_fwd"], launches_cli=cli_launches["ss2d_scan_fwd"],
              launches_track=track_launches["ss2d_scan_fwd"], launches_track_pan=track_pan_launches["ss2d_scan_fwd"],
+             launches_video=video_launches["ss2d_scan_fwd"],
+             launches_video_predict=video_predict_launches["ss2d_scan_fwd"],
              launches_fuse=fuse_launches["ss2d_scan_fwd"],
              launches_info=info_launches["ss2d_scan_fwd"], launches_autobatch=autobatch_launches["ss2d_scan_fwd"],
              launches_export={k: export_launches[k] for k in ("ss2d_scan_fwd", "ss2d_scan_fwd_summaries",
@@ -5172,6 +5302,8 @@ def main() -> int:
              launches_serve_http=http_launches["bilinear_gather_fwd"],
              launches_cli=cli_launches["bilinear_gather_fwd"], launches_track=track_launches["bilinear_gather_fwd"],
              launches_track_pan=track_pan_launches["bilinear_gather_fwd"],
+             launches_video=video_launches["bilinear_gather_fwd"],
+             launches_video_predict=video_predict_launches["bilinear_gather_fwd"],
              launches_fuse=fuse_launches["bilinear_gather_fwd"], launches_info=info_launches["bilinear_gather_fwd"],
              launches_autobatch=autobatch_launches["bilinear_gather_fwd"],
              launches_export=export_launches["bilinear_gather_fwd"],
@@ -5296,6 +5428,7 @@ def main() -> int:
                       "parallel": parallel_summary}))
     print(json.dumps({"fuse": fuse_summary, "autobatch": autobatch_summary}))
     print(json.dumps({"predict_files": predict_summary, "serve_http": http_summary, "track": track_summary,
+                      "video": video_summary,
                       "jpeg_host_decode_ms_per_megapixel": jpeg_ms_per_mp,
                       "jpeg_host_encode_ms_per_megapixel": jpeg_encode_ms_per_mp,
                       "webp_tiff_host_decode_ms_per_megapixel": {k: v for k, v in formats_ms_per_mp.items()

@@ -209,8 +209,9 @@ class TAMTR:
     def track(self, source, tracker: str = "bytetrack", persist: bool = False, conf: float = 0.25,
               iou: float = 0.7, max_det: int = 300, **overrides) -> List[Results]:
         """Multi-object tracking over a sequence of frames: an (H, W, 3) BGR
-        uint8 array, a list of sources, a directory, a glob or an image file
-        (`Engine.track`), for this detector's classes, at `imgsz`. `tracker`
+        uint8 array, a list of sources, a directory, a glob, an image file or
+        a video file (`Engine.track`; save=True writes a video's annotated
+        `.mp4`), for this detector's classes, at `imgsz`. `tracker`
         is "bytetrack" (the default) or "botsort" (camera-motion
         compensation by gmc_method: "sparseOptFlow", the default, "orb",
         "sift", "ecc" or "none"); the tracker's keys (gmc_method,
@@ -253,11 +254,11 @@ class TAMTR:
         """Detect objects in image files, or in images in memory.
 
         Args:
-          images: a path, a directory or a list of paths (with `text`
-            None): `Engine.predict` over the files, for this detector's
-            classes, at `imgsz`, with the engine's options in `overrides`
-            (augment, classes, save, project, name, ...); one `Results` per
-            image. Or (B, H, W, 3) or (H, W, 3) uint8 or float in [0, 1], or
+          images: a path (an image or a video file), a directory or a list
+            of paths (with `text` None): `Engine.predict` over the files,
+            for this detector's classes, at `imgsz`, with the engine's
+            options in `overrides` (augment, classes, save, project, name,
+            vid_stride, ...); one `Results` per image or video frame. Or (B, H, W, 3) or (H, W, 3) uint8 or float in [0, 1], or
             a list of (H, W, 3) images of any sizes, with `text`.
           text: (K, hd) or (1|B, K, hd) class embeddings of the images in
             memory.

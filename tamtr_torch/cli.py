@@ -38,8 +38,10 @@ torch_export>` prints the artifact's path (format=savedmodel by default, as
 the JAX CLI's, which needs tensorflow and raises; keys out_dir, imgsz,
 half); `benchmark` prints one row per format (`utils/benchmarks.py`);
 `tune iterations=N data=...` prints the best hyperparameters
-(`Engine.tune`; isolate=True, use_ray=True). Video and stream sources of
-`predict` and `track` exit with a message naming their ROADMAP entry.
+(`Engine.tune`; isolate=True, use_ray=True). A video file (MP4, MOV, M4V,
+AVI) is a source of `predict` and `track`; with save=true its annotated
+frames go into one `.mp4` under project/name. Webcam and stream sources and
+other video containers exit with a message naming their ROADMAP entry.
 
 `device=0,1` (a list of card indices, as the reference takes it) shows the
 process those cards alone (CUDA_VISIBLE_DEVICES) and trains on all of them:
@@ -188,20 +190,25 @@ def main(argv: List[str] | None = None) -> None:
     elif mode == "predict":
         source = ov.pop("source", None)
         if source is None:
-            raise SystemExit("predict requires source=<image, directory or glob>")
+            raise SystemExit("predict requires source=<image, directory, glob or video>")
         save = ov.pop("save", False)
         out = Path(ov.get("project") or "runs") / "predict"
+        from tamtr_torch.data.loaders import is_video
+
+        video = is_video(str(source))
+        if video:  # the annotated frames go into one .mp4 under project/name
+            ov["save"] = save
         for r in model.predict(source, **ov):
             if isinstance(r, dict):  # a classifier's probabilities
                 print(f"{r['path']}: {r['names'][0]} {r['top5_conf'][0]:.4f}", flush=True)
                 continue
             print(f"{r.path}: {len(r)} detections", flush=True)
-            if save:
+            if save and not video:
                 r.save(out / Path(r.path).name)
     elif mode == "track":
         source = ov.pop("source", None)
         if source is None:
-            raise SystemExit("track requires source=<directory, glob or images>")
+            raise SystemExit("track requires source=<directory, glob, images or video>")
         for r in model.track(source, tracker=ov.pop("tracker", "bytetrack"), **ov):
             print(f"{r.path}: {len(r.track_ids)} tracks {sorted(set(r.track_ids.tolist()))}", flush=True)
     elif mode == "export":

@@ -4,7 +4,8 @@
 // orientation (done in Python): BGR uint8, bitwise, because every step is
 // libjpeg-turbo's default decompression path, which OpenCV uses:
 //   - Huffman-coded sequential DCT, 8-bit samples (SOF0 / SOF1), interleaved
-//     or not, with restart intervals;
+//     or not, with restart intervals; a table that a scan uses and no DHT
+//     defined (Motion-JPEG frames) is Annex K's, as `jstdhuff.c` supplies;
 //   - Huffman-coded progressive DCT (SOF2, `jdphuff.c`): any scan script of
 //     DC first and refinement scans (interleaved or not) and AC first and
 //     refinement scans (one component, with EOB runs), restart intervals;
@@ -107,6 +108,28 @@ struct Decoder {
     }
   }
 
+  static void build_huff(Huff& t, const int* counts, const uint8_t* vals, int total) {
+    for (int i = 0; i < total; ++i) t.vals[i] = vals[i];
+    int code = 0, k = 0;
+    for (int i = 0; i < 512; ++i) t.look_nbits[i] = 0;
+    for (int l = 1; l <= 16; ++l) {
+      t.valoffset[l] = k - code;
+      for (int i = 0; i < counts[l]; ++i, ++k, ++code) {
+        if (l <= 9) {
+          int lo = code << (9 - l), hi = (code + 1) << (9 - l);
+          for (int j = lo; j < hi; ++j) {
+            t.look_nbits[j] = l;
+            t.look_sym[j] = t.vals[k];
+          }
+        }
+      }
+      t.maxcode[l] = counts[l] ? code - 1 : -1;
+      code <<= 1;
+    }
+    t.maxcode[17] = 0x7fffffff;  // ends the slow path on a corrupt code
+    t.defined = true;
+  }
+
   void define_huff(long end) {
     while (pos < end) {
       int tc_th = byte(), tc = tc_th >> 4, th = tc_th & 15;
@@ -115,26 +138,45 @@ struct Decoder {
       int counts[17] = {0}, total = 0;
       for (int l = 1; l <= 16; ++l) total += counts[l] = byte();
       if (total > 256) throw Fail{1, "Huffman table with more than 256 codes"};
-      for (int i = 0; i < total; ++i) t.vals[i] = (uint8_t)byte();
-      int code = 0, k = 0;
-      for (int i = 0; i < 512; ++i) t.look_nbits[i] = 0;
-      for (int l = 1; l <= 16; ++l) {
-        t.valoffset[l] = k - code;
-        for (int i = 0; i < counts[l]; ++i, ++k, ++code) {
-          if (l <= 9) {
-            int lo = code << (9 - l), hi = (code + 1) << (9 - l);
-            for (int j = lo; j < hi; ++j) {
-              t.look_nbits[j] = l;
-              t.look_sym[j] = t.vals[k];
-            }
-          }
-        }
-        t.maxcode[l] = counts[l] ? code - 1 : -1;
-        code <<= 1;
-      }
-      t.maxcode[17] = 0x7fffffff;  // ends the slow path on a corrupt code
-      t.defined = true;
+      uint8_t vals[256];
+      for (int i = 0; i < total; ++i) vals[i] = (uint8_t)byte();
+      build_huff(t, counts, vals, total);
     }
+  }
+
+  // jstdhuff.c: a table a scan uses but no DHT defined (Motion-JPEG frames
+  // leave them out) is the ITU T.81 Annex K.3 table of its class, the
+  // luminance one for id 0 and the chrominance one for id 1
+  void default_huff(bool is_dc, int id) {
+    static const uint8_t dc_bits[2][17] = {{0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                           {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+    static const uint8_t dc_vals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+    static const uint8_t ac_bits[2][17] = {{0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+                                           {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+    static const uint8_t ac_vals[2][162] = {
+      {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71,
+       0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+       0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37,
+       0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+       0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+       0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+       0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+       0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+       0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+      {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22,
+       0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+       0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36,
+       0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+       0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+       0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+       0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+       0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+       0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+    if (id > 1) throw Fail{1, "scan uses an undefined Huffman table"};
+    const uint8_t* bits = is_dc ? dc_bits[id] : ac_bits[id];
+    int counts[17] = {0}, total = 0;
+    for (int l = 1; l <= 16; ++l) total += counts[l] = bits[l];
+    build_huff(is_dc ? dc[id] : ac[id], counts, is_dc ? dc_vals : ac_vals[id], total);
   }
 
   void start_of_frame(int marker) {
@@ -473,8 +515,8 @@ struct Decoder {
       throw Fail{1, "bad progressive scan parameters"};
     for (auto* c : sc) {
       bool need_dc = !progressive || (ss == 0 && ah == 0), need_ac = !progressive || ss > 0;
-      if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
-        throw Fail{1, "scan uses an undefined Huffman table"};
+      if (need_dc && !dc[c->td].defined) default_huff(true, c->td);
+      if (need_ac && !ac[c->ta].defined) default_huff(false, c->ta);
       if (!qt_defined[c->tq]) throw Fail{1, "component uses an undefined quantization table"};
       if (!c->latched) {
         std::memcpy(c->q, qt[c->tq], sizeof(c->q));

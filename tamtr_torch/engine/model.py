@@ -87,12 +87,13 @@ from tamtr_torch.data.dataset import (AugConfig, ClassificationDataset, Classifi
                                       Loader, center_crop_resized)
 from tamtr_torch.data.image_io import imread
 from tamtr_torch.data.imgproc import fill_poly, resize_linear, resize_linear_f32
-from tamtr_torch.data.loaders import load_inference_source, unsupported_source
+from tamtr_torch.data.loaders import is_video, load_inference_source, unsupported_source
+from tamtr_torch.data.video_io import video_fps
 from tamtr_torch.data.text import TextEmbedder, class_text_embeddings
 from tamtr_torch.engine.checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
 from tamtr_torch.losses.v8_pose_loss import keypoint_sigmas
 from tamtr_torch.nn.graph import TEXT_WIDTH, YOLO_HEADS, TAMTRModel, head_type_of
-from tamtr_torch.engine.results import Results
+from tamtr_torch.engine.results import AnnotatedVideoWriter, Results
 from tamtr_torch.nn.fuse import fuse_model
 from tamtr_torch.ops.nms import multiclass_nms, postprocess_predictions
 from tamtr_torch.parallel.dist import broadcast_from_rank0, gather_to_rank0, init_distributed, make_groups
@@ -783,8 +784,10 @@ class Engine:
         a class-offset NMS over the `max_det` x 3 padded rows merges them.
         Boxes are in the image's own pixels. Writes nothing unless
         save=True: then each plot goes under `project/name` with the
-        source's own name and format. A Classify model gives one dict an
-        image instead (`_predict_classify`), of arrays too."""
+        source's own name and format. A video file runs frame by frame
+        (`_predict_frames`; with save=True an annotated `.mp4`). A Classify
+        model gives one dict an image instead (`_predict_classify`), of
+        arrays too."""
         cfg = get_cfg(self.cfg, overrides=overrides)
         cfg.save = bool(overrides.get("save", False))
         if self.model is not None and self.model.head_type == "Classify":
@@ -794,6 +797,8 @@ class Engine:
         why = unsupported_source(source)
         if why:
             raise NotImplementedError(why)
+        if is_video(source):
+            return self._predict_frames(source, cfg)
         if isinstance(source, (str, Path)):
             p = Path(source)
             paths = (sorted(str(f) for f in p.rglob("*") if f.suffix.lower() in
@@ -842,6 +847,45 @@ class Engine:
             results.append(r)
         return results
 
+    @torch.inference_mode()
+    def _predict_frames(self, source: Any, cfg: Config) -> List[Results]:
+        """Predict over a video file frame by frame (the JAX engine's
+        `_predict_frames`): every `vid_stride`-th frame, named "path#i",
+        through `_detect` at imgsz; each `Results` keeps its frame as
+        `orig_img`. With save=True the plots go to
+        `<project or runs/detect>/<name or predict>/<stem>.mp4` at the
+        file's fps / vid_stride."""
+        model = self._eval_model(self.model, cfg)
+        conf = cfg.conf if cfg.conf is not None else 0.25
+        txt = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=next(model.parameters()).device)
+        writer = self._video_writer(source, cfg, "runs/detect")
+        results = []
+        try:
+            for name, frame in load_inference_source(source, cfg.vid_stride, cfg.stream_buffer):
+                oh, ow = frame.shape[:2]
+                b, s, lab, _ = self._detect(model, frame, cfg.imgsz, txt, conf, cfg.iou, cfg.max_det,
+                                            classes=cfg.classes, single_cls=cfg.single_cls)
+                r = Results(name, b * np.array([ow, oh, ow, oh], np.float32), s, lab, self.names,
+                            orig_shape=(oh, ow), orig_img=frame)
+                if writer is not None:
+                    writer.write(r)
+                results.append(r)
+        finally:
+            if writer is not None:
+                writer.close()
+        return results
+
+    @staticmethod
+    def _video_writer(source: Any, cfg: Config, project: str) -> Optional[AnnotatedVideoWriter]:
+        """The annotated-video writer of a video `source` when cfg.save is
+        set (`<project>/<name or predict>/<stem>.mp4` at fps / vid_stride),
+        else None."""
+        if not cfg.save or not is_video(source):
+            return None
+        src = Path(str(source))
+        out = (Path(cfg.project or project) / (cfg.name or "predict") / src.stem).with_suffix(".mp4")
+        return AnnotatedVideoWriter(out, video_fps(src) / max(cfg.vid_stride, 1))
+
     @staticmethod
     def _detect(model: TAMTRModel, im0: np.ndarray, sz: int, txt: torch.Tensor, conf: float, iou: float,
                 max_det: int, flip: bool = False, classes=None, single_cls: bool = False):
@@ -870,23 +914,28 @@ class Engine:
         """Multi-object tracking over a sequence of frames (the JAX package's
         `Engine.track`, the reference's `Model.track`): an array, a list, a
         directory (its images at any depth, sorted), a glob or an image file
-        (`data/loaders.py:load_inference_source`; video and stream sources
-        raise). Each frame is stretched to (imgsz, imgsz) as cv2.resize does,
-        turned to RGB in [0, 1] and run through the eval forward at `conf`
+        (`data/loaders.py:load_inference_source`), a video file (every
+        `vid_stride`-th frame; webcam and stream sources raise). Each frame
+        is stretched to (imgsz, imgsz) as cv2.resize does, turned to RGB in
+        [0, 1] and run through the eval forward at `conf`
         (0.25 by default); its detections, in the frame's pixels, go through
         the tracker ("bytetrack", or "botsort", whose motion compensation
         runs on the engine's device), and
         each `Results` holds the tracked boxes and their `track_ids`. The
         tracker's own keys (gmc_method, with_reid, proximity_thresh,
         appearance_thresh, track_buffer, match_thresh) ride `overrides`.
-        With persist=True the tracker of the previous call goes on.
-        `timing` gets the read, model and tracker ms of each frame."""
+        With persist=True the tracker of the previous call goes on. With
+        save=True a video source's plots go to
+        `<project or runs/track>/<name or predict>/<stem>.mp4` at the file's
+        fps / vid_stride. `timing` gets the read, model and tracker ms of each
+        frame."""
         from tamtr_torch.trackers.track import make_tracker, update_result_with_tracks
 
         tracker_args = {k: overrides.pop(k) for k in ("gmc_method", "with_reid", "proximity_thresh",
                                                       "appearance_thresh", "track_buffer", "match_thresh")
                         if k in overrides}
         cfg = get_cfg(self.cfg, overrides=overrides)
+        cfg.save = bool(overrides.get("save", False))
         if self.model is None or self.txt_feats is None:
             raise RuntimeError("no weights or classes: train, load or set a model and set_classes first")
         if not persist or self._tracker is None:
@@ -896,21 +945,28 @@ class Engine:
         txt = torch.as_tensor(self.txt_feats[None], dtype=torch.float32, device=next(model.parameters()).device)
         self.timing = {"read_ms": [], "model_ms": [], "tracker_ms": []}
         results = []
+        writer = self._video_writer(source, cfg, "runs/track")
         frames = load_inference_source(source, cfg.vid_stride, cfg.stream_buffer)
         t0 = time.perf_counter()
-        for name, frame in frames:
-            t1 = time.perf_counter()
-            oh, ow = frame.shape[:2]
-            b, s, lab, _ = self._detect(model, frame, cfg.imgsz, txt, conf, cfg.iou, cfg.max_det)
-            r = Results(name, b * np.array([ow, oh, ow, oh], np.float32), s, lab, self.names, orig_shape=(oh, ow),
-                        orig_img=frame)
-            t2 = time.perf_counter()
-            update_result_with_tracks(r, self._tracker, frame=frame)
-            results.append(r)
-            t3 = time.perf_counter()
-            for k, a, b in (("read_ms", t0, t1), ("model_ms", t1, t2), ("tracker_ms", t2, t3)):
-                self.timing[k].append((b - a) * 1e3)
-            t0 = time.perf_counter()
+        try:
+            for name, frame in frames:
+                t1 = time.perf_counter()
+                oh, ow = frame.shape[:2]
+                b, s, lab, _ = self._detect(model, frame, cfg.imgsz, txt, conf, cfg.iou, cfg.max_det)
+                r = Results(name, b * np.array([ow, oh, ow, oh], np.float32), s, lab, self.names,
+                            orig_shape=(oh, ow), orig_img=frame)
+                t2 = time.perf_counter()
+                update_result_with_tracks(r, self._tracker, frame=frame)
+                results.append(r)
+                t3 = time.perf_counter()
+                for k, a, b in (("read_ms", t0, t1), ("model_ms", t1, t2), ("tracker_ms", t2, t3)):
+                    self.timing[k].append((b - a) * 1e3)
+                if writer is not None:
+                    writer.write(r)
+                t0 = time.perf_counter()
+        finally:
+            if writer is not None:
+                writer.close()
         return results
 
     def _eval_model(self, model: TAMTRModel, cfg: Config) -> TAMTRModel:

@@ -10,7 +10,9 @@ plot at the path it is given, in the format its suffix names
 (`data/image_io.py:imwrite`: JPEG and BMP byte-equal to `cv2.imencode`,
 PNG), as the JAX package's writes through cv2. A segment model's `masks`
 (N, Hm, Wm) sigmoid probabilities at the protos' size are laid over the
-plot. `AnnotatedVideoWriter` (frames of video sources) is not ported.
+plot. `AnnotatedVideoWriter` writes the plots of a video source's frames
+as an MPEG-4 Part 2 `.mp4` (`data/video_io.py:VideoWriter`), as the JAX
+package's writes through cv2.VideoWriter with fourcc "mp4v".
 """
 
 from __future__ import annotations
@@ -126,3 +128,35 @@ class Results:
                 "box": {"x1": float(b[0]), "y1": float(b[1]), "x2": float(b[2]), "y2": float(b[3])},
             })
         return json.dumps(out)
+
+
+class AnnotatedVideoWriter:
+    """Annotated video for predict and track on video sources (the JAX
+    package's `AnnotatedVideoWriter`): each `write(result)` adds
+    `result.plot()` to an `.mp4` at `out_path`, opened at the first frame
+    and sized to it; `fps` 30.0 when it is not positive."""
+
+    def __init__(self, out_path, fps: float = 30.0):
+        self.out_path = Path(out_path)
+        self.fps = float(fps) if fps and fps > 0 else 30.0
+        self._writer = None
+
+    def write(self, result: "Results") -> None:
+        from tamtr_torch.data.video_io import VideoWriter
+
+        frame = result.plot()
+        if self._writer is None:
+            h, w = frame.shape[:2]
+            self._writer = VideoWriter(self.out_path, self.fps, (w, h))
+        self._writer.write(frame)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

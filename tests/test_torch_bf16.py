@@ -23,7 +23,7 @@ from tamtr_torch.nn.decoder import deform_sampling_pairs
 from tamtr_torch.nn.graph import TAMTRModel as PortModel
 from tamtr_torch.parallel.seq_scan import LocalBlocks, ss2d_scan_sp
 from tamtr_torch.weights import from_jax_variables
-from torch_engine_data import IMG, NAMES, NC, jax_nano_variables, one_thread, unit_text  # noqa: F401
+from torch_engine_data import IMG, NAMES, NC, jax_nano_session, one_thread, unit_text  # noqa: F401
 
 BF = torch.bfloat16
 SEQ = (0, 1, 5, 6)  # the scan's sequence tensors: layouts, dts_raw, Bs, Cs
@@ -181,9 +181,9 @@ def test_plain_bilinear_gather_bf16_matches_jax(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def nano():
+def nano(tmp_path_factory):
     """(JAX model, params, batch_stats, the port model with them)."""
-    model, params, batch_stats = jax_nano_variables()
+    model, params, batch_stats = jax_nano_session(tmp_path_factory)
     port = PortModel.from_cfg("tamtr-nano.yaml", nc=NC)
     sd, report = from_jax_variables(params, batch_stats, port)
     assert not any(report.values()), report
@@ -383,14 +383,14 @@ def test_engine_half_val_predict_and_cli(bf16_runs, tmp_path):
     m16 = eng.val(data=str(data), plots=False, conf=0.01, half=True)
     assert set(m16) == set(m32) and all(np.isfinite(v) for v in m16.values())
     images = str(data.parent / "val" / "images")
-    r32, r16 = eng.predict(images, conf=0.01), eng.predict(images, conf=0.01, half=True)
+    r32, r16 = eng.predict(images, imgsz=IMG, conf=0.01), eng.predict(images, imgsz=IMG, conf=0.01, half=True)
     assert len(r16) == len(r32) and eng.model.dtype == torch.float32
     for a, b in zip(r16, r32):
         n = min(len(a), len(b), 5)
         if n:
             np.testing.assert_allclose(np.sort(a.boxes.conf)[-n:], np.sort(b.boxes.conf)[-n:], atol=0.1)
     rc = cli.main(["predict", f"model={best}", f"source={images}", "half=True", "conf=0.01", "device=cpu",
-                   f"project={tmp_path}", "save=True"])
+                   f"imgsz={IMG}", f"project={tmp_path}", "save=True"])
     assert rc in (0, None)
     assert len(list((tmp_path / "predict").iterdir())) == len(r16)
 

@@ -46,7 +46,7 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv,entry", [
-    (["track", "source=v.mp4"], "need a video decoder"), (["serve"], "model=<checkpoint>"),
+    (["track", "source=v.mkv"], "container is not read"), (["serve"], "model=<checkpoint>"),
 ])
 def test_unported_modes_exit_with_their_roadmap_entry(argv, entry):
     with pytest.raises(SystemExit) as e:

@@ -21,13 +21,13 @@ from tamtr_torch.engine.model import Engine
 from tamtr_torch.nn.graph import TAMTRModel as PortModel
 from tamtr_torch.weights import from_jax_variables
 
-from torch_engine_data import (HD, IMG, NAMES, NC, jax_nano_variables, one_thread,  # noqa: F401
+from torch_engine_data import (HD, IMG, NAMES, NC, jax_nano_session, one_thread,  # noqa: F401
                                unit_text, write_val_split)
 
 
 @pytest.fixture(scope="module")
-def jax_nano():
-    return jax_nano_variables()
+def jax_nano(tmp_path_factory):
+    return jax_nano_session(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")

@@ -25,7 +25,7 @@ from tamtr_torch.nn.fuse import fuse_conv_bn, fuse_model
 from tamtr_torch.nn.graph import TAMTRModel as PortModel
 from tamtr_torch.weights import _flatten_tree, from_jax_variables, map_torch_key
 
-from torch_engine_data import IMG, NAMES, NC, jax_nano_variables, one_thread, unit_text  # noqa: F401
+from torch_engine_data import IMG, NAMES, NC, jax_nano_session, one_thread, unit_text  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tools"))
@@ -106,8 +106,8 @@ def test_folded_convbn_matches_unfolded():
 
 
 @pytest.fixture(scope="module")
-def jax_nano():
-    model, params, batch_stats = jax_nano_variables()
+def jax_nano(tmp_path_factory):
+    model, params, batch_stats = jax_nano_session(tmp_path_factory)
     rng = np.random.default_rng(7)
     batch_stats = _randomize_bn(batch_stats, rng)
     spread = _randomize_bn({"p": params}, rng)["p"]  # BN scales and biases spread too
@@ -249,12 +249,12 @@ def test_half_raises_naming_its_roadmap_entry(port_nano, train_data, tmp_path):
     eng.set_classes(NAMES, unit_text())
     images = str(Path(train_data).parent / "val" / "images")
     for fuse in (False, True):
-        plain = eng.predict(images, conf=0.01)
-        half = eng.predict(images, conf=0.01, half=True, fuse=fuse)
+        plain = eng.predict(images, imgsz=IMG, conf=0.01)
+        half = eng.predict(images, imgsz=IMG, conf=0.01, half=True, fuse=fuse)
         twin = eng._eval_model(port_nano, get_cfg(overrides={"half": True, "fuse": fuse}))
         assert twin.dtype == torch.bfloat16 and port_nano.dtype == torch.float32
         assert (twin.model is port_nano.model) != fuse  # the unfused twin shares the modules
         assert len(half) == len(plain) and sum(len(r) for r in half) > 0
-        assert len(eng.track(images, half=True, fuse=fuse)) == len(plain)
-        metrics = eng.val(data=str(train_data), half=True, fuse=fuse, plots=False)
+        assert len(eng.track(images, imgsz=IMG, half=True, fuse=fuse)) == len(plain)
+        metrics = eng.val(data=str(train_data), imgsz=IMG, half=True, fuse=fuse, plots=False)
         assert metrics and all(np.isfinite(v) for v in metrics.values())

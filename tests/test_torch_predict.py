@@ -11,7 +11,9 @@ images of several sizes at imgsz 64.
 - For the same detections, `save_txt` and `tojson` are byte-equal to
   JAX's, and `plot` is equal to JAX's outside bands of `lw + 2` px around
   each box edge and each label box (JAX's and the port's).
-- `load_inference_source` yields JAX's names and frames.
+- `load_inference_source` yields JAX's names and frames; webcam indices
+  and the containers the port does not read raise, a screen without `mss`
+  raises JAX's ImportError.
 - `save` writes the name and the format JAX's writes for the same path:
   `.jpg`/`.jpeg`/`.bmp` bytes equal `cv2.imencode` of the port's own plot,
   `.png` reads back as the plot.
@@ -31,15 +33,15 @@ from scipy.optimize import linear_sum_assignment
 from tamtr_torch.api import TAMTR
 from tamtr_torch.engine.results import Results
 
-from torch_engine_data import HD, IMG, NAMES, NC, jax_nano_variables, one_thread, unit_text  # noqa: F401
+from torch_engine_data import HD, IMG, NAMES, NC, jax_nano_session, one_thread, unit_text  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "torch_data" / "jpeg"
 
 
 @pytest.fixture(scope="module")
-def jax_nano():
-    return jax_nano_variables()
+def jax_nano(tmp_path_factory):
+    return jax_nano_session(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
@@ -220,9 +222,11 @@ def test_load_inference_source_matches_jax(source):
         for (_, g), (_, w) in zip(got, want):
             np.testing.assert_array_equal(g, w)
     assert [n for n, _ in load_inference_source(str(source / "*.jpg"))] == sorted(str(p) for p in source.glob("*.jpg"))
-    for bad in (0, "0", "clip.mp4", "screen"):
+    for bad in (0, "0", "clip.mkv"):
         with pytest.raises(NotImplementedError):
             list(load_inference_source(bad))
+    with pytest.raises(ImportError, match="mss"):  # a screen needs the mss package, as JAX's
+        list(load_inference_source("screen"))
 
 
 @pytest.fixture(scope="module")

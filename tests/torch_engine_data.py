@@ -131,6 +131,15 @@ def jax_nano_variables():
     return model, params, batch_stats
 
 
+def jax_nano_session(tmp_path_factory):
+    """`jax_nano_variables()`, its arrays computed once per test session
+    (`session_cached`): the JAX model, params and batch_stats."""
+    from tamtr_tpu.nn.graph import TAMTRModel
+
+    params, batch_stats = session_cached(tmp_path_factory, "eval-nano", lambda: jax_nano_variables()[1:])
+    return TAMTRModel.from_yaml("tamtr-nano.yaml", nc=NC), params, batch_stats
+
+
 def yolo_narrow_cfg(nc: int = NC) -> dict:
     """`yolo-gelan.yaml`'s wiring at an eighth of its widths, with a Detect
     head of `nc` classes: the Detect family's small test model (as
