@@ -298,6 +298,23 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    640 px; `Engine.tune(iterations=2, epochs=1)` on the fit dataset at 320
    px in this process and isolated (two finite rows each); `ensemble_predict` of two
    seeded models over 4 fixtures (each merged row a model's own).
+9e. clip_text: a seeded full-width ViT-B/32 text tower of the port
+   (`nn/clip_text.py`: 12 x 512, 8 heads, vocab 49408, 77 positions,
+   projection 512) on the card against itself on the CPU (TF32 off) on 16
+   seeded rows of ids with the end token at ragged places and its padding
+   mask, under both pooling branches (first end token, argmax): embeddings
+   and unit rows within 1e-4; the tower's forward timed by CUDA events on
+   VisDrone's 10 names + "" and on 80 texts of 77 tokens (CPU ms beside);
+   the tower written as a transformers directory (safetensors by
+   `weight_files.write_safetensors`, a byte-level BPE vocabulary learnt by
+   `train_byte_bpe`) in a temporary directory, and the class table made
+   from it by `tools/encode_texts_torch.py` (`main`, `--data` a VisDrone
+   names yaml, on the card): the 11 texts, unit rows within 1e-4 of
+   `data/text.py:encode_texts(clip_model=..., device="cpu")`; then
+   `tamtr.yaml` predict of the two parity fixtures with that table read
+   as `text_embeddings` reads it (`class_text_embeddings(npz_path=...)`):
+   B1 and B2 3 launches a forward. No kernel of the port runs in the
+   tower.
 The parallel phase's process runs beside the heads phase, and the cli
 phase's beside info (for the script's time): neither of the
 two in this process times anything, and each process counts its own
@@ -5164,6 +5181,106 @@ def export_phase(dev, data: str):
 
 
 
+VISDRONE_NAMES = ["pedestrian", "people", "bicycle", "car", "van", "truck", "tricycle", "awning-tricycle", "bus",
+                  "motor"]
+
+
+def clip_id_rows(rng, rows: int, lengths, eos: int = 49407, bos: int = 49406):
+    """(rows, 77) CLIP ids: start token, seeded ids below it, the end token
+    at position length - 1 and as padding after it; and the padding mask."""
+    ids = np.full((rows, 77), eos, np.int64)
+    ids[:, 0] = bos
+    for r, n in enumerate(lengths):
+        ids[r, 1:n - 1] = rng.integers(0, bos, n - 2)
+    mask = np.arange(77)[None] < np.asarray(lengths)[:, None]
+    return torch.from_numpy(ids), torch.from_numpy(mask.astype(np.int64))
+
+
+@torch.no_grad()
+def clip_text_phase(dev):
+    """The CLIP text source on the card (phase 9e of the module docstring)."""
+    import copy
+    import tempfile
+
+    from tamtr_torch.data.clip_tokenizer import CLIPTokenizer, train_byte_bpe, write_vocab
+    from tamtr_torch.data.text import class_text_embeddings, encode_texts
+    from tamtr_torch.nn.clip_text import CLIPTextConfig, CLIPTextTower, transformers_state
+    from tamtr_torch.weight_files import write_safetensors
+    from tools import encode_texts_torch
+
+    t0 = time.perf_counter()
+    cpu = CLIPTextTower(CLIPTextConfig()).reset_parameters(seed=23).eval()
+    card = copy.deepcopy(cpu).to(dev)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(23)
+    lengths = [2, 77, *rng.integers(3, 77, 14)]
+    ids, mask = clip_id_rows(rng, 16, lengths)
+    err, unit_err = {}, {}
+    unit = torch.nn.functional.normalize
+    for branch, eos in (("first_end_token", 49407), ("argmax", 2)):  # transformers' two pooling branches
+        cpu.config.eos_token_id = card.config.eos_token_id = eos
+        want, got = cpu(ids, mask), card(ids.to(dev), mask.to(dev)).cpu()
+        err[branch] = float((got - want).abs().max())
+        unit_err[branch] = float((unit(got, dim=-1) - unit(want, dim=-1)).abs().max())
+    cpu.config.eos_token_id = card.config.eos_token_id = 49407
+    if max(err.values()) > 1e-4 or max(unit_err.values()) > 1e-4 or not torch.isfinite(want).all():
+        raise AssertionError(f"clip_text: card vs CPU {err}, unit rows {unit_err} (bound 1e-4)")
+    long_ids, long_mask = clip_id_rows(rng, 80, [77] * 80)
+    ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = VISDRONE_NAMES + ["a photo of a " + n for n in VISDRONE_NAMES] + ["it's 2 cars, they're vans"]
+        write_vocab(tmp, *train_byte_bpe(corpus, 300, special_ids=(49406, 49407)))
+        with open(f"{tmp}/config.json", "w") as f:
+            json.dump(cpu.config.to_dict(), f)
+        write_safetensors(transformers_state(cpu), f"{tmp}/model.safetensors", metadata={"format": "pt"})
+        names = CLIPTokenizer.from_pretrained(tmp)(VISDRONE_NAMES + [""], padding=True)
+        for label, (x, mk) in (("names_11", (names["input_ids"], names["attention_mask"])),
+                               ("texts_80x77", (long_ids, long_mask))):
+            xd, md = x.to(dev), mk.to(dev)
+            ms[label] = cuda_ms(lambda: card(xd, md), iters=20, warmup=2)
+            t1 = time.perf_counter()
+            cpu(x, mk)
+            ms[f"{label}_cpu"] = (time.perf_counter() - t1) * 1e3
+        data = f"{tmp}/visdrone_names.yaml"
+        with open(data, "w") as f:
+            f.write("train: images\nval: images\nnames:\n" + "".join(f"  {i}: {n}\n"
+                                                                     for i, n in enumerate(VISDRONE_NAMES)))
+        table = f"{tmp}/visdrone_clip.npz"
+        t1 = time.perf_counter()
+        rc = encode_texts_torch.main(["--data", data, "--model", tmp, "--device", str(dev), "--out", table])
+        table_s = time.perf_counter() - t1
+        if rc != 0:
+            raise AssertionError(f"clip_text: tools/encode_texts_torch.py exited {rc}")
+        z = np.load(table, allow_pickle=True)
+        texts, emb = [str(t) for t in z["texts"]], z["embeddings"]
+        cpu_rows = encode_texts(texts, clip_model=tmp, device="cpu")
+        table_err = float(np.abs(emb - cpu_rows).max())
+        if texts != VISDRONE_NAMES + [""] or emb.shape != (11, 512) or table_err > 1e-4 \
+                or not np.allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-5):
+            raise AssertionError(f"clip_text: table texts {texts}, shape {emb.shape}, "
+                                 f"card vs CPU {table_err}")
+        txt = class_text_embeddings(VISDRONE_NAMES, npz_path=table, dim=512)  # as cfg.text_embeddings is read
+        if np.abs(txt - emb[:10]).max() > 1e-6:  # the reader normalises the rows again
+            raise AssertionError("clip_text: the engine's read of the table is not its rows")
+    det = serve_model()
+    det.set_classes(VISDRONE_NAMES, txt)
+    paths = [f"{JPEG_FIXTURES}/{f}" for f in PARITY_FIXTURES]
+    det.predict(paths)  # warm-up
+    counters = zero_counters()
+    t1 = time.perf_counter()
+    res = det.predict(paths)
+    predict_ms = (time.perf_counter() - t1) * 1e3 / len(paths)
+    launches = check_counts("clip_text predict", counters, len(paths))
+    if len(res) != len(paths) or not all(np.isfinite(r.boxes.xyxy).all() for r in res):
+        raise AssertionError("clip_text: predict gave no finite boxes")
+    summary = dict(max_abs_err=err, unit_max_abs_err=unit_err, table_max_abs_err=table_err,
+                   ms_of="the tower's forward on the card, CUDA events over 20 calls, warm; _cpu one CPU call",
+                   ms=ms, table_s=table_s, init_s=init_s, predict_ms_per_image=predict_ms,
+                   detections=[len(r) for r in res], launches={k: v for k, v in launches.items() if v})
+    say(f"clip_text ViT-B/32 text tower 12x512 card vs CPU: {json.dumps(summary)}")
+    return summary
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -5250,6 +5367,7 @@ def main() -> int:
         info_launches = timed("info", info, "build/fit/runs/fit/weights/best.pt")
         cli_launches = cli_run.result()
     export_summary, export_launches = timed("export", export_phase, dev, "build/fit/data.json")
+    clip_summary = timed("clip_text", clip_text_phase, dev)
 
     def slice3(name, reached_through):
         return dict(launches=ops_launches[name], launches_serve=launches[name],
@@ -5435,6 +5553,7 @@ def main() -> int:
                                                                  if k != "encode"},
                       "tiff_webp_host_encode": formats_ms_per_mp["encode"]}))
     print(json.dumps({"export": export_summary}))
+    print(json.dumps({"clip_text": clip_summary}))
     print(json.dumps({"phase_s": PHASE_S, "device_ms_by": DEVICE_MS_BY}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

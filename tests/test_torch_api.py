@@ -40,7 +40,7 @@ def test_import_without_jax_yaml_or_cv2():
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib',\n"
-        "          'tensorboard', 'av', 'ffmpeg', 'imageio'):\n"
+        "          'tensorboard', 'av', 'ffmpeg', 'imageio', 'transformers', 'safetensors', 'regex', 'ftfy'):\n"
         "    sys.modules[m] = None\n"
         "import tamtr_torch, tamtr_torch.weights, tamtr_torch.kernels._build, chip_smoke\n"
         "import tamtr_torch.train.trainer, tamtr_torch.losses.detr_loss, tamtr_torch.losses.matcher\n"
@@ -52,7 +52,8 @@ def test_import_without_jax_yaml_or_cv2():
         "import tamtr_torch.utils.files, tools.smoke_train_torch\n"
         "import tamtr_torch.cli, tamtr_torch.serve, tamtr_torch.nn.autobackend, tamtr_torch.engine.results\n"
         "import tamtr_torch.utils.plotting, tamtr_torch.data.loaders, tamtr_torch.data.converter\n"
-        "import tamtr_torch.data.video_io\n"
+        "import tamtr_torch.data.video_io, tamtr_torch.data.clip_tokenizer, tamtr_torch.nn.clip_text\n"
+        "import tamtr_torch.weight_files, tools.encode_texts_torch\n"
         "import tools.convert_visdrone_torch, tamtr_torch.trackers.track, tamtr_torch.trackers.bot_sort\n"
         "import tamtr_torch.nn.fuse, tamtr_torch.utils.profiler, tamtr_torch.utils.settings, tamtr_torch.utils.crash\n"
         "import tamtr_torch.utils.autobatch, tamtr_torch.utils.downloads, tamtr_torch.utils.errors\n"
@@ -61,7 +62,8 @@ def test_import_without_jax_yaml_or_cv2():
         "from tamtr_torch import TAMTR, RTDETRWorld, YOLO, RTDETR, SAM, FastSAM, NAS\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL',\n"
         "                                                        'matplotlib', 'tensorboard', 'av', 'ffmpeg',\n"
-        "                                                        'imageio')\n"
+        "                                                        'imageio', 'transformers', 'safetensors', 'regex',\n"
+        "                                                        'ftfy')\n"
         "          and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
     )
