@@ -315,6 +315,21 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    as `text_embeddings` reads it (`class_text_embeddings(npz_path=...)`):
    B1 and B2 3 launches a forward. No kernel of the port runs in the
    tower.
+9f. reference_ckpt: the reference's own checkpoint (`weight_files.py:
+   read_reference_checkpoint`): a full-width `tamtr.yaml` (nc 10, the
+   VisDrone names, `spread_scores` weights) written as ultralytics 8.0.201
+   writes `last.pt` (`tools/make_reference_ckpt_torch.py`, the training
+   layout: a half EMA module of the reference's classes) into a temporary
+   directory; `TAMTR("tamtr.yaml").load(<file>)` with no device (the card),
+   its nc and names the file's; predict of the two parity fixtures (B1 and
+   B2 3 launches a forward: `launches_reference_ckpt` in the kernels line),
+   equal within 1e-6 to the same fp16-rounded weights converted to the
+   port's own layout (`tools/port_torch_weights_torch.py`) and loaded, and
+   within 1e-3 (`same_results`) to `RTDETRWorld(<file>, device="cpu")`;
+   `AutoBackend(<converted file>)` on the card equal within 1e-6 to the
+   loaded model's forward; `python -m tamtr_torch predict model=<file>` in
+   this process on one fixture (3 launches each); the load seconds, the
+   file's bytes and the keys read.
 The parallel phase's process runs beside the heads phase, and the cli
 phase's beside info (for the script's time): neither of the
 two in this process times anything, and each process counts its own
@@ -5281,6 +5296,89 @@ def clip_text_phase(dev):
     return summary
 
 
+@torch.no_grad()
+def reference_ckpt_phase(dev):
+    """The reference's own checkpoint on the card (phase 9f of the module
+    docstring)."""
+    import io
+    import tempfile
+
+    from tamtr_torch import TAMTR, RTDETRWorld
+    from tamtr_torch.cli import main as cli_main
+    from tamtr_torch.nn.autobackend import AutoBackend
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.weights import init_parameters
+    from tools import port_torch_weights_torch
+    from tools.make_reference_ckpt_torch import write_reference_checkpoint
+
+    model = TAMTRModel.from_cfg("tamtr.yaml", nc=10)
+    init_parameters(model, 0)
+    spread_scores(model, seed=1)
+    paths = [f"{JPEG_FIXTURES}/{f}" for f in PARITY_FIXTURES]
+
+    def rows(res):
+        return [np.concatenate([r.boxes.xyxy, r.boxes.conf[:, None], r.boxes.cls[:, None]], 1) for r in res]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = write_reference_checkpoint(f"{tmp}/last.pt", model, VISDRONE_NAMES)
+        write_s = time.perf_counter() - t0
+        del model
+        t0 = time.perf_counter()
+        det = TAMTR("tamtr.yaml").load(ref)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        keys = sum(not k.endswith("num_batches_tracked") for k in det.model.state_dict())  # the file's keys
+        eng = det._engine
+        if det.nc != 10 or eng.names != VISDRONE_NAMES or next(det.model.parameters()).device.type != "cuda":
+            raise AssertionError(f"reference_ckpt: nc {det.nc}, names {eng.names}, device "
+                                 f"{next(det.model.parameters()).device}")
+        det.predict(paths)  # warm-up
+        counters = zero_counters()
+        t0 = time.perf_counter()
+        res = det.predict(paths)
+        predict_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        launches = check_counts("reference_ckpt predict", counters, len(paths))
+        if len(res) != len(paths) or not all(len(r) and np.isfinite(r.boxes.xyxy).all() for r in res):
+            raise AssertionError(f"reference_ckpt: detections {[len(r) for r in res]}, or boxes not finite")
+        port = port_torch_weights_torch.port(ref, f"{tmp}/port.pt")
+        same = TAMTR("tamtr.yaml").load(port)
+        port_err = 0.0
+        for a, b in zip(rows(res), rows(same.predict(paths)), strict=True):
+            if a.shape != b.shape:
+                raise AssertionError(f"reference_ckpt: {len(a)} detections, {len(b)} from the port's layout")
+            port_err = max(port_err, float(np.abs(a - b).max(initial=0.0)))
+        cpu_res = RTDETRWorld(str(ref), device="cpu").predict(paths)
+        cpu_worst, cpu_unpaired = 0.0, 0
+        for g, c in zip(res, cpu_res, strict=True):
+            w, u = same_results(g, c)
+            cpu_worst, cpu_unpaired = max(cpu_worst, w), cpu_unpaired + u
+        ab = AutoBackend(str(port))
+        img = torch.rand(1, 640, 640, 3, generator=torch.Generator().manual_seed(5))
+        txt = eng.txt_feats[None]
+        ab_err = float(np.abs(ab(img.numpy(), txt) -
+                              det.model(img.to(dev), torch.from_numpy(txt).to(dev))["pred"].cpu().numpy()).max())
+        if port_err > 1e-6 or ab_err > 1e-6 or cpu_worst > 1e-3 or cpu_unpaired > 2:
+            raise AssertionError(f"reference_ckpt: port layout {port_err}, AutoBackend {ab_err} (bound 1e-6); "
+                                 f"card vs CPU {cpu_worst} (bound 1e-3), {cpu_unpaired} unpaired")
+        counters = zero_counters()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_main(["predict", f"model={ref}", f"source={paths[0]}"])
+        cli_launches = check_counts("reference_ckpt cli", counters, 1)
+        if not out.getvalue().strip().endswith(f"{PARITY_FIXTURES[0]}: {len(res[0])} detections"):
+            raise AssertionError(f"reference_ckpt: the CLI printed {out.getvalue()!r}")
+        nbytes = ref.stat().st_size
+    summary = dict(file_bytes=nbytes, keys_read=keys, write_s=write_s, load_s=load_s,
+                   load_of="TAMTR('tamtr.yaml').load(<file>): read on the CPU, build, load, move to the card",
+                   predict_ms_per_image=predict_ms, detections=[len(r) for r in res],
+                   port_layout_max_abs_err=port_err, autobackend_max_abs_err=ab_err, cpu_results_worst=cpu_worst,
+                   cpu_results_unpaired=cpu_unpaired, launches={k: v for k, v in launches.items() if v},
+                   cli_launches={k: v for k, v in cli_launches.items() if v})
+    say(f"reference_ckpt tamtr.yaml as ultralytics 8.0.201's last.pt: {json.dumps(summary)}")
+    return summary, launches
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -5368,6 +5466,7 @@ def main() -> int:
         cli_launches = cli_run.result()
     export_summary, export_launches = timed("export", export_phase, dev, "build/fit/data.json")
     clip_summary = timed("clip_text", clip_text_phase, dev)
+    reference_summary, reference_launches = timed("reference_ckpt", reference_ckpt_phase, dev)
 
     def slice3(name, reached_through):
         return dict(launches=ops_launches[name], launches_serve=launches[name],
@@ -5524,7 +5623,8 @@ def main() -> int:
         entry.update(launches_yolo=yolo_launches[key], launches_seg_pose=seg_pose_launches[key],
                      launches_classify=classify_launches[key], launches_sam=sam_launches[key],
                      launches_loss_variants=variants_launches[key],
-                     launches_rtdetr=rtdetr_launches[key], launches_heads=heads_launches[key])
+                     launches_rtdetr=rtdetr_launches[key], launches_heads=heads_launches[key],
+                     launches_reference_ckpt=reference_launches[key])
     kernels[1].update(c32_q300={**gather_c32, "shape": "value (1, 33600, 8, 32), Q = 300 (rtdetr eval)"},
                       c32_train_b4_q900={**gather_c32_train, "shape": "value (4, 33600, 8, 32), Q = 900 (rtdetr "
                                                                        "training, uniform pairs)"})
@@ -5553,7 +5653,7 @@ def main() -> int:
                                                                  if k != "encode"},
                       "tiff_webp_host_encode": formats_ms_per_mp["encode"]}))
     print(json.dumps({"export": export_summary}))
-    print(json.dumps({"clip_text": clip_summary}))
+    print(json.dumps({"clip_text": clip_summary, "reference_ckpt": reference_summary}))
     print(json.dumps({"phase_s": PHASE_S, "device_ms_by": DEVICE_MS_BY}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,7 +76,11 @@ class TAMTR:
     """A TAM-TR detector in eval mode.
 
     Args:
-      model: config name or path ("tamtr.yaml" resolves to the bundled JSON).
+      model: config name or path ("tamtr.yaml" resolves to the bundled JSON),
+        or a checkpoint (`.pt`: the port's own, or the reference's, such as
+        the released "TAM_TR.pt", as `RTDETRWorld("TAM_TR.pt")` opens it),
+        loaded at once by `load` on a model of the checkpoint's config
+        (`tamtr.yaml` for the reference's).
       nc: number of classes of the model that `predict` and `trainer` build
         before any train or load (10 when not given); `train` takes the
         dataset's, and raises if it differs from an `nc` given here.
@@ -96,9 +100,12 @@ class TAMTR:
         if device is None and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         self.device = torch.device("cuda" if device is None else device)
-        self.model_cfg = model
+        weights = model if Path(model).suffix == ".pt" else None
+        self.model_cfg = "tamtr.yaml" if weights else model
         self.nc, self.seed, self.imgsz, self.max_gt = nc, seed, imgsz, max_gt
         self._engine: Optional[Engine] = None
+        if weights:
+            self.load(weights, nc=nc)
 
     def _lazy_engine(self) -> Engine:
         if self._engine is None:
@@ -180,10 +187,12 @@ class TAMTR:
     def load(self, ckpt_path: Union[str, Path], nc: Optional[int] = None,
              names: Optional[List[str]] = None) -> "TAMTR":
         """The EMA weights of a checkpoint written by `train` (`weights/last.pt`
-        or `best.pt`), with its classes and model config (`nc` and `names`
-        for a checkpoint without them)."""
+        or `best.pt`), with its classes and model config, or of a reference
+        (ultralytics) checkpoint such as "TAM_TR.pt", with its classes, on
+        this detector's config (`Engine.load`; `nc` and `names` for a
+        checkpoint without them)."""
         self._lazy_engine().load(ckpt_path, nc=nc, names=names)
-        self.nc = self._engine.model.nc
+        self.nc, self.model_cfg = self._engine.model.nc, self._engine.model_cfg
         return self
 
     def export(self, fmt: str = "torch", **kwargs) -> Path:

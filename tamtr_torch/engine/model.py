@@ -1068,13 +1068,21 @@ class Engine:
     # ------------------------------------------------------------- weights
     def load(self, ckpt_path: Union[str, Path], nc: Optional[int] = None,
              names: Optional[List[str]] = None) -> "Engine":
-        """The EMA weights of a checkpoint (`weights/last.pt` or `best.pt`);
-        its meta supplies nc, names and the model config.
+        """The EMA weights of a checkpoint: the port's own (`weights/last.pt`
+        or `best.pt` of `train`, an exported `model.pt`), whose meta supplies
+        nc, names and the model config, or the reference's (an ultralytics
+        `last.pt` / `best.pt`, the released `TAM_TR.pt`: its EMA, else its
+        stripped model, read by `weight_files.read_reference_checkpoint`
+        without running its pickled code), whose module supplies nc and
+        names and which must hold this engine's model config exactly. The
+        file's contents, not its suffix, decide which. `nc` and `names`
+        given here take precedence; names default to "0", "1", ...
 
         A bare known asset name that is not a file here ("TAM_TR.pt") is
-        fetched from the project's release (`utils/downloads.py`); when it
-        cannot be reached, HUBModelError. A fetched reference checkpoint
-        cannot be loaded yet: NotImplementedError."""
+        fetched from the project's release (`utils/downloads.py`) and then
+        loaded; when it cannot be reached, HUBModelError."""
+        from tamtr_torch.weight_files import check_reference_state, is_reference_checkpoint, read_reference_checkpoint
+
         p = Path(ckpt_path)
         if not p.exists() and p.name == str(ckpt_path):
             from tamtr_torch.utils.downloads import ASSETS_NAMES, attempt_download_asset
@@ -1082,20 +1090,23 @@ class Engine:
 
             if p.name in ASSETS_NAMES:
                 try:
-                    attempt_download_asset(p.name)
+                    p = Path(attempt_download_asset(p.name))
                 except ConnectionError as e:
                     raise HUBModelError(f"could not fetch asset {p.name!r}: {e}") from e
-                raise NotImplementedError(f"{p.name} is the reference's checkpoint; loading it is not ported to "
-                                          "tamtr_torch yet: ROADMAP.md queue A, item 7")
-        ema, meta = load_checkpoint_raw(ckpt_path)
+        reference = is_reference_checkpoint(p)
+        state, meta = read_reference_checkpoint(p) if reference else load_checkpoint_raw(p)
         nc = nc or meta.get("nc")
         if not nc:
-            raise ValueError("checkpoint has no nc metadata; pass nc=...")
-        self.names = names or meta.get("names") or [str(i) for i in range(nc)]
+            raise ValueError(f"{p}: the checkpoint has no nc metadata; pass nc=...")
+        self.names = list(names or meta.get("names") or [str(i) for i in range(nc)])
         if meta.get("model_cfg"):
             self.model_cfg = meta["model_cfg"]
         model = TAMTRModel.from_cfg(self.model_cfg, nc=nc, max_gt=meta.get("max_gt", 128))
-        model.load_state_dict(ema)
+        if reference:  # JAX's converter report, then the port's own counters
+            own = model.state_dict()
+            check_reference_state(p, state, own, f"{self.model_cfg} at nc={nc}")
+            state = {**{k: v for k, v in own.items() if k.endswith("num_batches_tracked")}, **state}
+        model.load_state_dict(state, strict=True)
         self.model = model.to(self.device).eval()
         if self.txt_feats is None:  # a classifier takes no text: its table is zeros, as in its training
             self.txt_feats = np.zeros((1, TEXT_WIDTH), np.float32) if model.head_type == "Classify" else \

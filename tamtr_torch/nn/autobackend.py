@@ -23,7 +23,10 @@ Everything but "remote" runs on the card unless `device="cpu"` is given.
 `__call__(img, txt_feats) -> pred` takes and returns numpy arrays, as the
 JAX package's does. The artifacts of formats the port does not write
 (StableHLO, SavedModel, TFLite, frozen GraphDef, ONNX, an orbax directory)
-raise RuntimeError naming what would load them.
+raise RuntimeError naming what would load them; so does a reference
+(ultralytics) checkpoint, naming `Engine.load` and
+`tools/port_torch_weights_torch.py`, which converts it to the "torch"
+layout.
 """
 
 from __future__ import annotations
@@ -124,7 +127,12 @@ class AutoBackend:
                 model.load_state_dict(sd)
             else:
                 from tamtr_torch.engine.checkpoint import load_checkpoint_raw
+                from tamtr_torch.weight_files import is_reference_checkpoint
 
+                if is_reference_checkpoint(p):
+                    raise RuntimeError(f"{p}: a reference (ultralytics) checkpoint; load it with Engine.load / "
+                                       "TAMTR.load, or convert it for AutoBackend with "
+                                       "`python tools/port_torch_weights_torch.py <ref>.pt <out>.pt`")
                 ema, meta = load_checkpoint_raw(p)
                 nc = nc or meta.get("nc")
                 if not nc:

@@ -40,7 +40,8 @@ def test_import_without_jax_yaml_or_cv2():
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib',\n"
-        "          'tensorboard', 'av', 'ffmpeg', 'imageio', 'transformers', 'safetensors', 'regex', 'ftfy'):\n"
+        "          'tensorboard', 'av', 'ffmpeg', 'imageio', 'transformers', 'safetensors', 'regex', 'ftfy',\n"
+        "          'ultralytics', 'timm'):\n"
         "    sys.modules[m] = None\n"
         "import tamtr_torch, tamtr_torch.weights, tamtr_torch.kernels._build, chip_smoke\n"
         "import tamtr_torch.train.trainer, tamtr_torch.losses.detr_loss, tamtr_torch.losses.matcher\n"
@@ -54,6 +55,7 @@ def test_import_without_jax_yaml_or_cv2():
         "import tamtr_torch.utils.plotting, tamtr_torch.data.loaders, tamtr_torch.data.converter\n"
         "import tamtr_torch.data.video_io, tamtr_torch.data.clip_tokenizer, tamtr_torch.nn.clip_text\n"
         "import tamtr_torch.weight_files, tools.encode_texts_torch\n"
+        "import tools.port_torch_weights_torch, tools.make_reference_ckpt_torch\n"
         "import tools.convert_visdrone_torch, tamtr_torch.trackers.track, tamtr_torch.trackers.bot_sort\n"
         "import tamtr_torch.nn.fuse, tamtr_torch.utils.profiler, tamtr_torch.utils.settings, tamtr_torch.utils.crash\n"
         "import tamtr_torch.utils.autobatch, tamtr_torch.utils.downloads, tamtr_torch.utils.errors\n"
@@ -63,7 +65,7 @@ def test_import_without_jax_yaml_or_cv2():
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tamtr_tpu', 'yaml', 'cv2', 'PIL',\n"
         "                                                        'matplotlib', 'tensorboard', 'av', 'ffmpeg',\n"
         "                                                        'imageio', 'transformers', 'safetensors', 'regex',\n"
-        "                                                        'ftfy')\n"
+        "                                                        'ftfy', 'ultralytics', 'timm')\n"
         "          and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
     )

@@ -1,12 +1,16 @@
 """The port's downloads (`tamtr_torch/utils/downloads.py`), every case of
 `tests/test_downloads.py` on the port's functions, offline through
 `file://` URLs and local zips; `Engine.load` of a bare asset name that
-cannot be reached raises HUBModelError, and one that can raises
-NotImplementedError (loading the reference's checkpoint is not ported)."""
+cannot be reached raises HUBModelError, one fetched that is no torch
+archive raises the reference reader's error naming the file, and a
+reference checkpoint fetched from the release URL loads."""
 
+import sys
 import zipfile
+from pathlib import Path
 
 import pytest
+import torch
 
 from tamtr_torch.utils.downloads import (
     attempt_download_asset,
@@ -144,5 +148,30 @@ def test_engine_load_bare_asset(tmp_path, monkeypatch):
     (tmp_path / "release").mkdir()
     (tmp_path / "release" / "TAM_TR.pt").write_bytes(b"\x02" * 64)
     monkeypatch.setattr(dl, "ASSETS_BASE_URL", (tmp_path / "release").as_uri())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 7"):
+    with pytest.raises(ValueError, match=r"TAM_TR\.pt: not a torch zip archive"):
         Engine("tamtr-nano.yaml", device="cpu").load("TAM_TR.pt")
+
+
+def test_engine_load_fetched_reference_asset(tmp_path, monkeypatch):
+    """A reference checkpoint at the release URL is fetched into the
+    working directory and loaded, its classes with it."""
+    import tamtr_torch.utils.downloads as dl
+    from tamtr_torch.engine.model import Engine
+    from tamtr_torch.nn.graph import TAMTRModel
+    from tamtr_torch.weights import init_parameters
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    from make_reference_ckpt_torch import write_reference_checkpoint
+
+    model = TAMTRModel.from_cfg("tamtr-nano.yaml", nc=3)
+    init_parameters(model, 0)
+    write_reference_checkpoint(tmp_path / "release" / "TAM_TR.pt", model, ["car", "van", "bus"],
+                               cfg_path="tamtr-nano.yaml", layout="stripped")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(dl, "ASSETS_BASE_URL", (tmp_path / "release").as_uri())
+    eng = Engine("tamtr-nano.yaml", device="cpu").load("TAM_TR.pt")
+    assert (tmp_path / "TAM_TR.pt").read_bytes() == (tmp_path / "release" / "TAM_TR.pt").read_bytes()
+    assert eng.model.nc == 3 and eng.names == ["car", "van", "bus"]
+    want = model.state_dict()
+    assert all(torch.equal(v, want[k].half().float()) for k, v in eng.model.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
